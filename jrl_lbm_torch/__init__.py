@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of the JRL tip-approach lattice-Boltzmann solver.
+
+Plain PyTorch operators (`ops/`), the JRL scenes (`models/jrl.py`), the
+case driver (`jrl_main.py`) and hand-written CUDA kernels for Hopper
+(`kernels/`). Arrays keep the JAX package's batch-free layout: ``f``/``h``
+``[9, H, W]``, ``rho``/``C`` ``[H, W]``, ``vel`` ``[2, H, W]``, ``flags``
+``[H, W]`` int32; everything is float32.
+
+TF32 is switched off for the whole process on import: a float32
+contraction routed through reduced-precision units corrupts the MRT
+moment transform silently (the same failure the JAX package hit with
+bf16 MXU passes on the TPU, see CLAUDE.md), so the port pins full
+float32 wherever PyTorch would otherwise choose TF32.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

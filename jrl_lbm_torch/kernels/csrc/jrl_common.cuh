@@ -1,0 +1,200 @@
+// Device helpers shared by the four JRL kernels (D2Q9, float32, layout
+// f[q][y][x] with x fastest, as the PyTorch side stores [9, H, W]).
+//
+// Arithmetic follows the plain PyTorch twins (and the JAX package's jnp
+// step) operation by operation, in the same order and with the same
+// float32 constants. The sources are built with --fmad=false, so no
+// multiply-add is contracted and every step rounds where the twin's
+// does; what remains between kernel and twin is the order of a few sums.
+//
+// The symmetry axis is always x = 0 (AxiSymmetricType.LINE_X_EQ_0): every
+// JRL phase runs axisymmetric about it.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace jrl {
+
+constexpr int FLUID = 1;
+constexpr int OBSTACLE = 2;
+constexpr int INFLOW = 8;
+constexpr int OUTFLOW = 16;
+constexpr int INFLOW_2 = 32;
+
+// lattice constants as the JAX package rounds its Python doubles
+constexpr float CS2F = (float)(1.0 / 3.0);
+constexpr float CS4F = (float)((1.0 / 3.0) * (1.0 / 3.0));
+constexpr float THREE = (float)(1.0 / (1.0 / 3.0));
+
+__device__ __forceinline__ int ex_of(int q) {
+  return (q == 1 || q == 5 || q == 8) ? 1 : ((q == 3 || q == 6 || q == 7) ? -1 : 0);
+}
+__device__ __forceinline__ int ey_of(int q) {
+  return (q == 2 || q == 5 || q == 6) ? 1 : ((q == 4 || q == 7 || q == 8) ? -1 : 0);
+}
+__device__ __forceinline__ int refl(int q) {
+  // 0 3 4 1 2 7 8 5 6
+  return q == 0 ? 0 : (q <= 4 ? ((q + 1) & 3) + 1 : ((q - 3) & 3) + 5);
+}
+__device__ __forceinline__ int mirror_x(int q) {
+  // 0 3 2 1 4 6 5 8 7
+  return (q == 1) ? 3 : (q == 3) ? 1 : (q == 5) ? 6 : (q == 6) ? 5
+       : (q == 7) ? 8 : (q == 8) ? 7 : q;
+}
+__device__ __forceinline__ bool axis_x_in(int q) { return q == 1 || q == 5 || q == 8; }
+__device__ __forceinline__ bool axis_x_out(int q) { return q == 3 || q == 6 || q == 7; }
+__device__ __forceinline__ float wq(int q) {
+  return q == 0 ? (float)(4.0 / 9.0) : (q <= 4 ? (float)(1.0 / 9.0) : (float)(1.0 / 36.0));
+}
+
+// Streaming neighbour (value at (y, x) pulled from (y - ey, x - ex)):
+// FLUID cells wrap, other cells reflect-clamp, and the x-1 pull collapses
+// onto the axis column (ops/stream.py::_pull).
+__device__ __forceinline__ int pull_x(int x, int ex, bool fluid, int W) {
+  if (ex == 1) return x == 0 ? 0 : x - 1;
+  if (ex == -1) return x == W - 1 ? (fluid ? 0 : W - 2) : x + 1;
+  return x;
+}
+__device__ __forceinline__ int pull_y(int y, int ey, bool fluid, int H) {
+  if (ey == 1) return y == 0 ? (fluid ? H - 1 : 1) : y - 1;
+  if (ey == -1) return y == H - 1 ? (fluid ? 0 : H - 2) : y + 1;
+  return y;
+}
+
+// Stencil neighbour (value at (y + sy, x + sx)): FLUID cells wrap, other
+// cells clamp min/max, and x-1 collapses onto the axis
+// (ops/stencil.py::_at).
+__device__ __forceinline__ int at_x(int x, int sx, bool fluid, int W) {
+  if (sx == -1) return x == 0 ? 0 : x - 1;
+  if (sx == 1) return x == W - 1 ? (fluid ? 0 : W - 1) : x + 1;
+  return x;
+}
+__device__ __forceinline__ int at_y(int y, int sy, bool fluid, int H) {
+  if (sy == -1) return y == 0 ? (fluid ? H - 1 : 0) : y - 1;
+  if (sy == 1) return y == H - 1 ? (fluid ? 0 : H - 1) : y + 1;
+  return y;
+}
+
+// Second-order equilibrium of one direction (ops/equilibrium.py::feq).
+__device__ __forceinline__ float feq_q(int q, float rho, float u, float v) {
+  const float eu = (float)ex_of(q) * u + (float)ey_of(q) * v;
+  const float uv = u * u + v * v;
+  const float rho_w = rho * wq(q);
+  const float a = rho_w * (1.0f + eu / CS2F);
+  const float b = rho_w * ((0.5f * eu) * eu / CS4F - (0.5f * uv) / CS2F);
+  return a + b;
+}
+
+// walks = inflow_h + f32(step) * v, rounded as float32 at each operation
+// (models/jrl.py: the tip row must match the twin's exactly). Exact for
+// step < 2**24, like the JAX package's float32 step index.
+__device__ __forceinline__ float tip_walks(int step, float inflow_h, float v) {
+  return __fadd_rn(inflow_h, __fmul_rn((float)step, v));
+}
+__device__ __forceinline__ int tip_row(float walks) {
+  return (int)floorf(__fadd_rn(walks, 0.5f));
+}
+
+// Tip SDFs of utils/sdf.py at cell centre (x + 0.5, y + 0.5).
+struct TipSdf {
+  float bcx, box_r, x1, Hf;  // host constants
+  float bcy, y1;             // walks - box_r, bcy + box_r (float32)
+  bool flat, with_top;
+
+  __device__ __forceinline__ void set_walks(float walks) {
+    bcy = __fsub_rn(walks, box_r);
+    y1 = __fadd_rn(bcy, box_r);
+  }
+  __device__ __forceinline__ float phi(int y, int x) const {
+    const float xs = (float)x + 0.5f;
+    const float ys = (float)y + 0.5f;
+    float p;
+    if (flat) {
+      const float tx = (xs - bcx) - box_r;
+      const float ty = (ys - bcy) - box_r;
+      p = fmaxf(tx, ty);
+    } else {
+      const float ty = (ys - bcy) - box_r;
+      const float align = ((xs + ys) - (x1 + y1)) / (float)1.4142135623730951;
+      p = fmaxf(ty, align);
+    }
+    if (with_top) p = fminf(p, -(ys - Hf));
+    return p;
+  }
+};
+
+// Post-stream populations of cell (y, x) before the OUTFLOW pass
+// (ops/stream.py::propagate): pulls with the axis mirror, sub-grid
+// interpolation bounce when HAS_PHI (plain half-way bounce otherwise),
+// reflected storage in OBSTACLE cells, then the geometry's INFLOW /
+// INFLOW_2 rule. `Geo` answers flag(y, x), phi(y, x) and
+// inflow(y, x, flag, out).
+template <bool HAS_PHI, class Geo>
+__device__ __forceinline__ void stream_cell(const float* __restrict__ f, int H, int W,
+                                            int y, int x, const Geo& g, float out[9]) {
+  const int HW = H * W;
+  const int fl = g.flag(y, x);
+  const bool fluid = fl == FLUID;
+  const bool obs = fl == OBSTACLE;
+  const float* fc = f + y * W + x;
+  const float t = HAS_PHI ? g.phi(y, x) : 0.0f;
+  float raw[9], str[9];
+  raw[0] = str[0] = fc[0];
+#pragma unroll
+  for (int q = 1; q < 9; ++q) {
+    const int ex = ex_of(q), ey = ey_of(q);
+    const int sx = pull_x(x, ex, fluid, W), sy = pull_y(y, ey, fluid, H);
+    const int qv = (x == 0 && axis_x_in(q)) ? mirror_x(q) : q;
+    const float val = f[qv * HW + sy * W + sx];
+    raw[q] = val;
+    const bool nbr_obs = g.flag(sy, sx) == OBSTACLE;
+    const float f_this = fc[refl(q) * HW];
+    float v_obs = f_this;
+    if (HAS_PHI && nbr_obs) {
+      const int nx = pull_x(x, -ex, fluid, W), ny = pull_y(y, -ey, fluid, H);
+      const int qn = (x == 0 && axis_x_out(q)) ? refl(mirror_x(q)) : refl(q);
+      const float nxt = f[qn * HW + ny * W + nx];
+      const float t1 = 2.0f * t - 1.0f;
+      const float v1 = t1 * val + (1.0f - t1) * f_this;
+      const float t2 = 2.0f * t;
+      const float v2 = t2 * f_this + (1.0f - t2) * nxt;
+      v_obs = (t >= 0.5f && t <= 1.0f) ? v1 : ((t >= 0.0f && t <= 0.5f) ? v2 : f_this);
+    }
+    str[q] = nbr_obs ? v_obs : val;
+  }
+  out[0] = fc[0];
+#pragma unroll
+  for (int p = 1; p < 9; ++p) out[p] = obs ? raw[refl(p)] : str[p];
+  g.inflow(y, x, fl, out);
+}
+
+// The cell whose streamed populations an OUTFLOW cell copies: rows 0 and
+// H-1 copy first, then columns 0 and W-1 from the row-fixed field, so the
+// source is (row map, column map) of the cell (H, W >= 3). Recomputing
+// that cell's streaming here never reads another thread's output.
+__device__ __forceinline__ void outflow_source(int fl, int H, int W, int& y, int& x) {
+  if (fl != OUTFLOW) return;
+  y = (y == 0) ? 1 : ((y == H - 1) ? H - 2 : y);
+  x = (x == 0) ? 1 : ((x == W - 1) ? W - 2 : x);
+}
+
+// Advection-diffusion BGK of one direction about the x = 0 axis
+// (ops/collide.py::bgk_collide, is_convection): rate 1/tau + c e_x / r and
+// the Liu 2017 source -(u_r / r) feq (c - 0.5 s), with c = 1 - 0.5/tau.
+__device__ __forceinline__ float collide_conv_q(int q, float hq, float Cn, float cu, float cv,
+                                                float r, float w_rate_base, float c_tau) {
+  const float e0 = (float)ex_of(q);
+  const float s = (c_tau * e0) / r;
+  const float w_rate = w_rate_base + s;
+  const float fe = feq_q(q, Cn, cu, cv);
+  const float gi = ((-(cu / r)) * fe) * (c_tau - 0.5f * s);
+  return (hq + w_rate * (fe - hq)) + gi;
+}
+
+}  // namespace jrl
+
+// Message of a cudaError_t returned by a launch (each library has its copy).
+extern "C" const char* jrl_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
