@@ -1,23 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's JRL main path on one NVIDIA card and check it.
+"""Drive the PyTorch port's JRL main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the four CUDA kernels of ``jrl_lbm_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together).
-2. Holds each kernel to its plain PyTorch twin from the same state, after
-   1 step (f, rho, C, h at 1e-5; vel at 1e-4) and after 100 steps (2e-5;
-   vel 2e-4; integrals rtol 2e-4 / atol 1e-4), on the refine-8 ethaline
-   grid (1024x512) and on the flat-tip cylinder at 128x64.
-3. Runs the main path at 1024x512 through the ``pick_*`` runners: 1000
-   fluid steps, 1000 balance steps, 1000 approach steps on a 3-frame
-   stored velocity from the fluid run; each phase's launch counts are
-   zeroed just before it and read just after, and every kernel of the
-   phase must have launched. Times the phases, each kernel per launch
-   (beside its memory bound) and each twin per call, with CUDA events.
-4. Runs one whole case through ``jrl_main.run_case`` at 128x64 and checks
-   that the record rows are finite and positive.
-5. Prints ``{"kernels": [...]}``, the card's name and power limit, and
+1. Builds the seven CUDA kernels of ``jrl_lbm_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all started together) and checks that the
+   multi-step kernels' machine code has no read-only (non-coherent)
+   global load, which could serve state written earlier in the launch.
+2. Holds each per-step kernel to its plain PyTorch twin from the same
+   state, after 1 step (f, rho, C, h at 1e-5; vel at 1e-4) and after 100
+   steps through the per-step runners (2e-5; vel 2e-4; integrals rtol
+   2e-4 / atol 1e-4), on the refine-8 ethaline grid (1024x512) and on the
+   flat-tip cylinder at 128x64, where the 100 steps also go through
+   ``pick_*_runner`` (the multi-step kernels).
+3. Holds each multi-step kernel to its twin (the loop of the per-step
+   twins) over one launch of 200 steps, at the same tolerances: at 128x64
+   (ethaline wedge and cylinder, both ``is_negative``) and at 512x256 (the
+   largest grid they serve); the approach once across stored-velocity
+   frame boundaries and once across tip rows. Then fluid steps
+   2**24 - 5 .. 2**24 + 4 through the multi-step kernel and through
+   fluid_a / fluid_b against the twin.
+4. Runs the main path at 1024x512 through the ``pick_*`` runners (the
+   per-step kernels): 1000 fluid, balance and approach steps; each
+   phase's launch counts are zeroed just before it and read just after,
+   every per-step kernel must have launched and no multi-step kernel.
+   Times the phases, each kernel per launch (beside its bound) and each
+   twin per call.
+5. Runs the 128x64 path of the default case (``JRLFluidConfig()``,
+   ``JRLCConfig()``) through the ``pick_*`` runners in the chunks
+   ``run_case`` uses: the fluid phase to its first record step, one
+   balance interval (255,528 steps), the approach over its first dumps
+   (>= 20,000 steps per phase). Counts zeroed before each phase and read
+   after: each multi-step kernel must have launched and no per-step
+   kernel. Beside each phase, the same configuration through the per-step
+   kernels (direct wrapper calls) as the yardstick.
+6. Runs one whole case through ``jrl_main.run_case`` at 128x64 twice:
+   through the multi-step kernels (its default) and through the per-step
+   runners; the record rows agree to rtol 2e-4 / atol 1e-4.
+7. Prints ``{"kernels": [...]}``, the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without printing a result when no
@@ -45,7 +65,11 @@ F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores
 # kernel sources (geometry at the neighbours, sums, equilibrium and
 # collision; the cells next to the tip do more, but they are a few
 # hundred of 524288). The operation bound stays far under the memory one.
-FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach": 330}
+FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach": 330,
+                  # per cell and step: A + B; the balance; the approach + the lerp
+                  "fused_fluid": 650, "fused_balance": 230, "fused_approach": 335}
+PER_STEP = ("fluid_a", "fluid_b", "c_balance", "c_approach")
+FUSED = ("fused_fluid", "fused_balance", "fused_approach")
 SOURCE = {
     "fluid_a": ("jrl_lbm_torch/kernels/csrc/fluid_a.cu",
                 "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:506"),
@@ -55,6 +79,12 @@ SOURCE = {
                   "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1897"),
     "c_approach": ("jrl_lbm_torch/kernels/csrc/c_approach.cu",
                    "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1998"),
+    "fused_fluid": ("jrl_lbm_torch/kernels/csrc/fused_fluid.cu",
+                    "jrl_lbm_tpu/ops/pallas/fused_jrl.py:138"),
+    "fused_balance": ("jrl_lbm_torch/kernels/csrc/fused_balance.cu",
+                      "jrl_lbm_tpu/ops/pallas/fused_jrl.py:531"),
+    "fused_approach": ("jrl_lbm_torch/kernels/csrc/fused_approach.cu",
+                       "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
 }
 
 
@@ -74,6 +104,37 @@ def check_close(name, got, want, tol, report):
         fail(f"{name}: kernel output not finite")
     if err > tol * (1.0 + scale):
         fail(f"{name}: deviation {err:.3e} above {tol:g} (scaled by 1 + |twin|)")
+
+
+def check_ints(name, got, want):
+    """The four tip-disk integrals, rtol 2e-4 / atol 1e-4."""
+    for key, g, w in zip(("inflow", "current", "rec_u", "rec_v"), got, want):
+        g, w = float(g), float(w)
+        print(f"  {name} {key:8s} kernel {g:.7g} twin {w:.7g}", flush=True)
+        if not abs(g - w) <= 1e-4 + 2e-4 * abs(w):
+            fail(f"{name} {key}: {g} vs {w}")
+
+
+def sass_check(build) -> dict:
+    """Read-only (non-coherent) global loads in each multi-step library's
+    machine code; there must be none (a persistent kernel reads state
+    that other blocks wrote in the same launch)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("  cuobjdump not found: SASS check not made", flush=True)
+        return {}
+    counts = {}
+    for k in FUSED:
+        sass = subprocess.run([tool, "-sass", str(build._lib_file(k))], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        counts[k] = sum(1 for ln in sass.splitlines() if "LDG" in ln and "CONSTANT" in ln)
+        print(f"  {k}: {counts[k]} LDG.E.CONSTANT in {len(sass.splitlines())} SASS lines",
+              flush=True)
+        if counts[k]:
+            fail(f"{k}: read-only global loads in a persistent kernel")
+    return counts
 
 
 def smi_line() -> str:
@@ -104,6 +165,9 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fluid_b": ("fluid_b_kernel",),
     "c_balance": ("c_balance_kernel",),
     "c_approach": ("c_approach_kernel", "c_disk_kernel"),
+    "fused_fluid": ("fused_fluid_kernel",),
+    "fused_balance": ("fused_balance_kernel",),
+    "fused_approach": ("fused_approach_kernel",),
 }
 
 
@@ -143,8 +207,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from unittest import mock
+
     from jrl_lbm_torch import jrl_main, kernels
-    from jrl_lbm_torch.kernels import build, jrl_c, jrl_fluid
+    from jrl_lbm_torch.kernels import build, fused_jrl, jrl_c, jrl_fluid
     from jrl_lbm_torch.models import jrl as T
 
     dev = torch.device("cuda")
@@ -158,24 +224,29 @@ def main() -> int:
     for k, log in build.build_log.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {k}: {'; '.join(regs)}", flush=True)
+    sass = sass_check(build)
     rate = next((r for key, r in MEM_RATE.items() if key in name), MEM_RATE_DEFAULT)
+    report = {"device": smi, "torch": torch.__version__, "build_s": t_build, "sass": sass}
 
     errs = {k: [] for k in kernels.KERNELS}
+    TOL = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4, "h": 2e-5, "C": 2e-5}
 
-    # ---- 1. each kernel against its twin ----
-    def fluid_cfg(shape, refine):
-        return T.JRLFluidConfig(res=(128, 64), Re=4.0, vel_obs_real=0.2848,
-                                gravity_strength_real=-9.8, shape=shape, refine=refine)
+    # ---- 1. each per-step kernel against its twin ----
+    def fluid_cfg(shape, refine, **kw):
+        return T.JRLFluidConfig(**dict(dict(res=(128, 64), Re=4.0, vel_obs_real=0.2848,
+                                            gravity_strength_real=-9.8, shape=shape,
+                                            refine=refine), **kw))
 
-    def c_cfg(shape, refine):
-        return T.JRLCConfig(res=(128, 64), Re=4.0, Pe=5.0, vel_obs_real=0.2848,
-                            shape=shape, refine=refine)
+    def c_cfg(shape, refine, **kw):
+        return T.JRLCConfig(**dict(dict(res=(128, 64), Re=4.0, Pe=5.0, vel_obs_real=0.2848,
+                                        shape=shape, refine=refine), **kw))
 
     cases = (("ethaline", 8), ("cylinder", 1))
     frames = {}
     for shape, refine in cases:
         fc, cc = fluid_cfg(shape, refine), c_cfg(shape, refine)
         H, W = fc.eff_res
+        multi = fused_jrl.fits(fc)
         print(f"compare kernels with twins: {shape} {H}x{W}", flush=True)
         s, fl = T.fluid_init(fc, dev)
         s = T.make_fluid_runner(fc)(s, fl, 0, 20)
@@ -187,10 +258,15 @@ def main() -> int:
         b = jrl_fluid.fluid_b(*ar, k0, fc, fl)
         br = jrl_fluid.fluid_b_ref(*ar, k0, fc, fl)
         check_close("fluid_b 1 step f", b, br, 1e-5, errs["fluid_b"])
-        sk = T.pick_fluid_runner(fc)(s, fl, k0, 100)
+        sk = T.make_per_step_fluid_runner(fc)(s, fl, k0, 100)
         sr = T.make_fluid_runner(fc)(s, fl, k0, 100)
-        for nm, tol in (("f", 2e-5), ("rho", 2e-5), ("vel", 2e-4)):
-            check_close(f"fluid 100 steps {nm}", sk[nm], sr[nm], tol, errs["fluid_a"])
+        for nm in ("f", "rho", "vel"):
+            check_close(f"fluid 100 steps {nm}", sk[nm], sr[nm], TOL[nm], errs["fluid_a"])
+        if multi:
+            sp = T.pick_fluid_runner(fc)(s, fl, k0, 100)
+            for nm in ("f", "rho", "vel"):
+                check_close(f"fluid 100 steps (pick) {nm}", sp[nm], sr[nm], TOL[nm],
+                            errs["fused_fluid"])
         # three stored frames from the fluid run, normalized as the
         # snapshots of run_fluid_phase
         frames[shape] = torch.stack([s["vel"], sr["vel"], sk["vel"]]) / fc.vel_obs
@@ -201,10 +277,15 @@ def main() -> int:
         hr, Cr = jrl_c.c_balance_ref(st["h"], st["C"], flags, cc, cf)
         check_close("c_balance 1 step h", h, hr, 1e-5, errs["c_balance"])
         check_close("c_balance 1 step C", C, Cr, 1e-5, errs["c_balance"])
-        bk = T.pick_balance_runner(cc, flags)(st, cf, 100)
+        bk = T.make_per_step_balance_runner(cc, flags)(st, cf, 100)
         br_ = T.make_balance_runner(cc, flags)(st, cf, 100)
-        check_close("c_balance 100 steps h", bk["h"], br_["h"], 2e-5, errs["c_balance"])
-        check_close("c_balance 100 steps C", bk["C"], br_["C"], 2e-5, errs["c_balance"])
+        for nm in ("h", "C"):
+            check_close(f"c_balance 100 steps {nm}", bk[nm], br_[nm], TOL[nm], errs["c_balance"])
+        if multi:
+            bp = T.pick_balance_runner(cc, flags)(st, cf, 100)
+            for nm in ("h", "C"):
+                check_close(f"balance 100 steps (pick) {nm}", bp[nm], br_[nm], TOL[nm],
+                            errs["fused_balance"])
 
         vf = frames[shape]
         vel = T.stored_velocity(vf, 5, cc.vel_obs_conv)
@@ -215,25 +296,91 @@ def main() -> int:
         check_close("c_approach 1 step C", C, Cr, 1e-5, errs["c_approach"])
         check_close("c_approach 1 step integrals", acc,
                     torch.stack([ints[0], ints[1], ints[2], ints[3]]), 1e-4, [])
-        ak, acc_k = T.pick_approach_runner(cc, vf)(bk, cf, 0, 100)
         ar_, acc_r = T.make_approach_runner(cc)(bk, dict(cf, vel_field=vf), 0, 100)
-        check_close("c_approach 100 steps h", ak["h"], ar_["h"], 2e-5, errs["c_approach"])
-        check_close("c_approach 100 steps C", ak["C"], ar_["C"], 2e-5, errs["c_approach"])
-        for key in ("inflow_sum", "current_sum", "rec_u", "rec_v"):
-            g, w = float(acc_k[key]), float(acc_r[key])
-            print(f"  c_approach 100 steps {key:12s} kernel {g:.7g} twin {w:.7g}", flush=True)
-            if not abs(g - w) <= 1e-4 + 2e-4 * abs(w):
-                fail(f"c_approach {key}: {g} vs {w}")
+        keys = ("inflow_sum", "current_sum", "rec_u", "rec_v")
+        runs = [("c_approach", T.make_per_step_approach_runner)]
+        if multi:
+            runs.append(("fused_approach", T.pick_approach_runner))
+        for k, make in runs:
+            ak, acc_k = make(cc, vf)(bk, cf, 0, 100)
+            for nm in ("h", "C"):
+                check_close(f"{k} 100 steps {nm}", ak[nm], ar_[nm], TOL[nm], errs[k])
+            check_ints(f"{k} 100 steps", [acc_k[x] for x in keys], [acc_r[x] for x in keys])
 
-    # ---- 2. the main path at 1024x512, through the kernels ----
-    fc, cc = fluid_cfg("ethaline", 8), c_cfg("ethaline", 8)
-    H, W = fc.eff_res
-    cells = H * W
-    n = 1000
+    # ---- 2. each multi-step kernel against its twin, one launch ----
+    def frame_field(H, W, n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return 0.5 * torch.randn((n, 2, H, W), generator=g, device=dev)
+
+    n_fused = 200
+    for shape, refine, negs in (("ethaline", 1, (True, False)), ("cylinder", 1, (True, False)),
+                                ("ethaline", 4, (True,))):
+        fc = fluid_cfg(shape, refine)
+        H, W = fc.eff_res
+        print(f"compare multi-step kernels with twins: {shape} {H}x{W}, {n_fused} steps",
+              flush=True)
+        s, fl = T.fluid_init(fc, dev)
+        s = T.make_fluid_runner(fc)(s, fl, 0, 20)
+        got = fused_jrl.fused_fluid(s["f"], s["rho"], s["vel"], 20, n_fused, fc, fl)
+        want = fused_jrl.fused_fluid_ref(s["f"], s["rho"], s["vel"], 20, n_fused, fc, fl)
+        for nm, g, w in zip(("f", "rho", "vel"), got, want):
+            check_close(f"fused_fluid {nm}", g, w, TOL[nm], errs["fused_fluid"])
+        for neg in negs:
+            cc = c_cfg(shape, refine, is_negative=neg)
+            st, cf, flags = T.c_init(cc, dev)
+            st = T.make_balance_runner(cc, flags)(st, cf, 20)
+            got = fused_jrl.fused_balance(st["h"], st["C"], flags, n_fused, cc, cf)
+            want = fused_jrl.fused_balance_ref(st["h"], st["C"], flags, n_fused, cc, cf)
+            for nm, g, w in zip(("h", "C"), got, want):
+                check_close(f"fused_balance neg={neg} {nm}", g, w, TOL[nm],
+                            errs["fused_balance"])
+            # tip speed 0.0025 (a new frame every 40 steps), then Pe = 5
+            # (the tip crosses rows)
+            Pe_frames = 0.0025 * cc.radius_obs / (0.5 / 3.0)
+            for label, ca in (("frames", c_cfg(shape, refine, is_negative=neg, Pe=Pe_frames)),
+                              ("rows", cc)):
+                sa, cfa, fla = T.c_init(ca, dev)
+                sa = T.make_balance_runner(ca, fla)(sa, cfa, 20)
+                vf = frame_field(H, W, 8, seed=refine)
+                v = ca.vel_obs_conv
+                n_frames_crossed = int((n_fused - 1) * v / 0.1)
+                rows = T.tip_walks(ca.inflow_height, n_fused - 1, v)[1] - T.tip_walks(
+                    ca.inflow_height, 0, v)[1]
+                print(f"  approach ({label}): Pe {ca.Pe:.4g}, tip speed {v:.4g}, "
+                      f"{n_frames_crossed} frame boundaries, {rows} tip rows", flush=True)
+                if (label == "frames" and n_frames_crossed < 3) or (label == "rows" and rows < 1):
+                    fail(f"approach ({label}) check does not cross what it should")
+                acc = torch.zeros(4, device=dev)
+                h, C = fused_jrl.fused_approach(sa["h"], sa["C"], vf, 0, n_fused, ca, cfa, acc)
+                hr, Cr, ints = fused_jrl.fused_approach_ref(sa["h"], sa["C"], vf, 0, n_fused,
+                                                            ca, cfa)
+                check_close(f"fused_approach {label} neg={neg} h", h, hr, TOL["h"],
+                            errs["fused_approach"])
+                check_close(f"fused_approach {label} neg={neg} C", C, Cr, TOL["C"],
+                            errs["fused_approach"])
+                check_ints(f"fused_approach {label}", acc, ints)
+
+    print("fluid steps 2**24 - 5 .. 2**24 + 4 at 128x64", flush=True)
+    for shape in ("45degree", "cylinder"):
+        fc = fluid_cfg(shape, 1, Re=1.2e-5, vel_obs_real=28e-6)
+        start = 2**24 - 5
+        s, fl = T.fluid_init(fc, dev)
+        g = torch.Generator(device=dev).manual_seed(24)
+        s = {k: v + 1e-3 * torch.randn(v.shape, generator=g, device=dev) for k, v in s.items()}
+        want = fused_jrl.fused_fluid_ref(s["f"], s["rho"], s["vel"], start, 10, fc, fl)
+        got = fused_jrl.fused_fluid(s["f"], s["rho"], s["vel"], start, 10, fc, fl)
+        per_step = T.make_per_step_fluid_runner(fc)(s, fl, start, 10)
+        for nm, g_, w in zip(("f", "rho", "vel"), got, want):
+            check_close(f"{shape} fused_fluid {nm}", g_, w, TOL[nm], errs["fused_fluid"])
+            check_close(f"{shape} fluid_a/b {nm}", per_step[nm], w, TOL[nm], errs["fluid_a"])
+
+    # ---- 3. the main path at 1024x512, through the per-step kernels ----
     phases = {}
-    print(f"main path {H}x{W}: {n} steps per phase", flush=True)
 
-    def run_phase(pname, kernel_names, fn):
+    def run_phase(pname, kernel_names, fn, n, cells):
+        """Run ``fn(n)`` with the launch counts zeroed just before and read
+        just after; every kernel of ``kernel_names`` must have launched and
+        no other. Then device time by kernel over a profiled repeat."""
         fn(10)  # warm-up
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -244,35 +391,41 @@ def main() -> int:
         torch.cuda.synchronize()
         counts = kernels.launches()
         ms = start.elapsed_time(end)
-        phases[pname] = {"ms_per_step": ms / n, "mlups": cells * n / (ms * 1e3),
-                         "launches": {k: counts[k] for k in kernel_names}}
-        print(f"  {pname:9s} {ms / n:.4f} ms/step  {cells * n / (ms * 1e3):.1f} MLUPS  "
-              f"launches {counts}", flush=True)
-        for k in kernel_names:
-            if counts[k] < n:
-                fail(f"{pname}: kernel {k} launched {counts[k]} times, expected {n}")
-        # device time by kernel over a further profiled window
-        n_prof = 200
-        times, wall = device_profile(fn, n_prof)
+        rec = {"steps": n, "ms": ms, "ms_per_step": ms / n, "mlups": cells * n / (ms * 1e3),
+               "launches": dict(counts)}
+        phases[pname] = rec
+        print(f"  {pname:18s} {n} steps {ms / n * 1e3:.3f} us/step  "
+              f"{cells * n / (ms * 1e3):.1f} MLUPS  launches "
+              f"{ {k: c for k, c in counts.items() if c} }", flush=True)
+        for k in kernels.KERNELS:
+            if k in kernel_names and counts[k] < 1:
+                fail(f"{pname}: kernel {k} was not launched")
+            if k not in kernel_names and counts[k]:
+                fail(f"{pname}: kernel {k} launched {counts[k]} times off this path")
+        times, wall = device_profile(fn, n)
         busy = sum(times.values())
-        per_kernel = {}
-        for k in kernel_names:
-            us = sum(t for nm, t in times.items() if any(f in nm for f in KERNEL_FUNCS[k]))
-            per_kernel[k] = us / n_prof if us > 0 else None
         if wall:
-            phases[pname].update({
-                "device_us_per_step": busy / n_prof,
-                "wall_us_per_step_profiled": wall * 1e6 / n_prof,
-                "idle_share": 1.0 - busy / (wall * 1e6),
-                "kernel_us_per_launch": per_kernel,
-                "device_us_per_step_by_function": {nm: t / n_prof for nm, t in times.items()},
+            per_launch = {}
+            for k in kernel_names:
+                us = sum(t for nm, t in times.items() if any(f in nm for f in KERNEL_FUNCS[k]))
+                per_launch[k] = us / counts[k] if us > 0 else None
+            rec.update({
+                "device_us_per_step": busy / n,
+                "wall_us_per_step_profiled": wall * 1e6 / n,
+                "busy_share": busy / (wall * 1e6),
+                "kernel_us_per_launch": per_launch,
+                "device_us_by_function": times,
             })
-            print(f"    profiled {n_prof} steps: device busy {busy / n_prof:.1f} us/step of "
-                  f"{wall * 1e6 / n_prof:.1f} us wall (idle {1 - busy / (wall * 1e6):.1%}); "
-                  f"per launch {per_kernel}", flush=True)
-            for nm, t in sorted(times.items(), key=lambda kv: -kv[1]):
-                print(f"      {t / n_prof:8.2f} us/step  {nm[:90]}", flush=True)
+            print(f"    profiled repeat: device busy {busy / n:.3f} us/step of "
+                  f"{wall * 1e6 / n:.3f} us wall (busy {busy / (wall * 1e6):.1%}); "
+                  f"device us per launch {per_launch}", flush=True)
         return out
+
+    fc, cc = fluid_cfg("ethaline", 8), c_cfg("ethaline", 8)
+    H, W = fc.eff_res
+    cells = H * W
+    n = 1000
+    print(f"main path {H}x{W}: {n} steps per phase (per-step kernels)", flush=True)
 
     s, fl = T.fluid_init(fc, dev)
     fluid_run = T.pick_fluid_runner(fc)
@@ -283,7 +436,7 @@ def main() -> int:
         fstate["cur"] += k
         return fstate["s"]
 
-    sf = run_phase("fluid", ("fluid_a", "fluid_b"), fluid_steps)
+    sf = run_phase("fluid", ("fluid_a", "fluid_b"), fluid_steps, n, cells)
     if not all(torch.isfinite(v).all() for v in sf.values()):
         fail("fluid state not finite")
     vel_field = torch.stack([s["vel"], sf["vel"], sf["vel"]]) / fc.vel_obs
@@ -296,7 +449,7 @@ def main() -> int:
         bstate["s"] = bal_run(bstate["s"], cf, k)
         return bstate["s"]
 
-    sb = run_phase("balance", ("c_balance",), balance_steps)
+    sb = run_phase("balance", ("c_balance",), balance_steps, n, cells)
     app_run = T.pick_approach_runner(cc, vel_field)
     astate = {"s": sb, "acc": None, "cur": 0}
 
@@ -305,14 +458,37 @@ def main() -> int:
         astate["cur"] += k
         return astate["s"]
 
-    sa = run_phase("approach", ("c_approach",), approach_steps)
+    sa = run_phase("approach", ("c_approach",), approach_steps, n, cells)
     acc = astate["acc"]
     print(f"  approach integrals: inflow_sum {float(acc['inflow_sum']):.6g} "
           f"current_sum {float(acc['current_sum']):.6g}", flush=True)
     if not (torch.isfinite(sa["C"]).all() and float(acc["inflow_sum"]) > 0):
         fail("approach state not finite or inflow not positive")
 
-    # ---- 3. each kernel alone, and its twin, at 1024x512 ----
+    # ---- 4. each per-step kernel alone, and its twin, at 1024x512 ----
+    rows = []
+
+    def row(k, ms, plain_ms, ins, outs, steps, cells_, launches, timed_from):
+        nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
+        mem_ms = nbytes / rate * 1e3
+        ops_ms = FLOPS_PER_CELL[k] * cells_ * steps / F32_PEAK * 1e3
+        bound_ms = max(mem_ms, ops_ms)
+        print(f"  {k:14s} {ms * 1e3:10.2f} us  bound {bound_ms * 1e3:8.2f} us "
+              f"({'bytes' if mem_ms >= ops_ms else 'operations'}; {nbytes / 1e6:.2f} MB, "
+              f"{steps} steps)  {bound_ms / ms * 100:6.2f}% of bound  twin {plain_ms:.3f} ms",
+              flush=True)
+        phases.setdefault("per_launch", {})[k] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "mem_ms": mem_ms,
+            "ops_ms": ops_ms, "bytes": nbytes, "steps": steps, "time_from": timed_from}
+        src, rep = SOURCE[k]
+        rows.append({
+            "name": k, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches, "max_abs_err": max(errs[k]) if errs[k] else None,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+            "library_ms": None,
+        })
+
     s, fl = T.fluid_init(fc, dev)
     f, rho, vel = s["f"], s["rho"], s["vel"]
     a_out = jrl_fluid.fluid_a(f, rho, vel, 0, fc, fl)
@@ -334,61 +510,200 @@ def main() -> int:
                        [cf["base_flags"], st["h"], vel_c, cf["area"], acc0],
                        [st["h"], st["C"], acc0]),
     }
-    rows = []
     print(f"per launch at {H}x{W} (memory rate {rate / 1e12:.2f} TB/s):", flush=True)
-    for k in kernels.KERNELS:
+    main_launches = {k: sum(p["launches"].get(k, 0) for p in phases.values()) for k in PER_STEP}
+    for k in PER_STEP:
         kfn, tfn, ins, outs = runs[k]
         call_ms = cuda_ms(kfn, 200)
         # the kernel's device time on the main path (profiler), else the
         # event time of back-to-back wrapper calls (host time included)
         dev_us = next((p["kernel_us_per_launch"][k] for p in phases.values()
-                       if p.get("kernel_us_per_launch", {}).get(k)), None)
+                       if (p.get("kernel_us_per_launch") or {}).get(k)), None)
         ms = dev_us / 1e3 if dev_us else call_ms
-        plain_ms = cuda_ms(tfn, 5, warmup=1)
-        nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
-        mem_ms = nbytes / rate * 1e3
-        ops_ms = FLOPS_PER_CELL[k] * cells / F32_PEAK * 1e3
-        bound_ms = max(mem_ms, ops_ms)
-        print(f"  {k:10s} device {ms * 1e3:8.2f} us  bound {bound_ms * 1e3:6.2f} us "
-              f"({nbytes / 1e6:.1f} MB, {bound_ms / ms * 100:5.1f}% of bound)  "
-              f"wrapper call {call_ms * 1e3:7.2f} us  twin {plain_ms:.3f} ms", flush=True)
-        phases.setdefault("per_launch", {})[k] = {
-            "device_ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bytes": nbytes, "device_time_from": "profiler" if dev_us else "events"}
-        src, rep = SOURCE[k]
-        launches = sum(p["launches"].get(k, 0) for p in phases.values() if "launches" in p)
-        rows.append({
-            "name": k, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches, "max_abs_err": max(errs[k]) if errs[k] else None,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
-            "library_ms": None,
-        })
+        row(k, ms, cuda_ms(tfn, 5, warmup=1), ins, outs, 1, cells, main_launches[k],
+            "profiler" if dev_us else "events")
+        phases["per_launch"][k]["wrapper_call_ms"] = call_ms
 
-    # ---- 4. one whole case at 128x64 ----
+    # ---- 5. the 128x64 path of the default case, multi-step kernels ----
+    fc0, cc0 = T.JRLFluidConfig(), T.JRLCConfig()
+    H, W = fc0.eff_res
+    cells = H * W
+    print(f"128x64 path, default case ({fc0.shape} fluid Re {fc0.Re:g}, {cc0.shape} C "
+          f"Pe {cc0.Pe:g}): {fc0.total_steps} fluid, {cc0.balance_steps} balance, "
+          f"{cc0.total_steps} approach steps per case", flush=True)
+    first_rec = next(k for k in range(1, fc0.total_steps)
+                     if int(k * fc0.vel_obs / T.X_INTERVAL) > 0)
+    s0, fl0 = T.fluid_init(fc0, dev)
+    frun = T.pick_fluid_runner(fc0)
+
+    def fluid_chunks(_n):  # run_fluid_phase up to and through its first record step
+        st_ = frun(s0, fl0, 0, first_rec)
+        return frun(st_, fl0, first_rec, 1)
+
+    st0, cf0, flags0 = T.c_init(cc0, dev)
+    interval = max(1, cc0.balance_steps // 100)
+    brun = T.pick_balance_runner(cc0, flags0)
+    bal_rows = []
+
+    def balance_chunk(_n):  # one interval of run_balance, with its host read
+        out = brun(st0, cf0, interval)
+        C_np = out["C"].cpu().numpy()
+        bal_rows.append(float((C_np[cc0.inflow_height_int, :cc0.radius_obs_int]
+                               * cc0.area_array).sum()))
+        return out
+
+    n_frames0 = fc0.total_steps // first_rec + 1
+    vf0 = frame_field(H, W, n_frames0, seed=0)
+    dumps, total = [], 0
+    for k in T.c_dump_steps(cc0):
+        dumps.append(k)
+        total = k + 1
+        if total >= 20000:
+            break
+    arun = T.pick_approach_runner(cc0, vf0)
+
+    def approach_chunks(_n):  # run_approach over its first dumps, with its host reads
+        st_, cur = st0, 0
+        for k in dumps:
+            st_, acc_ = arun(st_, cf0, cur, k + 1 - cur)
+            cur = k + 1
+            for x in ("count", "inflow_sum", "current_sum", "rec_u", "rec_v"):
+                float(acc_[x])
+        return st_
+
+    path128 = {}
+    for pname, kname, fn, steps in (("fluid", "fused_fluid", fluid_chunks, first_rec + 1),
+                                    ("balance", "fused_balance", balance_chunk, interval),
+                                    ("approach", "fused_approach", approach_chunks, total)):
+        out = run_phase(f"128x64 {pname}", (kname,), fn, steps, cells)
+        if not all(torch.isfinite(v).all() for v in out.values()):
+            fail(f"128x64 {pname}: state not finite")
+        path128[kname] = phases[f"128x64 {pname}"]
+    if not bal_rows[-1] > 0:
+        fail("128x64 balance: inflow not positive")
+
+    print("128x64 yardstick: the same configurations through the per-step kernels", flush=True)
+    n_ps = 2000
+    s_ps = {"s": s0, "cur": 0}
+
+    def ps_fluid(k):
+        f_, r_, v_ = s_ps["s"]["f"], s_ps["s"]["rho"], s_ps["s"]["vel"]
+        for i in range(k):
+            f_, r_, v_ = jrl_fluid.fluid_a(f_, r_, v_, s_ps["cur"] + i, fc0, fl0)
+            f_ = jrl_fluid.fluid_b(f_, r_, v_, s_ps["cur"] + i, fc0, fl0)
+        s_ps["cur"] += k
+        s_ps["s"] = {"f": f_, "rho": r_, "vel": v_}
+        return s_ps["s"]
+
+    def ps_balance(k):
+        h_, C_ = st0["h"], st0["C"]
+        for _ in range(k):
+            h_, C_ = jrl_c.c_balance(h_, C_, flags0, cc0, cf0)
+        return {"h": h_, "C": C_}
+
+    def ps_approach(k):
+        h_, C_ = st0["h"], st0["C"]
+        acc_ = torch.zeros(4, device=dev)
+        for i in range(k):
+            vel_ = T.stored_velocity(vf0, i, cc0.vel_obs_conv)
+            h_, C_ = jrl_c.c_approach(h_, C_, vel_, i, cc0, cf0, acc_)
+        return {"h": h_, "C": C_}
+
+    run_phase("128x64 fluid per-step", ("fluid_a", "fluid_b"), ps_fluid, n_ps, cells)
+    run_phase("128x64 balance per-step", ("c_balance",), ps_balance, n_ps, cells)
+    run_phase("128x64 approach per-step", ("c_approach",), ps_approach, n_ps, cells)
+    for pname in ("fluid", "balance", "approach"):
+        new, old = phases[f"128x64 {pname}"], phases[f"128x64 {pname} per-step"]
+        print(f"  {pname:9s} multi-step {new['ms_per_step'] * 1e3:.3f} us/step vs per-step "
+              f"{old['ms_per_step'] * 1e3:.3f} us/step: {old['ms_per_step'] / new['ms_per_step']:.1f}x",
+              flush=True)
+
+    # ---- 6. one whole case at 128x64, multi-step and per-step ----
     fcase = T.JRLFluidConfig(res=(128, 64), Re=4.0, vel_obs_real=0.2848,
                              gravity_strength_real=0.0, shape="45degree")
     ccase = T.JRLCConfig(res=(128, 64), balance_time=0.01, Re=4.0, Pe=5.0,
                          vel_obs_real=0.2848, gravity_strength_real=0.0, shape="45degree")
-    t0 = time.perf_counter()
-    res = jrl_main.run_case(fcase, ccase, device=dev)
-    torch.cuda.synchronize()
-    print(f"whole case 128x64: {fcase.total_steps} fluid + {ccase.balance_steps} balance + "
-          f"{ccase.total_steps} approach steps in {time.perf_counter() - t0:.1f} s, "
-          f"{len(res.record_rows)} records", flush=True)
-    if not res.record_rows:
-        fail("the case wrote no record rows")
-    print(f"  first record {res.record_rows[0]}", flush=True)
-    print(f"  last record  {res.record_rows[-1]}", flush=True)
-    for row in res.record_rows:
-        if not all(v == v and abs(v) != float("inf") for v in row) or row[1] <= 0 or row[2] <= 0:
-            fail(f"record row not finite and positive: {row}")
+    cases_out = {}
+    per_step_picks = {"pick_fluid_runner": T.make_per_step_fluid_runner,
+                      "pick_balance_runner": T.make_per_step_balance_runner,
+                      "pick_approach_runner": T.make_per_step_approach_runner}
+    for label in ("multi-step", "per-step"):
+        patches = [mock.patch.object(T, k, v) for k, v in per_step_picks.items()] \
+            if label == "per-step" else []
+        for ptc in patches:
+            ptc.start()
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = jrl_main.run_case(fcase, ccase, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for ptc in patches:
+                ptc.stop()
+        counts = {k: c for k, c in kernels.launches().items() if c}
+        want = set(FUSED if label == "multi-step" else PER_STEP)
+        if set(counts) != want:
+            fail(f"whole case ({label}) launched {counts}")
+        cases_out[label] = res
+        print(f"whole case 128x64 ({label}): {fcase.total_steps} fluid + "
+              f"{ccase.balance_steps} balance + {ccase.total_steps} approach steps in "
+              f"{wall:.3f} s, {len(res.record_rows)} records, launches {counts}", flush=True)
+        report.setdefault("whole_case", {})[label] = {"s": wall, "launches": counts}
+        if not res.record_rows:
+            fail("the case wrote no record rows")
+        for r in res.record_rows:
+            if not all(v == v and abs(v) != float("inf") for v in r) or r[1] <= 0 or r[2] <= 0:
+                fail(f"record row not finite and positive: {r}")
+    ra, rb = cases_out["multi-step"], cases_out["per-step"]
+    print(f"  first record {ra.record_rows[0]}", flush=True)
+    print(f"  last record  {ra.record_rows[-1]}", flush=True)
+    if len(ra.record_rows) != len(rb.record_rows):
+        fail("the two whole cases wrote different numbers of records")
+    worst = 0.0
+    for x, y in zip(ra.record_rows + ra.balance_rows, rb.record_rows + rb.balance_rows):
+        for u, w in zip(x, y):
+            worst = max(worst, abs(u - w) / (1e-4 + 2e-4 * abs(w)))
+    print(f"  records and balance rows, multi-step vs per-step: worst |diff| / "
+          f"(1e-4 + 2e-4 |per-step|) = {worst:.3g}", flush=True)
+    if worst > 1.0:
+        fail("the whole case differs between the multi-step and per-step kernels")
+    report["whole_case"]["worst_rel"] = worst
+
+    # ---- 7. each multi-step kernel alone, and its twin, at 128x64 ----
+    n_row = 1000
+    print(f"multi-step kernels at {H}x{W}, one launch of {n_row} steps, and the twin "
+          f"for the same steps:", flush=True)
+    s0, fl0 = T.fluid_init(fc0, dev)
+    f, rho, vel = s0["f"], s0["rho"], s0["vel"]
+    fl_out = fused_jrl.fused_fluid(f, rho, vel, 0, n_row, fc0, fl0)
+    bl_out = fused_jrl.fused_balance(st0["h"], st0["C"], flags0, n_row, cc0, cf0)
+    acc1 = torch.zeros(4, device=dev)
+    ap_out = fused_jrl.fused_approach(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0, acc1)
+    b_last = int((n_row - 1) * cc0.vel_obs_conv / T.X_INTERVAL)  # the frames the run reads
+    frames_read = vf0[: min(b_last + 2, n_frames0)]
+    fruns = {
+        "fused_fluid": (lambda: fused_jrl.fused_fluid(f, rho, vel, 0, n_row, fc0, fl0),
+                        lambda: fused_jrl.fused_fluid_ref(f, rho, vel, 0, n_row, fc0, fl0),
+                        [f, rho, vel], list(fl_out)),
+        "fused_balance": (
+            lambda: fused_jrl.fused_balance(st0["h"], st0["C"], flags0, n_row, cc0, cf0),
+            lambda: fused_jrl.fused_balance_ref(st0["h"], st0["C"], flags0, n_row, cc0, cf0),
+            [flags0, st0["h"], st0["C"]], list(bl_out)),
+        "fused_approach": (
+            lambda: fused_jrl.fused_approach(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0, acc1),
+            lambda: fused_jrl.fused_approach_ref(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0),
+            [cf0["base_flags"], frames_read, cf0["area"], st0["h"]], list(ap_out) + [acc1]),
+    }
+    for k in FUSED:
+        kfn, tfn, ins, outs = fruns[k]
+        row(k, cuda_ms(kfn, 5, warmup=1), cuda_ms(tfn, 1, warmup=0), ins, outs, n_row, cells,
+            path128[k]["launches"][k], "events")
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
-        json.dump({"device": smi, "torch": torch.__version__, "build_s": t_build,
-                   "phases": phases, "kernels": rows, "build_log": build.build_log}, fo,
-                  indent=1)
+        json.dump(report, fo, indent=1, default=str)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

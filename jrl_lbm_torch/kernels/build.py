@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-NAMES = ("c_balance", "c_approach", "fluid_a", "fluid_b")
+NAMES = ("c_balance", "c_approach", "fluid_a", "fluid_b",
+         "fused_fluid", "fused_balance", "fused_approach")
 
 # --fmad=false: no multiply-add contraction, so each kernel rounds where
 # its plain PyTorch twin does (see csrc/jrl_common.cuh)

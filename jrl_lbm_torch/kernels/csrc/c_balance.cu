@@ -5,79 +5,30 @@
 //
 // Replaces the TPU kernel jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py::
 // _make_c_balance_kernel (streaming in _stream_c). Its plain twin is
-// jrl_lbm_torch/kernels/jrl_c.py::c_balance_ref.
+// jrl_lbm_torch/kernels/jrl_c.py::c_balance_ref. The per-cell code is
+// jrl_c.cuh::balance_cell, shared with fused_balance.cu.
 //
 // Bound on the card: memory. It reads 11 planes (flags, h, C) and writes
 // 10, 13.1 us at 1024x512 and 3.35 TB/s, against ~230 flops per cell.
 // Design: the balance flags are fixed, so they come in as one int32
 // plane; neighbours are read from global memory (L1/L2 serve the
 // reuse); an OUTFLOW cell recomputes its inward neighbour's streaming.
-#include "jrl_common.cuh"
-
-// Launch constants, filled by the Python wrapper (ctypes.Structure).
-struct CBalanceParams {
-  int H, W;
-  float w_rate;  // 1 / tau_D
-  float c_tau;   // 1 - 0.5 / tau_D
-};
+#include "jrl_c.cuh"
 
 namespace {
 
 using namespace jrl;
-
-struct BalanceGeo {
-  const int* flags;
-  int W;
-  __device__ int flag(int y, int x) const { return flags[y * W + x]; }
-  __device__ float phi(int, int) const { return 0.0f; }
-  // INFLOW: feq(0, 0) = 0 (sink); INFLOW_2: feq(1, 0) (reservoir)
-  __device__ void inflow(int, int, int fl, float* out) const {
-    if (fl == INFLOW) {
-#pragma unroll
-      for (int q = 0; q < 9; ++q) out[q] = feq_q(q, 0.0f, 0.0f, 0.0f);
-    } else if (fl == INFLOW_2) {
-#pragma unroll
-      for (int q = 0; q < 9; ++q) out[q] = feq_q(q, 1.0f, 0.0f, 0.0f);
-    }
-  }
-};
 
 __global__ void __launch_bounds__(256) c_balance_kernel(
     const int* __restrict__ flags, const float* __restrict__ h, const float* __restrict__ C,
     float* __restrict__ h_out, float* __restrict__ C_out, CBalanceParams p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int H = p.H, W = p.W, HW = H * W;
-  if (x >= W || y >= H) return;
-  const int i = y * W + x;
-
+  if (x >= p.W || y >= p.H) return;
   BalanceGeo g;
   g.flags = flags;
-  g.W = W;
-  const int fl = g.flag(y, x);
-
-  float hs[9];
-  int sy = y, sx = x;
-  outflow_source(fl, H, W, sy, sx);
-  stream_cell<false>(h, H, W, sy, sx, g, hs);
-
-  // propagate writes C = 0 / 1 at INFLOW / INFLOW_2; macro_compute_C keeps
-  // C only at OBSTACLE cells
-  float Cn;
-  if (fl == OBSTACLE) {
-    Cn = C[i];
-  } else {
-    Cn = hs[0];
-#pragma unroll
-    for (int q = 1; q < 9; ++q) Cn = Cn + hs[q];
-  }
-  C_out[i] = Cn;
-
-  const float r = (float)x + 0.5f;
-#pragma unroll
-  for (int q = 0; q < 9; ++q)
-    h_out[q * HW + i] =
-        fl == OBSTACLE ? hs[q] : collide_conv_q(q, hs[q], Cn, 0.0f, 0.0f, r, p.w_rate, p.c_tau);
+  g.W = p.W;
+  balance_cell(h, C, g, balance_cell_flags(g, p.H, p.W, y, x), p, y, x, h_out, C_out);
 }
 
 }  // namespace

@@ -1,0 +1,269 @@
+// Per-cell device code of the JRL concentration steps, shared by the
+// per-step kernels (c_balance.cu, c_approach.cu) and the multi-step
+// kernels (fused_balance.cu, fused_approach.cu), so that all of them round
+// alike.
+#pragma once
+
+#include "jrl_common.cuh"
+
+// Launch constants of the balance, filled by the Python wrapper (ctypes.Structure).
+struct CBalanceParams {
+  int H, W;
+  float w_rate;  // 1 / tau_D
+  float c_tau;   // 1 - 0.5 / tau_D
+};
+
+// Launch constants of the approach, filled by the Python wrapper (ctypes.Structure).
+struct CApproachParams {
+  int H, W, rg, rint, inflow_h_int, flat, is_negative, clamp;
+  float inflow_h, v, box_r, bcx, x1;
+  float w_rate;  // 1 / tau_D
+  float c_tau;   // 1 - 0.5 / tau_D
+};
+
+namespace jrl {
+
+// ---------------------------------------------------------------------------
+// Balance: fixed flags, zero velocity
+// ---------------------------------------------------------------------------
+
+struct BalanceGeo {
+  const int* flags;
+  int W;
+  __device__ int flag(int y, int x) const { return flags[y * W + x]; }
+  __device__ float phi(int, int) const { return 0.0f; }
+  // INFLOW: feq(0, 0) = 0 (sink); INFLOW_2: feq(1, 0) (reservoir)
+  __device__ void inflow(int, int, int fl, float* out) const {
+    if (fl == INFLOW) {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) out[q] = feq_q(q, 0.0f, 0.0f, 0.0f);
+    } else if (fl == INFLOW_2) {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) out[q] = feq_q(q, 1.0f, 0.0f, 0.0f);
+    }
+  }
+};
+
+// What a balance cell needs of the fixed flags: its own flag, the cell
+// whose streaming it takes (itself, or the inward neighbour of an OUTFLOW
+// cell), that cell's flag and its pull_obstacle_mask.
+struct BalanceCell {
+  int fl, src, src_fl;
+  unsigned nbr;
+};
+
+__device__ __forceinline__ BalanceCell balance_cell_flags(const BalanceGeo& g, int H, int W,
+                                                          int y, int x) {
+  BalanceCell c;
+  c.fl = g.flag(y, x);
+  int sy = y, sx = x;
+  outflow_source(c.fl, H, W, sy, sx);
+  c.src = sy * W + sx;
+  c.src_fl = g.flag(sy, sx);
+  c.nbr = pull_obstacle_mask(H, W, sy, sx, c.src_fl == FLUID, g);
+  return c;
+}
+
+// One balance step at cell (y, x): streaming with INFLOW (C = 0) and
+// INFLOW_2 (C = 1) reservoirs and the OUTFLOW copy, C = sum h with
+// OBSTACLE passthrough, BGK at u = 0 with the per-direction axisymmetric
+// rate 1/tau_D + (1 - 0.5/tau_D) e_x / r.
+__device__ __forceinline__ void balance_cell(const float* h, const float* C, const BalanceGeo& g,
+                                             const BalanceCell& c, const CBalanceParams& p,
+                                             int y, int x, float* h_out, float* C_out) {
+  const int H = p.H, W = p.W, HW = H * W;
+  const int i = y * W + x;
+  float hs[9];
+  stream_cell_masked<false>(h, H, W, c.src / W, c.src % W, c.src_fl, c.nbr, 0.0f, g, hs);
+
+  // propagate writes C = 0 / 1 at INFLOW / INFLOW_2; macro_compute_C keeps
+  // C only at OBSTACLE cells
+  float Cn;
+  if (c.fl == OBSTACLE) {
+    Cn = C[i];
+  } else {
+    Cn = hs[0];
+#pragma unroll
+    for (int q = 1; q < 9; ++q) Cn = Cn + hs[q];
+  }
+  C_out[i] = Cn;
+
+  const float r = (float)x + 0.5f;
+#pragma unroll
+  for (int q = 0; q < 9; ++q)
+    h_out[q * HW + i] =
+        c.fl == OBSTACLE ? hs[q] : collide_conv_q(q, hs[q], Cn, 0.0f, 0.0f, r, p.w_rate, p.c_tau);
+}
+
+// ---------------------------------------------------------------------------
+// Approach: moving tip on the stored fluid velocity
+// ---------------------------------------------------------------------------
+
+// The stored velocity of one step as one interpolated [2, H, W] plane
+// (the per-step kernel: PyTorch interpolates before the launch).
+struct PlaneVel {
+  const float* vel;
+  int HW;
+  __device__ float u(int i) const { return vel[i]; }
+  __device__ float v(int i) const { return vel[HW + i]; }
+};
+
+// The stored velocity read from its frame pair, interpolated as
+// models/jrl.py::stored_velocity does (the multi-step kernel).
+struct FrameVel {
+  const float* f0;  // frame b, [2, H, W]
+  const float* f1;  // frame b + 1 (unused when !lerp)
+  float omt, t;     // 1 - t and t
+  bool lerp;
+  int HW;
+  __device__ float at(float a, float b) const {
+    return lerp ? __fadd_rn(__fmul_rn(a, omt), __fmul_rn(b, t)) : a;
+  }
+  __device__ float u(int i) const { return at(f0[i], lerp ? f1[i] : 0.0f); }
+  __device__ float v(int i) const { return at(f0[HW + i], lerp ? f1[HW + i] : 0.0f); }
+};
+
+template <class V>
+struct ApproachGeo {
+  const int* base;
+  V vel;  // interpolated stored velocity (not yet scaled by v)
+  int H, W, rg, rint, inflow_h_int, walks_int;
+  bool flat;
+  float v;
+  TipSdf sdf;
+
+  __device__ float phi(int y, int x) const { return sdf.phi(y, x); }
+  // models/jrl.py::_c_flags_at with strict=True
+  __device__ int flag(int y, int x) const {
+    const bool obs = flat ? (y < walks_int && x < rg)
+                          : (phi(y, x) < 0.0f || (y < inflow_h_int && x < rg));
+    int fl = obs ? OBSTACLE : base[y * W + x];
+    if (y == walks_int - 1 && x < rint) fl = INFLOW;
+    return fl;
+  }
+  __device__ bool tip_block(int y, int x) const { return y < walks_int && x < rg; }
+  // the convection velocity of a cell from its stored velocity (u_s, v_s)
+  __device__ float cu_of(int y, int x, float u_s) const { return tip_block(y, x) ? 0.0f : u_s * v; }
+  __device__ float cv_of(int y, int x, float v_s) const { return tip_block(y, x) ? v : v_s * v; }
+  __device__ float cu(int y, int x) const { return cu_of(y, x, vel.u(y * W + x)); }
+  __device__ float cv(int y, int x) const { return cv_of(y, x, vel.v(y * W + x)); }
+  // INFLOW: feq(0, C_vel); INFLOW_2: feq(1, C_vel) with the local C_vel
+  __device__ void inflow(int y, int x, int fl, float* out) const {
+    if (fl != INFLOW && fl != INFLOW_2) return;
+    const float rho_in = fl == INFLOW ? 0.0f : 1.0f;
+    const float a = cu(y, x), b = cv(y, x);
+#pragma unroll
+    for (int q = 0; q < 9; ++q) out[q] = feq_q(q, rho_in, a, b);
+  }
+};
+
+template <class V>
+__device__ __forceinline__ ApproachGeo<V> approach_geo(const int* base, V vel, int step,
+                                                       const CApproachParams& p) {
+  const float walks = tip_walks(step, p.inflow_h, p.v);
+  ApproachGeo<V> g;
+  g.base = base;
+  g.vel = vel;
+  g.H = p.H;
+  g.W = p.W;
+  g.rg = p.rg;
+  g.rint = p.rint;
+  g.inflow_h_int = p.inflow_h_int;
+  g.walks_int = tip_row(walks);
+  g.flat = p.flat != 0;
+  g.v = p.v;
+  g.sdf.bcx = p.bcx;
+  g.sdf.box_r = p.box_r;
+  g.sdf.x1 = p.x1;
+  g.sdf.Hf = (float)p.H;
+  g.sdf.flat = g.flat;
+  g.sdf.with_top = p.is_negative != 0;
+  g.sdf.set_walks(walks);
+  return g;
+}
+
+// One approach step at cell (y, x) whose stored velocity is (u_s, v_s):
+// streaming with sub-grid bounce, C = sum h (clamped to [0, 1] for flat
+// tips), advection-diffusion BGK with the axisymmetric rate and source.
+// C is zeroed in the tip before streaming and OBSTACLE cells keep it, so
+// the new C never reads the old one.
+template <class V>
+__device__ __forceinline__ void approach_cell(const float* h, const ApproachGeo<V>& g,
+                                              const CApproachParams& p, int y, int x,
+                                              float u_s, float v_s, float* h_out, float* C_out) {
+  const int H = p.H, W = p.W, HW = H * W;
+  const int i = y * W + x;
+  const int fl = g.flag(y, x);
+
+  float hs[9];
+  int sy = y, sx = x;
+  outflow_source(fl, H, W, sy, sx);
+  stream_cell<true>(h, H, W, sy, sx, g, hs);
+
+  float Cn;
+  if (fl == OBSTACLE) {
+    Cn = 0.0f;
+  } else {
+    Cn = hs[0];
+#pragma unroll
+    for (int q = 1; q < 9; ++q) Cn = Cn + hs[q];
+  }
+  if (p.clamp) Cn = fminf(fmaxf(Cn, 0.0f), 1.0f);
+  C_out[i] = Cn;
+
+  const float r = (float)x + 0.5f;
+  const float a = g.cu_of(y, x, u_s), b = g.cv_of(y, x, v_s);
+#pragma unroll
+  for (int q = 0; q < 9; ++q)
+    h_out[q * HW + i] =
+        fl == OBSTACLE ? hs[q] : collide_conv_q(q, hs[q], Cn, a, b, r, p.w_rate, p.c_tau);
+}
+
+// Row of the tip-disk integrals, clamped into [0, H-1] as the JAX
+// package's dynamic_slice clamps its start.
+__device__ __forceinline__ int disk_row(int r, int H) { return r < 0 ? 0 : (r > H - 1 ? H - 1 : r); }
+
+// Column x's terms of the inflow and current integrals over rows walks_int
+// and walks_int + 1 of the new C (models/jrl.py::make_approach_step): the
+// plain disk for the wedge, the dC_z + dC_r flux form for flat tips.
+__device__ __forceinline__ void disk_terms(const float* Cn, int H, int W, int wi, bool flat,
+                                           int x, float ar, float& t_in, float& t_cur) {
+  if (flat) {
+    const float rx = (float)x + 0.5f, rx1 = (float)(x + 1) + 0.5f;
+    float t[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int rr = disk_row(wi + k, H), rm = disk_row(wi + k - 1, H);
+      const float dCz = Cn[rr * W + x] - Cn[rm * W + x];
+      const float rC0 = rx * Cn[rr * W + x];
+      const float rC1 = rx1 * Cn[rr * W + x + 1];
+      const float dCr = (rC1 - rC0) / rx;
+      t[k] = (dCz + dCr) * ar;
+    }
+    t_in = t[0];
+    t_cur = t[1];
+  } else {
+    t_in = Cn[disk_row(wi, H) * W + x] * ar;
+    t_cur = Cn[disk_row(wi + 1, H) * W + x] * ar;
+  }
+}
+
+// Sum of v[k][0 .. n) for k < 4 over a block, in a fixed tree order (no
+// atomics, so runs repeat bit for bit); n is a power of two and the
+// block's thread count. The result is in red[k][0].
+template <int N>
+__device__ __forceinline__ void block_sum4(float (&red)[4][N], const float s[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) red[k][threadIdx.x] = s[k];
+  __syncthreads();
+  for (int half = N / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        red[k][threadIdx.x] = red[k][threadIdx.x] + red[k][threadIdx.x + half];
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace jrl

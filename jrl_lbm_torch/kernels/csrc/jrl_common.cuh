@@ -1,5 +1,10 @@
-// Device helpers shared by the four JRL kernels (D2Q9, float32, layout
-// f[q][y][x] with x fastest, as the PyTorch side stores [9, H, W]).
+// Device helpers shared by the JRL kernels, per-step and multi-step
+// (D2Q9, float32, layout f[q][y][x] with x fastest, as the PyTorch side
+// stores [9, H, W]).
+//
+// No pointer here is __restrict__: a multi-step kernel reads, after a
+// grid-wide barrier, state that other threads wrote earlier in the same
+// launch, which the read-only (non-coherent) load path may not serve.
 //
 // Arithmetic follows the plain PyTorch twins (and the JAX package's jnp
 // step) operation by operation, in the same order and with the same
@@ -87,8 +92,10 @@ __device__ __forceinline__ float feq_q(int q, float rho, float u, float v) {
 }
 
 // walks = inflow_h + f32(step) * v, rounded as float32 at each operation
-// (models/jrl.py: the tip row must match the twin's exactly). Exact for
-// step < 2**24, like the JAX package's float32 step index.
+// (models/jrl.py: the tip row must match the twin's exactly). The integer
+// step is converted once, round to nearest, as the JAX package's jnp step
+// converts its int32 index; from 2**24 on that rounds the step itself,
+// alike in kernel, twin and JAX.
 __device__ __forceinline__ float tip_walks(int step, float inflow_h, float v) {
   return __fadd_rn(inflow_h, __fmul_rn((float)step, v));
 }
@@ -124,21 +131,34 @@ struct TipSdf {
   }
 };
 
-// Post-stream populations of cell (y, x) before the OUTFLOW pass
-// (ops/stream.py::propagate): pulls with the axis mirror, sub-grid
-// interpolation bounce when HAS_PHI (plain half-way bounce otherwise),
-// reflected storage in OBSTACLE cells, then the geometry's INFLOW /
-// INFLOW_2 rule. `Geo` answers flag(y, x), phi(y, x) and
-// inflow(y, x, flag, out).
+// Bit q (1..8) set when the cell that (y, x) pulls direction q from is
+// OBSTACLE. Fixed flags let a multi-step kernel compute it once.
+template <class Geo>
+__device__ __forceinline__ unsigned pull_obstacle_mask(int H, int W, int y, int x, bool fluid,
+                                                       const Geo& g) {
+  unsigned m = 0;
+#pragma unroll
+  for (int q = 1; q < 9; ++q) {
+    const int sx = pull_x(x, ex_of(q), fluid, W), sy = pull_y(y, ey_of(q), fluid, H);
+    if (g.flag(sy, sx) == OBSTACLE) m |= 1u << q;
+  }
+  return m;
+}
+
+// Post-stream populations of cell (y, x) of flag `fl` before the OUTFLOW
+// pass (ops/stream.py::propagate): pulls with the axis mirror, sub-grid
+// interpolation bounce at SDF value `t` when HAS_PHI (plain half-way
+// bounce otherwise), reflected storage in OBSTACLE cells, then the
+// geometry's INFLOW / INFLOW_2 rule. `nbr` is pull_obstacle_mask of the
+// cell; `Geo` answers inflow(y, x, flag, out).
 template <bool HAS_PHI, class Geo>
-__device__ __forceinline__ void stream_cell(const float* __restrict__ f, int H, int W,
-                                            int y, int x, const Geo& g, float out[9]) {
+__device__ __forceinline__ void stream_cell_masked(const float* f, int H, int W, int y, int x,
+                                                   int fl, unsigned nbr, float t, const Geo& g,
+                                                   float out[9]) {
   const int HW = H * W;
-  const int fl = g.flag(y, x);
   const bool fluid = fl == FLUID;
   const bool obs = fl == OBSTACLE;
   const float* fc = f + y * W + x;
-  const float t = HAS_PHI ? g.phi(y, x) : 0.0f;
   float raw[9], str[9];
   raw[0] = str[0] = fc[0];
 #pragma unroll
@@ -148,7 +168,7 @@ __device__ __forceinline__ void stream_cell(const float* __restrict__ f, int H, 
     const int qv = (x == 0 && axis_x_in(q)) ? mirror_x(q) : q;
     const float val = f[qv * HW + sy * W + sx];
     raw[q] = val;
-    const bool nbr_obs = g.flag(sy, sx) == OBSTACLE;
+    const bool nbr_obs = (nbr >> q) & 1u;
     const float f_this = fc[refl(q) * HW];
     float v_obs = f_this;
     if (HAS_PHI && nbr_obs) {
@@ -167,6 +187,16 @@ __device__ __forceinline__ void stream_cell(const float* __restrict__ f, int H, 
 #pragma unroll
   for (int p = 1; p < 9; ++p) out[p] = obs ? raw[refl(p)] : str[p];
   g.inflow(y, x, fl, out);
+}
+
+// stream_cell_masked with the flags, mask and phi taken from `Geo`
+// (flag(y, x), phi(y, x)).
+template <bool HAS_PHI, class Geo>
+__device__ __forceinline__ void stream_cell(const float* f, int H, int W, int y, int x,
+                                            const Geo& g, float out[9]) {
+  const int fl = g.flag(y, x);
+  const unsigned nbr = pull_obstacle_mask(H, W, y, x, fl == FLUID, g);
+  stream_cell_masked<HAS_PHI>(f, H, W, y, x, fl, nbr, HAS_PHI ? g.phi(y, x) : 0.0f, g, out);
 }
 
 // The cell whose streamed populations an OUTFLOW cell copies: rows 0 and

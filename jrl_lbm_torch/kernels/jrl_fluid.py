@@ -102,15 +102,18 @@ def _b_params(cfg) -> FluidBParams:
     )
 
 
-def check_state(cfg, step: int, **tensors) -> torch.device:
+def check_state(cfg, step: int, n: int = 1, **tensors) -> torch.device:
     """Common checks of a launch: float32 contiguous tensors of the
-    config's grid on one CUDA device, and a step that float32 holds
-    exactly."""
+    config's grid on one CUDA device, and steps ``step .. step + n - 1``
+    that the kernels' int32 step index holds. The kernels convert the
+    step to float32 as the jnp step does, rounding it from 2**24 on."""
     H, W = cfg.eff_res
     if H < 3 or W < 3:
         raise ValueError(f"grid {H}x{W} too small for the kernels (need >= 3x3)")
-    if not 0 <= int(step) < 2**24:
-        raise ValueError(f"step {step} outside [0, 2**24): float32 would round it")
+    if int(n) < 1:
+        raise ValueError(f"{n} steps: a launch runs at least one")
+    if not (0 <= int(step) and int(step) + int(n) - 1 < 2**31):
+        raise ValueError(f"steps {step} .. {int(step) + int(n) - 1} outside int32 [0, 2**31)")
     dev = None
     for name, (t, lead) in tensors.items():
         want = tuple(lead) + (H, W)

@@ -6,15 +6,18 @@ Configs, unit conversion and geometry follow the reference demos
 package does. The tip geometry is a pure function of the step index;
 the step index enters as a 0-d float32 tensor so the tip position
 ``walks`` is rounded in float32 exactly as JAX rounds it (the tip row
-decides which cells are solid). That is exact while the step is below
-2**24, as in the JAX package.
+decides which cells are solid). From 2**24 on the float32 step is
+itself rounded, as in the JAX package's jnp step.
 
 A step is split in two halves that match the kernels: stream + coupling
 + moments, then collision (`kernels/jrl_fluid.py`); the concentration
 steps are one kernel each (`kernels/jrl_c.py`). `make_*_step` and
-`make_*_runner` are the plain PyTorch path; `pick_*_runner` go through
-the kernel wrappers, which launch the CUDA kernels for tensors on the
-card and run the plain twins for tensors on the CPU.
+`make_*_runner` are the plain PyTorch path. `pick_*_runner` go through
+kernel wrappers, which launch the CUDA kernels for tensors on the card
+and run the plain twins for tensors on the CPU: on a grid of at most
+`kernels.fused_jrl.MAX_FUSED_CELLS` cells the multi-step kernels
+(`kernels/fused_jrl.py`, n steps per launch), on a larger grid the
+per-step kernels (`make_per_step_*_runner`, one launch per step).
 """
 
 from __future__ import annotations
@@ -236,9 +239,10 @@ def make_fluid_runner(cfg: JRLFluidConfig):
     return run
 
 
-def pick_fluid_runner(cfg: JRLFluidConfig):
-    """Runner through the kernel wrappers: the `fluid_a`/`fluid_b` CUDA
-    kernels for a state on the card, their plain twins on the CPU."""
+def make_per_step_fluid_runner(cfg: JRLFluidConfig):
+    """Runner through the per-step kernel wrappers: the `fluid_a`/`fluid_b`
+    CUDA kernels for a state on the card (two launches a step), their
+    plain twins on the CPU."""
     from jrl_lbm_torch.kernels import jrl_fluid
 
     def run(state, fields, start_step: int, n: int):
@@ -250,6 +254,18 @@ def pick_fluid_runner(cfg: JRLFluidConfig):
         return {"f": f, "rho": rho, "vel": vel}
 
     return run
+
+
+def pick_fluid_runner(cfg: JRLFluidConfig):
+    """The multi-step kernel's runner (`kernels/fused_jrl.py`, n steps per
+    launch) on a grid of at most ``MAX_FUSED_CELLS`` cells, the per-step
+    kernels' runner on a larger grid; ``(state, fields, start_step, n)
+    -> state`` either way."""
+    from jrl_lbm_torch.kernels import fused_jrl
+
+    if fused_jrl.fits(cfg):
+        return fused_jrl.make_fused_fluid_runner(cfg)
+    return make_per_step_fluid_runner(cfg)
 
 
 def fluid_record_steps(cfg: JRLFluidConfig, x_interval: float = X_INTERVAL):
@@ -498,8 +514,8 @@ def make_balance_runner(cfg: JRLCConfig, flags):
     return run
 
 
-def pick_balance_runner(cfg: JRLCConfig, flags):
-    """Balance runner through the `c_balance` kernel wrapper."""
+def make_per_step_balance_runner(cfg: JRLCConfig, flags):
+    """Balance runner through the per-step `c_balance` kernel wrapper."""
     from jrl_lbm_torch.kernels import jrl_c
 
     def run(state, fields, n: int):
@@ -509,6 +525,17 @@ def pick_balance_runner(cfg: JRLCConfig, flags):
         return {"C": C, "h": h}
 
     return run
+
+
+def pick_balance_runner(cfg: JRLCConfig, flags):
+    """The multi-step balance kernel's runner on a grid of at most
+    ``MAX_FUSED_CELLS`` cells, the per-step kernel's on a larger grid;
+    ``(state, fields, n) -> state`` either way."""
+    from jrl_lbm_torch.kernels import fused_jrl
+
+    if fused_jrl.fits(cfg):
+        return fused_jrl.make_fused_balance_runner(cfg, flags)
+    return make_per_step_balance_runner(cfg, flags)
 
 
 def stored_velocity(vel_field, step: int, v: float):
@@ -561,10 +588,10 @@ def make_approach_runner(cfg: JRLCConfig):
     return run
 
 
-def pick_approach_runner(cfg: JRLCConfig, vel_field):
-    """Approach runner through the `c_approach` kernel wrapper; the
-    integrals accumulate on the state's device, so a run of n steps does
-    not wait on the host. Same contract as `make_approach_runner`."""
+def make_per_step_approach_runner(cfg: JRLCConfig, vel_field):
+    """Approach runner through the per-step `c_approach` kernel wrapper;
+    the integrals accumulate on the state's device, so a run of n steps
+    does not wait on the host. Same contract as `make_approach_runner`."""
     from jrl_lbm_torch.kernels import jrl_c
 
     def run(state, fields, start_step: int, n: int):
@@ -584,6 +611,17 @@ def pick_approach_runner(cfg: JRLCConfig, vel_field):
         return {"C": C, "h": h}, acc_d
 
     return run
+
+
+def pick_approach_runner(cfg: JRLCConfig, vel_field):
+    """The multi-step approach kernel's runner on a grid of at most
+    ``MAX_FUSED_CELLS`` cells, the per-step kernel's on a larger grid;
+    ``(state, fields, start_step, n) -> (state, acc)`` either way."""
+    from jrl_lbm_torch.kernels import fused_jrl
+
+    if fused_jrl.fits(cfg):
+        return fused_jrl.make_fused_approach_runner(cfg, vel_field)
+    return make_per_step_approach_runner(cfg, vel_field)
 
 
 def c_dump_steps(cfg: JRLCConfig):
