@@ -1,12 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's JRL main paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's JRL and cylinder-channel main paths on one
+NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the seven CUDA kernels of ``jrl_lbm_torch/kernels/csrc`` (one
+1. Builds the eleven CUDA kernels of ``jrl_lbm_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and checks that the
-   multi-step kernels' machine code has no read-only (non-coherent)
-   global load, which could serve state written earlier in the launch.
+   multi-step JRL kernels' machine code has no read-only (non-coherent)
+   global load, which could serve state written earlier in the launch
+   (the cylinder kernels read only the previous step's buffers).
+0. The cylinder channel (``cylinder_phases``): each of its four kernels
+   against its plain twin after one step (1e-5) on a split geometry
+   (256x128) and a generic one (64x32), and the kernel runner against
+   the twin runner over 40, 41 and 43 steps (f, rho 2e-5; vel 2e-4);
+   then the main path, ``make_fused_cylinder_runner`` at ``bench.py``'s
+   ``CylinderConfig(res=(2048, 2048), D=64, Re=5000)``: 23 steps (k=4,
+   k=2 and k=1 all run) against the twin runner (all cells) and the
+   jnp-equivalent ``models/cylinder.py::make_runner`` (non-OBSTACLE
+   cells), 20 warm-up steps, three timed 600-step windows (the k=4
+   kernels must carry each), a profiled window (busy share, device µs
+   per launch), ``drag_lift`` of the final state, the k=2 and single-step
+   paths as yardsticks, and each kernel alone beside its bound and twin.
+   Counts are zeroed just before each main-path drive and read just after.
 2. Holds each per-step kernel to its plain PyTorch twin from the same
    state, after 1 step (f, rho, C, h at 1e-5; vel at 1e-4) and after 100
    steps through the per-step runners (2e-5; vel 2e-4; integrals rtol
@@ -37,8 +52,8 @@
 6. Runs one whole case through ``jrl_main.run_case`` at 128x64 twice:
    through the multi-step kernels (its default) and through the per-step
    runners; the record rows agree to rtol 2e-4 / atol 1e-4.
-7. Prints ``{"kernels": [...]}``, the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+7. Prints ``{"kernels": [...]}`` (eleven rows), the card's name and
+   power limit, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without printing a result when no
 card is present or the package is missing.
@@ -85,6 +100,14 @@ SOURCE = {
                       "jrl_lbm_tpu/ops/pallas/fused_jrl.py:531"),
     "fused_approach": ("jrl_lbm_torch/kernels/csrc/fused_approach.cu",
                        "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
+    "cyl_full": ("jrl_lbm_torch/kernels/csrc/cyl_full.cu",
+                 "jrl_lbm_tpu/ops/pallas/fused_step.py:247"),
+    "cyl_interior": ("jrl_lbm_torch/kernels/csrc/cyl_interior.cu",
+                     "jrl_lbm_tpu/ops/pallas/fused_step.py:465"),
+    "cyl_interior_k": ("jrl_lbm_torch/kernels/csrc/cyl_interior_k.cu",
+                       "jrl_lbm_tpu/ops/pallas/fused_step.py:606"),
+    "cyl_band_k": ("jrl_lbm_torch/kernels/csrc/cyl_band_k.cu",
+                   "jrl_lbm_tpu/ops/pallas/fused_step.py:838"),
 }
 
 
@@ -168,6 +191,10 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fused_fluid": ("fused_fluid_kernel",),
     "fused_balance": ("fused_balance_kernel",),
     "fused_approach": ("fused_approach_kernel",),
+    "cyl_full": ("cyl_full_kernel",),
+    "cyl_interior": ("cyl_interior_kernel",),
+    "cyl_interior_k": ("cyl_interior_k_kernel",),
+    "cyl_band_k": ("cyl_band_k_kernel",),
 }
 
 
@@ -200,6 +227,299 @@ def device_profile(fn, steps: int):
     return times, wall
 
 
+# ---------------------------------------------------------------------------
+# The cylinder channel (kernels/cylinder.py)
+# ---------------------------------------------------------------------------
+
+CYL = ("cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k")
+# float32 operations per cell and step, counted by hand from
+# csrc/cyl_common.cuh: a plain-channel or uncoupled full cell (moments,
+# equilibrium, paired MRT) and the extra of a coupled cell next to the
+# cylinder (target velocity, 12-point gradient, reconstruction)
+CYL_FLOPS, CYL_COUPLE_FLOPS = 170, 200
+# the scene of bench.py, and the small split and generic geometries the
+# kernels are held to their twins on
+CYL_MAIN = dict(res=(2048, 2048), D=64.0, Re=5000.0)
+CYL_SMALL = {
+    "split 256x128": (dict(res=(256, 128), D=16.0, Re=500.0, cylinder_center=(64.0, 128.0)),
+                      dict(tile_rows=16, interior_rows=32)),
+    "generic 64x32": (dict(res=(64, 32), D=8.0, Re=500.0, cylinder_center=(16.0, 32.0)),
+                      dict(tile_rows=8, split=False)),
+}
+
+
+def cyl_twin_runner(K, run):
+    """``run`` with every cylinder kernel call replaced by its plain twin."""
+    from unittest import mock
+
+    twins = {"cyl_full": K.cyl_full_ref, "cyl_interior": K.cyl_interior_ref,
+             "cyl_interior_k": K.cyl_interior_k_ref, "cyl_band_k": K.cyl_band_k_ref}
+
+    def twin_run(state, fields, n):
+        with mock.patch.multiple(K, **twins):
+            return run(state, fields, n)
+
+    return twin_run
+
+
+def cylinder_phases(dev, rate, errs):
+    """The cylinder-channel checks and the 2048² main path; returns the
+    four ``kernels`` rows and a report."""
+    import torch
+
+    from jrl_lbm_torch import kernels
+    from jrl_lbm_torch.kernels import cylinder as K
+    from jrl_lbm_torch.models import cylinder as CY
+
+    report = {}
+    TOL = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4}
+
+    def new_outs(s):
+        return {k: torch.full_like(v, 7.0) for k, v in s.items()}
+
+    def close3(tag, got, want, tol, names, mask=None):
+        """f, rho and vel; the deviation counts for every kernel in names."""
+        for nm in ("f", "rho", "vel"):
+            g, w = got[nm], want[nm]
+            if mask is not None:
+                m = mask.expand_as(g)
+                g, w = g[m], w[m]
+            rep = []
+            check_close(f"{tag} {nm}", g, w, tol if isinstance(tol, float) else tol[nm], rep)
+            for k in names:
+                errs[k].extend(rep)
+
+    # ---- each cylinder kernel against its twin, small geometries ----
+    for label, (ckw, rkw) in CYL_SMALL.items():
+        cfg = CY.CylinderConfig(**ckw)
+        c = K.consts(cfg)
+        s, fl = CY.init(cfg, dev)
+        s = CY.make_runner(cfg)(s, fl, 30)
+        g = torch.Generator(device=dev).manual_seed(3)
+        s = {k: v + 1e-4 * torch.randn(v.shape, generator=g, device=dev) for k, v in s.items()}
+        flags, phi = fl["flags"], fl["phi_obs"]
+        print(f"compare cylinder kernels with twins: {label}", flush=True)
+        run = K.make_fused_cylinder_runner(cfg, **rkw)
+        if run.step.split:
+            interior, band, edge = run.step4.rows
+            one = [("cyl_full", lambda o, fn: fn(s["f"], s["rho"], s["vel"], flags, phi, o,
+                                                  run.step.rows[1], c), K.cyl_full_ref),
+                   ("cyl_interior", lambda o, fn: fn(s["f"], o, run.step.rows[0], c, True),
+                    K.cyl_interior_ref)]
+            for k in (2, 4):
+                one.append(("cyl_interior_k", lambda o, fn, k=k: fn(s["f"], o, interior, k, c,
+                                                                     True), K.cyl_interior_k_ref))
+                for e, segs in ((False, band), (True, edge)):
+                    one.append(("cyl_band_k",
+                                lambda o, fn, k=k, e=e, segs=segs: fn(s["f"], s["vel"], flags,
+                                                                      phi, o, segs, k, e, c),
+                                K.cyl_band_k_ref))
+        else:
+            one = [("cyl_full", lambda o, fn: fn(s["f"], s["rho"], s["vel"], flags, phi, o,
+                                                  [(0, cfg.res[0])], c), K.cyl_full_ref)]
+        for k, call, twin in one:
+            got, want = new_outs(s), new_outs(s)
+            call(got, getattr(K, k))
+            call(want, twin)
+            close3(f"{k} 1 step", got, want, 1e-5, (k,))
+        for n in (40, 41, 43):
+            kernels.reset_launches()
+            got = run(s, fl, n)
+            torch.cuda.synchronize()
+            used = tuple(k for k, v in kernels.launches().items() if v)
+            want = cyl_twin_runner(K, run)(s, fl, n)
+            close3(f"runner {n} steps ({'+'.join(used)})", got, want, TOL, used)
+
+    # ---- the main path at bench.py's 2048² ----
+    cfg = CY.CylinderConfig(**CYL_MAIN)
+    H, W = cfg.res
+    cells = H * W
+    c = K.consts(cfg)
+    s0, fl = CY.init(cfg, dev)
+    run = K.make_fused_cylinder_runner(cfg)
+    print(f"cylinder main path {H}x{W}, D {cfg.D:g}, Re {cfg.Re:g}, tau {cfg.tau:.6f}: "
+          f"k=4 rows (interior, band, edge) {run.step4.rows}", flush=True)
+    path_launches = {k: 0 for k in CYL}
+
+    def drive(n, state):
+        """The main path for n steps, counts zeroed just before and read
+        just after; no JRL kernel may launch."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(state, fl, n)
+        end.record()
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        off = {k: v for k, v in counts.items() if v and k not in CYL}
+        if off:
+            fail(f"cylinder path launched JRL kernels {off}")
+        for k in CYL:
+            path_launches[k] += counts[k]
+        return out, start.elapsed_time(end), {k: counts[k] for k in CYL}
+
+    # 23 steps = 5 k=4 passes + 1 k=2 pass + 1 single step: every kernel runs
+    n_cmp = 23
+    got, ms, counts = drive(n_cmp, s0)
+    print(f"  {n_cmp} steps: launches {counts}", flush=True)
+    if not all(counts[k] for k in CYL):
+        fail(f"cylinder kernels not launched on the {n_cmp}-step drive: {counts}")
+    want = cyl_twin_runner(K, run)(s0, fl, n_cmp)
+    close3(f"2048² {n_cmp} steps vs twin runner", got, want, TOL, CYL)
+    ref = CY.make_runner(cfg)(s0, fl, n_cmp)
+    fluid = fl["flags"] != int(CY.CellType.OBSTACLE)
+    close3(f"2048² {n_cmp} steps vs jnp-equivalent (non-OBSTACLE)", got, ref, TOL, (),
+           mask=fluid)
+    del want, ref
+
+    state = run(s0, fl, 20)  # warm-up
+    windows = []
+    for w in range(3):
+        state, ms, counts = drive(600, state)
+        us = ms * 1e3 / 600
+        windows.append({"us_per_step": us, "mlups": cells * 600 / (ms * 1e3), "launches": counts})
+        print(f"  window {w + 1}/3: 600 steps {us:.3f} us/step {cells / us:.1f} MLUPS "
+              f"launches {counts}", flush=True)
+        if not (counts["cyl_interior_k"] == 150 and counts["cyl_band_k"] == 300
+                and counts["cyl_full"] == 0 and counts["cyl_interior"] == 0):
+            fail(f"the k=4 kernels did not carry the window: {counts}")
+    best = min(windows, key=lambda r: r["us_per_step"])
+    print(f"  best of 3: {best['us_per_step']:.3f} us/step, {best['mlups']:.1f} MLUPS", flush=True)
+
+    # yardsticks, not the main path: the same window through k=2 passes
+    # (LBM_FUSED_K=2) and through single split steps (cyl_interior + cyl_full)
+    old_k = os.environ.get("LBM_FUSED_K")
+    os.environ["LBM_FUSED_K"] = "2"
+    try:
+        run_k2 = K.make_fused_cylinder_runner(cfg)
+    finally:
+        if old_k is None:
+            del os.environ["LBM_FUSED_K"]
+        else:
+            os.environ["LBM_FUSED_K"] = old_k
+    refresh = K.make_macro_refresh(cfg)
+
+    def run_k1(st_, fl_, n):
+        bufs = [{k: v.clone() for k, v in st_.items()} for _ in range(2)]
+        for i in range(n):
+            st_ = run.step(st_, fl_, bufs[i % 2])
+        return refresh(st_, fl_)
+
+    yard = {}
+    for label, fn in (("k=2 passes", run_k2), ("single split steps", run_k1)):
+        fn(state, fl, 20)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(state, fl, 600)
+        end.record()
+        torch.cuda.synchronize()
+        us = start.elapsed_time(end) * 1e3 / 600
+        counts = {k: v for k, v in kernels.launches().items() if v}
+        yard[label] = {"us_per_step": us, "mlups": cells / us, "launches": counts}
+        print(f"  yardstick, {label}: 600 steps {us:.3f} us/step {cells / us:.1f} MLUPS "
+              f"launches {counts}", flush=True)
+    report["yardsticks"] = yard
+    if not all(torch.isfinite(v).all() for v in state.values()):
+        fail("2048² state not finite")
+    pstate = {"s": state}
+
+    def prof_run(n):
+        pstate["s"] = run(pstate["s"], fl, n)
+
+    times, wall = device_profile(prof_run, 600)
+    busy = sum(times.values())
+    prof = {}
+    if wall:
+        per_launch = {}
+        for k in ("cyl_interior_k", "cyl_band_k"):
+            us = sum(t for nm, t in times.items() if any(f in nm for f in KERNEL_FUNCS[k]))
+            per_launch[k] = us / best["launches"][k]
+        prof = {"busy_share": busy / (wall * 1e6), "device_us_per_step": busy / 600,
+                "wall_us_per_step": wall * 1e6 / 600, "kernel_us_per_launch": per_launch,
+                "device_us_by_function": times}
+        print(f"  profiled window: device busy {busy / 600:.3f} us/step of "
+              f"{wall * 1e6 / 600:.3f} us wall (busy {busy / (wall * 1e6):.1%}); "
+              f"device us per launch {per_launch}", flush=True)
+    fx, fy = CY.drag_lift(pstate["s"], fl, cfg)
+    fx, fy = float(fx), float(fy)
+    print(f"  drag_lift after {20 + 4 * 600} steps: Fx {fx:.6g} Fy {fy:.6g}", flush=True)
+    if not (abs(fx) < float("inf") and abs(fy) < float("inf")):
+        fail("drag_lift not finite")
+    report.update({"windows": windows, "best": best, "profile": prof, "drag_lift": [fx, fy],
+                   "rows": run.step4.rows})
+
+    # ---- each kernel alone at the main path's shapes, and its twin ----
+    st = pstate["s"]
+    flags, phi = fl["flags"], fl["phi_obs"]
+    obs = (flags == int(CY.CellType.OBSTACLE)).float()
+    nbr_obs = torch.nn.functional.max_pool2d(obs[None, None], 3, 1, 1)[0, 0] > 0
+    t_ok = (phi > -1e-10) & (phi <= 1.0)
+    coupled_map = t_ok & nbr_obs & (obs == 0)
+    out = {k: torch.empty_like(v) for k, v in st.items()}
+    interior, band, edge = run.step4.rows
+    int1, band1 = run.step.rows
+    plane = W * 4
+
+    def nrows(segs):
+        return sum(y1 - y0 for y0, y1 in segs)
+
+    def coupled(segs):
+        return int(sum(int(coupled_map[y0:y1].sum()) for y0, y1 in segs))
+
+    def bound(segs, k, in_planes, out_planes, full):
+        rows = nrows(segs)
+        nbytes = (in_planes * (rows + 2 * k * len(segs)) + out_planes * rows) * plane
+        ops = (CYL_FLOPS * rows * W + (CYL_COUPLE_FLOPS * coupled(segs) if full else 0)) * k
+        return nbytes, ops
+
+    cases = {  # name: [(kernel call, twin call, bytes and operations)]
+        "cyl_full": [(lambda fn: fn(st["f"], st["rho"], st["vel"], flags, phi, out, band1, c),
+                      K.cyl_full_ref, bound(band1, 1, 14, 12, True))],
+        "cyl_interior": [(lambda fn: fn(st["f"], out, int1, c, False), K.cyl_interior_ref,
+                          bound(int1, 1, 9, 9, False))],
+        "cyl_interior_k": [(lambda fn: fn(st["f"], out, interior, 4, c, False),
+                            K.cyl_interior_k_ref, bound(interior, 4, 9, 9, False))],
+        "cyl_band_k": [(lambda fn: fn(st["f"], st["vel"], flags, phi, out, band, 4, False, c),
+                        K.cyl_band_k_ref, bound(band, 4, 13, 12, True)),
+                       (lambda fn: fn(st["f"], st["vel"], flags, phi, out, edge, 4, True, c),
+                        K.cyl_band_k_ref, bound(edge, 4, 10, 12, False))],
+    }
+    rows = []
+    print(f"cylinder kernels alone at {H}x{W} (memory rate {rate / 1e12:.2f} TB/s):", flush=True)
+    for k in CYL:
+        ms_l, plain_l, mem_l, ops_l = [], [], [], []
+        for call, twin, (nbytes, ops) in cases[k]:
+            kfn = getattr(K, k)
+            times, wall = device_profile(lambda n: [call(kfn) for _ in range(n)], 20)
+            us = sum(t for nm, t in times.items() if any(f in nm for f in KERNEL_FUNCS[k]))
+            ms_l.append(us / 20 / 1e3 if us > 0 else cuda_ms(lambda: call(kfn), 20))
+            plain_l.append(cuda_ms(lambda: call(twin), 1, warmup=1))
+            mem_l.append(nbytes / rate * 1e3)
+            ops_l.append(ops / F32_PEAK * 1e3)
+        n = len(ms_l)  # per launch, averaged over the band kernel's two variants
+        ms, plain_ms = sum(ms_l) / n, sum(plain_l) / n
+        mem_ms, ops_ms = sum(mem_l) / n, sum(ops_l) / n
+        bound_ms = max(mem_ms, ops_ms)
+        print(f"  {k:14s} {ms * 1e3:10.2f} us/launch  bound {bound_ms * 1e3:8.2f} us "
+              f"({'bytes' if mem_ms >= ops_ms else 'operations'})  {bound_ms / ms * 100:6.2f}% "
+              f"of bound  twin {plain_ms:.3f} ms  per-variant us {[round(x * 1e3, 2) for x in ms_l]}",
+              flush=True)
+        report.setdefault("per_launch", {})[k] = {
+            "ms": ms, "ms_by_variant": ms_l, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "mem_ms": mem_ms, "ops_ms": ops_ms}
+        src, rep = SOURCE[k]
+        rows.append({
+            "name": k, "route": "cuda", "source": src, "replaces": rep,
+            "launches": path_launches[k], "max_abs_err": max(errs[k]) if errs[k] else None,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if mem_ms >= ops_ms else "operations", "library_ms": None,
+        })
+    return rows, report
+
+
 def main() -> int:
     import torch
 
@@ -230,6 +550,9 @@ def main() -> int:
 
     errs = {k: [] for k in kernels.KERNELS}
     TOL = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4, "h": 2e-5, "C": 2e-5}
+
+    # ---- 0. the cylinder channel: kernels against twins, the 2048² path ----
+    cyl_rows, report["cylinder"] = cylinder_phases(dev, rate, errs)
 
     # ---- 1. each per-step kernel against its twin ----
     def fluid_cfg(shape, refine, **kw):
@@ -701,6 +1024,7 @@ def main() -> int:
             path128[k]["launches"][k], "events")
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    rows += cyl_rows
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)

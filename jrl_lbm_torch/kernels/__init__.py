@@ -1,19 +1,22 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel
-of the JRL main path, each beside its plain PyTorch twin: the per-step
-kernels of every grid (`jrl_fluid.py`, `jrl_c.py`) and the multi-step
-kernels of grids up to 131,072 cells (`fused_jrl.py`).
+of the JRL and cylinder-channel paths, each beside its plain PyTorch
+twin: the per-step JRL kernels of every grid (`jrl_fluid.py`, `jrl_c.py`),
+the multi-step JRL kernels of grids up to 131,072 cells (`fused_jrl.py`)
+and the four kernels of the cylinder channel's fused step
+(`cylinder.py`).
 
 The wrappers import without ``nvcc`` or a card; a kernel is built
 (`build.py`) the first time it is launched.
 """
 
 KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
-           "fused_fluid", "fused_balance", "fused_approach")
+           "fused_fluid", "fused_balance", "fused_approach",
+           "cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k")
 
 
 def wrappers():
     """The kernel wrappers by name (each carries ``.launches``)."""
-    from jrl_lbm_torch.kernels import fused_jrl, jrl_c, jrl_fluid
+    from jrl_lbm_torch.kernels import cylinder, fused_jrl, jrl_c, jrl_fluid
 
     return {
         "fluid_a": jrl_fluid.fluid_a,
@@ -23,6 +26,10 @@ def wrappers():
         "fused_fluid": fused_jrl.fused_fluid,
         "fused_balance": fused_jrl.fused_balance,
         "fused_approach": fused_jrl.fused_approach,
+        "cyl_full": cylinder.cyl_full,
+        "cyl_interior": cylinder.cyl_interior,
+        "cyl_interior_k": cylinder.cyl_interior_k,
+        "cyl_band_k": cylinder.cyl_band_k,
     }
 
 

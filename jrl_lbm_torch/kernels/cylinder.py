@@ -1,0 +1,774 @@
+"""Cylinder-channel kernels: the four CUDA kernels of the fused step, their
+plain PyTorch twins and the glue that runs them (counterpart of the JAX
+package's `ops/pallas/fused_step.py`).
+
+Replace the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_step.py`:
+
+* ``cyl_full`` (`csrc/cyl_full.cu`) <- ``_make_full_kernel``: one
+  full-boundary step (all six cell types, sub-grid bounce, INFLOW plug,
+  OUTFLOW copy, static-cylinder coupling, moments, MRT) on given rows;
+* ``cyl_interior`` (`csrc/cyl_interior.cu`) <- ``_make_interior_kernel``:
+  one plain-channel step (static wall columns) on given rows;
+* ``cyl_interior_k`` (`csrc/cyl_interior_k.cu`) <- ``_make_interior_kernel2``:
+  k plain-channel steps per launch (temporal blocking);
+* ``cyl_band_k`` (`csrc/cyl_band_k.cu`) <- ``_make_full_kernel2``: k
+  full-boundary steps per launch on the band rows, "cyl" or "edge"
+  variant.
+
+Each kernel reads only the previous state and writes its rows of separate
+output buffers, so the interior and band launches of one step need no
+merge copy: state ping-pongs between two buffer sets. Rows a launch does
+not own are left as they are in the output buffers.
+
+A wrapper given tensors on the CPU runs the twin; given tensors on the
+card it launches the kernel or raises. ``<wrapper>.launches`` counts the
+launches. The twins compute each step on the whole grid and write the
+wrapper's rows; a k-step twin runs k whole-grid steps. On those rows that
+is what the kernel computes: a k-step tile recomputes its k-cell halo,
+which is exact on a border that `check_border` accepts. Their arithmetic
+follows the Pallas bodies: the
+division-free equilibrium `_feq_terms` and the paired even/odd MRT
+`_mrt_apply`, so kernel and twin round alike (the sources build with
+``--fmad=false``).
+
+Semantics of the fused step kept from the JAX package (its module note):
+no contact-angle extrapolation; OBSTACLE rho passes through at k=1 and is
+``cfg.density`` in the k-step kernels; obstacle velocity 0 and no body
+force; OUTFLOW only on the global border; no INFLOW_2 rule. The split
+path assumes the cylinder scene: plain-channel rows outside the band
+(walls at x = 0 and W-1); the k-step path checks the border once per
+flags field. bf16 deviation storage (``bf16_dev``) is not ported (ROADMAP
+Queue 2 item 11).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+
+import torch
+
+from jrl_lbm_torch import lattice
+from jrl_lbm_torch.kernels import build
+from jrl_lbm_torch.ops import collide as _collide
+from jrl_lbm_torch.utils.types import CellType
+
+FLUID = int(CellType.FLUID)
+OBSTACLE = int(CellType.OBSTACLE)
+INFLOW = int(CellType.INFLOW)
+OUTFLOW = int(CellType.OUTFLOW)
+
+E = lattice.E
+REFL = lattice.REFLECT
+W_Q = lattice.W
+CS2 = 1.0 / 3.0
+_QPAIRS = ((1, 3), (2, 4), (5, 7), (6, 8))
+KMAX = 8  # deepest temporal blocking the k-step kernels take (csrc/cyl_common.cuh)
+
+
+# ---------------------------------------------------------------------------
+# Constants of a configuration
+# ---------------------------------------------------------------------------
+
+def _feq_terms(rho, ux, uy):
+    """Division-free D2Q9 equilibrium (``fused_step.py::_feq_terms``) of
+    tensors or Python floats; 9 values."""
+    uv = ux * ux + uy * uy
+    base = 1.0 - 1.5 * uv
+    eus = {1: ux, 2: uy, 5: ux + uy, 6: uy - ux}
+    out = [None] * 9
+    out[0] = rho * (float(W_Q[0]) * base)
+    for q, qb in _QPAIRS:
+        eu = eus[q]
+        c = base + 4.5 * (eu * eu)
+        e3 = 3.0 * eu
+        rw = rho * float(W_Q[q])
+        out[q] = rw * (c + e3)
+        out[qb] = rw * (c - e3)
+    return out
+
+
+def _pair_decomp(A):
+    """Even/odd form of the relaxation matrix over the opposite-direction
+    pairs (``fused_step.py::_pair_decomp``); None when A does not respect
+    the parity (never for `mrt_matrices`)."""
+    ev, od = {}, {}
+    for q in range(9):
+        ev[q] = [A[q][0]] + [0.5 * (A[q][i] + A[q][j]) for i, j in _QPAIRS]
+        od[q] = [0.5 * (A[q][i] - A[q][j]) for i, j in _QPAIRS]
+    tol = 1e-10
+    for q, qb in _QPAIRS:
+        if any(abs(x - y) > tol for x, y in zip(ev[q], ev[qb])):
+            return None
+        if any(abs(x + y) > tol for x, y in zip(od[q], od[qb])):
+            return None
+    if any(abs(x) > tol for x in od[0]):
+        return None
+    return ev, od
+
+
+class Consts:
+    """What the kernels and twins take from a `CylinderConfig`."""
+
+    def __init__(self, cfg):
+        self.H, self.W = cfg.res
+        self.tau = float(cfg.tau)
+        self.density = float(cfg.density)
+        self.inflow_vx, self.inflow_vy = 0.0, float(cfg.Vmax)
+        minv_s_m, _ = _collide.mrt_matrices(cfg.tau)
+        A = [[float(minv_s_m[a][b]) for b in range(9)] for a in range(9)]
+        dec = _pair_decomp(A)
+        if dec is None:
+            raise ValueError("MRT matrix without the even/odd pair form: not supported")
+        self.ev, self.od = dec
+        self.feq_in = _feq_terms(self.density, self.inflow_vx, self.inflow_vy)
+
+
+@functools.lru_cache(maxsize=16)
+def consts(cfg) -> Consts:
+    return Consts(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Plain twins: one step on the whole grid
+# ---------------------------------------------------------------------------
+
+def _shift(a, ex: int, ey: int, nf, style: str):
+    """Value at (y, x) from (y - ey, x - ex): FLUID cells wrap; non-FLUID
+    cells (``nf``) on the border take the reflected (``"reflect"``: x-1 < 0
+    -> 1) or the clamped (``"clamp"``) neighbour (``fused_step.py`` pull)."""
+    if ex == 0 and ey == 0:
+        return a
+    wrap = torch.roll(a, (ey, ex), dims=(-2, -1))
+    b = torch.roll(a, ex, dims=-1)
+    if ex == 1:
+        b[..., 0] = a[..., 1] if style == "reflect" else a[..., 0]
+    elif ex == -1:
+        b[..., -1] = a[..., -2] if style == "reflect" else a[..., -1]
+    c = torch.roll(b, ey, dims=-2)
+    if ey == 1:
+        c[..., 0, :] = b[..., 1, :] if style == "reflect" else b[..., 0, :]
+    elif ey == -1:
+        c[..., -1, :] = b[..., -2, :] if style == "reflect" else b[..., -1, :]
+    return torch.where(nf, c, wrap)
+
+
+def _dot(coeffs, vals):
+    acc = None
+    for c, x in zip(coeffs, vals):
+        if c == 0.0:
+            continue
+        term = x if c == 1.0 else c * x
+        acc = term if acc is None else acc + term
+    return 0.0 if acc is None else acc
+
+
+def _mrt_apply(c: Consts, fb, fe, is_obs):
+    """Paired even/odd M^-1 S M relaxation with OBSTACLE passthrough
+    (``fused_step.py::_mrt_apply``); list of 9 planes."""
+    d = [fe[q] - fb[q] for q in range(9)]
+    u = [d[0]] + [d[i] + d[j] for i, j in _QPAIRS]
+    v = [d[i] - d[j] for i, j in _QPAIRS]
+    out = [None] * 9
+    out[0] = fb[0] + _dot(c.ev[0], u)
+    for q, qb in _QPAIRS:
+        e_part = _dot(c.ev[q], u)
+        o_part = _dot(c.od[q], v)
+        out[q] = fb[q] + (e_part + o_part)
+        out[qb] = fb[qb] + (e_part - o_part)
+    return [torch.where(is_obs, fb[q], out[q]) for q in range(9)]
+
+
+def _moments_mrt(c: Consts, f_new, is_obs, rho_obs, vx_obs, vy_obs):
+    """Moments with the OBSTACLE passthrough values, then MRT; returns
+    ``(f [9,H,W], rho, vx, vy)``."""
+    macro_rho = f_new[0]
+    for q in range(1, 9):
+        macro_rho = macro_rho + f_new[q]
+    rho_n = torch.where(is_obs, rho_obs, macro_rho)
+    mom_x = f_new[1] - f_new[3] + f_new[5] - f_new[6] - f_new[7] + f_new[8]
+    mom_y = f_new[2] - f_new[4] + f_new[5] + f_new[6] - f_new[7] - f_new[8]
+    safe_rho = torch.where(rho_n == 0, 1.0, rho_n)
+    u_x = torch.where(is_obs, vx_obs, mom_x / safe_rho)
+    u_y = torch.where(is_obs, vy_obs, mom_y / safe_rho)
+    out = _mrt_apply(c, f_new, _feq_terms(rho_n, u_x, u_y), is_obs)
+    return torch.stack(out), rho_n, u_x, u_y
+
+
+def lean_step_ref(f, c: Consts):
+    """One plain-channel step on every row (``_lean_step_rows``): wall
+    columns x = 0 and W-1 (static bounce, rho = ``cfg.density``, vel 0),
+    FLUID elsewhere; returns ``(f, rho, vx, vy)``."""
+    H, W = f.shape[-2:]
+    gx = torch.arange(W, device=f.device).expand(H, W)
+    at_x0, at_xW = gx == 0, gx == W - 1
+    is_obs = at_x0 | at_xW
+    nbr_lo, nbr_hi = gx == 1, gx == W - 2
+
+    def pull(q):
+        ex, ey = int(E[q, 0]), int(E[q, 1])
+        rows = torch.roll(f[q], ey, dims=-2)
+        if ex == 0:
+            return rows
+        base = torch.roll(rows, ex, dims=-1)
+        if ex == 1:
+            return torch.where(at_x0, torch.roll(rows, -1, dims=-1), base)
+        return torch.where(at_xW, torch.roll(rows, 1, dims=-1), base)
+
+    raw_in = [f[0]] + [pull(q) for q in range(1, 9)]
+    f_new = [raw_in[0]]
+    for q in range(1, 9):
+        ex = int(E[q, 0])
+        streamed = raw_in[q]
+        if ex == 1:
+            streamed = torch.where(nbr_lo, f[int(REFL[q])], streamed)
+        elif ex == -1:
+            streamed = torch.where(nbr_hi, f[int(REFL[q])], streamed)
+        f_new.append(torch.where(is_obs, raw_in[int(REFL[q])], streamed))
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    return _moments_mrt(c, f_new, is_obs, torch.full_like(zero, c.density), zero, zero)
+
+
+def full_step_ref(f, vel, flags, phi, c: Consts, rho_obs, vel_obs):
+    """One full-boundary step on every row (``_make_full_kernel`` /
+    ``_full_step_rows``). ``vel`` feeds the coupling stencils; ``rho_obs``
+    and ``vel_obs`` ([2, H, W] or scalars) are what OBSTACLE cells keep.
+    With ``phi`` None (the "edge" variant) there is no sub-grid bounce and
+    no coupling, and ``vel`` is not read. Returns ``(f, rho, vx, vy)``."""
+    H, W = flags.shape
+    dev = f.device
+    gy = torch.arange(H, device=dev)[:, None].expand(H, W)
+    gx = torch.arange(W, device=dev)[None, :].expand(H, W)
+    at_y0, at_yH = gy == 0, gy == H - 1
+    at_x0, at_xW = gx == 0, gx == W - 1
+    nf = flags != FLUID
+    is_obs = flags == OBSTACLE
+    obs_f = is_obs.to(f.dtype)
+    coupling = phi is not None
+    if coupling:
+        t_ok = (phi > -1e-10) & (phi <= 1.0 + 1e-10)
+    else:
+        phi = torch.zeros((H, W), dtype=f.dtype, device=dev)
+        t_ok = torch.zeros((H, W), dtype=torch.bool, device=dev)
+
+    raw_in = [f[0]]
+    for q in range(1, 9):
+        raw_in.append(_shift(f[q], int(E[q, 0]), int(E[q, 1]), nf, "reflect"))
+    f_new = [f[0]]
+    for q in range(1, 9):
+        ex, ey = int(E[q, 0]), int(E[q, 1])
+        nbr_obs = _shift(obs_f, ex, ey, nf, "reflect") > 0.5
+        f_this = f[int(REFL[q])]
+        nxt = _shift(f[int(REFL[q])], -ex, -ey, nf, "reflect")
+        v1 = (2.0 * phi - 1.0) * raw_in[q] + (2.0 - 2.0 * phi) * f_this
+        v2 = (2.0 * phi) * f_this + (1.0 - 2.0 * phi) * nxt
+        v_obs = torch.where(t_ok, torch.where(phi >= 0.5, v1, v2), f_this)
+        streamed = torch.where(nbr_obs, v_obs, raw_in[q])
+        f_new.append(torch.where(is_obs, raw_in[int(REFL[q])], streamed))
+
+    in_mask = flags == INFLOW
+    for q in range(9):
+        f_new[q] = torch.where(in_mask, c.feq_in[q], f_new[q])
+
+    of_mask = flags == OUTFLOW
+    for q in range(9):
+        g = f_new[q]
+        g = torch.where(at_y0, torch.roll(g, -1, dims=0), g)
+        g = torch.where(at_yH, torch.roll(g, 1, dims=0), g)
+        g = torch.where(at_x0, torch.roll(g, -1, dims=1), g)
+        g = torch.where(at_xW, torch.roll(g, 1, dims=1), g)
+        f_new[q] = torch.where(of_mask, g, f_new[q])
+
+    if coupling:
+        _couple(f_new, vel, nf, is_obs, obs_f, phi, t_ok, at_xW | at_yH, c)
+
+    return _moments_mrt(c, f_new, is_obs, rho_obs, vel_obs[0], vel_obs[1])
+
+
+def _couple(f_new, vel, nf, is_obs, obs_f, phi, t_ok, border, c: Consts):
+    """Static-cylinder nonequilibrium reconstruction, in place on the list
+    ``f_new`` (``_make_full_kernel`` coupling section)."""
+    skip = is_obs | border
+    rho_tgt = f_new[0]
+    for q in range(1, 9):
+        rho_tgt = rho_tgt + f_new[q]
+    vel_tgt_x = torch.zeros_like(phi)
+    vel_tgt_y = torch.zeros_like(phi)
+    count = torch.zeros_like(phi)
+    valid = []
+    tq = torch.where(t_ok, phi, 0.0)
+    tqr = tq / (tq + 1.0)
+    for q in range(9):
+        ex, ey = int(E[q, 0]), int(E[q, 1])
+        v_q = (_shift(obs_f, -ex, -ey, nf, "clamp") > 0.5) & t_ok
+        valid.append(v_q)
+        vmask = v_q.to(phi.dtype)
+        count = count + vmask
+        ux = _shift(vel[0], ex, ey, nf, "clamp")
+        uy = _shift(vel[1], ex, ey, nf, "clamp")
+        vel_tgt_x = vel_tgt_x + vmask * tqr * ux
+        vel_tgt_y = vel_tgt_y + vmask * tqr * uy
+    safe_count = torch.where(count > 0, count, 1.0)
+    u0 = vel_tgt_x / safe_count
+    u1 = vel_tgt_y / safe_count
+
+    def grad12(a):
+        def at(sx, sy):
+            return _shift(a, -sx, -sy, nf, "clamp")
+
+        gxx = (4.0 * (at(1, 0) - at(-1, 0)) + (at(1, 1) - at(-1, 1))
+               + (at(1, -1) - at(-1, -1))) / 12.0
+        gyy = (4.0 * (at(0, 1) - at(0, -1)) + (at(1, 1) - at(1, -1))
+               + (at(-1, 1) - at(-1, -1))) / 12.0
+        return gxx, gyy
+
+    g00, g01 = grad12(vel[0])
+    g10, g11 = grad12(vel[1])
+    cs2tau = CS2 * c.tau
+    for q in range(9):
+        qi = int(REFL[q])
+        e0, e1 = float(E[qi, 0]), float(E[qi, 1])
+        pab = (u0 * u0 - cs2tau * (g00 + g00)) * (e0 * e0 - CS2)
+        pab = pab + (u1 * u0 - cs2tau * (g10 + g01)) * (e1 * e0)
+        pab = pab + (u0 * u1 - cs2tau * (g01 + g10)) * (e0 * e1)
+        pab = pab + (u1 * u1 - cs2tau * (g11 + g11)) * (e1 * e1 - CS2)
+        recon = float(W_Q[qi]) * rho_tgt * (
+            1.0 + (1.0 / CS2) * (u0 * e0 + u1 * e1) + 0.5 * pab / (CS2 * CS2)
+        )
+        f_new[qi] = torch.where(valid[q] & ~skip, recon, f_new[qi])
+
+
+def _write_rows(out, segs, f=None, rho=None, vx=None, vy=None):
+    for y0, y1 in segs:
+        if f is not None:
+            out["f"][:, y0:y1] = f[:, y0:y1]
+        if rho is not None:
+            out["rho"][y0:y1] = rho[y0:y1]
+            out["vel"][0, y0:y1] = vx[y0:y1]
+            out["vel"][1, y0:y1] = vy[y0:y1]
+
+
+def cyl_full_ref(f, rho, vel, flags, phi, out, segs, c: Consts):
+    step = full_step_ref(f, vel, flags, phi, c, rho, vel)
+    _write_rows(out, segs, *step)
+
+
+def cyl_interior_ref(f, out, segs, c: Consts, write_macro: bool):
+    fn, rho, vx, vy = lean_step_ref(f, c)
+    _write_rows(out, segs, fn, *((rho, vx, vy) if write_macro else ()))
+
+
+def cyl_interior_k_ref(f, out, segs, k: int, c: Consts, write_macro: bool):
+    for _ in range(k):
+        f, rho, vx, vy = lean_step_ref(f, c)
+    _write_rows(out, segs, f, *((rho, vx, vy) if write_macro else ()))
+
+
+def cyl_band_k_ref(f, vel, flags, phi, out, segs, k: int, edge: bool, c: Consts):
+    """k full steps with OBSTACLE rho ``cfg.density``; OBSTACLE vel is
+    carried from step to step ("cyl") or 0 ("edge", no coupling)."""
+    rho_obs = torch.full_like(flags, c.density, dtype=f.dtype)
+    for _ in range(k):
+        vel_obs = torch.zeros_like(vel) if edge else vel
+        f, rho, vx, vy = full_step_ref(f, vel, flags, None if edge else phi, c, rho_obs,
+                                       vel_obs)
+        vel = torch.stack([vx, vy])
+    _write_rows(out, segs, f, rho, vel[0], vel[1])
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+MAX_SEGS = 3
+
+
+class CylParams(ctypes.Structure):
+    _fields_ = [
+        ("H", ctypes.c_int), ("W", ctypes.c_int), ("nseg", ctypes.c_int),
+        ("write_macro", ctypes.c_int), ("seg", ctypes.c_int * (2 * MAX_SEGS)),
+        ("cs2tau", ctypes.c_float), ("wall_density", ctypes.c_float),
+        ("feq_in", ctypes.c_float * 9), ("ev0", ctypes.c_float * 5),
+        ("ev", (ctypes.c_float * 5) * 4), ("od", (ctypes.c_float * 4) * 4),
+    ]
+
+
+def _params(c: Consts, segs, write_macro: bool) -> CylParams:
+    p = CylParams(H=c.H, W=c.W, nseg=len(segs), write_macro=int(write_macro),
+                  cs2tau=CS2 * c.tau, wall_density=c.density)
+    for i, (y0, y1) in enumerate(segs):
+        p.seg[2 * i], p.seg[2 * i + 1] = y0, y1
+    p.feq_in[:] = [float(x) for x in c.feq_in]
+    p.ev0[:] = c.ev[0]
+    for i, (q, _) in enumerate(_QPAIRS):
+        p.ev[i][:] = c.ev[q]
+        p.od[i][:] = c.od[q]
+    return p
+
+
+def _check(c: Consts, segs, **tensors) -> torch.device:
+    """Float32 (flags int32) contiguous tensors of the grid on one CUDA
+    device, outputs apart from inputs, and 1-3 sorted disjoint row
+    segments inside the grid."""
+    H, W = c.H, c.W
+    if H < 3 or W < 3:
+        raise ValueError(f"grid {H}x{W} too small for the kernels (need >= 3x3)")
+    if not 1 <= len(segs) <= MAX_SEGS:
+        raise ValueError(f"{len(segs)} row segments; the kernels take 1 to {MAX_SEGS}")
+    last = 0
+    for y0, y1 in segs:
+        if not last <= y0 < y1 <= H:
+            raise ValueError(f"row segments {segs} not sorted, disjoint and inside [0, {H})")
+        last = y1
+    tensors = {name: tl for name, tl in tensors.items() if tl[0] is not None}
+    for name, (t, lead) in tensors.items():
+        want = tuple(lead) + (H, W)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {want}")
+        if t.dtype != (torch.int32 if name == "flags" else torch.float32):
+            raise ValueError(f"{name}: dtype {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+    ptrs = {name: t.data_ptr() for name, (t, _) in tensors.items()}
+    outs = {v for k, v in ptrs.items() if k.endswith("_out")}
+    ins = {v for k, v in ptrs.items() if not k.endswith("_out")}
+    if outs & ins or len(outs) != sum(k.endswith("_out") for k in ptrs):
+        raise ValueError("output buffers must be apart from the inputs and from each other")
+    dev = None
+    for name, (t, _) in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: on {t.device}, the kernel needs the card")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, the others on {dev}")
+    return dev
+
+
+def _stream(dev) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_k(k: int):
+    if not 1 <= int(k) <= KMAX:
+        raise ValueError(f"k = {k}: the temporal-blocking kernels take 1 <= k <= {KMAX}")
+
+
+def cyl_full(f, rho, vel, flags, phi, out, segs, c: Consts):
+    """One full-boundary step on the rows of ``segs`` (``[(y0, y1), ...]``)
+    into ``out["f"]``, ``out["rho"]``, ``out["vel"]``."""
+    if f.device.type == "cpu":
+        return cyl_full_ref(f, rho, vel, flags, phi, out, segs, c)
+    dev = _check(c, segs, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)), flags=(flags, ()),
+                 phi=(phi, ()), f_out=(out["f"], (9,)), rho_out=(out["rho"], ()),
+                 vel_out=(out["vel"], (2,)))
+    p = _params(c, segs, True)
+    fn = build.bind("cyl_full", "cyl_full_launch", [_P] * 8 + [_P, _P])
+    with torch.cuda.device(dev):
+        err = fn(f.data_ptr(), rho.data_ptr(), vel.data_ptr(), flags.data_ptr(), phi.data_ptr(),
+                 out["f"].data_ptr(), out["rho"].data_ptr(), out["vel"].data_ptr(),
+                 ctypes.byref(p), _stream(dev))
+    build.check(err, "cyl_full")
+    cyl_full.launches += 1
+
+
+def cyl_interior(f, out, segs, c: Consts, write_macro: bool):
+    """One plain-channel step on the rows of ``segs``; rho and vel are
+    written only with ``write_macro``."""
+    if f.device.type == "cpu":
+        return cyl_interior_ref(f, out, segs, c, write_macro)
+    rho_o, vel_o = (out["rho"], out["vel"]) if write_macro else (None, None)
+    dev = _check(c, segs, f=(f, (9,)), f_out=(out["f"], (9,)), rho_out=(rho_o, ()),
+                 vel_out=(vel_o, (2,)))
+    p = _params(c, segs, write_macro)
+    fn = build.bind("cyl_interior", "cyl_interior_launch", [_P] * 4 + [_P, _P])
+    with torch.cuda.device(dev):
+        err = fn(f.data_ptr(), out["f"].data_ptr(), _ptr(rho_o), _ptr(vel_o),
+                 ctypes.byref(p), _stream(dev))
+    build.check(err, "cyl_interior")
+    cyl_interior.launches += 1
+
+
+def cyl_interior_k(f, out, segs, k: int, c: Consts, write_macro: bool):
+    """k plain-channel steps in one launch on the rows of ``segs``."""
+    if f.device.type == "cpu":
+        return cyl_interior_k_ref(f, out, segs, k, c, write_macro)
+    _check_k(k)
+    rho_o, vel_o = (out["rho"], out["vel"]) if write_macro else (None, None)
+    dev = _check(c, segs, f=(f, (9,)), f_out=(out["f"], (9,)), rho_out=(rho_o, ()),
+                 vel_out=(vel_o, (2,)))
+    p = _params(c, segs, write_macro)
+    fn = build.bind("cyl_interior_k", "cyl_interior_k_launch", [_P] * 4 + [_I, _P, _P])
+    with torch.cuda.device(dev):
+        err = fn(f.data_ptr(), out["f"].data_ptr(), _ptr(rho_o), _ptr(vel_o), int(k),
+                 ctypes.byref(p), _stream(dev))
+    build.check(err, "cyl_interior_k")
+    cyl_interior_k.launches += 1
+
+
+def cyl_band_k(f, vel, flags, phi, out, segs, k: int, edge: bool, c: Consts):
+    """k full-boundary steps in one launch on the rows of ``segs``:
+    the "cyl" variant, or with ``edge`` the INFLOW/OUTFLOW variant (no
+    coupling, no vel/phi reads)."""
+    if f.device.type == "cpu":
+        return cyl_band_k_ref(f, vel, flags, phi, out, segs, k, edge, c)
+    _check_k(k)
+    dev = _check(c, segs, f=(f, (9,)), vel=(vel, (2,)), flags=(flags, ()), phi=(phi, ()),
+                 f_out=(out["f"], (9,)), rho_out=(out["rho"], ()), vel_out=(out["vel"], (2,)))
+    p = _params(c, segs, True)
+    fn = build.bind("cyl_band_k", "cyl_band_k_launch", [_P] * 7 + [_I, _I, _P, _P])
+    with torch.cuda.device(dev):
+        err = fn(f.data_ptr(), vel.data_ptr(), flags.data_ptr(), phi.data_ptr(),
+                 out["f"].data_ptr(), out["rho"].data_ptr(), out["vel"].data_ptr(), int(k),
+                 int(bool(edge)), ctypes.byref(p), _stream(dev))
+    build.check(err, "cyl_band_k")
+    cyl_band_k.launches += 1
+
+
+cyl_full.launches = 0
+cyl_interior.launches = 0
+cyl_interior_k.launches = 0
+cyl_band_k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Assembly (``fused_step.py`` glue)
+# ---------------------------------------------------------------------------
+
+def _check_storage(bf16_dev):
+    if bf16_dev is not False:
+        raise ValueError(f"bf16_dev={bf16_dev!r}: bf16 deviation storage is not ported "
+                         "(ROADMAP Queue 2 item 11); only float32 f")
+
+
+def f_to_storage(f, bf16_dev=False):
+    """The kernels' storage form of ``f``: float32 ``f`` itself."""
+    _check_storage(bf16_dev)
+    return f
+
+
+def f_from_storage(g, bf16_dev=False):
+    _check_storage(bf16_dev)
+    return g
+
+
+def _band_tiles(cfg, T, margin=4.0):
+    """``(n, b0, b1)``: T-row tiles, and the tile range [b0, b1] covering
+    the cylinder +- margin (``fused_step.py::_band_tiles``); tiles 0 and
+    n-1 (INFLOW, OUTFLOW) are band tiles too."""
+    H, _ = cfg.res
+    n = H // T
+    cy = cfg.center[1]
+    r = cfg.D / 2.0
+    b0 = max(0, int((cy - r - margin) // T))
+    b1 = min(n - 1, int((cy + r + margin) // T))
+    return n, b0, b1
+
+
+def _choose_interior_T(cfg, tile_rows, interior_rows, margin=4.0):
+    """Largest interior tile height that leaves interior tiles to run on;
+    ``(T, b0, b1)`` or None."""
+    H, _ = cfg.res
+    T = interior_rows
+    while T >= 8:
+        if H % T == 0 and T % tile_rows == 0:
+            n, b0, b1 = _band_tiles(cfg, T, margin=margin)
+            if b0 >= 1 and b1 <= n - 2 and (n - ((b1 - b0 + 1) + 2)) > 0:
+                return T, b0, b1
+        T //= 2
+    return None
+
+
+def _split_rows(H, T, b0, b1):
+    """``(interior, cyl band, edge band)`` row segments of the split."""
+    interior = [s for s in ((T, b0 * T), ((b1 + 1) * T, H - T)) if s[0] < s[1]]
+    return interior, [(b0 * T, (b1 + 1) * T)], [(0, T), (H - T, H)]
+
+
+def _new_out(state, keep_macro: bool):
+    """Output buffers of one step; rho and vel start as copies of the
+    state's where a step leaves rows of them unwritten."""
+    if keep_macro:
+        return {"f": torch.empty_like(state["f"]), "rho": state["rho"].clone(),
+                "vel": state["vel"].clone()}
+    return {k: torch.empty_like(state[k]) for k in ("f", "rho", "vel")}
+
+
+def make_fused_step(cfg, tile_rows: int = 8, split: bool = True,
+                    interior_rows: int = 32, bf16_dev=False, write_macro: bool = True):
+    """``step(state, fields, out=None)``: one fused step with the API of
+    `models.cylinder.make_step` (``make_fused_step`` of the JAX package).
+    The split path (interior rows through ``cyl_interior``, band rows
+    through ``cyl_full``) is taken when the band geometry leaves interior
+    tiles, else every row goes through ``cyl_full``.
+
+    ``write_macro=False`` (split path only) leaves the interior rows of
+    rho/vel unwritten; `make_macro_refresh` recomputes them. The step
+    writes into ``out`` (a dict of f/rho/vel buffers apart from the
+    state's) when given, else into new buffers; in that mode the new rho
+    and vel start as copies of the state's, as the JAX step updates its
+    donated buffers."""
+    _check_storage(bf16_dev)
+    H, W = cfg.res
+    if H % tile_rows != 0:
+        raise ValueError(f"H = {H} must be divisible by the tile height {tile_rows}")
+    T = interior_rows
+    use_split = False
+    while split and T >= 8:
+        if H % T == 0 and T % tile_rows == 0:
+            n, b0, b1 = _band_tiles(cfg, T)
+            if b0 >= 1 and b1 <= n - 2 and (n - ((b1 - b0 + 1) + 2)) > 0:
+                use_split = True
+                break
+        T //= 2
+    c = consts(cfg)
+    skip_macro = (not write_macro) and use_split
+    if use_split:
+        interior, cyl_rows, edge_rows = _split_rows(H, T, b0, b1)
+        band = edge_rows[:1] + cyl_rows + edge_rows[1:]
+    else:
+        band = [(0, H)]
+
+    def step(state, fields, out=None):
+        if out is None:
+            out = _new_out(state, skip_macro)
+        f, rho, vel = state["f"], state["rho"], state["vel"]
+        if use_split:
+            cyl_interior(f, out, interior, c, write_macro=not skip_macro)
+        cyl_full(f, rho, vel, fields["flags"], fields["phi_obs"], out, band, c)
+        return out
+
+    step.skip_macro = skip_macro
+    step.split = use_split
+    step.rows = (interior if use_split else [], band)
+    return step
+
+
+def check_border(flags):
+    """The border the k-step tiles need to be exact (csrc/cyl_common.cuh,
+    temporal blocking): OBSTACLE side columns and no FLUID cell on the
+    first and last rows, as in the cylinder channel."""
+    if not bool((flags[:, [0, -1]] == OBSTACLE).all()) or bool((flags[[0, -1], :] == FLUID).any()):
+        raise ValueError("the k-step split path needs the cylinder channel's border: "
+                         "OBSTACLE side columns and no FLUID cell on the first and last rows")
+
+
+def make_fused_step2(cfg, tile_rows: int = 8, interior_rows: int = 32,
+                     write_macro: bool = False, bf16_dev=False, k: int = 2):
+    """``stepk(state, fields, out=None)``: k steps per call by temporal
+    blocking (``make_fused_step2`` of the JAX package): ``cyl_interior_k``
+    on the interior rows, ``cyl_band_k`` on the cylinder band and on the
+    INFLOW/OUTFLOW rows (two launches). None where the JAX function
+    returns None: k outside 2 <= k <= min(8, tile_rows), or no split that
+    keeps the band margin max(4, k+1). Raises on a flags field whose
+    border `check_border` refuses."""
+    _check_storage(bf16_dev)
+    H, W = cfg.res
+    if not (2 <= k <= min(8, tile_rows)):
+        return None
+    choice = _choose_interior_T(cfg, tile_rows, interior_rows, margin=max(4.0, float(k + 1)))
+    if choice is None:
+        return None
+    T, b0, b1 = choice
+    n = H // T
+    if not (b0 >= 1 and b1 <= n - 2):
+        raise ValueError(f"band tiles {b0}..{b1} of {n} touch the INFLOW/OUTFLOW tiles")
+    c = consts(cfg)
+    interior, cyl_rows, edge_rows = _split_rows(H, T, b0, b1)
+    checked = {}
+
+    def stepk(state, fields, out=None):
+        flags = fields["flags"]
+        key = (flags.data_ptr(), flags._version, flags.device)
+        if checked.get("key") != key:
+            check_border(flags)
+            checked["key"] = key
+        if out is None:
+            out = _new_out(state, not write_macro)
+        f, vel, phi = state["f"], state["vel"], fields["phi_obs"]
+        cyl_interior_k(f, out, interior, k, c, write_macro)
+        cyl_band_k(f, vel, flags, phi, out, cyl_rows, k, False, c)
+        cyl_band_k(f, vel, flags, phi, out, edge_rows, k, True, c)
+        return out
+
+    stepk.skip_macro = not write_macro
+    stepk.k = k
+    stepk.rows = (interior, cyl_rows, edge_rows)
+    return stepk
+
+
+def make_macro_refresh(cfg, bf16_dev=False):
+    """``refresh(state, fields)``: rho and vel recomputed from f on every
+    non-OBSTACLE cell, OBSTACLE cells keep the stored values (a plain
+    elementwise pass; MRT conserves mass and momentum, so it equals the
+    kernels' pre-collision moments up to float32 round-off)."""
+    _check_storage(bf16_dev)
+
+    def refresh(state, fields):
+        f = state["f"]
+        rho_m = f[0]
+        for q in range(1, 9):
+            rho_m = rho_m + f[q]
+        mom_x = f[1] - f[3] + f[5] - f[6] - f[7] + f[8]
+        mom_y = f[2] - f[4] + f[5] + f[6] - f[7] - f[8]
+        is_obs = fields["flags"] == OBSTACLE
+        safe = torch.where(rho_m == 0, 1.0, rho_m)
+        rho = torch.where(is_obs, state["rho"], rho_m)
+        u_x = torch.where(is_obs, state["vel"][0], mom_x / safe)
+        u_y = torch.where(is_obs, state["vel"][1], mom_y / safe)
+        return dict(state, rho=rho, vel=torch.stack([u_x, u_y]))
+
+    return refresh
+
+
+def make_fused_cylinder_runner(cfg, tile_rows: int = 16, split: bool = True,
+                               interior_rows: int = 32, bf16_dev=False,
+                               write_macro: bool = False):
+    """``run(state, fields, n)``: n steps through the kernels, k=4 passes
+    while at least 4 steps remain (unless ``LBM_FUSED_K`` is set to
+    another value than 4), then k=2, then single steps, then one macro
+    refresh (``make_fused_cylinder_runner`` of the JAX package, same
+    defaults). The state ping-pongs between two buffer sets allocated per
+    call; the caller's state is never written."""
+    step = make_fused_step(cfg, tile_rows, split=split, interior_rows=interior_rows,
+                           bf16_dev=bf16_dev, write_macro=write_macro)
+    step2 = step4 = None
+    if split:
+        step2 = make_fused_step2(cfg, tile_rows, interior_rows=interior_rows,
+                                 write_macro=write_macro, bf16_dev=bf16_dev)
+        if os.environ.get("LBM_FUSED_K", "4") == "4":
+            step4 = make_fused_step2(cfg, tile_rows, interior_rows=interior_rows,
+                                     write_macro=write_macro, bf16_dev=bf16_dev, k=4)
+    skip = (step.skip_macro or (step2 is not None and step2.skip_macro)
+            or (step4 is not None and step4.skip_macro))
+    refresh = make_macro_refresh(cfg, bf16_dev=bf16_dev) if skip else None
+
+    def run(state, fields, n: int):
+        if n <= 0:
+            return state
+        bufs = [_new_out(state, True), _new_out(state, True)]
+        i = 0
+        m = n
+        plan = [(step4, 4), (step2, 2), (step, 1)]
+        for fn, kk in plan:
+            if fn is None:
+                continue
+            while m >= kk:
+                state = fn(state, fields, bufs[i])
+                i ^= 1
+                m -= kk
+        if refresh is not None:
+            state = refresh(state, fields)
+        return state
+
+    run.step, run.step2, run.step4 = step, step2, step4
+    return run

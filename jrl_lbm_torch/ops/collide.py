@@ -1,7 +1,8 @@
 """BGK collision with the axisymmetric source terms (counterpart of the
 JAX package's `ops/collide.py::axisymmetric_source`, `bgk_collide`;
-reference `LBM_collision_2d.py:343-555`). MRT and KBC are not on the JRL
-path and are not ported yet.
+reference `LBM_collision_2d.py:343-555`), and the MRT collision of the
+cylinder scene (`mrt_matrices`, `mrt_collide`; reference
+`LBM_collision_MRT_2d.py:36-184`). KBC is not ported yet.
 
 Reference quirk kept: the convection-rate `elif` repeats LINE_X_EQ_0
 where LINE_Y_EQ_0 was meant, so LINE_Y_EQ_0 convection gets no extra
@@ -10,6 +11,7 @@ relaxation-rate term.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from jrl_lbm_torch import lattice
@@ -130,4 +132,73 @@ def bgk_collide(
         is_convection=is_convection, dx=dx, dt=dt,
     )
     collided = f + w_rate * (feq_ - f) + dt * Gi
+    return torch.where((flags == int(CellType.OBSTACLE))[None], f, collided)
+
+
+# ---------------------------------------------------------------------------
+# MRT
+# ---------------------------------------------------------------------------
+
+def mrt_matrices(tau: float, tau_D: float | None = None):
+    """M^-1 S M for the fluid (and, with ``tau_D``, the convection) lattice
+    as float64 numpy arrays: s7 = 1/tau, s4 = 8(2 - s7)/(8 - s7); the
+    convection rates are the reference's literal [1, 1.1, 1.1, s3, s3, s3,
+    s3, 1.2, 1.2] with s3 = 1/tau_D."""
+    M = np.array(
+        [
+            [1, 1, 1, 1, 1, 1, 1, 1, 1],
+            [-4, -1, -1, -1, -1, 2, 2, 2, 2],
+            [4, -2, -2, -2, -2, 1, 1, 1, 1],
+            [0, 1, 0, -1, 0, 1, -1, -1, 1],
+            [0, -2, 0, 2, 0, 1, -1, -1, 1],
+            [0, 0, 1, 0, -1, 1, 1, -1, -1],
+            [0, 0, -2, 0, 2, 1, 1, -1, -1],
+            [0, 1, -1, 1, -1, 0, 0, 0, 0],
+            [0, 0, 0, 0, 0, 1, -1, 1, -1],
+        ],
+        dtype=np.float64,
+    )
+    s7 = 1.0 / tau
+    s4 = 8.0 * (2.0 - s7) / (8.0 - s7)
+    S = np.array([0.0, s7, s7, 0.0, s4, 0.0, s4, s7, s7])
+    Minv = np.linalg.inv(M)
+    MinvSM = Minv @ (S[:, None] * M)
+
+    MinvSM_conv = None
+    if tau_D is not None:
+        s3 = 1.0 / tau_D
+        S_conv = np.array([1.0, 1.1, 1.1, s3, s3, s3, s3, 1.2, 1.2])
+        MinvSM_conv = Minv @ (S_conv[:, None] * M)
+    return MinvSM, MinvSM_conv
+
+
+def mrt_collide(
+    f,
+    rho,
+    vel,
+    flags,
+    minv_s_m,
+    tau: float,
+    force=None,
+    mesh_grid=None,
+    is_convection: bool = False,
+    axisymmetric_type: int = 0,
+    dx: float = 1.0,
+    dt: float = 1.0,
+):
+    """MRT collision ``f + M^-1 S M (feq - f) + dt Gi`` with OBSTACLE
+    passthrough. The 9x9 moment contraction is written out as float32
+    multiply-adds in a fixed order, so no matrix unit (TF32) ever rounds
+    it."""
+    feq_ = feq(rho, vel, dx=dx, dt=dt, force=force)
+    A = [[float(x) for x in row] for row in np.asarray(minv_s_m, dtype=np.float64)]
+    d = feq_ - f
+    omega = torch.stack([
+        sum((A[a][b] * d[b] for b in range(1, 9)), A[a][0] * d[0]) for a in range(9)
+    ])
+    Gi = axisymmetric_source(
+        rho, vel, flags, feq_, mesh_grid, tau, int(axisymmetric_type),
+        is_convection=is_convection, dx=dx, dt=dt,
+    )
+    collided = f + omega + dt * Gi
     return torch.where((flags == int(CellType.OBSTACLE))[None], f, collided)

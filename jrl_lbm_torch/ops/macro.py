@@ -1,21 +1,55 @@
-"""Moments rho, u and C with OBSTACLE passthrough (counterpart of the JAX
-package's `ops/macro.py`; reference `LBM_macro_compute_2d.py:273-336`)."""
+"""Moments rho, u and C with OBSTACLE passthrough, and the contact-angle
+border extrapolation (counterpart of the JAX package's `ops/macro.py`;
+reference `LBM_macro_compute_2d.py:237-336`)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from jrl_lbm_torch.utils.types import CellType
 
 
-def macro_compute(f, rho, vel, flags, dx: float = 1.0, dt: float = 1.0):
+def contact_angle_correctness(rho, flags, contact_angle: float):
+    """Ghost-density extrapolation on the domain border
+    (`LBM_macro_compute_2d.py:237-271`): a ``rho_obs`` field that is zero
+    except on the outermost ring (the adjacent interior line plus a
+    tan(pi/2 - theta) slope term), substituted at every OBSTACLE cell, so
+    interior obstacle cells read density 0. The reference's bottom-right
+    corner averages ``rho_obs[-2, -2]`` with itself; kept."""
+    tanv = math.tan(math.pi / 2.0 - float(contact_angle))
+    rho_obs = torch.zeros_like(rho)
+
+    hlp = torch.abs(rho[2:, 1] - rho[:-2, 1])
+    rho_obs[1:-1, 0] = rho[1:-1, 2] + tanv * hlp
+    hlp = torch.abs(rho[2:, -2] - rho[:-2, -2])
+    rho_obs[1:-1, -1] = rho[1:-1, -3] + tanv * hlp
+    hlp = torch.abs(rho[1, 2:] - rho[1, :-2])
+    rho_obs[0, 1:-1] = rho[2, 1:-1] + tanv * hlp
+    hlp = torch.abs(rho[-2, 2:] - rho[-2, :-2])
+    rho_obs[-1, 1:-1] = rho[-3, 1:-1] + tanv * hlp
+
+    rho_obs[0, 0] = 0.5 * (rho_obs[1, 0] + rho_obs[0, 1])
+    rho_obs[-1, 0] = 0.5 * (rho_obs[-2, 0] + rho_obs[-1, 1])
+    rho_obs[0, -1] = 0.5 * (rho_obs[0, -2] + rho_obs[1, -1])
+    rho_obs[-1, -1] = 0.5 * (rho_obs[-2, -2] + rho_obs[-2, -2])
+
+    return torch.where(flags == int(CellType.OBSTACLE), rho_obs, rho)
+
+
+def macro_compute(f, rho, vel, flags, dx: float = 1.0, dt: float = 1.0,
+                  contact_angle: float | None = None):
     """rho = sum_q f, u = sum_q f e_q c / rho; OBSTACLE cells keep the
-    incoming rho and vel."""
+    incoming rho and vel, or with ``contact_angle`` take the border
+    extrapolation of :func:`contact_angle_correctness` as rho."""
     c = dx / dt
     is_obs = flags == int(CellType.OBSTACLE)
 
     macro_rho = torch.sum(f, dim=0)
     rho_new = torch.where(is_obs, rho, macro_rho)
+    if contact_angle is not None:
+        rho_new = contact_angle_correctness(rho_new, flags, contact_angle)
 
     mom_x = f[1] - f[3] + f[5] - f[6] - f[7] + f[8]
     mom_y = f[2] - f[4] + f[5] + f[6] - f[7] - f[8]

@@ -73,6 +73,7 @@ def propagate(
     phi_obs: torch.Tensor | None = None,
     rho: torch.Tensor | None = None,
     vel: torch.Tensor | None = None,
+    inflow_vel=None,
     inflow_density: float | None = None,
     axisymmetric_type: int = 0,
     dx: float = 1.0,
@@ -81,10 +82,12 @@ def propagate(
     """Stream ``f`` one step; returns ``(rho, vel, f_new)``.
 
     ``rho``/``vel`` pass through except at INFLOW/INFLOW_2 cells; callers
-    that supplied none get ``None`` back. INFLOW cells take the local
-    velocity (the JAX op's ``inflow_vel`` and ``is_convection`` arguments
-    are not ported: no JRL step passes the first, and the second is dead
-    code there).
+    that supplied none get ``None`` back. INFLOW cells take
+    ``feq(rho_in, inflow_vel)`` and, when ``vel`` is given, their ``vel``
+    is set to ``inflow_vel`` (a 2-vector, the channel inlet); without
+    ``inflow_vel`` they take the local velocity. INFLOW_2 cells always take
+    the local velocity. (The JAX op's ``is_convection`` argument is dead
+    code there and is not ported.)
     """
     axis_x = int(axisymmetric_type) == int(AxiSymmetricType.LINE_X_EQ_0)
     axis_y = int(axisymmetric_type) == int(AxiSymmetricType.LINE_Y_EQ_0)
@@ -161,14 +164,20 @@ def propagate(
         rho_in = rho
     else:
         rho_in = torch.zeros((H, W), dtype=dtype, device=dev)
-    u_in = vel if vel is not None else torch.zeros((2, H, W), dtype=dtype, device=dev)
+    u_loc = vel if vel is not None else torch.zeros((2, H, W), dtype=dtype, device=dev)
+    if inflow_vel is not None:
+        u_in = torch.as_tensor(inflow_vel, dtype=dtype, device=dev)[:, None, None].expand(2, H, W)
+    else:
+        u_in = u_loc
     f_new = torch.where(in_mask[None], feq(rho_in, u_in, dx=dx, dt=dt), f_new)
     if rho is not None and has_inflow_density:
         rho_out = torch.where(in_mask, rho_in, rho_out)
+    if vel is not None and inflow_vel is not None:
+        vel_out = torch.where(in_mask[None], u_in, vel_out)
 
     # INFLOW_2: rho = 1 Dirichlet equilibrium with the local velocity
     in2_mask = flags == int(CellType.INFLOW_2)
-    feq_in2 = feq(torch.ones((H, W), dtype=dtype, device=dev), u_in, dx=dx, dt=dt)
+    feq_in2 = feq(torch.ones((H, W), dtype=dtype, device=dev), u_loc, dx=dx, dt=dt)
     f_new = torch.where(in2_mask[None], feq_in2, f_new)
     if rho is not None:
         rho_out = torch.where(in2_mask, torch.ones((), dtype=dtype, device=dev), rho_out)

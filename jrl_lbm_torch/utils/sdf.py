@@ -1,5 +1,5 @@
-"""Signed-distance combinator and the four JRL tip SDFs (counterpart of
-the JAX package's `utils/sdf.py`).
+"""Signed-distance combinator, the cylinder and the four JRL tip SDFs
+(counterpart of the JAX package's `utils/sdf.py`).
 
 Box centres may be 0-d float32 tensors (the tip position ``walks`` is
 one): PyTorch then does the scalar arithmetic in float32, as JAX does
@@ -24,6 +24,19 @@ def union_phi_obs(phi1: torch.Tensor, phi2: torch.Tensor, alpha: float = 0.0):
         / (1.0 + alpha)
         * (phi1 + phi2 - torch.sqrt(phi1 * phi1 + phi2 * phi2 - 2 * alpha * phi1 * phi2))
     )
+
+
+def cylinder_phi(mesh_grid, center, radius: float):
+    """Signed distance to a circle (`demo_2d_LBM_cylinder.py:26-40`)."""
+    x = mesh_grid[0]
+    y = mesh_grid[1]
+    cx, cy = center[0], center[1]
+    dx, dy = x - cx, y - cy
+    d2 = dx * dx + dy * dy - radius * radius
+    # the root through float64: PyTorch's float32 sqrt on the CPU is not
+    # always correctly rounded, and the result must equal JAX's
+    s = torch.sqrt(torch.abs(d2).double()).to(d2.dtype)
+    return torch.where(d2 > 0, s, -s)
 
 
 def jrl_tip_flat(mesh_grid, box_center, box_radius: float, res_y: int | None = None):

@@ -18,13 +18,17 @@ trajectory tolerances: f, rho, C and h 2e-5, vel 2e-4.
 """
 
 import ctypes
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
+from jrl_lbm_torch import kernels
 from jrl_lbm_torch.kernels import build, jrl_c, jrl_fluid
+from jrl_lbm_torch.kernels import cylinder as K
 from jrl_lbm_torch.kernels import fused_jrl as F
+from jrl_lbm_torch.models import cylinder as CY
 from jrl_lbm_torch.models import jrl as T
 
 RES = (128, 64)
@@ -257,3 +261,184 @@ def test_cuda_fused_grid_over_coresident_limit_raises(cuda):
     with pytest.raises(RuntimeError, match="cudaError"):
         build.check(err, "fused_balance")
     assert F.fused_balance.launches == n0
+
+
+# --- the cylinder channel (kernels/cylinder.py) ---
+
+
+# a split geometry (interior, band and edge rows) and a generic one (every
+# row through cyl_full)
+CYL = {
+    "split": (dict(res=(256, 128), D=16.0, Re=500.0, cylinder_center=(64.0, 128.0)),
+              dict(tile_rows=16, interior_rows=32)),
+    "generic": (dict(res=(64, 32), D=8.0, Re=500.0, cylinder_center=(16.0, 32.0)),
+                dict(tile_rows=8, split=False)),
+    # narrower than a k-step tile: the halo wraps around the grid
+    "narrow": (dict(res=(96, 32), D=8.0, Re=500.0, cylinder_center=(16.0, 48.0)),
+               dict(tile_rows=8, interior_rows=16)),
+}
+TWINS = {"cyl_full": K.cyl_full_ref, "cyl_interior": K.cyl_interior_ref,
+         "cyl_interior_k": K.cyl_interior_k_ref, "cyl_band_k": K.cyl_band_k_ref}
+
+
+def _cyl_state(dev, geometry, steps=30):
+    """A developed state (``steps`` plain steps), nudged by seeded noise so
+    that every cell differs from its neighbours."""
+    cfg = CY.CylinderConfig(**CYL[geometry][0])
+    s, fields = CY.init(cfg, dev)
+    s = CY.make_runner(cfg)(s, fields, steps)
+    rng = np.random.default_rng(7)
+    s = {k: v + torch.as_tensor((1e-4 * rng.standard_normal(tuple(v.shape))).astype(np.float32),
+                                device=dev) for k, v in s.items()}
+    return cfg, s, fields
+
+
+def _twin_runner(cfg, **kw):
+    """``make_fused_cylinder_runner`` with every kernel call replaced by its
+    plain twin, on any device."""
+    run = K.make_fused_cylinder_runner(cfg, **kw)
+
+    def twin_run(state, fields, n):
+        with mock.patch.multiple(K, **TWINS):
+            return run(state, fields, n)
+
+    return twin_run
+
+
+def _outs(s):
+    return {k: torch.full_like(v, 7.0) for k, v in s.items()}
+
+
+def _close_all(got, want, tol, tag):
+    for k in ("f", "rho", "vel"):
+        _close(got[k], want[k], tol, f"{tag} {k}")
+
+
+def _segments(cfg, kw):
+    """(interior, cylinder band, edge) rows of the split; (all rows) else."""
+    H = cfg.res[0]
+    if kw.get("split", True):
+        T, b0, b1 = K._choose_interior_T(cfg, kw["tile_rows"], kw["interior_rows"], margin=5.0)
+        return K._split_rows(H, T, b0, b1)
+    return [], [(0, H)], []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["split", "generic"])
+def test_cuda_cyl_full_matches_twin(cuda, geometry):
+    cfg, s, fields = _cyl_state(cuda, geometry)
+    c = K.consts(cfg)
+    interior, band, edge = _segments(cfg, CYL[geometry][1])
+    segs = sorted(edge + band)
+    got, want = _outs(s), _outs(s)
+    n0 = K.cyl_full.launches
+    K.cyl_full(s["f"], s["rho"], s["vel"], fields["flags"], fields["phi_obs"], got, segs, c)
+    K.cyl_full_ref(s["f"], s["rho"], s["vel"], fields["flags"], fields["phi_obs"], want, segs, c)
+    torch.cuda.synchronize()
+    _close_all(got, want, 1e-5, "cyl_full 1 step")
+    assert K.cyl_full.launches - n0 == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("write_macro", [True, False])
+def test_cuda_cyl_interior_matches_twin(cuda, write_macro):
+    cfg, s, fields = _cyl_state(cuda, "split")
+    c = K.consts(cfg)
+    interior, _, _ = _segments(cfg, CYL["split"][1])
+    got, want = _outs(s), _outs(s)
+    K.cyl_interior(s["f"], got, interior, c, write_macro)
+    K.cyl_interior_ref(s["f"], want, interior, c, write_macro)
+    torch.cuda.synchronize()
+    _close_all(got, want, 1e-5, "cyl_interior 1 step")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_cuda_cyl_interior_k_matches_twin(cuda, k):
+    cfg, s, fields = _cyl_state(cuda, "split")
+    c = K.consts(cfg)
+    interior, _, _ = _segments(cfg, CYL["split"][1])
+    got, want = _outs(s), _outs(s)
+    K.cyl_interior_k(s["f"], got, interior, k, c, True)
+    K.cyl_interior_k_ref(s["f"], want, interior, k, c, True)
+    torch.cuda.synchronize()
+    _close_all(got, want, 1e-5, f"cyl_interior_k k={k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_cuda_cyl_band_k_matches_twin(cuda, k, edge):
+    cfg, s, fields = _cyl_state(cuda, "split")
+    K.check_border(fields["flags"])
+    c = K.consts(cfg)
+    _, band, edge_rows = _segments(cfg, CYL["split"][1])
+    segs = edge_rows if edge else band
+    got, want = _outs(s), _outs(s)
+    args = (s["f"], s["vel"], fields["flags"], fields["phi_obs"])
+    K.cyl_band_k(*args, got, segs, k, edge, c)
+    K.cyl_band_k_ref(*args, want, segs, k, edge, c)
+    torch.cuda.synchronize()
+    _close_all(got, want, 1e-5, f"cyl_band_k k={k} edge={edge}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [40, 41, 42, 43])
+@pytest.mark.parametrize("geometry", ["split", "generic", "narrow"])
+def test_cuda_cyl_runner_matches_twin_runner(cuda, geometry, n):
+    """n steps of the kernel runner against the twin runner: odd n runs
+    the k=4, k=2 and k=1 kernels in one call on the split geometry; f and
+    rho 2e-5, vel 2e-4, all cells."""
+    cfg, s, fields = _cyl_state(cuda, geometry, steps=0)
+    kw = CYL[geometry][1]
+    kernels.reset_launches()
+    got = K.make_fused_cylinder_runner(cfg, **kw)(s, fields, n)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    want = _twin_runner(cfg, **kw)(s, fields, n)
+    for name in ("f", "rho", "vel"):
+        _close(got[name], want[name], TRAJ_TOL[name], f"runner {geometry} {n} steps {name}")
+    if geometry != "generic":
+        assert counts["cyl_interior_k"] >= n // 4 and counts["cyl_band_k"] >= 2 * (n // 4)
+        assert (counts["cyl_full"] > 0) == (n % 2 == 1)
+    else:
+        assert counts["cyl_full"] == n and counts["cyl_interior_k"] == 0
+    assert kernels.launches()["cyl_full"] == counts["cyl_full"]  # the twins launch nothing
+
+
+@pytest.mark.cuda
+def test_cuda_cyl_wrappers_refuse_bad_tensors(cuda):
+    cfg, s, fields = _cyl_state(cuda, "generic", steps=0)
+    c = K.consts(cfg)
+    out = _outs(s)
+    H = cfg.res[0]
+    args = (s["rho"], s["vel"], fields["flags"], fields["phi_obs"])
+    with pytest.raises(ValueError, match="dtype"):
+        K.cyl_full(s["f"].double(), *args, out, [(0, H)], c)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.cyl_full(s["f"].transpose(1, 2).contiguous().transpose(1, 2), *args, out, [(0, H)], c)
+    with pytest.raises(ValueError, match="shape"):
+        K.cyl_full(s["f"][:, :-1], *args, out, [(0, H - 1)], c)
+    with pytest.raises(ValueError, match="apart"):
+        K.cyl_full(s["f"], *args, dict(out, f=s["f"]), [(0, H)], c)
+    with pytest.raises(ValueError, match="segments"):
+        K.cyl_interior(s["f"], out, [(8, 4)], c, True)
+    with pytest.raises(ValueError, match="k ="):
+        K.cyl_interior_k(s["f"], out, [(8, 16)], 9, c, True)
+
+
+@pytest.mark.cuda
+def test_cuda_cyl_launch_failure_raises(cuda):
+    """A launch the card refuses (k past the kernels' depth, called below
+    the wrapper's check) comes back as a cudaError and raises."""
+    cfg, s, fields = _cyl_state(cuda, "generic", steps=0)
+    c = K.consts(cfg)
+    out = _outs(s)
+    p = K._params(c, [(8, 16)], True)
+    fn = build.bind("cyl_interior_k", "cyl_interior_k_launch",
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+    err = fn(s["f"].data_ptr(), out["f"].data_ptr(), out["rho"].data_ptr(),
+             out["vel"].data_ptr(), 9, ctypes.byref(p), jrl_fluid.stream_of(cuda))
+    assert err != 0
+    with pytest.raises(RuntimeError, match="cudaError"):
+        build.check(err, "cyl_interior_k")
