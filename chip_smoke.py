@@ -4,7 +4,7 @@ NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the eleven CUDA kernels of ``jrl_lbm_torch/kernels/csrc`` (one
+1. Builds the fourteen CUDA kernels of ``jrl_lbm_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
@@ -35,12 +35,26 @@ NVIDIA card and check them.
    frame boundaries and once across tip rows. Then fluid steps
    2**24 - 5 .. 2**24 + 4 through the multi-step kernel and through
    fluid_a / fluid_b against the twin.
-4. Runs the main path at 1024x512 through the ``pick_*`` runners (the
-   per-step kernels): 1000 fluid, balance and approach steps; each
-   phase's launch counts are zeroed just before it and read just after,
-   every per-step kernel must have launched and no multi-step kernel.
-   Times the phases, each kernel per launch (beside its bound) and each
-   twin per call.
+3a. Holds each tile-class kernel (``fluid_k``, ``fluid_k_lean``,
+   ``fluid_k_bt``) to its twin after one launch at k = 1, 2, 4 (1e-5) at
+   1024x512: the refine-8 ethaline grid at step 0 (full and lean tiles)
+   and a flat tip at a step with below-tip tiles; then the tiled runner
+   (``kernels/jrl_tiled.py::make_tiled_fluid_runner``) against the same
+   runner on the twins and against fluid_a / fluid_b over 110 steps that
+   cross a tip row and a frontier change, on both grids, and over steps
+   2**24 - 5 .. 2**24 + 4 at k = 1 and 4 (f, rho 2e-5; vel 2e-4).
+4. Runs the main path at 1024x512 through the ``pick_*`` runners: 1000
+   fluid steps of the refine-8 ethaline case through the tile classes
+   (``fluid_k`` and ``fluid_k_lean`` must launch, ``fluid_a`` /
+   ``fluid_b`` must not), the same steps through the per-step pair as the
+   yardstick, 1000 steps of a flat tip from a step with below-tip tiles
+   (all three tile kernels), 100 steps of the ethaline late travel from
+   step 41,280 (no lean tile left: ``fluid_a`` / ``fluid_b``, as in JAX),
+   then 1000 balance and approach steps (per-step kernels); each phase's
+   launch counts are zeroed just before it and read just after, and no
+   kernel off the phase may launch. Times the phases (busy share, device
+   µs per launch), each kernel per launch beside its bound and each twin
+   per call.
 5. Runs the 128x64 path of the default case (``JRLFluidConfig()``,
    ``JRLCConfig()``) through the ``pick_*`` runners in the chunks
    ``run_case`` uses: the fluid phase to its first record step, one
@@ -52,7 +66,7 @@ NVIDIA card and check them.
 6. Runs one whole case through ``jrl_main.run_case`` at 128x64 twice:
    through the multi-step kernels (its default) and through the per-step
    runners; the record rows agree to rtol 2e-4 / atol 1e-4.
-7. Prints ``{"kernels": [...]}`` (eleven rows), the card's name and
+7. Prints ``{"kernels": [...]}`` (fourteen rows), the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without printing a result when no
@@ -82,7 +96,10 @@ F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores
 # hundred of 524288). The operation bound stays far under the memory one.
 FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach": 330,
                   # per cell and step: A + B; the balance; the approach + the lerp
-                  "fused_fluid": 650, "fused_balance": 230, "fused_approach": 335}
+                  "fused_fluid": 650, "fused_balance": 230, "fused_approach": 335,
+                  # per cell and step of a tile class (halo recompute not
+                  # counted): A + B; the lean A (pulls, moments) + B
+                  "fluid_k": 650, "fluid_k_lean": 420, "fluid_k_bt": 650}
 PER_STEP = ("fluid_a", "fluid_b", "c_balance", "c_approach")
 FUSED = ("fused_fluid", "fused_balance", "fused_approach")
 SOURCE = {
@@ -108,7 +125,14 @@ SOURCE = {
                        "jrl_lbm_tpu/ops/pallas/fused_step.py:606"),
     "cyl_band_k": ("jrl_lbm_torch/kernels/csrc/cyl_band_k.cu",
                    "jrl_lbm_tpu/ops/pallas/fused_step.py:838"),
+    "fluid_k": ("jrl_lbm_torch/kernels/csrc/fluid_k.cu",
+                "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1349"),
+    "fluid_k_lean": ("jrl_lbm_torch/kernels/csrc/fluid_k_lean.cu",
+                     "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1482"),
+    "fluid_k_bt": ("jrl_lbm_torch/kernels/csrc/fluid_k_bt.cu",
+                   "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1522"),
 }
+TILED = ("fluid_k", "fluid_k_lean", "fluid_k_bt")
 
 
 def fail(msg: str):
@@ -195,6 +219,9 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "cyl_interior": ("cyl_interior_kernel",),
     "cyl_interior_k": ("cyl_interior_k_kernel",),
     "cyl_band_k": ("cyl_band_k_kernel",),
+    "fluid_k": ("fluid_k_kernel",),
+    "fluid_k_lean": ("fluid_k_lean_kernel",),
+    "fluid_k_bt": ("fluid_k_bt_kernel",),
 }
 
 
@@ -520,6 +547,167 @@ def cylinder_phases(dev, rate, errs):
     return rows, report
 
 
+# ---------------------------------------------------------------------------
+# The JRL fluid phase above 131,072 cells: the tile classes (kernels/jrl_tiled.py)
+# ---------------------------------------------------------------------------
+
+TILE_KS = (1, 2, 4)
+
+
+def tiled_twin_runner(run):
+    """``run`` (a tiled runner) with every kernel call replaced by its twin."""
+    from unittest import mock
+
+    from jrl_lbm_torch.kernels import jrl_fluid
+    from jrl_lbm_torch.kernels import jrl_tiled as JT
+
+    twins = dict(fluid_k=JT.fluid_k_ref, fluid_k_lean=JT.fluid_k_lean_ref,
+                 fluid_k_bt=JT.fluid_k_bt_ref, fluid_a=jrl_fluid.fluid_a_ref,
+                 fluid_b=jrl_fluid.fluid_b_ref)
+
+    def twin_run(state, fields, start, n):
+        with mock.patch.multiple(JT, **twins):
+            return run(state, fields, start, n)
+
+    return twin_run
+
+
+def noisy(state, dev, seed, scale=1e-3):
+    """``state`` plus seeded noise, so that every cell differs from its
+    neighbours."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {k: v + scale * torch.randn(v.shape, generator=g, device=dev) for k, v in state.items()}
+
+
+def split_step(JT, cfg, k: int, want_bt: bool):
+    """``(step, fr, fb)``: the first step (a multiple of 8) whose k-step
+    pass has lean tiles and, with ``want_bt``, below-tip tiles."""
+    c = JT.tile_consts(cfg)
+    TH = JT.pick_tile_rows(cfg)
+    n = c["H"] // TH
+    s = 0
+    while True:
+        fr = JT.frontier(c, TH, k, s + k)
+        fb = min(JT.below(c, TH, k, s), fr)
+        if fr < JT.lean_last(n, TH, k) and (fb >= 1 or not want_bt):
+            return s, fr, fb
+        s += 8
+        if s > cfg.total_steps:
+            fail(f"{cfg.shape} {c['H']}x{c['W']}: no step with the tile classes wanted")
+
+
+def tile_bytes(name: str, segs, k: int, H: int, W: int):
+    """``(bytes, cells)`` of one launch: each input row once (the rows of
+    the segments and their 2k-row halos, mod H), each output row once."""
+    read = set()
+    for y0, y1 in segs:
+        read.update(y % H for y in range(y0 - 2 * k, y1 + 2 * k))
+    rows = sum(y1 - y0 for y0, y1 in segs)
+    planes_in = 9 if name == "fluid_k_lean" else 12
+    return 4 * W * (planes_in * len(read) + 12 * rows), rows * W
+
+
+def tiled_checks(dev, fluid_cfg, errs):
+    """The tile-class kernels at 1024x512 against their twins: (a) each
+    kernel after one launch at k = 1, 2, 4 on the refine-8 ethaline grid
+    (step 0: full and lean tiles) and on a flat tip of the same size (a
+    step with below-tip tiles too), 1e-5; (b) the tiled runner against the
+    twin runner and the per-step kernels over 110 steps that cross a tip
+    row and a frontier change, and over steps 2**24 - 5 .. 2**24 + 4 at
+    k = 1 and k = 4 (f, rho 2e-5; vel 2e-4). Returns a report."""
+    import torch
+
+    from jrl_lbm_torch import kernels
+    from jrl_lbm_torch.kernels import jrl_tiled as JT
+    from jrl_lbm_torch.models import jrl as T
+
+    TOL = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4}
+    report = {}
+    configs = {"ethaline 1024x512": fluid_cfg("ethaline", 8),
+               "cylinder 1024x512": fluid_cfg("cylinder", 1, res=(1024, 512))}
+
+    def compare_runs(tag, cfg, s, fields, start, n, k=1):
+        run = JT.make_tiled_fluid_runner(cfg, k=k)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = run(s, fields, start, n)
+        torch.cuda.synchronize()
+        used = [name for name, c in kernels.launches().items() if c]
+        want = tiled_twin_runner(run)(s, fields, start, n)
+        per = T.make_per_step_fluid_runner(cfg)(s, fields, start, n)
+        for nm in ("f", "rho", "vel"):
+            rep = []
+            check_close(f"{tag} vs twin runner {nm}", got[nm], want[nm], TOL[nm], rep)
+            check_close(f"{tag} vs fluid_a/fluid_b {nm}", got[nm], per[nm], TOL[nm], [])
+            for name in used:
+                errs[name].extend(rep)
+        print(f"  {tag}: launches {dict((k_, c) for k_, c in kernels.launches().items() if c)}",
+              flush=True)
+        return used
+
+    for label, cfg in configs.items():
+        H, W = cfg.eff_res
+        flat = cfg.shape in T.FLAT_SHAPES
+        s, fields = T.fluid_init(cfg, dev)
+        s = noisy(s, dev, 11)
+        for k in TILE_KS:
+            step, fr, fb = split_step(JT, cfg, k, flat)
+            full, bt, lean = JT.class_rows(H, JT.pick_tile_rows(cfg), k, fr, fb)
+            print(f"compare tile kernels with twins: {label}, k={k}, step {step}: full rows "
+                  f"{full}, below-tip {bt}, lean {lean}", flush=True)
+            calls = [("fluid_k", lambda fn, o: fn(s["f"], s["rho"], s["vel"], o, full, step, k,
+                                                  cfg), JT.fluid_k_ref),
+                     ("fluid_k_lean", lambda fn, o: fn(s["f"], o, lean, k, cfg),
+                      JT.fluid_k_lean_ref)]
+            if bt:
+                calls.append(("fluid_k_bt", lambda fn, o: fn(s["f"], s["rho"], s["vel"], o, bt,
+                                                             k, cfg), JT.fluid_k_bt_ref))
+            elif flat:
+                fail(f"{label} k={k}: no below-tip tiles at step {step}")
+            for name, call, twin in calls:
+                got = {key: torch.full_like(v, 7.0) for key, v in s.items()}
+                want = {key: torch.full_like(v, 7.0) for key, v in s.items()}
+                n0 = getattr(JT, name).launches
+                call(getattr(JT, name), got)
+                call(twin, want)
+                torch.cuda.synchronize()
+                if getattr(JT, name).launches != n0 + 1:
+                    fail(f"{name} did not count its launch")
+                for nm in ("f", "rho", "vel"):
+                    check_close(f"{name} k={k} 1 launch {nm}", got[nm], want[nm], 1e-5,
+                                errs[name])
+
+        # (b) 110 steps across a tip row and a frontier change
+        c, TH, n = JT.tile_consts(cfg), JT.pick_tile_rows(cfg), 110
+        start = split_step(JT, cfg, 1, flat)[0]
+        while JT.frontier(c, TH, 1, start + n) == JT.frontier(c, TH, 1, start):
+            start += 50
+        rows = [T.tip_walks(cfg.inflow_height, x, cfg.vel_obs)[1] for x in (start, start + n)]
+        print(f"tiled runner {label}: steps {start} .. {start + n - 1}, tip row {rows[0]} -> "
+              f"{rows[1]}, frontier tile {JT.frontier(c, TH, 1, start + 8)} -> "
+              f"{JT.frontier(c, TH, 1, start + n)}", flush=True)
+        if rows[1] <= rows[0]:
+            fail(f"{label}: the runner check crosses no tip row")
+        used = compare_runs(f"{label} {n} steps", cfg, s, fields, start, n)
+        want_used = {"fluid_k", "fluid_k_lean"} | ({"fluid_k_bt"} if flat else set())
+        if not want_used <= set(used):
+            fail(f"{label}: the runner launched {used}, expected {sorted(want_used)}")
+        report[label] = {"runner_start": start, "runner_steps": n, "launched": used}
+
+    print("tiled fluid steps 2**24 - 5 .. 2**24 + 4 at 1024x512", flush=True)
+    cfg = fluid_cfg("ethaline", 8, Re=1.2e-5, vel_obs_real=28e-6)
+    start = 2**24 - 5
+    if not 1 < T.tip_walks(cfg.inflow_height, start + 10, cfg.vel_obs)[1] < cfg.eff_res[0] - 1:
+        fail("the tip leaves the grid in the 2**24 check")
+    s, fields = T.fluid_init(cfg, dev)
+    s = noisy(s, dev, 24)
+    for k in (1, 4):
+        compare_runs(f"2**24 k={k}", cfg, s, fields, start, 10, k=k)
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -531,6 +719,7 @@ def main() -> int:
 
     from jrl_lbm_torch import jrl_main, kernels
     from jrl_lbm_torch.kernels import build, fused_jrl, jrl_c, jrl_fluid
+    from jrl_lbm_torch.kernels import jrl_tiled as JT
     from jrl_lbm_torch.models import jrl as T
 
     dev = torch.device("cuda")
@@ -697,13 +886,18 @@ def main() -> int:
             check_close(f"{shape} fused_fluid {nm}", g_, w, TOL[nm], errs["fused_fluid"])
             check_close(f"{shape} fluid_a/b {nm}", per_step[nm], w, TOL[nm], errs["fluid_a"])
 
-    # ---- 3. the main path at 1024x512, through the per-step kernels ----
+    # ---- 2a. the tile-class kernels and the tiled runner at 1024x512 ----
+    report["tiled"] = tiled_checks(dev, fluid_cfg, errs)
+
+    # ---- 3. the main path at 1024x512 ----
     phases = {}
 
-    def run_phase(pname, kernel_names, fn, n, cells):
+    def run_phase(pname, kernel_names, fn, n, cells, yardstick=False):
         """Run ``fn(n)`` with the launch counts zeroed just before and read
         just after; every kernel of ``kernel_names`` must have launched and
-        no other. Then device time by kernel over a profiled repeat."""
+        no other. Then device time by kernel over a profiled repeat. A
+        yardstick phase is timed beside the main path and is not part of
+        it."""
         fn(10)  # warm-up
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -715,7 +909,7 @@ def main() -> int:
         counts = kernels.launches()
         ms = start.elapsed_time(end)
         rec = {"steps": n, "ms": ms, "ms_per_step": ms / n, "mlups": cells * n / (ms * 1e3),
-               "launches": dict(counts)}
+               "launches": dict(counts), "yardstick": yardstick}
         phases[pname] = rec
         print(f"  {pname:18s} {n} steps {ms / n * 1e3:.3f} us/step  "
               f"{cells * n / (ms * 1e3):.1f} MLUPS  launches "
@@ -748,20 +942,51 @@ def main() -> int:
     H, W = fc.eff_res
     cells = H * W
     n = 1000
-    print(f"main path {H}x{W}: {n} steps per phase (per-step kernels)", flush=True)
+    print(f"main path {H}x{W}: {n} steps per phase (the fluid phase through the tile "
+          f"classes, C through the per-step kernels)", flush=True)
+
+    def stepper(cfg, run, state, fields, cur):
+        """``fn(k)``: k more steps of ``run`` from step ``cur``."""
+        box = {"s": state, "cur": cur}
+
+        def steps(k):
+            box["s"] = run(box["s"], fields, box["cur"], k)
+            box["cur"] += k
+            return box["s"]
+
+        return steps
 
     s, fl = T.fluid_init(fc, dev)
-    fluid_run = T.pick_fluid_runner(fc)
-    fstate = {"s": s, "cur": 0}
-
-    def fluid_steps(k):
-        fstate["s"] = fluid_run(fstate["s"], fl, fstate["cur"], k)
-        fstate["cur"] += k
-        return fstate["s"]
-
-    sf = run_phase("fluid", ("fluid_a", "fluid_b"), fluid_steps, n, cells)
+    sf = run_phase("fluid", ("fluid_k", "fluid_k_lean"),
+                   stepper(fc, T.pick_fluid_runner(fc), s, fl, 0), n, cells)
     if not all(torch.isfinite(v).all() for v in sf.values()):
         fail("fluid state not finite")
+    # the yardstick: the same steps through the per-step pair (the path
+    # of this grid before the tile classes)
+    run_phase("fluid per-step", ("fluid_a", "fluid_b"),
+              stepper(fc, T.make_per_step_fluid_runner(fc), s, fl, 0), n, cells, yardstick=True)
+    # a flat tip at 1024x512 from a step with below-tip tiles, through the
+    # same pick: full, below-tip and lean classes
+    fcyl = fluid_cfg("cylinder", 1, res=(1024, 512))
+    sc, flc = T.fluid_init(fcyl, dev)
+    s_bt = split_step(JT, fcyl, 1, True)[0]
+    out = run_phase("fluid flat", TILED, stepper(fcyl, T.pick_fluid_runner(fcyl), noisy(sc, dev, 5),
+                                                  flc, s_bt), n, cells)
+    if not all(torch.isfinite(v).all() for v in out.values()):
+        fail("flat fluid state not finite")
+    # the late travel of the ethaline case: no lean tile left, the JAX
+    # runner's _tiled_chunk, here the per-step pair
+    late = 41_280
+    if any(kind != "ab" for kind, *_ in JT.chunk_plan(fc, late, 300)):
+        fail(f"the ethaline plan still splits from step {late} on")
+    out = run_phase("fluid late travel", ("fluid_a", "fluid_b"),
+                    stepper(fc, T.pick_fluid_runner(fc), noisy(s, dev, 6), fl, late), 100, cells)
+    if not all(torch.isfinite(v).all() for v in out.values()):
+        fail("late-travel fluid state not finite")
+    tiled_launch = {"ethaline": JT.class_rows(H, JT.pick_tile_rows(fc), 1,
+                                               *JT.chunk_plan(fc, 0, 8)[0][3:]),
+                    "cylinder": JT.class_rows(H, JT.pick_tile_rows(fcyl), 1,
+                                              *JT.chunk_plan(fcyl, s_bt, 8)[0][3:])}
     vel_field = torch.stack([s["vel"], sf["vel"], sf["vel"]]) / fc.vel_obs
 
     st, cf, flags = T.c_init(cc, dev)
@@ -789,7 +1014,7 @@ def main() -> int:
         fail("approach state not finite or inflow not positive")
 
     # ---- 4. each per-step kernel alone, and its twin, at 1024x512 ----
-    rows = []
+    rows, tiled_rows = [], []
 
     def row(k, ms, plain_ms, ins, outs, steps, cells_, launches, timed_from):
         nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
@@ -834,18 +1059,67 @@ def main() -> int:
                        [st["h"], st["C"], acc0]),
     }
     print(f"per launch at {H}x{W} (memory rate {rate / 1e12:.2f} TB/s):", flush=True)
-    main_launches = {k: sum(p["launches"].get(k, 0) for p in phases.values()) for k in PER_STEP}
+    main_phases = [p for p in phases.values() if not p.get("yardstick")]
+    main_launches = {k: sum(p["launches"].get(k, 0) for p in main_phases)
+                     for k in PER_STEP + TILED}
+
+    def main_us(k):
+        """The kernel's device µs per launch on the main path (profiler)."""
+        return next((p["kernel_us_per_launch"][k] for p in main_phases
+                     if (p.get("kernel_us_per_launch") or {}).get(k)), None)
+
     for k in PER_STEP:
         kfn, tfn, ins, outs = runs[k]
         call_ms = cuda_ms(kfn, 200)
         # the kernel's device time on the main path (profiler), else the
         # event time of back-to-back wrapper calls (host time included)
-        dev_us = next((p["kernel_us_per_launch"][k] for p in phases.values()
-                       if (p.get("kernel_us_per_launch") or {}).get(k)), None)
+        dev_us = main_us(k)
         ms = dev_us / 1e3 if dev_us else call_ms
         row(k, ms, cuda_ms(tfn, 5, warmup=1), ins, outs, 1, cells, main_launches[k],
             "profiler" if dev_us else "events")
         phases["per_launch"][k]["wrapper_call_ms"] = call_ms
+
+    # the tile-class kernels at the main path's first pass (k = 1): the
+    # ethaline step 0 (full + lean) and the flat tip's (full + below-tip +
+    # lean); device µs per launch from the profiled main-path phases
+    s, fl = T.fluid_init(fc, dev)
+    o = {key: torch.empty_like(v) for key, v in s.items()}
+    sc = noisy(T.fluid_init(fcyl, dev)[0], dev, 5)
+    full, _, lean = tiled_launch["ethaline"]
+    _, bt, _ = tiled_launch["cylinder"]
+    truns = {
+        "fluid_k": (lambda fn: fn(s["f"], s["rho"], s["vel"], o, full, 0, 1, fc), JT.fluid_k_ref,
+                    full),
+        "fluid_k_lean": (lambda fn: fn(s["f"], o, lean, 1, fc), JT.fluid_k_lean_ref, lean),
+        "fluid_k_bt": (lambda fn: fn(sc["f"], sc["rho"], sc["vel"], o, bt, 1, fcyl),
+                       JT.fluid_k_bt_ref, bt),
+    }
+    for k in TILED:
+        call, twin, segs = truns[k]
+        kfn = getattr(JT, k)
+        call_ms = cuda_ms(lambda: call(kfn), 100)
+        dev_us = main_us(k)
+        nbytes, cells_l = tile_bytes(k, segs, 1, H, W)
+        mem_ms = nbytes / rate * 1e3
+        ops_ms = FLOPS_PER_CELL[k] * cells_l / F32_PEAK * 1e3
+        row_tiled = dict(ms=dev_us / 1e3 if dev_us else call_ms,
+                         plain_ms=cuda_ms(lambda: call(twin), 2, warmup=1),
+                         bound_ms=max(mem_ms, ops_ms), mem_ms=mem_ms, ops_ms=ops_ms, bytes=nbytes,
+                         rows=segs, wrapper_call_ms=call_ms,
+                         time_from="profiler" if dev_us else "events")
+        phases["per_launch"][k] = row_tiled
+        print(f"  {k:14s} {row_tiled['ms'] * 1e3:10.2f} us  bound {row_tiled['bound_ms'] * 1e3:8.2f}"
+              f" us ({'bytes' if mem_ms >= ops_ms else 'operations'}; {nbytes / 1e6:.2f} MB, rows "
+              f"{segs})  {row_tiled['bound_ms'] / row_tiled['ms'] * 100:6.2f}% of bound  twin "
+              f"{row_tiled['plain_ms']:.3f} ms", flush=True)
+        src, rep_ = SOURCE[k]
+        tiled_rows.append({
+            "name": k, "route": "cuda", "source": src, "replaces": rep_,
+            "launches": main_launches[k], "max_abs_err": max(errs[k]) if errs[k] else None,
+            "ms": row_tiled["ms"], "plain_ms": row_tiled["plain_ms"],
+            "bound_ms": row_tiled["bound_ms"],
+            "bound_by": "bytes" if mem_ms >= ops_ms else "operations", "library_ms": None,
+        })
 
     # ---- 5. the 128x64 path of the default case, multi-step kernels ----
     fc0, cc0 = T.JRLFluidConfig(), T.JRLCConfig()
@@ -1024,7 +1298,7 @@ def main() -> int:
             path128[k]["launches"][k], "events")
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    rows += cyl_rows
+    rows += cyl_rows + tiled_rows
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel
 of the JRL and cylinder-channel paths, each beside its plain PyTorch
 twin: the per-step JRL kernels of every grid (`jrl_fluid.py`, `jrl_c.py`),
-the multi-step JRL kernels of grids up to 131,072 cells (`fused_jrl.py`)
-and the four kernels of the cylinder channel's fused step
+the multi-step JRL kernels of grids up to 131,072 cells (`fused_jrl.py`),
+the k-step tile-class kernels of the JRL fluid phase on larger grids
+(`jrl_tiled.py`) and the four kernels of the cylinder channel's fused step
 (`cylinder.py`).
 
 The wrappers import without ``nvcc`` or a card; a kernel is built
@@ -11,12 +12,13 @@ The wrappers import without ``nvcc`` or a card; a kernel is built
 
 KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "fused_fluid", "fused_balance", "fused_approach",
-           "cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k")
+           "cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k",
+           "fluid_k", "fluid_k_lean", "fluid_k_bt")
 
 
 def wrappers():
     """The kernel wrappers by name (each carries ``.launches``)."""
-    from jrl_lbm_torch.kernels import cylinder, fused_jrl, jrl_c, jrl_fluid
+    from jrl_lbm_torch.kernels import cylinder, fused_jrl, jrl_c, jrl_fluid, jrl_tiled
 
     return {
         "fluid_a": jrl_fluid.fluid_a,
@@ -30,6 +32,9 @@ def wrappers():
         "cyl_interior": cylinder.cyl_interior,
         "cyl_interior_k": cylinder.cyl_interior_k,
         "cyl_band_k": cylinder.cyl_band_k,
+        "fluid_k": jrl_tiled.fluid_k,
+        "fluid_k_lean": jrl_tiled.fluid_k_lean,
+        "fluid_k_bt": jrl_tiled.fluid_k_bt,
     }
 
 

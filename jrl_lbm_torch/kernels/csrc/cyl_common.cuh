@@ -24,6 +24,7 @@ using jrl::ex_of;
 using jrl::ey_of;
 using jrl::refl;
 using jrl::wq;
+using jrl::wrap_near;
 using jrl::FLUID;
 using jrl::INFLOW;
 using jrl::OBSTACLE;
@@ -393,39 +394,13 @@ __host__ __device__ inline int tile_tx(int k) { return TILE_EX - 2 * k; }
 __host__ __device__ constexpr int tile_ty(int mode) { return mode == LEAN ? 16 : 8; }
 
 __host__ __device__ inline int row_tiles(const CylParams& p, int ty) {
-  int n = 0;
-  for (int s = 0; s < p.nseg; ++s) n += (p.seg[2 * s + 1] - p.seg[2 * s] + ty - 1) / ty;
-  return n;
-}
-
-// First row and the segment's end row of row tile `bt`.
-__device__ __forceinline__ bool tile_origin(const CylParams& p, int bt, int ty, int& ty0,
-                                            int& yend) {
-  for (int s = 0; s < p.nseg; ++s) {
-    const int y0 = p.seg[2 * s], y1 = p.seg[2 * s + 1];
-    const int n = (y1 - y0 + ty - 1) / ty;
-    if (bt < n) {
-      ty0 = y0 + bt * ty;
-      yend = y1;
-      return true;
-    }
-    bt -= n;
-  }
-  return false;
+  return jrl::seg_tiles(p.nseg, p.seg, ty);
 }
 
 // Floats of dynamic shared memory a tile of mode M takes at depth k.
 __host__ __device__ inline int tile_smem_floats(int mode, int k) {
   const int ext = TILE_EX * (tile_ty(mode) + 2 * k);
   return ext * (mode == LEAN ? 18 : (mode == FULL_CYL ? 24 : 19));
-}
-
-// v in [0, n) for v a few n away at most (one step for grids wider and
-// taller than a tile).
-__device__ __forceinline__ int wrap_near(int v, int n) {
-  while (v < 0) v += n;
-  while (v >= n) v -= n;
-  return v;
 }
 
 // k is a template parameter: the buffer strides become immediate offsets.
@@ -445,7 +420,7 @@ __device__ __forceinline__ void tile_steps(const float* f, const float* vel, con
   float* ph = VEL ? smem + 23 * EXT : nullptr;
 
   int ty0, yend;
-  if (!tile_origin(p, blockIdx.y, tile_ty(MODE), ty0, yend)) return;
+  if (!jrl::seg_tile_origin(p.nseg, p.seg, blockIdx.y, tile_ty(MODE), ty0, yend)) return;
   const int oy = ty0 - k, ox = blockIdx.x * tile_tx(k) - k;
   const bool write_macro = MODE != LEAN || p.write_macro;
   const int tx = threadIdx.x, tyi = threadIdx.y;

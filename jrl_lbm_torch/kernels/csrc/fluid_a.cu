@@ -29,7 +29,15 @@ __global__ void __launch_bounds__(256) fluid_a_kernel(
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= p.W || y >= p.H) return;
-  fluid_a_cell(f, rho, fluid_geo(vel, step, p), p.cs2tau, y, x, f_out, rho_out, vel_out);
+  float fo[9], r, u, v;
+  fluid_a_cell(GlobalState{f, rho, vel, p.H, p.W, y, x}, fluid_geo(step, p), p.cs2tau, y, x, fo,
+               r, u, v);
+  const int HW = p.H * p.W, i = y * p.W + x;
+#pragma unroll
+  for (int q = 0; q < 9; ++q) f_out[q * HW + i] = fo[q];
+  rho_out[i] = r;
+  vel_out[i] = u;
+  vel_out[HW + i] = v;
 }
 
 }  // namespace

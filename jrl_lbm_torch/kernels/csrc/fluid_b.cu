@@ -25,7 +25,11 @@ __global__ void __launch_bounds__(256) fluid_b_kernel(
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= p.W || y >= p.H) return;
-  fluid_b_cell(f, rho, vel, fluid_flags(step, p), p, y, x, f_out);
+  float fo[9];
+  fluid_b_cell(GlobalState{f, rho, vel, p.H, p.W, y, x}, fluid_geo(step, p), p, y, x, fo);
+  const int HW = p.H * p.W, i = y * p.W + x;
+#pragma unroll
+  for (int q = 0; q < 9; ++q) f_out[q * HW + i] = fo[q];
 }
 
 }  // namespace

@@ -47,18 +47,32 @@ __global__ void __launch_bounds__(FUSED_BLOCK) fused_fluid_kernel(
     float* rd = (i & 1) ? rQ : rP;
     float* vd = (i & 1) ? vQ : vP;
     const int step = start + i;
-    const FluidGeo ga = fluid_geo(vel, step, pa);
+    const FluidGeo g = fluid_geo(step, pa);
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int c = tid + j * threads;
-      if (c < HW) fluid_a_cell(f, rho, ga, pa.cs2tau, c / W, c % W, fd, rd, vd);
+      if (c < HW) {
+        const int y = c / W, x = c % W;
+        float fo[9], r, u, v;
+        fluid_a_cell(GlobalState{f, rho, vel, pa.H, W, y, x}, g, pa.cs2tau, y, x, fo, r, u, v);
+#pragma unroll
+        for (int q = 0; q < 9; ++q) fd[q * HW + c] = fo[q];
+        rd[c] = r;
+        vd[c] = u;
+        vd[HW + c] = v;
+      }
     }
     grid.sync();
-    const FluidFlags gb = fluid_flags(step, pb);
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int c = tid + j * threads;
-      if (c < HW) fluid_b_cell(fd, rd, vd, gb, pb, c / W, c % W, fd);
+      if (c < HW) {
+        const int y = c / W, x = c % W;
+        float fo[9];
+        fluid_b_cell(GlobalState{fd, rd, vd, pa.H, W, y, x}, g, pb, y, x, fo);
+#pragma unroll
+        for (int q = 0; q < 9; ++q) fd[q * HW + c] = fo[q];
+      }
     }
     grid.sync();
     f = fd;

@@ -56,8 +56,9 @@ __device__ __forceinline__ BalanceCell balance_cell_flags(const BalanceGeo& g, i
                                                           int y, int x) {
   BalanceCell c;
   c.fl = g.flag(y, x);
-  int sy = y, sx = x;
-  outflow_source(c.fl, H, W, sy, sx);
+  int dy, dx;
+  outflow_offset(c.fl, H, W, y, x, dy, dx);
+  const int sy = y + dy, sx = x + dx;
   c.src = sy * W + sx;
   c.src_fl = g.flag(sy, sx);
   c.nbr = pull_obstacle_mask(H, W, sy, sx, c.src_fl == FLUID, g);
@@ -74,7 +75,9 @@ __device__ __forceinline__ void balance_cell(const float* h, const float* C, con
   const int H = p.H, W = p.W, HW = H * W;
   const int i = y * W + x;
   float hs[9];
-  stream_cell_masked<false>(h, H, W, c.src / W, c.src % W, c.src_fl, c.nbr, 0.0f, g, hs);
+  const int sy = c.src / W, sx = c.src % W;
+  stream_cell_masked<false>(GlobalState{h, nullptr, nullptr, H, W, sy, sx}, H, W, sy, sx, c.src_fl,
+                            c.nbr, 0.0f, g, hs);
 
   // propagate writes C = 0 / 1 at INFLOW / INFLOW_2; macro_compute_C keeps
   // C only at OBSTACLE cells
@@ -196,9 +199,10 @@ __device__ __forceinline__ void approach_cell(const float* h, const ApproachGeo<
   const int fl = g.flag(y, x);
 
   float hs[9];
-  int sy = y, sx = x;
-  outflow_source(fl, H, W, sy, sx);
-  stream_cell<true>(h, H, W, sy, sx, g, hs);
+  int dy, dx;
+  outflow_offset(fl, H, W, y, x, dy, dx);
+  const int sy = y + dy, sx = x + dx;
+  stream_cell<true>(GlobalState{h, nullptr, nullptr, H, W, sy, sx}, H, W, sy, sx, g, hs);
 
   float Cn;
   if (fl == OBSTACLE) {

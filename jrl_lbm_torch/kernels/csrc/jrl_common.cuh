@@ -53,33 +53,76 @@ __device__ __forceinline__ float wq(int q) {
   return q == 0 ? (float)(4.0 / 9.0) : (q <= 4 ? (float)(1.0 / 9.0) : (float)(1.0 / 36.0));
 }
 
-// Streaming neighbour (value at (y, x) pulled from (y - ey, x - ex)):
-// FLUID cells wrap, other cells reflect-clamp, and the x-1 pull collapses
-// onto the axis column (ops/stream.py::_pull).
-__device__ __forceinline__ int pull_x(int x, int ex, bool fluid, int W) {
-  if (ex == 1) return x == 0 ? 0 : x - 1;
-  if (ex == -1) return x == W - 1 ? (fluid ? 0 : W - 2) : x + 1;
-  return x;
+// v in [0, n) for v in [-n, 2n).
+__device__ __forceinline__ int wrap1(int v, int n) { return v < 0 ? v + n : (v >= n ? v - n : v); }
+
+// Streaming neighbour (value at (y, x) pulled from (y - ey, x - ex)) as an
+// offset from the cell, taken mod H / W: FLUID cells wrap, other cells
+// reflect-clamp, and the x-1 pull collapses onto the axis column
+// (ops/stream.py::_pull).
+__device__ __forceinline__ int pull_dx(int x, int ex, bool fluid, int W) {
+  if (ex == 1) return x == 0 ? 0 : -1;
+  if (ex == -1) return (x == W - 1 && !fluid) ? -1 : 1;
+  return 0;
 }
-__device__ __forceinline__ int pull_y(int y, int ey, bool fluid, int H) {
-  if (ey == 1) return y == 0 ? (fluid ? H - 1 : 1) : y - 1;
-  if (ey == -1) return y == H - 1 ? (fluid ? 0 : H - 2) : y + 1;
-  return y;
+__device__ __forceinline__ int pull_dy(int y, int ey, bool fluid, int H) {
+  if (ey == 1) return (y == 0 && !fluid) ? 1 : -1;
+  if (ey == -1) return (y == H - 1 && !fluid) ? -1 : 1;
+  return 0;
 }
 
-// Stencil neighbour (value at (y + sy, x + sx)): FLUID cells wrap, other
-// cells clamp min/max, and x-1 collapses onto the axis
+// Stencil neighbour (value at (y + sy, x + sx)) as an offset: FLUID cells
+// wrap, other cells clamp min/max, and x-1 collapses onto the axis
 // (ops/stencil.py::_at).
+__device__ __forceinline__ int at_dx(int x, int sx, bool fluid, int W) {
+  if (sx == -1) return x == 0 ? 0 : -1;
+  if (sx == 1) return (x == W - 1 && !fluid) ? 0 : 1;
+  return 0;
+}
+__device__ __forceinline__ int at_dy(int y, int sy, bool fluid, int H) {
+  if (sy == -1) return (y == 0 && !fluid) ? 0 : -1;
+  if (sy == 1) return (y == H - 1 && !fluid) ? 0 : 1;
+  return 0;
+}
+
+// The same neighbours as grid coordinates (for the geometry).
+__device__ __forceinline__ int pull_x(int x, int ex, bool fluid, int W) {
+  return wrap1(x + pull_dx(x, ex, fluid, W), W);
+}
+__device__ __forceinline__ int pull_y(int y, int ey, bool fluid, int H) {
+  return wrap1(y + pull_dy(y, ey, fluid, H), H);
+}
 __device__ __forceinline__ int at_x(int x, int sx, bool fluid, int W) {
-  if (sx == -1) return x == 0 ? 0 : x - 1;
-  if (sx == 1) return x == W - 1 ? (fluid ? 0 : W - 1) : x + 1;
-  return x;
+  return wrap1(x + at_dx(x, sx, fluid, W), W);
 }
 __device__ __forceinline__ int at_y(int y, int sy, bool fluid, int H) {
-  if (sy == -1) return y == 0 ? (fluid ? H - 1 : 0) : y - 1;
-  if (sy == 1) return y == H - 1 ? (fluid ? 0 : H - 1) : y + 1;
-  return y;
+  return wrap1(y + at_dy(y, sy, fluid, H), H);
 }
+
+// State read around cell (y, x) from device memory ([Q][H][W] planes),
+// offsets taken mod H / W. The per-cell code reads every value through an
+// accessor, relative to its cell, so that the same code runs on device
+// memory (one step per launch) and on a shared-memory tile (k steps per
+// launch, jrl_tile.cuh). rho and vel may be null where nothing reads them.
+struct GlobalState {
+  const float* f;
+  const float* rho;
+  const float* vel;
+  int H, W, y, x;
+  __device__ __forceinline__ int idx(int dy, int dx) const {
+    return wrap1(y + dy, H) * W + wrap1(x + dx, W);
+  }
+  __device__ __forceinline__ float F(int q, int dy, int dx) const {
+    return f[q * H * W + idx(dy, dx)];
+  }
+  __device__ __forceinline__ float R(int dy, int dx) const { return rho[idx(dy, dx)]; }
+  __device__ __forceinline__ float U(int dy, int dx) const { return vel[idx(dy, dx)]; }
+  __device__ __forceinline__ float V(int dy, int dx) const { return vel[H * W + idx(dy, dx)]; }
+  // the accessor of the cell at offset (dy, dx)
+  __device__ __forceinline__ GlobalState at(int dy, int dx) const {
+    return GlobalState{f, rho, vel, H, W, wrap1(y + dy, H), wrap1(x + dx, W)};
+  }
+};
 
 // Second-order equilibrium of one direction (ops/equilibrium.py::feq).
 __device__ __forceinline__ float feq_q(int q, float rho, float u, float v) {
@@ -149,32 +192,31 @@ __device__ __forceinline__ unsigned pull_obstacle_mask(int H, int W, int y, int 
 // pass (ops/stream.py::propagate): pulls with the axis mirror, sub-grid
 // interpolation bounce at SDF value `t` when HAS_PHI (plain half-way
 // bounce otherwise), reflected storage in OBSTACLE cells, then the
-// geometry's INFLOW / INFLOW_2 rule. `nbr` is pull_obstacle_mask of the
-// cell; `Geo` answers inflow(y, x, flag, out).
-template <bool HAS_PHI, class Geo>
-__device__ __forceinline__ void stream_cell_masked(const float* f, int H, int W, int y, int x,
+// geometry's INFLOW / INFLOW_2 rule. `a` reads the populations around the
+// cell (an accessor such as GlobalState, positioned at it); `nbr` is
+// pull_obstacle_mask of the cell; `Geo` answers inflow(y, x, flag, out).
+template <bool HAS_PHI, class Acc, class Geo>
+__device__ __forceinline__ void stream_cell_masked(const Acc& a, int H, int W, int y, int x,
                                                    int fl, unsigned nbr, float t, const Geo& g,
                                                    float out[9]) {
-  const int HW = H * W;
   const bool fluid = fl == FLUID;
   const bool obs = fl == OBSTACLE;
-  const float* fc = f + y * W + x;
   float raw[9], str[9];
-  raw[0] = str[0] = fc[0];
+  raw[0] = str[0] = a.F(0, 0, 0);
 #pragma unroll
   for (int q = 1; q < 9; ++q) {
     const int ex = ex_of(q), ey = ey_of(q);
-    const int sx = pull_x(x, ex, fluid, W), sy = pull_y(y, ey, fluid, H);
+    const int dx = pull_dx(x, ex, fluid, W), dy = pull_dy(y, ey, fluid, H);
     const int qv = (x == 0 && axis_x_in(q)) ? mirror_x(q) : q;
-    const float val = f[qv * HW + sy * W + sx];
+    const float val = a.F(qv, dy, dx);
     raw[q] = val;
     const bool nbr_obs = (nbr >> q) & 1u;
-    const float f_this = fc[refl(q) * HW];
+    const float f_this = a.F(refl(q), 0, 0);
     float v_obs = f_this;
     if (HAS_PHI && nbr_obs) {
-      const int nx = pull_x(x, -ex, fluid, W), ny = pull_y(y, -ey, fluid, H);
+      const int nx = pull_dx(x, -ex, fluid, W), ny = pull_dy(y, -ey, fluid, H);
       const int qn = (x == 0 && axis_x_out(q)) ? refl(mirror_x(q)) : refl(q);
-      const float nxt = f[qn * HW + ny * W + nx];
+      const float nxt = a.F(qn, ny, nx);
       const float t1 = 2.0f * t - 1.0f;
       const float v1 = t1 * val + (1.0f - t1) * f_this;
       const float t2 = 2.0f * t;
@@ -183,7 +225,7 @@ __device__ __forceinline__ void stream_cell_masked(const float* f, int H, int W,
     }
     str[q] = nbr_obs ? v_obs : val;
   }
-  out[0] = fc[0];
+  out[0] = raw[0];
 #pragma unroll
   for (int p = 1; p < 9; ++p) out[p] = obs ? raw[refl(p)] : str[p];
   g.inflow(y, x, fl, out);
@@ -191,22 +233,57 @@ __device__ __forceinline__ void stream_cell_masked(const float* f, int H, int W,
 
 // stream_cell_masked with the flags, mask and phi taken from `Geo`
 // (flag(y, x), phi(y, x)).
-template <bool HAS_PHI, class Geo>
-__device__ __forceinline__ void stream_cell(const float* f, int H, int W, int y, int x,
+template <bool HAS_PHI, class Acc, class Geo>
+__device__ __forceinline__ void stream_cell(const Acc& a, int H, int W, int y, int x,
                                             const Geo& g, float out[9]) {
   const int fl = g.flag(y, x);
   const unsigned nbr = pull_obstacle_mask(H, W, y, x, fl == FLUID, g);
-  stream_cell_masked<HAS_PHI>(f, H, W, y, x, fl, nbr, HAS_PHI ? g.phi(y, x) : 0.0f, g, out);
+  stream_cell_masked<HAS_PHI>(a, H, W, y, x, fl, nbr, HAS_PHI ? g.phi(y, x) : 0.0f, g, out);
 }
 
-// The cell whose streamed populations an OUTFLOW cell copies: rows 0 and
-// H-1 copy first, then columns 0 and W-1 from the row-fixed field, so the
-// source is (row map, column map) of the cell (H, W >= 3). Recomputing
-// that cell's streaming here never reads another thread's output.
-__device__ __forceinline__ void outflow_source(int fl, int H, int W, int& y, int& x) {
+// Offset of the cell whose streamed populations an OUTFLOW cell copies:
+// rows 0 and H-1 copy first, then columns 0 and W-1 from the row-fixed
+// field, so the source is (row map, column map) of the cell (H, W >= 3),
+// one cell inward. Recomputing that cell's streaming here never reads
+// another thread's output.
+__device__ __forceinline__ void outflow_offset(int fl, int H, int W, int y, int x, int& dy,
+                                               int& dx) {
+  dy = dx = 0;
   if (fl != OUTFLOW) return;
-  y = (y == 0) ? 1 : ((y == H - 1) ? H - 2 : y);
-  x = (x == 0) ? 1 : ((x == W - 1) ? W - 2 : x);
+  dy = (y == 0) ? 1 : ((y == H - 1) ? -1 : 0);
+  dx = (x == 0) ? 1 : ((x == W - 1) ? -1 : 0);
+}
+
+// Row segments [seg[2s], seg[2s+1]) of a launch that writes only some rows,
+// cut into tiles of ty rows (the last tile of a segment may be short).
+__host__ __device__ inline int seg_tiles(int nseg, const int* seg, int ty) {
+  int n = 0;
+  for (int s = 0; s < nseg; ++s) n += (seg[2 * s + 1] - seg[2 * s] + ty - 1) / ty;
+  return n;
+}
+
+// First row and the segment's end row of row tile `bt`.
+__device__ __forceinline__ bool seg_tile_origin(int nseg, const int* seg, int bt, int ty,
+                                                int& ty0, int& yend) {
+  for (int s = 0; s < nseg; ++s) {
+    const int y0 = seg[2 * s], y1 = seg[2 * s + 1];
+    const int n = (y1 - y0 + ty - 1) / ty;
+    if (bt < n) {
+      ty0 = y0 + bt * ty;
+      yend = y1;
+      return true;
+    }
+    bt -= n;
+  }
+  return false;
+}
+
+// v in [0, n) for v a few n away at most (one step for grids wider and
+// taller than a tile).
+__device__ __forceinline__ int wrap_near(int v, int n) {
+  while (v < 0) v += n;
+  while (v >= n) v -= n;
+  return v;
 }
 
 // Advection-diffusion BGK of one direction about the x = 0 axis

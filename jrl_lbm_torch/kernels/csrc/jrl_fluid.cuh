@@ -1,12 +1,22 @@
 // Per-cell device code of the JRL fluid step, shared by the per-step
-// kernels (fluid_a.cu, fluid_b.cu) and the multi-step kernel
-// (fused_fluid.cu), so that all of them round alike.
+// kernels (fluid_a.cu, fluid_b.cu), the multi-step kernel (fused_fluid.cu)
+// and the k-step tile kernels (fluid_k.cu, fluid_k_lean.cu, fluid_k_bt.cu,
+// through jrl_tile.cuh), so that all of them round alike.
 //
 // Step A: pull-streaming, moving-tip solid-fluid coupling and moments.
 // Step B: BGK with the Guo-shifted gravity equilibrium and the LINE_X_EQ_0
 // axisymmetric source (A1, A2, F2). The tip geometry (flags, phi,
 // obstacle velocity) is analytic in the step index, so no geometry plane
 // crosses memory.
+//
+// The cell code reads the state through an accessor positioned at its cell
+// (GlobalState for device memory, jrl_tile.cuh::TileState for a shared-
+// memory tile) and the geometry through a policy: FluidGeo (the moving tip,
+// every tile), LeanGeo (interior tiles with no tip cell and no wall row in
+// reach) or BtGeo (flat-tip tiles wholly under the tip row). Under the
+// conditions of the lean and below-tip classes the three policies give the
+// same flags, so the class kernels compute what the full kernel computes,
+// with the obstacle machinery folded away at compile time.
 #pragma once
 
 #include "jrl_common.cuh"
@@ -44,8 +54,8 @@ __device__ __forceinline__ TipSdf fluid_sdf(float walks, int H, int flat, float 
   return s;
 }
 
+// The moving tip at one step.
 struct FluidGeo {
-  const float* vel;
   int H, W, rg, walks_int;
   bool flat;
   float vel_obs;
@@ -69,19 +79,18 @@ struct FluidGeo {
   __device__ float obs_v(int y, int x) const {
     return (tip(y, x) && (flat || y != H - 1)) ? vel_obs : 0.0f;
   }
-  // velocity with the tip override applied before streaming
-  __device__ float u(int y, int x) const { return tip(y, x) ? 0.0f : vel[y * W + x]; }
-  __device__ float v(int y, int x) const {
-    return tip(y, x) ? obs_v(y, x) : vel[H * W + y * W + x];
-  }
+  // the stored velocity `raw` of cell (y, x) with the tip override applied
+  // before streaming
+  __device__ float u(int y, int x, float raw) const { return tip(y, x) ? 0.0f : raw; }
+  __device__ float v(int y, int x, float raw) const { return tip(y, x) ? obs_v(y, x) : raw; }
   __device__ void inflow(int, int, int, float*) const {}  // no INFLOW cells in the fluid phase
 };
 
-// Step A's geometry at `step`, reading the pre-step velocity `vel`.
-__device__ __forceinline__ FluidGeo fluid_geo(const float* vel, int step, const FluidParams& p) {
+// The geometry at `step` (P: FluidParams or FluidBParams).
+template <class P>
+__device__ __forceinline__ FluidGeo fluid_geo(int step, const P& p) {
   const float walks = tip_walks(step, p.inflow_h, p.vel_obs);
   FluidGeo g;
-  g.vel = vel;
   g.H = p.H;
   g.W = p.W;
   g.rg = p.rg;
@@ -92,24 +101,54 @@ __device__ __forceinline__ FluidGeo fluid_geo(const float* vel, int step, const 
   return g;
 }
 
-// Fluid step A at cell (y, x): reads f, rho, vel (through g) of the
-// pre-step state, writes the cell's f_out, rho_out, vel_out. An OUTFLOW
-// cell recomputes the streaming of its inward neighbour instead of
-// reading another thread's output, which keeps the reference's
+// Lean class (fused_jrl_tiled.py::_fluid_a_lean, _fluid_b_lean): no tip
+// cell and no wall row within reach, so every cell is FLUID but the
+// OUTFLOW column W-1; nothing reads phi, rho or vel of the previous step.
+struct LeanGeo {
+  int H, W;
+  __device__ int flag(int, int x) const { return x == W - 1 ? OUTFLOW : FLUID; }
+  __device__ float phi(int, int) const { return 0.0f; }
+  __device__ float obs_v(int, int) const { return 0.0f; }
+  __device__ float u(int, int, float raw) const { return raw; }
+  __device__ float v(int, int, float raw) const { return raw; }
+  __device__ void inflow(int, int, int, float*) const {}
+};
+
+// Below-tip class of flat tips (fused_jrl_tiled.py::_fluid_a_bt,
+// _fluid_b_bt): every row in reach lies under the tip row and off the
+// walls, so the tip is the columns x < rg on every row, phi reduces to the
+// column distance where anything reads it, and no step index is needed.
+struct BtGeo {
+  int H, W, rg;
+  float vel_obs, bcx, box_r;
+  __device__ int flag(int, int x) const {
+    return x < rg ? OBSTACLE : (x == W - 1 ? OUTFLOW : FLUID);
+  }
+  __device__ float phi(int, int x) const { return (((float)x + 0.5f) - bcx) - box_r; }
+  __device__ float obs_v(int, int x) const { return x < rg ? vel_obs : 0.0f; }
+  __device__ float u(int, int x, float raw) const { return x < rg ? 0.0f : raw; }
+  __device__ float v(int, int x, float raw) const { return x < rg ? vel_obs : raw; }
+  __device__ void inflow(int, int, int, float*) const {}
+};
+
+// Fluid step A at cell (y, x): reads f, rho and vel of the pre-step state
+// through `a` (positioned at the cell), returns the cell's new f, rho and
+// vel. An OUTFLOW cell recomputes the streaming of its inward neighbour
+// instead of reading another thread's output, which keeps the reference's
 // second-pass semantics in one pass.
-__device__ __forceinline__ void fluid_a_cell(const float* f, const float* rho, const FluidGeo& g,
-                                             float cs2tau, int y, int x, float* f_out,
-                                             float* rho_out, float* vel_out) {
-  const int H = g.H, W = g.W, HW = H * W;
+template <class Acc, class Geo>
+__device__ __forceinline__ void fluid_a_cell(const Acc& a, const Geo& g, float cs2tau, int y,
+                                             int x, float fs[9], float& rho_n, float& u_n,
+                                             float& v_n) {
+  const int H = g.H, W = g.W;
   const int fl = g.flag(y, x);
   const bool fluid = fl == FLUID;
   const bool obs = fl == OBSTACLE;
 
   // ---- streaming (+ OUTFLOW copy of the inward neighbour) ----
-  float fs[9];
-  int sy = y, sx = x;
-  outflow_source(fl, H, W, sy, sx);
-  stream_cell<true>(f, H, W, sy, sx, g, fs);
+  int oy, ox;
+  outflow_offset(fl, H, W, y, x, oy, ox);
+  stream_cell<true>(a.at(oy, ox), H, W, y + oy, x + ox, g, fs);
 
   // ---- solid-fluid coupling (ops/coupling.py::solve_boundary) ----
   const bool skip = obs || x == W - 1 || y == H - 1;
@@ -124,16 +163,17 @@ __device__ __forceinline__ void fluid_a_cell(const float* f, const float* rho, c
 #pragma unroll
     for (int q = 0; q < 9; ++q) {
       const int ex = ex_of(q), ey = ey_of(q);
-      const int ox = at_x(x, ex, fluid, W), oy = at_y(y, ey, fluid, H);
-      valid[q] = t_ok && g.flag(oy, ox) == OBSTACLE;
+      const int ox_ = at_x(x, ex, fluid, W), oy_ = at_y(y, ey, fluid, H);
+      valid[q] = t_ok && g.flag(oy_, ox_) == OBSTACLE;
       if (valid[q]) {
         count = count + 1.0f;
-        const int ux_ = at_x(x, -ex, fluid, W), uy_ = at_y(y, -ey, fluid, H);
-        float ux = g.u(uy_, ux_);
-        const float uy = g.v(uy_, ux_);
+        const int udx = at_dx(x, -ex, fluid, W), udy = at_dy(y, -ey, fluid, H);
+        const int ux_ = wrap1(x + udx, W), uy_ = wrap1(y + udy, H);
+        float ux = g.u(uy_, ux_, a.U(udy, udx));
+        const float uy = g.v(uy_, ux_, a.V(udy, udx));
         if (x == 0 && axis_x_in(q)) ux = -ux;
         const float obs_ux = 0.0f;
-        const float obs_uy = g.obs_v(oy, ox);
+        const float obs_uy = g.obs_v(oy_, ox_);
         vtx = vtx + (t * ux + obs_ux) / (t + 1.0f);
         vty = vty + (t * uy + obs_uy) / (t + 1.0f);
         const int qi = refl(q);
@@ -154,9 +194,10 @@ __device__ __forceinline__ void fluid_a_cell(const float* f, const float* rho, c
     for (int dy = -1; dy <= 1; ++dy)
 #pragma unroll
       for (int dx = -1; dx <= 1; ++dx) {
-        const int nx = at_x(x, dx, fluid, W), ny = at_y(y, dy, fluid, H);
-        a0[dy + 1][dx + 1] = g.u(ny, nx);
-        a1[dy + 1][dx + 1] = g.v(ny, nx);
+        const int ndx = at_dx(x, dx, fluid, W), ndy = at_dy(y, dy, fluid, H);
+        const int nx = wrap1(x + ndx, W), ny = wrap1(y + ndy, H);
+        a0[dy + 1][dx + 1] = g.u(ny, nx, a.U(ndy, ndx));
+        a1[dy + 1][dx + 1] = g.v(ny, nx, a.V(ndy, ndx));
       }
 #define A(a, sx_, sy_) a[(sy_) + 1][(sx_) + 1]
     const float g00 = ((4.0f * (A(a0, 1, 0) - A(a0, -1, 0)) + (A(a0, 1, 1) - A(a0, -1, 1))) +
@@ -193,43 +234,13 @@ __device__ __forceinline__ void fluid_a_cell(const float* f, const float* rho, c
   float m = fs[0];
 #pragma unroll
   for (int q = 1; q < 9; ++q) m = m + fs[q];
-  const int i = y * W + x;
-  const float rho_n = obs ? rho[i] : m;
+  rho_n = obs ? a.R(0, 0) : m;
   const float mom_x = fs[1] - fs[3] + fs[5] - fs[6] - fs[7] + fs[8];
   const float mom_y = fs[2] - fs[4] + fs[5] + fs[6] - fs[7] - fs[8];
   const float safe_rho = rho_n == 0.0f ? 1.0f : rho_n;
   const float inv = 1.0f / safe_rho;
-#pragma unroll
-  for (int q = 0; q < 9; ++q) f_out[q * HW + i] = fs[q];
-  rho_out[i] = rho_n;
-  vel_out[i] = obs ? g.u(y, x) : mom_x * inv;
-  vel_out[HW + i] = obs ? g.v(y, x) : mom_y * inv;
-}
-
-// Step B's flags at `step` (no velocity override is needed there).
-struct FluidFlags {
-  int H, W, rg, walks_int;
-  bool flat;
-  TipSdf sdf;
-  __device__ int flag(int y, int x) const {
-    const bool tip = flat ? (y < walks_int && x < rg) : (sdf.phi(y, x) <= 0.0f);
-    if (tip || y == H - 1) return OBSTACLE;
-    if (x == 0) return FLUID;
-    if (y == 0 || x == W - 1) return OUTFLOW;
-    return FLUID;
-  }
-};
-
-__device__ __forceinline__ FluidFlags fluid_flags(int step, const FluidBParams& p) {
-  const float walks = tip_walks(step, p.inflow_h, p.vel_obs);
-  FluidFlags g;
-  g.H = p.H;
-  g.W = p.W;
-  g.rg = p.rg;
-  g.walks_int = tip_row(walks);
-  g.flat = p.flat != 0;
-  g.sdf = fluid_sdf(walks, p.H, p.flat, p.box_r, p.bcx, p.x1);
-  return g;
+  u_n = obs ? g.u(y, x, a.U(0, 0)) : mom_x * inv;
+  v_n = obs ? g.v(y, x, a.V(0, 0)) : mom_y * inv;
 }
 
 // x component of ops/stencil.py::get_grad (before the /12): a pair with an
@@ -270,17 +281,17 @@ __device__ __forceinline__ float div2(const float m0[3][3], const float m1[3][3]
 }
 
 // Fluid step B at cell (y, x): reads the post-moment f (this cell only),
-// rho and vel (3x3 neighbourhood), writes the cell's f_out. f_out may be
-// f itself: each population is read before it is written.
-__device__ __forceinline__ void fluid_b_cell(const float* f, const float* rho, const float* vel,
-                                             const FluidFlags& g, const FluidBParams& p, int y,
-                                             int x, float* f_out) {
-  const int H = p.H, W = p.W, HW = H * W;
-  const int i = y * W + x;
+// rho and vel (3x3 neighbourhood) through `a`, returns the cell's
+// collided f. A caller may write it over the f it read: each population is
+// read before it is written, and no other cell reads it.
+template <class Acc, class Geo>
+__device__ __forceinline__ void fluid_b_cell(const Acc& a, const Geo& g, const FluidBParams& p,
+                                             int y, int x, float fo[9]) {
+  const int H = p.H, W = p.W;
   const int fl = g.flag(y, x);
   if (fl == OBSTACLE) {
 #pragma unroll
-    for (int q = 0; q < 9; ++q) f_out[q * HW + i] = f[q * HW + i];
+    for (int q = 0; q < 9; ++q) fo[q] = a.F(q, 0, 0);
     return;
   }
   const bool fluid = fl == FLUID;
@@ -292,9 +303,9 @@ __device__ __forceinline__ void fluid_b_cell(const float* f, const float* rho, c
   for (int dy = -1; dy <= 1; ++dy)
 #pragma unroll
     for (int dx = -1; dx <= 1; ++dx) {
-      const int nx = at_x(x, dx, fluid, W), ny = at_y(y, dy, fluid, H);
-      const int j = ny * W + nx;
-      const float r_ = rho[j], u_ = vel[j], v_ = vel[HW + j];
+      const int ndx = at_dx(x, dx, fluid, W), ndy = at_dy(y, dy, fluid, H);
+      const int nx = wrap1(x + ndx, W), ny = wrap1(y + ndy, H);
+      const float r_ = a.R(ndy, ndx), u_ = a.U(ndy, ndx), v_ = a.V(ndy, ndx);
       const float rn = (float)nx + 0.5f;
       nu[dy + 1][dx + 1] = u_;
       nv[dy + 1][dx + 1] = v_;
@@ -305,7 +316,7 @@ __device__ __forceinline__ void fluid_b_cell(const float* f, const float* rho, c
       no[dy + 1][dx + 1] = g.flag(ny, nx) == OBSTACLE;
     }
 
-  const float rho_c = rho[i], u = vel[i], v = vel[HW + i];
+  const float rho_c = a.R(0, 0), u = a.U(0, 0), v = a.V(0, 0);
   const float r = (float)x + 0.5f;
   const float A1 = ((-rho_c) * u) / r;
   const float mu = p.visc * rho_c;
@@ -330,11 +341,11 @@ __device__ __forceinline__ void fluid_b_cell(const float* f, const float* rho, c
   const float base = A1 + A2;
 #pragma unroll
   for (int q = 0; q < 9; ++q) {
-    const float fq = f[q * HW + i];
+    const float fq = a.F(q, 0, 0);
     const float fe = feq_q(q, rho_c, us, vs);
     const float F2e = (float)ex_of(q) * F0 + (float)ey_of(q) * F1;
     const float Gi = (base + F2e / CS2F) * wq(q);
-    f_out[q * HW + i] = (fq + p.w_rate * (fe - fq)) + Gi;
+    fo[q] = (fq + p.w_rate * (fe - fq)) + Gi;
   }
 }
 

@@ -16,8 +16,10 @@ steps are one kernel each (`kernels/jrl_c.py`). `make_*_step` and
 kernel wrappers, which launch the CUDA kernels for tensors on the card
 and run the plain twins for tensors on the CPU: on a grid of at most
 `kernels.fused_jrl.MAX_FUSED_CELLS` cells the multi-step kernels
-(`kernels/fused_jrl.py`, n steps per launch), on a larger grid the
-per-step kernels (`make_per_step_*_runner`, one launch per step).
+(`kernels/fused_jrl.py`, n steps per launch); on a larger grid the
+fluid phase goes through the tile-class kernels (`kernels/jrl_tiled.py`,
+k steps per launch) and the concentration phases through the per-step
+kernels (`make_per_step_*_runner`, one launch per step).
 """
 
 from __future__ import annotations
@@ -257,14 +259,19 @@ def make_per_step_fluid_runner(cfg: JRLFluidConfig):
 
 
 def pick_fluid_runner(cfg: JRLFluidConfig):
-    """The multi-step kernel's runner (`kernels/fused_jrl.py`, n steps per
-    launch) on a grid of at most ``MAX_FUSED_CELLS`` cells, the per-step
-    kernels' runner on a larger grid; ``(state, fields, start_step, n)
-    -> state`` either way."""
-    from jrl_lbm_torch.kernels import fused_jrl
+    """The runner the JAX package's ``_pick_fluid_runner`` picks off the
+    CPU: the multi-step kernel's (`kernels/fused_jrl.py`, n steps per
+    launch) on a grid of at most ``MAX_FUSED_CELLS`` cells, the tiled
+    runner's (`kernels/jrl_tiled.py`: k-step passes of the full, lean and
+    below-tip tile classes) on a larger grid with H % 8 == 0, the per-step
+    kernels' runner on any other grid (where JAX takes its jnp step, which
+    computes the same); ``(state, fields, start_step, n) -> state``."""
+    from jrl_lbm_torch.kernels import fused_jrl, jrl_tiled
 
     if fused_jrl.fits(cfg):
         return fused_jrl.make_fused_fluid_runner(cfg)
+    if jrl_tiled.tileable(cfg):
+        return jrl_tiled.make_tiled_fluid_runner(cfg)
     return make_per_step_fluid_runner(cfg)
 
 

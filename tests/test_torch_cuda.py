@@ -28,6 +28,7 @@ from jrl_lbm_torch import kernels
 from jrl_lbm_torch.kernels import build, jrl_c, jrl_fluid
 from jrl_lbm_torch.kernels import cylinder as K
 from jrl_lbm_torch.kernels import fused_jrl as F
+from jrl_lbm_torch.kernels import jrl_tiled as JT
 from jrl_lbm_torch.models import cylinder as CY
 from jrl_lbm_torch.models import jrl as T
 
@@ -442,3 +443,107 @@ def test_cuda_cyl_launch_failure_raises(cuda):
     assert err != 0
     with pytest.raises(RuntimeError, match="cudaError"):
         build.check(err, "cyl_interior_k")
+
+
+# --- the tile-class kernels of the JRL fluid phase (kernels/jrl_tiled.py) ---
+
+TILE_RES, TILE_TH = (256, 64), 16
+
+
+def _tile_case(dev, shape, k):
+    """``(cfg, fields, state, step, (full, bt, lean))``: a noisy state at a
+    step whose k-block holds a tip-row crossing (for a flat tip, far
+    enough into the travel that below-tip tiles exist), and the row
+    segments of the tile classes there. Every launch spans the whole width
+    (W = 64 takes two blocks: one touches x = 0, one x = W-1)."""
+    cfg = T.JRLFluidConfig(res=TILE_RES, Re=4.0, vel_obs_real=0.2848,
+                           gravity_strength_real=-9.8, shape=shape)
+    c = JT.tile_consts(cfg)
+    s0 = 240 if shape in T.FLAT_SHAPES else 0
+    row = lambda s: T.tip_walks(cfg.inflow_height, s, cfg.vel_obs)[1]  # noqa: E731
+    while row(s0 + max(k - 1, 1)) == row(s0):
+        s0 += 1
+    fr = JT.frontier(c, TILE_TH, k, s0 + k)
+    fb = min(JT.below(c, TILE_TH, k, s0), fr)
+    segs = JT.class_rows(TILE_RES[0], TILE_TH, k, fr, fb)
+    assert segs[2] and (shape not in T.FLAT_SHAPES or segs[1]), segs
+    s, fields = T.fluid_init(cfg, dev)
+    rng = np.random.default_rng(4)
+    s = {key: v + torch.as_tensor((1e-3 * rng.standard_normal(tuple(v.shape))).astype(np.float32),
+                                  device=dev) for key, v in s.items()}
+    return cfg, fields, s, s0, segs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("shape", ["45degree", "cylinder"])
+def test_cuda_fluid_k_matches_twin(cuda, shape, k):
+    """One launch of each tile-class kernel on its rows of the split
+    (the full class's three segments wrap rows 0 and H-1) against its
+    twin: every cell of the outputs, rows off the launch untouched; 1e-5."""
+    cfg, _, s, step, (full, bt, lean) = _tile_case(cuda, shape, k)
+    calls = [("fluid_k", lambda fn, o: fn(s["f"], s["rho"], s["vel"], o, full, step, k, cfg),
+              JT.fluid_k_ref),
+             ("fluid_k_lean", lambda fn, o: fn(s["f"], o, lean, k, cfg), JT.fluid_k_lean_ref)]
+    if bt:
+        calls.append(("fluid_k_bt", lambda fn, o: fn(s["f"], s["rho"], s["vel"], o, bt, k, cfg),
+                      JT.fluid_k_bt_ref))
+    for name, call, twin in calls:
+        wrapper = getattr(JT, name)
+        n0 = wrapper.launches
+        got, want = _outs(s), _outs(s)
+        call(wrapper, got)
+        call(twin, want)
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 1
+        _close_all(got, want, 1e-5, f"{name} {shape} k={k} step {step}")
+
+
+def _tile_twin_runner(cfg, **kw):
+    run = JT.make_tiled_fluid_runner(cfg, **kw)
+    twins = dict(fluid_k=JT.fluid_k_ref, fluid_k_lean=JT.fluid_k_lean_ref,
+                 fluid_k_bt=JT.fluid_k_bt_ref, fluid_a=jrl_fluid.fluid_a_ref,
+                 fluid_b=jrl_fluid.fluid_b_ref)
+
+    def twin_run(state, fields, start, n):
+        with mock.patch.multiple(JT, **twins):
+            return run(state, fields, start, n)
+
+    return twin_run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("shape", ["45degree", "cylinder"])
+def test_cuda_tiled_runner_matches_twin_runner(cuda, shape, k):
+    """The tiled runner over 41 steps in which the frontier tile changes,
+    against the same runner on the twins: f and rho 2e-5, vel 2e-4."""
+    cfg, fields, s, _, _ = _tile_case(cuda, shape, k)
+    c, n = JT.tile_consts(cfg), 41
+    start = 0 if shape not in T.FLAT_SHAPES else 200
+    while JT.frontier(c, TILE_TH, k, start) == JT.frontier(c, TILE_TH, k, start + n):
+        start += 10
+    kw = dict(tile_rows=TILE_TH, unroll=4, k=k)
+    kernels.reset_launches()
+    got = JT.make_tiled_fluid_runner(cfg, **kw)(s, fields, start, n)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    want = _tile_twin_runner(cfg, **kw)(s, fields, start, n)
+    for name in ("f", "rho", "vel"):
+        _close(got[name], want[name], TRAJ_TOL[name], f"tiled runner {shape} k={k} {name}")
+    assert counts["fluid_k"] >= 1 and counts["fluid_k_lean"] >= 1, counts
+    assert kernels.launches() == counts  # the twins launch nothing
+
+
+@pytest.mark.cuda
+def test_cuda_tile_wrappers_refuse_bad_args(cuda):
+    cfg, _, s, step, (full, _, lean) = _tile_case(cuda, "45degree", 1)
+    out = _outs(s)
+    with pytest.raises(ValueError, match="k ="):
+        JT.fluid_k(s["f"], s["rho"], s["vel"], out, full, step, 5, cfg)
+    with pytest.raises(ValueError, match="segments"):
+        JT.fluid_k_lean(s["f"], out, [(32, 16)], 1, cfg)
+    with pytest.raises(ValueError, match="apart"):
+        JT.fluid_k_lean(s["f"], dict(out, f=s["f"]), lean, 1, cfg)
+    with pytest.raises(ValueError, match="dtype"):
+        JT.fluid_k(s["f"], s["rho"].double(), s["vel"], out, full, step, 1, cfg)

@@ -199,8 +199,11 @@ def test_fused_runners_refuse_grid_over_limit():
         F.make_fused_balance_runner(big_c, torch.zeros((1024, 512), dtype=torch.int32))
     with pytest.raises(ValueError, match="exceeds"):
         F.make_fused_approach_runner(big_c, torch.zeros((1, 2, 1024, 512)))
-    # a larger grid goes to the per-step kernels instead
-    assert T.pick_fluid_runner(big).__qualname__.startswith("make_per_step_fluid_runner")
+    # a larger grid goes to the tile-class kernels instead (H % 8 == 0), or
+    # to the per-step kernels
+    assert T.pick_fluid_runner(big).__qualname__.startswith("make_tiled_fluid_runner")
+    odd = T.JRLFluidConfig(res=(1020, 512), shape="cylinder")
+    assert T.pick_fluid_runner(odd).__qualname__.startswith("make_per_step_fluid_runner")
 
 
 def test_default_case_one_launch_per_interval():
