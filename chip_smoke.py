@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's JRL and cylinder-channel main paths on one
-NVIDIA card and check them.
+"""Drive the PyTorch port's JRL, cylinder-channel and shear-layer main
+paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the fourteen CUDA kernels of ``jrl_lbm_torch/kernels/csrc`` (one
+1. Builds the fifteen CUDA kernels of ``jrl_lbm_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
@@ -22,6 +22,16 @@ NVIDIA card and check them.
    per launch), ``drag_lift`` of the final state, the k=2 and single-step
    paths as yardsticks, and each kernel alone beside its bound and twin.
    Counts are zeroed just before each main-path drive and read just after.
+0a. The shear layer (``shear_phases``): each of the seven instances of
+   ``periodic`` (BGK, MRT, KBC in five types) against its twin after one
+   launch at 130² and 2048² (1e-6), the kernel runner against the twin
+   runner (130²: MRT and KBC_A 1000 steps, BGK and LBGK 400, the BGK demo
+   turning chaotic past step 500; 2048²: 50 steps, all seven); the main
+   path, ``shear_main.run_shear`` at the demo default 130² for 1000 steps
+   (BGK, MRT, KBC_A; ``periodic`` exactly 1000 launches each and no other
+   kernel; mass and finite fields); 2048² and 130² timed windows (best of
+   three, busy share, device µs per launch beside the 84-byte-a-cell
+   bound, the twin per call).
 2. Holds each per-step kernel to its plain PyTorch twin from the same
    state, after 1 step (f, rho, C, h at 1e-5; vel at 1e-4) and after 100
    steps through the per-step runners (2e-5; vel 2e-4; integrals rtol
@@ -66,7 +76,7 @@ NVIDIA card and check them.
 6. Runs one whole case through ``jrl_main.run_case`` at 128x64 twice:
    through the multi-step kernels (its default) and through the per-step
    runners; the record rows agree to rtol 2e-4 / atol 1e-4.
-7. Prints ``{"kernels": [...]}`` (fourteen rows), the card's name and
+7. Prints ``{"kernels": [...]}`` (fifteen rows), the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without printing a result when no
@@ -222,6 +232,7 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fluid_k": ("fluid_k_kernel",),
     "fluid_k_lean": ("fluid_k_lean_kernel",),
     "fluid_k_bt": ("fluid_k_bt_kernel",),
+    "periodic": ("periodic_kernel",),
 }
 
 
@@ -548,6 +559,214 @@ def cylinder_phases(dev, rate, errs):
 
 
 # ---------------------------------------------------------------------------
+# The shear layer (kernels/periodic.py)
+# ---------------------------------------------------------------------------
+
+# (collision, kbc_type) of the seven kernel instances: BGK, MRT, and KBC
+# in its five types (0 = LBGK, then KBC_A .. KBC_D)
+SHEAR_RELAXES = (("bgk", None), ("mrt", None), ("kbc", 0), ("kbc", 0b10000101),
+                 ("kbc", 0b10000110), ("kbc", 0b10001001), ("kbc", 0b10001010))
+SHEAR_TIMED = (("bgk", None), ("mrt", None), ("kbc", 0b10000101))
+# float32 operations per cell, counted by hand from csrc/periodic.cu
+# (moments and equilibrium ~66, then the relaxation; a division as one)
+SHEAR_FLOPS = {"bgk": 95, "mrt": 175, "kbc": 440}
+SHEAR_BYTES_PER_CELL = 84  # 9 f planes in; 9 f, rho and 2 vel planes out
+SHEAR_DEMO, SHEAR_MAIN = (130, 130), (2048, 2048)
+
+
+def shear_label(collision, kbc_type):
+    return collision if kbc_type is None else f"kbc {kbc_type:#b}"
+
+
+def shear_phases(dev, rate, errs):
+    """The shear layer: (a) each of the seven instances of ``periodic``
+    against its twin after one launch from a seeded noisy state, at 130²
+    and 2048² (1e-6); (b) the kernel runner against the twin runner at 130²
+    (MRT and KBC_A 1000 steps; BGK and LBGK 400, or 1000 where 400 agree
+    bit for bit) and at 2048² (50 steps, all seven): f and rho 2e-5, vel
+    2e-4; (c) the main path, ``shear_main.run_shear`` at the demo default
+    130² for 1000 steps with BGK (the demo), MRT (the reference "KBC" demo)
+    and KBC_A, counts zeroed just before each and read just after:
+    ``periodic`` exactly 1000 launches and no other kernel, mass within
+    rtol 1e-4 of H W density, finite fields; (d) 2048² windows for BGK,
+    MRT and KBC_A (20 warm-up steps, best of three 600-step windows by CUDA
+    events, a profiled window: busy share, device µs per launch; the twin
+    per call); (e) the same at 130² (host-bound). Returns the ``kernels``
+    row and a report."""
+    import torch
+    from unittest import mock
+
+    from jrl_lbm_torch import kernels, shear_main
+    from jrl_lbm_torch.kernels import periodic as P
+    from jrl_lbm_torch.models import shear_layer as SL
+    from jrl_lbm_torch.utils import metrics
+
+    report = {}
+    TOL = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4}
+
+    def cfg_of(res, collision, kbc_type):
+        return SL.ShearLayerConfig(res=res, collision=collision, kbc_type=kbc_type)
+
+    def outs(s):
+        return {k: torch.full_like(v, 7.0) for k, v in s.items()}
+
+    def twin_run(run, s, fl, n):
+        with mock.patch.object(P, "periodic", P.periodic_ref):
+            return run(s, fl, n)
+
+    # ---- (a) one launch of each instance against the twin ----
+    for res in (SHEAR_DEMO, SHEAR_MAIN):
+        print(f"compare periodic instances with the twin, one launch at {res[0]}x{res[1]}",
+              flush=True)
+        for collision, kt in SHEAR_RELAXES:
+            cfg = cfg_of(res, collision, kt)
+            s = noisy(SL.init(cfg, dev)[0], dev, 9, scale=1e-4)
+            got, want = outs(s), outs(s)
+            n0 = P.periodic.launches
+            P.periodic(s["f"], got, P.consts(cfg))
+            P.periodic_ref(s["f"], want, P.consts(cfg))
+            torch.cuda.synchronize()
+            if P.periodic.launches != n0 + 1:
+                fail("periodic did not count its launch")
+            for nm in ("f", "rho", "vel"):
+                check_close(f"periodic {shear_label(collision, kt)} {nm}", got[nm], want[nm],
+                            1e-6, errs["periodic"])
+
+    # ---- (b) the runner against the twin runner ----
+    def compare_runner(res, collision, kt, n, extend_if_exact=False):
+        cfg = cfg_of(res, collision, kt)
+        s, fl = SL.init(cfg, dev)
+        run = P.make_fused_periodic_runner(cfg)
+        got, want = run(s, fl, n), twin_run(run, s, fl, n)
+        exact = all(torch.equal(got[k], want[k]) for k in got)
+        if extend_if_exact and exact:
+            got, want = run(got, fl, 1000 - n), twin_run(run, want, fl, 1000 - n)
+            n = 1000
+            exact = all(torch.equal(got[k], want[k]) for k in got)
+        tag = f"{res[0]}x{res[1]} {shear_label(collision, kt)} {n} steps"
+        for nm in ("f", "rho", "vel"):
+            check_close(f"runner {tag} {nm}", got[nm], want[nm], TOL[nm], errs["periodic"])
+        report.setdefault("runner", {})[tag] = {"steps": n, "bit_for_bit": exact}
+        print(f"  runner {tag}: bit for bit {exact}", flush=True)
+
+    print("periodic runner against the twin runner", flush=True)
+    for collision, kt in (("mrt", None), ("kbc", 0b10000101)):
+        compare_runner(SHEAR_DEMO, collision, kt, 1000)
+    for collision, kt in (("bgk", None), ("kbc", 0)):
+        # the BGK demo turns chaotic between steps 500 and 600: beyond
+        # that, two codes that round differently part completely
+        compare_runner(SHEAR_DEMO, collision, kt, 400, extend_if_exact=True)
+    for collision, kt in SHEAR_RELAXES:
+        compare_runner(SHEAR_MAIN, collision, kt, 50)
+
+    # ---- (c) the main path: run_shear at the demo default ----
+    H, W = SHEAR_DEMO
+    path_launches = 0
+    print(f"main path: shear_main.run_shear at {H}x{W}, 1000 steps, dump every 10", flush=True)
+    for collision, kt in SHEAR_TIMED:
+        cfg = cfg_of(SHEAR_DEMO, collision, kt)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, dumps = shear_main.run_shear(cfg, 1000, 10, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.launches().items() if v}
+        if counts != {"periodic": 1000}:
+            fail(f"run_shear {collision} launched {counts}, expected periodic 1000 times")
+        path_launches += counts["periodic"]
+        m = float(metrics.mass(state["f"]))
+        stats = metrics.field_stats(state)
+        rel = abs(m / (H * W * cfg.density) - 1.0)
+        print(f"  {shear_label(collision, kt)}: {wall:.3f} s with {len(dumps)} vorticity dumps, "
+              f"launches {counts}, mass {m:.7g} (rel {rel:.2e}), vel in "
+              f"[{stats['vel_min']:.4f}, {stats['vel_max']:.4f}]", flush=True)
+        if rel > 1e-4 or not all(v for k, v in stats.items() if k.endswith("_finite")):
+            fail(f"run_shear {collision}: mass off by {rel:.2e} or fields not finite")
+        report.setdefault("run_shear", {})[shear_label(collision, kt)] = {
+            "s": wall, "launches": counts, "mass_rel": rel, "stats": stats}
+
+    # ---- (d), (e) timed windows at 2048² and 130² ----
+    timed = {}
+    for res, n in ((SHEAR_MAIN, 600), (SHEAR_DEMO, 1000)):
+        cells = res[0] * res[1]
+        for collision, kt in SHEAR_TIMED:
+            cfg = cfg_of(res, collision, kt)
+            s, fl = SL.init(cfg, dev)
+            run = P.make_fused_periodic_runner(cfg)
+            s = run(s, fl, 20)  # warm-up
+            windows = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                s = run(s, fl, n)
+                end.record()
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in kernels.launches().items() if v}
+                if counts != {"periodic": n}:
+                    fail(f"{collision} window launched {counts}")
+                windows.append(start.elapsed_time(end) * 1e3 / n)
+            best = min(windows)
+            box = {"s": s}
+
+            def prof_run(k):
+                box["s"] = run(box["s"], fl, k)
+
+            times, wall = device_profile(prof_run, n)
+            busy = sum(times.values())
+            us_launch = (sum(t for nm, t in times.items() if KERNEL_FUNCS["periodic"][0] in nm)
+                         / n if wall else None)
+            c = P.consts(cfg)
+            o = outs(s)
+            plain_ms = cuda_ms(lambda: P.periodic_ref(s["f"], o, c), 3, warmup=1)
+            mem_ms = SHEAR_BYTES_PER_CELL * cells / rate * 1e3
+            ops_ms = SHEAR_FLOPS[collision] * cells / F32_PEAK * 1e3
+            rec = {"us_per_step": best, "windows_us_per_step": windows,
+                   "mlups": cells / best, "launches_per_window": n,
+                   "busy_share": busy / (wall * 1e6) if wall else None,
+                   "device_us_per_launch": us_launch, "plain_ms": plain_ms,
+                   "mem_ms": mem_ms, "ops_ms": ops_ms}
+            timed[f"{res[0]}x{res[1]} {shear_label(collision, kt)}"] = rec
+            busy_s = f"{rec['busy_share']:.1%}" if wall else "not measured"
+            if wall and rec["busy_share"] < 0.5:
+                busy_s += ", host-bound"
+            dev_s = f"{us_launch:.2f}" if us_launch else "not measured"
+            print(f"  {res[0]}x{res[1]} {shear_label(collision, kt):4s}: best of 3 {best:.3f} "
+                  f"us/step ({', '.join(f'{w:.3f}' for w in windows)}), {cells / best:.1f} MLUPS, "
+                  f"busy {busy_s}, device {dev_s} us/launch, bound "
+                  f"{max(mem_ms, ops_ms) * 1e3:.2f} us ({'bytes' if mem_ms >= ops_ms else 'operations'}), "
+                  f"twin {plain_ms:.3f} ms/call", flush=True)
+            if not all(torch.isfinite(v).all() for v in s.values()):
+                fail(f"{res} {collision}: state not finite after the windows")
+    report["timed"] = timed
+
+    main_recs = [timed[f"{SHEAR_MAIN[0]}x{SHEAR_MAIN[1]} {shear_label(c_, k_)}"]
+                 for c_, k_ in SHEAR_TIMED]
+    n = len(main_recs)  # per launch at 2048², the mean of BGK, MRT and KBC_A
+    # device time per launch from the profiler; where a trace holds none,
+    # the CUDA-event time per step of the windows, and the row says so
+    time_from = "profiler" if all(r["device_us_per_launch"] for r in main_recs) else "events"
+    key = "device_us_per_launch" if time_from == "profiler" else "us_per_step"
+    ms = sum(r[key] / 1e3 for r in main_recs) / n
+    report["periodic_ms_from"] = time_from
+    print(f"  periodic row: {ms * 1e3:.2f} us per launch at 2048² from the {time_from}", flush=True)
+    mem_ms = sum(r["mem_ms"] for r in main_recs) / n
+    ops_ms = sum(r["ops_ms"] for r in main_recs) / n
+    row = {
+        "name": "periodic", "route": "cuda", "source": "jrl_lbm_torch/kernels/csrc/periodic.cu",
+        "replaces": "jrl_lbm_tpu/ops/pallas/fused_periodic.py:112", "launches": path_launches,
+        "max_abs_err": max(errs["periodic"]) if errs["periodic"] else None, "ms": ms,
+        "plain_ms": sum(r["plain_ms"] for r in main_recs) / n,
+        "bound_ms": max(mem_ms, ops_ms), "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+        "library_ms": None, "time_from": time_from,
+    }
+    return [row], report
+
+
+# ---------------------------------------------------------------------------
 # The JRL fluid phase above 131,072 cells: the tile classes (kernels/jrl_tiled.py)
 # ---------------------------------------------------------------------------
 
@@ -742,6 +961,9 @@ def main() -> int:
 
     # ---- 0. the cylinder channel: kernels against twins, the 2048² path ----
     cyl_rows, report["cylinder"] = cylinder_phases(dev, rate, errs)
+
+    # ---- 0a. the shear layer: the periodic kernel, run_shear, 2048² windows ----
+    shear_rows, report["shear"] = shear_phases(dev, rate, errs)
 
     # ---- 1. each per-step kernel against its twin ----
     def fluid_cfg(shape, refine, **kw):
@@ -1298,7 +1520,7 @@ def main() -> int:
             path128[k]["launches"][k], "events")
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    rows += cyl_rows + tiled_rows
+    rows += cyl_rows + tiled_rows + shear_rows
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)

@@ -1,7 +1,11 @@
-"""PyTorch/CUDA port of the JRL tip-approach lattice-Boltzmann solver.
+"""PyTorch/CUDA port of the JRL lattice-Boltzmann framework.
 
-Plain PyTorch operators (`ops/`), the JRL scenes (`models/jrl.py`), the
-case driver (`jrl_main.py`) and hand-written CUDA kernels for Hopper
+Plain PyTorch operators (`ops/`); the scenes: the JRL tip approach
+(`models/jrl.py`, CLI `jrl_main.py`), the cylinder channel
+(`models/cylinder.py`) and the doubly-periodic shear layer
+(`models/shear_layer.py`, CLI `shear_main.py`); the reference-parity
+API (`simulation.py`: `SimulationParameters`, `SimulationRunner`);
+diagnostics (`utils/metrics.py`) and hand-written CUDA kernels for Hopper
 (`kernels/`). Arrays keep the JAX package's batch-free layout: ``f``/``h``
 ``[9, H, W]``, ``rho``/``C`` ``[H, W]``, ``vel`` ``[2, H, W]``, ``flags``
 ``[H, W]`` int32; everything is float32.
@@ -18,4 +22,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from jrl_lbm_torch.simulation import SimulationParameters, SimulationRunner  # noqa: E402
+
 __version__ = "0.1.0"
+__all__ = ["SimulationParameters", "SimulationRunner"]

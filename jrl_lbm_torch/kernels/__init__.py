@@ -3,8 +3,8 @@ of the JRL and cylinder-channel paths, each beside its plain PyTorch
 twin: the per-step JRL kernels of every grid (`jrl_fluid.py`, `jrl_c.py`),
 the multi-step JRL kernels of grids up to 131,072 cells (`fused_jrl.py`),
 the k-step tile-class kernels of the JRL fluid phase on larger grids
-(`jrl_tiled.py`) and the four kernels of the cylinder channel's fused step
-(`cylinder.py`).
+(`jrl_tiled.py`), the four kernels of the cylinder channel's fused step
+(`cylinder.py`) and the shear layer's periodic step (`periodic.py`).
 
 The wrappers import without ``nvcc`` or a card; a kernel is built
 (`build.py`) the first time it is launched.
@@ -13,12 +13,12 @@ The wrappers import without ``nvcc`` or a card; a kernel is built
 KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "fused_fluid", "fused_balance", "fused_approach",
            "cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k",
-           "fluid_k", "fluid_k_lean", "fluid_k_bt")
+           "fluid_k", "fluid_k_lean", "fluid_k_bt", "periodic")
 
 
 def wrappers():
     """The kernel wrappers by name (each carries ``.launches``)."""
-    from jrl_lbm_torch.kernels import cylinder, fused_jrl, jrl_c, jrl_fluid, jrl_tiled
+    from jrl_lbm_torch.kernels import cylinder, fused_jrl, jrl_c, jrl_fluid, jrl_tiled, periodic
 
     return {
         "fluid_a": jrl_fluid.fluid_a,
@@ -35,6 +35,7 @@ def wrappers():
         "fluid_k": jrl_tiled.fluid_k,
         "fluid_k_lean": jrl_tiled.fluid_k_lean,
         "fluid_k_bt": jrl_tiled.fluid_k_bt,
+        "periodic": periodic.periodic,
     }
 
 

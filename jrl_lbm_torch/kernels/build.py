@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NAMES = ("c_balance", "c_approach", "fluid_a", "fluid_b",
          "fused_fluid", "fused_balance", "fused_approach",
          "cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k",
-         "fluid_k", "fluid_k_lean", "fluid_k_bt")
+         "fluid_k", "fluid_k_lean", "fluid_k_bt", "periodic")
 
 # --fmad=false: no multiply-add contraction, so each kernel rounds where
 # its plain PyTorch twin does (see csrc/jrl_common.cuh)

@@ -1,1 +1,2 @@
-"""Scenes of the PyTorch port: the JRL tip approach."""
+"""Scenes of the PyTorch port: the JRL tip approach, the cylinder channel
+and the doubly-periodic shear layer."""

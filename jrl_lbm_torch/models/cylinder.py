@@ -16,7 +16,6 @@ import math
 import warnings
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from jrl_lbm_torch import lattice
@@ -25,7 +24,7 @@ from jrl_lbm_torch.ops import coupling as _coupling
 from jrl_lbm_torch.ops import macro as _macro
 from jrl_lbm_torch.ops import stream as _stream
 from jrl_lbm_torch.ops.equilibrium import feq
-from jrl_lbm_torch.utils.device import resolve_device
+from jrl_lbm_torch.utils.device import resolve_device, state_from_numpy, state_to_numpy  # noqa: F401
 from jrl_lbm_torch.utils.grid import create_2d_meshgrid
 from jrl_lbm_torch.utils.sdf import cylinder_phi
 from jrl_lbm_torch.utils.types import CellType
@@ -177,25 +176,3 @@ def drag_lift(state, fields, cfg: CylinderConfig, margin: float = 2.0):
         + torch.sum(pi_xy[y0:y1, xi]) - torch.sum(pi_xy[y0:y1, x0])
     )
     return fx, fy
-
-
-# ---------------------------------------------------------------------------
-# JAX state <-> port state
-# ---------------------------------------------------------------------------
-
-def state_from_numpy(arrays: dict, device="cuda") -> dict:
-    """A state or fields dict of numpy arrays (e.g. JAX arrays through
-    ``np.asarray``) as tensors on ``device``: integer arrays (flags) as
-    int32, the rest as float32."""
-    dev = resolve_device(device)
-    out = {}
-    for k, v in arrays.items():
-        a = np.asarray(v)
-        dt = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
-        out[k] = torch.as_tensor(np.array(a, dtype=dt), device=dev)
-    return out
-
-
-def state_to_numpy(arrays: dict) -> dict:
-    """A state or fields dict of tensors as numpy arrays on the host."""
-    return {k: v.detach().cpu().numpy() for k, v in arrays.items()}

@@ -33,7 +33,7 @@ import torch
 
 from jrl_lbm_torch.ops.equilibrium import feq
 from jrl_lbm_torch.utils import sdf as _sdf
-from jrl_lbm_torch.utils.device import resolve_device
+from jrl_lbm_torch.utils.device import resolve_device, state_from_numpy, state_to_numpy  # noqa: F401
 from jrl_lbm_torch.utils.grid import create_2d_meshgrid
 from jrl_lbm_torch.utils.types import CellType
 
@@ -641,22 +641,3 @@ def c_dump_steps(cfg: JRLCConfig):
         if math.floor(walks) == math.floor(walks + v) - 1:
             out.append(s)
     return out
-
-
-# ---------------------------------------------------------------------------
-# JAX state <-> port state
-# ---------------------------------------------------------------------------
-
-def state_from_numpy(state: dict, device="cuda") -> dict:
-    """A state of numpy arrays (e.g. a JAX state through ``np.asarray``)
-    as float32 tensors on ``device``."""
-    dev = resolve_device(device)
-    return {
-        k: torch.as_tensor(np.array(v, dtype=np.float32), device=dev)
-        for k, v in state.items()
-    }
-
-
-def state_to_numpy(state: dict) -> dict:
-    """A state of tensors as numpy arrays on the host."""
-    return {k: v.detach().cpu().numpy() for k, v in state.items()}

@@ -1,8 +1,10 @@
-"""BGK collision with the axisymmetric source terms (counterpart of the
-JAX package's `ops/collide.py::axisymmetric_source`, `bgk_collide`;
-reference `LBM_collision_2d.py:343-555`), and the MRT collision of the
-cylinder scene (`mrt_matrices`, `mrt_collide`; reference
-`LBM_collision_MRT_2d.py:36-184`). KBC is not ported yet.
+"""Collision operators (counterpart of the JAX package's `ops/collide.py`):
+BGK with the axisymmetric source terms (`axisymmetric_source`,
+`bgk_collide`; reference `LBM_collision_2d.py:343-555`), MRT
+(`mrt_matrices`, `mrt_collide`; `LBM_collision_MRT_2d.py:36-184`) and the
+entropic KBC operator in its five types (`kbc_omega`, `kbc_collide`;
+`LBM_collision_KBC_2d.py:28-317`). Every moment contraction is written
+out as float32 multiply-adds, so no matrix unit (TF32) rounds it.
 
 Reference quirk kept: the convection-rate `elif` repeats LINE_X_EQ_0
 where LINE_Y_EQ_0 was meant, so LINE_Y_EQ_0 convection gets no extra
@@ -17,7 +19,7 @@ import torch
 from jrl_lbm_torch import lattice
 from jrl_lbm_torch.ops.equilibrium import feq
 from jrl_lbm_torch.ops.stencil import get_div, get_grad
-from jrl_lbm_torch.utils.types import AxiSymmetricType, CellType
+from jrl_lbm_torch.utils.types import AxiSymmetricType, CellType, KBCType
 
 
 def axisymmetric_source(
@@ -200,5 +202,138 @@ def mrt_collide(
         rho, vel, flags, feq_, mesh_grid, tau, int(axisymmetric_type),
         is_convection=is_convection, dx=dx, dt=dt,
     )
+    collided = f + omega + dt * Gi
+    return torch.where((flags == int(CellType.OBSTACLE))[None], f, collided)
+
+
+# ---------------------------------------------------------------------------
+# KBC (entropic)
+# ---------------------------------------------------------------------------
+
+# Raw-moment matrix (rows: M00 M10 M01 M20 M11 M02 M21 M12 M22),
+# `LBM_collision_KBC_2d.py:38-55`.
+KBC_C_MAT = np.array(
+    [
+        [1, 1, 1, 1, 1, 1, 1, 1, 1],
+        [0, 1, 0, -1, 0, 1, -1, -1, 1],
+        [0, 0, 1, 0, -1, 1, 1, -1, -1],
+        [0, 1, 0, 1, 0, 1, 1, 1, 1],
+        [0, 0, 0, 0, 0, 1, -1, 1, -1],
+        [0, 0, 1, 0, 1, 1, 1, 1, 1],
+        [0, 0, 0, 0, 0, 1, 1, -1, -1],
+        [0, 0, 0, 0, 0, 1, -1, -1, 1],
+        [0, 0, 0, 0, 0, 1, 1, 1, 1],
+    ],
+    dtype=np.float64,
+)
+
+# Central-moment exponents (`LBM_collision_KBC_2d.py:57-68`), moment
+# order [00, 10, 01, 20, 11, 02, 21, 12, 22].
+KBC_P = np.array([0, 1, 0, 2, 1, 0, 2, 1, 2], dtype=np.int32)
+KBC_Q = np.array([0, 0, 1, 0, 1, 2, 1, 2, 2], dtype=np.int32)
+
+# the moments the shear split reads: M20, M11, M02
+_SHEAR_MOMENTS = (3, 4, 5)
+
+
+def resolve_kbc_type(kbc_type: int | None) -> int:
+    """The KBC type a "kbc" scene runs: ``kbc_type``, or KBC_A when it is
+    None, the variant the reference demo passes (`demo_2d_LBM_KBC.py:102`)."""
+    return int(KBCType.KBC_A) if kbc_type is None else int(kbc_type)
+
+
+def _power(x, n: int):
+    """``x ** n`` for n in 0..2 as products (None for n = 0)."""
+    return None if n == 0 else (x if n == 1 else x * x)
+
+
+def _kbc_moments(f, vel, kbc: int):
+    """``[M20, M11, M02]`` of ``f``: central moments (c e - u)^p (c e - u)^q
+    per cell for KBC A/B (c = 1, as the reference hard-codes), raw moments
+    (rows of `KBC_C_MAT`) for C/D; summed over q in order."""
+    central = kbc in (int(KBCType.KBC_A), int(KBCType.KBC_B))
+    if central:
+        du = [float(lattice.E[q, 0]) - vel[0] for q in range(9)]
+        dv = [float(lattice.E[q, 1]) - vel[1] for q in range(9)]
+    out = []
+    for m in _SHEAR_MOMENTS:
+        acc = None
+        for q in range(9):
+            if central:
+                bx, by = _power(du[q], int(KBC_P[m])), _power(dv[q], int(KBC_Q[m]))
+                basis = bx if by is None else (by if bx is None else bx * by)
+                term = basis * f[q]
+            else:
+                c = float(KBC_C_MAT[m, q])
+                if c == 0.0:
+                    continue
+                term = f[q] if c == 1.0 else c * f[q]
+            acc = term if acc is None else acc + term
+        out.append(acc)
+    return out
+
+
+def kbc_omega(rho, vel, f, feq_, tau: float, kbc_type: int):
+    """Entropic collision operator Omega = -beta (2 ds + gamma dh)
+    (`LBM_collision_KBC_2d.py:70-249`): ds the shear part of f - feq
+    from its second moments, dh the rest, gamma the entropic stabiliser
+    (2 for LBGK, where dh = 0)."""
+    kbc = int(kbc_type)
+    if kbc not in {int(k) for k in KBCType}:
+        raise ValueError(f"unknown KBC type {kbc_type}")
+    df = f - feq_
+    beta = 1.0 / (2.0 * tau)
+    if kbc == int(KBCType.LBGK):
+        return -beta * (2.0 * df)
+
+    include_T = kbc in (int(KBCType.KBC_A), int(KBCType.KBC_C))
+    u, v = vel[0], vel[1]
+
+    def shear_parts(m20, m11, m02):
+        T, N, PIxy = m20 + m02, m20 - m02, m11
+        if include_T:
+            s0 = rho - T
+            sp = 0.5 * (0.5 * (T + N))
+            sq = 0.5 * (0.5 * (T - N))
+        else:
+            s0 = rho
+            sp = 0.5 * (0.5 * N)
+            sq = 0.5 * (0.5 * (-N))
+        return torch.stack([
+            s0, sp + 0.5 * rho * u, sq + 0.5 * rho * v, sp - 0.5 * rho * u,
+            sq - 0.5 * rho * v, 0.25 * PIxy, -0.25 * PIxy, 0.25 * PIxy, -0.25 * PIxy,
+        ])
+
+    ds = shear_parts(*_kbc_moments(f, vel, kbc)) - shear_parts(*_kbc_moments(feq_, vel, kbc))
+    dh = df - ds
+    eps = 1e-10
+    dsdh = torch.sum(ds * dh / (feq_ + eps), dim=0)
+    dhdh = torch.sum(dh * dh / (feq_ + eps), dim=0)
+    gamma = 1.0 / beta - (2.0 - 1.0 / beta) * (dsdh / (dhdh + eps))
+    return -beta * (2.0 * ds + gamma[None] * dh)
+
+
+def kbc_collide(
+    f,
+    rho,
+    vel,
+    flags,
+    tau: float,
+    kbc_type: int,
+    force=None,
+    mesh_grid=None,
+    is_convection: bool = False,
+    axisymmetric_type: int = 0,
+    dx: float = 1.0,
+    dt: float = 1.0,
+):
+    """KBC collision ``f + Omega + dt Gi`` with OBSTACLE passthrough
+    (`LBM_collision_KBC_2d.py:251-317`)."""
+    feq_ = feq(rho, vel, dx=dx, dt=dt, force=force)
+    Gi = axisymmetric_source(
+        rho, vel, flags, feq_, mesh_grid, tau, int(axisymmetric_type),
+        is_convection=is_convection, dx=dx, dt=dt,
+    )
+    omega = kbc_omega(rho, vel, f, feq_, tau, kbc_type)
     collided = f + omega + dt * Gi
     return torch.where((flags == int(CellType.OBSTACLE))[None], f, collided)

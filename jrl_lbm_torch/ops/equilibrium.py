@@ -1,6 +1,7 @@
-"""Second-order D2Q9 equilibrium with the Guo half-force shift
-(counterpart of the JAX package's `ops/equilibrium.py::feq`; reference
-`LBM_collision_2d.py:236-263`)."""
+"""Second-order D2Q9 equilibrium with the Guo half-force shift, and the
+multiphase pressure equilibrium and equation of state (counterpart of
+the JAX package's `ops/equilibrium.py`; reference
+`LBM_collision_2d.py:217-306`)."""
 
 from __future__ import annotations
 
@@ -34,3 +35,27 @@ def feq(
     out = rho_w * (1.0 + eu / cs2)
     out = out + rho_w * (0.5 * eu * eu / (cs2 * cs2) - 0.5 * uv[None] / cs2)
     return out
+
+
+def geq(rho, density, vel, pressure, force=None, feq_=None, dx: float = 1.0,
+        dt: float = 1.0) -> torch.Tensor:
+    """Multiphase pressure equilibrium ``w (p - cs2 density) + cs2 density
+    / rho * feq`` (`LBM_collision_2d.py:288-306`; exported by the reference,
+    unused by its demos)."""
+    c = dx / dt
+    cs2 = c * c / 3.0
+    if feq_ is None:
+        feq_ = feq(rho, vel, dx=dx, dt=dt, force=force)
+    _, w = lattice.tables(rho.device, rho.dtype)
+    return w[:, None, None] * (pressure - cs2 * density)[None] + (cs2 * density / rho)[None] * feq_
+
+
+def equation_of_states(rho, dx: float = 1.0, dt: float = 1.0) -> torch.Tensor:
+    """Carnahan-Starling-style equation of state
+    (`LBM_collision_2d.py:217-234`)."""
+    c = dx / dt
+    RT = c * c / 3.0
+    a = 12.0 * RT
+    tr = 4.0 * rho / 4.0
+    one_m = 1.0 - tr
+    return rho * RT * (4.0 * tr - 2.0 * tr * tr) / (one_m * one_m * one_m) + rho * RT - a * rho * rho

@@ -1,6 +1,7 @@
-"""Moments rho, u and C with OBSTACLE passthrough, and the contact-angle
-border extrapolation (counterpart of the JAX package's `ops/macro.py`;
-reference `LBM_macro_compute_2d.py:237-336`)."""
+"""Moments rho, u and C with OBSTACLE passthrough, the contact-angle
+border extrapolation, the multiphase density remap and pressure, and the
+vorticity (counterpart of the JAX package's `ops/macro.py`; reference
+`LBM_macro_compute_2d.py:177-361`)."""
 
 from __future__ import annotations
 
@@ -63,3 +64,32 @@ def macro_compute_C(h, C, flags):
     """C = sum_q h with OBSTACLE passthrough."""
     macro_C = torch.sum(h, dim=0)
     return torch.where(flags == int(CellType.OBSTACLE), C, macro_C)
+
+
+def density_remap(rho, density_liquid: float, density_gas: float, rho_liquid: float,
+                  rho_gas: float):
+    """Multiphase density remap (`LBM_macro_compute_2d.py:338-345`)."""
+    return density_gas + (density_liquid - density_gas) * (
+        (rho - rho_gas) / (rho_liquid - rho_gas)
+    )
+
+
+def get_pressure(density, dx: float = 1.0, dt: float = 1.0):
+    """Carnahan-Starling-style pressure (`LBM_macro_compute_2d.py:177-195`)."""
+    c = dx / dt
+    RT = c * c / 3.0
+    a = 12.0 * RT
+    td = 4.0 * density / 4.0
+    one_m = 1.0 - td
+    return (density * RT * td * (4.0 - 2.0 * td) / (one_m * one_m * one_m)
+            - a * density * density + density * RT)
+
+
+def get_vort(vel, dx: float = 1.0):
+    """Central-difference vorticity ``[H, W]``, the border padded with the
+    edge values (`LBM_macro_compute_2d.py:353-361`)."""
+    vort = (
+        (vel[0, 2:, 1:-1] - vel[0, :-2, 1:-1])
+        - (vel[1, 1:-1, 2:] - vel[1, 1:-1, :-2])
+    ) / (2.0 * dx)
+    return torch.nn.functional.pad(vort[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]

@@ -14,7 +14,10 @@ Tolerances: f, rho, C and h at rtol = atol = 1e-5, vel at 1e-4 (float32
 sums in another order); the tip-disk integrals at rtol 2e-4 / atol 1e-4.
 Each multi-step kernel runs one launch of many steps (a tip-row crossing,
 stored-velocity frame boundaries) against the loop of the twins, at the
-trajectory tolerances: f, rho, C and h 2e-5, vel 2e-4.
+trajectory tolerances: f, rho, C and h 2e-5, vel 2e-4. The shear
+layer's periodic kernel, in each of its seven instances, is held to its
+twin after one launch at 1e-6 and over 100 steps at the trajectory
+tolerances.
 """
 
 import ctypes
@@ -24,13 +27,16 @@ import numpy as np
 import pytest
 import torch
 
-from jrl_lbm_torch import kernels
+from jrl_lbm_torch import kernels, shear_main
 from jrl_lbm_torch.kernels import build, jrl_c, jrl_fluid
 from jrl_lbm_torch.kernels import cylinder as K
 from jrl_lbm_torch.kernels import fused_jrl as F
 from jrl_lbm_torch.kernels import jrl_tiled as JT
+from jrl_lbm_torch.kernels import periodic as P
 from jrl_lbm_torch.models import cylinder as CY
 from jrl_lbm_torch.models import jrl as T
+from jrl_lbm_torch.models import shear_layer as SL
+from jrl_lbm_torch.utils.types import KBCType
 
 RES = (128, 64)
 # (shape, refine, Rg): the wedges, the flat tips (the infinite plane at the
@@ -547,3 +553,92 @@ def test_cuda_tile_wrappers_refuse_bad_args(cuda):
         JT.fluid_k_lean(s["f"], dict(out, f=s["f"]), lean, 1, cfg)
     with pytest.raises(ValueError, match="dtype"):
         JT.fluid_k(s["f"], s["rho"].double(), s["vel"], out, full, step, 1, cfg)
+
+
+# --- the shear layer's periodic kernel (kernels/periodic.py) ---
+
+# (collision, kbc_type): BGK, MRT and the five KBC types, one template
+# instance each
+RELAXES = [("bgk", None), ("mrt", None)] + [("kbc", int(k)) for k in KBCType]
+
+
+def _shear_state(dev, res, collision, kbc_type, seed=5):
+    """``(cfg, fields, state)``: the scene's initial state plus seeded
+    noise (1e-3 of each field's scale), so that every cell differs."""
+    cfg = SL.ShearLayerConfig(res=res, collision=collision, kbc_type=kbc_type)
+    s, fields = SL.init(cfg, dev)
+    rng = np.random.default_rng(seed)
+    s = {k: v * (1.0 + torch.as_tensor((1e-3 * rng.standard_normal(tuple(v.shape)))
+                                       .astype(np.float32), device=dev))
+         for k, v in s.items()}
+    return cfg, fields, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [(130, 130), (64, 48)])
+@pytest.mark.parametrize("collision,kbc_type", RELAXES)
+def test_cuda_periodic_matches_twin(cuda, collision, kbc_type, res):
+    """One launch of each instance against the twin at 130² (H no
+    multiple of 8) and 64x48: 1e-6 (bit for bit is expected)."""
+    cfg, _, s = _shear_state(cuda, res, collision, kbc_type)
+    c = P.consts(cfg)
+    got, want = _outs(s), _outs(s)
+    n0 = P.periodic.launches
+    P.periodic(s["f"], got, c)
+    P.periodic_ref(s["f"], want, c)
+    torch.cuda.synchronize()
+    assert P.periodic.launches == n0 + 1
+    _close_all(got, want, 1e-6, f"periodic {collision} {kbc_type} {res}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collision,kbc_type", RELAXES)
+def test_cuda_periodic_runner_matches_twin_runner(cuda, collision, kbc_type):
+    """100 steps of the kernel runner at 130² against the runner on the
+    twin: f and rho 2e-5, vel 2e-4; one launch a step."""
+    cfg, fields, s = _shear_state(cuda, (130, 130), collision, kbc_type)
+    run = P.make_fused_periodic_runner(cfg)
+    kernels.reset_launches()
+    got = run(s, fields, 100)
+    torch.cuda.synchronize()
+    assert kernels.launches() == dict({k: 0 for k in kernels.KERNELS}, periodic=100)
+    with mock.patch.object(P, "periodic", P.periodic_ref):
+        want = run(s, fields, 100)
+    for name in ("f", "rho", "vel"):
+        _close(got[name], want[name], TRAJ_TOL[name], f"periodic runner {collision} {name}")
+
+
+@pytest.mark.cuda
+def test_cuda_run_shear_launches_periodic_only(cuda):
+    """`run_shear` on the card goes through the kernel, one launch a
+    step and no other kernel; mass stays at H W density."""
+    cfg = SL.ShearLayerConfig(collision="mrt")
+    kernels.reset_launches()
+    state, dumps = shear_main.run_shear(cfg, 50, 10, cuda)
+    torch.cuda.synchronize()
+    assert kernels.launches() == dict({k: 0 for k in kernels.KERNELS}, periodic=50)
+    assert [d[0] for d in dumps] == [10, 20, 30, 40, 50]
+    H, W = cfg.res
+    assert abs(float(state["f"].sum()) / (H * W * cfg.density) - 1.0) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_periodic_refuses_and_raises(cuda):
+    """Bad tensors raise before a launch; a launch the library refuses (an
+    unknown relaxation, called below the wrapper) raises a cudaError."""
+    cfg, _, s = _shear_state(cuda, (64, 48), "mrt", None)
+    c = P.consts(cfg)
+    out = _outs(s)
+    with pytest.raises(ValueError, match="dtype"):
+        P.periodic(s["f"].double(), out, c)
+    with pytest.raises(ValueError, match="apart"):
+        P.periodic(s["f"], dict(out, f=s["f"]), c)
+    with pytest.raises(ValueError, match="on cpu"):
+        P.periodic(s["f"], dict(out, rho=out["rho"].cpu()), c)
+    fn = build.bind("periodic", "periodic_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p] * 2)
+    err = fn(s["f"].data_ptr(), out["f"].data_ptr(), out["rho"].data_ptr(), out["vel"].data_ptr(),
+             7, 0, ctypes.byref(c.params), jrl_fluid.stream_of(cuda))
+    assert err != 0
+    with pytest.raises(RuntimeError, match="cudaError"):
+        build.check(err, "periodic")
