@@ -4,7 +4,7 @@ paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the fifteen CUDA kernels of ``jrl_lbm_torch/kernels/csrc`` (one
+1. Builds the fifteen CUDA libraries of ``jrl_lbm_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
@@ -22,6 +22,24 @@ paths on one NVIDIA card and check them.
    per launch), ``drag_lift`` of the final state, the k=2 and single-step
    paths as yardsticks, and each kernel alone beside its bound and twin.
    Counts are zeroed just before each main-path drive and read just after.
+0b. The cylinder channel in bf16 deviation storage (``storage_phases``),
+   round to nearest and stochastic rounding: (a) each kernel's instance
+   against its twin after one launch (k = 1, 2, 4 on 256x128, cyl_full
+   on 64x32) and the bf16 runner against the twin runner of the same
+   seed over 40, 41 and 43 steps, bit for bit (stored patterns, rho,
+   vel); (b) ``bench.py``'s 2048² scene in each mode: 23 steps against
+   the twin runner (bit for bit), best of three 600-step windows after
+   20 warm-up steps (the k=4 kernels must carry each), a profiled window
+   (busy share, device µs per launch), each instance alone beside its
+   bound (f planes 2 bytes a cell) and twin; (c) the shedding gate
+   through ``shedding.run_case``: ``mini`` (22,000 steps) within
+   ``tests/test_shedding.py``'s bands of its anchor, ``lowblock``
+   (float32, 1600x800, 200,000 steps) within St +-0.012, Cd +-4%,
+   Cl_rms +-10% of JAX's committed run, ``b025_bf16sr`` within the same
+   bands of the port's float32 run, ``b025_bf16`` printed beside JAX's
+   committed run (no gate); a missed gate fails the script after all
+   four ran. Each mode's launch counts are zeroed before each drive and
+   run and read after; no other mode or kernel may launch.
 0a. The shear layer (``shear_phases``): each of the seven instances of
    ``periodic`` (BGK, MRT, KBC in five types) against its twin after one
    launch at 130² and 2048² (1e-6), the kernel runner against the twin
@@ -76,7 +94,8 @@ paths on one NVIDIA card and check them.
 6. Runs one whole case through ``jrl_main.run_case`` at 128x64 twice:
    through the multi-step kernels (its default) and through the per-step
    runners; the record rows agree to rtol 2e-4 / atol 1e-4.
-7. Prints ``{"kernels": [...]}`` (fifteen rows), the card's name and
+7. Prints ``{"kernels": [...]}`` (23 rows: each kernel once, the four
+   cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``), the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without printing a result when no
@@ -300,6 +319,122 @@ def cyl_twin_runner(K, run):
     return twin_run
 
 
+def cyl_windows(drive, state, cells: int, tag: str = ""):
+    """Three 600-step windows of the cylinder main path through ``drive``
+    (the k=4 kernels must carry each); ``(state, windows, best)``."""
+    windows = []
+    for w in range(3):
+        state, ms, counts = drive(600, state)
+        us = ms * 1e3 / 600
+        windows.append({"us_per_step": us, "mlups": cells * 600 / (ms * 1e3), "launches": counts})
+        print(f"  window {w + 1}/3: 600 steps {us:.3f} us/step {cells / us:.1f} MLUPS "
+              f"launches {counts}", flush=True)
+        if not (counts["cyl_interior_k"] == 150 and counts["cyl_band_k"] == 300
+                and counts["cyl_full"] == 0 and counts["cyl_interior"] == 0):
+            fail(f"{tag}the k=4 kernels did not carry the window: {counts}")
+    best = min(windows, key=lambda r: r["us_per_step"])
+    print(f"  best of 3: {best['us_per_step']:.3f} us/step, {best['mlups']:.1f} MLUPS", flush=True)
+    return state, windows, best
+
+
+def cyl_profile(run, fl, state, best):
+    """A profiled 600-step window of ``run``: ``(state, profile)`` with the
+    busy share and the k-step kernels' device µs per launch (an empty
+    profile when the trace holds no device time)."""
+    pstate = {"s": state}
+
+    def prof_run(n):
+        pstate["s"] = run(pstate["s"], fl, n)
+
+    times, wall = device_profile(prof_run, 600)
+    if not wall:
+        return pstate["s"], {}
+    busy = sum(times.values())
+    per_launch = {k: sum(t for nm, t in times.items() if any(f in nm for f in KERNEL_FUNCS[k]))
+                  / best["launches"][k] for k in ("cyl_interior_k", "cyl_band_k")}
+    print(f"  profiled window: device busy {busy / 600:.3f} us/step of "
+          f"{wall * 1e6 / 600:.3f} us wall (busy {busy / (wall * 1e6):.1%}); "
+          f"device us per launch {per_launch}", flush=True)
+    return pstate["s"], {"busy_share": busy / (wall * 1e6), "device_us_per_step": busy / 600,
+                         "wall_us_per_step": wall * 1e6 / 600, "kernel_us_per_launch": per_launch,
+                         "device_us_by_function": times}
+
+
+def cyl_alone(K, cfg, run, st, fl, rate, bf16_dev, key=None):
+    """Each cylinder kernel alone at the main path's shapes (the k=4 pass's
+    rows for the k-step kernels, the k=1 split rows for the others) from
+    the state ``st`` in the storage of ``bf16_dev``: device µs per launch
+    (profiler, else events), the twin's ms per call, and the bound: the
+    bytes (each input plane once with its halo rows, each output once; f
+    planes 4 bytes a cell in float32, 2 in bf16) at ``rate`` against the
+    float32 operations at F32_PEAK (the Philox integer work of a
+    stochastic-rounding store is not counted)."""
+    import torch
+
+    c = K.consts(cfg)
+    H, W = cfg.res
+    flags, phi = fl["flags"], fl["phi_obs"]
+    obs = (flags == K.OBSTACLE).float()
+    nbr_obs = torch.nn.functional.max_pool2d(obs[None, None], 3, 1, 1)[0, 0] > 0
+    t_ok = (phi > -1e-10) & (phi <= 1.0)
+    coupled_map = t_ok & nbr_obs & (obs == 0)
+    out = {k: torch.empty_like(v) for k, v in st.items()}
+    interior, band, edge = run.step4.rows
+    int1, band1 = run.step.rows
+    f_bytes = 4 if bf16_dev is False else 2
+
+    def nrows(segs):
+        return sum(y1 - y0 for y0, y1 in segs)
+
+    def coupled(segs):
+        return int(sum(int(coupled_map[y0:y1].sum()) for y0, y1 in segs))
+
+    def bound(segs, k, in_other, out_other, full):
+        """(bytes, operations): 9 f planes in and out, ``in_other`` and
+        ``out_other`` float32 or int32 planes besides."""
+        rows = nrows(segs)
+        nbytes = ((9 * f_bytes + 4 * in_other) * (rows + 2 * k * len(segs))
+                  + (9 * f_bytes + 4 * out_other) * rows) * W
+        ops = (CYL_FLOPS * rows * W + (CYL_COUPLE_FLOPS * coupled(segs) if full else 0)) * k
+        return nbytes, ops
+
+    m = (bf16_dev, key)
+    cases = {  # name: [(kernel call, twin call, bytes and operations)]
+        "cyl_full": [(lambda fn: fn(st["f"], st["rho"], st["vel"], flags, phi, out, band1, c, *m),
+                      K.cyl_full_ref, bound(band1, 1, 5, 3, True))],
+        "cyl_interior": [(lambda fn: fn(st["f"], out, int1, c, False, *m), K.cyl_interior_ref,
+                          bound(int1, 1, 0, 0, False))],
+        "cyl_interior_k": [(lambda fn: fn(st["f"], out, interior, 4, c, False, *m),
+                            K.cyl_interior_k_ref, bound(interior, 4, 0, 0, False))],
+        "cyl_band_k": [(lambda fn: fn(st["f"], st["vel"], flags, phi, out, band, 4, False, c, *m),
+                        K.cyl_band_k_ref, bound(band, 4, 4, 3, True)),
+                       (lambda fn: fn(st["f"], st["vel"], flags, phi, out, edge, 4, True, c, *m),
+                        K.cyl_band_k_ref, bound(edge, 4, 1, 3, False))],
+    }
+    res = {}
+    for k in CYL:
+        ms_l, plain_l, mem_l, ops_l = [], [], [], []
+        for call, twin, (nbytes, ops) in cases[k]:
+            kfn = getattr(K, k)
+            times, wall = device_profile(lambda n: [call(kfn) for _ in range(n)], 20)
+            us = sum(t for nm, t in times.items() if any(f in nm for f in KERNEL_FUNCS[k]))
+            ms_l.append(us / 20 / 1e3 if us > 0 else cuda_ms(lambda: call(kfn), 20))
+            plain_l.append(cuda_ms(lambda: call(twin), 1, warmup=1))
+            mem_l.append(nbytes / rate * 1e3)
+            ops_l.append(ops / F32_PEAK * 1e3)
+        n = len(ms_l)  # per launch, averaged over the band kernel's two variants
+        ms, plain_ms = sum(ms_l) / n, sum(plain_l) / n
+        mem_ms, ops_ms = sum(mem_l) / n, sum(ops_l) / n
+        bound_ms = max(mem_ms, ops_ms)
+        by = "bytes" if mem_ms >= ops_ms else "operations"
+        print(f"  {k:14s} {ms * 1e3:10.2f} us/launch  bound {bound_ms * 1e3:8.2f} us ({by})  "
+              f"{bound_ms / ms * 100:6.2f}% of bound  twin {plain_ms:.3f} ms  per-variant us "
+              f"{[round(x * 1e3, 2) for x in ms_l]}", flush=True)
+        res[k] = {"ms": ms, "ms_by_variant": ms_l, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "mem_ms": mem_ms, "ops_ms": ops_ms, "bound_by": by}
+    return res
+
+
 def cylinder_phases(dev, rate, errs):
     """The cylinder-channel checks and the 2048² main path; returns the
     four ``kernels`` rows and a report."""
@@ -411,19 +546,7 @@ def cylinder_phases(dev, rate, errs):
            mask=fluid)
     del want, ref
 
-    state = run(s0, fl, 20)  # warm-up
-    windows = []
-    for w in range(3):
-        state, ms, counts = drive(600, state)
-        us = ms * 1e3 / 600
-        windows.append({"us_per_step": us, "mlups": cells * 600 / (ms * 1e3), "launches": counts})
-        print(f"  window {w + 1}/3: 600 steps {us:.3f} us/step {cells / us:.1f} MLUPS "
-              f"launches {counts}", flush=True)
-        if not (counts["cyl_interior_k"] == 150 and counts["cyl_band_k"] == 300
-                and counts["cyl_full"] == 0 and counts["cyl_interior"] == 0):
-            fail(f"the k=4 kernels did not carry the window: {counts}")
-    best = min(windows, key=lambda r: r["us_per_step"])
-    print(f"  best of 3: {best['us_per_step']:.3f} us/step, {best['mlups']:.1f} MLUPS", flush=True)
+    state, windows, best = cyl_windows(drive, run(s0, fl, 20), cells)  # after 20 warm-up steps
 
     # yardsticks, not the main path: the same window through k=2 passes
     # (LBM_FUSED_K=2) and through single split steps (cyl_interior + cyl_full)
@@ -462,26 +585,8 @@ def cylinder_phases(dev, rate, errs):
     report["yardsticks"] = yard
     if not all(torch.isfinite(v).all() for v in state.values()):
         fail("2048² state not finite")
-    pstate = {"s": state}
-
-    def prof_run(n):
-        pstate["s"] = run(pstate["s"], fl, n)
-
-    times, wall = device_profile(prof_run, 600)
-    busy = sum(times.values())
-    prof = {}
-    if wall:
-        per_launch = {}
-        for k in ("cyl_interior_k", "cyl_band_k"):
-            us = sum(t for nm, t in times.items() if any(f in nm for f in KERNEL_FUNCS[k]))
-            per_launch[k] = us / best["launches"][k]
-        prof = {"busy_share": busy / (wall * 1e6), "device_us_per_step": busy / 600,
-                "wall_us_per_step": wall * 1e6 / 600, "kernel_us_per_launch": per_launch,
-                "device_us_by_function": times}
-        print(f"  profiled window: device busy {busy / 600:.3f} us/step of "
-              f"{wall * 1e6 / 600:.3f} us wall (busy {busy / (wall * 1e6):.1%}); "
-              f"device us per launch {per_launch}", flush=True)
-    fx, fy = CY.drag_lift(pstate["s"], fl, cfg)
+    state, prof = cyl_profile(run, fl, state, best)
+    fx, fy = CY.drag_lift(state, fl, cfg)
     fx, fy = float(fx), float(fy)
     print(f"  drag_lift after {20 + 4 * 600} steps: Fx {fx:.6g} Fy {fy:.6g}", flush=True)
     if not (abs(fx) < float("inf") and abs(fy) < float("inf")):
@@ -490,71 +595,264 @@ def cylinder_phases(dev, rate, errs):
                    "rows": run.step4.rows})
 
     # ---- each kernel alone at the main path's shapes, and its twin ----
-    st = pstate["s"]
-    flags, phi = fl["flags"], fl["phi_obs"]
-    obs = (flags == int(CY.CellType.OBSTACLE)).float()
-    nbr_obs = torch.nn.functional.max_pool2d(obs[None, None], 3, 1, 1)[0, 0] > 0
-    t_ok = (phi > -1e-10) & (phi <= 1.0)
-    coupled_map = t_ok & nbr_obs & (obs == 0)
-    out = {k: torch.empty_like(v) for k, v in st.items()}
-    interior, band, edge = run.step4.rows
-    int1, band1 = run.step.rows
-    plane = W * 4
-
-    def nrows(segs):
-        return sum(y1 - y0 for y0, y1 in segs)
-
-    def coupled(segs):
-        return int(sum(int(coupled_map[y0:y1].sum()) for y0, y1 in segs))
-
-    def bound(segs, k, in_planes, out_planes, full):
-        rows = nrows(segs)
-        nbytes = (in_planes * (rows + 2 * k * len(segs)) + out_planes * rows) * plane
-        ops = (CYL_FLOPS * rows * W + (CYL_COUPLE_FLOPS * coupled(segs) if full else 0)) * k
-        return nbytes, ops
-
-    cases = {  # name: [(kernel call, twin call, bytes and operations)]
-        "cyl_full": [(lambda fn: fn(st["f"], st["rho"], st["vel"], flags, phi, out, band1, c),
-                      K.cyl_full_ref, bound(band1, 1, 14, 12, True))],
-        "cyl_interior": [(lambda fn: fn(st["f"], out, int1, c, False), K.cyl_interior_ref,
-                          bound(int1, 1, 9, 9, False))],
-        "cyl_interior_k": [(lambda fn: fn(st["f"], out, interior, 4, c, False),
-                            K.cyl_interior_k_ref, bound(interior, 4, 9, 9, False))],
-        "cyl_band_k": [(lambda fn: fn(st["f"], st["vel"], flags, phi, out, band, 4, False, c),
-                        K.cyl_band_k_ref, bound(band, 4, 13, 12, True)),
-                       (lambda fn: fn(st["f"], st["vel"], flags, phi, out, edge, 4, True, c),
-                        K.cyl_band_k_ref, bound(edge, 4, 10, 12, False))],
-    }
-    rows = []
     print(f"cylinder kernels alone at {H}x{W} (memory rate {rate / 1e12:.2f} TB/s):", flush=True)
+    alone = cyl_alone(K, cfg, run, state, fl, rate, False)
+    rows = []
     for k in CYL:
-        ms_l, plain_l, mem_l, ops_l = [], [], [], []
-        for call, twin, (nbytes, ops) in cases[k]:
-            kfn = getattr(K, k)
-            times, wall = device_profile(lambda n: [call(kfn) for _ in range(n)], 20)
-            us = sum(t for nm, t in times.items() if any(f in nm for f in KERNEL_FUNCS[k]))
-            ms_l.append(us / 20 / 1e3 if us > 0 else cuda_ms(lambda: call(kfn), 20))
-            plain_l.append(cuda_ms(lambda: call(twin), 1, warmup=1))
-            mem_l.append(nbytes / rate * 1e3)
-            ops_l.append(ops / F32_PEAK * 1e3)
-        n = len(ms_l)  # per launch, averaged over the band kernel's two variants
-        ms, plain_ms = sum(ms_l) / n, sum(plain_l) / n
-        mem_ms, ops_ms = sum(mem_l) / n, sum(ops_l) / n
-        bound_ms = max(mem_ms, ops_ms)
-        print(f"  {k:14s} {ms * 1e3:10.2f} us/launch  bound {bound_ms * 1e3:8.2f} us "
-              f"({'bytes' if mem_ms >= ops_ms else 'operations'})  {bound_ms / ms * 100:6.2f}% "
-              f"of bound  twin {plain_ms:.3f} ms  per-variant us {[round(x * 1e3, 2) for x in ms_l]}",
-              flush=True)
-        report.setdefault("per_launch", {})[k] = {
-            "ms": ms, "ms_by_variant": ms_l, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "mem_ms": mem_ms, "ops_ms": ops_ms}
+        report.setdefault("per_launch", {})[k] = alone[k]
         src, rep = SOURCE[k]
         rows.append({
             "name": k, "route": "cuda", "source": src, "replaces": rep,
             "launches": path_launches[k], "max_abs_err": max(errs[k]) if errs[k] else None,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if mem_ms >= ops_ms else "operations", "library_ms": None,
+            "ms": alone[k]["ms"], "plain_ms": alone[k]["plain_ms"],
+            "bound_ms": alone[k]["bound_ms"], "bound_by": alone[k]["bound_by"],
+            "library_ms": None,
         })
+    return rows, report
+
+
+# ---------------------------------------------------------------------------
+# The cylinder channel in bf16 deviation storage
+# ---------------------------------------------------------------------------
+
+CYL_STORAGE = ((True, "bf16"), ("sr", "bf16_sr"))  # bf16_dev, mode name
+RESULTS = os.path.join(HERE, "validation", "results")
+
+
+def cyl_equal(tag, got, want):
+    """Bit for bit: the stored f patterns, rho and vel; returns the largest
+    float32 deviation (0 when equal) after failing on any difference."""
+    import torch
+
+    from jrl_lbm_torch.kernels import cylinder as K
+
+    err = 0.0
+    for nm in ("f", "rho", "vel"):
+        g, w = got[nm], want[nm]
+        if g.dtype == torch.bfloat16:
+            same = torch.equal(g.view(torch.int16), w.view(torch.int16))
+            g, w = K.f_from_storage(g, True), K.f_from_storage(w, True)
+        else:
+            same = torch.equal(g, w)
+        d = float((g - w).abs().max())
+        err = max(err, d)
+        if not torch.isfinite(g).all():
+            fail(f"{tag} {nm}: kernel output not finite")
+        if not same:
+            fail(f"{tag} {nm}: kernel and twin differ (max {d:.3e}); the storage modes are "
+                 "held bit for bit")
+    print(f"  {tag:52s} bit for bit (stored f, rho, vel)", flush=True)
+    return err
+
+
+def storage_phases(dev, rate, f32_report):
+    """The cylinder channel in bf16 deviation storage (round to nearest and
+    stochastic rounding): (a) each kernel instance against its twin after
+    one launch and the runners against the twin runners, bit for bit;
+    (b) the 2048² main path in each mode; (c) the shedding gate. Returns
+    the eight ``kernels`` rows (four kernels, two modes) and a report."""
+    import json
+
+    import torch
+
+    from jrl_lbm_torch import kernels, shedding
+    from jrl_lbm_torch.kernels import cylinder as K
+    from jrl_lbm_torch.models import cylinder as CY
+
+    report = {}
+    errs = {(k, nm): [] for k in CYL for _, nm in CYL_STORAGE}
+    path = {nm: {k: 0 for k in CYL} for _, nm in CYL_STORAGE}
+
+    def new_outs(s):
+        return {k: torch.full_like(v, 7.0) for k, v in s.items()}
+
+    def mode_counts(nm):
+        """This mode's launches by kernel; no other mode or kernel may launch."""
+        by = kernels.launches_by_mode()
+        off = {k: v for k, v in by.items() if v and not k.endswith("/" + nm)}
+        off.update({k: v for k, v in kernels.launches().items() if v and k not in CYL})
+        if off:
+            fail(f"the {nm} path launched {off}")
+        return {k: by[f"{k}/{nm}"] for k in CYL}
+
+    # ---- (a) each instance against its twin, small geometries ----
+    for label, (ckw, rkw) in CYL_SMALL.items():
+        cfg = CY.CylinderConfig(**ckw)
+        c = K.consts(cfg)
+        s, fl = CY.init(cfg, dev)
+        s = CY.make_runner(cfg)(s, fl, 30)
+        g = torch.Generator(device=dev).manual_seed(3)
+        s = {k: v + 1e-4 * torch.randn(v.shape, generator=g, device=dev) for k, v in s.items()}
+        flags, phi = fl["flags"], fl["phi_obs"]
+        for mode, nm in CYL_STORAGE:
+            print(f"compare {nm} cylinder kernels with twins: {label}", flush=True)
+            sm = dict(s, f=K.f_to_storage(s["f"], mode))
+            m = (mode, (17, 5) if mode == "sr" else None)
+            run = K.make_fused_cylinder_runner(cfg, bf16_dev=mode, seed=17, **rkw)
+            if run.step.split:
+                interior, band, edge = run.step4.rows
+                one = [("cyl_full", lambda o, fn: fn(sm["f"], sm["rho"], sm["vel"], flags, phi,
+                                                      o, run.step.rows[1], c, *m)),
+                       ("cyl_interior", lambda o, fn: fn(sm["f"], o, run.step.rows[0], c, True,
+                                                          *m))]
+                for k in (1, 2, 4):
+                    one.append((f"cyl_interior_k k={k}",
+                                lambda o, fn, k=k: fn(sm["f"], o, interior, k, c, True, *m)))
+                    for e, segs in ((False, band), (True, edge)):
+                        one.append((f"cyl_band_k k={k} {'edge' if e else 'cyl'}",
+                                    lambda o, fn, k=k, e=e, segs=segs: fn(
+                                        sm["f"], sm["vel"], flags, phi, o, segs, k, e, c, *m)))
+            else:
+                one = [("cyl_full", lambda o, fn: fn(sm["f"], sm["rho"], sm["vel"], flags, phi,
+                                                      o, [(0, cfg.res[0])], c, *m))]
+            for tag, call in one:
+                k = tag.split()[0]
+                got, want = new_outs(sm), new_outs(sm)
+                call(got, getattr(K, k))
+                call(want, getattr(K, k + "_ref"))
+                torch.cuda.synchronize()
+                errs[k, nm].append(cyl_equal(f"{nm} {tag} 1 launch", got, want))
+            for n in (40, 41, 43):
+                kernels.reset_launches()
+                got = K.make_fused_cylinder_runner(cfg, bf16_dev=mode, seed=17, **rkw)(sm, fl, n)
+                torch.cuda.synchronize()
+                used = tuple(k for k, v in mode_counts(nm).items() if v)
+                twin = cyl_twin_runner(K, K.make_fused_cylinder_runner(cfg, bf16_dev=mode,
+                                                                       seed=17, **rkw))
+                err = cyl_equal(f"{nm} runner {n} steps ({'+'.join(used)})", got,
+                                twin(sm, fl, n))
+                for k in used:
+                    errs[k, nm].append(err)
+
+    # ---- (b) the 2048² main path in each storage mode ----
+    cfg = CY.CylinderConfig(**CYL_MAIN)
+    H, W = cfg.res
+    cells = H * W
+    s0, fl = CY.init(cfg, dev)
+    rows = []
+    for mode, nm in CYL_STORAGE:
+        run = K.make_fused_cylinder_runner(cfg, bf16_dev=mode, seed=1)
+        st0 = dict(s0, f=K.f_to_storage(s0["f"], mode))
+
+        def drive(n, state, run=run, nm=nm):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run(state, fl, n)
+            end.record()
+            torch.cuda.synchronize()
+            counts = mode_counts(nm)
+            for k in CYL:
+                path[nm][k] += counts[k]
+            return out, start.elapsed_time(end), counts
+
+        print(f"cylinder main path {H}x{W} in {nm} storage:", flush=True)
+        got, _, counts = drive(23, st0)
+        if not all(counts[k] for k in CYL):
+            fail(f"{nm}: cylinder kernels not launched on the 23-step drive: {counts}")
+        want = cyl_twin_runner(K, K.make_fused_cylinder_runner(cfg, bf16_dev=mode, seed=1))(
+            st0, fl, 23)
+        err = cyl_equal(f"{nm} 2048² 23 steps vs twin runner", got, want)
+        for k in CYL:
+            errs[k, nm].append(err)
+        del want
+        state, windows, best = cyl_windows(drive, run(got, fl, 20), cells, f"{nm}: ")
+        if not all(torch.isfinite(v.float()).all() for v in state.values()):
+            fail(f"{nm}: 2048² state not finite")
+        state, prof = cyl_profile(run, fl, state, best)
+        fx, fy = CY.drag_lift(dict(state, f=K.f_from_storage(state["f"], mode)), fl, cfg)
+        print(f"  drag_lift after {23 + 20 + 4 * 600} steps: Fx {float(fx):.6g} "
+              f"Fy {float(fy):.6g}", flush=True)
+        if not (abs(float(fx)) < float("inf") and abs(float(fy)) < float("inf")):
+            fail(f"{nm}: drag_lift not finite")
+        print(f"cylinder kernels alone at {H}x{W} in {nm} storage:", flush=True)
+        alone = cyl_alone(K, cfg, run, state, fl, rate, mode,
+                          (1, 2 ** 31) if mode == "sr" else None)
+        report[nm] = {"windows": windows, "best": best, "profile": prof,
+                      "drag_lift": [float(fx), float(fy)], "per_launch": alone}
+        for k in CYL:
+            src, rep = SOURCE[k]
+            e = errs[k, nm]
+            rows.append({
+                "name": f"{k}/{nm}", "route": "cuda", "source": src, "replaces": rep,
+                "launches": path[nm][k], "max_abs_err": max(e) if e else None,
+                "ms": alone[k]["ms"], "plain_ms": alone[k]["plain_ms"],
+                "bound_ms": alone[k]["bound_ms"], "bound_by": alone[k]["bound_by"],
+                "library_ms": None,
+            })
+        del state, got
+    f32_best = f32_report["best"]["us_per_step"]
+    print("2048² best us/step: f32 " + f"{f32_best:.3f}, " + ", ".join(
+        f"{nm} {report[nm]['best']['us_per_step']:.3f}" for _, nm in CYL_STORAGE), flush=True)
+
+    # ---- (c) the shedding gate ----
+    def committed(name):
+        with open(os.path.join(RESULTS, name)) as fo:
+            return json.load(fo)
+
+    anchor = committed("mini_shedding_anchor.json")
+    jax_runs = {case: committed(f"cylinder_shedding_{case}.json")
+                for case in ("lowblock", "b025_bf16", "b025_bf16sr")}
+    gate = {}
+    for case in ("mini", "lowblock", "b025_bf16sr", "b025_bf16"):
+        mode = shedding.CASES[case]["bf16_dev"]
+        nm = dict(CYL_STORAGE).get(mode, "f32")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = shedding.run_case(case, dev, seed=7)
+        torch.cuda.synchronize()
+        counts = mode_counts(nm) if nm != "f32" else {k: kernels.launches()[k] for k in CYL}
+        if not (counts["cyl_interior_k"] and counts["cyl_band_k"]):
+            fail(f"shedding {case}: the k=4 kernels did not run: {counts}")
+        if nm != "f32":
+            for k in CYL:
+                path[nm][k] += counts[k]
+        series = res.pop("series")
+        res["launches"] = counts
+        gate[case] = res
+        print(f"shedding {case} ({nm}, {res['steps']} steps in {res['wall_s']:.1f} s): "
+              f"St {res['strouhal']:.4f} Cd {res['cd_mean']:.4f} Cl_rms {res['cl_rms']:.4f} "
+              f"Cl_mean {res['cl_mean']:.4f} u_eff {res['u_eff']:.5f} "
+              f"Re_eff {res['re_cylinder_effective']:.1f} launches {counts}", flush=True)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        import numpy as np
+
+        np.savez(os.path.join(HERE, "chiprun_out", f"cylinder_shedding_{case}_series.npz"),
+                 **series)
+
+    def held(case, ref, tag, st_tol):
+        r = gate[case]
+        checks = {"St": (r["strouhal"], ref["St"], abs(r["strouhal"] - ref["St"]) <= st_tol),
+                  "Cd": (r["cd_mean"], ref["Cd"], abs(r["cd_mean"] - ref["Cd"]) <= 0.04 * ref["Cd"]),
+                  "Cl_rms": (r["cl_rms"], ref["Cl_rms"],
+                             abs(r["cl_rms"] - ref["Cl_rms"]) <= 0.10 * ref["Cl_rms"])}
+        for key, (v, want, ok) in checks.items():
+            print(f"  gate {case} {key}: {v:.4f} vs {tag} {want:.4f} "
+                  f"{'held' if ok else 'MISSED'}", flush=True)
+        return [f"{case} {key}" for key, (_, _, ok) in checks.items() if not ok]
+
+    def ref_of(r):
+        return {"St": r["strouhal"], "Cd": r["cd_mean"], "Cl_rms": r["cl_rms"]}
+
+    missed = held("mini", {"St": anchor["St"], "Cd": anchor["Cd_mean"],
+                           "Cl_rms": anchor["Cl_rms"]}, "anchor", 0.01)
+    if not abs(gate["mini"]["cl_mean"]) < 0.05:
+        missed.append("mini Cl_mean")
+    missed += held("lowblock", ref_of(jax_runs["lowblock"]), "JAX f32", 0.012)
+    missed += held("b025_bf16sr", ref_of(gate["lowblock"]), "port f32", 0.012)
+    rn, jrn = gate["b025_bf16"], jax_runs["b025_bf16"]
+    print(f"  b025_bf16 (round to nearest, no gate): St {rn['strouhal']:.4f} Cd "
+          f"{rn['cd_mean']:.4f} Cl_rms {rn['cl_rms']:.4f}; JAX's committed run St "
+          f"{jrn['strouhal']:.4f} Cd {jrn['cd_mean']:.4f} Cl_rms {jrn['cl_rms']:.4f}; port f32 "
+          f"Cl_rms {gate['lowblock']['cl_rms']:.4f}", flush=True)
+    report["shedding"] = gate
+    report["shedding_missed"] = missed
+    if missed:
+        fail(f"shedding gate missed: {missed}")
+    for row in rows:  # the gate runs are on the main path too
+        k, nm = row["name"].split("/")
+        row["launches"] = path[nm][k]
     return rows, report
 
 
@@ -961,6 +1259,9 @@ def main() -> int:
 
     # ---- 0. the cylinder channel: kernels against twins, the 2048² path ----
     cyl_rows, report["cylinder"] = cylinder_phases(dev, rate, errs)
+
+    # ---- 0b. the cylinder channel in bf16 storage, and the shedding gate ----
+    storage_rows, report["cylinder_storage"] = storage_phases(dev, rate, report["cylinder"])
 
     # ---- 0a. the shear layer: the periodic kernel, run_shear, 2048² windows ----
     shear_rows, report["shear"] = shear_phases(dev, rate, errs)
@@ -1520,7 +1821,7 @@ def main() -> int:
             path128[k]["launches"][k], "events")
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    rows += cyl_rows + tiled_rows + shear_rows
+    rows += cyl_rows + storage_rows + tiled_rows + shear_rows
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)

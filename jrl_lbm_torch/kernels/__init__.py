@@ -4,7 +4,9 @@ twin: the per-step JRL kernels of every grid (`jrl_fluid.py`, `jrl_c.py`),
 the multi-step JRL kernels of grids up to 131,072 cells (`fused_jrl.py`),
 the k-step tile-class kernels of the JRL fluid phase on larger grids
 (`jrl_tiled.py`), the four kernels of the cylinder channel's fused step
-(`cylinder.py`) and the shear layer's periodic step (`periodic.py`).
+(`cylinder.py`; float32, bf16 or stochastically rounded bf16 storage of
+f, each a template instance, counted per name and per mode) and the
+shear layer's periodic step (`periodic.py`).
 
 The wrappers import without ``nvcc`` or a card; a kernel is built
 (`build.py`) the first time it is launched.
@@ -40,9 +42,22 @@ def wrappers():
 
 
 def reset_launches():
+    from jrl_lbm_torch.kernels import cylinder
+
     for fn in wrappers().values():
         fn.launches = 0
+    cylinder.reset_launches()
 
 
 def launches():
+    """Launches per kernel name, every storage mode together."""
     return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def launches_by_mode():
+    """Launches of the cylinder kernels per storage mode, as
+    ``{"cyl_full/bf16": n, ...}`` (modes `cylinder.MODE_NAMES`)."""
+    from jrl_lbm_torch.kernels import cylinder
+
+    return {f"{fn.__name__}/{m}": n for fn in cylinder.WRAPPERS
+            for m, n in fn.launches_by_mode.items()}

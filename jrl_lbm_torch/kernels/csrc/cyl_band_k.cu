@@ -24,43 +24,50 @@
 // at k = 4; the OUTFLOW copy recomputes the inward neighbour's streaming
 // from the same sub-step buffer (a clamped read where that falls outside
 // the tile only ever feeds a halo cell that does not reach the tile).
+// In the bf16 storage modes only the tile load and the pass's one store
+// convert (cyl_common.cuh::f_load, f_store).
 #include "cyl_common.cuh"
 
 namespace {
 
 using namespace cyl;
 
-template <int MODE, int K>
+template <int MODE, int K, int ST>
 __global__ void __launch_bounds__(TILE_THREADS_X * TILE_THREADS_Y) cyl_band_k_kernel(
-    const float* __restrict__ f, const float* __restrict__ vel, const int* __restrict__ flags,
-    const float* __restrict__ phi, float* __restrict__ f_out, float* __restrict__ rho_out,
+    const f_t<ST>* __restrict__ f, const float* __restrict__ vel, const int* __restrict__ flags,
+    const float* __restrict__ phi, f_t<ST>* __restrict__ f_out, float* __restrict__ rho_out,
     float* __restrict__ vel_out, CylParams p) {
-  tile_steps<MODE, K>(f, vel, flags, phi, f_out, rho_out, vel_out, p);
+  tile_steps<MODE, K, ST>(f, vel, flags, phi, f_out, rho_out, vel_out, p);
 }
 
-template <int MODE>
-int launch(const float* f, const float* vel, const int* flags, const float* phi, float* f_out,
+template <int MODE, int ST>
+int launch(const void* f, const float* vel, const int* flags, const float* phi, void* f_out,
            float* rho_out, float* vel_out, int k, const CylParams* p, cudaStream_t stream) {
   return with_k(k, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
     const int bytes = tile_smem_floats(MODE, K) * (int)sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(cyl_band_k_kernel<MODE, K>,
+    cudaError_t err = cudaFuncSetAttribute(cyl_band_k_kernel<MODE, K, ST>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((p->W + tile_tx(K) - 1) / tile_tx(K), row_tiles(*p, tile_ty(MODE)));
     const dim3 block(TILE_THREADS_X, TILE_THREADS_Y);
-    cyl_band_k_kernel<MODE, K><<<grid, block, bytes, stream>>>(f, vel, flags, phi, f_out,
-                                                               rho_out, vel_out, *p);
+    cyl_band_k_kernel<MODE, K, ST><<<grid, block, bytes, stream>>>(
+        static_cast<const f_t<ST>*>(f), vel, flags, phi, static_cast<f_t<ST>*>(f_out), rho_out,
+        vel_out, *p);
     return (int)cudaGetLastError();
   });
 }
 
 }  // namespace
 
-extern "C" int cyl_band_k_launch(const float* f, const float* vel, const int* flags,
-                                 const float* phi, float* f_out, float* rho_out, float* vel_out,
-                                 int k, int edge, const CylParams* p, void* stream) {
+// storage: cyl_common.cuh::Storage; f and f_out hold f_t<storage>.
+extern "C" int cyl_band_k_launch(const void* f, const float* vel, const int* flags,
+                                 const float* phi, void* f_out, float* rho_out, float* vel_out,
+                                 int k, int edge, int storage, const CylParams* p, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  return edge ? launch<FULL_EDGE>(f, vel, flags, phi, f_out, rho_out, vel_out, k, p, s)
-              : launch<FULL_CYL>(f, vel, flags, phi, f_out, rho_out, vel_out, k, p, s);
+  return with_storage(storage, [&](auto sc) {
+    constexpr int ST = decltype(sc)::value;
+    return edge ? launch<FULL_EDGE, ST>(f, vel, flags, phi, f_out, rho_out, vel_out, k, p, s)
+                : launch<FULL_CYL, ST>(f, vel, flags, phi, f_out, rho_out, vel_out, k, p, s);
+  });
 }

@@ -12,11 +12,21 @@
 // bodies of fused_step.py: the division-free _feq_terms and the paired
 // even/odd _mrt_apply) operation by operation, with the same float32
 // constants; built with --fmad=false, kernel and twin round alike.
+//
+// f crosses device memory in one of three storage modes, a template
+// parameter of every kernel (Storage below): float32, or the bf16
+// deviation g = f - w_q rounded to nearest or stochastically
+// (fused_step.py::_mk_ld_st). The conversion happens only where f is
+// loaded from or stored to device memory; every step in between, and the
+// k-step kernels' sub-steps in shared memory, stay float32.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <type_traits>
 
 #include "jrl_common.cuh"
+#include "philox.cuh"
 
 namespace cyl {
 
@@ -42,7 +52,67 @@ struct CylParams {
   float ev0[5];           // even coefficients of direction 0
   float ev[4][5];         // even coefficients of the pairs (1,3) (2,4) (5,7) (6,8)
   float od[4][4];         // odd coefficients of the same pairs
+  unsigned key[2];        // Philox key of a stochastic-rounding launch: (seed, launch number)
 };
+
+// Storage of f in device memory (the codes of kernels/cylinder.py::_storage).
+enum Storage { F32 = 0, BF16_RN = 1, BF16_SR = 2 };
+
+// The element type of f in device memory: float, or the bf16 bit pattern.
+template <int ST>
+using f_t = typename std::conditional<ST == F32, float, unsigned short>::type;
+
+// f of population q from element i: the stored value, or float(g) + w_q
+// (a bf16 pattern is the top half of the float32 with the same value).
+template <int ST>
+__device__ __forceinline__ float f_load(const f_t<ST>* f, int i, int q) {
+  if constexpr (ST == F32) {
+    return f[i];
+  } else {
+    return __uint_as_float((unsigned)f[i] << 16) + wq(q);
+  }
+}
+
+// Stores the nine populations of cell c (planes HW apart): float32 as
+// they are; bf16 of f - w_q rounded to nearest (even); or stochastically,
+// by adding 16 random bits to the float32 pattern of f - w_q and keeping
+// its top 16 bits (fused_step.py:189-201). The bits come from Philox
+// under the launch's key, counter (c, 0, 0, 0) for populations 0-7 and
+// (c, 1, 0, 0) for population 8 (kernels/philox.py).
+template <int ST>
+__device__ __forceinline__ void f_store(f_t<ST>* f, int HW, int c, const float fo[9],
+                                        const CylParams& p) {
+  if constexpr (ST == F32) {
+#pragma unroll
+    for (int q = 0; q < 9; ++q) f[q * HW + c] = fo[q];
+  } else if constexpr (ST == BF16_RN) {
+#pragma unroll
+    for (int q = 0; q < 9; ++q) {
+      f[q * HW + c] = __bfloat16_as_ushort(__float2bfloat16_rn(fo[q] - wq(q)));
+    }
+  } else {
+    const uint4 w = philox::philox4x32_10(make_uint4((unsigned)c, 0u, 0u, 0u), p.key[0], p.key[1]);
+    const uint4 w8 = philox::philox4x32_10(make_uint4((unsigned)c, 1u, 0u, 0u), p.key[0], p.key[1]);
+    const unsigned r[9] = {w.x & 0xFFFFu, w.x >> 16, w.y & 0xFFFFu, w.y >> 16, w.z & 0xFFFFu,
+                           w.z >> 16,     w.w & 0xFFFFu, w.w >> 16, w8.x & 0xFFFFu};
+#pragma unroll
+    for (int q = 0; q < 9; ++q) {
+      const unsigned b = (__float_as_uint(fo[q] - wq(q)) + r[q]) & 0xFFFF0000u;
+      f[q * HW + c] = (unsigned short)(b >> 16);
+    }
+  }
+}
+
+// Calls fn(std::integral_constant<int, ST>()) for the run-time storage mode.
+template <class Fn>
+int with_storage(int storage, Fn fn) {
+  switch (storage) {
+    case F32: return fn(std::integral_constant<int, F32>());
+    case BF16_RN: return fn(std::integral_constant<int, BF16_RN>());
+    case BF16_SR: return fn(std::integral_constant<int, BF16_SR>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 constexpr double CS2D = 1.0 / 3.0;  // constants below are rounded from doubles, as in JAX
 
@@ -76,8 +146,9 @@ __device__ __forceinline__ int wrap(int v, int n) {
 }
 
 // Previous step read from global memory around cell (y, x); offsets wrap.
+template <int ST>
 struct GlobalAcc {
-  const float* f;
+  const f_t<ST>* f;
   const float* vel;
   const int* flags;
   const float* phi;
@@ -91,7 +162,7 @@ struct GlobalAcc {
     return yy * W + xx;
   }
   __device__ __forceinline__ float F(int q, int dy, int dx) const {
-    return f[q * H * W + idx(dy, dx)];
+    return f_load<ST>(f, q * H * W + idx(dy, dx), q);
   }
   __device__ __forceinline__ int flag(int dy, int dx) const { return flags[idx(dy, dx)]; }
   __device__ __forceinline__ float ph(int dy, int dx) const { return phi[idx(dy, dx)]; }
@@ -404,9 +475,10 @@ __host__ __device__ inline int tile_smem_floats(int mode, int k) {
 }
 
 // k is a template parameter: the buffer strides become immediate offsets.
-template <int MODE, int k>
-__device__ __forceinline__ void tile_steps(const float* f, const float* vel, const int* flags,
-                                           const float* phi, float* f_out, float* rho_out,
+// ST: the storage of f and f_out; the tile holds float32.
+template <int MODE, int k, int ST>
+__device__ __forceinline__ void tile_steps(const f_t<ST>* f, const float* vel, const int* flags,
+                                           const float* phi, f_t<ST>* f_out, float* rho_out,
                                            float* vel_out, const CylParams& p) {
   extern __shared__ float smem[];
   constexpr bool FULL = MODE != LEAN, VEL = MODE == FULL_CYL;
@@ -430,7 +502,7 @@ __device__ __forceinline__ void tile_steps(const float* f, const float* vel, con
     for (int lx = tx; lx < TILE_EX; lx += TILE_THREADS_X) {
       const int g = grow + wrap_near(ox + lx, W), i = ly * TILE_EX + lx;
 #pragma unroll
-      for (int q = 0; q < 9; ++q) smem[q * EXT + i] = f[q * HW + g];
+      for (int q = 0; q < 9; ++q) smem[q * EXT + i] = f_load<ST>(f, q * HW + g, q);
       if (VEL) {
         smem[18 * EXT + i] = vel[g];
         smem[19 * EXT + i] = vel[HW + g];
@@ -459,8 +531,7 @@ __device__ __forceinline__ void tile_steps(const float* f, const float* vel, con
         const int yy = oy + ly, xx = ox + lx;
         if (yy < yend && xx < W) {
           const int c = yy * W + xx;
-#pragma unroll
-          for (int q = 0; q < 9; ++q) f_out[q * HW + c] = fo[q];
+          f_store<ST>(f_out, HW, c, fo, p);
           if (write_macro) {
             rho_out[c] = r;
             vel_out[c] = ux;

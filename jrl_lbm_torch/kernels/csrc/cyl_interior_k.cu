@@ -22,34 +22,43 @@
 // the two sub-step buffers, takes 110 KB of shared memory at k = 4 (two
 // blocks an SM); each thread updates two independent cells of a row at
 // once so that their instructions interleave; buffer offsets are
-// compile-time and from the shared base (no generic loads).
+// compile-time and from the shared base (no generic loads). In the bf16
+// storage modes the tile load and the one store of the pass convert
+// (cyl_common.cuh::f_load, f_store; the sub-steps stay float32 in shared
+// memory, so a pass rounds once): the f bytes halve, the instructions
+// per cell barely move, and the stochastic-rounding store adds two
+// Philox calls a cell.
 #include "cyl_common.cuh"
 
 namespace {
 
 using namespace cyl;
 
-template <int K>
+template <int K, int ST>
 __global__ void __launch_bounds__(TILE_THREADS_X * TILE_THREADS_Y) cyl_interior_k_kernel(
-    const float* __restrict__ f, float* __restrict__ f_out, float* __restrict__ rho_out,
+    const f_t<ST>* __restrict__ f, f_t<ST>* __restrict__ f_out, float* __restrict__ rho_out,
     float* __restrict__ vel_out, CylParams p) {
-  tile_steps<LEAN, K>(f, nullptr, nullptr, nullptr, f_out, rho_out, vel_out, p);
+  tile_steps<LEAN, K, ST>(f, nullptr, nullptr, nullptr, f_out, rho_out, vel_out, p);
 }
 
 }  // namespace
 
-extern "C" int cyl_interior_k_launch(const float* f, float* f_out, float* rho_out,
-                                     float* vel_out, int k, const CylParams* p, void* stream) {
-  return with_k(k, [&](auto kc) {
-    constexpr int K = decltype(kc)::value;
-    const int bytes = tile_smem_floats(LEAN, K) * (int)sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(cyl_interior_k_kernel<K>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((p->W + tile_tx(K) - 1) / tile_tx(K), row_tiles(*p, tile_ty(LEAN)));
-    const dim3 block(TILE_THREADS_X, TILE_THREADS_Y);
-    cyl_interior_k_kernel<K><<<grid, block, bytes, (cudaStream_t)stream>>>(f, f_out, rho_out,
-                                                                           vel_out, *p);
-    return (int)cudaGetLastError();
+// storage: cyl_common.cuh::Storage; f and f_out hold f_t<storage>.
+extern "C" int cyl_interior_k_launch(const void* f, void* f_out, float* rho_out, float* vel_out,
+                                     int k, int storage, const CylParams* p, void* stream) {
+  return with_storage(storage, [&](auto sc) {
+    constexpr int ST = decltype(sc)::value;
+    return with_k(k, [&](auto kc) {
+      constexpr int K = decltype(kc)::value;
+      const int bytes = tile_smem_floats(LEAN, K) * (int)sizeof(float);
+      cudaError_t err = cudaFuncSetAttribute(cyl_interior_k_kernel<K, ST>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return (int)err;
+      const dim3 grid((p->W + tile_tx(K) - 1) / tile_tx(K), row_tiles(*p, tile_ty(LEAN)));
+      const dim3 block(TILE_THREADS_X, TILE_THREADS_Y);
+      cyl_interior_k_kernel<K, ST><<<grid, block, bytes, (cudaStream_t)stream>>>(
+          static_cast<const f_t<ST>*>(f), static_cast<f_t<ST>*>(f_out), rho_out, vel_out, *p);
+      return (int)cudaGetLastError();
+    });
   });
 }

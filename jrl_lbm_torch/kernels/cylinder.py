@@ -37,8 +37,19 @@ no contact-angle extrapolation; OBSTACLE rho passes through at k=1 and is
 force; OUTFLOW only on the global border; no INFLOW_2 rule. The split
 path assumes the cylinder scene: plain-channel rows outside the band
 (walls at x = 0 and W-1); the k-step path checks the border once per
-flags field. bf16 deviation storage (``bf16_dev``) is not ported (ROADMAP
-Queue 2 item 11).
+flags field.
+
+Storage of f (``bf16_dev``, as in the JAX package): ``False`` keeps f in
+float32; ``True`` stores the deviation g = f - w_q in bfloat16, rounded
+to nearest; ``"sr"`` rounds it stochastically, adding 16 random bits to
+the float32 pattern of g and keeping its top 16 bits. The bits come from
+Philox4x32-10 (`philox.py`, `csrc/philox.cuh`) under the key (seed,
+launch number): one `LaunchKeys` per step or runner hands each launch its
+own key, so a seed replays its run and no two launches share a key. rho
+and vel stay float32. Each kernel and twin converts only where f is read
+from or written to its buffers: a k-step pass rounds once. The launch
+counts are per kernel name (``<wrapper>.launches``) and per storage mode
+(``<wrapper>.launches_by_mode``, keyed by `MODE_NAMES`).
 """
 
 from __future__ import annotations
@@ -50,7 +61,7 @@ import os
 import torch
 
 from jrl_lbm_torch import lattice
-from jrl_lbm_torch.kernels import build
+from jrl_lbm_torch.kernels import build, philox
 from jrl_lbm_torch.ops import collide as _collide
 from jrl_lbm_torch.utils.types import CellType
 
@@ -65,6 +76,83 @@ W_Q = lattice.W
 CS2 = 1.0 / 3.0
 _QPAIRS = ((1, 3), (2, 4), (5, 7), (6, 8))
 KMAX = 8  # deepest temporal blocking the k-step kernels take (csrc/cyl_common.cuh)
+MODE_NAMES = ("f32", "bf16", "bf16_sr")  # by csrc/cyl_common.cuh::Storage code
+
+
+# ---------------------------------------------------------------------------
+# Storage of f
+# ---------------------------------------------------------------------------
+
+def _storage(bf16_dev) -> int:
+    """The storage code (csrc/cyl_common.cuh::Storage) of ``bf16_dev``:
+    0 for False, 1 for True, 2 for "sr"; any other value raises."""
+    if bf16_dev is False:
+        return 0
+    if bf16_dev is True:
+        return 1
+    if isinstance(bf16_dev, str) and bf16_dev == "sr":
+        return 2
+    raise ValueError(f"bf16_dev={bf16_dev!r}: the storage modes are False (float32), "
+                     "True (bf16 deviations, round to nearest) and \"sr\" (stochastic rounding)")
+
+
+def _weights(device) -> torch.Tensor:
+    """w_q as float32 ``[9, 1, 1]`` (each weight rounded once from double)."""
+    return torch.tensor(W_Q, dtype=torch.float32, device=device)[:, None, None]
+
+
+def f_to_storage(f, bf16_dev=False):
+    """The kernels' storage form of a float32 ``f``: ``f`` itself, or the
+    deviation f - w_q as ``torch.bfloat16``, rounded to nearest (also for
+    "sr", as ``fused_step.py::f_to_storage`` prepares a state)."""
+    if _storage(bf16_dev) == 0:
+        return f
+    return (f - _weights(f.device)).to(torch.bfloat16)
+
+
+def f_from_storage(g, bf16_dev=False):
+    """float32 f of a stored ``g``: ``g`` itself, or float(g) + w_q."""
+    if _storage(bf16_dev) == 0:
+        return g
+    return g.to(torch.float32) + _weights(g.device)
+
+
+def sr_round(d, key):
+    """Stochastic rounding of float32 deviations ``d`` [9, H, W] to
+    bfloat16: the 16 Philox bits of each population and cell
+    (`philox.sr_bits`) added to the float32 pattern, the top 16 bits kept."""
+    bits = d.contiguous().view(torch.int32).to(torch.int64) & philox.MASK32
+    r = philox.sr_bits(d[0].numel(), key, d.device).view(d.shape)
+    top = (((bits + r) & 0xFFFF0000) >> 16).to(torch.int32)
+    return (top - ((top >> 15) << 16)).to(torch.int16).view(torch.bfloat16)
+
+
+def _store(f, bf16_dev, key):
+    """One store of a float32 ``f`` [9, H, W] as the kernels store it
+    (``csrc/cyl_common.cuh::f_store``); ``key`` is the launch's Philox key
+    (stochastic rounding only)."""
+    if _storage(bf16_dev) < 2:
+        return f_to_storage(f, bf16_dev)
+    return sr_round(f - _weights(f.device), key)
+
+
+class LaunchKeys:
+    """The Philox keys ``(seed, launch number)`` of the stochastic-rounding
+    launches of one seed: `next` hands each launch the next number. A step
+    or runner holds one; the runner shares it among its k=4, k=2 and k=1
+    steps. Setting ``n`` back replays the same keys."""
+
+    def __init__(self, seed: int):
+        if not 0 <= int(seed) < 2 ** 32:
+            raise ValueError(f"seed {seed}: the Philox key takes 0 <= seed < 2**32")
+        self.seed, self.n = int(seed), 0
+
+    def next(self):
+        if self.n >= 2 ** 32:
+            raise ValueError("2**32 launches under one seed: the launch numbers are spent")
+        key = (self.seed, self.n)
+        self.n += 1
+        return key
 
 
 # ---------------------------------------------------------------------------
@@ -349,32 +437,38 @@ def _write_rows(out, segs, f=None, rho=None, vx=None, vy=None):
             out["vel"][1, y0:y1] = vy[y0:y1]
 
 
-def cyl_full_ref(f, rho, vel, flags, phi, out, segs, c: Consts):
-    step = full_step_ref(f, vel, flags, phi, c, rho, vel)
-    _write_rows(out, segs, *step)
+# Each twin loads f from its storage, runs float32 steps and stores once.
+
+def cyl_full_ref(f, rho, vel, flags, phi, out, segs, c: Consts, bf16_dev=False, key=None):
+    fn, rho_n, vx, vy = full_step_ref(f_from_storage(f, bf16_dev), vel, flags, phi, c, rho, vel)
+    _write_rows(out, segs, _store(fn, bf16_dev, key), rho_n, vx, vy)
 
 
-def cyl_interior_ref(f, out, segs, c: Consts, write_macro: bool):
-    fn, rho, vx, vy = lean_step_ref(f, c)
-    _write_rows(out, segs, fn, *((rho, vx, vy) if write_macro else ()))
+def cyl_interior_ref(f, out, segs, c: Consts, write_macro: bool, bf16_dev=False, key=None):
+    fn, rho, vx, vy = lean_step_ref(f_from_storage(f, bf16_dev), c)
+    _write_rows(out, segs, _store(fn, bf16_dev, key), *((rho, vx, vy) if write_macro else ()))
 
 
-def cyl_interior_k_ref(f, out, segs, k: int, c: Consts, write_macro: bool):
+def cyl_interior_k_ref(f, out, segs, k: int, c: Consts, write_macro: bool, bf16_dev=False,
+                       key=None):
+    f = f_from_storage(f, bf16_dev)
     for _ in range(k):
         f, rho, vx, vy = lean_step_ref(f, c)
-    _write_rows(out, segs, f, *((rho, vx, vy) if write_macro else ()))
+    _write_rows(out, segs, _store(f, bf16_dev, key), *((rho, vx, vy) if write_macro else ()))
 
 
-def cyl_band_k_ref(f, vel, flags, phi, out, segs, k: int, edge: bool, c: Consts):
+def cyl_band_k_ref(f, vel, flags, phi, out, segs, k: int, edge: bool, c: Consts, bf16_dev=False,
+                   key=None):
     """k full steps with OBSTACLE rho ``cfg.density``; OBSTACLE vel is
     carried from step to step ("cyl") or 0 ("edge", no coupling)."""
+    f = f_from_storage(f, bf16_dev)
     rho_obs = torch.full_like(flags, c.density, dtype=f.dtype)
     for _ in range(k):
         vel_obs = torch.zeros_like(vel) if edge else vel
         f, rho, vx, vy = full_step_ref(f, vel, flags, None if edge else phi, c, rho_obs,
                                        vel_obs)
         vel = torch.stack([vx, vy])
-    _write_rows(out, segs, f, rho, vel[0], vel[1])
+    _write_rows(out, segs, _store(f, bf16_dev, key), rho, vel[0], vel[1])
 
 
 # ---------------------------------------------------------------------------
@@ -391,14 +485,17 @@ class CylParams(ctypes.Structure):
         ("cs2tau", ctypes.c_float), ("wall_density", ctypes.c_float),
         ("feq_in", ctypes.c_float * 9), ("ev0", ctypes.c_float * 5),
         ("ev", (ctypes.c_float * 5) * 4), ("od", (ctypes.c_float * 4) * 4),
+        ("key", ctypes.c_uint32 * 2),
     ]
 
 
-def _params(c: Consts, segs, write_macro: bool) -> CylParams:
+def _params(c: Consts, segs, write_macro: bool, key=None) -> CylParams:
     p = CylParams(H=c.H, W=c.W, nseg=len(segs), write_macro=int(write_macro),
                   cs2tau=CS2 * c.tau, wall_density=c.density)
     for i, (y0, y1) in enumerate(segs):
         p.seg[2 * i], p.seg[2 * i + 1] = y0, y1
+    if key is not None:
+        p.key[:] = [int(x) & 0xFFFFFFFF for x in key]
     p.feq_in[:] = [float(x) for x in c.feq_in]
     p.ev0[:] = c.ev[0]
     for i, (q, _) in enumerate(_QPAIRS):
@@ -407,10 +504,10 @@ def _params(c: Consts, segs, write_macro: bool) -> CylParams:
     return p
 
 
-def _check(c: Consts, segs, **tensors) -> torch.device:
-    """Float32 (flags int32) contiguous tensors of the grid on one CUDA
-    device, outputs apart from inputs, and 1-3 sorted disjoint row
-    segments inside the grid."""
+def _check(c: Consts, segs, f_dtype=torch.float32, **tensors) -> torch.device:
+    """Float32 (flags int32; f and f_out ``f_dtype``) contiguous tensors
+    of the grid on one CUDA device, outputs apart from inputs, and 1-3
+    sorted disjoint row segments inside the grid."""
     H, W = c.H, c.W
     if H < 3 or W < 3:
         raise ValueError(f"grid {H}x{W} too small for the kernels (need >= 3x3)")
@@ -426,8 +523,10 @@ def _check(c: Consts, segs, **tensors) -> torch.device:
         want = tuple(lead) + (H, W)
         if tuple(t.shape) != want:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {want}")
-        if t.dtype != (torch.int32 if name == "flags" else torch.float32):
-            raise ValueError(f"{name}: dtype {t.dtype}")
+        want_dtype = {"flags": torch.int32, "f": f_dtype, "f_out": f_dtype}.get(name,
+                                                                             torch.float32)
+        if t.dtype != want_dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected {want_dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
     ptrs = {name: t.data_ptr() for name, (t, _) in tensors.items()}
@@ -463,103 +562,119 @@ def _check_k(k: int):
         raise ValueError(f"k = {k}: the temporal-blocking kernels take 1 <= k <= {KMAX}")
 
 
-def cyl_full(f, rho, vel, flags, phi, out, segs, c: Consts):
+def _mode(bf16_dev, key, f, f_out):
+    """``(storage code, f dtype)`` of a launch: f and f_out must hold the
+    mode's storage, and a stochastic-rounding launch needs its Philox key."""
+    st = _storage(bf16_dev)
+    fdt = torch.float32 if st == 0 else torch.bfloat16
+    for name, t in (("f", f), ("f_out", f_out)):
+        if t.dtype != fdt:
+            raise ValueError(f"{name}: dtype {t.dtype}, but bf16_dev={bf16_dev!r} stores {fdt}")
+    if st == 2 and key is None:
+        raise ValueError("bf16_dev=\"sr\" needs the launch's Philox key (seed, launch number)")
+    return st, fdt
+
+
+def _count(fn, st: int):
+    fn.launches += 1
+    fn.launches_by_mode[MODE_NAMES[st]] += 1
+
+
+# Each wrapper takes f and out["f"] in the storage of ``bf16_dev`` (float32,
+# or bfloat16 for True and "sr"), and for "sr" the launch's Philox key.
+
+def cyl_full(f, rho, vel, flags, phi, out, segs, c: Consts, bf16_dev=False, key=None):
     """One full-boundary step on the rows of ``segs`` (``[(y0, y1), ...]``)
     into ``out["f"]``, ``out["rho"]``, ``out["vel"]``."""
+    st, fdt = _mode(bf16_dev, key, f, out["f"])
     if f.device.type == "cpu":
-        return cyl_full_ref(f, rho, vel, flags, phi, out, segs, c)
-    dev = _check(c, segs, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)), flags=(flags, ()),
+        return cyl_full_ref(f, rho, vel, flags, phi, out, segs, c, bf16_dev, key)
+    dev = _check(c, segs, fdt, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)), flags=(flags, ()),
                  phi=(phi, ()), f_out=(out["f"], (9,)), rho_out=(out["rho"], ()),
                  vel_out=(out["vel"], (2,)))
-    p = _params(c, segs, True)
-    fn = build.bind("cyl_full", "cyl_full_launch", [_P] * 8 + [_P, _P])
+    p = _params(c, segs, True, key)
+    fn = build.bind("cyl_full", "cyl_full_launch", [_P] * 8 + [_I, _P, _P])
     with torch.cuda.device(dev):
         err = fn(f.data_ptr(), rho.data_ptr(), vel.data_ptr(), flags.data_ptr(), phi.data_ptr(),
-                 out["f"].data_ptr(), out["rho"].data_ptr(), out["vel"].data_ptr(),
+                 out["f"].data_ptr(), out["rho"].data_ptr(), out["vel"].data_ptr(), st,
                  ctypes.byref(p), _stream(dev))
     build.check(err, "cyl_full")
-    cyl_full.launches += 1
+    _count(cyl_full, st)
 
 
-def cyl_interior(f, out, segs, c: Consts, write_macro: bool):
+def cyl_interior(f, out, segs, c: Consts, write_macro: bool, bf16_dev=False, key=None):
     """One plain-channel step on the rows of ``segs``; rho and vel are
     written only with ``write_macro``."""
+    st, fdt = _mode(bf16_dev, key, f, out["f"])
     if f.device.type == "cpu":
-        return cyl_interior_ref(f, out, segs, c, write_macro)
+        return cyl_interior_ref(f, out, segs, c, write_macro, bf16_dev, key)
     rho_o, vel_o = (out["rho"], out["vel"]) if write_macro else (None, None)
-    dev = _check(c, segs, f=(f, (9,)), f_out=(out["f"], (9,)), rho_out=(rho_o, ()),
+    dev = _check(c, segs, fdt, f=(f, (9,)), f_out=(out["f"], (9,)), rho_out=(rho_o, ()),
                  vel_out=(vel_o, (2,)))
-    p = _params(c, segs, write_macro)
-    fn = build.bind("cyl_interior", "cyl_interior_launch", [_P] * 4 + [_P, _P])
+    p = _params(c, segs, write_macro, key)
+    fn = build.bind("cyl_interior", "cyl_interior_launch", [_P] * 4 + [_I, _P, _P])
     with torch.cuda.device(dev):
-        err = fn(f.data_ptr(), out["f"].data_ptr(), _ptr(rho_o), _ptr(vel_o),
+        err = fn(f.data_ptr(), out["f"].data_ptr(), _ptr(rho_o), _ptr(vel_o), st,
                  ctypes.byref(p), _stream(dev))
     build.check(err, "cyl_interior")
-    cyl_interior.launches += 1
+    _count(cyl_interior, st)
 
 
-def cyl_interior_k(f, out, segs, k: int, c: Consts, write_macro: bool):
+def cyl_interior_k(f, out, segs, k: int, c: Consts, write_macro: bool, bf16_dev=False,
+                   key=None):
     """k plain-channel steps in one launch on the rows of ``segs``."""
+    st, fdt = _mode(bf16_dev, key, f, out["f"])
     if f.device.type == "cpu":
-        return cyl_interior_k_ref(f, out, segs, k, c, write_macro)
+        return cyl_interior_k_ref(f, out, segs, k, c, write_macro, bf16_dev, key)
     _check_k(k)
     rho_o, vel_o = (out["rho"], out["vel"]) if write_macro else (None, None)
-    dev = _check(c, segs, f=(f, (9,)), f_out=(out["f"], (9,)), rho_out=(rho_o, ()),
+    dev = _check(c, segs, fdt, f=(f, (9,)), f_out=(out["f"], (9,)), rho_out=(rho_o, ()),
                  vel_out=(vel_o, (2,)))
-    p = _params(c, segs, write_macro)
-    fn = build.bind("cyl_interior_k", "cyl_interior_k_launch", [_P] * 4 + [_I, _P, _P])
+    p = _params(c, segs, write_macro, key)
+    fn = build.bind("cyl_interior_k", "cyl_interior_k_launch", [_P] * 4 + [_I, _I, _P, _P])
     with torch.cuda.device(dev):
-        err = fn(f.data_ptr(), out["f"].data_ptr(), _ptr(rho_o), _ptr(vel_o), int(k),
+        err = fn(f.data_ptr(), out["f"].data_ptr(), _ptr(rho_o), _ptr(vel_o), int(k), st,
                  ctypes.byref(p), _stream(dev))
     build.check(err, "cyl_interior_k")
-    cyl_interior_k.launches += 1
+    _count(cyl_interior_k, st)
 
 
-def cyl_band_k(f, vel, flags, phi, out, segs, k: int, edge: bool, c: Consts):
+def cyl_band_k(f, vel, flags, phi, out, segs, k: int, edge: bool, c: Consts, bf16_dev=False,
+               key=None):
     """k full-boundary steps in one launch on the rows of ``segs``:
     the "cyl" variant, or with ``edge`` the INFLOW/OUTFLOW variant (no
     coupling, no vel/phi reads)."""
+    st, fdt = _mode(bf16_dev, key, f, out["f"])
     if f.device.type == "cpu":
-        return cyl_band_k_ref(f, vel, flags, phi, out, segs, k, edge, c)
+        return cyl_band_k_ref(f, vel, flags, phi, out, segs, k, edge, c, bf16_dev, key)
     _check_k(k)
-    dev = _check(c, segs, f=(f, (9,)), vel=(vel, (2,)), flags=(flags, ()), phi=(phi, ()),
+    dev = _check(c, segs, fdt, f=(f, (9,)), vel=(vel, (2,)), flags=(flags, ()), phi=(phi, ()),
                  f_out=(out["f"], (9,)), rho_out=(out["rho"], ()), vel_out=(out["vel"], (2,)))
-    p = _params(c, segs, True)
-    fn = build.bind("cyl_band_k", "cyl_band_k_launch", [_P] * 7 + [_I, _I, _P, _P])
+    p = _params(c, segs, True, key)
+    fn = build.bind("cyl_band_k", "cyl_band_k_launch", [_P] * 7 + [_I, _I, _I, _P, _P])
     with torch.cuda.device(dev):
         err = fn(f.data_ptr(), vel.data_ptr(), flags.data_ptr(), phi.data_ptr(),
                  out["f"].data_ptr(), out["rho"].data_ptr(), out["vel"].data_ptr(), int(k),
-                 int(bool(edge)), ctypes.byref(p), _stream(dev))
+                 int(bool(edge)), st, ctypes.byref(p), _stream(dev))
     build.check(err, "cyl_band_k")
-    cyl_band_k.launches += 1
+    _count(cyl_band_k, st)
 
 
-cyl_full.launches = 0
-cyl_interior.launches = 0
-cyl_interior_k.launches = 0
-cyl_band_k.launches = 0
+WRAPPERS = (cyl_full, cyl_interior, cyl_interior_k, cyl_band_k)
+
+
+def reset_launches():
+    for fn in WRAPPERS:
+        fn.launches = 0
+        fn.launches_by_mode = dict.fromkeys(MODE_NAMES, 0)
+
+
+reset_launches()
 
 
 # ---------------------------------------------------------------------------
 # Assembly (``fused_step.py`` glue)
 # ---------------------------------------------------------------------------
-
-def _check_storage(bf16_dev):
-    if bf16_dev is not False:
-        raise ValueError(f"bf16_dev={bf16_dev!r}: bf16 deviation storage is not ported "
-                         "(ROADMAP Queue 2 item 11); only float32 f")
-
-
-def f_to_storage(f, bf16_dev=False):
-    """The kernels' storage form of ``f``: float32 ``f`` itself."""
-    _check_storage(bf16_dev)
-    return f
-
-
-def f_from_storage(g, bf16_dev=False):
-    _check_storage(bf16_dev)
-    return g
-
 
 def _band_tiles(cfg, T, margin=4.0):
     """``(n, b0, b1)``: T-row tiles, and the tile range [b0, b1] covering
@@ -603,8 +718,17 @@ def _new_out(state, keep_macro: bool):
     return {k: torch.empty_like(state[k]) for k in ("f", "rho", "vel")}
 
 
+def _launch_keys(bf16_dev, seed, keys):
+    """The `LaunchKeys` of a stochastic-rounding step (``keys`` if
+    given, else a new one for ``seed``); None in the other modes."""
+    if _storage(bf16_dev) != 2:
+        return None
+    return keys if keys is not None else LaunchKeys(seed)
+
+
 def make_fused_step(cfg, tile_rows: int = 8, split: bool = True,
-                    interior_rows: int = 32, bf16_dev=False, write_macro: bool = True):
+                    interior_rows: int = 32, bf16_dev=False, write_macro: bool = True,
+                    seed: int = 0, keys: LaunchKeys | None = None):
     """``step(state, fields, out=None)``: one fused step with the API of
     `models.cylinder.make_step` (``make_fused_step`` of the JAX package).
     The split path (interior rows through ``cyl_interior``, band rows
@@ -616,8 +740,12 @@ def make_fused_step(cfg, tile_rows: int = 8, split: bool = True,
     writes into ``out`` (a dict of f/rho/vel buffers apart from the
     state's) when given, else into new buffers; in that mode the new rho
     and vel start as copies of the state's, as the JAX step updates its
-    donated buffers."""
-    _check_storage(bf16_dev)
+    donated buffers.
+
+    ``bf16_dev``: the storage of the state's f (`f_to_storage`). With
+    "sr" each launch takes the next key of ``keys`` (a new `LaunchKeys`
+    of ``seed`` when None)."""
+    keys = _launch_keys(bf16_dev, seed, keys)
     H, W = cfg.res
     if H % tile_rows != 0:
         raise ValueError(f"H = {H} must be divisible by the tile height {tile_rows}")
@@ -643,10 +771,13 @@ def make_fused_step(cfg, tile_rows: int = 8, split: bool = True,
             out = _new_out(state, skip_macro)
         f, rho, vel = state["f"], state["rho"], state["vel"]
         if use_split:
-            cyl_interior(f, out, interior, c, write_macro=not skip_macro)
-        cyl_full(f, rho, vel, fields["flags"], fields["phi_obs"], out, band, c)
+            cyl_interior(f, out, interior, c, not skip_macro, bf16_dev,
+                         keys and keys.next())
+        cyl_full(f, rho, vel, fields["flags"], fields["phi_obs"], out, band, c, bf16_dev,
+                 keys and keys.next())
         return out
 
+    step.keys = keys
     step.skip_macro = skip_macro
     step.split = use_split
     step.rows = (interior if use_split else [], band)
@@ -663,15 +794,17 @@ def check_border(flags):
 
 
 def make_fused_step2(cfg, tile_rows: int = 8, interior_rows: int = 32,
-                     write_macro: bool = False, bf16_dev=False, k: int = 2):
+                     write_macro: bool = False, bf16_dev=False, k: int = 2, seed: int = 0,
+                     keys: LaunchKeys | None = None):
     """``stepk(state, fields, out=None)``: k steps per call by temporal
     blocking (``make_fused_step2`` of the JAX package): ``cyl_interior_k``
     on the interior rows, ``cyl_band_k`` on the cylinder band and on the
     INFLOW/OUTFLOW rows (two launches). None where the JAX function
     returns None: k outside 2 <= k <= min(8, tile_rows), or no split that
     keeps the band margin max(4, k+1). Raises on a flags field whose
-    border `check_border` refuses."""
-    _check_storage(bf16_dev)
+    border `check_border` refuses. ``bf16_dev``, ``seed``, ``keys``: as
+    for `make_fused_step`; each pass stores f once."""
+    keys = _launch_keys(bf16_dev, seed, keys)
     H, W = cfg.res
     if not (2 <= k <= min(8, tile_rows)):
         return None
@@ -695,11 +828,14 @@ def make_fused_step2(cfg, tile_rows: int = 8, interior_rows: int = 32,
         if out is None:
             out = _new_out(state, not write_macro)
         f, vel, phi = state["f"], state["vel"], fields["phi_obs"]
-        cyl_interior_k(f, out, interior, k, c, write_macro)
-        cyl_band_k(f, vel, flags, phi, out, cyl_rows, k, False, c)
-        cyl_band_k(f, vel, flags, phi, out, edge_rows, k, True, c)
+        cyl_interior_k(f, out, interior, k, c, write_macro, bf16_dev, keys and keys.next())
+        cyl_band_k(f, vel, flags, phi, out, cyl_rows, k, False, c, bf16_dev,
+                   keys and keys.next())
+        cyl_band_k(f, vel, flags, phi, out, edge_rows, k, True, c, bf16_dev,
+                   keys and keys.next())
         return out
 
+    stepk.keys = keys
     stepk.skip_macro = not write_macro
     stepk.k = k
     stepk.rows = (interior, cyl_rows, edge_rows)
@@ -710,11 +846,12 @@ def make_macro_refresh(cfg, bf16_dev=False):
     """``refresh(state, fields)``: rho and vel recomputed from f on every
     non-OBSTACLE cell, OBSTACLE cells keep the stored values (a plain
     elementwise pass; MRT conserves mass and momentum, so it equals the
-    kernels' pre-collision moments up to float32 round-off)."""
-    _check_storage(bf16_dev)
+    kernels' pre-collision moments up to float32 round-off). In the bf16
+    modes the moments are those of the stored f (`f_from_storage`)."""
+    _storage(bf16_dev)
 
     def refresh(state, fields):
-        f = state["f"]
+        f = f_from_storage(state["f"], bf16_dev)
         rho_m = f[0]
         for q in range(1, 9):
             rho_m = rho_m + f[q]
@@ -732,22 +869,30 @@ def make_macro_refresh(cfg, bf16_dev=False):
 
 def make_fused_cylinder_runner(cfg, tile_rows: int = 16, split: bool = True,
                                interior_rows: int = 32, bf16_dev=False,
-                               write_macro: bool = False):
+                               write_macro: bool = False, seed: int = 0):
     """``run(state, fields, n)``: n steps through the kernels, k=4 passes
     while at least 4 steps remain (unless ``LBM_FUSED_K`` is set to
     another value than 4), then k=2, then single steps, then one macro
     refresh (``make_fused_cylinder_runner`` of the JAX package, same
     defaults). The state ping-pongs between two buffer sets allocated per
-    call; the caller's state is never written."""
+    call; the caller's state is never written.
+
+    ``bf16_dev``: the storage of the state's f (convert a float32 state
+    with `f_to_storage` first). With "sr" the k=4, k=2 and single steps
+    share one `LaunchKeys` of ``seed`` (``run.keys``), which goes on
+    counting across calls: a runner never reuses a key, and a new runner
+    of the same seed replays the same run."""
+    keys = _launch_keys(bf16_dev, seed, None)
     step = make_fused_step(cfg, tile_rows, split=split, interior_rows=interior_rows,
-                           bf16_dev=bf16_dev, write_macro=write_macro)
+                           bf16_dev=bf16_dev, write_macro=write_macro, keys=keys)
     step2 = step4 = None
     if split:
         step2 = make_fused_step2(cfg, tile_rows, interior_rows=interior_rows,
-                                 write_macro=write_macro, bf16_dev=bf16_dev)
+                                 write_macro=write_macro, bf16_dev=bf16_dev, keys=keys)
         if os.environ.get("LBM_FUSED_K", "4") == "4":
             step4 = make_fused_step2(cfg, tile_rows, interior_rows=interior_rows,
-                                     write_macro=write_macro, bf16_dev=bf16_dev, k=4)
+                                     write_macro=write_macro, bf16_dev=bf16_dev, k=4,
+                                     keys=keys)
     skip = (step.skip_macro or (step2 is not None and step2.skip_macro)
             or (step4 is not None and step4.skip_macro))
     refresh = make_macro_refresh(cfg, bf16_dev=bf16_dev) if skip else None
@@ -771,4 +916,5 @@ def make_fused_cylinder_runner(cfg, tile_rows: int = 16, split: bool = True,
         return state
 
     run.step, run.step2, run.step4 = step, step2, step4
+    run.keys = keys
     return run

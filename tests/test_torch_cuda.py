@@ -443,12 +443,115 @@ def test_cuda_cyl_launch_failure_raises(cuda):
     out = _outs(s)
     p = K._params(c, [(8, 16)], True)
     fn = build.bind("cyl_interior_k", "cyl_interior_k_launch",
-                    [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
-    err = fn(s["f"].data_ptr(), out["f"].data_ptr(), out["rho"].data_ptr(),
-             out["vel"].data_ptr(), 9, ctypes.byref(p), jrl_fluid.stream_of(cuda))
-    assert err != 0
-    with pytest.raises(RuntimeError, match="cudaError"):
-        build.check(err, "cyl_interior_k")
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+    for k, storage in ((9, 0), (4, 3)):  # k past the depth; no such storage mode
+        err = fn(s["f"].data_ptr(), out["f"].data_ptr(), out["rho"].data_ptr(),
+                 out["vel"].data_ptr(), k, storage, ctypes.byref(p), jrl_fluid.stream_of(cuda))
+        assert err != 0
+        with pytest.raises(RuntimeError, match="cudaError"):
+            build.check(err, "cyl_interior_k")
+
+
+# --- the cylinder kernels in bf16 deviation storage ---
+# Kernel and twin load the same bf16 patterns, step in float32 and store
+# with the same rounding (for "sr" the same Philox bits under the same
+# key): the stored patterns and rho/vel are held equal, bit for bit.
+
+MODES = [True, "sr"]
+
+
+def _bf16_state(dev, geometry, mode):
+    cfg, s, fields = _cyl_state(dev, geometry)
+    return cfg, dict(s, f=K.f_to_storage(s["f"], mode)), fields
+
+
+def _equal_all(got, want, tag):
+    assert torch.equal(got["f"].view(torch.int16), want["f"].view(torch.int16)), f"{tag} f"
+    for k in ("rho", "vel"):
+        assert torch.equal(got[k], want[k]), f"{tag} {k}"
+
+
+def _one_launch_cases(cfg, s, fields, geometry):
+    """(tag, call(wrapper or twin, out, mode, key), kernel name) of one
+    launch of each kernel: every kernel at k = 1, 2, 4 on the split
+    geometry, cyl_full on every row of the generic one."""
+    c = K.consts(cfg)
+    f, rho, vel, flags, phi = s["f"], s["rho"], s["vel"], fields["flags"], fields["phi_obs"]
+    interior, band, edge = _segments(cfg, CYL[geometry][1])
+    if geometry == "generic":
+        return [("cyl_full", lambda fn, o, m, key: fn(f, rho, vel, flags, phi, o, band, c, m, key),
+                 "cyl_full")]
+    cases = [("cyl_full", lambda fn, o, m, key: fn(f, rho, vel, flags, phi, o,
+                                                  sorted(edge + band), c, m, key), "cyl_full"),
+             ("cyl_interior", lambda fn, o, m, key: fn(f, o, interior, c, True, m, key),
+              "cyl_interior")]
+    for k in (1, 2, 4):
+        cases.append((f"cyl_interior_k k={k}",
+                      lambda fn, o, m, key, k=k: fn(f, o, interior, k, c, False, m, key),
+                      "cyl_interior_k"))
+        for e, segs in ((False, band), (True, edge)):
+            cases.append((f"cyl_band_k k={k} edge={e}",
+                          lambda fn, o, m, key, k=k, e=e, segs=segs: fn(f, vel, flags, phi, o,
+                                                                        segs, k, e, c, m, key),
+                          "cyl_band_k"))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("geometry", ["split", "generic"])
+def test_cuda_cyl_kernels_bf16_match_twins(cuda, geometry, mode):
+    cfg, s, fields = _bf16_state(cuda, geometry, mode)
+    key = (11, 42) if mode == "sr" else None
+    for tag, call, name in _one_launch_cases(cfg, s, fields, geometry):
+        got, want = _outs(s), _outs(s)
+        n0 = getattr(K, name).launches_by_mode[K.MODE_NAMES[K._storage(mode)]]
+        call(getattr(K, name), got, mode, key)
+        call(TWINS[name], want, mode, key)
+        torch.cuda.synchronize()
+        _equal_all(got, want, f"{tag} bf16_dev={mode!r}")
+        assert getattr(K, name).launches_by_mode[K.MODE_NAMES[K._storage(mode)]] == n0 + 1
+
+
+@pytest.mark.cuda
+def test_cuda_cyl_sr_keys_change_bits(cuda):
+    """Two keys give other patterns; the same key the same ones."""
+    cfg, s, fields = _bf16_state(cuda, "split", "sr")
+    c = K.consts(cfg)
+    interior, _, _ = _segments(cfg, CYL["split"][1])
+    outs = []
+    for key in ((1, 0), (1, 1), (1, 0)):
+        o = _outs(s)
+        K.cyl_interior_k(s["f"], o, interior, 4, c, False, "sr", key)
+        outs.append(o["f"][:, interior[0][0]:interior[0][1]].view(torch.int16))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[2]) and not torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n", [40, 41, 43])
+@pytest.mark.parametrize("geometry", ["split", "generic"])
+def test_cuda_cyl_bf16_runner_matches_twin_runner(cuda, geometry, n, mode):
+    """n steps of the bf16 runner against the twin runner of the same seed
+    (k=4, k=2 and k=1 on the split geometry at odd n), bit for bit."""
+    cfg, s, fields = _cyl_state(cuda, geometry, steps=0)
+    s = dict(s, f=K.f_to_storage(s["f"], mode))
+    kw = CYL[geometry][1]
+    kernels.reset_launches()
+    got = K.make_fused_cylinder_runner(cfg, bf16_dev=mode, seed=3, **kw)(s, fields, n)
+    torch.cuda.synchronize()
+    by_mode = kernels.launches_by_mode()
+    want = _twin_runner(cfg, bf16_dev=mode, seed=3, **kw)(s, fields, n)
+    _equal_all(got, want, f"runner {geometry} {n} steps bf16_dev={mode!r}")
+    name = K.MODE_NAMES[K._storage(mode)]
+    used = {k.split("/")[0] for k, v in by_mode.items() if v}
+    assert all(k.endswith(name) for k, v in by_mode.items() if v)
+    if geometry == "generic":
+        assert used == {"cyl_full"}
+    else:  # single split steps at odd n
+        assert used == {"cyl_interior_k", "cyl_band_k"} | (
+            {"cyl_full", "cyl_interior"} if n % 2 else set())
 
 
 # --- the tile-class kernels of the JRL fluid phase (kernels/jrl_tiled.py) ---

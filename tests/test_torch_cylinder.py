@@ -299,13 +299,15 @@ def test_preconditions_raise():
     near = T.CylinderConfig(res=(96, 32), D=8.0, Re=500.0, cylinder_center=(16.0, 10.0))
     assert K.make_fused_step2(near, tile_rows=8, k=2) is None
     assert not K.make_fused_step(near, tile_rows=8).split
-    for fn in (lambda: K.make_fused_step(tc, bf16_dev=True),
-               lambda: K.make_fused_step2(tc, bf16_dev="sr"),
-               lambda: K.make_fused_cylinder_runner(tc, bf16_dev=True),
-               lambda: K.f_to_storage(torch.zeros(9, 4, 4), True),
-               lambda: K.make_macro_refresh(tc, bf16_dev=True)):
-        with pytest.raises(ValueError, match="Queue 2 item 11"):
-            fn()
+    # the storage modes are False, True and "sr"; any other value raises
+    for bad in ("bf16", 1, 0, None, "SR"):
+        for fn in (lambda: K.make_fused_step(tc, bf16_dev=bad),
+                   lambda: K.make_fused_step2(tc, bf16_dev=bad),
+                   lambda: K.make_fused_cylinder_runner(tc, bf16_dev=bad),
+                   lambda: K.f_to_storage(torch.zeros(9, 4, 4), bad),
+                   lambda: K.make_macro_refresh(tc, bf16_dev=bad)):
+            with pytest.raises(ValueError, match="storage modes"):
+                fn()
     assert K.f_to_storage(torch.ones(2), False) is not None
 
 
