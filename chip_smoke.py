@@ -4,7 +4,7 @@ paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the fifteen CUDA libraries of ``jrl_lbm_torch/kernels/csrc`` (one
+1. Builds the twenty CUDA libraries of ``jrl_lbm_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
@@ -50,6 +50,21 @@ paths on one NVIDIA card and check them.
    kernel; mass and finite fields); 2048² and 130² timed windows (best of
    three, busy share, device µs per launch beside the 84-byte-a-cell
    bound, the twin per call).
+0c. The JRL case on a mesh of shards (``sharded_phases``): the ethaline
+   grid at refine 8 (1024x512, Re 4, Pe 5) on the meshes (1, 1), (4, 1)
+   and (2, 2), every shard on the one card: each sharded kernel
+   (``fluid_a_sh``, ``fluid_b_sh`` with their lean instances on the (4, 1)
+   shards above the tip, ``c_balance_sh``, ``c_approach_sh`` and its disk
+   terms, ``halo_pack`` bit for bit) against its twin after one launch on
+   every shard; the main path, the three sharded runners
+   (``kernels/jrl_sharded.py``) over 200 steps each across tip rows and
+   stored frames, counts zeroed just before each and read just after,
+   bit for bit the unsharded per-step kernels (integrals rtol 2e-4 / atol
+   1e-4), µs/step and busy share beside theirs (one card: the cost of the
+   halo exchange and the extra launches, not multi-card scaling); the
+   (1, 1) mesh once more through a one-rank NCCL process group (``psum``
+   by ``all_reduce``), bit for bit the local mesh; each kernel's device
+   µs per launch on a 512x256 shard beside its bound and twin.
 2. Holds each per-step kernel to its plain PyTorch twin from the same
    state, after 1 step (f, rho, C, h at 1e-5; vel at 1e-4) and after 100
    steps through the per-step runners (2e-5; vel 2e-4; integrals rtol
@@ -94,7 +109,7 @@ paths on one NVIDIA card and check them.
 6. Runs one whole case through ``jrl_main.run_case`` at 128x64 twice:
    through the multi-step kernels (its default) and through the per-step
    runners; the record rows agree to rtol 2e-4 / atol 1e-4.
-7. Prints ``{"kernels": [...]}`` (23 rows: each kernel once, the four
+7. Prints ``{"kernels": [...]}`` (28 rows: each kernel once, the four
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``), the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -128,7 +143,10 @@ FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach"
                   "fused_fluid": 650, "fused_balance": 230, "fused_approach": 335,
                   # per cell and step of a tile class (halo recompute not
                   # counted): A + B; the lean A (pulls, moments) + B
-                  "fluid_k": 650, "fluid_k_lean": 420, "fluid_k_bt": 650}
+                  "fluid_k": 650, "fluid_k_lean": 420, "fluid_k_bt": 650,
+                  # per shard cell: as the per-step kernels; a copy
+                  "fluid_a_sh": 250, "fluid_b_sh": 400, "c_balance_sh": 230,
+                  "c_approach_sh": 330, "halo_pack": 0}
 PER_STEP = ("fluid_a", "fluid_b", "c_balance", "c_approach")
 FUSED = ("fused_fluid", "fused_balance", "fused_approach")
 SOURCE = {
@@ -160,6 +178,16 @@ SOURCE = {
                      "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1482"),
     "fluid_k_bt": ("jrl_lbm_torch/kernels/csrc/fluid_k_bt.cu",
                    "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1522"),
+    "fluid_a_sh": ("jrl_lbm_torch/kernels/csrc/fluid_a_sh.cu",
+                   "jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py:136"),
+    "fluid_b_sh": ("jrl_lbm_torch/kernels/csrc/fluid_b_sh.cu",
+                   "jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py:166"),
+    "c_balance_sh": ("jrl_lbm_torch/kernels/csrc/c_balance_sh.cu",
+                     "jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py:411"),
+    "c_approach_sh": ("jrl_lbm_torch/kernels/csrc/c_approach_sh.cu",
+                      "jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py:513"),
+    "halo_pack": ("jrl_lbm_torch/kernels/csrc/halo_pack.cu",
+                  "jrl_lbm_tpu/ops/pallas/fused_sharded.py:409"),
 }
 TILED = ("fluid_k", "fluid_k_lean", "fluid_k_bt")
 
@@ -252,6 +280,11 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fluid_k_lean": ("fluid_k_lean_kernel",),
     "fluid_k_bt": ("fluid_k_bt_kernel",),
     "periodic": ("periodic_kernel",),
+    "fluid_a_sh": ("fluid_a_sh_kernel",),
+    "fluid_b_sh": ("fluid_b_sh_kernel",),
+    "c_balance_sh": ("c_balance_sh_kernel",),
+    "c_approach_sh": ("c_approach_sh_kernel", "c_disk_sh_kernel"),
+    "halo_pack": ("halo_rows_kernel", "halo_cols_kernel"),
 }
 
 
@@ -1225,6 +1258,369 @@ def tiled_checks(dev, fluid_cfg, errs):
     return report
 
 
+# ---------------------------------------------------------------------------
+# The JRL case on a mesh of shards (kernels/jrl_sharded.py)
+# ---------------------------------------------------------------------------
+
+SHARDED = ("fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack")
+SH_MESHES = ((1, 1), (4, 1), (2, 2))
+SH_STEPS = 200
+# planes each sharded launch reads and writes in its shard's body, and the
+# planes of its halo group (kernels/halo.py)
+SH_PLANES = {"fluid_a_sh": (12, 12, 11), "fluid_b_sh": (12, 9, 3), "c_balance_sh": (11, 10, 10),
+             "c_approach_sh": (12, 10, 10)}
+
+
+def sh_bytes(k: str, sh) -> int:
+    """Bytes one launch of sharded kernel ``k`` must move on shard ``sh``:
+    its body planes in and out once, and its halo pieces in (two rows a
+    plane on a mesh of >1 row, two (h+2) x xh blocks on one of >1 column)."""
+    p_in, p_out, p_halo = SH_PLANES[k]
+    halo = p_halo * ((2 * sh.w if sh.h < sh.H else 0) + 2 * (sh.h + 2) * sh.xh)
+    return 4 * ((p_in + p_out) * sh.h * sh.w + halo)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def kernel_us(fn, names, reps: int = 50):
+    """Device µs per call of ``fn()`` in the CUDA functions ``names``, from
+    a profiled run of ``reps`` calls (None without device times)."""
+    times, _ = device_profile(lambda r: [fn() for _ in range(r)], reps)
+    us = sum(t for nm, t in times.items() if any(x in nm for x in names))
+    return us / reps if us > 0 else None
+
+
+def sharded_phases(dev, rate, errs):
+    """The JRL ethaline case at refine 8 (1024x512, Re 4, Pe 5) on the
+    meshes (1, 1), (4, 1) and (2, 2) of the one card (a local mesh, every
+    shard on ``dev``): (a) each sharded kernel and halo_pack against its
+    twin, one launch on every shard (1e-5, vel 1e-4; the disk terms rtol
+    2e-4 / atol 1e-4; halo_pack bit for bit), the lean pair on the (4, 1)
+    shards above the tip; (b) the main path: the three sharded runners
+    over 200 steps each (the fluid across tip rows, the approach across
+    stored-velocity frames and tip rows), counts zeroed just before each
+    and read just after, against the unsharded per-step runners: f, rho,
+    vel, h, C bit for bit, the integrals at rtol 2e-4 / atol 1e-4;
+    µs/step and busy share beside the per-step runners' (on one card this
+    measures the halo exchange and the extra launches, not multi-card
+    scaling); (c) the (1, 1) mesh once more through a one-rank NCCL
+    process group (psum through all_reduce), bit for bit the local mesh.
+    Returns the five kernels' rows and a report."""
+    import torch
+    import torch.distributed as dist
+
+    from jrl_lbm_torch import kernels
+    from jrl_lbm_torch.kernels import halo as HA
+    from jrl_lbm_torch.kernels import jrl_sharded as S
+    from jrl_lbm_torch.models import jrl as T
+    from jrl_lbm_torch.parallel import multihost
+    from jrl_lbm_torch.parallel.mesh import make_mesh, process_mesh, split
+
+    fc = T.JRLFluidConfig(res=(128, 64), Re=4.0, vel_obs_real=0.2848, gravity_strength_real=-9.8,
+                          shape="ethaline", refine=8)
+    cc = T.JRLCConfig(res=(128, 64), Re=4.0, Pe=5.0, vel_obs_real=0.2848, shape="ethaline",
+                      refine=8)
+    H, W = fc.eff_res
+    cells = H * W
+    n = SH_STEPS
+    s0, fl = T.fluid_init(fc, dev)
+    s0 = noisy(s0, dev, 71, scale=1e-4)
+    st0, cf, flags = T.c_init(cc, dev)
+    st0 = T.make_per_step_balance_runner(cc, flags)(st0, cf, 20)
+    g = torch.Generator(device=dev).manual_seed(72)
+    vf = 0.5 * torch.randn((8, 2, H, W), generator=g, device=dev)
+    rows_f = [T.tip_walks(fc.inflow_height, s, fc.vel_obs)[1] for s in (0, n - 1)]
+    rows_c = [T.tip_walks(cc.inflow_height, s, cc.vel_obs_conv)[1] for s in (0, n - 1)]
+    frames_c = int((n - 1) * cc.vel_obs_conv / T.X_INTERVAL)
+    print(f"sharded JRL {H}x{W}: {n} steps a phase; fluid tip rows {rows_f}, approach tip "
+          f"rows {rows_c} across {min(frames_c, 7)} stored-frame boundaries", flush=True)
+    if rows_f[1] == rows_f[0] or rows_c[1] == rows_c[0] or frames_c < 1:
+        fail("the sharded phases do not cross a tip row and a stored frame")
+
+    # the unsharded per-step runners: reference and yardstick
+    per_step = {
+        "fluid": lambda k: T.make_per_step_fluid_runner(fc)(s0, fl, 0, k),
+        "balance": lambda k: T.make_per_step_balance_runner(cc, flags)(st0, cf, k),
+        "approach": lambda k: T.make_per_step_approach_runner(cc, vf)(st0, cf, 0, k),
+    }
+    ref = {p: fn(n) for p, fn in per_step.items()}
+    report = {"res": [H, W], "steps": n, "meshes": {}}
+    main_counts = {k: 0 for k in SHARDED}
+    per_launch = {}  # (kernel, mesh, instance) -> device µs per launch, bytes, cells
+
+    def timed(fn, steps):
+        fn(10)  # warm-up
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(steps)
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b)
+        times, wall = device_profile(fn, steps)
+        busy = sum(times.values())
+        rec = {"us_per_step": ms * 1e3 / steps, "mlups": cells * steps / (ms * 1e3)}
+        if wall:
+            rec.update({"device_us_per_step": busy / steps, "busy_share": busy / (wall * 1e6)})
+        return rec, times
+
+    for name, fn in per_step.items():
+        rec, _ = timed(fn, n)
+        report.setdefault("per_step", {})[name] = rec
+        print(f"  per-step {name:9s} {rec['us_per_step']:9.3f} us/step  busy "
+              f"{rec.get('busy_share', float('nan')):.1%}", flush=True)
+
+    for shape in SH_MESHES:
+        ny, nx = shape
+        mesh = make_mesh(shape, [dev] * (ny * nx))
+        shards = [S.Shard.of(H, W, shape, c) for c in mesh.local]
+        L = range(len(shards))
+        rep = report["meshes"][f"{ny}x{nx}"] = {"shard": [shards[0].h, shards[0].w]}
+        print(f" mesh {shape}: shards of {shards[0].h}x{shards[0].w}", flush=True)
+
+        # (a) each kernel against its twin, one launch on every shard
+        k = 0
+        f, rho, vel = (split(s0[x], mesh) for x in ("f", "rho", "vel"))
+        ha = HA.exchange([[f[i], vel[i]] for i in L], mesh, S.XH)
+        if ny > 1 or nx > 1:
+            grp = [f[-1], vel[-1]]
+            got, want = HA.halo_pack(grp), HA.halo_pack_ref(grp)
+            if nx > 1:
+                got = got + HA.halo_pack(grp, ha[-1].top, ha[-1].bot, S.XH)
+                want = want + HA.halo_pack_ref(grp, ha[-1].top, ha[-1].bot, S.XH)
+            for x, y in zip(got, want):
+                check_close(f"halo_pack {shape}", x, y, 0.0, errs["halo_pack"])
+        a_ref = [S.fluid_a_sh_ref(f[i], rho[i], vel[i], ha[i], k, fc, fl, shards[i]) for i in L]
+        hb = HA.exchange([[x[1], x[2]] for x in a_ref], mesh, S.XH)
+        for i, sh in enumerate(shards):
+            leans = (False, True) if nx == 1 and S.lean_shard(fc, sh, k) else (False,)
+            for lean in leans:
+                tag = f"{shape} {mesh.local[i]}{' lean' if lean else ''}"
+                a = S.fluid_a_sh(f[i], rho[i], vel[i], ha[i], k, fc, fl, sh, lean)
+                want = S.fluid_a_sh_ref(f[i], rho[i], vel[i], ha[i], k, fc, fl, sh, lean)
+                for nm, x, y, tol in zip(("f", "rho", "vel"), a, want, (1e-5, 1e-5, 1e-4)):
+                    check_close(f"fluid_a_sh {tag} {nm}", x, y, tol, errs["fluid_a_sh"])
+                check_close(f"fluid_b_sh {tag} f",
+                            S.fluid_b_sh(*a_ref[i], hb[i], k, fc, fl, sh, lean),
+                            S.fluid_b_sh_ref(*a_ref[i], hb[i], k, fc, fl, sh, lean), 1e-5,
+                            errs["fluid_b_sh"])
+        h, C, fls = split(st0["h"], mesh), split(st0["C"], mesh), split(flags, mesh)
+        base, frames = split(cf["base_flags"], mesh), split(vf, mesh)
+        hh = HA.exchange([[x] for x in h], mesh, S.XH)
+        hfl = HA.exchange([[x] for x in fls], mesh, S.XH)
+        hbase = HA.exchange([[x] for x in base], mesh, S.XH)
+        ka = 3
+        for i, sh in enumerate(shards):
+            got = S.c_balance_sh(h[i], C[i], fls[i], hh[i], hfl[i], cc, cf, sh)
+            want = S.c_balance_sh_ref(h[i], C[i], fls[i], hh[i], hfl[i], cc, cf, sh)
+            for nm, x, y in zip(("h", "C"), got, want):
+                check_close(f"c_balance_sh {shape} {mesh.local[i]} {nm}", x, y, 1e-5,
+                            errs["c_balance_sh"])
+            v = T.stored_velocity(frames[i], ka, cc.vel_obs_conv)
+            part = torch.zeros(4, device=dev)
+            got = S.c_approach_sh(h[i], C[i], v, base[i], hh[i], hbase[i], ka, cc, cf, sh, part)
+            *want, p_ref = S.c_approach_sh_ref(h[i], C[i], v, base[i], hh[i], hbase[i], ka, cc,
+                                               cf, sh)
+            for nm, x, y in zip(("h", "C"), got, want):
+                check_close(f"c_approach_sh {shape} {mesh.local[i]} {nm}", x, y, 1e-5,
+                            errs["c_approach_sh"])
+            check_ints(f"c_approach_sh {shape} {mesh.local[i]} disk terms", part, p_ref)
+
+        # (b) the main path: the three sharded runners, counts zeroed just
+        # before each and read just after
+        fluid_run = S.make_sharded_tiled_fluid_runner(fc, mesh)
+        runs = {
+            "fluid": lambda kk: fluid_run(s0, fl, 0, kk),
+            "balance": lambda kk: S.make_sharded_tiled_balance_runner(cc, flags, mesh)(st0, cf, kk),
+            "approach": lambda kk: S.make_sharded_tiled_approach_runner(cc, vf, mesh)(st0, cf, 0,
+                                                                                     kk),
+        }
+        want_k = {"fluid": {"fluid_a_sh", "fluid_b_sh"}, "balance": {"c_balance_sh"},
+                  "approach": {"c_approach_sh"}}
+        for pname, fn in runs.items():
+            torch.cuda.synchronize()
+            fluid_run.lean_steps.clear()
+            kernels.reset_launches()
+            out = fn(n)
+            torch.cuda.synchronize()
+            counts = {x: c for x, c in kernels.launches().items() if c}
+            lean_steps = dict(fluid_run.lean_steps)
+            expect = want_k[pname] | ({"halo_pack"} if ny * nx > 1 else set())
+            if set(counts) != expect:
+                fail(f"sharded {pname} {shape}: launched {counts}, expected {sorted(expect)}")
+            for x, c in counts.items():
+                main_counts[x] += c
+            if pname == "approach":
+                out, acc = out
+                _, acc_r = ref[pname]
+                keys = ("inflow_sum", "current_sum", "rec_u", "rec_v")
+                check_ints(f"sharded approach {shape} integrals", [acc[x] for x in keys],
+                           [acc_r[x] for x in keys])
+                want = ref[pname][0]
+            else:
+                want = ref[pname]
+            for nm in want:
+                if not torch.equal(out[nm], want[nm]):
+                    d = float((out[nm] - want[nm]).abs().max())
+                    fail(f"sharded {pname} {shape} {nm}: not bit for bit the per-step kernels "
+                         f"(max |diff| {d:.3e})")
+            rec, times = timed(fn, n)
+            rec.update({"launches": counts, "bit_for_bit": True})
+            if pname == "fluid":
+                rec["lean_steps"] = {f"{c[0]},{c[1]}": s for c, s in lean_steps.items()}
+                print(f"  lean pair: {rec['lean_steps']} (shard: steps of {n})", flush=True)
+            base_rec = report["per_step"][pname]
+            print(f"  sharded {pname:9s} {rec['us_per_step']:9.3f} us/step (per-step kernels "
+                  f"{base_rec['us_per_step']:.3f}), busy {rec.get('busy_share', float('nan')):.1%}"
+                  f" (per-step {base_rec.get('busy_share', float('nan')):.1%}); launches {counts};"
+                  f" bit for bit", flush=True)
+            rep[pname] = rec
+            # device µs per launch of each instance on this mesh
+            sh = shards[-1]
+            for kname in want_k[pname] | ({"halo_pack"} if ny * nx > 1 else set()):
+                insts = {"": KERNEL_FUNCS[kname]}
+                if kname in ("fluid_a_sh", "fluid_b_sh"):
+                    insts = {"": (f"{kname}_kernel<false>",), "lean": (f"{kname}_kernel<true>",)}
+                for inst, names in insts.items():
+                    us = sum(t for nm_, t in times.items() if any(x in nm_ for x in names))
+                    lean_n = sum(lean_steps.values())
+                    cnt = (lean_n if inst else counts[kname] - lean_n) if kname in (
+                        "fluid_a_sh", "fluid_b_sh") else counts[kname]
+                    if cnt and us:
+                        per_launch[(kname, f"{ny}x{nx}", inst)] = us / cnt
+        # launches and bound of one step's launches on the last shard
+        rep["bytes_per_launch"] = {x: sh_bytes(x, shards[-1]) for x in SH_PLANES}
+
+    # (c) the (1, 1) mesh through a one-rank NCCL process group
+    print(" mesh (1, 1) through a one-rank NCCL process group (psum by all_reduce)", flush=True)
+    multihost.initialize(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        pm = process_mesh((1, 1), device=dev)
+        lm = make_mesh((1, 1), [dev])
+        kk = 20
+        for pname, mk in (("fluid", lambda m: S.make_sharded_tiled_fluid_runner(fc, m)(
+                              s0, fl, 0, kk)),
+                          ("balance", lambda m: S.make_sharded_tiled_balance_runner(
+                              cc, flags, m)(st0, cf, kk)),
+                          ("approach", lambda m: S.make_sharded_tiled_approach_runner(
+                              cc, vf, m)(st0, cf, 0, kk))):
+            got, want = mk(pm), mk(lm)
+            if pname == "approach":
+                (got, ga), (want, wa) = got, want
+                got, want = dict(got, **ga), dict(want, **wa)
+            for nm in want:
+                if not torch.equal(got[nm].to(dev), want[nm].to(dev)):
+                    fail(f"NCCL (1, 1) {pname} {nm} differs from the local mesh")
+            print(f"  {pname}: {kk} steps bit for bit the local mesh", flush=True)
+        report["nccl_1x1"] = {"backend": dist.get_backend(), "steps": kk, "bit_for_bit": True}
+    finally:
+        dist.destroy_process_group()
+
+    for x in SHARDED:
+        if main_counts[x] < 1:
+            fail(f"sharded main path: {x} was not launched")
+    report["main_launches"] = main_counts
+    report["per_launch_us"] = {f"{k}/{m}{'/' + i if i else ''}": us
+                               for (k, m, i), us in per_launch.items()}
+    print(f"  sharded main path launches {main_counts}", flush=True)
+
+    # one row per kernel: the (2, 2) mesh's shard (512x256), the lean
+    # instances at (4, 1) in the report
+    mesh22 = make_mesh((2, 2), [dev] * 4)
+    sh = S.Shard.of(H, W, (2, 2), (1, 1))
+    f, rho, vel = (split(s0[x], mesh22) for x in ("f", "rho", "vel"))
+    ha = HA.exchange([[f[i], vel[i]] for i in range(4)], mesh22, S.XH)
+    a_out = S.fluid_a_sh(f[3], rho[3], vel[3], ha[3], 0, fc, fl, sh)
+    hb = HA.exchange([[x, y] for x, y in zip(split(s0["rho"], mesh22), split(s0["vel"], mesh22))],
+                     mesh22, S.XH)
+    h, C, fls = (split(x, mesh22) for x in (st0["h"], st0["C"], flags))
+    base, frames = split(cf["base_flags"], mesh22), split(vf, mesh22)
+    hh = HA.exchange([[x] for x in h], mesh22, S.XH)
+    hfl = HA.exchange([[x] for x in fls], mesh22, S.XH)
+    v3 = T.stored_velocity(frames[3], 0, cc.vel_obs_conv)
+    part = torch.zeros(4, device=dev)
+    grp = [f[3], vel[3]]
+    calls = {
+        "fluid_a_sh": (lambda: S.fluid_a_sh(f[3], rho[3], vel[3], ha[3], 0, fc, fl, sh),
+                       lambda: S.fluid_a_sh_ref(f[3], rho[3], vel[3], ha[3], 0, fc, fl, sh)),
+        "fluid_b_sh": (lambda: S.fluid_b_sh(*a_out, hb[3], 0, fc, fl, sh),
+                       lambda: S.fluid_b_sh_ref(*a_out, hb[3], 0, fc, fl, sh)),
+        "c_balance_sh": (lambda: S.c_balance_sh(h[3], C[3], fls[3], hh[3], hfl[3], cc, cf, sh),
+                         lambda: S.c_balance_sh_ref(h[3], C[3], fls[3], hh[3], hfl[3], cc, cf,
+                                                    sh)),
+        "c_approach_sh": (lambda: S.c_approach_sh(h[3], C[3], v3, base[3], hh[3], hfl[3], 0, cc,
+                                                  cf, sh, part),
+                          lambda: S.c_approach_sh_ref(h[3], C[3], v3, base[3], hh[3], hfl[3], 0,
+                                                      cc, cf, sh)),
+        "halo_pack": (lambda: HA.halo_pack(grp, ha[3].top, ha[3].bot, S.XH),
+                      lambda: HA.halo_pack_ref(grp, ha[3].top, ha[3].bot, S.XH)),
+    }
+    rows = []
+    print(f"sharded kernels per launch on a 512x256 shard of the (2, 2) mesh (memory rate "
+          f"{rate / 1e12:.2f} TB/s):", flush=True)
+    for k in SHARDED:
+        kfn, tfn = calls[k]
+        call_ms = cuda_ms(kfn, 200)
+        plain_ms = cuda_ms(tfn, 3, warmup=1)
+        # the cols phase of f + vel: 2 blocks of 11 (h+2) x xh words read and written
+        nbytes = 2 * 4 * 2 * 11 * (sh.h + 2) * S.XH if k == "halo_pack" else sh_bytes(k, sh)
+        dev_us = kernel_us(kfn, KERNEL_FUNCS[k])
+        mem_ms = nbytes / rate * 1e3
+        ops_ms = FLOPS_PER_CELL[k] * sh.h * sh.w / F32_PEAK * 1e3
+        ms = dev_us / 1e3 if dev_us else call_ms
+        bound_ms = max(mem_ms, ops_ms)
+        print(f"  {k:14s} {ms * 1e3:10.2f} us  bound {bound_ms * 1e3:8.2f} us "
+              f"({'bytes' if mem_ms >= ops_ms else 'operations'}; {nbytes / 1e6:.3f} MB)  "
+              f"{bound_ms / ms * 100:6.2f}% of bound  twin {plain_ms:.3f} ms  wrapper call "
+              f"{call_ms * 1e3:.2f} us", flush=True)
+        src, rep_ = SOURCE[k]
+        rows.append({
+            "name": k, "route": "cuda", "source": src, "replaces": rep_,
+            "launches": main_counts[k], "max_abs_err": max(errs[k]) if errs[k] else None,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if mem_ms >= ops_ms else "operations", "library_ms": None,
+        })
+        report.setdefault("rows", {})[k] = dict(rows[-1], wrapper_call_ms=call_ms, bytes=nbytes,
+                                                time_from="profiler" if dev_us else "events")
+    # the lean instances alone, on the (4, 1) shard above the tip
+    mesh41 = make_mesh((4, 1), [dev] * 4)
+    sh = S.Shard.of(H, W, (4, 1), (2, 0))
+    if not S.lean_shard(fc, sh, 0):
+        fail("the (4, 1) shard 2 is not lean at step 0")
+    f, rho, vel = (split(s0[x], mesh41) for x in ("f", "rho", "vel"))
+    ha = HA.exchange([[f[i], vel[i]] for i in range(4)], mesh41, S.XH)
+    hb = HA.exchange([[rho[i], vel[i]] for i in range(4)], mesh41, S.XH)
+    lean_calls = {
+        "fluid_a_sh": (lambda: S.fluid_a_sh(f[2], rho[2], vel[2], ha[2], 0, fc, fl, sh, True),
+                       lambda: S.fluid_a_sh_ref(f[2], rho[2], vel[2], ha[2], 0, fc, fl, sh, True),
+                       # the lean body reads f and its pieces, writes f, rho, vel
+                       4 * (21 * sh.h * sh.w + 9 * 2 * sh.w)),
+        "fluid_b_sh": (lambda: S.fluid_b_sh(f[2], rho[2], vel[2], hb[2], 0, fc, fl, sh, True),
+                       lambda: S.fluid_b_sh_ref(f[2], rho[2], vel[2], hb[2], 0, fc, fl, sh, True),
+                       sh_bytes("fluid_b_sh", sh)),
+    }
+    print("lean instances per launch on the 256x512 shard 2 of the (4, 1) mesh:", flush=True)
+    for k, (kfn, tfn, nbytes) in lean_calls.items():
+        dev_us = kernel_us(kfn, (f"{k}_kernel<true>",))
+        mem_ms = nbytes / rate * 1e3
+        ops_ms = FLOPS_PER_CELL[k] * sh.h * sh.w / F32_PEAK * 1e3
+        plain_ms = cuda_ms(tfn, 3, warmup=1)
+        ms = dev_us / 1e3 if dev_us else cuda_ms(kfn, 200)
+        print(f"  {k + ' lean':16s} {ms * 1e3:8.2f} us  bound {max(mem_ms, ops_ms) * 1e3:8.2f} us "
+              f"({nbytes / 1e6:.3f} MB)  twin {plain_ms:.3f} ms; in the (4, 1) path "
+              f"{per_launch.get((k, '4x1', 'lean'), float('nan')):.2f} us", flush=True)
+        report.setdefault("lean_rows", {})[k] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(mem_ms, ops_ms), "bytes": nbytes,
+            "time_from": "profiler" if dev_us else "events"}
+    return rows, report
+
+
 def main() -> int:
     import torch
 
@@ -1265,6 +1661,9 @@ def main() -> int:
 
     # ---- 0a. the shear layer: the periodic kernel, run_shear, 2048² windows ----
     shear_rows, report["shear"] = shear_phases(dev, rate, errs)
+
+    # ---- 0c. the JRL case on a mesh of shards: kernels, runners, NCCL ----
+    sharded_rows, report["sharded"] = sharded_phases(dev, rate, errs)
 
     # ---- 1. each per-step kernel against its twin ----
     def fluid_cfg(shape, refine, **kw):
@@ -1821,7 +2220,7 @@ def main() -> int:
             path128[k]["launches"][k], "events")
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    rows += cyl_rows + storage_rows + tiled_rows + shear_rows
+    rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)

@@ -5,8 +5,9 @@ the multi-step JRL kernels of grids up to 131,072 cells (`fused_jrl.py`),
 the k-step tile-class kernels of the JRL fluid phase on larger grids
 (`jrl_tiled.py`), the four kernels of the cylinder channel's fused step
 (`cylinder.py`; float32, bf16 or stochastically rounded bf16 storage of
-f, each a template instance, counted per name and per mode) and the
-shear layer's periodic step (`periodic.py`).
+f, each a template instance, counted per name and per mode), the
+shear layer's periodic step (`periodic.py`), and the JRL case on a mesh
+of shards (`jrl_sharded.py`, its halo pieces packed by `halo.py`).
 
 The wrappers import without ``nvcc`` or a card; a kernel is built
 (`build.py`) the first time it is launched.
@@ -15,12 +16,14 @@ The wrappers import without ``nvcc`` or a card; a kernel is built
 KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "fused_fluid", "fused_balance", "fused_approach",
            "cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k",
-           "fluid_k", "fluid_k_lean", "fluid_k_bt", "periodic")
+           "fluid_k", "fluid_k_lean", "fluid_k_bt", "periodic",
+           "fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack")
 
 
 def wrappers():
     """The kernel wrappers by name (each carries ``.launches``)."""
-    from jrl_lbm_torch.kernels import cylinder, fused_jrl, jrl_c, jrl_fluid, jrl_tiled, periodic
+    from jrl_lbm_torch.kernels import cylinder, fused_jrl, halo, jrl_c, jrl_fluid, jrl_sharded, \
+        jrl_tiled, periodic
 
     return {
         "fluid_a": jrl_fluid.fluid_a,
@@ -38,6 +41,11 @@ def wrappers():
         "fluid_k_lean": jrl_tiled.fluid_k_lean,
         "fluid_k_bt": jrl_tiled.fluid_k_bt,
         "periodic": periodic.periodic,
+        "fluid_a_sh": jrl_sharded.fluid_a_sh,
+        "fluid_b_sh": jrl_sharded.fluid_b_sh,
+        "c_balance_sh": jrl_sharded.c_balance_sh,
+        "c_approach_sh": jrl_sharded.c_approach_sh,
+        "halo_pack": halo.halo_pack,
     }
 
 

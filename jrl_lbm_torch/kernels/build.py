@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NAMES = ("c_balance", "c_approach", "fluid_a", "fluid_b",
          "fused_fluid", "fused_balance", "fused_approach",
          "cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k",
-         "fluid_k", "fluid_k_lean", "fluid_k_bt", "periodic")
+         "fluid_k", "fluid_k_lean", "fluid_k_bt", "periodic",
+         "fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack")
 
 # --fmad=false: no multiply-add contraction, so each kernel rounds where
 # its plain PyTorch twin does (see csrc/jrl_common.cuh)

@@ -25,9 +25,7 @@ __global__ void __launch_bounds__(256) c_balance_kernel(
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= p.W || y >= p.H) return;
-  BalanceGeo g;
-  g.flags = flags;
-  g.W = p.W;
+  const BalanceGeo g{GlobalPlane{flags, p.W}};
   balance_cell(h, C, g, balance_cell_flags(g, p.H, p.W, y, x), p, y, x, h_out, C_out);
 }
 

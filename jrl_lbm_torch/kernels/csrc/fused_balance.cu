@@ -36,9 +36,7 @@ __global__ void __launch_bounds__(FUSED_BLOCK) fused_balance_kernel(
   const int H = p.H, W = p.W, HW = H * W;
   const int threads = gridDim.x * blockDim.x;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  BalanceGeo g;
-  g.flags = flags;
-  g.W = W;
+  const BalanceGeo g{GlobalPlane{flags, W}};
   BalanceCell cell[CPT];
 #pragma unroll
   for (int j = 0; j < CPT; ++j) {

@@ -27,10 +27,12 @@ namespace jrl {
 // Balance: fixed flags, zero velocity
 // ---------------------------------------------------------------------------
 
-struct BalanceGeo {
-  const int* flags;
-  int W;
-  __device__ int flag(int y, int x) const { return flags[y * W + x]; }
+// The fixed flags read through B (GlobalPlane, or jrl_shard.cuh::ShardFlags
+// in a shard): flag(y, x) at global coordinates.
+template <class B>
+struct BalanceGeoT {
+  B base;
+  __device__ int flag(int y, int x) const { return base.at(y, x); }
   __device__ float phi(int, int) const { return 0.0f; }
   // INFLOW: feq(0, 0) = 0 (sink); INFLOW_2: feq(1, 0) (reservoir)
   __device__ void inflow(int, int, int fl, float* out) const {
@@ -43,17 +45,20 @@ struct BalanceGeo {
     }
   }
 };
+using BalanceGeo = BalanceGeoT<GlobalPlane>;
 
 // What a balance cell needs of the fixed flags: its own flag, the cell
 // whose streaming it takes (itself, or the inward neighbour of an OUTFLOW
-// cell), that cell's flag and its pull_obstacle_mask.
+// cell, as a global linear index), that cell's flag and its
+// pull_obstacle_mask.
 struct BalanceCell {
   int fl, src, src_fl;
   unsigned nbr;
 };
 
-__device__ __forceinline__ BalanceCell balance_cell_flags(const BalanceGeo& g, int H, int W,
-                                                          int y, int x) {
+template <class Geo>
+__device__ __forceinline__ BalanceCell balance_cell_flags(const Geo& g, int H, int W, int y,
+                                                          int x) {
   BalanceCell c;
   c.fl = g.flag(y, x);
   int dy, dx;
@@ -65,19 +70,19 @@ __device__ __forceinline__ BalanceCell balance_cell_flags(const BalanceGeo& g, i
   return c;
 }
 
-// One balance step at cell (y, x): streaming with INFLOW (C = 0) and
+// One balance step at global cell (., x) whose streaming source (sy, sx)
+// the accessor `src` is positioned at: streaming with INFLOW (C = 0) and
 // INFLOW_2 (C = 1) reservoirs and the OUTFLOW copy, C = sum h with
-// OBSTACLE passthrough, BGK at u = 0 with the per-direction axisymmetric
-// rate 1/tau_D + (1 - 0.5/tau_D) e_x / r.
-__device__ __forceinline__ void balance_cell(const float* h, const float* C, const BalanceGeo& g,
-                                             const BalanceCell& c, const CBalanceParams& p,
-                                             int y, int x, float* h_out, float* C_out) {
-  const int H = p.H, W = p.W, HW = H * W;
-  const int i = y * W + x;
+// OBSTACLE passthrough (the old C at C[i]), BGK at u = 0 with the
+// per-direction axisymmetric rate 1/tau_D + (1 - 0.5/tau_D) e_x / r. The
+// cell's outputs go to index i of planes `stride` apart.
+template <class Acc, class Geo>
+__device__ __forceinline__ void balance_cell_at(const Acc& src, const float* C, const Geo& g,
+                                                const BalanceCell& c, const CBalanceParams& p,
+                                                int x, int sy, int sx, float* h_out,
+                                                float* C_out, int i, int stride) {
   float hs[9];
-  const int sy = c.src / W, sx = c.src % W;
-  stream_cell_masked<false>(GlobalState{h, nullptr, nullptr, H, W, sy, sx}, H, W, sy, sx, c.src_fl,
-                            c.nbr, 0.0f, g, hs);
+  stream_cell_masked<false>(src, p.H, p.W, sy, sx, c.src_fl, c.nbr, 0.0f, g, hs);
 
   // propagate writes C = 0 / 1 at INFLOW / INFLOW_2; macro_compute_C keeps
   // C only at OBSTACLE cells
@@ -94,8 +99,19 @@ __device__ __forceinline__ void balance_cell(const float* h, const float* C, con
   const float r = (float)x + 0.5f;
 #pragma unroll
   for (int q = 0; q < 9; ++q)
-    h_out[q * HW + i] =
+    h_out[q * stride + i] =
         c.fl == OBSTACLE ? hs[q] : collide_conv_q(q, hs[q], Cn, 0.0f, 0.0f, r, p.w_rate, p.c_tau);
+}
+
+// balance_cell_at on [H][W] device memory.
+template <class Geo>
+__device__ __forceinline__ void balance_cell(const float* h, const float* C, const Geo& g,
+                                             const BalanceCell& c, const CBalanceParams& p,
+                                             int y, int x, float* h_out, float* C_out) {
+  const int H = p.H, W = p.W;
+  const int sy = c.src / W, sx = c.src % W;
+  balance_cell_at(GlobalState{h, nullptr, nullptr, H, W, sy, sx}, C, g, c, p, x, sy, sx, h_out,
+                  C_out, y * W + x, H * W);
 }
 
 // ---------------------------------------------------------------------------
@@ -126,10 +142,12 @@ struct FrameVel {
   __device__ float v(int i) const { return at(f0[HW + i], lerp ? f1[HW + i] : 0.0f); }
 };
 
-template <class V>
+// The moving tip over the base flags B (GlobalPlane, or jrl_shard.cuh::
+// ShardFlags in a shard), read at global coordinates.
+template <class V, class B = GlobalPlane>
 struct ApproachGeo {
-  const int* base;
-  V vel;  // interpolated stored velocity (not yet scaled by v)
+  B base;
+  V vel;  // interpolated stored velocity (not yet scaled by v), at global linear indices
   int H, W, rg, rint, inflow_h_int, walks_int;
   bool flat;
   float v;
@@ -140,7 +158,7 @@ struct ApproachGeo {
   __device__ int flag(int y, int x) const {
     const bool obs = flat ? (y < walks_int && x < rg)
                           : (phi(y, x) < 0.0f || (y < inflow_h_int && x < rg));
-    int fl = obs ? OBSTACLE : base[y * W + x];
+    int fl = obs ? OBSTACLE : base.at(y, x);
     if (y == walks_int - 1 && x < rint) fl = INFLOW;
     return fl;
   }
@@ -160,11 +178,11 @@ struct ApproachGeo {
   }
 };
 
-template <class V>
-__device__ __forceinline__ ApproachGeo<V> approach_geo(const int* base, V vel, int step,
-                                                       const CApproachParams& p) {
+template <class V, class B>
+__device__ __forceinline__ ApproachGeo<V, B> approach_geo_on(B base, V vel, int step,
+                                                             const CApproachParams& p) {
   const float walks = tip_walks(step, p.inflow_h, p.v);
-  ApproachGeo<V> g;
+  ApproachGeo<V, B> g;
   g.base = base;
   g.vel = vel;
   g.H = p.H;
@@ -185,24 +203,23 @@ __device__ __forceinline__ ApproachGeo<V> approach_geo(const int* base, V vel, i
   return g;
 }
 
-// One approach step at cell (y, x) whose stored velocity is (u_s, v_s):
-// streaming with sub-grid bounce, C = sum h (clamped to [0, 1] for flat
-// tips), advection-diffusion BGK with the axisymmetric rate and source.
-// C is zeroed in the tip before streaming and OBSTACLE cells keep it, so
-// the new C never reads the old one.
 template <class V>
-__device__ __forceinline__ void approach_cell(const float* h, const ApproachGeo<V>& g,
-                                              const CApproachParams& p, int y, int x,
-                                              float u_s, float v_s, float* h_out, float* C_out) {
-  const int H = p.H, W = p.W, HW = H * W;
-  const int i = y * W + x;
-  const int fl = g.flag(y, x);
+__device__ __forceinline__ ApproachGeo<V> approach_geo(const int* base, V vel, int step,
+                                                       const CApproachParams& p) {
+  return approach_geo_on(GlobalPlane{base, p.W}, vel, step, p);
+}
 
-  float hs[9];
+// The new C of cell (y, x) of flag `fl` (g.flag(y, x)), its streamed
+// populations in hs: streaming with sub-grid bounce from the accessor `a`
+// positioned at the cell, C = sum h (clamped to [0, 1] for flat tips). C is
+// zeroed in the tip before streaming and OBSTACLE cells keep it, so the new
+// C never reads the old one.
+template <class Acc, class Geo>
+__device__ __forceinline__ float approach_C(const Acc& a, const Geo& g, const CApproachParams& p,
+                                            int y, int x, int fl, float hs[9]) {
   int dy, dx;
-  outflow_offset(fl, H, W, y, x, dy, dx);
-  const int sy = y + dy, sx = x + dx;
-  stream_cell<true>(GlobalState{h, nullptr, nullptr, H, W, sy, sx}, H, W, sy, sx, g, hs);
+  outflow_offset(fl, p.H, p.W, y, x, dy, dx);
+  stream_cell<true>(a.at(dy, dx), p.H, p.W, y + dy, x + dx, g, hs);
 
   float Cn;
   if (fl == OBSTACLE) {
@@ -213,14 +230,37 @@ __device__ __forceinline__ void approach_cell(const float* h, const ApproachGeo<
     for (int q = 1; q < 9; ++q) Cn = Cn + hs[q];
   }
   if (p.clamp) Cn = fminf(fmaxf(Cn, 0.0f), 1.0f);
+  return Cn;
+}
+
+// One approach step at cell (y, x) whose stored velocity is (u_s, v_s):
+// approach_C, then advection-diffusion BGK with the axisymmetric rate and
+// source. The cell's outputs go to index i of planes `stride` apart.
+template <class Acc, class Geo>
+__device__ __forceinline__ void approach_cell_at(const Acc& a, const Geo& g,
+                                                 const CApproachParams& p, int y, int x,
+                                                 float u_s, float v_s, float* h_out,
+                                                 float* C_out, int i, int stride) {
+  const int fl = g.flag(y, x);
+  float hs[9];
+  const float Cn = approach_C(a, g, p, y, x, fl, hs);
   C_out[i] = Cn;
 
   const float r = (float)x + 0.5f;
-  const float a = g.cu_of(y, x, u_s), b = g.cv_of(y, x, v_s);
+  const float a_ = g.cu_of(y, x, u_s), b = g.cv_of(y, x, v_s);
 #pragma unroll
   for (int q = 0; q < 9; ++q)
-    h_out[q * HW + i] =
-        fl == OBSTACLE ? hs[q] : collide_conv_q(q, hs[q], Cn, a, b, r, p.w_rate, p.c_tau);
+    h_out[q * stride + i] =
+        fl == OBSTACLE ? hs[q] : collide_conv_q(q, hs[q], Cn, a_, b, r, p.w_rate, p.c_tau);
+}
+
+// approach_cell_at on [H][W] device memory.
+template <class V>
+__device__ __forceinline__ void approach_cell(const float* h, const ApproachGeo<V>& g,
+                                              const CApproachParams& p, int y, int x,
+                                              float u_s, float v_s, float* h_out, float* C_out) {
+  approach_cell_at(GlobalState{h, nullptr, nullptr, p.H, p.W, y, x}, g, p, y, x, u_s, v_s, h_out,
+                   C_out, y * p.W + x, p.H * p.W);
 }
 
 // Row of the tip-disk integrals, clamped into [0, H-1] as the JAX

@@ -124,6 +124,14 @@ struct GlobalState {
   }
 };
 
+// An int32 plane ([H][W], flags) read at global (y, x); the sharded
+// kernels read theirs through jrl_shard.cuh::ShardFlags instead.
+struct GlobalPlane {
+  const int* p;
+  int W;
+  __device__ __forceinline__ int at(int y, int x) const { return p[y * W + x]; }
+};
+
 // Second-order equilibrium of one direction (ops/equilibrium.py::feq).
 __device__ __forceinline__ float feq_q(int q, float rho, float u, float v) {
   const float eu = (float)ex_of(q) * u + (float)ey_of(q) * v;

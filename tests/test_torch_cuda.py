@@ -17,7 +17,10 @@ stored-velocity frame boundaries) against the loop of the twins, at the
 trajectory tolerances: f, rho, C and h 2e-5, vel 2e-4. The shear
 layer's periodic kernel, in each of its seven instances, is held to its
 twin after one launch at 1e-6 and over 100 steps at the trajectory
-tolerances.
+tolerances. The sharded JRL kernels (four shards on the one card) are
+held to their twins after one launch at the per-step tolerances, and the
+sharded runners to the unsharded per-step kernels bit for bit (the
+integrals at rtol 2e-4 / atol 1e-4: summed per shard, in another order).
 """
 
 import ctypes
@@ -31,11 +34,14 @@ from jrl_lbm_torch import kernels, shear_main
 from jrl_lbm_torch.kernels import build, jrl_c, jrl_fluid
 from jrl_lbm_torch.kernels import cylinder as K
 from jrl_lbm_torch.kernels import fused_jrl as F
+from jrl_lbm_torch.kernels import halo as HA
+from jrl_lbm_torch.kernels import jrl_sharded as S
 from jrl_lbm_torch.kernels import jrl_tiled as JT
 from jrl_lbm_torch.kernels import periodic as P
 from jrl_lbm_torch.models import cylinder as CY
 from jrl_lbm_torch.models import jrl as T
 from jrl_lbm_torch.models import shear_layer as SL
+from jrl_lbm_torch.parallel.mesh import make_mesh, split
 from jrl_lbm_torch.utils.types import KBCType
 
 RES = (128, 64)
@@ -745,3 +751,170 @@ def test_cuda_periodic_refuses_and_raises(cuda):
     assert err != 0
     with pytest.raises(RuntimeError, match="cudaError"):
         build.check(err, "periodic")
+
+
+# --- the JRL case on a mesh of shards (kernels/jrl_sharded.py, kernels/halo.py) ---
+
+SH_RES = (256, 128)
+SH_MESHES = [(4, 1), (2, 2)]
+
+
+def _sh_setup(dev, mesh_shape):
+    """A 256x128 wedge fluid state 8 twin steps in, a cylinder C state 5
+    balance steps in, the mesh on the one card and its shards."""
+    fc = T.JRLFluidConfig(res=SH_RES, Re=4.0, vel_obs_real=0.2848, gravity_strength_real=-9.8,
+                          shape="45degree")
+    s, fl = T.fluid_init(fc, dev)
+    s = T.make_fluid_runner(fc)(s, fl, 0, 8)
+    cc = T.JRLCConfig(res=SH_RES, Re=4.0, Pe=5.0, shape="cylinder")
+    st, cf, flags = T.c_init(cc, dev)
+    st = T.make_balance_runner(cc, flags)(st, cf, 5)
+    mesh = make_mesh(mesh_shape, [dev] * (mesh_shape[0] * mesh_shape[1]))
+    shards = [S.Shard.of(*SH_RES, mesh.shape, c) for c in mesh.local]
+    return fc, s, fl, cc, st, cf, flags, mesh, shards
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", SH_MESHES)
+def test_cuda_sharded_kernels_match_twins(cuda, mesh_shape):
+    """One launch of each sharded kernel on every shard against its twin,
+    from the same halo pieces: fluid A and B (the lean instances too on
+    the shards above the tip, where they equal the full ones bit for
+    bit), balance and approach (with the shard's disk terms), and
+    halo_pack in both phases bit for bit."""
+    fc, s, fl, cc, st, cf, flags, mesh, shards = _sh_setup(cuda, mesh_shape)
+    L, k = range(len(shards)), 8
+    f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
+    g0 = [f[0], vel[0]]
+    for got, want in zip(HA.halo_pack(g0), HA.halo_pack_ref(g0)):
+        assert torch.equal(got, want)
+    t, b = HA.halo_pack_ref([f[1], vel[1]])
+    for got, want in zip(HA.halo_pack(g0, t, b, 2), HA.halo_pack_ref(g0, t, b, 2)):
+        assert torch.equal(got, want)
+    ha = HA.exchange([[f[i], vel[i]] for i in L], mesh, S.XH)
+    a_ref = [S.fluid_a_sh_ref(f[i], rho[i], vel[i], ha[i], k, fc, fl, shards[i]) for i in L]
+    hb = HA.exchange([[a[1], a[2]] for a in a_ref], mesh, S.XH)
+    n_lean = 0
+    for i, sh in enumerate(shards):
+        leans = (False, True) if mesh.shape[1] == 1 and S.lean_shard(fc, sh, k) else (False,)
+        for lean in leans:
+            tag = f"shard {mesh.local[i]} lean={lean}"
+            a = S.fluid_a_sh(f[i], rho[i], vel[i], ha[i], k, fc, fl, sh, lean)
+            want = S.fluid_a_sh_ref(f[i], rho[i], vel[i], ha[i], k, fc, fl, sh, lean)
+            for name, g_, w_, tol in zip(("f", "rho", "vel"), a, want, (1e-5, 1e-5, 1e-4)):
+                _close(g_, w_, tol, f"fluid_a_sh {tag} {name}")
+            fb = S.fluid_b_sh(*a_ref[i], hb[i], k, fc, fl, sh, lean)
+            _close(fb, S.fluid_b_sh_ref(*a_ref[i], hb[i], k, fc, fl, sh, lean), 1e-5,
+                   f"fluid_b_sh {tag} f")
+            if lean:
+                n_lean += 1
+                full_a = S.fluid_a_sh(f[i], rho[i], vel[i], ha[i], k, fc, fl, sh)
+                assert all(torch.equal(x, y) for x, y in zip(a, full_a)), tag
+                assert torch.equal(fb, S.fluid_b_sh(*a_ref[i], hb[i], k, fc, fl, sh)), tag
+    assert n_lean == (2 if mesh.shape == (4, 1) else 0)
+
+    h, C, fls = split(st["h"], mesh), split(st["C"], mesh), split(flags, mesh)
+    hh = HA.exchange([[x] for x in h], mesh, S.XH)
+    hfl = HA.exchange([[x] for x in fls], mesh, S.XH)
+    for i, sh in enumerate(shards):
+        got = S.c_balance_sh(h[i], C[i], fls[i], hh[i], hfl[i], cc, cf, sh)
+        want = S.c_balance_sh_ref(h[i], C[i], fls[i], hh[i], hfl[i], cc, cf, sh)
+        for name, g_, w_ in zip(("h", "C"), got, want):
+            _close(g_, w_, 1e-5, f"c_balance_sh {mesh.local[i]} {name}")
+    H, W = SH_RES
+    vf = np.random.default_rng(7).uniform(-0.5, 0.5, (3, 2, H, W)).astype(np.float32)
+    frames = split(torch.as_tensor(vf, device=cuda), mesh)
+    base = split(cf["base_flags"], mesh)
+    hbase = HA.exchange([[x] for x in base], mesh, S.XH)
+    for k in (3, 4):
+        for i, sh in enumerate(shards):
+            v = T.stored_velocity(frames[i], k, cc.vel_obs_conv)
+            part = torch.zeros(4, device=cuda)
+            got = S.c_approach_sh(h[i], C[i], v, base[i], hh[i], hbase[i], k, cc, cf, sh, part)
+            *want, p_ref = S.c_approach_sh_ref(h[i], C[i], v, base[i], hh[i], hbase[i], k, cc,
+                                               cf, sh)
+            for name, g_, w_ in zip(("h", "C"), got, want):
+                _close(g_, w_, 1e-5, f"c_approach_sh {mesh.local[i]} step {k} {name}")
+            np.testing.assert_allclose(part.cpu().numpy(), p_ref.cpu().numpy(), rtol=2e-4,
+                                       atol=1e-4, err_msg=f"disk terms {mesh.local[i]}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", SH_MESHES)
+def test_cuda_sharded_runners_equal_per_step_kernels(cuda, mesh_shape):
+    """The three sharded runners against the unsharded per-step kernels'
+    runners: fluid over 60 steps (six tip rows), balance 40, approach 40
+    across stored-velocity frames, f/rho/vel and h/C bit for bit; only the
+    sharded kernels and halo_pack launch."""
+    fc, s, fl, cc, st, cf, flags, mesh, _ = _sh_setup(cuda, mesh_shape)
+    sharded = {"fluid_a_sh", "fluid_b_sh", "halo_pack"}
+    kernels.reset_launches()
+    got = S.make_sharded_tiled_fluid_runner(fc, mesh)(s, fl, 8, 60)
+    torch.cuda.synchronize()
+    assert {k for k, c in kernels.launches().items() if c} == sharded
+    want = T.make_per_step_fluid_runner(fc)(s, fl, 8, 60)
+    for name in ("f", "rho", "vel"):
+        assert torch.equal(got[name], want[name]), f"fluid {name}"
+    kernels.reset_launches()
+    got = S.make_sharded_tiled_balance_runner(cc, flags, mesh)(st, cf, 40)
+    torch.cuda.synchronize()
+    assert {k for k, c in kernels.launches().items() if c} == {"c_balance_sh", "halo_pack"}
+    want = T.make_per_step_balance_runner(cc, flags)(st, cf, 40)
+    for name in ("h", "C"):
+        assert torch.equal(got[name], want[name]), f"balance {name}"
+    H, W = SH_RES
+    vf = torch.as_tensor(np.random.default_rng(9).uniform(-0.5, 0.5, (8, 2, H, W))
+                         .astype(np.float32), device=cuda)
+    got, acc = S.make_sharded_tiled_approach_runner(cc, vf, mesh)(st, cf, 0, 40)
+    want, acc_r = T.make_per_step_approach_runner(cc, vf)(st, cf, 0, 40)
+    for name in ("h", "C"):
+        assert torch.equal(got[name], want[name]), f"approach {name}"
+    for key in ("inflow_sum", "current_sum", "count", "rec_u", "rec_v"):
+        np.testing.assert_allclose(float(acc[key]), float(acc_r[key]), rtol=2e-4, atol=1e-4,
+                                   err_msg=key)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_fluid_from_step_2_24_minus_5(cuda):
+    """Steps 2**24 - 5 .. 2**24 + 4 on a (4, 1) mesh keep the jnp step form
+    ((float)step of the integer step): bit for bit the per-step kernels."""
+    cfg = T.JRLFluidConfig(res=SH_RES, Re=1.2e-5, shape="cylinder")
+    start, n = 2**24 - 5, 10
+    s, fl = T.fluid_init(cfg, cuda)
+    rng = np.random.default_rng(24)
+    s = {k: v + torch.as_tensor((1e-3 * rng.standard_normal(tuple(v.shape))).astype(np.float32),
+                                device=cuda) for k, v in s.items()}
+    mesh = make_mesh((4, 1), [cuda] * 4)
+    got = S.make_sharded_tiled_fluid_runner(cfg, mesh)(s, fl, start, n)
+    want = T.make_per_step_fluid_runner(cfg)(s, fl, start, n)
+    for name in ("f", "rho", "vel"):
+        assert torch.equal(got[name], want[name]), name
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_wrappers_refuse_bad_inputs(cuda):
+    """Halo pieces that do not fit the shard's mesh, a tensor of the wrong
+    dtype or shape, and a lean launch off a row mesh raise before a launch."""
+    fc, s, fl, cc, st, cf, flags, mesh, shards = _sh_setup(cuda, (2, 2))
+    f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
+    ha = HA.exchange([[f[i], vel[i]] for i in range(4)], mesh, S.XH)
+    sh = shards[0]
+    with pytest.raises(ValueError, match="do not match"):
+        S.fluid_a_sh(f[0], rho[0], vel[0], HA.Halo(11, ha[0].top, ha[0].bot), 8, fc, fl, sh)
+    with pytest.raises(ValueError, match="halo left"):
+        S.fluid_a_sh(f[0], rho[0], vel[0], HA.Halo(11, ha[0].top, ha[0].bot, ha[0].left[:3],
+                                                       ha[0].right), 8, fc, fl, sh)
+    with pytest.raises(ValueError, match="dtype"):
+        S.fluid_a_sh(f[0].double(), rho[0], vel[0], ha[0], 8, fc, fl, sh)
+    with pytest.raises(ValueError, match="row mesh"):
+        S.fluid_a_sh(f[0], rho[0], vel[0], ha[0], 8, fc, fl, sh, lean=True)
+    h = split(st["h"], mesh)
+    hh = HA.exchange([[x] for x in h], mesh, S.XH)
+    hb = HA.exchange([[x] for x in split(cf["base_flags"], mesh)], mesh, S.XH)
+    v = torch.zeros((2, sh.h, sh.w), device=cuda)
+    with pytest.raises(ValueError, match="part"):
+        S.c_approach_sh(h[0], h[0][0], v, split(cf["base_flags"], mesh)[0], hh[0], hb[0], 3, cc,
+                        cf, sh, torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError, match="in a group"):
+        HA.halo_pack([f[0], vel[0], rho[0]])
