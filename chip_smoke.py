@@ -4,7 +4,7 @@ paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the twenty CUDA libraries of ``jrl_lbm_torch/kernels/csrc`` (one
+1. Builds the twenty-three CUDA libraries of ``jrl_lbm_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
@@ -65,6 +65,22 @@ paths on one NVIDIA card and check them.
    (1, 1) mesh once more through a one-rank NCCL process group (``psum``
    by ``all_reduce``), bit for bit the local mesh; each kernel's device
    µs per launch on a 512x256 shard beside its bound and twin.
+0d. The cylinder channel on a mesh of shards (``cyl_sharded_phases``) at
+   ``bench.py``'s 2048² scene, every shard on the one card, route by
+   route: the lean split at k = 1 on (1, 1), (4, 1) and (2, 2) (its three
+   x modes) and at k = 4 on (4, 1) and (2, 2) (x_ext 128, x_halo 8), PIECES
+   (tile_rows 64) on (4, 1) and (2, 2), PADDED on (2, 2). Each new kernel
+   (``cyl_block_sh``, ``cyl_lean_sh``, ``cyl_window_sh``) against its twin
+   after one launch on the cylinder's shard (1e-5), ``halo_pack``'s k-row
+   and one-lane phases bit for bit; the runner over 23 steps (counts
+   zeroed just before and read just after): the full-boundary routes bit
+   for bit the unsharded ``split=False`` runner, the lean split within f,
+   rho 2e-5 and vel 2e-4 of the unsharded default runner on non-OBSTACLE
+   cells (k = 1 also set beside the unsharded k = 1 split steps); the lean
+   routes timed (20 warm-up steps, best of three 600-step windows, busy
+   share) beside the unsharded runner; each kernel alone at the main
+   path's shapes (the L2 flushed between launches) beside its bound and
+   twin.
 2. Holds each per-step kernel to its plain PyTorch twin from the same
    state, after 1 step (f, rho, C, h at 1e-5; vel at 1e-4) and after 100
    steps through the per-step runners (2e-5; vel 2e-4; integrals rtol
@@ -109,7 +125,7 @@ paths on one NVIDIA card and check them.
 6. Runs one whole case through ``jrl_main.run_case`` at 128x64 twice:
    through the multi-step kernels (its default) and through the per-step
    runners; the record rows agree to rtol 2e-4 / atol 1e-4.
-7. Prints ``{"kernels": [...]}`` (28 rows: each kernel once, the four
+7. Prints ``{"kernels": [...]}`` (31 rows: each kernel once, the four
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``), the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -188,6 +204,12 @@ SOURCE = {
                       "jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py:513"),
     "halo_pack": ("jrl_lbm_torch/kernels/csrc/halo_pack.cu",
                   "jrl_lbm_tpu/ops/pallas/fused_sharded.py:409"),
+    "cyl_block_sh": ("jrl_lbm_torch/kernels/csrc/cyl_block_sh.cu",
+                     "jrl_lbm_tpu/ops/pallas/fused_sharded.py:330"),
+    "cyl_lean_sh": ("jrl_lbm_torch/kernels/csrc/cyl_lean_sh.cu",
+                    "jrl_lbm_tpu/ops/pallas/fused_sharded.py:760"),
+    "cyl_window_sh": ("jrl_lbm_torch/kernels/csrc/cyl_window_sh.cu",
+                      "jrl_lbm_tpu/ops/pallas/fused_sharded.py:886"),
 }
 TILED = ("fluid_k", "fluid_k_lean", "fluid_k_bt")
 
@@ -285,6 +307,9 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "c_balance_sh": ("c_balance_sh_kernel",),
     "c_approach_sh": ("c_approach_sh_kernel", "c_disk_sh_kernel"),
     "halo_pack": ("halo_rows_kernel", "halo_cols_kernel"),
+    "cyl_block_sh": ("cyl_block_sh_kernel",),
+    "cyl_lean_sh": ("cyl_lean_sh_kernel",),
+    "cyl_window_sh": ("cyl_window_sh_kernel",),
 }
 
 
@@ -1621,6 +1646,325 @@ def sharded_phases(dev, rate, errs):
     return rows, report
 
 
+# ---------------------------------------------------------------------------
+# The cylinder channel on a mesh of shards (kernels/cyl_sharded.py)
+# ---------------------------------------------------------------------------
+
+CYL_SH = ("cyl_block_sh", "cyl_lean_sh", "cyl_window_sh")
+# (label, mesh, runner arguments): the lean split at k = 1 in its three x
+# modes and at k = 4, and the two full-boundary routes
+CYL_SH_ROUTES = (
+    ("lean k=1 (1, 1) x_whole", (1, 1), {}),
+    ("lean k=1 (4, 1)", (4, 1), {}),
+    ("lean k=1 (2, 2) column-patched", (2, 2), {}),
+    ("lean k=4 (4, 1)", (4, 1), dict(lean_k=4)),
+    ("lean k=4 (2, 2) x_ext 128 x_halo 8", (2, 2), dict(lean_k=4, lean_x_ext=128, lean_x_halo=8)),
+    ("PIECES (4, 1) tile_rows 64", (4, 1), dict(lean_split=False, tile_rows=64)),
+    ("PIECES (2, 2) tile_rows 64", (2, 2), dict(lean_split=False, tile_rows=64)),
+    ("PADDED (2, 2)", (2, 2), dict(lean_split=False, tile_rows=None)),
+)
+
+
+def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
+    """The cylinder channel on a mesh of shards at bench.py's scene
+    (2048², D 64, Re 5000; every shard on ``dev``), route by route
+    (`CYL_SH_ROUTES`): (a) each new kernel against its twin after one
+    launch on the shard that holds the cylinder (1e-5; halo_pack's k-row
+    and one-lane phases bit for bit); (b) the main path, the runner over
+    23 steps with the counts zeroed just before and read just after: the
+    full-boundary routes bit for bit the unsharded ``split=False`` runner,
+    the lean split within f, rho 2e-5 and vel 2e-4 of the unsharded
+    default runner on non-OBSTACLE cells (k = 1 also set beside the
+    unsharded k = 1 split steps); (c) the lean routes timed as bench.py
+    times (20 warm-up steps, best of three 600-step windows, a profiled
+    window for the busy share) beside the unsharded runner (on one card:
+    the halo exchange, the extra launches and the host, not multi-card
+    scaling); (d) each kernel alone at the main path's shapes. Returns
+    the three kernels' rows, the halo_pack launches of the path and a
+    report."""
+    import torch
+
+    from jrl_lbm_torch import kernels
+    from jrl_lbm_torch.kernels import cyl_sharded as CS
+    from jrl_lbm_torch.kernels import cylinder as K
+    from jrl_lbm_torch.kernels import halo as HA
+    from jrl_lbm_torch.models import cylinder as CY
+    from jrl_lbm_torch.parallel.halo import pad_halo
+    from jrl_lbm_torch.parallel.mesh import make_mesh, split
+
+    cfg = CY.CylinderConfig(**CYL_MAIN)
+    H, W = cfg.res
+    cells = H * W
+    c = K.consts(cfg)
+    s0, fl = CY.init(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(81)
+    s0 = {k: v + 1e-5 * torch.randn(v.shape, generator=g, device=dev) for k, v in s0.items()}
+    n_cmp = 23
+    refs = {"full": K.make_fused_cylinder_runner(cfg, split=False)(s0, fl, n_cmp),
+            "default": K.make_fused_cylinder_runner(cfg)(s0, fl, n_cmp)}
+    k1 = K.make_fused_step(cfg)
+    st = s0
+    for _ in range(n_cmp):
+        st = k1(st, fl)
+    refs["k1 split"] = st
+    fluid = fl["flags"] != int(CY.CellType.OBSTACLE)
+    cx, cy = (int(v) for v in cfg.center)
+
+    def cyl_shard_of(shards):
+        """The index of the shard that holds the cylinder's centre."""
+        return next(j for j, sh in enumerate(shards)
+                    if sh.row0 <= cy < sh.row0 + sh.h and sh.col0 <= cx < sh.col0 + sh.w)
+
+    print(f"sharded cylinder {H}x{W}, D {cfg.D:g}, Re {cfg.Re:g}: band region at k=1 "
+          f"{CS._fix_regions(cfg)}, at k=4 {CS._fix_regions(cfg, 7.0)}", flush=True)
+    report = {"res": [H, W], "routes": {}}
+    path_counts = {k: 0 for k in CYL_SH + ("halo_pack",)}
+
+    def drive(run, n, state):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = run(state, fl, n)
+        b.record()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launches().items() if v}
+        for k in path_counts:
+            path_counts[k] += counts.get(k, 0)
+        return out, a.elapsed_time(b), counts
+
+    for label, shape, kw in CYL_SH_ROUTES:
+        ny, nx = shape
+        mesh = make_mesh(shape, [dev] * (ny * nx))
+        run = CS.make_sharded_fused_cylinder_runner(cfg, mesh, **kw)
+        stepk = run.stepk
+        k = stepk.k
+        i = cyl_shard_of(stepk.shards)
+        sh = stepk.shards[i]
+        print(f" {label}: route {stepk.route}, k {k}, shards of {sh.h}x{sh.w}, pieces {sh.k} "
+              f"rows / {sh.xh} lanes", flush=True)
+        rep = report["routes"][label] = {"route": stepk.route, "k": k, "shard": [sh.h, sh.w]}
+
+        # (a) each kernel against its twin, one launch on the cylinder's shard
+        f, rho, vel = (split(s0[x], mesh) for x in ("f", "rho", "vel"))
+        flags, phi = split(fl["flags"], mesh), split(fl["phi_obs"], mesh)
+        L = range(ny * nx)
+
+        def close3(tag, name, got, want):
+            for nm, x, y in zip(("f", "rho", "vel"), got, want):
+                check_close(f"{name} {tag} {nm}", x, y, 1e-5, errs[name])
+
+        if stepk.route == "lean":
+            grp = [CS.lean_group(f[j], rho[j], vel[j], flags[j], phi[j]) for j in L]
+            halos = HA.exchange(grp, mesh, sh.xh, rows=k)
+            if ny > 1:
+                for x, y in zip(HA.halo_pack(grp[i], rows=k), HA.halo_pack_ref(grp[i], rows=k)):
+                    check_close(f"halo_pack rows k={k} {label}", x, y, 0.0, errs["halo_pack"])
+            if nx > 1:
+                t_, b_ = halos[i].top, halos[i].bot
+                for x, y in zip(HA.halo_pack(grp[i], t_, b_, sh.xh, k),
+                                HA.halo_pack_ref(grp[i], t_, b_, sh.xh, k)):
+                    check_close(f"halo_pack cols xh={sh.xh} {label}", x, y, 0.0,
+                                errs["halo_pack"])
+            got = CS.cyl_lean_sh(f[i], halos[i], k, c, sh)
+            close3(label, "cyl_lean_sh", got, CS.cyl_lean_sh_ref(f[i], halos[i], k, c, sh))
+            (gr0, gr1), = stepk.regions
+            nb = gr1 - gr0
+            b0 = min(max(gr0 - sh.row0, 0), sh.h - nb)
+            outs = [[x.clone() for x in got] for _ in range(2)]
+            CS.cyl_window_sh(f[i], rho[i], vel[i], flags[i], phi[i], halos[i], k, b0, nb,
+                             outs[0], c, sh)
+            CS.cyl_window_sh_ref(f[i], rho[i], vel[i], flags[i], phi[i], halos[i], k, b0, nb,
+                                 outs[1], c, sh)
+            close3(f"{label} rows {b0}..{b0 + nb}", "cyl_window_sh", outs[0], outs[1])
+            want_k = {"cyl_lean_sh", "cyl_window_sh"}
+        elif stepk.route == "pieces":
+            halos = HA.exchange([CS.full_group(f[j], vel[j], flags[j]) for j in L], mesh, 1)
+            if nx > 1:
+                grp = CS.full_group(f[i], vel[i], flags[i])
+                for x, y in zip(HA.halo_pack(grp, halos[i].top, halos[i].bot, 1),
+                                HA.halo_pack_ref(grp, halos[i].top, halos[i].bot, 1)):
+                    check_close(f"halo_pack one-lane cols {label}", x, y, 0.0,
+                                errs["halo_pack"])
+            close3(label, "cyl_block_sh",
+                   CS.cyl_block_sh(f[i], rho[i], vel[i], flags[i], phi[i], halos[i], c, sh),
+                   CS.cyl_block_sh_ref(f[i], rho[i], vel[i], flags[i], phi[i], halos[i], c, sh))
+            want_k = {"cyl_block_sh"}
+        else:
+            fp, velp, flp = (pad_halo(x, mesh) for x in (f, vel, flags))
+            close3(label, "cyl_block_sh",
+                   CS.cyl_block_sh(fp[i], rho[i], velp[i], flp[i], phi[i], None, c, sh),
+                   CS.cyl_block_sh_ref(fp[i], rho[i], velp[i], flp[i], phi[i], None, c, sh))
+            want_k = {"cyl_block_sh"}
+        if stepk.route != "padded" and ny * nx > 1:
+            want_k = want_k | {"halo_pack"}
+        del f, rho, vel, flags, phi
+
+        # (b) the main path: 23 steps, counts zeroed just before and read just after
+        got, _, counts = drive(run, n_cmp, s0)
+        print(f"  {n_cmp} steps: launches {counts}", flush=True)
+        if set(counts) != want_k:
+            fail(f"sharded cylinder {label}: launched {counts}, expected {sorted(want_k)}")
+        rep["launches_23"] = counts
+        if stepk.route != "lean":
+            for nm in ("f", "rho", "vel"):
+                if not torch.equal(got[nm], refs["full"][nm]):
+                    d = float((got[nm] - refs["full"][nm]).abs().max())
+                    fail(f"sharded cylinder {label} {nm}: not bit for bit the unsharded "
+                         f"split=False runner (max |diff| {d:.3e})")
+            print(f"  {n_cmp} steps bit for bit the unsharded split=False runner", flush=True)
+            rep["bit_for_bit_split_false"] = True
+        else:
+            dev_max = {}
+            for nm, tol in (("f", 2e-5), ("rho", 2e-5), ("vel", 2e-4)):
+                m = fluid.expand_as(got[nm])
+                d = float((got[nm][m] - refs["default"][nm][m]).abs().max())
+                dev_max[nm] = d
+                print(f"  {n_cmp} steps vs the unsharded default runner, non-OBSTACLE {nm}: "
+                      f"max |diff| {d:.3e} (tol {tol:g})", flush=True)
+                if not d <= tol or not torch.isfinite(got[nm]).all():
+                    fail(f"sharded cylinder {label} {nm}: {d:.3e} from the unsharded runner")
+            rep["max_dev_vs_unsharded"] = dev_max
+            if k == 1:
+                ref1 = refs["k1 split"]
+                same = {nm: bool(torch.equal(got[nm], ref1[nm])) for nm in ("f", "rho", "vel")}
+                same_fluid = {nm: bool(torch.equal(got[nm][fluid.expand_as(got[nm])],
+                                                   ref1[nm][fluid.expand_as(got[nm])]))
+                              for nm in ("rho", "vel")}
+                rows = torch.nonzero((got["f"] != ref1["f"]).any(0).any(1)).flatten().tolist()
+                print(f"  vs the unsharded k=1 split steps: bit for bit {same}, on non-OBSTACLE "
+                      f"cells {same_fluid}; f rows differing {rows[:8]}"
+                      f"{'...' if len(rows) > 8 else ''}", flush=True)
+                rep["vs_k1_split"] = {"equal": same, "equal_non_obstacle": same_fluid,
+                                      "f_rows_differing": rows}
+        del got
+
+        # (c) bench.py's windows on the lean routes
+        if stepk.route == "lean":
+            state, _, _ = drive(run, 20, s0)
+            windows = []
+            for _ in range(3):
+                state, ms, counts = drive(run, 600, state)
+                windows.append({"us_per_step": ms * 1e3 / 600, "launches": counts})
+            best = min(w_["us_per_step"] for w_ in windows)
+            pst = {"s": state}
+
+            def prof(nn):
+                pst["s"] = run(pst["s"], fl, nn)
+
+            times, wall = device_profile(prof, 600)
+            busy = sum(times.values()) / (wall * 1e6) if wall else None
+            if not all(torch.isfinite(v).all() for v in pst["s"].values()):
+                fail(f"sharded cylinder {label}: state not finite after the windows")
+            rep.update({"windows": windows, "best_us_per_step": best, "mlups": cells / best,
+                        "busy_share": busy,
+                        "device_us_per_step": sum(times.values()) / 600 if wall else None,
+                        "device_us_by_function": times})
+            print(f"  best of 3 600-step windows: {best:.3f} us/step ({cells / best:.1f} MLUPS)"
+                  f", busy {busy if busy is None else f'{busy:.1%}'}; unsharded runner "
+                  f"{unsharded_us if unsharded_us is None else f'{unsharded_us:.3f}'} us/step; "
+                  f"launches a window {windows[0]['launches']}", flush=True)
+            del state, pst
+
+    for k in CYL_SH:
+        if path_counts[k] < 1:
+            fail(f"sharded cylinder main path: {k} was not launched")
+    report["main_launches"] = path_counts
+
+    # (d) each kernel alone at the main path's shapes: the lean pass and
+    # the window of the default route (k = 1; k = 4 in the report) on the
+    # (4, 1) shard with the band, PIECES on the (2, 2) shard with the
+    # cylinder (PADDED and the one-lane columns of halo_pack in the report)
+    obs = (fl["flags"] == int(CY.CellType.OBSTACLE)).float()
+    nbr_obs = torch.nn.functional.max_pool2d(obs[None, None], 3, 1, 1)[0, 0] > 0
+    coupled = (fl["phi_obs"] > -1e-10) & (fl["phi_obs"] <= 1.0) & nbr_obs & (obs == 0)
+    meshes = {(4, 1): make_mesh((4, 1), [dev] * 4), (2, 2): make_mesh((2, 2), [dev] * 4)}
+
+    def case(label, shape, k):
+        """``(kernel call, twin call, bytes, operations, shard)`` of one
+        launch at the main path's shapes (bytes: each input once with its
+        pieces, each output once)."""
+        mesh = meshes[shape]
+        co = (cy // (H // shape[0]), cx // (W // shape[1]))
+        sh = CS.CylShard.of(H, W, shape, co, k, k)
+        i = mesh.local.index(co)
+        f, rho, vel = (split(s0[x], mesh) for x in ("f", "rho", "vel"))
+        flags, phi = split(fl["flags"], mesh), split(fl["phi_obs"], mesh)
+        L, hw = range(4), sh.h * sh.w
+        halo_words = 2 * sh.w * sh.k * (shape[0] > 1) + 2 * (sh.h + 2 * sh.k) * sh.xh
+        if label.startswith("cyl_block_sh") or label.startswith("halo_pack"):
+            halos = HA.exchange([CS.full_group(f[j], vel[j], flags[j]) for j in L], mesh, 1)
+            if label.startswith("halo_pack"):
+                grp = CS.full_group(f[i], vel[i], flags[i])
+                t_, b_ = halos[i].top, halos[i].bot
+                return (lambda: HA.halo_pack(grp, t_, b_, 1),
+                        lambda: HA.halo_pack_ref(grp, t_, b_, 1),
+                        4 * 2 * 2 * 12 * (sh.h + 2), 0, sh)
+            args = (f[i], rho[i], vel[i], flags[i], phi[i], halos[i], c, sh)
+            if "PADDED" in label:
+                fp, velp, flp = (pad_halo(x, mesh) for x in (f, vel, flags))
+                args = (fp[i], rho[i], velp[i], flp[i], phi[i], None, c, sh)
+                halo_words = 2 * (sh.w + sh.h + 2)
+            nc = int(sh.body(coupled).sum())
+            return (lambda: CS.cyl_block_sh(*args), lambda: CS.cyl_block_sh_ref(*args),
+                    4 * ((14 + 12) * hw + 12 * halo_words),
+                    CYL_FLOPS * hw + CYL_COUPLE_FLOPS * nc, sh)
+        halos = HA.exchange([CS.lean_group(f[j], rho[j], vel[j], flags[j], phi[j]) for j in L],
+                            mesh, sh.xh, rows=k)
+        if label.startswith("cyl_lean_sh"):
+            return (lambda: CS.cyl_lean_sh(f[i], halos[i], k, c, sh),
+                    lambda: CS.cyl_lean_sh_ref(f[i], halos[i], k, c, sh),
+                    4 * (9 * (hw + halo_words) + 12 * hw), CYL_FLOPS * hw * k, sh)
+        (gr0, gr1), = CS._fix_regions(cfg, margin=4.0 + (k - 1))
+        nb = gr1 - gr0
+        b0 = min(max(gr0 - sh.row0, 0), sh.h - nb)
+        outs = [torch.empty_like(f[i]), torch.empty_like(rho[i]), torch.empty_like(vel[i])]
+        wargs = (f[i], rho[i], vel[i], flags[i], phi[i], halos[i], k, b0, nb, outs, c, sh)
+        nc = int(sh.body(coupled)[b0:b0 + nb].sum())
+        return (lambda: CS.cyl_window_sh(*wargs), lambda: CS.cyl_window_sh_ref(*wargs),
+                4 * (14 * (nb + 2 * k) * sh.w + 12 * nb * sh.w),
+                (CYL_FLOPS * nb * sh.w + CYL_COUPLE_FLOPS * nc) * k, sh)
+
+    rows = []
+    alone = {}
+    l2_flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    for row, label, shape, k in (("cyl_lean_sh", "cyl_lean_sh k=1", (4, 1), 1),
+                                 (None, "cyl_lean_sh k=4", (4, 1), 4),
+                                 ("cyl_window_sh", "cyl_window_sh k=1", (4, 1), 1),
+                                 (None, "cyl_window_sh k=4", (4, 1), 4),
+                                 ("cyl_block_sh", "cyl_block_sh PIECES", (2, 2), 1),
+                                 (None, "cyl_block_sh PADDED", (2, 2), 1),
+                                 (None, "halo_pack one-lane cols, 12 planes", (2, 2), 1)):
+        kfn, tfn, nbytes, ops, sh = case(label, shape, k)
+        name = label.split()[0]
+        funcs = ("halo_cols_kernel",) if name == "halo_pack" else KERNEL_FUNCS[name]
+        # each timed launch finds the 50 MB L2 cold, as in the path (four
+        # shards' state is ~4x the L2): a 128 MB write between launches,
+        # outside the kernel's device time
+        dev_us = kernel_us(lambda: (l2_flush.zero_(), kfn()), funcs, reps=20)
+        ms = dev_us / 1e3 if dev_us else cuda_ms(kfn, 20)
+        plain_ms = cuda_ms(tfn, 1, warmup=1)
+        mem_ms, ops_ms = nbytes / rate * 1e3, ops / F32_PEAK * 1e3
+        bound_ms = max(mem_ms, ops_ms)
+        by = "bytes" if mem_ms >= ops_ms else "operations"
+        print(f"  {label:36s} {ms * 1e3:10.2f} us/launch  bound {bound_ms * 1e3:8.2f} us ({by}; "
+              f"{nbytes / 1e6:.2f} MB)  {bound_ms / ms * 100:6.2f}% of bound  twin "
+              f"{plain_ms:.3f} ms  (shard {sh.h}x{sh.w})", flush=True)
+        alone[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                        "bytes": nbytes, "ops": ops, "shard": [sh.h, sh.w],
+                        "time_from": "profiler" if dev_us else "events"}
+        if row:
+            src, rep_ = SOURCE[row]
+            rows.append({
+                "name": row, "route": "cuda", "source": src, "replaces": rep_,
+                "launches": path_counts[row], "max_abs_err": max(errs[row]) if errs[row] else None,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                "library_ms": None,
+            })
+    report["per_launch"] = alone
+    return rows, path_counts["halo_pack"], report
+
+
 def main() -> int:
     import torch
 
@@ -1664,6 +2008,14 @@ def main() -> int:
 
     # ---- 0c. the JRL case on a mesh of shards: kernels, runners, NCCL ----
     sharded_rows, report["sharded"] = sharded_phases(dev, rate, errs)
+
+    # ---- 0d. the cylinder channel on a mesh of shards: kernels, routes ----
+    cyl_sh_rows, cyl_sh_halo, report["cyl_sharded"] = cyl_sharded_phases(
+        dev, rate, errs, report["cylinder"]["best"]["us_per_step"])
+    for r in sharded_rows:  # halo_pack serves both sharded paths
+        if r["name"] == "halo_pack":
+            r["launches"] += cyl_sh_halo
+            r["max_abs_err"] = max(errs["halo_pack"])
 
     # ---- 1. each per-step kernel against its twin ----
     def fluid_cfg(shape, refine, **kw):
@@ -2220,7 +2572,7 @@ def main() -> int:
             path128[k]["launches"][k], "events")
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows
+    rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)

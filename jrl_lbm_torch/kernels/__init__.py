@@ -6,8 +6,9 @@ the k-step tile-class kernels of the JRL fluid phase on larger grids
 (`jrl_tiled.py`), the four kernels of the cylinder channel's fused step
 (`cylinder.py`; float32, bf16 or stochastically rounded bf16 storage of
 f, each a template instance, counted per name and per mode), the
-shear layer's periodic step (`periodic.py`), and the JRL case on a mesh
-of shards (`jrl_sharded.py`, its halo pieces packed by `halo.py`).
+shear layer's periodic step (`periodic.py`), and the JRL case and the
+cylinder channel on a mesh of shards (`jrl_sharded.py`, `cyl_sharded.py`,
+their halo pieces packed by `halo.py`).
 
 The wrappers import without ``nvcc`` or a card; a kernel is built
 (`build.py`) the first time it is launched.
@@ -17,13 +18,14 @@ KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "fused_fluid", "fused_balance", "fused_approach",
            "cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k",
            "fluid_k", "fluid_k_lean", "fluid_k_bt", "periodic",
-           "fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack")
+           "fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack",
+           "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh")
 
 
 def wrappers():
     """The kernel wrappers by name (each carries ``.launches``)."""
-    from jrl_lbm_torch.kernels import cylinder, fused_jrl, halo, jrl_c, jrl_fluid, jrl_sharded, \
-        jrl_tiled, periodic
+    from jrl_lbm_torch.kernels import cyl_sharded, cylinder, fused_jrl, halo, jrl_c, jrl_fluid, \
+        jrl_sharded, jrl_tiled, periodic
 
     return {
         "fluid_a": jrl_fluid.fluid_a,
@@ -46,15 +48,19 @@ def wrappers():
         "c_balance_sh": jrl_sharded.c_balance_sh,
         "c_approach_sh": jrl_sharded.c_approach_sh,
         "halo_pack": halo.halo_pack,
+        "cyl_block_sh": cyl_sharded.cyl_block_sh,
+        "cyl_lean_sh": cyl_sharded.cyl_lean_sh,
+        "cyl_window_sh": cyl_sharded.cyl_window_sh,
     }
 
 
 def reset_launches():
-    from jrl_lbm_torch.kernels import cylinder
+    from jrl_lbm_torch.kernels import cyl_sharded, cylinder
 
     for fn in wrappers().values():
         fn.launches = 0
     cylinder.reset_launches()
+    cyl_sharded.reset_launches()
 
 
 def launches():

@@ -403,28 +403,53 @@ __device__ __forceinline__ void full_cell(const Acc& a, const CylParams& p, int 
 }
 
 // One plain-channel step (walls at x = 0 and W-1, FLUID elsewhere; flags
-// are not read) of the accessor's cell at column gx
-// (fused_step.py::_lean_step_rows).
-template <class Acc>
-__device__ __forceinline__ void lean_cell(const Acc& a, const CylParams& p, int gx, float fo[9],
-                                          float& rho_o, float& ux_o, float& uy_o) {
+// are not read) of the accessor's cell at global (gy, gx)
+// (fused_step.py::_lean_step_rows). The YB instance adds the rules of the
+// first and last rows, as the sharded lean pass runs every row
+// (fused_sharded.py::_lean_block_update): the INFLOW plug at gy = 0 and
+// the OUTFLOW copy at gy = H-1 of all nine streamed populations of the
+// cell below (recomputed here, reading two rows away), both off the wall
+// columns. Its wall cells of those two rows reflect their y pulls as the
+// full step does (the JAX lean pass wraps them; no other cell reads a
+// wall cell's populations, since the cells beside a wall take the
+// half-way bounce), so no cell reads across the global y border. Without
+// YB, gy is not read.
+template <bool YB = false, class Acc>
+__device__ __forceinline__ void lean_cell(const Acc& a, const CylParams& p, int gy, int gx,
+                                          float fo[9], float& rho_o, float& ux_o, float& uy_o) {
   const int W = p.W;
   const bool obs = gx == 0 || gx == W - 1;
+  int oy = 0;  // row offset of the cell streamed: -1 for the OUTFLOW copy
+  bool refl_lo = false, refl_hi = false;
+  if (YB) {
+    if (obs) {
+      refl_lo = gy == 0;
+      refl_hi = gy == p.H - 1;
+    } else if (gy == p.H - 1) {
+      oy = -1;
+    }
+  }
   float raw[9], fn[9];
-  raw[0] = a.F(0, 0, 0);
+  raw[0] = a.F(0, oy, 0);
 #pragma unroll
   for (int q = 1; q < 9; ++q) {
     const int ex = ex_of(q), ey = ey_of(q);
     const int dx = ex == 1 ? (gx == 0 ? 1 : -1) : (ex == -1 ? (gx == W - 1 ? -1 : 1) : 0);
-    raw[q] = a.F(q, -ey, dx);
+    int dy = -ey;
+    if (YB && ((ey == 1 && refl_lo) || (ey == -1 && refl_hi))) dy = ey;
+    raw[q] = a.F(q, oy + dy, dx);
   }
   fn[0] = raw[0];
 #pragma unroll
   for (int q = 1; q < 9; ++q) {
     const int ex = ex_of(q);
     float s = raw[q];
-    if ((ex == 1 && gx == 1) || (ex == -1 && gx == W - 2)) s = a.F(refl(q), 0, 0);
+    if ((ex == 1 && gx == 1) || (ex == -1 && gx == W - 2)) s = a.F(refl(q), oy, 0);
     fn[q] = obs ? raw[refl(q)] : s;
+  }
+  if (YB && !obs && gy + oy == 0) {
+#pragma unroll
+    for (int q = 0; q < 9; ++q) fn[q] = p.feq_in[q];
   }
   moments_mrt(p, fn, obs, p.wall_density, 0.0f, 0.0f, fo, rho_o, ux_o, uy_o);
 }
@@ -474,41 +499,51 @@ __host__ __device__ inline int tile_smem_floats(int mode, int k) {
   return ext * (mode == LEAN ? 18 : (mode == FULL_CYL ? 24 : 19));
 }
 
-// k is a template parameter: the buffer strides become immediate offsets.
-// ST: the storage of f and f_out; the tile holds float32.
-template <int MODE, int k, int ST>
-__device__ __forceinline__ void tile_steps(const f_t<ST>* f, const float* vel, const int* flags,
-                                           const float* phi, f_t<ST>* f_out, float* rho_out,
-                                           float* vel_out, const CylParams& p) {
+// What a tile loader gives for one cell: f (float32), and as the mode
+// needs them vel, phi and the flag.
+struct TileIn {
+  float f[9];
+  float vx, vy, ph;
+  int fl;
+};
+
+// k sub-steps of mode MODE on the tile whose halo starts at global row oy
+// and column ox (unwrapped: wrap_near gives the cell); its own cells are
+// those below row yend and column xend. load(gy, gx, TileIn&) reads the
+// previous step at a global cell, store(yy, xx, fo, rho, ux, uy) writes an
+// own cell of the last sub-step (yy, xx unwrapped). YB: the lean cell's
+// first/last-row rules (lean_cell), with clamped tile reads (the OUTFLOW
+// copy reads two rows away). k is a template parameter: the buffer
+// strides become immediate offsets.
+template <int MODE, int k, bool YB, class Load, class Store>
+__device__ __forceinline__ void tile_run(const CylParams& p, int oy, int ox, int yend, int xend,
+                                         Load load, Store store) {
   extern __shared__ float smem[];
   constexpr bool FULL = MODE != LEAN, VEL = MODE == FULL_CYL;
   constexpr int EY = tile_ty(MODE) + 2 * k, EXT = TILE_EX * EY;
-  const int H = p.H, W = p.W, HW = H * W;
+  const int H = p.H, W = p.W;
   // sub-step buffers b = 0, 1 as offsets from smem (a pointer array indexed
   // at run time would lose the shared address space: generic loads)
   auto fb = [&](int b) { return smem + b * 9 * EXT; };
   auto vb = [&](int b) { return VEL ? smem + (18 + 2 * b) * EXT : nullptr; };
   int* fl = FULL ? reinterpret_cast<int*>(smem + (VEL ? 22 : 18) * EXT) : nullptr;
   float* ph = VEL ? smem + 23 * EXT : nullptr;
-
-  int ty0, yend;
-  if (!jrl::seg_tile_origin(p.nseg, p.seg, blockIdx.y, tile_ty(MODE), ty0, yend)) return;
-  const int oy = ty0 - k, ox = blockIdx.x * tile_tx(k) - k;
-  const bool write_macro = MODE != LEAN || p.write_macro;
   const int tx = threadIdx.x, tyi = threadIdx.y;
 
   for (int ly = tyi; ly < EY; ly += TILE_THREADS_Y) {
-    const int grow = wrap_near(oy + ly, H) * W;
+    const int gy = wrap_near(oy + ly, H);
     for (int lx = tx; lx < TILE_EX; lx += TILE_THREADS_X) {
-      const int g = grow + wrap_near(ox + lx, W), i = ly * TILE_EX + lx;
+      const int i = ly * TILE_EX + lx;
+      TileIn in;
+      load(gy, wrap_near(ox + lx, W), in);
 #pragma unroll
-      for (int q = 0; q < 9; ++q) smem[q * EXT + i] = f_load<ST>(f, q * HW + g, q);
+      for (int q = 0; q < 9; ++q) smem[q * EXT + i] = in.f[q];
       if (VEL) {
-        smem[18 * EXT + i] = vel[g];
-        smem[19 * EXT + i] = vel[HW + g];
-        ph[i] = phi[g];
+        smem[18 * EXT + i] = in.vx;
+        smem[19 * EXT + i] = in.vy;
+        ph[i] = in.ph;
       }
-      if (FULL) fl[i] = flags[g];
+      if (FULL) fl[i] = in.fl;
     }
   }
   __syncthreads();
@@ -529,15 +564,7 @@ __device__ __forceinline__ void tile_steps(const f_t<ST>* f, const float* vel, c
         }
       } else {
         const int yy = oy + ly, xx = ox + lx;
-        if (yy < yend && xx < W) {
-          const int c = yy * W + xx;
-          f_store<ST>(f_out, HW, c, fo, p);
-          if (write_macro) {
-            rho_out[c] = r;
-            vel_out[c] = ux;
-            vel_out[HW + c] = uy;
-          }
-        }
+        if (yy < yend && xx < xend) store(yy, xx, fo, r, ux, uy);
       }
     };
     for (int ly = j + tyi; ly < EY - j; ly += TILE_THREADS_Y) {
@@ -548,10 +575,10 @@ __device__ __forceinline__ void tile_steps(const f_t<ST>* f, const float* vel, c
         // row's end the second repeats the last cell and is not stored
         const int la = j + tx, lb = min(la + TILE_THREADS_X, TILE_EX - 1 - j);
         float fa[9], fbb[9], ra, uxa, uya, rb, uxb, uyb;
-        lean_cell(SmemAcc<false, EY>{fb(cur), nullptr, nullptr, nullptr, ly, la}, p,
-                  wrap_near(ox + la, W), fa, ra, uxa, uya);
-        lean_cell(SmemAcc<false, EY>{fb(cur), nullptr, nullptr, nullptr, ly, lb}, p,
-                  wrap_near(ox + lb, W), fbb, rb, uxb, uyb);
+        lean_cell<YB>(SmemAcc<YB, EY>{fb(cur), nullptr, nullptr, nullptr, ly, la}, p, gy,
+                      wrap_near(ox + la, W), fa, ra, uxa, uya);
+        lean_cell<YB>(SmemAcc<YB, EY>{fb(cur), nullptr, nullptr, nullptr, ly, lb}, p, gy,
+                      wrap_near(ox + lb, W), fbb, rb, uxb, uyb);
         put(ly, la, fa, ra, uxa, uya);
         if (la + TILE_THREADS_X < TILE_EX - j) put(ly, lb, fbb, rb, uxb, uyb);
       } else {
@@ -572,6 +599,41 @@ __device__ __forceinline__ void tile_steps(const f_t<ST>* f, const float* vel, c
     __syncthreads();
     cur ^= 1;
   }
+}
+
+// tile_run on the launch's row segments of the whole grid, from and to
+// device memory. ST: the storage of f and f_out; the tile holds float32.
+template <int MODE, int k, int ST>
+__device__ __forceinline__ void tile_steps(const f_t<ST>* f, const float* vel, const int* flags,
+                                           const float* phi, f_t<ST>* f_out, float* rho_out,
+                                           float* vel_out, const CylParams& p) {
+  constexpr bool FULL = MODE != LEAN, VEL = MODE == FULL_CYL;
+  const int W = p.W, HW = p.H * p.W;
+  int ty0, yend;
+  if (!jrl::seg_tile_origin(p.nseg, p.seg, blockIdx.y, tile_ty(MODE), ty0, yend)) return;
+  const bool write_macro = MODE != LEAN || p.write_macro;
+  tile_run<MODE, k, false>(
+      p, ty0 - k, blockIdx.x * tile_tx(k) - k, yend, W,
+      [&](int gy, int gx, TileIn& in) {
+        const int g = gy * W + gx;
+#pragma unroll
+        for (int q = 0; q < 9; ++q) in.f[q] = f_load<ST>(f, q * HW + g, q);
+        if (VEL) {
+          in.vx = vel[g];
+          in.vy = vel[HW + g];
+          in.ph = phi[g];
+        }
+        if (FULL) in.fl = flags[g];
+      },
+      [&](int yy, int xx, const float fo[9], float r, float ux, float uy) {
+        const int c = yy * W + xx;
+        f_store<ST>(f_out, HW, c, fo, p);
+        if (write_macro) {
+          rho_out[c] = r;
+          vel_out[c] = ux;
+          vel_out[HW + c] = uy;
+        }
+      });
 }
 
 // Calls fn(std::integral_constant<int, k>) for the run-time k in 1..KMAX.

@@ -47,7 +47,7 @@ __global__ void __launch_bounds__(256) cyl_interior_kernel(const f_t<ST>* __rest
   if (x >= p.W || !ok) return;
   const int HW = p.H * p.W, c = y * p.W + x;
   float fo[9], r, ux, uy;
-  lean_cell(FOnly<ST>{f, p.H, p.W, y, x}, p, x, fo, r, ux, uy);
+  lean_cell(FOnly<ST>{f, p.H, p.W, y, x}, p, y, x, fo, r, ux, uy);
   f_store<ST>(f_out, HW, c, fo, p);
   if (p.write_macro) {
     rho_out[c] = r;

@@ -33,19 +33,25 @@ def axisymmetric_source(
     is_convection: bool = False,
     dx: float = 1.0,
     dt: float = 1.0,
+    grad_fn=None,
+    div_fn=None,
 ):
     """Gi source ``[Q, H, W]`` (scalar 0 when not axisymmetric).
-    ``mesh_grid`` holds cell-centre coordinates (x, y), already +0.5."""
+    ``mesh_grid`` holds cell-centre coordinates (x, y), already +0.5.
+    ``grad_fn``/``div_fn`` replace the whole-grid stencils (the sharded
+    step passes halo-aware ones, `parallel/padded_ops.py`)."""
     c = dx / dt
     cs2 = c * c / 3.0
     e, w = lattice.tables(rho.device, rho.dtype)
     ax = int(axisymmetric_type)
 
-    def grad_fn(a):
-        return get_grad(a, flags, dx=dx, axisymmetric_type=ax)
+    if grad_fn is None:
+        def grad_fn(a):
+            return get_grad(a, flags, dx=dx, axisymmetric_type=ax)
 
-    def div_fn(a):
-        return get_div(a, flags, dx=dx, axisymmetric_type=ax)
+    if div_fn is None:
+        def div_fn(a):
+            return get_div(a, flags, dx=dx, axisymmetric_type=ax)
 
     if ax == int(AxiSymmetricType.LINE_X_EQ_0):
         r = mesh_grid[0]
@@ -113,10 +119,13 @@ def bgk_collide(
     axisymmetric_type: int = 0,
     dx: float = 1.0,
     dt: float = 1.0,
+    grad_fn=None,
+    div_fn=None,
 ):
     """BGK relaxation ``f + w (feq - f) + dt Gi`` with OBSTACLE
     passthrough; ``tau`` is the relaxation time of the lattice collided
-    (tau_D for the advection-diffusion lattice)."""
+    (tau_D for the advection-diffusion lattice); ``grad_fn``, ``div_fn``
+    as for `axisymmetric_source`."""
     ax = int(axisymmetric_type)
     feq_ = feq(rho, vel, dx=dx, dt=dt, force=force)
 
@@ -131,7 +140,7 @@ def bgk_collide(
 
     Gi = axisymmetric_source(
         rho, vel, flags, feq_, mesh_grid, tau, ax,
-        is_convection=is_convection, dx=dx, dt=dt,
+        is_convection=is_convection, dx=dx, dt=dt, grad_fn=grad_fn, div_fn=div_fn,
     )
     collided = f + w_rate * (feq_ - f) + dt * Gi
     return torch.where((flags == int(CellType.OBSTACLE))[None], f, collided)

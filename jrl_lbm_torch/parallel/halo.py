@@ -26,6 +26,7 @@ import dataclasses
 import torch
 
 from jrl_lbm_torch.parallel.mesh import AXIS_X, AXIS_Y, Mesh
+from jrl_lbm_torch.utils.device import resolve_device
 
 
 def ring_perm(n: int, shift: int):
@@ -128,9 +129,13 @@ class DomainInfo:
 
 
 def make_domain(local_shape, global_shape, coord, axisymmetric_type: int = 0,
-                device="cpu") -> DomainInfo:
+                device=None) -> DomainInfo:
     """The DomainInfo of the shard at mesh coordinate ``coord = (iy, ix)``
-    (JAX reads the coordinate from the mesh axes inside ``shard_map``)."""
+    (JAX reads the coordinate from the mesh axes inside ``shard_map``),
+    its index tensors on ``device``: the shard's device, which a caller
+    passes (``mesh.devices[coord]``); None means the card, and raises
+    without one."""
+    device = resolve_device("cuda" if device is None else device)
     h, w = local_shape
     H, W = global_shape
     iy, ix = coord
@@ -140,8 +145,9 @@ def make_domain(local_shape, global_shape, coord, axisymmetric_type: int = 0,
                       axis_x=int(axisymmetric_type) == 1, axis_y=int(axisymmetric_type) == 2)
 
 
-def make_single_domain(shape, axisymmetric_type: int = 0, device="cpu") -> DomainInfo:
-    """DomainInfo for an unsharded array (the whole domain on one device)."""
+def make_single_domain(shape, axisymmetric_type: int = 0, device=None) -> DomainInfo:
+    """DomainInfo for an unsharded array (the whole domain on one device;
+    ``device`` as for `make_domain`)."""
     return make_domain(shape, shape, (0, 0), axisymmetric_type, device)
 
 

@@ -21,6 +21,12 @@ tolerances. The sharded JRL kernels (four shards on the one card) are
 held to their twins after one launch at the per-step tolerances, and the
 sharded runners to the unsharded per-step kernels bit for bit (the
 integrals at rtol 2e-4 / atol 1e-4: summed per shard, in another order).
+The sharded cylinder kernels are held to their twins after one launch at
+1e-5 (vel 1e-4), the full-boundary sharded routes to the unsharded
+``split=False`` runner bit for bit, the lean split to the unsharded
+default runner on non-OBSTACLE cells (f, rho 2e-5; vel 2e-4) and to its
+own twin runner; the four unsharded cylinder kernels equal their twins
+bit for bit in all three storage modes.
 """
 
 import ctypes
@@ -32,6 +38,7 @@ import torch
 
 from jrl_lbm_torch import kernels, shear_main
 from jrl_lbm_torch.kernels import build, jrl_c, jrl_fluid
+from jrl_lbm_torch.kernels import cyl_sharded as CS
 from jrl_lbm_torch.kernels import cylinder as K
 from jrl_lbm_torch.kernels import fused_jrl as F
 from jrl_lbm_torch.kernels import halo as HA
@@ -41,6 +48,7 @@ from jrl_lbm_torch.kernels import periodic as P
 from jrl_lbm_torch.models import cylinder as CY
 from jrl_lbm_torch.models import jrl as T
 from jrl_lbm_torch.models import shear_layer as SL
+from jrl_lbm_torch.parallel.halo import pad_halo
 from jrl_lbm_torch.parallel.mesh import make_mesh, split
 from jrl_lbm_torch.utils.types import KBCType
 
@@ -917,4 +925,173 @@ def test_cuda_sharded_wrappers_refuse_bad_inputs(cuda):
         S.c_approach_sh(h[0], h[0][0], v, split(cf["base_flags"], mesh)[0], hh[0], hb[0], 3, cc,
                         cf, sh, torch.zeros(3, device=cuda))
     with pytest.raises(ValueError, match="in a group"):
-        HA.halo_pack([f[0], vel[0], rho[0]])
+        HA.halo_pack([f[0], vel[0], rho[0]] * 2)
+
+
+# ---------------------------------------------------------------------------
+# The cylinder channel on a mesh of shards (kernels/cyl_sharded.py)
+# ---------------------------------------------------------------------------
+
+CYL_SH = dict(res=(256, 128), D=16.0, Re=500.0, cylinder_center=(64.0, 128.0))
+CYL_SH_MESHES = [(4, 1), (2, 2)]
+
+
+def _cyl_sh_setup(dev):
+    """The 256x128 split scene 30 plain steps in, with seeded noise (the
+    band region at k = 1 is rows 112-144: on both meshes it straddles two
+    shards, so the windows run at b0 + nb = h and at b0 = 0)."""
+    cfg = CY.CylinderConfig(**CYL_SH)
+    s, fl = CY.init(cfg, dev)
+    s = CY.make_runner(cfg)(s, fl, 30)
+    rng = np.random.default_rng(31)
+    s = {k: v + torch.as_tensor((1e-4 * rng.standard_normal(tuple(v.shape))).astype(np.float32),
+                                device=dev) for k, v in s.items()}
+    return cfg, s, fl
+
+
+def _close3(got, want, tag, tol=1e-5):
+    for name, g_, w_, t in zip(("f", "rho", "vel"), got, want, (tol, tol, 10 * tol)):
+        _close(g_, w_, t, f"{tag} {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", CYL_SH_MESHES)
+def test_cuda_cyl_sharded_kernels_match_twins(cuda, mesh_shape):
+    """One launch of each sharded cylinder kernel on every shard against
+    its twin from the same pieces: cyl_block_sh PADDED and PIECES,
+    cyl_lean_sh at k = 1, 2, 4, cyl_window_sh at k = 1, 2, 4 on the shards
+    that meet the band; halo_pack's k-row and one-lane phases bit for bit."""
+    cfg, s, fl = _cyl_sh_setup(cuda)
+    c = K.consts(cfg)
+    H, W = cfg.res
+    mesh = make_mesh(mesh_shape, [cuda] * 4)
+    L = range(4)
+    f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
+    flags, phi = split(fl["flags"], mesh), split(fl["phi_obs"], mesh)
+    nx = mesh_shape[1]
+    fp, velp, flp = (pad_halo(x, mesh) for x in (f, vel, flags))
+    h12 = HA.exchange([CS.full_group(f[i], vel[i], flags[i]) for i in L], mesh, 1)
+    for i, co in enumerate(mesh.local):
+        sh = CS.CylShard.of(H, W, mesh_shape, co, 1, 1)
+        _close3(CS.cyl_block_sh(fp[i], rho[i], velp[i], flp[i], phi[i], None, c, sh),
+                CS.cyl_block_sh_ref(fp[i], rho[i], velp[i], flp[i], phi[i], None, c, sh),
+                f"cyl_block_sh PADDED {co}")
+        _close3(CS.cyl_block_sh(f[i], rho[i], vel[i], flags[i], phi[i], h12[i], c, sh),
+                CS.cyl_block_sh_ref(f[i], rho[i], vel[i], flags[i], phi[i], h12[i], c, sh),
+                f"cyl_block_sh PIECES {co}")
+    n_win = 0
+    for k in (1, 2, 4):
+        g14 = [CS.lean_group(f[i], rho[i], vel[i], flags[i], phi[i]) for i in L]
+        for got, want in zip(HA.halo_pack(g14[1], rows=k), HA.halo_pack_ref(g14[1], rows=k)):
+            assert torch.equal(got, want), f"halo_pack rows k={k}"
+        hk = HA.exchange(g14, mesh, k, rows=k)
+        if nx > 1:
+            t, b = hk[1].top, hk[1].bot
+            for xh in (1, k):
+                for got, want in zip(HA.halo_pack(g14[1], t, b, xh, k),
+                                     HA.halo_pack_ref(g14[1], t, b, xh, k)):
+                    assert torch.equal(got, want), f"halo_pack cols k={k} xh={xh}"
+        (gr0, gr1), = CS._fix_regions(cfg, margin=4.0 + (k - 1))
+        for i, co in enumerate(mesh.local):
+            sh = CS.CylShard.of(H, W, mesh_shape, co, k, k)
+            got = CS.cyl_lean_sh(f[i], hk[i], k, c, sh)
+            _close3(got, CS.cyl_lean_sh_ref(f[i], hk[i], k, c, sh), f"cyl_lean_sh k={k} {co}")
+            if sh.row0 < gr1 and sh.row0 + sh.h > gr0:
+                nb = gr1 - gr0
+                b0 = min(max(gr0 - sh.row0, 0), sh.h - nb)
+                outs = [[x.clone() for x in got] for _ in range(2)]
+                CS.cyl_window_sh(f[i], rho[i], vel[i], flags[i], phi[i], hk[i], k, b0, nb,
+                                 outs[0], c, sh)
+                CS.cyl_window_sh_ref(f[i], rho[i], vel[i], flags[i], phi[i], hk[i], k, b0, nb,
+                                     outs[1], c, sh)
+                _close3(outs[0], outs[1], f"cyl_window_sh k={k} {co} b0={b0}")
+                n_win += 1
+    assert n_win == 6 * mesh_shape[1]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", CYL_SH_MESHES)
+@pytest.mark.parametrize("tile_rows", [8, None])
+def test_cuda_cyl_sharded_full_routes_equal_unsharded(cuda, mesh_shape, tile_rows):
+    """PIECES (tile_rows=8) and PADDED over 23 steps: bit for bit the
+    unsharded ``split=False`` runner (cyl_full on every row); only
+    cyl_block_sh and halo_pack launch."""
+    cfg, s, fl = _cyl_sh_setup(cuda)
+    mesh = make_mesh(mesh_shape, [cuda] * 4)
+    run = CS.make_sharded_fused_cylinder_runner(cfg, mesh, lean_split=False, tile_rows=tile_rows)
+    kernels.reset_launches()
+    got = run(s, fl, 23)
+    torch.cuda.synchronize()
+    used = {k for k, v in kernels.launches().items() if v}
+    assert used == ({"cyl_block_sh", "halo_pack"} if tile_rows else {"cyl_block_sh"})
+    want = K.make_fused_cylinder_runner(cfg, split=False)(s, fl, 23)
+    for name in ("f", "rho", "vel"):
+        assert torch.equal(got[name], want[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape,kw", [((1, 1), {}), ((4, 1), {}), ((2, 2), {}),
+                                           ((4, 1), dict(lean_k=4)),
+                                           ((2, 2), dict(lean_k=4, lean_x_ext=8, lean_x_halo=8))])
+def test_cuda_cyl_sharded_lean_routes(cuda, mesh_shape, kw):
+    """The lean split over 23 steps (k = 4: five passes and three single
+    steps): the unsharded default runner on non-OBSTACLE cells (f, rho
+    2e-5; vel 2e-4), and the same runner on the twins at the same
+    tolerances; only the lean, window and halo kernels launch."""
+    cfg, s, fl = _cyl_sh_setup(cuda)
+    mesh = make_mesh(mesh_shape, [cuda] * (mesh_shape[0] * mesh_shape[1]))
+    run = CS.make_sharded_fused_cylinder_runner(cfg, mesh, **kw)
+    assert run.stepk.route == "lean"
+    kernels.reset_launches()
+    got = run(s, fl, 23)
+    torch.cuda.synchronize()
+    used = {k for k, v in kernels.launches().items() if v}
+    assert {"cyl_lean_sh", "cyl_window_sh"} <= used <= {"cyl_lean_sh", "cyl_window_sh",
+                                                         "halo_pack"}
+    want = K.make_fused_cylinder_runner(cfg)(s, fl, 23)
+    fluid = fl["flags"] != int(CY.CellType.OBSTACLE)
+    for name, tol in (("f", 2e-5), ("rho", 2e-5), ("vel", 2e-4)):
+        m = fluid.expand_as(got[name])
+        _close(got[name][m], want[name][m], tol, f"vs unsharded {name}")
+    with mock.patch.multiple(CS, cyl_lean_sh=CS.cyl_lean_sh_ref,
+                             cyl_window_sh=CS.cyl_window_sh_ref):
+        twin = run(s, fl, 23)
+    for name, tol in (("f", 2e-5), ("rho", 2e-5), ("vel", 2e-4)):
+        _close(got[name], twin[name], tol, f"vs twin runner {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_dev", [False, True, "sr"])
+def test_cuda_unsharded_cylinder_kernels_equal_twins_bit_for_bit(cuda, bf16_dev):
+    """The four unsharded cylinder kernels (their tile loader now shared
+    with the sharded kernels, cyl_common.cuh::tile_run) equal their twins
+    bit for bit after one launch, k = 2 and 4 for the k-step pair, in each
+    storage mode."""
+    cfg, s, fl = _cyl_sh_setup(cuda)
+    c = K.consts(cfg)
+    run = K.make_fused_cylinder_runner(cfg, tile_rows=16, interior_rows=32)
+    st = dict(s, f=K.f_to_storage(s["f"], bf16_dev))
+    key = (5, 7) if bf16_dev == "sr" else None
+    m = (bf16_dev, key)
+    interior, band, edge = run.step4.rows
+    calls = [("cyl_full", lambda o, fn: fn(st["f"], st["rho"], st["vel"], fl["flags"],
+                                           fl["phi_obs"], o, run.step.rows[1], c, *m)),
+             ("cyl_interior", lambda o, fn: fn(st["f"], o, run.step.rows[0], c, True, *m))]
+    for k in (2, 4):
+        calls.append(("cyl_interior_k", lambda o, fn, k=k: fn(st["f"], o, interior, k, c, True,
+                                                              *m)))
+        for e, segs in ((False, band), (True, edge)):
+            calls.append(("cyl_band_k", lambda o, fn, k=k, e=e, segs=segs: fn(
+                st["f"], st["vel"], fl["flags"], fl["phi_obs"], o, segs, k, e, c, *m)))
+    twins = {"cyl_full": K.cyl_full_ref, "cyl_interior": K.cyl_interior_ref,
+             "cyl_interior_k": K.cyl_interior_k_ref, "cyl_band_k": K.cyl_band_k_ref}
+    for name, call in calls:
+        got, want = ({x: torch.full_like(v, 7.0) for x, v in st.items()} for _ in range(2))
+        call(got, getattr(K, name))
+        call(want, twins[name])
+        for x in ("f", "rho", "vel"):
+            g, w = got[x], want[x]
+            if g.dtype == torch.bfloat16:
+                g, w = g.view(torch.int16), w.view(torch.int16)
+            assert torch.equal(g, w), f"{name} {x}"

@@ -21,7 +21,9 @@ import torch
 
 def _worker(rank: int, world: int, port: int) -> int:
     """One rank of a (world, 1) gloo process-group mesh: 8 fluid and 8
-    approach steps at 48x32, each equal bit for bit to the local mesh's."""
+    approach steps of the JRL case and 8 steps of the sharded cylinder
+    (the lean split, and the PIECES route) at 48x32, each equal bit for
+    bit to the local mesh's."""
     from jrl_lbm_torch.kernels import jrl_sharded as S
     from jrl_lbm_torch.models import jrl as T
     from jrl_lbm_torch.parallel import make_mesh, multihost
@@ -52,6 +54,16 @@ def _worker(rank: int, world: int, port: int) -> int:
             assert torch.equal(got[k], want[k]), f"approach {k}"
         for k in acc:
             assert torch.equal(acc[k], acc_w[k]), f"approach {k}"
+        from jrl_lbm_torch.kernels import cyl_sharded as CS
+        from jrl_lbm_torch.models import cylinder as TC
+
+        ccyl = TC.CylinderConfig(res=(48, 32), D=7.4, Re=500.0, cylinder_center=(16.0, 16.0))
+        cs, cfl = TC.init(ccyl, "cpu")
+        for kw in (dict(), dict(lean_split=False, tile_rows=8)):
+            got = CS.make_sharded_fused_cylinder_runner(ccyl, mesh, **kw)(cs, cfl, 8)
+            want = CS.make_sharded_fused_cylinder_runner(ccyl, local, **kw)(cs, cfl, 8)
+            for k in ("f", "rho", "vel"):
+                assert torch.equal(got[k], want[k]), f"cylinder {kw} {k}"
         lifted = multihost.lift({"C": st["C"]}, mesh)["C"]
         assert torch.equal(lifted[0], split(st["C"], local)[rank])
     finally:
@@ -151,11 +163,11 @@ def test_domain_info_matches_jax(shape):
     (jd,) = _shard_map(dom, jm, 1)(jnp.zeros((1, H, W), jnp.float32))
     pm = _port_mesh(shape)
     for c, want in zip(pm.local, _blocks(np.asarray(jd), shape)):
-        d = halo.make_domain((h, w), (H, W), c, 1)
+        d = halo.make_domain((h, w), (H, W), c, 1, device="cpu")
         got = torch.stack([d.gy, d.gx, d.at_x0, d.at_xW, d.at_y0, d.at_yH]).to(torch.int32)
         np.testing.assert_array_equal(got.numpy(), want)
         assert (d.h, d.w, d.H, d.W, d.axis_x, d.axis_y) == (h, w, H, W, True, False)
-    sd, jsd = halo.make_single_domain((H, W), 2), jhalo.make_single_domain((H, W), 2)
+    sd, jsd = halo.make_single_domain((H, W), 2, device="cpu"), jhalo.make_single_domain((H, W), 2)
     np.testing.assert_array_equal(sd.gx.numpy(), np.asarray(jsd.gx))
     assert (sd.axis_x, sd.axis_y) == (jsd.axis_x, jsd.axis_y)
 
@@ -237,8 +249,9 @@ def _free_port() -> int:
 
 def test_two_process_gloo_mesh_equals_local_mesh():
     """Two processes (this file as a script, torch only) form a (2, 1)
-    gloo process-group mesh: 8 fluid and 8 approach steps at 48x32 equal
-    the local (2, 1) mesh's bit for bit, integrals included."""
+    gloo process-group mesh: 8 fluid and 8 approach steps at 48x32 and 8
+    sharded cylinder steps (lean split and PIECES) equal the local (2, 1)
+    mesh's bit for bit, integrals included."""
     port = _free_port()
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
