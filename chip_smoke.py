@@ -4,11 +4,14 @@ paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the twenty-three CUDA libraries of ``jrl_lbm_torch/kernels/csrc`` (one
+1. Builds the twenty-five CUDA libraries of ``jrl_lbm_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
-   (the cylinder kernels read only the previous step's buffers).
+   (the cylinder kernels read only the previous step's buffers). Prints
+   the cluster kernels' limits on this card and the route choice at
+   128x64: the cluster shape, cells per thread, shared memory and
+   registers per block.
 0. The cylinder channel (``cylinder_phases``): each of its four kernels
    against its plain twin after one step (1e-5) on a split geometry
    (256x128) and a generic one (64x32), and the kernel runner against
@@ -89,11 +92,16 @@ paths on one NVIDIA card and check them.
    ``pick_*_runner`` (the multi-step kernels).
 3. Holds each multi-step kernel to its twin (the loop of the per-step
    twins) over one launch of 200 steps, at the same tolerances: at 128x64
-   (ethaline wedge and cylinder, both ``is_negative``) and at 512x256 (the
-   largest grid they serve); the approach once across stored-velocity
-   frame boundaries and once across tip rows. Then fluid steps
-   2**24 - 5 .. 2**24 + 4 through the multi-step kernel and through
-   fluid_a / fluid_b against the twin.
+   (ethaline wedge and cylinder, both ``is_negative``) through both routes
+   of the fluid and balance (the cluster kernels ``fused_fluid_cl``,
+   ``fused_balance_cl`` and the cooperative ones) and at 512x256 (the
+   largest grid they serve, the cooperative route); the approach once
+   across stored-velocity frame boundaries and once across tip rows. The
+   cluster kernels equal the cooperative ones bit for bit over a
+   1000-step launch of the default configurations (and the 45degree
+   tip). Then fluid steps 2**24 - 5 .. 2**24 + 4 through both routes
+   (bit for bit each other) and through fluid_a / fluid_b against the
+   twin.
 3a. Holds each tile-class kernel (``fluid_k``, ``fluid_k_lean``,
    ``fluid_k_bt``) to its twin after one launch at k = 1, 2, 4 (1e-5) at
    1024x512: the refine-8 ethaline grid at step 0 (full and lean tiles)
@@ -119,15 +127,24 @@ paths on one NVIDIA card and check them.
    ``run_case`` uses: the fluid phase to its first record step, one
    balance interval (255,528 steps), the approach over its first dumps
    (>= 20,000 steps per phase). Counts zeroed before each phase and read
-   after: each multi-step kernel must have launched and no per-step
-   kernel. Beside each phase, the same configuration through the per-step
-   kernels (direct wrapper calls) as the yardstick.
+   after: the fluid and balance phases must have launched the cluster
+   kernels and no cooperative or per-step kernel, the approach
+   ``fused_approach``. Beside them, as yardsticks, the same fluid and
+   balance chunks through the cooperative kernels (bit for bit the
+   cluster phases' results) and each configuration through the per-step
+   kernels. Then the grid the cooperative kernels serve on the main path,
+   refine 4 (512x256): 200 fluid and 200 balance steps through
+   ``pick_*``.
 6. Runs one whole case through ``jrl_main.run_case`` at 128x64 twice:
-   through the multi-step kernels (its default) and through the per-step
-   runners; the record rows agree to rtol 2e-4 / atol 1e-4.
-7. Prints ``{"kernels": [...]}`` (31 rows: each kernel once, the four
-   cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``), the card's name and
-   power limit, and last ``{"ok": true, "device": {...}}``.
+   through the multi-step kernels (its default: the cluster kernels and
+   ``fused_approach``) and through the per-step runners; the record rows
+   agree to rtol 2e-4 / atol 1e-4.
+7. Prints ``{"kernels": [...]}`` (33 rows: each kernel once, the four
+   cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``; the
+   cluster kernels and ``fused_approach`` timed on a 1000-step launch at
+   128x64 (CUDA events), the cooperative ones on a 200-step launch at
+   512x256), the card's name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 
 Exits non-zero on any failure, and without printing a result when no
 card is present or the package is missing.
@@ -157,6 +174,7 @@ F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores
 FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach": 330,
                   # per cell and step: A + B; the balance; the approach + the lerp
                   "fused_fluid": 650, "fused_balance": 230, "fused_approach": 335,
+                  "fused_fluid_cl": 650, "fused_balance_cl": 230,
                   # per cell and step of a tile class (halo recompute not
                   # counted): A + B; the lean A (pulls, moments) + B
                   "fluid_k": 650, "fluid_k_lean": 420, "fluid_k_bt": 650,
@@ -165,6 +183,9 @@ FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach"
                   "c_approach_sh": 330, "halo_pack": 0}
 PER_STEP = ("fluid_a", "fluid_b", "c_balance", "c_approach")
 FUSED = ("fused_fluid", "fused_balance", "fused_approach")
+FUSED_CL = ("fused_fluid_cl", "fused_balance_cl")
+# the multi-step kernels of the default 128x64 case
+PATH128 = ("fused_fluid_cl", "fused_balance_cl", "fused_approach")
 SOURCE = {
     "fluid_a": ("jrl_lbm_torch/kernels/csrc/fluid_a.cu",
                 "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:506"),
@@ -180,6 +201,10 @@ SOURCE = {
                       "jrl_lbm_tpu/ops/pallas/fused_jrl.py:531"),
     "fused_approach": ("jrl_lbm_torch/kernels/csrc/fused_approach.cu",
                        "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
+    "fused_fluid_cl": ("jrl_lbm_torch/kernels/csrc/fused_fluid_cl.cu",
+                       "jrl_lbm_tpu/ops/pallas/fused_jrl.py:138"),
+    "fused_balance_cl": ("jrl_lbm_torch/kernels/csrc/fused_balance_cl.cu",
+                         "jrl_lbm_tpu/ops/pallas/fused_jrl.py:531"),
     "cyl_full": ("jrl_lbm_torch/kernels/csrc/cyl_full.cu",
                  "jrl_lbm_tpu/ops/pallas/fused_step.py:247"),
     "cyl_interior": ("jrl_lbm_torch/kernels/csrc/cyl_interior.cu",
@@ -263,6 +288,30 @@ def sass_check(build) -> dict:
     return counts
 
 
+def cluster_choice(F, res) -> dict:
+    """The cluster kernels' limits on this card and the route each phase
+    takes on the ``res`` grid (the default 128x64): blocks, cells per
+    thread, dynamic shared memory and registers per block."""
+    out = {}
+    for name in ("fused_fluid", "fused_balance"):
+        lim = F.card_limits(name, 0)
+        shape = F.cluster_shape(name, *res, lim)
+        route = F.fused_route(name, *res, lim)
+        rec = {"limits": lim._asdict(), "route": route}
+        if shape:
+            blocks, cpt, smem = shape
+            regs, local = F.cluster_info(name, cpt, 0)
+            rec.update(blocks=blocks, threads=F.CLUSTER_THREADS, cells_per_thread=cpt,
+                       smem_per_block=smem, registers=regs, local_bytes=local)
+        out[name] = rec
+        print(f"  {name}: card limits {lim.smem_optin} B dynamic shared memory a block, "
+              f"clusters of {lim.cluster}; {res[0]}x{res[1]} route {route}"
+              + (f": cluster of {blocks} blocks x {F.CLUSTER_THREADS} threads, {cpt} cell(s) a "
+                 f"thread, {smem} B shared memory a block, {regs} registers, {local} B local"
+                 if shape else ""), flush=True)
+    return out
+
+
 def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -294,6 +343,8 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fused_fluid": ("fused_fluid_kernel",),
     "fused_balance": ("fused_balance_kernel",),
     "fused_approach": ("fused_approach_kernel",),
+    "fused_fluid_cl": ("fused_fluid_cl_kernel",),
+    "fused_balance_cl": ("fused_balance_cl_kernel",),
     "cyl_full": ("cyl_full_kernel",),
     "cyl_interior": ("cyl_interior_kernel",),
     "cyl_interior_k": ("cyl_interior_k_kernel",),
@@ -1992,7 +2043,8 @@ def main() -> int:
         print(f"  {k}: {'; '.join(regs)}", flush=True)
     sass = sass_check(build)
     rate = next((r for key, r in MEM_RATE.items() if key in name), MEM_RATE_DEFAULT)
-    report = {"device": smi, "torch": torch.__version__, "build_s": t_build, "sass": sass}
+    report = {"device": smi, "torch": torch.__version__, "build_s": t_build, "sass": sass,
+              "cluster": cluster_choice(fused_jrl, T.JRLFluidConfig().eff_res)}
 
     errs = {k: [] for k in kernels.KERNELS}
     TOL = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4, "h": 2e-5, "C": 2e-5}
@@ -2027,6 +2079,12 @@ def main() -> int:
         return T.JRLCConfig(**dict(dict(res=(128, 64), Re=4.0, Pe=5.0, vel_obs_real=0.2848,
                                         shape=shape, refine=refine), **kw))
 
+    def route_kernel(name, cfg):
+        """The kernel `fused_jrl.fused_route` takes for phase ``name`` on the
+        config's grid."""
+        route = fused_jrl.fused_route(name, *cfg.eff_res, fused_jrl.card_limits(name, 0))
+        return name + "_cl" if route == "cluster" else name
+
     cases = (("ethaline", 8), ("cylinder", 1))
     frames = {}
     for shape, refine in cases:
@@ -2052,7 +2110,7 @@ def main() -> int:
             sp = T.pick_fluid_runner(fc)(s, fl, k0, 100)
             for nm in ("f", "rho", "vel"):
                 check_close(f"fluid 100 steps (pick) {nm}", sp[nm], sr[nm], TOL[nm],
-                            errs["fused_fluid"])
+                            errs[route_kernel("fused_fluid", fc)])
         # three stored frames from the fluid run, normalized as the
         # snapshots of run_fluid_phase
         frames[shape] = torch.stack([s["vel"], sr["vel"], sk["vel"]]) / fc.vel_obs
@@ -2071,7 +2129,7 @@ def main() -> int:
             bp = T.pick_balance_runner(cc, flags)(st, cf, 100)
             for nm in ("h", "C"):
                 check_close(f"balance 100 steps (pick) {nm}", bp[nm], br_[nm], TOL[nm],
-                            errs["fused_balance"])
+                            errs[route_kernel("fused_balance", cc)])
 
         vf = frames[shape]
         vel = T.stored_velocity(vf, 5, cc.vel_obs_conv)
@@ -2098,28 +2156,48 @@ def main() -> int:
         g = torch.Generator(device=dev).manual_seed(seed)
         return 0.5 * torch.randn((n, 2, H, W), generator=g, device=dev)
 
+    def equal_bits(tag, got, want):
+        """Bit for bit, or fail."""
+        diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"  {tag:44s} bit for bit: {same} (max |diff| {diff:.3e})", flush=True)
+        if not same:
+            fail(f"{tag}: the cluster kernel differs from the cooperative one")
+
     n_fused = 200
     for shape, refine, negs in (("ethaline", 1, (True, False)), ("cylinder", 1, (True, False)),
                                 ("ethaline", 4, (True,))):
         fc = fluid_cfg(shape, refine)
         H, W = fc.eff_res
-        print(f"compare multi-step kernels with twins: {shape} {H}x{W}, {n_fused} steps",
-              flush=True)
+        # both routes where the default grid takes the cluster kernels; the
+        # route fused_route takes at 512x256, which must be the cooperative one
+        want_route = "cluster" if refine == 1 else "coop"
+        for phase in ("fused_fluid", "fused_balance"):
+            if route_kernel(phase, fc) != (phase + "_cl" if want_route == "cluster" else phase):
+                fail(f"{phase} at {H}x{W}: route {route_kernel(phase, fc)}, expected {want_route}")
+        routes = fused_jrl.ROUTES if refine == 1 else (None,)
+        print(f"compare multi-step kernels with twins: {shape} {H}x{W}, {n_fused} steps, "
+              f"routes {routes}", flush=True)
         s, fl = T.fluid_init(fc, dev)
         s = T.make_fluid_runner(fc)(s, fl, 0, 20)
-        got = fused_jrl.fused_fluid(s["f"], s["rho"], s["vel"], 20, n_fused, fc, fl)
         want = fused_jrl.fused_fluid_ref(s["f"], s["rho"], s["vel"], 20, n_fused, fc, fl)
-        for nm, g, w in zip(("f", "rho", "vel"), got, want):
-            check_close(f"fused_fluid {nm}", g, w, TOL[nm], errs["fused_fluid"])
+        for route in routes:
+            k = "fused_fluid_cl" if route == "cluster" else "fused_fluid"
+            got = fused_jrl.fused_fluid(s["f"], s["rho"], s["vel"], 20, n_fused, fc, fl,
+                                        route=route)
+            for nm, g, w in zip(("f", "rho", "vel"), got, want):
+                check_close(f"{k} {nm}", g, w, TOL[nm], errs[k])
         for neg in negs:
             cc = c_cfg(shape, refine, is_negative=neg)
             st, cf, flags = T.c_init(cc, dev)
             st = T.make_balance_runner(cc, flags)(st, cf, 20)
-            got = fused_jrl.fused_balance(st["h"], st["C"], flags, n_fused, cc, cf)
             want = fused_jrl.fused_balance_ref(st["h"], st["C"], flags, n_fused, cc, cf)
-            for nm, g, w in zip(("h", "C"), got, want):
-                check_close(f"fused_balance neg={neg} {nm}", g, w, TOL[nm],
-                            errs["fused_balance"])
+            for route in routes:
+                k = "fused_balance_cl" if route == "cluster" else "fused_balance"
+                got = fused_jrl.fused_balance(st["h"], st["C"], flags, n_fused, cc, cf,
+                                              route=route)
+                for nm, g, w in zip(("h", "C"), got, want):
+                    check_close(f"{k} neg={neg} {nm}", g, w, TOL[nm], errs[k])
             # tip speed 0.0025 (a new frame every 40 steps), then Pe = 5
             # (the tip crosses rows)
             Pe_frames = 0.0025 * cc.radius_obs / (0.5 / 3.0)
@@ -2146,6 +2224,21 @@ def main() -> int:
                             errs["fused_approach"])
                 check_ints(f"fused_approach {label}", acc, ints)
 
+    print("cluster kernels against the cooperative ones: one 1000-step launch at 128x64",
+          flush=True)
+    for fc, cc in ((T.JRLFluidConfig(), T.JRLCConfig()),
+                   (fluid_cfg("45degree", 1), c_cfg("45degree", 1, is_negative=False))):
+        s, fl = T.fluid_init(fc, dev)
+        s = T.make_fluid_runner(fc)(s, fl, 0, 20)
+        equal_bits(f"fused_fluid_cl {fc.shape} Re {fc.Re:g}", *(
+            fused_jrl.fused_fluid(s["f"], s["rho"], s["vel"], 20, 1000, fc, fl, route=r)
+            for r in ("cluster", "coop")))
+        st, cf, flags = T.c_init(cc, dev)
+        st = T.make_balance_runner(cc, flags)(st, cf, 20)
+        equal_bits(f"fused_balance_cl {cc.shape} neg={cc.is_negative}", *(
+            fused_jrl.fused_balance(st["h"], st["C"], flags, 1000, cc, cf, route=r)
+            for r in ("cluster", "coop")))
+
     print("fluid steps 2**24 - 5 .. 2**24 + 4 at 128x64", flush=True)
     for shape in ("45degree", "cylinder"):
         fc = fluid_cfg(shape, 1, Re=1.2e-5, vel_obs_real=28e-6)
@@ -2154,11 +2247,14 @@ def main() -> int:
         g = torch.Generator(device=dev).manual_seed(24)
         s = {k: v + 1e-3 * torch.randn(v.shape, generator=g, device=dev) for k, v in s.items()}
         want = fused_jrl.fused_fluid_ref(s["f"], s["rho"], s["vel"], start, 10, fc, fl)
-        got = fused_jrl.fused_fluid(s["f"], s["rho"], s["vel"], start, 10, fc, fl)
+        got = {r: fused_jrl.fused_fluid(s["f"], s["rho"], s["vel"], start, 10, fc, fl, route=r)
+               for r in fused_jrl.ROUTES}
         per_step = T.make_per_step_fluid_runner(fc)(s, fl, start, 10)
-        for nm, g_, w in zip(("f", "rho", "vel"), got, want):
-            check_close(f"{shape} fused_fluid {nm}", g_, w, TOL[nm], errs["fused_fluid"])
+        for nm, g_, gc, w in zip(("f", "rho", "vel"), got["cluster"], got["coop"], want):
+            check_close(f"{shape} fused_fluid_cl {nm}", g_, w, TOL[nm], errs["fused_fluid_cl"])
+            check_close(f"{shape} fused_fluid {nm}", gc, w, TOL[nm], errs["fused_fluid"])
             check_close(f"{shape} fluid_a/b {nm}", per_step[nm], w, TOL[nm], errs["fluid_a"])
+        equal_bits(f"{shape} fused_fluid_cl across 2**24", got["cluster"], got["coop"])
 
     # ---- 2a. the tile-class kernels and the tiled runner at 1024x512 ----
     report["tiled"] = tiled_checks(dev, fluid_cfg, errs)
@@ -2442,16 +2538,64 @@ def main() -> int:
                 float(acc_[x])
         return st_
 
-    path128 = {}
-    for pname, kname, fn, steps in (("fluid", "fused_fluid", fluid_chunks, first_rec + 1),
-                                    ("balance", "fused_balance", balance_chunk, interval),
+    path128, outs128 = {}, {}
+    for pname, kname, fn, steps in (("fluid", "fused_fluid_cl", fluid_chunks, first_rec + 1),
+                                    ("balance", "fused_balance_cl", balance_chunk, interval),
                                     ("approach", "fused_approach", approach_chunks, total)):
         out = run_phase(f"128x64 {pname}", (kname,), fn, steps, cells)
         if not all(torch.isfinite(v).all() for v in out.values()):
             fail(f"128x64 {pname}: state not finite")
         path128[kname] = phases[f"128x64 {pname}"]
+        outs128[pname] = out
     if not bal_rows[-1] > 0:
         fail("128x64 balance: inflow not positive")
+
+    print("128x64 yardstick: the same fluid and balance chunks through the cooperative "
+          "kernels", flush=True)
+
+    def coop_fluid(_n):  # fluid_chunks on the cooperative kernel
+        st_ = s0
+        for a, m in ((0, first_rec), (first_rec, 1)):
+            st_ = dict(zip(("f", "rho", "vel"), fused_jrl.fused_fluid(
+                st_["f"], st_["rho"], st_["vel"], a, m, fc0, fl0, route="coop")))
+        return st_
+
+    def coop_balance(_n):  # balance_chunk on the cooperative kernel
+        out = dict(zip(("h", "C"), fused_jrl.fused_balance(st0["h"], st0["C"], flags0, interval,
+                                                          cc0, cf0, route="coop")))
+        out["C"].cpu()
+        return out
+
+    for pname, kname, fn, steps in (("fluid", "fused_fluid", coop_fluid, first_rec + 1),
+                                    ("balance", "fused_balance", coop_balance, interval)):
+        out = run_phase(f"128x64 {pname} coop", (kname,), fn, steps, cells, yardstick=True)
+        keys = ("f", "rho", "vel") if pname == "fluid" else ("h", "C")
+        equal_bits(f"128x64 {pname} phase ({steps} steps), cluster vs coop",
+                   [outs128[pname][k] for k in keys], [out[k] for k in keys])
+        new, old = phases[f"128x64 {pname}"], phases[f"128x64 {pname} coop"]
+        gain = old["ms_per_step"] / new["ms_per_step"]
+        print(f"  {pname:9s} cluster {new['ms_per_step'] * 1e3:.3f} us/step vs cooperative "
+              f"{old['ms_per_step'] * 1e3:.3f} us/step: {gain:.3f}x", flush=True)
+
+    # the grid the cooperative kernels serve on the main path: refine 4
+    fc4, cc4 = fluid_cfg("ethaline", 4), c_cfg("ethaline", 4)
+    H4, W4 = fc4.eff_res
+    print(f"{H4}x{W4} (refine 4): fluid and balance through pick_*, the cooperative kernels",
+          flush=True)
+    s4, fl4 = T.fluid_init(fc4, dev)
+    out = run_phase(f"{H4}x{W4} fluid", ("fused_fluid",),
+                    stepper(fc4, T.pick_fluid_runner(fc4), s4, fl4, 0), 200, H4 * W4)
+    st4, cf4, flags4 = T.c_init(cc4, dev)
+    b4run = T.pick_balance_runner(cc4, flags4)
+    b4 = {"s": st4}
+
+    def balance4(k):
+        b4["s"] = b4run(b4["s"], cf4, k)
+        return b4["s"]
+
+    out4 = run_phase(f"{H4}x{W4} balance", ("fused_balance",), balance4, 200, H4 * W4)
+    if not all(torch.isfinite(v).all() for v in list(out.values()) + list(out4.values())):
+        fail(f"{H4}x{W4}: state not finite")
 
     print("128x64 yardstick: the same configurations through the per-step kernels", flush=True)
     n_ps = 2000
@@ -2513,7 +2657,7 @@ def main() -> int:
             for ptc in patches:
                 ptc.stop()
         counts = {k: c for k, c in kernels.launches().items() if c}
-        want = set(FUSED if label == "multi-step" else PER_STEP)
+        want = set(PATH128 if label == "multi-step" else PER_STEP)
         if set(counts) != want:
             fail(f"whole case ({label}) launched {counts}")
         cases_out[label] = res
@@ -2541,24 +2685,25 @@ def main() -> int:
         fail("the whole case differs between the multi-step and per-step kernels")
     report["whole_case"]["worst_rel"] = worst
 
-    # ---- 7. each multi-step kernel alone, and its twin, at 128x64 ----
+    # ---- 7. each multi-step kernel alone, and its twin: the cluster kernels
+    # and the approach at 128x64, the cooperative kernels at 512x256 ----
     n_row = 1000
     print(f"multi-step kernels at {H}x{W}, one launch of {n_row} steps, and the twin "
-          f"for the same steps:", flush=True)
+          f"for the same steps (CUDA events):", flush=True)
     s0, fl0 = T.fluid_init(fc0, dev)
     f, rho, vel = s0["f"], s0["rho"], s0["vel"]
-    fl_out = fused_jrl.fused_fluid(f, rho, vel, 0, n_row, fc0, fl0)
-    bl_out = fused_jrl.fused_balance(st0["h"], st0["C"], flags0, n_row, cc0, cf0)
+    fl_out = fused_jrl.fused_fluid_cl(f, rho, vel, 0, n_row, fc0, fl0)
+    bl_out = fused_jrl.fused_balance_cl(st0["h"], st0["C"], flags0, n_row, cc0, cf0)
     acc1 = torch.zeros(4, device=dev)
     ap_out = fused_jrl.fused_approach(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0, acc1)
     b_last = int((n_row - 1) * cc0.vel_obs_conv / T.X_INTERVAL)  # the frames the run reads
     frames_read = vf0[: min(b_last + 2, n_frames0)]
     fruns = {
-        "fused_fluid": (lambda: fused_jrl.fused_fluid(f, rho, vel, 0, n_row, fc0, fl0),
-                        lambda: fused_jrl.fused_fluid_ref(f, rho, vel, 0, n_row, fc0, fl0),
-                        [f, rho, vel], list(fl_out)),
-        "fused_balance": (
-            lambda: fused_jrl.fused_balance(st0["h"], st0["C"], flags0, n_row, cc0, cf0),
+        "fused_fluid_cl": (lambda: fused_jrl.fused_fluid_cl(f, rho, vel, 0, n_row, fc0, fl0),
+                           lambda: fused_jrl.fused_fluid_ref(f, rho, vel, 0, n_row, fc0, fl0),
+                           [f, rho, vel], list(fl_out)),
+        "fused_balance_cl": (
+            lambda: fused_jrl.fused_balance_cl(st0["h"], st0["C"], flags0, n_row, cc0, cf0),
             lambda: fused_jrl.fused_balance_ref(st0["h"], st0["C"], flags0, n_row, cc0, cf0),
             [flags0, st0["h"], st0["C"]], list(bl_out)),
         "fused_approach": (
@@ -2566,20 +2711,50 @@ def main() -> int:
             lambda: fused_jrl.fused_approach_ref(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0),
             [cf0["base_flags"], frames_read, cf0["area"], st0["h"]], list(ap_out) + [acc1]),
     }
-    for k in FUSED:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k in PATH128:
         kfn, tfn, ins, outs = fruns[k]
         row(k, cuda_ms(kfn, 5, warmup=1), cuda_ms(tfn, 1, warmup=0), ins, outs, n_row, cells,
             path128[k]["launches"][k], "events")
+        if k in FUSED_CL:  # the operation bound of one cluster's SMs
+            blocks = report["cluster"][k[:-3]]["blocks"]
+            per = phases["per_launch"][k]
+            per["cluster_bound_ms"] = per["ops_ms"] * sms / blocks
+            print(f"    one-cluster operation bound ({blocks} of {sms} SMs): "
+                  f"{per['cluster_bound_ms'] * 1e3:.2f} us", flush=True)
+    n4 = 200
+    print(f"cooperative kernels at {H4}x{W4}, one launch of {n4} steps, and the twin:",
+          flush=True)
+    s4, fl4 = T.fluid_init(fc4, dev)
+    c4 = {k: v for k, v in zip(("h", "C"), (st4["h"], st4["C"]))}
+    f4_out = fused_jrl.fused_fluid(s4["f"], s4["rho"], s4["vel"], 0, n4, fc4, fl4)
+    b4_out = fused_jrl.fused_balance(c4["h"], c4["C"], flags4, n4, cc4, cf4)
+    cruns = {
+        "fused_fluid": (
+            lambda: fused_jrl.fused_fluid(s4["f"], s4["rho"], s4["vel"], 0, n4, fc4, fl4),
+            lambda: fused_jrl.fused_fluid_ref(s4["f"], s4["rho"], s4["vel"], 0, n4, fc4, fl4),
+            [s4["f"], s4["rho"], s4["vel"]], list(f4_out)),
+        "fused_balance": (
+            lambda: fused_jrl.fused_balance(c4["h"], c4["C"], flags4, n4, cc4, cf4),
+            lambda: fused_jrl.fused_balance_ref(c4["h"], c4["C"], flags4, n4, cc4, cf4),
+            [flags4, c4["h"], c4["C"]], list(b4_out)),
+    }
+    for k, (kfn, tfn, ins, outs) in cruns.items():
+        row(k, cuda_ms(kfn, 5, warmup=1), cuda_ms(tfn, 1, warmup=0), ins, outs, n4, H4 * W4,
+            phases[f"{H4}x{W4} {k[6:]}"]["launches"][k], "events")
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows
+    if len(rows) != 33:
+        fail(f"{len(rows)} kernel rows, expected 33")
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}), flush=True)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 
 

@@ -1,7 +1,10 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel
 of the JRL and cylinder-channel paths, each beside its plain PyTorch
 twin: the per-step JRL kernels of every grid (`jrl_fluid.py`, `jrl_c.py`),
-the multi-step JRL kernels of grids up to 131,072 cells (`fused_jrl.py`),
+the multi-step JRL kernels of grids up to 131,072 cells (`fused_jrl.py`;
+the fluid and balance phases of grids that fit one thread-block cluster's
+shared memory, such as the default 128x64, on cluster kernels of their
+own),
 the k-step tile-class kernels of the JRL fluid phase on larger grids
 (`jrl_tiled.py`), the four kernels of the cylinder channel's fused step
 (`cylinder.py`; float32, bf16 or stochastically rounded bf16 storage of
@@ -19,7 +22,8 @@ KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k",
            "fluid_k", "fluid_k_lean", "fluid_k_bt", "periodic",
            "fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack",
-           "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh")
+           "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh",
+           "fused_fluid_cl", "fused_balance_cl")
 
 
 def wrappers():
@@ -51,6 +55,8 @@ def wrappers():
         "cyl_block_sh": cyl_sharded.cyl_block_sh,
         "cyl_lean_sh": cyl_sharded.cyl_lean_sh,
         "cyl_window_sh": cyl_sharded.cyl_window_sh,
+        "fused_fluid_cl": fused_jrl.fused_fluid_cl,
+        "fused_balance_cl": fused_jrl.fused_balance_cl,
     }
 
 

@@ -70,17 +70,31 @@ __device__ __forceinline__ BalanceCell balance_cell_flags(const Geo& g, int H, i
   return c;
 }
 
+// The collision terms of a balance cell in column x (u = 0), by e_x + 1:
+// fixed for a launch, so a multi-step kernel may compute them once.
+struct BalanceRates {
+  ConvRate k[3];
+};
+__device__ __forceinline__ BalanceRates balance_rates(int x, const CBalanceParams& p) {
+  const float r = (float)x + 0.5f;
+  BalanceRates b;
+#pragma unroll
+  for (int e = -1; e <= 1; ++e) b.k[e + 1] = conv_rate(e, 0.0f, r, p.w_rate, p.c_tau);
+  return b;
+}
+
 // One balance step at global cell (., x) whose streaming source (sy, sx)
 // the accessor `src` is positioned at: streaming with INFLOW (C = 0) and
 // INFLOW_2 (C = 1) reservoirs and the OUTFLOW copy, C = sum h with
 // OBSTACLE passthrough (the old C at C[i]), BGK at u = 0 with the
-// per-direction axisymmetric rate 1/tau_D + (1 - 0.5/tau_D) e_x / r. The
-// cell's outputs go to index i of planes `stride` apart.
+// per-direction axisymmetric rate 1/tau_D + (1 - 0.5/tau_D) e_x / r
+// (`rates`: balance_rates(x, p)). The cell's outputs go to index i of
+// planes `stride` apart.
 template <class Acc, class Geo>
 __device__ __forceinline__ void balance_cell_at(const Acc& src, const float* C, const Geo& g,
                                                 const BalanceCell& c, const CBalanceParams& p,
-                                                int x, int sy, int sx, float* h_out,
-                                                float* C_out, int i, int stride) {
+                                                const BalanceRates& rates, int sy, int sx,
+                                                float* h_out, float* C_out, int i, int stride) {
   float hs[9];
   stream_cell_masked<false>(src, p.H, p.W, sy, sx, c.src_fl, c.nbr, 0.0f, g, hs);
 
@@ -96,11 +110,19 @@ __device__ __forceinline__ void balance_cell_at(const Acc& src, const float* C, 
   }
   C_out[i] = Cn;
 
-  const float r = (float)x + 0.5f;
 #pragma unroll
   for (int q = 0; q < 9; ++q)
     h_out[q * stride + i] =
-        c.fl == OBSTACLE ? hs[q] : collide_conv_q(q, hs[q], Cn, 0.0f, 0.0f, r, p.w_rate, p.c_tau);
+        c.fl == OBSTACLE ? hs[q] : collide_conv(q, hs[q], Cn, 0.0f, 0.0f, rates.k[ex_of(q) + 1]);
+}
+
+// balance_cell_at with the collision terms computed in place.
+template <class Acc, class Geo>
+__device__ __forceinline__ void balance_cell_at(const Acc& src, const float* C, const Geo& g,
+                                                const BalanceCell& c, const CBalanceParams& p,
+                                                int x, int sy, int sx, float* h_out,
+                                                float* C_out, int i, int stride) {
+  balance_cell_at(src, C, g, c, p, balance_rates(x, p), sy, sx, h_out, C_out, i, stride);
 }
 
 // balance_cell_at on [H][W] device memory.

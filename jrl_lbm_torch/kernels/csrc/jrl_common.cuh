@@ -294,17 +294,31 @@ __device__ __forceinline__ int wrap_near(int v, int n) {
   return v;
 }
 
+// The terms of collide_conv_q that depend only on e_x, the column (r) and
+// u_r: the rate 1/tau + s, s = c e_x / r, the source factor c - 0.5 s and
+// -u_r / r. A kernel whose u_r is fixed (the balance, u = 0) computes them
+// once per cell and launch; collide_conv then rounds as collide_conv_q.
+struct ConvRate {
+  float w_rate, src, ncu;
+};
+__device__ __forceinline__ ConvRate conv_rate(int ex, float cu, float r, float w_rate_base,
+                                              float c_tau) {
+  const float s = (c_tau * (float)ex) / r;
+  return ConvRate{w_rate_base + s, c_tau - 0.5f * s, -(cu / r)};
+}
+__device__ __forceinline__ float collide_conv(int q, float hq, float Cn, float cu, float cv,
+                                              const ConvRate& k) {
+  const float fe = feq_q(q, Cn, cu, cv);
+  const float gi = (k.ncu * fe) * k.src;
+  return (hq + k.w_rate * (fe - hq)) + gi;
+}
+
 // Advection-diffusion BGK of one direction about the x = 0 axis
 // (ops/collide.py::bgk_collide, is_convection): rate 1/tau + c e_x / r and
 // the Liu 2017 source -(u_r / r) feq (c - 0.5 s), with c = 1 - 0.5/tau.
 __device__ __forceinline__ float collide_conv_q(int q, float hq, float Cn, float cu, float cv,
                                                 float r, float w_rate_base, float c_tau) {
-  const float e0 = (float)ex_of(q);
-  const float s = (c_tau * e0) / r;
-  const float w_rate = w_rate_base + s;
-  const float fe = feq_q(q, Cn, cu, cv);
-  const float gi = ((-(cu / r)) * fe) * (c_tau - 0.5f * s);
-  return (hq + w_rate * (fe - hq)) + gi;
+  return collide_conv(q, hq, Cn, cu, cv, conv_rate(ex_of(q), cu, r, w_rate_base, c_tau));
 }
 
 }  // namespace jrl

@@ -1,15 +1,22 @@
 """Multi-step kernels of the three JRL phases for grids of at most
 ``MAX_FUSED_CELLS`` cells (`csrc/fused_fluid.cu`, `csrc/fused_balance.cu`,
-`csrc/fused_approach.cu`), each with its plain PyTorch twin, and the
+`csrc/fused_approach.cu`, and the cluster kernels `csrc/fused_fluid_cl.cu`,
+`csrc/fused_balance_cl.cu`), each with its plain PyTorch twin, and the
 runners built on them.
 
 Replace the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_jrl.py`:
 ``_make_jrl_fluid_kernel``, ``_make_balance_kernel`` and
-``_make_approach_kernel``. One launch advances n steps in one persistent
-cooperative grid, the state kept in device memory (L2) between steps.
-A wrapper given tensors on the CPU runs its twin (the loop of the
-per-step twins); given tensors on the card it launches the kernel or
-raises. ``fused_fluid.launches`` etc. count the launches.
+``_make_approach_kernel``. One launch advances n steps. The fluid and
+balance phases take one of two routes, picked by `fused_route` from the
+grid and the card's limits before any launch: where the state fits the
+shared memory of one thread-block cluster at one cell per thread (the
+default 128x64), the cluster kernel keeps it there for the whole launch;
+otherwise one persistent cooperative grid keeps it in device memory (L2)
+between steps. A wrapper given tensors on the CPU runs its twin (the loop
+of the per-step twins); given tensors on the card it launches the kernel
+or raises, never falling back to the other route.
+``fused_fluid.launches``, ``fused_fluid_cl.launches`` etc. count the
+launches of each kernel.
 
 The runners keep the signatures of the JAX package's
 ``make_fused_{fluid,balance,approach}_runner`` and split a run into
@@ -21,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +53,15 @@ CELLS_PER_THREAD = (1, 2, 4)
 # (a record interval of the default case is ~39,000), 262,144 balance
 # steps (a balance interval is 255,528) and 131,072 approach steps.
 MAX_LAUNCH_CELL_STEPS = {"fused_fluid": 2**29, "fused_balance": 2**31, "fused_approach": 2**30}
+
+# The cluster kernels (csrc/cluster_state.cuh): one cluster of 16 blocks
+# (8 on a card that holds no cluster of 16), CLUSTER_THREADS threads per
+# block, each block a band of rows (at least CLUSTER_MIN_ROWS) with one
+# halo row a side in shared memory: window planes of each kernel
+CLUSTER_THREADS = 512
+CLUSTER_MIN_ROWS = 2
+CLUSTER_PLANES = {"fused_fluid": 23, "fused_balance": 19}
+ROUTES = ("cluster", "coop")
 
 
 def fits(cfg) -> bool:
@@ -129,8 +146,108 @@ def launch_shape(name: str, cells: int, device_index: int):
                      f"at up to {CELLS_PER_THREAD[-1]} cells per thread")
 
 
+# ---------------------------------------------------------------------------
+# Route: one cluster holding the state in shared memory, or the cooperative grid
+# ---------------------------------------------------------------------------
+
+class ClusterLimits(NamedTuple):
+    """What the card offers a cluster kernel: the dynamic shared memory a
+    block may opt in to (bytes, the card's opt-in less the kernel's static
+    shared memory) and the largest cluster (16, 8, or 0 for none) of which
+    it holds one at that shared memory."""
+
+    smem_optin: int
+    cluster: int
+
+
+def row_bands(H: int, C: int):
+    """``[(y0, y1), ...]``: the rows of each of the ``C`` blocks, block r
+    from ``r H // C`` (as `csrc/cluster_state.cuh::band_y0`)."""
+    return [(r * H // C, (r + 1) * H // C) for r in range(C)]
+
+
+def cluster_shape(name: str, H: int, W: int, limits: ClusterLimits):
+    """``(blocks, cells per thread, shared memory bytes per block)`` of the
+    cluster kernel of ``name`` on an ``H x W`` grid, or None where the
+    state does not fit one cluster of a card with ``limits``: every band at
+    least ``CLUSTER_MIN_ROWS`` rows, the largest band at most 4 cells per
+    thread, its window (band and two halo rows) within the opt-in."""
+    C = limits.cluster
+    if C not in (8, 16):
+        return None
+    rows = [y1 - y0 for y0, y1 in row_bands(H, C)]
+    if min(rows) < CLUSTER_MIN_ROWS:
+        return None
+    cpt = next((c for c in CELLS_PER_THREAD if max(rows) * W <= c * CLUSTER_THREADS), None)
+    smem = CLUSTER_PLANES[name] * (max(rows) + 2) * W * 4
+    if cpt is None or smem > limits.smem_optin:
+        return None
+    return C, cpt, smem
+
+
+def fused_route(name: str, H: int, W: int, limits: ClusterLimits) -> str:
+    """``"cluster"`` where the state of ``name`` (``"fused_fluid"`` or
+    ``"fused_balance"``) on an ``H x W`` grid fits one cluster of a card
+    with ``limits`` at one cell per thread, else ``"coop"`` (the
+    cooperative kernel). A cluster kernel's step is one thread's cell
+    latency: at 2 or 4 cells a thread it runs them one after the other on
+    16 SMs and loses to the cooperative grid, which spreads them over the
+    card (PERF.md §6: 256x128 at 4 cells a thread)."""
+    shape = cluster_shape(name, H, W, limits)
+    return "cluster" if shape and shape[1] == 1 else "coop"
+
+
+@functools.lru_cache(maxsize=16)
+def card_limits(name: str, device_index: int) -> ClusterLimits:
+    """The card's `ClusterLimits` for the cluster kernel of ``name``
+    (queried once: opt-in shared memory, cudaOccupancyMaxActiveClusters)."""
+    lib = f"{name}_cl"
+    fn = build.bind(lib, f"jrl_{lib}_limits", [_P, _P])
+    smem, cl = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(fn(ctypes.byref(smem), ctypes.byref(cl)), lib)
+    return ClusterLimits(smem.value, cl.value)
+
+
+def cluster_info(name: str, cpt: int, device_index: int):
+    """``(registers per thread, local bytes)`` of the cluster kernel of
+    ``name`` at ``cpt`` cells per thread."""
+    lib = f"{name}_cl"
+    fn = build.bind(lib, f"jrl_{lib}_info", [ctypes.c_int, _P, _P])
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(fn(int(cpt), ctypes.byref(regs), ctypes.byref(local)), lib)
+    return regs.value, local.value
+
+
+def _index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _route(name: str, cfg, dev: torch.device, route) -> str:
+    if route is None:
+        H, W = cfg.eff_res
+        return fused_route(name, H, W, card_limits(name, _index(dev)))
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r}: one of {ROUTES}")
+    return route
+
+
+def _cluster_shape(name: str, cfg, dev: torch.device):
+    """The cluster launch of ``name`` on the config's grid; raises, before
+    any launch, where the state does not fit one cluster of the card."""
+    H, W = cfg.eff_res
+    limits = card_limits(name, _index(dev))
+    shape = cluster_shape(name, H, W, limits)
+    if shape is None:
+        raise ValueError(f"{name}_cl: grid {H}x{W} is over the cluster limit of the card "
+                         f"({limits.cluster} blocks, {limits.smem_optin} bytes of shared "
+                         f"memory a block, bands of >= {CLUSTER_MIN_ROWS} rows)")
+    return shape
+
+
 def _launch(name: str, cells: int, dev: torch.device, argtypes, args) -> None:
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    index = _index(dev)
     cpt, grid = launch_shape(name, cells, index)
     check_coresident(name, cpt, FUSED_BLOCK, grid, index)
     fn = build.bind(name, f"jrl_{name}", argtypes + [ctypes.c_int, ctypes.c_int, _P])
@@ -150,13 +267,16 @@ def _ping_pong(out, n: int):
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def fused_fluid(f, rho, vel, start: int, n: int, cfg, fields):
+def fused_fluid(f, rho, vel, start: int, n: int, cfg, fields, route=None):
     """Fluid steps ``start .. start + n - 1`` in one launch; returns new
     ``(f, rho, vel)``. The kernel computes the tip geometry from ``cfg`` and
-    the step; ``fields`` feed the twin."""
+    the step; ``fields`` feed the twin. ``route`` (``"cluster"`` or
+    ``"coop"``) forces a kernel; None takes `fused_route`'s."""
     if f.device.type == "cpu":
         return fused_fluid_ref(f, rho, vel, start, n, cfg, fields)
     dev = check_state(cfg, start, n, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)))
+    if _route("fused_fluid", cfg, dev, route) == "cluster":
+        return fused_fluid_cl(f, rho, vel, start, n, cfg, fields)
     out = (torch.empty_like(f), torch.empty_like(rho), torch.empty_like(vel))
     P, Q = _ping_pong(out, n)
     H, W = cfg.eff_res
@@ -168,11 +288,14 @@ def fused_fluid(f, rho, vel, start: int, n: int, cfg, fields):
     return out
 
 
-def fused_balance(h, C, flags, n: int, cfg, fields):
-    """``n`` balance steps in one launch; returns new ``(h, C)``."""
+def fused_balance(h, C, flags, n: int, cfg, fields, route=None):
+    """``n`` balance steps in one launch; returns new ``(h, C)``.
+    ``route`` as for `fused_fluid`."""
     if h.device.type == "cpu":
         return fused_balance_ref(h, C, flags, n, cfg, fields)
     dev = check_state(cfg, 0, n, h=(h, (9,)), C=(C, ()), flags=(flags, ()))
+    if _route("fused_balance", cfg, dev, route) == "cluster":
+        return fused_balance_cl(h, C, flags, n, cfg, fields)
     out = (torch.empty_like(h), torch.empty_like(C))
     P, Q = _ping_pong(out, n)
     H, W = cfg.eff_res
@@ -180,6 +303,44 @@ def fused_balance(h, C, flags, n: int, cfg, fields):
             [flags.data_ptr(), h.data_ptr(), C.data_ptr(), *(t.data_ptr() for t in P),
              *(t.data_ptr() for t in Q), int(n), ctypes.byref(_balance_params(cfg))])
     fused_balance.launches += 1
+    return out
+
+
+def fused_fluid_cl(f, rho, vel, start: int, n: int, cfg, fields):
+    """`fused_fluid` through the cluster kernel (the state in the shared
+    memory of one cluster); raises before launch on a grid over the
+    cluster limit."""
+    if f.device.type == "cpu":
+        return fused_fluid_ref(f, rho, vel, start, n, cfg, fields)
+    dev = check_state(cfg, start, n, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)))
+    cluster, cpt, smem = _cluster_shape("fused_fluid", cfg, dev)
+    out = (torch.empty_like(f), torch.empty_like(rho), torch.empty_like(vel))
+    fn = build.bind("fused_fluid_cl", "jrl_fused_fluid_cl",
+                    [_P] * 6 + [ctypes.c_int] * 2 + [_P, _P] + [ctypes.c_int] * 3 + [_P])
+    with torch.cuda.device(dev):
+        err = fn(f.data_ptr(), rho.data_ptr(), vel.data_ptr(), *(t.data_ptr() for t in out),
+                 int(start), int(n), ctypes.byref(_a_params(cfg)), ctypes.byref(_b_params(cfg)),
+                 cluster, cpt, smem, stream_of(dev))
+    build.check(err, "fused_fluid_cl")
+    fused_fluid_cl.launches += 1
+    return out
+
+
+def fused_balance_cl(h, C, flags, n: int, cfg, fields):
+    """`fused_balance` through the cluster kernel; raises before launch on
+    a grid over the cluster limit."""
+    if h.device.type == "cpu":
+        return fused_balance_ref(h, C, flags, n, cfg, fields)
+    dev = check_state(cfg, 0, n, h=(h, (9,)), C=(C, ()), flags=(flags, ()))
+    cluster, cpt, smem = _cluster_shape("fused_balance", cfg, dev)
+    out = (torch.empty_like(h), torch.empty_like(C))
+    fn = build.bind("fused_balance_cl", "jrl_fused_balance_cl",
+                    [_P] * 5 + [ctypes.c_int, _P] + [ctypes.c_int] * 3 + [_P])
+    with torch.cuda.device(dev):
+        err = fn(flags.data_ptr(), h.data_ptr(), C.data_ptr(), *(t.data_ptr() for t in out),
+                 int(n), ctypes.byref(_balance_params(cfg)), cluster, cpt, smem, stream_of(dev))
+    build.check(err, "fused_balance_cl")
+    fused_balance_cl.launches += 1
     return out
 
 
@@ -226,6 +387,8 @@ def fused_approach(h, C, vel_field, start: int, n: int, cfg, fields, acc):
 fused_fluid.launches = 0
 fused_balance.launches = 0
 fused_approach.launches = 0
+fused_fluid_cl.launches = 0
+fused_balance_cl.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,10 @@ Tolerances: f, rho, C and h at rtol = atol = 1e-5, vel at 1e-4 (float32
 sums in another order); the tip-disk integrals at rtol 2e-4 / atol 1e-4.
 Each multi-step kernel runs one launch of many steps (a tip-row crossing,
 stored-velocity frame boundaries) against the loop of the twins, at the
-trajectory tolerances: f, rho, C and h 2e-5, vel 2e-4. The shear
+trajectory tolerances: f, rho, C and h 2e-5, vel 2e-4; the fluid and
+balance through both routes (the cluster kernels and the cooperative
+ones), which also equal each other bit for bit, and the route each grid
+takes is read from the launch counters. The shear
 layer's periodic kernel, in each of its seven instances, is held to its
 twin after one launch at 1e-6 and over 100 steps at the trajectory
 tolerances. The sharded JRL kernels (four shards on the one card) are
@@ -168,11 +171,25 @@ def test_cuda_c_approach_matches_twin(cuda, shape, refine, rg, is_negative):
 TRAJ_TOL = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4, "h": 2e-5, "C": 2e-5}
 
 
+# the kernel each route of fused_fluid / fused_balance launches
+ROUTE_KERNEL = {("fused_fluid", "coop"): "fused_fluid",
+                ("fused_fluid", "cluster"): "fused_fluid_cl",
+                ("fused_balance", "coop"): "fused_balance",
+                ("fused_balance", "cluster"): "fused_balance_cl"}
+
+
+def _launched(name, route):
+    return getattr(F, ROUTE_KERNEL[(name, route)]).launches
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", F.ROUTES)
 @pytest.mark.parametrize("shape,refine,rg", SCENES)
-def test_cuda_fused_fluid_matches_twin(cuda, shape, refine, rg):
+def test_cuda_fused_fluid_matches_twin(cuda, shape, refine, rg, route):
     """One launch across a tip-row crossing, for an odd and an even step
-    count (the final state lands in the outputs either way)."""
+    count (the final state lands in the outputs either way), through the
+    cluster kernel (every scene fits one cluster, 256x128 at 4 cells a
+    thread) and the cooperative kernel."""
     cfg = T.JRLFluidConfig(res=RES, Re=4.0, vel_obs_real=0.2848, gravity_strength_real=-9.8,
                            shape=shape, refine=refine, Rg=rg)
     s, fields = T.fluid_init(cfg, cuda)
@@ -181,30 +198,64 @@ def test_cuda_fused_fluid_matches_twin(cuda, shape, refine, rg):
     assert T.tip_walks(cfg.inflow_height, 8 + n, cfg.vel_obs)[1] > T.tip_walks(
         cfg.inflow_height, 8, cfg.vel_obs)[1]
     want = F.fused_fluid_ref(s["f"], s["rho"], s["vel"], 8, n, cfg, fields)
-    n0 = F.fused_fluid.launches
+    n0 = _launched("fused_fluid", route)
     for m in (n, n + 1):
-        got = F.fused_fluid(s["f"], s["rho"], s["vel"], 8, m, cfg, fields)
+        got = F.fused_fluid(s["f"], s["rho"], s["vel"], 8, m, cfg, fields, route=route)
         for name, g, w in zip(("f", "rho", "vel"), got, want):
-            _close(g, w, TRAJ_TOL[name], f"fused_fluid {m} steps {name}")
+            _close(g, w, TRAJ_TOL[name], f"fused_fluid ({route}) {m} steps {name}")
         want = F.fused_fluid_ref(*want, 8 + m, 1, cfg, fields)
     torch.cuda.synchronize()
-    assert F.fused_fluid.launches - n0 == 2
+    assert _launched("fused_fluid", route) - n0 == 2
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", F.ROUTES)
 @pytest.mark.parametrize("is_negative", [True, False])
 @pytest.mark.parametrize("shape,refine,rg", SCENES)
-def test_cuda_fused_balance_matches_twin(cuda, shape, refine, rg, is_negative):
+def test_cuda_fused_balance_matches_twin(cuda, shape, refine, rg, is_negative, route):
     cfg, st, fields, flags = _c_setup(cuda, shape, refine, rg, is_negative)
-    n0 = F.fused_balance.launches
+    n0 = _launched("fused_balance", route)
     want = F.fused_balance_ref(st["h"], st["C"], flags, 20, cfg, fields)
     for m in (20, 21):
-        got = F.fused_balance(st["h"], st["C"], flags, m, cfg, fields)
-        _close(got[0], want[0], TRAJ_TOL["h"], f"fused_balance {m} steps h")
-        _close(got[1], want[1], TRAJ_TOL["C"], f"fused_balance {m} steps C")
+        got = F.fused_balance(st["h"], st["C"], flags, m, cfg, fields, route=route)
+        _close(got[0], want[0], TRAJ_TOL["h"], f"fused_balance ({route}) {m} steps h")
+        _close(got[1], want[1], TRAJ_TOL["C"], f"fused_balance ({route}) {m} steps C")
         want = F.fused_balance_ref(*want, flags, 1, cfg, fields)
     torch.cuda.synchronize()
-    assert F.fused_balance.launches - n0 == 2
+    assert _launched("fused_balance", route) - n0 == 2
+
+
+def _equal(got, want, tag):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, msg=lambda m: f"{tag}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["45degree", "cylinder"])
+def test_cuda_cluster_kernels_equal_cooperative_bit_for_bit(cuda, shape):
+    """The cluster kernels equal the cooperative ones bit for bit (same
+    cell code, only where the bytes live differs): one 1000-step launch
+    and two chained launches (400 + 601 steps) at 128x64, the balance
+    with ``is_negative`` both ways."""
+    cfg = T.JRLFluidConfig(res=RES, Re=4.0, vel_obs_real=0.2848, gravity_strength_real=-9.8,
+                           shape=shape)
+    s, fields = T.fluid_init(cfg, cuda)
+    s = T.make_fluid_runner(cfg)(s, fields, 0, 8)
+    x = (s["f"], s["rho"], s["vel"])
+    runs = {r: (F.fused_fluid(*x, 8, 1000, cfg, fields, route=r),
+                F.fused_fluid(*F.fused_fluid(*x, 8, 400, cfg, fields, route=r), 408, 601, cfg,
+                              fields, route=r)) for r in F.ROUTES}
+    for k, (a, b) in enumerate(zip(*runs.values())):
+        for name, g, w in zip(("f", "rho", "vel"), a, b):
+            _equal(g, w, f"fused_fluid run {k} {name}")
+    for neg in (True, False):
+        cc, st, cf, flags = _c_setup(cuda, shape, 1, 4.0, neg)
+        runs = {r: (F.fused_balance(st["h"], st["C"], flags, 1000, cc, cf, route=r),
+                    F.fused_balance(*F.fused_balance(st["h"], st["C"], flags, 400, cc, cf,
+                                                     route=r), flags, 601, cc, cf, route=r))
+                for r in F.ROUTES}
+        for k, (a, b) in enumerate(zip(*runs.values())):
+            for name, g, w in zip(("h", "C"), a, b):
+                _equal(g, w, f"fused_balance neg={neg} run {k} {name}")
 
 
 @pytest.mark.cuda
@@ -237,11 +288,12 @@ def test_cuda_fused_approach_matches_twin(cuda, shape, refine, rg, is_negative):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", F.ROUTES)
 @pytest.mark.parametrize("shape", ["45degree", "cylinder"])
-def test_cuda_fluid_from_step_2_24_minus_5_matches_twin(cuda, shape):
+def test_cuda_fluid_from_step_2_24_minus_5_matches_twin(cuda, shape, route):
     """Steps 2**24 - 5 .. 2**24 + 4 (float32 rounds the step from 2**24 on)
-    through the multi-step kernel and through fluid_a / fluid_b; Re is small
-    enough that the tip is inside the grid there."""
+    through the multi-step kernel of each route and through fluid_a /
+    fluid_b; Re is small enough that the tip is inside the grid there."""
     cfg = T.JRLFluidConfig(res=RES, Re=1.2e-5, shape=shape)
     start, n = 2**24 - 5, 10
     assert 1 < T.tip_walks(cfg.inflow_height, start + n, cfg.vel_obs)[1] < RES[0] - 1
@@ -250,7 +302,7 @@ def test_cuda_fluid_from_step_2_24_minus_5_matches_twin(cuda, shape):
     s = {k: v + torch.as_tensor((1e-3 * rng.standard_normal(tuple(v.shape))).astype(np.float32),
                                 device=cuda) for k, v in s.items()}
     want = F.fused_fluid_ref(s["f"], s["rho"], s["vel"], start, n, cfg, fields)
-    got = F.fused_fluid(s["f"], s["rho"], s["vel"], start, n, cfg, fields)
+    got = F.fused_fluid(s["f"], s["rho"], s["vel"], start, n, cfg, fields, route=route)
     per_step = T.make_per_step_fluid_runner(cfg)(s, fields, start, n)
     for name, g, w in zip(("f", "rho", "vel"), got, want):
         _close(g, w, TRAJ_TOL[name], f"fused_fluid {name}")
@@ -282,6 +334,60 @@ def test_cuda_fused_grid_over_coresident_limit_raises(cuda):
     with pytest.raises(RuntimeError, match="cudaError"):
         build.check(err, "fused_balance")
     assert F.fused_balance.launches == n0
+
+
+@pytest.mark.cuda
+def test_cuda_fused_route_by_grid(cuda):
+    """The runners take the cluster kernels at 128x64 and the cooperative
+    ones at 512x256 (refine 4), read from the launch counters."""
+    for refine, route in ((1, "cluster"), (4, "coop")):
+        fc = T.JRLFluidConfig(res=RES, shape="ethaline", refine=refine)
+        cc = T.JRLCConfig(res=RES, shape="ethaline", refine=refine)
+        H, W = fc.eff_res
+        assert F.fused_route("fused_fluid", H, W, F.card_limits("fused_fluid", 0)) == route
+        assert F.fused_route("fused_balance", H, W, F.card_limits("fused_balance", 0)) == route
+        s, fl = T.fluid_init(fc, cuda)
+        st, cf, flags = T.c_init(cc, cuda)
+        kernels.reset_launches()
+        T.pick_fluid_runner(fc)(s, fl, 0, 3)
+        T.pick_balance_runner(cc, flags)(st, cf, 3)
+        torch.cuda.synchronize()
+        counts = {k: c for k, c in kernels.launches().items() if c}
+        assert counts == {ROUTE_KERNEL[("fused_fluid", route)]: 1,
+                          ROUTE_KERNEL[("fused_balance", route)]: 1}, (refine, counts)
+
+
+@pytest.mark.cuda
+def test_cuda_forced_cluster_route_over_limit_raises(cuda):
+    """A forced cluster route on a grid over the cluster limit (512x256)
+    raises before any launch, and the launcher itself refuses a shape that
+    does not match the grid."""
+    fc = T.JRLFluidConfig(res=RES, shape="ethaline", refine=4)
+    cc = T.JRLCConfig(res=RES, shape="ethaline", refine=4)
+    s, fl = T.fluid_init(fc, cuda)
+    st, cf, flags = T.c_init(cc, cuda)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="cluster limit"):
+        F.fused_fluid(s["f"], s["rho"], s["vel"], 0, 2, fc, fl, route="cluster")
+    with pytest.raises(ValueError, match="cluster limit"):
+        F.fused_balance_cl(st["h"], st["C"], flags, 2, cc, cf)
+    with pytest.raises(ValueError, match="route"):
+        F.fused_balance(st["h"], st["C"], flags, 2, cc, cf, route="tiles")
+    assert not any(kernels.launches().values())
+    cfg, st, fields, flags = _c_setup(cuda, "45degree", 1, 4.0, True)
+    blocks, cpt, smem = F.cluster_shape("fused_balance", *cfg.eff_res,
+                                        F.card_limits("fused_balance", 0))
+    out = [torch.empty_like(st["h"]), torch.empty_like(st["C"])]
+    fn = build.bind("fused_balance_cl", "jrl_fused_balance_cl", [jrl_fluid._P] * 5 + [
+        ctypes.c_int, jrl_fluid._P] + [ctypes.c_int] * 3 + [jrl_fluid._P])
+    for bad in ((blocks, cpt, smem + 4), (blocks, cpt, smem // 2), (4, cpt, smem)):
+        err = fn(flags.data_ptr(), st["h"].data_ptr(), st["C"].data_ptr(),
+                 *(t.data_ptr() for t in out), 1, ctypes.byref(F._balance_params(cfg)), *bad,
+                 jrl_fluid.stream_of(cuda))
+        assert err != 0, bad
+        with pytest.raises(RuntimeError, match="cudaError"):
+            build.check(err, "fused_balance_cl")
+    assert F.fused_balance_cl.launches == 0
 
 
 # --- the cylinder channel (kernels/cylinder.py) ---

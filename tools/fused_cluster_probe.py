@@ -1,0 +1,135 @@
+#!/usr/bin/env python3
+"""What sets the step time of the cluster kernels (`fused_fluid_cl`,
+`fused_balance_cl`) on one card, beside the cooperative kernels:
+
+    python3 tools/fused_cluster_probe.py
+
+From a state 3000 steps into each phase (cooperative kernel), µs/step of
+4000-step launches, CUDA events, best of three:
+
+- the default 128x64 grid (cylinder and 45degree fluid tips, ethaline
+  balance) through the cooperative kernel, the cluster kernel at 16 blocks
+  (one cell a thread) and at 8 blocks (two cells a thread, the shape of a
+  card that holds no cluster of 16);
+- the same cluster sources built with ``-prec-div=false`` (approximate
+  division, no branch to a slow path): a timing of what the IEEE
+  divisions of the cell code cost, not a kernel of the port (its results
+  differ; the largest difference from the shipped kernel is printed);
+- 256x128 (refine 2), where the cluster kernel runs 4 cells a thread,
+  beside the cooperative kernel.
+
+Builds into a temporary directory; prints one JSON line, last.
+"""
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import chip_smoke as C
+    from jrl_lbm_torch.kernels import build
+    from jrl_lbm_torch.kernels import fused_jrl as F
+    from jrl_lbm_torch.kernels.jrl_fluid import _P, stream_of
+    from jrl_lbm_torch.models import jrl as T
+
+    if not torch.cuda.is_available():
+        print("fused_cluster_probe: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    build.build_all(("fused_fluid", "fused_balance", "fused_fluid_cl", "fused_balance_cl"))
+    tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    approx = {}
+    for k in ("fused_fluid_cl", "fused_balance_cl"):
+        out = os.path.join(tmp, f"{k}-approx-div.so")
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-prec-div=false", "-o", out,
+                        str(build.CSRC / f"{k}.cu")], check=True, capture_output=True)
+        approx[k] = ctypes.CDLL(out)
+    libs = {"shipped": {k: build.load(k) for k in approx}, "approx_div": approx}
+
+    def cl(kind, name):
+        fn = getattr(libs[kind][name], f"jrl_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([_P] * 6 + [ctypes.c_int] * 2 + [_P, _P] if name == "fused_fluid_cl"
+                       else [_P] * 5 + [ctypes.c_int, _P]) + [ctypes.c_int] * 3 + [_P]
+        return fn
+
+    def us_per_step(fn, n):
+        best = float("inf")
+        fn(n)
+        for _ in range(3):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            fn(n)
+            b.record()
+            torch.cuda.synchronize()
+            best = min(best, a.elapsed_time(b) * 1e3 / n)
+        return best
+
+    report = {"device": C.smi_line()}
+    n, start = 4000, 3000
+    for shape, refine in (("cylinder", 1), ("45degree", 1), ("ethaline", 2)):
+        fc, cc = T.JRLFluidConfig(shape=shape, refine=refine), T.JRLCConfig(refine=refine)
+        H, W = fc.eff_res
+        s, fl = T.fluid_init(fc, dev)
+        s = F.fused_fluid(s["f"], s["rho"], s["vel"], 0, start, fc, fl, route="coop")
+        st, cf, flags = T.c_init(cc, dev)
+        st = F.fused_balance(st["h"], st["C"], flags, start, cc, cf, route="coop")
+        fout = [torch.empty_like(t) for t in s]
+        bout = [torch.empty_like(t) for t in st]
+
+        def fluid(kind, blocks):
+            shape_ = F.cluster_shape("fused_fluid", H, W,
+                                     F.card_limits("fused_fluid", 0)._replace(cluster=blocks))
+            fn = cl(kind, "fused_fluid_cl")
+            ptrs = [t.data_ptr() for t in list(s) + fout]
+            return lambda m: build.check(fn(*ptrs, start, m, ctypes.byref(F._a_params(fc)),
+                                            ctypes.byref(F._b_params(fc)), *shape_,
+                                            stream_of(dev)), "fused_fluid_cl")
+
+        def balance(kind, blocks):
+            shape_ = F.cluster_shape("fused_balance", H, W,
+                                     F.card_limits("fused_balance", 0)._replace(cluster=blocks))
+            fn = cl(kind, "fused_balance_cl")
+            ptrs = [t.data_ptr() for t in [flags] + list(st) + bout]
+            return lambda m: build.check(fn(*ptrs, m, ctypes.byref(F._balance_params(cc)),
+                                            *shape_, stream_of(dev)), "fused_balance_cl")
+
+        rec = {
+            "fluid coop": us_per_step(
+                lambda m: F.fused_fluid(*s, start, m, fc, fl, route="coop"), n),
+            "balance coop": us_per_step(
+                lambda m: F.fused_balance(*st, flags, m, cc, cf, route="coop"), n),
+        }
+        variants = [("16 blocks", "shipped", 16), ("8 blocks", "shipped", 8),
+                    ("16 blocks, -prec-div=false", "approx_div", 16)]
+        if refine > 1:
+            variants = variants[:1]
+        for label, kind, blocks in variants:
+            rec[f"fluid cluster, {label}"] = us_per_step(fluid(kind, blocks), n)
+            rec[f"balance cluster, {label}"] = us_per_step(balance(kind, blocks), n)
+        if refine == 1:  # how far the approximate division lands from the kernel
+            diffs = {}
+            for phase, make, outs in (("fluid", fluid, fout), ("balance", balance, bout)):
+                make("shipped", 16)(1000)
+                want = [t.clone() for t in outs]
+                make("approx_div", 16)(1000)
+                diffs[phase] = max(float((a - b).abs().max()) for a, b in zip(outs, want))
+            rec["approx_div max |diff| after 1000 steps"] = diffs
+        report[f"{shape} {H}x{W}"] = rec
+        print(f"{shape} {H}x{W}: {rec}", flush=True)
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
