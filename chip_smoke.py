@@ -4,11 +4,12 @@ paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the twenty-five CUDA libraries of ``jrl_lbm_torch/kernels/csrc`` (one
+1. Builds the twenty-six CUDA libraries of ``jrl_lbm_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
-   (the cylinder kernels read only the previous step's buffers). Prints
+   (the cylinder kernels read only the previous step's buffers), and that
+   ``fluid_pass`` spills nothing (``-Xptxas -v``). Prints
    the cluster kernels' limits on this card and the route choice at
    128x64: the cluster shape, cells per thread, shared memory and
    registers per block.
@@ -105,23 +106,33 @@ paths on one NVIDIA card and check them.
 3a. Holds each tile-class kernel (``fluid_k``, ``fluid_k_lean``,
    ``fluid_k_bt``) to its twin after one launch at k = 1, 2, 4 (1e-5) at
    1024x512: the refine-8 ethaline grid at step 0 (full and lean tiles)
-   and a flat tip at a step with below-tip tiles; then the tiled runner
+   and a flat tip at a step with below-tip tiles; ``fluid_pass`` (the k =
+   1 split pass in one launch) to its twin (1e-5) and to ``fluid_k`` +
+   ``fluid_k_lean`` bit for bit on the same plans, on the default
+   refine-8 case's plans of steps 0, 825,712,484 and 1,651,000,000, and
+   at each step 2**24 - 5 .. 2**24 + 4; then the tiled runner
    (``kernels/jrl_tiled.py::make_tiled_fluid_runner``) against the same
-   runner on the twins and against fluid_a / fluid_b over 110 steps that
-   cross a tip row and a frontier change, on both grids, and over steps
-   2**24 - 5 .. 2**24 + 4 at k = 1 and 4 (f, rho 2e-5; vel 2e-4).
+   runner on the twins, against fluid_a / fluid_b and, at k = 1, against
+   itself through the classes (bit for bit) over 110 steps that cross a
+   tip row and a frontier change, on both grids, and over steps 2**24 - 5
+   .. 2**24 + 4 at k = 1 and 4 (f, rho 2e-5; vel 2e-4).
 4. Runs the main path at 1024x512 through the ``pick_*`` runners: 1000
-   fluid steps of the refine-8 ethaline case through the tile classes
-   (``fluid_k`` and ``fluid_k_lean`` must launch, ``fluid_a`` /
-   ``fluid_b`` must not), the same steps through the per-step pair as the
-   yardstick, 1000 steps of a flat tip from a step with below-tip tiles
-   (all three tile kernels), 100 steps of the ethaline late travel from
-   step 41,280 (no lean tile left: ``fluid_a`` / ``fluid_b``, as in JAX),
-   then 1000 balance and approach steps (per-step kernels); each phase's
-   launch counts are zeroed just before it and read just after, and no
-   kernel off the phase may launch. Times the phases (busy share, device
-   µs per launch), each kernel per launch beside its bound and each twin
-   per call.
+   fluid steps of the refine-8 ethaline case through ``fluid_pass``
+   (which must launch; ``fluid_k``, ``fluid_k_lean``, ``fluid_a`` and
+   ``fluid_b`` must not), the same steps through the two tile classes
+   (``route="classes"``) and through the per-step pair as yardsticks,
+   1000 steps of the default refine-8 case from step 825,712,484 (full
+   rows [(0,640),(960,1024)]) on a noisy state beside the same two
+   yardsticks, 1000 steps of a flat tip from a step with below-tip tiles
+   (``fluid_pass`` and ``fluid_k_bt``), 100 steps of the ethaline late
+   travel from step 41,280 (no lean tile left: ``fluid_a`` / ``fluid_b``,
+   as in JAX), then 1000 balance and approach steps (per-step kernels);
+   each phase's launch counts are zeroed just before it and read just
+   after, and no kernel off the phase may launch. Times the phases
+   (device and wall µs per step, busy share, device µs per launch), the
+   host µs of a ``k_pass`` call through the checked class wrappers and
+   through the runner's unchecked pass, each kernel per launch beside its
+   bound and each twin per call.
 5. Runs the 128x64 path of the default case (``JRLFluidConfig()``,
    ``JRLCConfig()``) through the ``pick_*`` runners in the chunks
    ``run_case`` uses: the fluid phase to its first record step, one
@@ -139,7 +150,7 @@ paths on one NVIDIA card and check them.
    through the multi-step kernels (its default: the cluster kernels and
    ``fused_approach``) and through the per-step runners; the record rows
    agree to rtol 2e-4 / atol 1e-4.
-7. Prints ``{"kernels": [...]}`` (33 rows: each kernel once, the four
+7. Prints ``{"kernels": [...]}`` (34 rows: each kernel once, the four
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``; the
    cluster kernels and ``fused_approach`` timed on a 1000-step launch at
    128x64 (CUDA events), the cooperative ones on a 200-step launch at
@@ -178,6 +189,7 @@ FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach"
                   # per cell and step of a tile class (halo recompute not
                   # counted): A + B; the lean A (pulls, moments) + B
                   "fluid_k": 650, "fluid_k_lean": 420, "fluid_k_bt": 650,
+                  # fluid_pass: the full class's on full rows, the lean one's on lean rows
                   # per shard cell: as the per-step kernels; a copy
                   "fluid_a_sh": 250, "fluid_b_sh": 400, "c_balance_sh": 230,
                   "c_approach_sh": 330, "halo_pack": 0}
@@ -219,6 +231,8 @@ SOURCE = {
                      "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1482"),
     "fluid_k_bt": ("jrl_lbm_torch/kernels/csrc/fluid_k_bt.cu",
                    "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1522"),
+    "fluid_pass": ("jrl_lbm_torch/kernels/csrc/fluid_pass.cu",
+                   "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1349"),
     "fluid_a_sh": ("jrl_lbm_torch/kernels/csrc/fluid_a_sh.cu",
                    "jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py:136"),
     "fluid_b_sh": ("jrl_lbm_torch/kernels/csrc/fluid_b_sh.cu",
@@ -236,7 +250,7 @@ SOURCE = {
     "cyl_window_sh": ("jrl_lbm_torch/kernels/csrc/cyl_window_sh.cu",
                       "jrl_lbm_tpu/ops/pallas/fused_sharded.py:886"),
 }
-TILED = ("fluid_k", "fluid_k_lean", "fluid_k_bt")
+TILED = ("fluid_k", "fluid_k_lean", "fluid_k_bt", "fluid_pass")
 
 
 def fail(msg: str):
@@ -269,9 +283,20 @@ def check_ints(name, got, want):
 def sass_check(build) -> dict:
     """Read-only (non-coherent) global loads in each multi-step library's
     machine code; there must be none (a persistent kernel reads state
-    that other blocks wrote in the same launch)."""
+    that other blocks wrote in the same launch). And ``fluid_pass``'s
+    spills as ``-Xptxas -v`` reports them; there must be none."""
+    import re
     import shutil
 
+    from jrl_lbm_torch.kernels import jrl_tiled
+
+    log = build.build_log.get("fluid_pass", "")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
+    regs, local = jrl_tiled.pass_info()
+    print(f"  fluid_pass: {regs} registers, {local} local bytes; -Xptxas -v spills {spills}",
+          flush=True)
+    if local or any(spills):
+        fail(f"fluid_pass spills: {local} local bytes, -Xptxas -v {spills}")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         print("  cuobjdump not found: SASS check not made", flush=True)
@@ -352,6 +377,7 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fluid_k": ("fluid_k_kernel",),
     "fluid_k_lean": ("fluid_k_lean_kernel",),
     "fluid_k_bt": ("fluid_k_bt_kernel",),
+    "fluid_pass": ("fluid_pass_kernel",),
     "periodic": ("periodic_kernel",),
     "fluid_a_sh": ("fluid_a_sh_kernel",),
     "fluid_b_sh": ("fluid_b_sh_kernel",),
@@ -1188,8 +1214,8 @@ def tiled_twin_runner(run):
     from jrl_lbm_torch.kernels import jrl_tiled as JT
 
     twins = dict(fluid_k=JT.fluid_k_ref, fluid_k_lean=JT.fluid_k_lean_ref,
-                 fluid_k_bt=JT.fluid_k_bt_ref, fluid_a=jrl_fluid.fluid_a_ref,
-                 fluid_b=jrl_fluid.fluid_b_ref)
+                 fluid_k_bt=JT.fluid_k_bt_ref, fluid_pass=JT.fluid_pass_ref,
+                 fluid_a=jrl_fluid.fluid_a_ref, fluid_b=jrl_fluid.fluid_b_ref)
 
     def twin_run(state, fields, start, n):
         with mock.patch.multiple(JT, **twins):
@@ -1235,14 +1261,63 @@ def tile_bytes(name: str, segs, k: int, H: int, W: int):
     return 4 * W * (planes_in * len(read) + 12 * rows), rows * W
 
 
+def pass_bytes(full, lean, H: int, W: int):
+    """``(bytes, ops)`` of one ``fluid_pass`` launch: each input row
+    once (12 planes where a full segment's 2-row halo window reaches it, 9
+    where only a lean one's does), 12 planes out a written row; the
+    operations of the full class's cells and of the lean class's."""
+    reach = {}
+    for segs, planes in ((lean, 9), (full, 12)):
+        for y0, y1 in segs:
+            for y in range(y0 - 2, y1 + 2):
+                reach[y % H] = max(reach.get(y % H, 0), planes)
+    nf, nl = (sum(y1 - y0 for y0, y1 in segs) for segs in (full, lean))
+    ops = (FLOPS_PER_CELL["fluid_k"] * nf + FLOPS_PER_CELL["fluid_k_lean"] * nl) * W
+    return 4 * W * (sum(reach.values()) + 12 * (nf + nl)), ops
+
+
+def pass_equal(JT, tag, cfg, s, step: int, full, lean, errs):
+    """One ``fluid_pass`` launch against its twin (1e-5) and against
+    ``fluid_k`` + ``fluid_k_lean`` on the same rows, bit for bit."""
+    import torch
+
+    got, want, cls = ({key: torch.full_like(v, 7.0) for key, v in s.items()} for _ in range(3))
+    n0 = JT.fluid_pass.launches
+    JT.fluid_pass(s["f"], s["rho"], s["vel"], got, full, lean, step, cfg)
+    JT.fluid_pass_ref(s["f"], s["rho"], s["vel"], want, full, lean, step, cfg)
+    JT.fluid_k(s["f"], s["rho"], s["vel"], cls, full, step, 1, cfg)
+    if lean:
+        JT.fluid_k_lean(s["f"], cls, lean, 1, cfg)
+    torch.cuda.synchronize()
+    if JT.fluid_pass.launches != n0 + 1:
+        fail("fluid_pass did not count its launch")
+    for nm in ("f", "rho", "vel"):
+        check_close(f"fluid_pass {tag} {nm}", got[nm], want[nm], 1e-5, errs["fluid_pass"])
+    same = all(torch.equal(got[nm], cls[nm]) for nm in got)
+    diff = max(float((got[nm] - cls[nm]).abs().max()) for nm in got)
+    print(f"  fluid_pass {tag}: bit for bit fluid_k + fluid_k_lean: {same} (max |diff| "
+          f"{diff:.3e})", flush=True)
+    if not same:
+        fail(f"fluid_pass {tag}: differs from fluid_k + fluid_k_lean")
+
+
+# the default refine-8 case's split-pass plans: the travel's first step,
+# its middle (825,712,484) and its last split steps (1,651,000,000)
+PASS_PLAN_STEPS = (0, 825_712_484, 1_651_000_000)
+
+
 def tiled_checks(dev, fluid_cfg, errs):
     """The tile-class kernels at 1024x512 against their twins: (a) each
     kernel after one launch at k = 1, 2, 4 on the refine-8 ethaline grid
     (step 0: full and lean tiles) and on a flat tip of the same size (a
-    step with below-tip tiles too), 1e-5; (b) the tiled runner against the
-    twin runner and the per-step kernels over 110 steps that cross a tip
-    row and a frontier change, and over steps 2**24 - 5 .. 2**24 + 4 at
-    k = 1 and k = 4 (f, rho 2e-5; vel 2e-4). Returns a report."""
+    step with below-tip tiles too), 1e-5; ``fluid_pass`` against its twin
+    (1e-5) and the two classes (bit for bit) on those plans, on the
+    default refine-8 case's plans of ``PASS_PLAN_STEPS`` and at each step
+    2**24 - 5 .. 2**24 + 4; (b) the tiled runner against the twin runner
+    and the per-step kernels over 110 steps that cross a tip row and a
+    frontier change (at k = 1 also against the runner through the
+    classes, bit for bit), and over steps 2**24 - 5 .. 2**24 + 4 at k = 1
+    and k = 4 (f, rho 2e-5; vel 2e-4). Returns a report."""
     import torch
 
     from jrl_lbm_torch import kernels
@@ -1271,7 +1346,7 @@ def tiled_checks(dev, fluid_cfg, errs):
                 errs[name].extend(rep)
         print(f"  {tag}: launches {dict((k_, c) for k_, c in kernels.launches().items() if c)}",
               flush=True)
-        return used
+        return used, got
 
     for label, cfg in configs.items():
         H, W = cfg.eff_res
@@ -1304,6 +1379,8 @@ def tiled_checks(dev, fluid_cfg, errs):
                 for nm in ("f", "rho", "vel"):
                     check_close(f"{name} k={k} 1 launch {nm}", got[nm], want[nm], 1e-5,
                                 errs[name])
+            if k == 1:
+                pass_equal(JT, f"{label} step {step}", cfg, s, step, full, lean, errs)
 
         # (b) 110 steps across a tip row and a frontier change
         c, TH, n = JT.tile_consts(cfg), JT.pick_tile_rows(cfg), 110
@@ -1316,11 +1393,31 @@ def tiled_checks(dev, fluid_cfg, errs):
               f"{JT.frontier(c, TH, 1, start + n)}", flush=True)
         if rows[1] <= rows[0]:
             fail(f"{label}: the runner check crosses no tip row")
-        used = compare_runs(f"{label} {n} steps", cfg, s, fields, start, n)
-        want_used = {"fluid_k", "fluid_k_lean"} | ({"fluid_k_bt"} if flat else set())
-        if not want_used <= set(used):
+        used, got = compare_runs(f"{label} {n} steps", cfg, s, fields, start, n)
+        want_used = {"fluid_pass"} | ({"fluid_k_bt"} if flat else set())
+        if set(used) - {"fluid_a", "fluid_b"} != want_used:
             fail(f"{label}: the runner launched {used}, expected {sorted(want_used)}")
+        cls = JT.make_tiled_fluid_runner(cfg, route="classes")(s, fields, start, n)
+        same = all(torch.equal(got[nm], cls[nm]) for nm in got)
+        print(f"  {label} {n} steps: through fluid_pass = through the classes, bit for bit: "
+              f"{same}", flush=True)
+        if not same:
+            fail(f"{label}: the runner through fluid_pass differs from it through the classes")
         report[label] = {"runner_start": start, "runner_steps": n, "launched": used}
+
+    print("fluid_pass on the default refine-8 case's split plans", flush=True)
+    cfg = T.JRLFluidConfig(shape="ethaline", refine=8)
+    H, W = cfg.eff_res
+    s = noisy(T.fluid_init(cfg, dev)[0], dev, 12)
+    report["pass_plans"] = {}
+    for step in PASS_PLAN_STEPS:
+        kind, _, _, fr, fb = JT.chunk_plan(cfg, step, 8)[0]
+        full, bt, lean = JT.class_rows(H, JT.pick_tile_rows(cfg), 1, fr, fb)
+        if kind != "split" or bt or not lean:
+            fail(f"step {step}: plan {kind} {full} {bt} {lean}, expected full and lean rows")
+        pass_equal(JT, f"step {step} full {full} lean {lean}", cfg, s, step, full, lean, errs)
+        nbytes, ops = pass_bytes(full, lean, H, W)
+        report["pass_plans"][step] = {"full": full, "lean": lean, "bytes": nbytes, "ops": ops}
 
     print("tiled fluid steps 2**24 - 5 .. 2**24 + 4 at 1024x512", flush=True)
     cfg = fluid_cfg("ethaline", 8, Re=1.2e-5, vel_obs_real=28e-6)
@@ -1331,6 +1428,11 @@ def tiled_checks(dev, fluid_cfg, errs):
     s = noisy(s, dev, 24)
     for k in (1, 4):
         compare_runs(f"2**24 k={k}", cfg, s, fields, start, 10, k=k)
+    H = cfg.eff_res[0]
+    for step in range(start, start + 10):
+        kind, _, _, fr, fb = JT.chunk_plan(cfg, step, 1)[0]
+        full, _, lean = JT.class_rows(H, JT.pick_tile_rows(cfg), 1, fr, fb)
+        pass_equal(JT, f"step {step}", cfg, s, step, full, lean, errs)
     return report
 
 
@@ -2312,8 +2414,8 @@ def main() -> int:
     H, W = fc.eff_res
     cells = H * W
     n = 1000
-    print(f"main path {H}x{W}: {n} steps per phase (the fluid phase through the tile "
-          f"classes, C through the per-step kernels)", flush=True)
+    print(f"main path {H}x{W}: {n} steps per phase (the fluid phase through fluid_pass, C "
+          f"through the per-step kernels)", flush=True)
 
     def stepper(cfg, run, state, fields, cur):
         """``fn(k)``: k more steps of ``run`` from step ``cur``."""
@@ -2326,22 +2428,49 @@ def main() -> int:
 
         return steps
 
+    def fluid_phases(tag, cfg, state, fields, start):
+        """The fluid phase from ``start`` through ``pick_fluid_runner``
+        (``fluid_pass``), and as yardsticks through the two tile classes and
+        through the per-step pair; returns the main path's state."""
+        if JT.make_tiled_fluid_runner(cfg).route != "pass":
+            fail(f"{tag}: the tiled runner does not take fluid_pass")
+        out = run_phase(tag, ("fluid_pass",), stepper(cfg, T.pick_fluid_runner(cfg), state,
+                                                      fields, start), n, cells)
+        run_phase(f"{tag} classes", ("fluid_k", "fluid_k_lean"),
+                  stepper(cfg, JT.make_tiled_fluid_runner(cfg, route="classes"), state, fields,
+                          start), n, cells, yardstick=True)
+        run_phase(f"{tag} per-step", ("fluid_a", "fluid_b"),
+                  stepper(cfg, T.make_per_step_fluid_runner(cfg), state, fields, start), n,
+                  cells, yardstick=True)
+        for rest in ("classes", "per-step"):
+            a, b = phases[tag], phases[f"{tag} {rest}"]
+            print(f"  {tag}: fluid_pass {a.get('device_us_per_step', float('nan')):.3f} device / "
+                  f"{a['ms_per_step'] * 1e3:.3f} wall us/step against {rest} "
+                  f"{b.get('device_us_per_step', float('nan')):.3f} / {b['ms_per_step'] * 1e3:.3f}",
+                  flush=True)
+        if not all(torch.isfinite(v).all() for v in out.values()):
+            fail(f"{tag}: state not finite")
+        return out
+
     s, fl = T.fluid_init(fc, dev)
-    sf = run_phase("fluid", ("fluid_k", "fluid_k_lean"),
-                   stepper(fc, T.pick_fluid_runner(fc), s, fl, 0), n, cells)
-    if not all(torch.isfinite(v).all() for v in sf.values()):
-        fail("fluid state not finite")
-    # the yardstick: the same steps through the per-step pair (the path
-    # of this grid before the tile classes)
-    run_phase("fluid per-step", ("fluid_a", "fluid_b"),
-              stepper(fc, T.make_per_step_fluid_runner(fc), s, fl, 0), n, cells, yardstick=True)
+    sf = fluid_phases("fluid", fc, s, fl, 0)
+    # the middle of the default refine-8 case's travel: full rows
+    # [(0,640),(960,1024)], lean [(640,960)], on a noisy state
+    fmid, mid = T.JRLFluidConfig(shape="ethaline", refine=8), PASS_PLAN_STEPS[1]
+    mid_rows = {(c[0], str(JT.class_rows(H, 64, 1, *c[3:]) if c[0] == "split" else None))
+                for c in JT.chunk_plan(fmid, mid, n)}
+    if mid_rows != {("split", str(([(0, 640), (960, 1024)], [], [(640, 960)])))}:
+        fail(f"the plan from step {mid}: {mid_rows}, expected full rows [(0,640),(960,1024)]")
+    sm_, flm = T.fluid_init(fmid, dev)
+    fluid_phases("fluid mid-travel", fmid, noisy(sm_, dev, 7), flm, mid)
     # a flat tip at 1024x512 from a step with below-tip tiles, through the
-    # same pick: full, below-tip and lean classes
+    # same pick: fluid_pass on the full and lean rows, fluid_k_bt below the tip
     fcyl = fluid_cfg("cylinder", 1, res=(1024, 512))
     sc, flc = T.fluid_init(fcyl, dev)
     s_bt = split_step(JT, fcyl, 1, True)[0]
-    out = run_phase("fluid flat", TILED, stepper(fcyl, T.pick_fluid_runner(fcyl), noisy(sc, dev, 5),
-                                                  flc, s_bt), n, cells)
+    out = run_phase("fluid flat", ("fluid_pass", "fluid_k_bt"),
+                    stepper(fcyl, T.pick_fluid_runner(fcyl), noisy(sc, dev, 5), flc, s_bt), n,
+                    cells)
     if not all(torch.isfinite(v).all() for v in out.values()):
         fail("flat fluid state not finite")
     # the late travel of the ethaline case: no lean tile left, the JAX
@@ -2434,8 +2563,9 @@ def main() -> int:
                      for k in PER_STEP + TILED}
 
     def main_us(k):
-        """The kernel's device µs per launch on the main path (profiler)."""
-        return next((p["kernel_us_per_launch"][k] for p in main_phases
+        """The kernel's device µs per launch on the main path (profiler),
+        else in a yardstick phase (the tile classes since fluid_pass)."""
+        return next((p["kernel_us_per_launch"][k] for p in main_phases + list(phases.values())
                      if (p.get("kernel_us_per_launch") or {}).get(k)), None)
 
     for k in PER_STEP:
@@ -2449,9 +2579,10 @@ def main() -> int:
             "profiler" if dev_us else "events")
         phases["per_launch"][k]["wrapper_call_ms"] = call_ms
 
-    # the tile-class kernels at the main path's first pass (k = 1): the
-    # ethaline step 0 (full + lean) and the flat tip's (full + below-tip +
-    # lean); device µs per launch from the profiled main-path phases
+    # the tile-class kernels and fluid_pass at the main path's first pass
+    # (k = 1): the ethaline step 0 (full + lean) and the flat tip's
+    # (full + below-tip + lean); device µs per launch from the profiled
+    # phases (the main path's, else the classes' yardstick)
     s, fl = T.fluid_init(fc, dev)
     o = {key: torch.empty_like(v) for key, v in s.items()}
     sc = noisy(T.fluid_init(fcyl, dev)[0], dev, 5)
@@ -2463,15 +2594,25 @@ def main() -> int:
         "fluid_k_lean": (lambda fn: fn(s["f"], o, lean, 1, fc), JT.fluid_k_lean_ref, lean),
         "fluid_k_bt": (lambda fn: fn(sc["f"], sc["rho"], sc["vel"], o, bt, 1, fcyl),
                        JT.fluid_k_bt_ref, bt),
+        "fluid_pass": (lambda fn: fn(s["f"], s["rho"], s["vel"], o, full, lean, 0, fc),
+                       JT.fluid_pass_ref, full + lean),
     }
     for k in TILED:
         call, twin, segs = truns[k]
         kfn = getattr(JT, k)
         call_ms = cuda_ms(lambda: call(kfn), 100)
         dev_us = main_us(k)
-        nbytes, cells_l = tile_bytes(k, segs, 1, H, W)
+        if k == "fluid_pass":
+            nbytes, ops = pass_bytes(full, lean, H, W)
+            ops_ms = ops / F32_PEAK * 1e3
+            for step, plan in report["tiled"]["pass_plans"].items():
+                plan["bound_ms"] = max(plan["bytes"] / rate * 1e3, plan["ops"] / F32_PEAK * 1e3)
+                print(f"  fluid_pass bound at the step-{step} plan: "
+                      f"{plan['bound_ms'] * 1e3:.2f} us ({plan['bytes'] / 1e6:.2f} MB)", flush=True)
+        else:
+            nbytes, cells_l = tile_bytes(k, segs, 1, H, W)
+            ops_ms = FLOPS_PER_CELL[k] * cells_l / F32_PEAK * 1e3
         mem_ms = nbytes / rate * 1e3
-        ops_ms = FLOPS_PER_CELL[k] * cells_l / F32_PEAK * 1e3
         row_tiled = dict(ms=dev_us / 1e3 if dev_us else call_ms,
                          plain_ms=cuda_ms(lambda: call(twin), 2, warmup=1),
                          bound_ms=max(mem_ms, ops_ms), mem_ms=mem_ms, ops_ms=ops_ms, bytes=nbytes,
@@ -2490,6 +2631,29 @@ def main() -> int:
             "bound_ms": row_tiled["bound_ms"],
             "bound_by": "bytes" if mem_ms >= ops_ms else "operations", "library_ms": None,
         })
+
+    # host µs of one k_pass call (the enqueue, device work excluded): through
+    # the checked wrappers (each call checks its tensors, enters the device
+    # and looks up the stream), and as the runner makes it, unchecked on a
+    # context it checked once a run
+    segs, ctx, kp = (full, [], lean), JT._launch_ctx(dev), {}
+    for label, route, c in (("classes, checked", "classes", None),
+                            ("pass, checked", "pass", None),
+                            ("classes, runner", "classes", ctx), ("pass, runner", "pass", ctx)):
+        def k_pass(route=route, c=c):
+            JT.k_pass(s, o, segs, 0, 1, fc, route, c)
+
+        with torch.cuda.device(dev):
+            k_pass()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                k_pass()
+            kp[label] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+    report["k_pass_host_us"] = kp
+    print("  host us per k_pass call: " + ", ".join(f"{k} {v:.2f}" for k, v in kp.items()),
+          flush=True)
 
     # ---- 5. the 128x64 path of the default case, multi-step kernels ----
     fc0, cc0 = T.JRLFluidConfig(), T.JRLCConfig()
@@ -2745,8 +2909,8 @@ def main() -> int:
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows
-    if len(rows) != 33:
-        fail(f"{len(rows)} kernel rows, expected 33")
+    if len(rows) != 34:
+        fail(f"{len(rows)} kernel rows, expected 34")
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)

@@ -6,7 +6,7 @@ the fluid and balance phases of grids that fit one thread-block cluster's
 shared memory, such as the default 128x64, on cluster kernels of their
 own),
 the k-step tile-class kernels of the JRL fluid phase on larger grids
-(`jrl_tiled.py`), the four kernels of the cylinder channel's fused step
+and its k = 1 split pass in one launch (`jrl_tiled.py`), the four kernels of the cylinder channel's fused step
 (`cylinder.py`; float32, bf16 or stochastically rounded bf16 storage of
 f, each a template instance, counted per name and per mode), the
 shear layer's periodic step (`periodic.py`), and the JRL case and the
@@ -23,7 +23,7 @@ KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "fluid_k", "fluid_k_lean", "fluid_k_bt", "periodic",
            "fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack",
            "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh",
-           "fused_fluid_cl", "fused_balance_cl")
+           "fused_fluid_cl", "fused_balance_cl", "fluid_pass")
 
 
 def wrappers():
@@ -57,6 +57,7 @@ def wrappers():
         "cyl_window_sh": cyl_sharded.cyl_window_sh,
         "fused_fluid_cl": fused_jrl.fused_fluid_cl,
         "fused_balance_cl": fused_jrl.fused_balance_cl,
+        "fluid_pass": jrl_tiled.fluid_pass,
     }
 
 

@@ -38,7 +38,7 @@ extern "C" int jrl_fluid_k(const float* f, const float* rho, const float* vel, f
                            void* stream) {
   return with_tile_k(k, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
-    return launch_tiles<K>(fluid_k_kernel<K>, *p, stream, f, rho, vel, f_out, rho_out, vel_out,
-                           step, *p);
+    return launch_tiles<K, fluid_k_kernel<K>>(*p, stream, f, rho, vel, f_out, rho_out,
+                                              vel_out, step, *p);
   });
 }

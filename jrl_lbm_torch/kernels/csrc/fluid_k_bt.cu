@@ -35,7 +35,7 @@ extern "C" int jrl_fluid_k_bt(const float* f, const float* rho, const float* vel
                               void* stream) {
   return with_tile_k(k, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
-    return launch_tiles<K>(fluid_k_bt_kernel<K>, *p, stream, f, rho, vel, f_out, rho_out,
-                           vel_out, *p);
+    return launch_tiles<K, fluid_k_bt_kernel<K>>(*p, stream, f, rho, vel, f_out, rho_out,
+                                                 vel_out, *p);
   });
 }

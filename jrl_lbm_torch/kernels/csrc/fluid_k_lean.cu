@@ -35,6 +35,6 @@ extern "C" int jrl_fluid_k_lean(const float* f, float* f_out, float* rho_out, fl
                                 int k, const TileParams* p, void* stream) {
   return with_tile_k(k, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
-    return launch_tiles<K>(fluid_k_lean_kernel<K>, *p, stream, f, f_out, rho_out, vel_out, *p);
+    return launch_tiles<K, fluid_k_lean_kernel<K>>(*p, stream, f, f_out, rho_out, vel_out, *p);
   });
 }

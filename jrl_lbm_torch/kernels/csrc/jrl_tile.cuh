@@ -36,6 +36,7 @@
 #include "jrl_fluid.cuh"
 
 constexpr int TILE_MAX_SEGS = 3;
+constexpr int JRL_MAX_DEVICES = 16;  // devices whose kernel attributes are cached
 
 // Mirrors kernels/jrl_tiled.py::TileParams.
 struct TileParams {
@@ -142,6 +143,24 @@ __device__ __forceinline__ void tile_steps(const float* __restrict__ f,
   }
   __syncthreads();
 
+#ifdef JRL_TILE_NO_CELLS
+  // tools/tile_pass_probe.py: the window's load and the tile's store, no
+  // cell code (the loaded values go out unchanged)
+  for (int c = tid; c < tile_tx(K) * TILE_TY; c += TILE_THREADS) {
+    const int ly = HALO + c / tile_tx(K), lx = HALO + c % tile_tx(K), i = ly * TILE_EX + lx;
+    const int yy = oy + ly, xx = ox + lx;
+    if (yy < yend && xx < W) {
+      const int o = yy * W + xx;
+#pragma unroll
+      for (int q = 0; q < 9; ++q) f_out[q * HW + o] = smem[q * EXT + i];
+      rho_out[o] = CLS != TILE_LEAN ? rb[i] : 0.0f;
+      vel_out[o] = CLS != TILE_LEAN ? vb(0)[i] : 0.0f;
+      vel_out[HW + o] = CLS != TILE_LEAN ? vb(0)[EXT + i] : 0.0f;
+    }
+  }
+  return;
+#endif
+
 #pragma unroll 1
   for (int j = 0; j < K; ++j) {
     const int cur = j & 1;
@@ -191,17 +210,36 @@ __device__ __forceinline__ void tile_steps(const float* __restrict__ f,
   }
 }
 
-// Launches `kernel` (a tile_steps kernel at depth K) over the launch's
-// segments; returns the cudaError_t.
-template <int K, class Kernel, class... Args>
-int launch_tiles(Kernel kernel, const TileParams& p, void* stream, Args... args) {
-  const int bytes = tile_smem_bytes(K);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         bytes);
+// Lets `Kernel` use `bytes` of dynamic shared memory on the current device:
+// one cudaFuncSetAttribute per kernel instance and device, not one per
+// launch (the attribute persists; a larger request raises it again).
+template <auto Kernel>
+inline int smem_attr_once(int bytes) {
+  static int set[JRL_MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  const bool cached = dev >= 0 && dev < JRL_MAX_DEVICES;
+  if (cached && set[dev] >= bytes) return (int)cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && cached) set[dev] = bytes;
+  return (int)err;
+}
+
+// Launches `Kernel` (a tile_steps kernel at depth K) over the launch's
+// segments; returns the cudaError_t.
+template <int K, auto Kernel, class... Args>
+int launch_tiles(const TileParams& p, void* stream, Args... args) {
+  int bytes = tile_smem_bytes(K);
+#ifdef JRL_TILE_ONE_BLOCK_PER_SM
+  // tools/tile_pass_probe.py: over half an SM's shared memory, so one block an SM
+  bytes = bytes > 116 * 1024 ? bytes : 116 * 1024;
+#endif
+  const int err = smem_attr_once<Kernel>(bytes);
+  if (err != (int)cudaSuccess) return err;
   const dim3 grid((p.a.W + tile_tx(K) - 1) / tile_tx(K), seg_tiles(p.nseg, p.seg, TILE_TY));
   const dim3 block(TILE_THREADS_X, TILE_THREADS_Y);
-  kernel<<<grid, block, bytes, (cudaStream_t)stream>>>(args...);
+  Kernel<<<grid, block, bytes, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """The JRL fluid phase on grids above ``fused_jrl.MAX_FUSED_CELLS``: k
 fused steps per launch on three tile classes (`csrc/fluid_k.cu`,
-`csrc/fluid_k_lean.cu`, `csrc/fluid_k_bt.cu`), each with its plain
-PyTorch twin, and the runner that picks the class of each row tile.
+`csrc/fluid_k_lean.cu`, `csrc/fluid_k_bt.cu`), the k = 1 split pass in one
+row-streaming launch (`csrc/fluid_pass.cu`), each with its plain PyTorch
+twin, and the runner that picks the class of each row tile.
 
 Replace the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py`:
 ``_make_fluid_k_kernel`` (the full class: every tile the moving tip or a
@@ -15,10 +16,14 @@ chunk, so the launches follow the JAX package's chunk plan; remainder
 steps go through the per-step pair ``fluid_a``/``fluid_b``.
 
 A chunk's passes each launch the full class and, where the plan has
-them, the below-tip and lean classes on their row segments. The three
-launches read one buffer set and write their own rows of one output set,
-the CUDA form of the Pallas calls' ``input_output_aliases``; sets
-ping-pong, and the caller's state is never written.
+them, the below-tip and lean classes on their row segments; at k = 1
+(the runner's default) ``fluid_pass`` runs the full and lean rows in one
+launch instead (`pass_route`; ``route="classes"`` forces the two class
+kernels). The launches read one buffer set and write their own rows of
+one output set, the CUDA form of the Pallas calls'
+``input_output_aliases``; sets ping-pong, and the caller's state is never
+written. The runner checks the state and both sets once a run; the
+wrappers check their arguments on every call made outside it.
 
 One reference fault is not copied: with ``tile_rows=8, k=4`` (2k = TH)
 the JAX lean range reaches tile n-2, whose pyramid then computes row H-2
@@ -35,8 +40,10 @@ whole-grid step (`jrl_fluid.py::fluid_a_ref`, ``fluid_b_ref``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -53,6 +60,15 @@ OBSTACLE = int(CellType.OBSTACLE)
 OUTFLOW = int(CellType.OUTFLOW)
 KMAX = 4  # the halo of a k-step tile is 2k rows (csrc/jrl_tile.cuh)
 MAX_SEGS = 3
+ROUTES = ("pass", "classes")
+TILE_FULL, TILE_LEAN = 0, 1  # csrc/jrl_tile.cuh::TileClass
+PASS_THREADS = 512   # csrc/pass_state.cuh: one A column a thread
+PASS_MAX_RUNS = 512
+PASS_SMS = 132       # SMs of an H100 SXM: the runs a pass is cut into on the CPU
+# a lean row's cost in fluid_pass relative to a full row's (runs of the
+# lean class are longer by its inverse, so that the blocks of one wave end
+# together; measured on the H100, PERF.md)
+PASS_LEAN_COST = 0.5
 _CS2 = 1.0 / 3.0
 _E, _REFL, _MX, _WQ = lattice.E, lattice.REFLECT, lattice.MIRROR_X, lattice.W
 _F32 = torch.float32
@@ -579,20 +595,77 @@ def _pass_ref(cls, cfg, f, rho, vel, out, segs, step, k):
         out["vel"][:, y0:y1] = vo
 
 
-def fluid_k_ref(f, rho, vel, out, segs, step: int, k: int, cfg):
+# the twins take the wrappers' ``ctx`` and ignore it: a twin runs where its
+# tensors are (the runner passes it to whatever it calls)
+
+def fluid_k_ref(f, rho, vel, out, segs, step: int, k: int, cfg, ctx=None):
     """Twin of ``fluid_k``: k full-class steps from ``step`` on the rows of
     ``segs`` into ``out``."""
     _pass_ref("full", cfg, f, rho, vel, out, segs, step, k)
 
 
-def fluid_k_lean_ref(f, out, segs, k: int, cfg):
+def fluid_k_lean_ref(f, out, segs, k: int, cfg, ctx=None):
     """Twin of ``fluid_k_lean``: k lean steps from f alone."""
     _pass_ref("lean", cfg, f, None, None, out, segs, 0, k)
 
 
-def fluid_k_bt_ref(f, rho, vel, out, segs, k: int, cfg):
+def fluid_k_bt_ref(f, rho, vel, out, segs, k: int, cfg, ctx=None):
     """Twin of ``fluid_k_bt``: k below-tip steps (no step index)."""
     _pass_ref("bt", cfg, f, rho, vel, out, segs, 0, k)
+
+
+def fluid_pass_ref(f, rho, vel, out, full, lean, step: int, cfg, ctx=None):
+    """Twin of ``fluid_pass``: one full-class step from ``step`` on the rows
+    of ``full`` and one lean step on the rows of ``lean``."""
+    _pass_ref("full", cfg, f, rho, vel, out, full, step, 1)
+    _pass_ref("lean", cfg, f, None, None, out, lean, 0, 1)
+
+
+# ---------------------------------------------------------------------------
+# The decomposition of a pass (csrc/pass_state.cuh)
+# ---------------------------------------------------------------------------
+
+def pass_strips(W: int):
+    """Column strips ``[(sx0, sx1), ...]``: the whole width up to
+    ``PASS_THREADS`` columns, else strips whose A columns (one halo column
+    a side) fit the block's threads."""
+    n = 1 if W <= PASS_THREADS else -(-W // (PASS_THREADS - 2))
+    return [(s * W // n, (s + 1) * W // n) for s in range(n)]
+
+
+def pass_window(W: int, sx0: int, sx1: int):
+    """Columns ``(cx0, cx1)`` a strip's ring rows hold: two halo columns a
+    side inside the grid, the ends on 16 bytes."""
+    return max(sx0 - 2, 0) & ~3, min((sx1 + 2 + 3) & ~3, W)
+
+
+def pass_runs(H: int, full, lean, runs_wanted: int, lean_cost: float = PASS_LEAN_COST):
+    """Runs ``[(y0, y1, cls), ...]`` of the full and lean segments (class
+    ``TILE_FULL`` / ``TILE_LEAN``): each segment cut into near-equal runs
+    of at most R rows, R the rows' cost (a lean row ``lean_cost`` of a full
+    one) over ``runs_wanted`` rounded up, for a lean run R / ``lean_cost``
+    (each at most H - 4, so that a run's window of R + 4 rows holds each
+    row once)."""
+    segs = sorted([(y0, y1, TILE_FULL) for y0, y1 in full]
+                  + [(y0, y1, TILE_LEAN) for y0, y1 in lean])
+    cost = sum(y1 - y0 for y0, y1 in full) + lean_cost * sum(y1 - y0 for y0, y1 in lean)
+    R = max(1, math.ceil(cost / max(1, runs_wanted) - 1e-9))
+    most = {TILE_FULL: min(R, H - 4), TILE_LEAN: min(max(R, math.ceil(R / lean_cost)), H - 4)}
+    runs = []
+    for y0, y1, cls in segs:
+        L = y1 - y0
+        n = -(-L // most[cls])
+        runs += [(y0 + i * L // n, y0 + (i + 1) * L // n, cls) for i in range(n)]
+    return runs
+
+
+def pass_items(H: int, W: int, full, lean, sms: int = PASS_SMS):
+    """The blocks of a ``fluid_pass`` launch as ``(y0, y1, cls, sx0, sx1)``:
+    block (strip, run) writes rows [y0, y1) x columns [sx0, sx1) with the
+    run's class; about one block an SM."""
+    strips = pass_strips(W)
+    return [(y0, y1, cls, sx0, sx1) for y0, y1, cls in pass_runs(H, full, lean, sms // len(strips))
+            for sx0, sx1 in strips]
 
 
 # ---------------------------------------------------------------------------
@@ -604,6 +677,12 @@ class TileParams(ctypes.Structure):
                 ("seg", ctypes.c_int * (2 * MAX_SEGS))]
 
 
+class PassParams(ctypes.Structure):
+    _fields_ = [("a", FluidParams), ("b", FluidBParams), ("nstrips", ctypes.c_int),
+                ("rs", ctypes.c_int), ("nruns", ctypes.c_int),
+                ("run", ctypes.c_int * PASS_MAX_RUNS)]
+
+
 @functools.lru_cache(maxsize=64)
 def _params(cfg, segs: tuple) -> TileParams:
     p = TileParams(a=_a_params(cfg), b=_b_params(cfg), nseg=len(segs))
@@ -612,23 +691,44 @@ def _params(cfg, segs: tuple) -> TileParams:
     return p
 
 
-def _check(cfg, segs, step: int, k: int, **tensors) -> torch.device:
-    """Float32 contiguous tensors of the grid on one card, outputs apart
-    from the inputs, 1-3 sorted disjoint row segments inside the grid,
-    1 <= k <= KMAX and steps in int32 range."""
-    if not 1 <= int(k) <= KMAX:
-        raise ValueError(f"k = {k}: the tile kernels take 1 <= k <= {KMAX}")
-    H = cfg.eff_res[0]
-    if not 1 <= len(segs) <= MAX_SEGS:
-        raise ValueError(f"{len(segs)} row segments; the kernels take 1 to {MAX_SEGS}")
+@functools.lru_cache(maxsize=64)
+def _pass_params(cfg, full: tuple, lean: tuple, sms: int,
+                 lean_cost: float = PASS_LEAN_COST) -> PassParams:
+    H, W = cfg.eff_res
+    strips = pass_strips(W)
+    runs = pass_runs(H, full, lean, sms // len(strips), lean_cost)
+    if len(runs) > PASS_MAX_RUNS:
+        raise ValueError(f"{len(runs)} runs; fluid_pass takes at most {PASS_MAX_RUNS}")
+    p = PassParams(a=_a_params(cfg), b=_b_params(cfg), nstrips=len(strips), nruns=len(runs),
+                   rs=max(b - a for a, b in (pass_window(W, *sx) for sx in strips)))
+    for i, (y0, y1, cls) in enumerate(runs):
+        p.run[i] = y0 | y1 << 15 | cls << 30
+    return p
+
+
+def _check_rows(H: int, segs, least: int = 1, most: int = MAX_SEGS):
+    """``least`` to ``most`` sorted, disjoint row segments inside [0, H)."""
+    if not least <= len(segs) <= most:
+        raise ValueError(f"{len(segs)} row segments; the kernels take {least} to {most}")
     last = 0
     for y0, y1 in segs:
         if not last <= y0 < y1 <= H:
             raise ValueError(f"row segments {segs} not sorted, disjoint and inside [0, {H})")
         last = y1
-    dev = check_state(cfg, step, k, **tensors)
-    outs = [t.data_ptr() for name, (t, _) in tensors.items() if name.endswith("_out")]
-    ins = [t.data_ptr() for name, (t, _) in tensors.items() if not name.endswith("_out")]
+
+
+def _check_k(k: int):
+    if not 1 <= int(k) <= KMAX:
+        raise ValueError(f"k = {k}: the tile kernels take 1 <= k <= {KMAX}")
+
+
+def _check(cfg, step: int, n: int, **tensors) -> torch.device:
+    """Float32 contiguous tensors of the grid on one card, outputs (names
+    holding ``_out``) apart from the inputs and from each other, and steps
+    ``step .. step + n - 1`` in int32 range."""
+    dev = check_state(cfg, step, n, **tensors)
+    outs = [t.data_ptr() for name, (t, _) in tensors.items() if "_out" in name]
+    ins = [t.data_ptr() for name, (t, _) in tensors.items() if "_out" not in name]
     if set(outs) & set(ins) or len(set(outs)) != len(outs):
         raise ValueError("output buffers must be apart from the inputs and from each other")
     return dev
@@ -641,108 +741,202 @@ def _out_args(out):
     return dict(f_out=(out["f"], (9,)), rho_out=(out["rho"], ()), vel_out=(out["vel"], (2,)))
 
 
-def fluid_k(f, rho, vel, out, segs, step: int, k: int, cfg):
+def _state_args(f, rho, vel, out):
+    return dict(f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)), **_out_args(out))
+
+
+def _launch_ctx(dev: torch.device):
+    """``(device, stream)`` of launches on ``dev``'s current stream."""
+    return dev, stream_of(dev)
+
+
+def _launch(name, symbol, argtypes, ctx, *args):
+    """Launch through ``symbol`` on ``ctx``'s stream (the caller's device
+    current) and raise on a launch error."""
+    build.check(build.bind(name, symbol, argtypes)(*args, ctx[1]), name)
+
+
+def fluid_k(f, rho, vel, out, segs, step: int, k: int, cfg, ctx=None):
     """k full-class steps from ``step`` in one launch on the rows of
     ``segs`` (``[(y0, y1), ...]``) into ``out["f"]``, ``out["rho"]``,
-    ``out["vel"]``; reads only ``f``, ``rho``, ``vel``."""
+    ``out["vel"]``; reads only ``f``, ``rho``, ``vel``. ``ctx``: the
+    runner's launch context, its arguments checked once a run."""
     if f.device.type == "cpu":
         return fluid_k_ref(f, rho, vel, out, segs, step, k, cfg)
-    dev = _check(cfg, segs, step, k, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)),
-                 **_out_args(out))
-    p = _params(cfg, tuple(segs))
-    fn = build.bind("fluid_k", "jrl_fluid_k", [_P] * 6 + [_I, _I, _P, _P])
-    with torch.cuda.device(dev):
-        err = fn(f.data_ptr(), rho.data_ptr(), vel.data_ptr(), out["f"].data_ptr(),
-                 out["rho"].data_ptr(), out["vel"].data_ptr(), int(step), int(k),
-                 ctypes.byref(p), stream_of(dev))
-    build.check(err, "fluid_k")
+    if ctx is None:
+        _check_k(k)
+        _check_rows(cfg.eff_res[0], segs)
+        dev = _check(cfg, step, k, **_state_args(f, rho, vel, out))
+        with torch.cuda.device(dev):
+            return fluid_k(f, rho, vel, out, segs, step, k, cfg, _launch_ctx(dev))
+    _launch("fluid_k", "jrl_fluid_k", [_P] * 6 + [_I, _I, _P, _P], ctx, f.data_ptr(),
+            rho.data_ptr(), vel.data_ptr(), out["f"].data_ptr(), out["rho"].data_ptr(),
+            out["vel"].data_ptr(), int(step), int(k), ctypes.byref(_params(cfg, tuple(segs))))
     fluid_k.launches += 1
 
 
-def fluid_k_lean(f, out, segs, k: int, cfg):
+def fluid_k_lean(f, out, segs, k: int, cfg, ctx=None):
     """k lean steps in one launch on the rows of ``segs``; reads only f."""
     if f.device.type == "cpu":
         return fluid_k_lean_ref(f, out, segs, k, cfg)
-    dev = _check(cfg, segs, 0, k, f=(f, (9,)), **_out_args(out))
-    p = _params(cfg, tuple(segs))
-    fn = build.bind("fluid_k_lean", "jrl_fluid_k_lean", [_P] * 4 + [_I, _P, _P])
-    with torch.cuda.device(dev):
-        err = fn(f.data_ptr(), out["f"].data_ptr(), out["rho"].data_ptr(),
-                 out["vel"].data_ptr(), int(k), ctypes.byref(p), stream_of(dev))
-    build.check(err, "fluid_k_lean")
+    if ctx is None:
+        _check_k(k)
+        _check_rows(cfg.eff_res[0], segs)
+        dev = _check(cfg, 0, k, f=(f, (9,)), **_out_args(out))
+        with torch.cuda.device(dev):
+            return fluid_k_lean(f, out, segs, k, cfg, _launch_ctx(dev))
+    _launch("fluid_k_lean", "jrl_fluid_k_lean", [_P] * 4 + [_I, _P, _P], ctx, f.data_ptr(),
+            out["f"].data_ptr(), out["rho"].data_ptr(), out["vel"].data_ptr(), int(k),
+            ctypes.byref(_params(cfg, tuple(segs))))
     fluid_k_lean.launches += 1
 
 
-def fluid_k_bt(f, rho, vel, out, segs, k: int, cfg):
+def fluid_k_bt(f, rho, vel, out, segs, k: int, cfg, ctx=None):
     """k below-tip steps in one launch on the rows of ``segs``."""
     if f.device.type == "cpu":
         return fluid_k_bt_ref(f, rho, vel, out, segs, k, cfg)
-    dev = _check(cfg, segs, 0, k, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)),
-                 **_out_args(out))
-    p = _params(cfg, tuple(segs))
-    fn = build.bind("fluid_k_bt", "jrl_fluid_k_bt", [_P] * 6 + [_I, _P, _P])
-    with torch.cuda.device(dev):
-        err = fn(f.data_ptr(), rho.data_ptr(), vel.data_ptr(), out["f"].data_ptr(),
-                 out["rho"].data_ptr(), out["vel"].data_ptr(), int(k), ctypes.byref(p),
-                 stream_of(dev))
-    build.check(err, "fluid_k_bt")
+    if ctx is None:
+        _check_k(k)
+        _check_rows(cfg.eff_res[0], segs)
+        dev = _check(cfg, 0, k, **_state_args(f, rho, vel, out))
+        with torch.cuda.device(dev):
+            return fluid_k_bt(f, rho, vel, out, segs, k, cfg, _launch_ctx(dev))
+    _launch("fluid_k_bt", "jrl_fluid_k_bt", [_P] * 6 + [_I, _P, _P], ctx, f.data_ptr(),
+            rho.data_ptr(), vel.data_ptr(), out["f"].data_ptr(), out["rho"].data_ptr(),
+            out["vel"].data_ptr(), int(k), ctypes.byref(_params(cfg, tuple(segs))))
     fluid_k_bt.launches += 1
+
+
+def pass_fits(cfg) -> bool:
+    """Whether ``fluid_pass`` takes the grid: rows of 16 bytes' multiples
+    (the bulk copies of its ring) and rows that its run table can name."""
+    H, W = cfg.eff_res
+    return W % 4 == 0 and H < 2**15
+
+
+def fluid_pass(f, rho, vel, out, full, lean, step: int, cfg, ctx=None):
+    """One k = 1 split pass in one launch: a full-class step from ``step``
+    on the rows of ``full`` and a lean step on the rows of ``lean`` (either
+    list of up to three segments; ``full`` not empty) into ``out``; reads
+    only ``f``, ``rho``, ``vel``."""
+    if f.device.type == "cpu":
+        return fluid_pass_ref(f, rho, vel, out, full, lean, step, cfg)
+    if ctx is None:
+        H = cfg.eff_res[0]
+        _check_rows(H, full)
+        _check_rows(H, lean, least=0)
+        _check_rows(H, sorted(list(full) + list(lean)), most=2 * MAX_SEGS)
+        if not pass_fits(cfg):
+            raise ValueError(f"grid {cfg.eff_res}: fluid_pass needs W % 4 == 0 and H < 2**15")
+        dev = _check(cfg, step, 1, **_state_args(f, rho, vel, out))
+        if any(t.data_ptr() % 16 for t in (f, rho, vel)):
+            raise ValueError("fluid_pass copies rows of 16-byte aligned inputs")
+        with torch.cuda.device(dev):
+            return fluid_pass(f, rho, vel, out, full, lean, step, cfg, _launch_ctx(dev))
+    p = _pass_params(cfg, tuple(full), tuple(lean), _sms(ctx[0]))
+    _launch("fluid_pass", "jrl_fluid_pass", [_P] * 6 + [_I, _P, _P], ctx, f.data_ptr(),
+            rho.data_ptr(), vel.data_ptr(), out["f"].data_ptr(), out["rho"].data_ptr(),
+            out["vel"].data_ptr(), int(step), ctypes.byref(p))
+    fluid_pass.launches += 1
+
+
+def pass_info(device_index: int = 0):
+    """``(registers per thread, local bytes)`` of the ``fluid_pass`` kernel
+    (local bytes are its spills and stack)."""
+    fn = build.bind("fluid_pass", "jrl_fluid_pass_info", [_P, _P])
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(fn(ctypes.byref(regs), ctypes.byref(local)), "fluid_pass")
+    return regs.value, local.value
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 fluid_k.launches = 0
 fluid_k_lean.launches = 0
 fluid_k_bt.launches = 0
+fluid_pass.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # The runner (make_tiled_fluid_runner)
 # ---------------------------------------------------------------------------
 
-def k_pass(state, out, segs, step: int, k: int, cfg):
+def pass_route(cfg, k: int, route: str | None = None) -> str:
+    """How a k-step split pass runs: ``"pass"`` (``fluid_pass``, the full
+    and lean rows in one launch; k = 1 on a grid it takes) or
+    ``"classes"`` (``fluid_k`` and ``fluid_k_lean``); ``route`` forces one."""
+    if route is None:
+        return "pass" if int(k) == 1 and pass_fits(cfg) else "classes"
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r}: one of {ROUTES}")
+    if route == "pass" and not (int(k) == 1 and pass_fits(cfg)):
+        raise ValueError(f"route 'pass' runs k = 1 on grids with W % 4 == 0 (k = {k}, "
+                         f"grid {cfg.eff_res})")
+    return route
+
+
+def k_pass(state, out, segs, step: int, k: int, cfg, route: str | None = None, ctx=None):
     """One k-step pass: the full class on ``segs[0]``, the below-tip class
     on ``segs[1]`` and the lean class on ``segs[2]`` (each may be empty
     but the first), all reading ``state`` and writing their rows of
-    ``out``; returns ``out``."""
+    ``out``; the full and lean rows through ``fluid_pass`` or the two
+    class kernels (`pass_route`). Returns ``out``."""
     full, bt, lean = segs
     f, rho, vel = state["f"], state["rho"], state["vel"]
-    fluid_k(f, rho, vel, out, full, step, k, cfg)
+    if pass_route(cfg, k, route) == "pass":
+        fluid_pass(f, rho, vel, out, full, lean, step, cfg, ctx=ctx)
+    else:
+        fluid_k(f, rho, vel, out, full, step, k, cfg, ctx=ctx)
+        if lean:
+            fluid_k_lean(f, out, lean, k, cfg, ctx=ctx)
     if bt:
-        fluid_k_bt(f, rho, vel, out, bt, k, cfg)
-    if lean:
-        fluid_k_lean(f, out, lean, k, cfg)
+        fluid_k_bt(f, rho, vel, out, bt, k, cfg, ctx=ctx)
     return out
 
 
 def make_tiled_fluid_runner(cfg, tile_rows: int | None = None, unroll: int = 8,
-                            k: int | None = None, lean_split: bool = True):
+                            k: int | None = None, lean_split: bool = True,
+                            route: str | None = None):
     """Runner ``(state, fields, start_step, n) -> state`` of the JAX
     package's ``make_tiled_fluid_runner`` (same arguments and defaults):
     the chunks of `chunk_plan`, each split chunk ``reps`` k-step passes of
-    the three tile classes, remainder steps through ``fluid_a`` /
-    ``fluid_b``."""
+    the tile classes (the full and lean rows through `pass_route`'s choice,
+    ``route`` forcing one), remainder steps through ``fluid_a`` /
+    ``fluid_b``. On the card the state and both buffer sets are checked
+    once a run and the launches go out unchecked."""
     TH, kk = _depth(cfg, tile_rows, k, lean_split)
     H = cfg.eff_res[0]
+    rt = pass_route(cfg, kk, route)
 
     def run(state, fields, start_step: int, n: int):
         cur = {"f": state["f"], "rho": state["rho"], "vel": state["vel"]}
-        bufs = []
-        for kind, s, reps, fr, fb in chunk_plan(cfg, start_step, n, TH, unroll, kk,
-                                                lean_split):
-            if kind == "ab":
-                f, rho, vel = cur["f"], cur["rho"], cur["vel"]
-                for i in range(reps):
-                    f, rho, vel = fluid_a(f, rho, vel, s + i, cfg, fields)
-                    f = fluid_b(f, rho, vel, s + i, cfg, fields)
-                cur = {"f": f, "rho": rho, "vel": vel}
-                continue
-            segs = class_rows(H, TH, kk, fr, fb) if kind == "split" else ([(0, H)], [], [])
-            for r in range(reps):
-                if not bufs:
-                    bufs = [{key: torch.empty_like(v) for key, v in cur.items()}
-                            for _ in range(2)]
-                out = bufs[1] if bufs[0]["f"] is cur["f"] else bufs[0]
-                cur = k_pass(cur, out, segs, s + r * kk, kk, cfg)
+        plan = chunk_plan(cfg, start_step, n, TH, unroll, kk, lean_split)
+        bufs = [{key: torch.empty_like(v) for key, v in cur.items()} for _ in range(2)] \
+            if any(kind != "ab" for kind, *_ in plan) else []
+        ctx = None
+        if bufs and cur["f"].device.type == "cuda":
+            dev = _check(cfg, start_step, max(int(n), 1), **_state_args(
+                cur["f"], cur["rho"], cur["vel"], bufs[0]), **{
+                f"{key}2": t for key, t in _out_args(bufs[1]).items()})
+            ctx = _launch_ctx(dev)
+        with torch.cuda.device(ctx[0]) if ctx else contextlib.nullcontext():
+            for kind, s, reps, fr, fb in plan:
+                if kind == "ab":
+                    f, rho, vel = cur["f"], cur["rho"], cur["vel"]
+                    for i in range(reps):
+                        f, rho, vel = fluid_a(f, rho, vel, s + i, cfg, fields)
+                        f = fluid_b(f, rho, vel, s + i, cfg, fields)
+                    cur = {"f": f, "rho": rho, "vel": vel}
+                    continue
+                segs = class_rows(H, TH, kk, fr, fb) if kind == "split" else ([(0, H)], [], [])
+                for r in range(reps):
+                    out = bufs[1] if bufs[0]["f"] is cur["f"] else bufs[0]
+                    cur = k_pass(cur, out, segs, s + r * kk, kk, cfg, rt, ctx)
         return dict(cur)
 
-    run.tile_rows, run.k = TH, kk
+    run.tile_rows, run.k, run.route = TH, kk, rt
     return run

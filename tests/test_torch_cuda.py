@@ -731,8 +731,8 @@ def test_cuda_fluid_k_matches_twin(cuda, shape, k):
 def _tile_twin_runner(cfg, **kw):
     run = JT.make_tiled_fluid_runner(cfg, **kw)
     twins = dict(fluid_k=JT.fluid_k_ref, fluid_k_lean=JT.fluid_k_lean_ref,
-                 fluid_k_bt=JT.fluid_k_bt_ref, fluid_a=jrl_fluid.fluid_a_ref,
-                 fluid_b=jrl_fluid.fluid_b_ref)
+                 fluid_k_bt=JT.fluid_k_bt_ref, fluid_pass=JT.fluid_pass_ref,
+                 fluid_a=jrl_fluid.fluid_a_ref, fluid_b=jrl_fluid.fluid_b_ref)
 
     def twin_run(state, fields, start, n):
         with mock.patch.multiple(JT, **twins):
@@ -746,7 +746,9 @@ def _tile_twin_runner(cfg, **kw):
 @pytest.mark.parametrize("shape", ["45degree", "cylinder"])
 def test_cuda_tiled_runner_matches_twin_runner(cuda, shape, k):
     """The tiled runner over 41 steps in which the frontier tile changes,
-    against the same runner on the twins: f and rho 2e-5, vel 2e-4."""
+    against the same runner on the twins: f and rho 2e-5, vel 2e-4; at
+    k = 1 the full and lean rows go through fluid_pass, at k = 2 through
+    the two class kernels."""
     cfg, fields, s, _, _ = _tile_case(cuda, shape, k)
     c, n = JT.tile_consts(cfg), 41
     start = 0 if shape not in T.FLAT_SHAPES else 200
@@ -760,7 +762,10 @@ def test_cuda_tiled_runner_matches_twin_runner(cuda, shape, k):
     want = _tile_twin_runner(cfg, **kw)(s, fields, start, n)
     for name in ("f", "rho", "vel"):
         _close(got[name], want[name], TRAJ_TOL[name], f"tiled runner {shape} k={k} {name}")
-    assert counts["fluid_k"] >= 1 and counts["fluid_k_lean"] >= 1, counts
+    if k == 1:
+        assert counts["fluid_pass"] >= 1 and counts["fluid_k"] == counts["fluid_k_lean"] == 0
+    else:
+        assert counts["fluid_k"] >= 1 and counts["fluid_k_lean"] >= 1 and not counts["fluid_pass"]
     assert kernels.launches() == counts  # the twins launch nothing
 
 
@@ -776,6 +781,119 @@ def test_cuda_tile_wrappers_refuse_bad_args(cuda):
         JT.fluid_k_lean(s["f"], dict(out, f=s["f"]), lean, 1, cfg)
     with pytest.raises(ValueError, match="dtype"):
         JT.fluid_k(s["f"], s["rho"].double(), s["vel"], out, full, step, 1, cfg)
+
+
+# --- the k = 1 split pass in one launch (fluid_pass) ---
+
+# the default refine-8 case (1024x512): the split plans of its travel's
+# first step, its middle and its last split steps
+PASS_STEPS = (0, 825_712_484, 1_651_000_000)
+
+
+def _pass_case(dev, cfg, step, seed=8):
+    H = cfg.eff_res[0]
+    kind, _, _, fr, fb = JT.chunk_plan(cfg, step, 1)[0]
+    assert kind == "split", (kind, step)
+    s, fields = T.fluid_init(cfg, dev)
+    rng = np.random.default_rng(seed)
+    s = {key: v + torch.as_tensor((1e-3 * rng.standard_normal(tuple(v.shape))).astype(np.float32),
+                                  device=dev) for key, v in s.items()}
+    return s, fields, JT.class_rows(H, JT.pick_tile_rows(cfg), 1, fr, fb)
+
+
+def _pass_against_classes(s, cfg, step, full, lean, tag, reps=3):
+    """fluid_pass (``reps`` launches) equals fluid_k + fluid_k_lean bit for
+    bit and its twin within 1e-5; one launch counted each."""
+    cls, want = _outs(s), _outs(s)
+    JT.fluid_k(s["f"], s["rho"], s["vel"], cls, full, step, 1, cfg)
+    if lean:
+        JT.fluid_k_lean(s["f"], cls, lean, 1, cfg)
+    JT.fluid_pass_ref(s["f"], s["rho"], s["vel"], want, full, lean, step, cfg)
+    for _ in range(reps):
+        got = _outs(s)
+        n0 = JT.fluid_pass.launches
+        JT.fluid_pass(s["f"], s["rho"], s["vel"], got, full, lean, step, cfg)
+        torch.cuda.synchronize()
+        assert JT.fluid_pass.launches == n0 + 1
+        for k in ("f", "rho", "vel"):
+            assert torch.equal(got[k], cls[k]), f"{tag} {k}: not the classes' bits"
+        _close_all(got, want, 1e-5, tag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", PASS_STEPS)
+def test_cuda_fluid_pass_equals_classes_on_refine8_plans(cuda, step):
+    cfg = T.JRLFluidConfig(shape="ethaline", refine=8)
+    s, _, (full, bt, lean) = _pass_case(cuda, cfg, step)
+    assert not bt and lean
+    _pass_against_classes(s, cfg, step, full, lean, f"step {step}")
+
+
+@pytest.mark.cuda
+def test_cuda_fluid_pass_equals_classes_across_2_24(cuda):
+    cfg = T.JRLFluidConfig(shape="ethaline", refine=8, res=(128, 64), Re=1.2e-5,
+                           vel_obs_real=28e-6, gravity_strength_real=-9.8)
+    s, _, _ = _pass_case(cuda, cfg, 2**24 - 5)
+    for step in range(2**24 - 5, 2**24 + 5):
+        full, _, lean = _pass_case(cuda, cfg, step)[2]
+        _pass_against_classes(s, cfg, step, full, lean, f"step {step}", reps=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,res", [("cylinder", (1024, 512)), ("45degree", (256, 64)),
+                                       ("45degree", (1024, 1280))])
+def test_cuda_fluid_pass_equals_classes_on_other_grids(cuda, shape, res):
+    """A flat tip whose pass also has below-tip rows (fluid_k_bt's, left
+    alone), the small grid of the tile tests and a grid of three column
+    strips."""
+    cfg = T.JRLFluidConfig(res=res, Re=4.0, vel_obs_real=0.2848, gravity_strength_real=-9.8,
+                           shape=shape)
+    c, TH = JT.tile_consts(cfg), JT.pick_tile_rows(cfg)
+    last, step = JT.lean_last(res[0] // TH, TH, 1), 5
+    while not (JT.frontier(c, TH, 1, step + 1) < last
+               and (shape not in T.FLAT_SHAPES or JT.below(c, TH, 1, step))):
+        step += 8
+    s, _, (full, bt, lean) = _pass_case(cuda, cfg, step)
+    assert lean and (shape not in T.FLAT_SHAPES or bt), (full, bt, lean)
+    _pass_against_classes(s, cfg, step, full, lean, f"{shape} {res} step {step}")
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_runner_pass_equals_classes(cuda):
+    """The runner at k = 1 through fluid_pass and through the classes over
+    41 steps across a frontier change, bit for bit; launch counts."""
+    cfg = T.JRLFluidConfig(shape="ethaline", refine=8)
+    start, n = PASS_STEPS[1], 41
+    s, fields, _ = _pass_case(cuda, cfg, start)
+    got = {}
+    for route in JT.ROUTES:
+        kernels.reset_launches()
+        got[route] = JT.make_tiled_fluid_runner(cfg, route=route)(s, fields, start, n)
+        torch.cuda.synchronize()
+        counts = {k: c for k, c in kernels.launches().items() if c}
+        assert counts == ({"fluid_pass": n} if route == "pass"
+                          else {"fluid_k": n, "fluid_k_lean": n}), counts
+    for k in ("f", "rho", "vel"):
+        assert torch.equal(got["pass"][k], got["classes"][k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_fluid_pass_refuses_bad_args(cuda):
+    cfg = T.JRLFluidConfig(shape="ethaline", refine=8)
+    s, _, (full, _, lean) = _pass_case(cuda, cfg, 0)
+    out = _outs(s)
+    with pytest.raises(ValueError, match="segments"):
+        JT.fluid_pass(s["f"], s["rho"], s["vel"], out, [], lean, 0, cfg)
+    with pytest.raises(ValueError, match="segments"):
+        JT.fluid_pass(s["f"], s["rho"], s["vel"], out, full, [(300, 500)], 0, cfg)
+    with pytest.raises(ValueError, match="apart"):
+        JT.fluid_pass(s["f"], s["rho"], s["vel"], dict(out, rho=s["rho"]), full, lean, 0, cfg)
+    with pytest.raises(ValueError, match="dtype"):
+        JT.fluid_pass(s["f"], s["rho"].double(), s["vel"], out, full, lean, 0, cfg)
+    odd = T.JRLFluidConfig(res=(256, 66), Re=4.0, vel_obs_real=0.2848, shape="45degree")
+    so, _ = T.fluid_init(odd, cuda)
+    with pytest.raises(ValueError, match="W % 4"):
+        JT.fluid_pass(so["f"], so["rho"], so["vel"], _outs(so), [(0, 64)], [], 0, odd)
 
 
 # --- the shear layer's periodic kernel (kernels/periodic.py) ---

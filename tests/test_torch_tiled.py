@@ -141,7 +141,9 @@ def test_chunk_plan_matches_jax_over_the_whole_travel(case, run_kw):
 def test_split_pass_matches_pallas_split_chunk(shape):
     """One k=1 split pass at 80x32, TH=8 (the sizes of
     tests/test_fused_jrl_tiled.py): 45degree full + lean; cylinder full +
-    below-tip + lean, mid-travel."""
+    below-tip + lean, mid-travel; through both routes of the pass (the
+    full and lean rows by ``fluid_pass``'s twin, or by the two class
+    twins), which agree bit for bit."""
     jc, tc = _pair(shape, res=(80, 32))
     TH, k, reps = 8, 1, 1
     c = K.tile_consts(tc)
@@ -159,10 +161,20 @@ def test_split_pass_matches_pallas_split_chunk(shape):
     segs = K.class_rows(80, TH, k, fr, fb)
     assert bool(segs[1]) == (shape == "cylinder") and segs[2]
     st = T.state_from_numpy(state, "cpu")
+    got = {}
+    for route in K.ROUTES:
+        out = {n: torch.full_like(v, 7.0) for n, v in st.items()}
+        got[route] = K.k_pass(st, out, segs, s0, k, tc, route)
+        for name, w in zip(("f", "rho", "vel"), want):
+            _close(got[route][name], w, 1e-5, f"{shape}:{route}:{name}")
+    # fluid_pass_ref on the full and lean rows, the bt rows from their twin
     out = {n: torch.full_like(v, 7.0) for n, v in st.items()}
-    got = K.k_pass(st, out, segs, s0, k, tc)
-    for name, w in zip(("f", "rho", "vel"), want):
-        _close(got[name], w, 1e-5, f"{shape}:{name}")
+    K.fluid_pass_ref(st["f"], st["rho"], st["vel"], out, segs[0], segs[2], s0, tc)
+    if segs[1]:
+        K.fluid_k_bt_ref(st["f"], st["rho"], st["vel"], out, segs[1], k, tc)
+    for name in ("f", "rho", "vel"):
+        assert torch.equal(out[name], got["pass"][name]), name
+        assert torch.equal(got["pass"][name], got["classes"][name]), name
 
 
 # --- the runner against the jnp step ---

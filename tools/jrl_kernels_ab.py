@@ -9,7 +9,9 @@ Kernels, through their wrappers: the per-step `fluid_a`, `fluid_b`,
 `c_balance`, `c_approach`; the multi-step `fused_fluid`, `fused_balance`,
 `fused_approach` over 300 steps at 128x64 (the route the tree takes
 there) and at 256x128 (the cooperative kernels), for a wedge and a flat
-tip and both signs of ``is_negative``. The tree must hold
+tip and both signs of ``is_negative``; the tile classes `fluid_k`,
+`fluid_k_lean`, `fluid_k_bt` at 1024x512, k = 1, 2, 4, on the ethaline
+step-0 plan and a flat tip's plan with below-tip rows. The tree must hold
 `jrl_lbm_torch/`. Prints one JSON line, last.
 """
 
@@ -25,6 +27,7 @@ def main() -> int:
 
     from jrl_lbm_torch.kernels import fused_jrl as F
     from jrl_lbm_torch.kernels import jrl_c, jrl_fluid
+    from jrl_lbm_torch.kernels import jrl_tiled as JT
     from jrl_lbm_torch.models import jrl as T
 
     if not torch.cuda.is_available():
@@ -72,6 +75,21 @@ def main() -> int:
             acc = torch.zeros(4, device=dev)
             digest(f"fused_approach {tag}",
                    list(F.fused_approach(st["h"], st["C"], frames, 0, n, cc, cf, acc)) + [acc])
+    for shape, kw, step in (("ethaline", dict(refine=8, res=(128, 64)), 0),
+                            ("cylinder", dict(res=(1024, 512)), 1085)):
+        fc = T.JRLFluidConfig(Re=4.0, vel_obs_real=0.2848, shape=shape, **kw)
+        H = fc.eff_res[0]
+        s = noisy(T.fluid_init(fc, dev)[0])
+        for k in (1, 2, 4):
+            _, _, _, fr, fb = JT.chunk_plan(fc, step, k, k=k)[0]
+            full, bt, lean = JT.class_rows(H, JT.pick_tile_rows(fc), k, fr, fb)
+            o = {key: torch.full_like(v, 7.0) for key, v in s.items()}
+            JT.fluid_k(s["f"], s["rho"], s["vel"], o, full, step, k, fc)
+            if lean:
+                JT.fluid_k_lean(s["f"], o, lean, k, fc)
+            if bt:
+                JT.fluid_k_bt(s["f"], s["rho"], s["vel"], o, bt, k, fc)
+            digest(f"tile classes {shape} k={k} full {full} bt {bt} lean {lean}", o.values())
     torch.cuda.synchronize()
     print(json.dumps(out), flush=True)
     return 0
