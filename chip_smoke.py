@@ -4,15 +4,15 @@ paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the twenty-six CUDA libraries of ``jrl_lbm_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together) and checks that the
+1. Builds the twenty-eight CUDA libraries of ``jrl_lbm_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
    (the cylinder kernels read only the previous step's buffers), and that
-   ``fluid_pass`` spills nothing (``-Xptxas -v``). Prints
-   the cluster kernels' limits on this card and the route choice at
-   128x64: the cluster shape, cells per thread, shared memory and
-   registers per block.
+   ``fluid_pass`` spills nothing (``-Xptxas -v``); prints
+   ``c_approach_pass``'s registers and local bytes, the cluster kernels'
+   limits on this card and the route choice at 128x64: the cluster shape,
+   cells per thread, shared memory and registers per block.
 0. The cylinder channel (``cylinder_phases``): each of its four kernels
    against its plain twin after one step (1e-5) on a split geometry
    (256x128) and a generic one (64x32), and the kernel runner against
@@ -90,19 +90,23 @@ paths on one NVIDIA card and check them.
    steps through the per-step runners (2e-5; vel 2e-4; integrals rtol
    2e-4 / atol 1e-4), on the refine-8 ethaline grid (1024x512) and on the
    flat-tip cylinder at 128x64, where the 100 steps also go through
-   ``pick_*_runner`` (the multi-step kernels).
+   ``pick_*_runner`` (the multi-step kernels); ``c_approach_pass`` also
+   bit for bit the ``c_approach`` pair after PyTorch's lerp (h, C, the
+   integrals), the per-step runner through both.
 3. Holds each multi-step kernel to its twin (the loop of the per-step
    twins) over one launch of 200 steps, at the same tolerances: at 128x64
    (ethaline wedge and cylinder, both ``is_negative``) through both routes
-   of the fluid and balance (the cluster kernels ``fused_fluid_cl``,
-   ``fused_balance_cl`` and the cooperative ones) and at 512x256 (the
-   largest grid they serve, the cooperative route); the approach once
-   across stored-velocity frame boundaries and once across tip rows. The
-   cluster kernels equal the cooperative ones bit for bit over a
-   1000-step launch of the default configurations (and the 45degree
-   tip). Then fluid steps 2**24 - 5 .. 2**24 + 4 through both routes
-   (bit for bit each other) and through fluid_a / fluid_b against the
-   twin.
+   of each phase (the cluster kernels ``fused_fluid_cl``,
+   ``fused_balance_cl``, ``fused_approach_cl`` and the cooperative ones)
+   and at 512x256 (the largest grid they serve, the cooperative route);
+   the approach once across stored-velocity frame boundaries and once
+   across tip rows. The cluster kernels equal the cooperative ones bit for
+   bit over a 1000-step launch of the default configurations (and the
+   45degree tip; the approach's integrals within rtol 2e-4 / atol 1e-4,
+   whether also bit for bit printed), the approach also from step
+   2**24 - 500. Then fluid steps 2**24 - 5 .. 2**24 + 4 through both
+   routes (bit for bit each other) and through fluid_a / fluid_b against
+   the twin.
 3a. Holds each tile-class kernel (``fluid_k``, ``fluid_k_lean``,
    ``fluid_k_bt``) to its twin after one launch at k = 1, 2, 4 (1e-5) at
    1024x512: the refine-8 ethaline grid at step 0 (full and lean tiles)
@@ -126,36 +130,44 @@ paths on one NVIDIA card and check them.
    yardsticks, 1000 steps of a flat tip from a step with below-tip tiles
    (``fluid_pass`` and ``fluid_k_bt``), 100 steps of the ethaline late
    travel from step 41,280 (no lean tile left: ``fluid_a`` / ``fluid_b``,
-   as in JAX), then 1000 balance and approach steps (per-step kernels);
-   each phase's launch counts are zeroed just before it and read just
-   after, and no kernel off the phase may launch. Times the phases
-   (device and wall µs per step, busy share, device µs per launch), the
-   host µs of a ``k_pass`` call through the checked class wrappers and
-   through the runner's unchecked pass, each kernel per launch beside its
-   bound and each twin per call.
+   as in JAX), then 1000 balance steps (per-step ``c_balance``); the
+   approach's ``c_approach_pass`` against the pair (bit for bit) and its
+   twin on the default refine-8 case's steps 0, 10,170,450, its last two
+   (the last frame, no lerp) and 2**24 - 5 .. 2**24 + 4, from windows of
+   its frame history; then 1000 approach steps through ``c_approach_pass``
+   (one launch a step) from step 0 and from step 10,170,450 of the
+   default refine-8 case on a noisy state with a two-frame window, each
+   beside the ``c_approach`` pair after PyTorch's lerp (bit for bit the
+   same result) and the pair alone; each phase's launch counts are zeroed
+   just before it and read just after, and no kernel off the phase may
+   launch. Times the phases (device and wall µs per step, busy share,
+   device µs per launch), the host µs of a ``k_pass`` call through the
+   checked class wrappers and through the runner's unchecked pass, and of
+   an approach step through the checked pair, the checked pass and the
+   runner's unchecked pass, each kernel per launch beside its bound and
+   each twin per call.
 5. Runs the 128x64 path of the default case (``JRLFluidConfig()``,
    ``JRLCConfig()``) through the ``pick_*`` runners in the chunks
    ``run_case`` uses: the fluid phase to its first record step, one
    balance interval (255,528 steps), the approach over its first dumps
    (>= 20,000 steps per phase). Counts zeroed before each phase and read
-   after: the fluid and balance phases must have launched the cluster
-   kernels and no cooperative or per-step kernel, the approach
-   ``fused_approach``. Beside them, as yardsticks, the same fluid and
-   balance chunks through the cooperative kernels (bit for bit the
-   cluster phases' results) and each configuration through the per-step
-   kernels. Then the grid the cooperative kernels serve on the main path,
+   after: each phase must have launched its cluster kernel and no
+   cooperative or per-step kernel. Beside them, as yardsticks, the same
+   chunks through the cooperative kernels (bit for bit the cluster
+   phases' results; the approach's h and C) and each configuration
+   through the per-step kernels. Then the grid the cooperative kernels serve on the main path,
    refine 4 (512x256): 200 fluid and 200 balance steps through
    ``pick_*``.
 6. Runs one whole case through ``jrl_main.run_case`` at 128x64 twice:
-   through the multi-step kernels (its default: the cluster kernels and
-   ``fused_approach``) and through the per-step runners; the record rows
-   agree to rtol 2e-4 / atol 1e-4.
-7. Prints ``{"kernels": [...]}`` (34 rows: each kernel once, the four
+   through the multi-step kernels (its default: the three cluster
+   kernels) and through the per-step runners (``c_approach_pass`` for the
+   approach); the record rows agree to rtol 2e-4 / atol 1e-4.
+7. Prints ``{"kernels": [...]}`` (36 rows: each kernel once, the four
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``; the
    cluster kernels and ``fused_approach`` timed on a 1000-step launch at
-   128x64 (CUDA events), the cooperative ones on a 200-step launch at
-   512x256), the card's name and power limit, and last ``{"ok": true,
-   "device": {...}}``.
+   128x64 (CUDA events), the cooperative fluid and balance on a 200-step
+   launch at 512x256), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without printing a result when no
 card is present or the package is missing.
@@ -185,7 +197,8 @@ F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores
 FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach": 330,
                   # per cell and step: A + B; the balance; the approach + the lerp
                   "fused_fluid": 650, "fused_balance": 230, "fused_approach": 335,
-                  "fused_fluid_cl": 650, "fused_balance_cl": 230,
+                  "fused_fluid_cl": 650, "fused_balance_cl": 230, "fused_approach_cl": 335,
+                  "c_approach_pass": 335,
                   # per cell and step of a tile class (halo recompute not
                   # counted): A + B; the lean A (pulls, moments) + B
                   "fluid_k": 650, "fluid_k_lean": 420, "fluid_k_bt": 650,
@@ -194,10 +207,12 @@ FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach"
                   "fluid_a_sh": 250, "fluid_b_sh": 400, "c_balance_sh": 230,
                   "c_approach_sh": 330, "halo_pack": 0}
 PER_STEP = ("fluid_a", "fluid_b", "c_balance", "c_approach")
+# the kernels of a whole case through the per-step runners
+PER_STEP_CASE = ("fluid_a", "fluid_b", "c_balance", "c_approach_pass")
 FUSED = ("fused_fluid", "fused_balance", "fused_approach")
-FUSED_CL = ("fused_fluid_cl", "fused_balance_cl")
+FUSED_CL = ("fused_fluid_cl", "fused_balance_cl", "fused_approach_cl")
 # the multi-step kernels of the default 128x64 case
-PATH128 = ("fused_fluid_cl", "fused_balance_cl", "fused_approach")
+PATH128 = ("fused_fluid_cl", "fused_balance_cl", "fused_approach_cl")
 SOURCE = {
     "fluid_a": ("jrl_lbm_torch/kernels/csrc/fluid_a.cu",
                 "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:506"),
@@ -207,6 +222,8 @@ SOURCE = {
                   "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1897"),
     "c_approach": ("jrl_lbm_torch/kernels/csrc/c_approach.cu",
                    "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1998"),
+    "c_approach_pass": ("jrl_lbm_torch/kernels/csrc/c_approach_pass.cu",
+                        "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1998"),
     "fused_fluid": ("jrl_lbm_torch/kernels/csrc/fused_fluid.cu",
                     "jrl_lbm_tpu/ops/pallas/fused_jrl.py:138"),
     "fused_balance": ("jrl_lbm_torch/kernels/csrc/fused_balance.cu",
@@ -217,6 +234,8 @@ SOURCE = {
                        "jrl_lbm_tpu/ops/pallas/fused_jrl.py:138"),
     "fused_balance_cl": ("jrl_lbm_torch/kernels/csrc/fused_balance_cl.cu",
                          "jrl_lbm_tpu/ops/pallas/fused_jrl.py:531"),
+    "fused_approach_cl": ("jrl_lbm_torch/kernels/csrc/fused_approach_cl.cu",
+                          "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
     "cyl_full": ("jrl_lbm_torch/kernels/csrc/cyl_full.cu",
                  "jrl_lbm_tpu/ops/pallas/fused_step.py:247"),
     "cyl_interior": ("jrl_lbm_torch/kernels/csrc/cyl_interior.cu",
@@ -288,7 +307,7 @@ def sass_check(build) -> dict:
     import re
     import shutil
 
-    from jrl_lbm_torch.kernels import jrl_tiled
+    from jrl_lbm_torch.kernels import jrl_c, jrl_tiled
 
     log = build.build_log.get("fluid_pass", "")
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
@@ -297,6 +316,8 @@ def sass_check(build) -> dict:
           flush=True)
     if local or any(spills):
         fail(f"fluid_pass spills: {local} local bytes, -Xptxas -v {spills}")
+    regs_p, local_p = jrl_c.pass_info()
+    print(f"  c_approach_pass: {regs_p} registers, {local_p} local bytes", flush=True)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         print("  cuobjdump not found: SASS check not made", flush=True)
@@ -318,7 +339,7 @@ def cluster_choice(F, res) -> dict:
     takes on the ``res`` grid (the default 128x64): blocks, cells per
     thread, dynamic shared memory and registers per block."""
     out = {}
-    for name in ("fused_fluid", "fused_balance"):
+    for name in ("fused_fluid", "fused_balance", "fused_approach"):
         lim = F.card_limits(name, 0)
         shape = F.cluster_shape(name, *res, lim)
         route = F.fused_route(name, *res, lim)
@@ -370,6 +391,8 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fused_approach": ("fused_approach_kernel",),
     "fused_fluid_cl": ("fused_fluid_cl_kernel",),
     "fused_balance_cl": ("fused_balance_cl_kernel",),
+    "fused_approach_cl": ("fused_approach_cl_kernel",),
+    "c_approach_pass": ("c_approach_pass_kernel",),
     "cyl_full": ("cyl_full_kernel",),
     "cyl_interior": ("cyl_interior_kernel",),
     "cyl_interior_k": ("cyl_interior_k_kernel",),
@@ -2171,6 +2194,16 @@ def main() -> int:
             r["launches"] += cyl_sh_halo
             r["max_abs_err"] = max(errs["halo_pack"])
 
+    def equal_bits(tag, got, want, must=True):
+        """Whether ``got`` equals ``want`` bit for bit; fail if not and
+        ``must``."""
+        diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"  {tag:44s} bit for bit: {same} (max |diff| {diff:.3e})", flush=True)
+        if must and not same:
+            fail(f"{tag}: not bit for bit")
+        return same
+
     # ---- 1. each per-step kernel against its twin ----
     def fluid_cfg(shape, refine, **kw):
         return T.JRLFluidConfig(**dict(dict(res=(128, 64), Re=4.0, vel_obs_real=0.2848,
@@ -2242,11 +2275,18 @@ def main() -> int:
         check_close("c_approach 1 step C", C, Cr, 1e-5, errs["c_approach"])
         check_close("c_approach 1 step integrals", acc,
                     torch.stack([ints[0], ints[1], ints[2], ints[3]]), 1e-4, [])
+        acc_p = torch.zeros(4, device=dev)
+        hp, Cp = jrl_c.c_approach_pass(bk["h"], vf, 5, cc, cf, acc_p)
+        check_close("c_approach_pass 1 step h", hp, hr, 1e-5, errs["c_approach_pass"])
+        check_close("c_approach_pass 1 step C", Cp, Cr, 1e-5, errs["c_approach_pass"])
+        check_ints("c_approach_pass 1 step", acc_p, ints)
+        equal_bits("c_approach_pass 1 step = the pair (h, C, ints)", [hp, Cp, acc_p], [h, C, acc])
         ar_, acc_r = T.make_approach_runner(cc)(bk, dict(cf, vel_field=vf), 0, 100)
         keys = ("inflow_sum", "current_sum", "rec_u", "rec_v")
-        runs = [("c_approach", T.make_per_step_approach_runner)]
+        runs = [("c_approach_pass", T.make_per_step_approach_runner),
+                ("c_approach", lambda c, v: T.make_per_step_approach_runner(c, v, route="pair"))]
         if multi:
-            runs.append(("fused_approach", T.pick_approach_runner))
+            runs.append((route_kernel("fused_approach", cc), T.pick_approach_runner))
         for k, make in runs:
             ak, acc_k = make(cc, vf)(bk, cf, 0, 100)
             for nm in ("h", "C"):
@@ -2258,14 +2298,6 @@ def main() -> int:
         g = torch.Generator(device=dev).manual_seed(seed)
         return 0.5 * torch.randn((n, 2, H, W), generator=g, device=dev)
 
-    def equal_bits(tag, got, want):
-        """Bit for bit, or fail."""
-        diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
-        print(f"  {tag:44s} bit for bit: {same} (max |diff| {diff:.3e})", flush=True)
-        if not same:
-            fail(f"{tag}: the cluster kernel differs from the cooperative one")
-
     n_fused = 200
     for shape, refine, negs in (("ethaline", 1, (True, False)), ("cylinder", 1, (True, False)),
                                 ("ethaline", 4, (True,))):
@@ -2274,7 +2306,7 @@ def main() -> int:
         # both routes where the default grid takes the cluster kernels; the
         # route fused_route takes at 512x256, which must be the cooperative one
         want_route = "cluster" if refine == 1 else "coop"
-        for phase in ("fused_fluid", "fused_balance"):
+        for phase in ("fused_fluid", "fused_balance", "fused_approach"):
             if route_kernel(phase, fc) != (phase + "_cl" if want_route == "cluster" else phase):
                 fail(f"{phase} at {H}x{W}: route {route_kernel(phase, fc)}, expected {want_route}")
         routes = fused_jrl.ROUTES if refine == 1 else (None,)
@@ -2316,18 +2348,38 @@ def main() -> int:
                       f"{n_frames_crossed} frame boundaries, {rows} tip rows", flush=True)
                 if (label == "frames" and n_frames_crossed < 3) or (label == "rows" and rows < 1):
                     fail(f"approach ({label}) check does not cross what it should")
-                acc = torch.zeros(4, device=dev)
-                h, C = fused_jrl.fused_approach(sa["h"], sa["C"], vf, 0, n_fused, ca, cfa, acc)
                 hr, Cr, ints = fused_jrl.fused_approach_ref(sa["h"], sa["C"], vf, 0, n_fused,
                                                             ca, cfa)
-                check_close(f"fused_approach {label} neg={neg} h", h, hr, TOL["h"],
-                            errs["fused_approach"])
-                check_close(f"fused_approach {label} neg={neg} C", C, Cr, TOL["C"],
-                            errs["fused_approach"])
-                check_ints(f"fused_approach {label}", acc, ints)
+                for route in routes:
+                    k = "fused_approach_cl" if route == "cluster" else "fused_approach"
+                    acc = torch.zeros(4, device=dev)
+                    h, C = fused_jrl.fused_approach(sa["h"], sa["C"], vf, 0, n_fused, ca, cfa, acc,
+                                                    route=route)
+                    check_close(f"{k} {label} neg={neg} h", h, hr, TOL["h"], errs[k])
+                    check_close(f"{k} {label} neg={neg} C", C, Cr, TOL["C"], errs[k])
+                    check_ints(f"{k} {label}", acc, ints)
 
     print("cluster kernels against the cooperative ones: one 1000-step launch at 128x64",
           flush=True)
+    ints_bits = report.setdefault("fused_approach_cl_integrals_bit_for_bit", {})
+
+    def approach_cl_equal(cc, st, cf, start, tag):
+        """fused_approach_cl against fused_approach over one 1000-step
+        launch from ``start`` (frames every ~390 steps at the default tip
+        speed): h and C bit for bit; the integrals within rtol 2e-4 / atol
+        1e-4, and whether they are bit for bit too."""
+        H_, W_ = cc.eff_res
+        n_fr = int((start + 1001) * cc.vel_obs_conv / T.X_INTERVAL) + 2
+        vf_ = frame_field(H_, W_, n_fr, seed=11)
+        out = {}
+        for r in ("cluster", "coop"):
+            acc_ = torch.zeros(4, device=dev)
+            out[r] = list(fused_jrl.fused_approach(st["h"], st["C"], vf_, start, 1000, cc, cf,
+                                                   acc_, route=r)) + [acc_]
+        equal_bits(f"fused_approach_cl {tag} (h, C)", out["cluster"][:2], out["coop"][:2])
+        check_ints(f"fused_approach_cl {tag} vs coop", out["cluster"][2], out["coop"][2])
+        ints_bits[tag] = equal_bits(f"fused_approach_cl {tag} integrals", out["cluster"][2:],
+                                    out["coop"][2:], must=False)
     for fc, cc in ((T.JRLFluidConfig(), T.JRLCConfig()),
                    (fluid_cfg("45degree", 1), c_cfg("45degree", 1, is_negative=False))):
         s, fl = T.fluid_init(fc, dev)
@@ -2340,6 +2392,11 @@ def main() -> int:
         equal_bits(f"fused_balance_cl {cc.shape} neg={cc.is_negative}", *(
             fused_jrl.fused_balance(st["h"], st["C"], flags, 1000, cc, cf, route=r)
             for r in ("cluster", "coop")))
+        approach_cl_equal(cc, st, cf, 0, f"{cc.shape} neg={cc.is_negative}")
+    # across 2**24, at a tip speed that keeps the tip in the grid there
+    cc = T.JRLCConfig(Pe=1e-5)
+    st, cf, _ = T.c_init(cc, dev)
+    approach_cl_equal(cc, noisy(st, dev, 24), cf, 2**24 - 500, "across 2**24")
 
     print("fluid steps 2**24 - 5 .. 2**24 + 4 at 128x64", flush=True)
     for shape in ("45degree", "cylinder"):
@@ -2497,20 +2554,131 @@ def main() -> int:
         return bstate["s"]
 
     sb = run_phase("balance", ("c_balance",), balance_steps, n, cells)
-    app_run = T.pick_approach_runner(cc, vel_field)
-    astate = {"s": sb, "acc": None, "cur": 0}
 
-    def approach_steps(k):
-        astate["s"], astate["acc"] = app_run(astate["s"], cf, astate["cur"], k)
-        astate["cur"] += k
-        return astate["s"]
+    def approach_stepper(run, state, fields, cur):
+        """``fn(k)``: k more steps of the approach runner ``run`` from step
+        ``cur``; its last acc in ``fn.acc``."""
+        box = {"s": state, "cur": cur}
 
-    sa = run_phase("approach", ("c_approach",), approach_steps, n, cells)
-    acc = astate["acc"]
-    print(f"  approach integrals: inflow_sum {float(acc['inflow_sum']):.6g} "
-          f"current_sum {float(acc['current_sum']):.6g}", flush=True)
-    if not (torch.isfinite(sa["C"]).all() and float(acc["inflow_sum"]) > 0):
-        fail("approach state not finite or inflow not positive")
+        def steps(k):
+            box["s"], steps.acc = run(box["s"], fields, box["cur"], k)
+            box["cur"] += k
+            return box["s"]
+
+        return steps
+
+    def approach_phases(tag, cfg, state, fields, frames, start, b0=0, n_frames=None):
+        """The approach from ``start`` through ``c_approach_pass`` once a
+        step (the runner ``pick_approach_runner`` gives this grid, here with
+        the frame window ``frames`` from frame ``b0`` of ``n_frames``), and
+        as yardsticks through the c_approach pair after PyTorch's lerp and
+        through the pair alone (the lerped velocity of ``start`` for every
+        step). The pass and the pair with the lerp run the same steps and
+        must end bit for bit alike (h, C, the integrals)."""
+        if T.pick_approach_runner(cfg, frames).route != "pass":
+            fail(f"{tag}: pick_approach_runner does not take c_approach_pass")
+        main = approach_stepper(T.make_per_step_approach_runner(
+            cfg, frames, b0=b0, n_frames=n_frames), state, fields, start)
+        out = run_phase(tag, ("c_approach_pass",), main, n, cells)
+        pair = approach_stepper(T.make_per_step_approach_runner(
+            cfg, frames, route="pair", b0=b0, n_frames=n_frames), state, fields, start)
+        out_pair = run_phase(f"{tag} pair", ("c_approach",), pair, n, cells, yardstick=True)
+        keys = ("inflow_sum", "current_sum", "rec_u", "rec_v")
+        equal_bits(f"{tag}: pass = pair (h, C, integrals)",
+                   [out["h"], out["C"]] + [main.acc[k] for k in keys],
+                   [out_pair["h"], out_pair["C"]] + [pair.acc[k] for k in keys])
+        vel0 = T.stored_velocity(frames, start, cfg.vel_obs_conv, b0, n_frames)
+        alone = {"s": state}
+
+        def pair_alone(k):
+            h_, C_ = alone["s"]["h"], alone["s"]["C"]
+            acc_ = torch.zeros(4, device=dev)
+            for i in range(k):
+                h_, C_ = jrl_c.c_approach(h_, C_, vel0, start + i, cfg, fields, acc_)
+            alone["s"] = {"h": h_, "C": C_}
+            return alone["s"]
+
+        run_phase(f"{tag} pair alone", ("c_approach",), pair_alone, n, cells, yardstick=True)
+        for rest in ("pair", "pair alone"):
+            a, b = phases[tag], phases[f"{tag} {rest}"]
+            print(f"  {tag}: c_approach_pass {a.get('device_us_per_step', float('nan')):.3f} "
+                  f"device / {a['ms_per_step'] * 1e3:.3f} wall us/step (busy "
+                  f"{a.get('busy_share', float('nan')):.1%}) against {rest} "
+                  f"{b.get('device_us_per_step', float('nan')):.3f} / "
+                  f"{b['ms_per_step'] * 1e3:.3f} (busy {b.get('busy_share', float('nan')):.1%})",
+                  flush=True)
+        acc_ = main.acc
+        print(f"  {tag} integrals: inflow_sum {float(acc_['inflow_sum']):.6g} "
+              f"current_sum {float(acc_['current_sum']):.6g}", flush=True)
+        if not (torch.isfinite(out["C"]).all() and float(acc_["inflow_sum"]) > 0):
+            fail(f"{tag}: state not finite or inflow not positive")
+        return out
+
+    print(f"c_approach_pass against the pair (bit for bit) and its twin on the default "
+          f"refine-8 case's plans", flush=True)
+    c8 = T.JRLCConfig(shape="ethaline", refine=8)
+    n_fr8 = T.frame_pair(c8.total_steps - 1, c8.vel_obs_conv, 2**31)[0] + 1
+    st8, cf8, _ = T.c_init(c8, dev)
+    for start, m in ((0, 2), (10_170_450, 2), (c8.total_steps - 2, 2), (2**24 - 5, 10)):
+        bs = [T.frame_pair(x, c8.vel_obs_conv, n_fr8) for x in (start, start + m - 1)]
+        b0, b1 = bs[0][0], bs[1][0] + int(bs[1][2])
+        win = frame_field(H, W, b1 - b0 + 1, seed=start % 97)
+        s_ = noisy(st8, dev, start % 89)
+        h_, C_ = s_["h"], s_["C"]
+        for x in range(start, start + m):
+            acc_p, acc_q = torch.zeros(4, device=dev), torch.zeros(4, device=dev)
+            hp, Cp = jrl_c.c_approach_pass(h_, win, x, c8, cf8, acc_p, b0=b0, n_frames=n_fr8)
+            vel_ = T.stored_velocity(win, x, c8.vel_obs_conv, b0, n_fr8)
+            hq, Cq = jrl_c.c_approach(h_, C_, vel_, x, c8, cf8, acc_q)
+            equal_bits(f"c_approach_pass step {x} = the pair", [hp, Cp, acc_p], [hq, Cq, acc_q])
+            hr, Cr, ints = jrl_c.c_approach_pass_ref(h_, win, x, c8, cf8, b0, n_fr8)
+            check_close(f"c_approach_pass step {x} h", hp, hr, 1e-5, errs["c_approach_pass"])
+            check_close(f"c_approach_pass step {x} C", Cp, Cr, 1e-5, errs["c_approach_pass"])
+            check_ints(f"c_approach_pass step {x}", acc_p, ints)
+            h_, C_ = hp, Cp
+
+    approach_phases("approach", cc, sb, cf, vel_field, 0)
+    # the middle of the default refine-8 case's travel, on a noisy state,
+    # with a two-frame window of its history at that step's frame index
+    mid8 = 10_170_450
+    b8 = T.frame_pair(mid8, c8.vel_obs_conv, n_fr8)[0]
+    if T.frame_pair(mid8 + 2 * n + 10, c8.vel_obs_conv, n_fr8)[0] != b8:
+        fail("the mid-travel approach plan leaves its two-frame window")
+    print(f"  approach mid-travel: the default refine-8 case ({c8.total_steps} steps) from step "
+          f"{mid8}, frames {b8}, {b8 + 1} of {n_fr8}", flush=True)
+    approach_phases("approach mid-travel", c8, noisy(st8, dev, 8), cf8,
+                    frame_field(H, W, 2, seed=8), mid8, b8, n_fr8)
+    report["approach_mid_plan"] = {"step": mid8, "b0": b8, "n_frames": n_fr8}
+
+    # host µs a step of the approach (the enqueue, device work excluded):
+    # the pair after PyTorch's lerp through its checked wrapper, the pass
+    # through its checked wrapper and as the runner makes it, unchecked on
+    # the context it checked once a run; 50 calls, fewer than the launches
+    # the card queues, so that the host never waits on the device
+    sa0 = noisy(sb, dev, 9)
+    hp_bufs = [(torch.empty_like(sa0["h"]), torch.empty_like(sa0["C"])) for _ in range(2)]
+    acc_h = torch.zeros(4, device=dev)
+    pctx = jrl_c.approach_pass_ctx(sa0["h"], hp_bufs, vel_field, 0, 1, cc, cf, acc_h)
+    host = {}
+    for label, call in (
+            ("pair + lerp, checked", lambda: jrl_c.c_approach(
+                sa0["h"], sa0["C"], T.stored_velocity(vel_field, 0, cc.vel_obs_conv), 0, cc, cf,
+                acc_h)),
+            ("pass, checked", lambda: jrl_c.c_approach_pass(sa0["h"], vel_field, 0, cc, cf,
+                                                            acc_h, out=hp_bufs[0])),
+            ("pass, runner", lambda: jrl_c.c_approach_pass(sa0["h"], vel_field, 0, cc, cf, acc_h,
+                                                           out=hp_bufs[0], ctx=pctx))):
+        with torch.cuda.device(dev):
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                call()
+            host[label] = (time.perf_counter() - t0) / 50 * 1e6
+            torch.cuda.synchronize()
+    report["approach_host_us"] = host
+    print("  host us per approach step: " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()),
+          flush=True)
 
     # ---- 4. each per-step kernel alone, and its twin, at 1024x512 ----
     rows, tiled_rows = [], []
@@ -2556,11 +2724,16 @@ def main() -> int:
                        lambda: jrl_c.c_approach_ref(st["h"], st["C"], vel_c, 0, cc, cf),
                        [cf["base_flags"], st["h"], vel_c, cf["area"], acc0],
                        [st["h"], st["C"], acc0]),
+        # the bytes: the two frames the step reads, not the lerped plane
+        "c_approach_pass": (lambda: jrl_c.c_approach_pass(st["h"], vel_field, 0, cc, cf, acc0),
+                            lambda: jrl_c.c_approach_pass_ref(st["h"], vel_field, 0, cc, cf),
+                            [cf["base_flags"], st["h"], vel_field[:2], cf["area"], acc0],
+                            [st["h"], st["C"], acc0]),
     }
     print(f"per launch at {H}x{W} (memory rate {rate / 1e12:.2f} TB/s):", flush=True)
     main_phases = [p for p in phases.values() if not p.get("yardstick")]
     main_launches = {k: sum(p["launches"].get(k, 0) for p in main_phases)
-                     for k in PER_STEP + TILED}
+                     for k in PER_STEP + ("c_approach_pass",) + TILED}
 
     def main_us(k):
         """The kernel's device µs per launch on the main path (profiler),
@@ -2568,7 +2741,7 @@ def main() -> int:
         return next((p["kernel_us_per_launch"][k] for p in main_phases + list(phases.values())
                      if (p.get("kernel_us_per_launch") or {}).get(k)), None)
 
-    for k in PER_STEP:
+    for k in PER_STEP + ("c_approach_pass",):
         kfn, tfn, ins, outs = runs[k]
         call_ms = cuda_ms(kfn, 200)
         # the kernel's device time on the main path (profiler), else the
@@ -2705,7 +2878,7 @@ def main() -> int:
     path128, outs128 = {}, {}
     for pname, kname, fn, steps in (("fluid", "fused_fluid_cl", fluid_chunks, first_rec + 1),
                                     ("balance", "fused_balance_cl", balance_chunk, interval),
-                                    ("approach", "fused_approach", approach_chunks, total)):
+                                    ("approach", "fused_approach_cl", approach_chunks, total)):
         out = run_phase(f"128x64 {pname}", (kname,), fn, steps, cells)
         if not all(torch.isfinite(v).all() for v in out.values()):
             fail(f"128x64 {pname}: state not finite")
@@ -2714,8 +2887,7 @@ def main() -> int:
     if not bal_rows[-1] > 0:
         fail("128x64 balance: inflow not positive")
 
-    print("128x64 yardstick: the same fluid and balance chunks through the cooperative "
-          "kernels", flush=True)
+    print("128x64 yardstick: the same chunks through the cooperative kernels", flush=True)
 
     def coop_fluid(_n):  # fluid_chunks on the cooperative kernel
         st_ = s0
@@ -2730,8 +2902,19 @@ def main() -> int:
         out["C"].cpu()
         return out
 
+    def coop_approach(_n):  # approach_chunks on the cooperative kernel
+        st_, cur = st0, 0
+        for k in dumps:
+            acc_ = torch.zeros(4, device=dev)
+            st_ = dict(zip(("h", "C"), fused_jrl.fused_approach(
+                st_["h"], st_["C"], vf0, cur, k + 1 - cur, cc0, cf0, acc_, route="coop")))
+            cur = k + 1
+            acc_.cpu()
+        return st_
+
     for pname, kname, fn, steps in (("fluid", "fused_fluid", coop_fluid, first_rec + 1),
-                                    ("balance", "fused_balance", coop_balance, interval)):
+                                    ("balance", "fused_balance", coop_balance, interval),
+                                    ("approach", "fused_approach", coop_approach, total)):
         out = run_phase(f"128x64 {pname} coop", (kname,), fn, steps, cells, yardstick=True)
         keys = ("f", "rho", "vel") if pname == "fluid" else ("h", "C")
         equal_bits(f"128x64 {pname} phase ({steps} steps), cluster vs coop",
@@ -2821,7 +3004,7 @@ def main() -> int:
             for ptc in patches:
                 ptc.stop()
         counts = {k: c for k, c in kernels.launches().items() if c}
-        want = set(PATH128 if label == "multi-step" else PER_STEP)
+        want = set(PATH128 if label == "multi-step" else PER_STEP_CASE)
         if set(counts) != want:
             fail(f"whole case ({label}) launched {counts}")
         cases_out[label] = res
@@ -2850,7 +3033,8 @@ def main() -> int:
     report["whole_case"]["worst_rel"] = worst
 
     # ---- 7. each multi-step kernel alone, and its twin: the cluster kernels
-    # and the approach at 128x64, the cooperative kernels at 512x256 ----
+    # and the cooperative approach at 128x64, the cooperative fluid and
+    # balance kernels at 512x256 ----
     n_row = 1000
     print(f"multi-step kernels at {H}x{W}, one launch of {n_row} steps, and the twin "
           f"for the same steps (CUDA events):", flush=True)
@@ -2859,7 +3043,9 @@ def main() -> int:
     fl_out = fused_jrl.fused_fluid_cl(f, rho, vel, 0, n_row, fc0, fl0)
     bl_out = fused_jrl.fused_balance_cl(st0["h"], st0["C"], flags0, n_row, cc0, cf0)
     acc1 = torch.zeros(4, device=dev)
-    ap_out = fused_jrl.fused_approach(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0, acc1)
+    ap_out = fused_jrl.fused_approach(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0, acc1,
+                                      route="coop")
+    apc_out = fused_jrl.fused_approach_cl(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0, acc1)
     b_last = int((n_row - 1) * cc0.vel_obs_conv / T.X_INTERVAL)  # the frames the run reads
     frames_read = vf0[: min(b_last + 2, n_frames0)]
     fruns = {
@@ -2870,16 +3056,23 @@ def main() -> int:
             lambda: fused_jrl.fused_balance_cl(st0["h"], st0["C"], flags0, n_row, cc0, cf0),
             lambda: fused_jrl.fused_balance_ref(st0["h"], st0["C"], flags0, n_row, cc0, cf0),
             [flags0, st0["h"], st0["C"]], list(bl_out)),
+        "fused_approach_cl": (
+            lambda: fused_jrl.fused_approach_cl(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0,
+                                                acc1),
+            lambda: fused_jrl.fused_approach_ref(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0),
+            [cf0["base_flags"], frames_read, cf0["area"], st0["h"]], list(apc_out) + [acc1]),
         "fused_approach": (
-            lambda: fused_jrl.fused_approach(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0, acc1),
+            lambda: fused_jrl.fused_approach(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0, acc1,
+                                             route="coop"),
             lambda: fused_jrl.fused_approach_ref(st0["h"], st0["C"], vf0, 0, n_row, cc0, cf0),
             [cf0["base_flags"], frames_read, cf0["area"], st0["h"]], list(ap_out) + [acc1]),
     }
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for k in PATH128:
+    for k in PATH128 + ("fused_approach",):
         kfn, tfn, ins, outs = fruns[k]
+        # launches on the main path (fused_approach: none since the cluster route)
         row(k, cuda_ms(kfn, 5, warmup=1), cuda_ms(tfn, 1, warmup=0), ins, outs, n_row, cells,
-            path128[k]["launches"][k], "events")
+            path128[k]["launches"][k] if k in path128 else 0, "events")
         if k in FUSED_CL:  # the operation bound of one cluster's SMs
             blocks = report["cluster"][k[:-3]]["blocks"]
             per = phases["per_launch"][k]
@@ -2909,8 +3102,8 @@ def main() -> int:
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows
-    if len(rows) != 34:
-        fail(f"{len(rows)} kernel rows, expected 34")
+    if len(rows) != 36:
+        fail(f"{len(rows)} kernel rows, expected 36")
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel
 of the JRL and cylinder-channel paths, each beside its plain PyTorch
-twin: the per-step JRL kernels of every grid (`jrl_fluid.py`, `jrl_c.py`),
+twin: the per-step JRL kernels of every grid (`jrl_fluid.py`, `jrl_c.py`;
+the approach in one launch a step with its frame lerp and integrals),
 the multi-step JRL kernels of grids up to 131,072 cells (`fused_jrl.py`;
-the fluid and balance phases of grids that fit one thread-block cluster's
+the three phases of grids that fit one thread-block cluster's
 shared memory, such as the default 128x64, on cluster kernels of their
 own),
 the k-step tile-class kernels of the JRL fluid phase on larger grids
@@ -23,7 +24,8 @@ KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "fluid_k", "fluid_k_lean", "fluid_k_bt", "periodic",
            "fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack",
            "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh",
-           "fused_fluid_cl", "fused_balance_cl", "fluid_pass")
+           "fused_fluid_cl", "fused_balance_cl", "fluid_pass",
+           "c_approach_pass", "fused_approach_cl")
 
 
 def wrappers():
@@ -58,6 +60,8 @@ def wrappers():
         "fused_fluid_cl": fused_jrl.fused_fluid_cl,
         "fused_balance_cl": fused_jrl.fused_balance_cl,
         "fluid_pass": jrl_tiled.fluid_pass,
+        "c_approach_pass": jrl_c.c_approach_pass,
+        "fused_approach_cl": fused_jrl.fused_approach_cl,
     }
 
 

@@ -184,8 +184,15 @@ struct Band {
   // until both neighbours' bytes of mbarrier k's phase `parity` landed
   __device__ __forceinline__ void exchange(int k, uint32_t parity, int rearm,
                                            uint32_t rearm_bytes) const {
+    finish(rearm, rearm_bytes);
+    wait(k, parity);
+  }
+  // exchange in two halves, for work between them that reads no halo row
+  __device__ __forceinline__ void finish(int rearm, uint32_t rearm_bytes) const {
     __syncthreads();
     if (threadIdx.x == 0 && rearm >= 0) mbar_expect(pick(bar, rearm), rearm_bytes);
+  }
+  __device__ __forceinline__ void wait(int k, uint32_t parity) const {
     mbar_wait(pick(bar, k), parity);
   }
   // a[k] without indexing a register array by a runtime k (local memory)

@@ -21,7 +21,8 @@
 // [N, 2, H, W] stays in device memory. The frame index is monotone in the
 // step, so each thread loads its cells' frame pair into registers when the
 // index changes, and only then (the Pallas kernel's interval loop); index
-// and weight come from the float32 arithmetic of stored_velocity. The
+// and weight come from the float32 arithmetic of stored_velocity
+// (jrl_c.cuh::frame_vel, shared with the other approach kernels). The
 // integrals: threads x < rint of block 0 add the step's disk terms into
 // registers after each barrier (the step's C is not overwritten before
 // the next barrier), and reduce once at the end in a fixed tree order, no
@@ -33,26 +34,6 @@ namespace {
 
 using namespace jrl;
 namespace cg = cooperative_groups;
-
-constexpr float X_INTERVAL = 0.1f;  // tip travel between stored frames
-
-// The frame pair and weight of `step` (models/jrl.py::stored_velocity):
-// q = f32(f32(step) * v) / 0.1, b = clip(floor(q), 0, n_frames - 1),
-// t = q - b, lerp when b + 1 < n_frames.
-__device__ __forceinline__ FrameVel frame_vel(const float* frames, int n_frames, int HW,
-                                              int step, float v, int& b) {
-  const float q = __fdiv_rn(__fmul_rn((float)step, v), X_INTERVAL);
-  const float fb = floorf(q);
-  b = fb >= (float)(n_frames - 1) ? n_frames - 1 : (fb < 0.0f ? 0 : (int)fb);
-  FrameVel fv;
-  fv.t = __fsub_rn(q, (float)b);
-  fv.omt = __fsub_rn(1.0f, fv.t);
-  fv.lerp = b + 1 < n_frames;
-  fv.HW = HW;
-  fv.f0 = frames + (size_t)b * 2 * HW;
-  fv.f1 = fv.lerp ? fv.f0 + 2 * HW : fv.f0;
-  return fv;
-}
 
 // Step i reads the h that step i - 1 wrote (the input for i = 0) and
 // writes set P for even i, Q for odd i.
@@ -76,7 +57,7 @@ __global__ void __launch_bounds__(FUSED_BLOCK) fused_approach_kernel(
     float* Cd = (i & 1) ? CQ : CP;
     const int step = start + i;
     int b;
-    const FrameVel fv = frame_vel(frames, n_frames, HW, step, p.v, b);
+    const FrameVel fv = frame_vel(frames, n_frames, 0, HW, step, p.v, b);
     if (b != b_held) {  // uniform over the grid: b depends on the step only
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
@@ -109,7 +90,7 @@ __global__ void __launch_bounds__(FUSED_BLOCK) fused_approach_kernel(
   if (blockIdx.x != 0 || n < 1) return;
   int b;
   const int last = start + n - 1;
-  const auto g = approach_geo(base, frame_vel(frames, n_frames, HW, last, p.v, b), last, p);
+  const auto g = approach_geo(base, frame_vel(frames, n_frames, 0, HW, last, p.v, b), last, p);
   const int r_cur = disk_row(g.walks_int + 1, H);
   float s[4] = {s_in, s_cur, 0.0f, 0.0f};
   if (disk) {

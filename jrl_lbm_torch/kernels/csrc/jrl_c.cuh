@@ -164,6 +164,28 @@ struct FrameVel {
   __device__ float v(int i) const { return at(f0[HW + i], lerp ? f1[HW + i] : 0.0f); }
 };
 
+constexpr float X_INTERVAL = 0.1f;  // tip travel between stored frames
+
+// The frame pair and weight of `step` (models/jrl.py::stored_velocity):
+// q = f32(f32(step) * v) / 0.1, b = clip(floor(q), 0, n_frames - 1),
+// t = q - b, lerp when b + 1 < n_frames. `frames` holds frames b0, b0 + 1,
+// ... of the n_frames of the history (a window; b0 = 0 for all of it), and
+// the caller has checked that it holds b and, when lerp, b + 1.
+__device__ __forceinline__ FrameVel frame_vel(const float* frames, int n_frames, int b0, int HW,
+                                              int step, float v, int& b) {
+  const float q = __fdiv_rn(__fmul_rn((float)step, v), X_INTERVAL);
+  const float fb = floorf(q);
+  b = fb >= (float)(n_frames - 1) ? n_frames - 1 : (fb < 0.0f ? 0 : (int)fb);
+  FrameVel fv;
+  fv.t = __fsub_rn(q, (float)b);
+  fv.omt = __fsub_rn(1.0f, fv.t);
+  fv.lerp = b + 1 < n_frames;
+  fv.HW = HW;
+  fv.f0 = frames + (size_t)(b - b0) * 2 * HW;
+  fv.f1 = fv.lerp ? fv.f0 + 2 * HW : fv.f0;
+  return fv;
+}
+
 // The moving tip over the base flags B (GlobalPlane, or jrl_shard.cuh::
 // ShardFlags in a shard), read at global coordinates.
 template <class V, class B = GlobalPlane>
@@ -176,14 +198,16 @@ struct ApproachGeo {
   TipSdf sdf;
 
   __device__ float phi(int y, int x) const { return sdf.phi(y, x); }
-  // models/jrl.py::_c_flags_at with strict=True
-  __device__ int flag(int y, int x) const {
+  // models/jrl.py::_c_flags_at with strict=True, ph = phi(y, x) (read for
+  // the wedge only)
+  __device__ int flag_at(int y, int x, float ph) const {
     const bool obs = flat ? (y < walks_int && x < rg)
-                          : (phi(y, x) < 0.0f || (y < inflow_h_int && x < rg));
+                          : (ph < 0.0f || (y < inflow_h_int && x < rg));
     int fl = obs ? OBSTACLE : base.at(y, x);
     if (y == walks_int - 1 && x < rint) fl = INFLOW;
     return fl;
   }
+  __device__ int flag(int y, int x) const { return flag_at(y, x, flat ? 0.0f : phi(y, x)); }
   __device__ bool tip_block(int y, int x) const { return y < walks_int && x < rg; }
   // the convection velocity of a cell from its stored velocity (u_s, v_s)
   __device__ float cu_of(int y, int x, float u_s) const { return tip_block(y, x) ? 0.0f : u_s * v; }
@@ -229,6 +253,49 @@ template <class V>
 __device__ __forceinline__ ApproachGeo<V> approach_geo(const int* base, V vel, int step,
                                                        const CApproachParams& p) {
   return approach_geo_on(GlobalPlane{base, p.W}, vel, step, p);
+}
+
+// The moving tip of one step read from a window of rows: the flag and phi
+// of each window cell, computed once a cell and step by fill_window_geo
+// from ApproachGeo's own functions, at local row j = y - ybase (mod H) of
+// planes W wide. Every other answer (tip block, convection velocity, the
+// inflow rule) is ApproachGeo's, so the cell code reads the values
+// ApproachGeo computes on every call.
+template <class V, class B = GlobalPlane>
+struct WindowGeo : ApproachGeo<V, B> {
+  const int* codes;
+  const float* phis;
+  int ybase;
+  __device__ __forceinline__ int at(int y, int x) const {
+    const int j = y - ybase;
+    return (j < 0 ? j + this->H : j) * this->W + x;
+  }
+  __device__ int flag(int y, int x) const { return codes[at(y, x)]; }
+  __device__ float phi(int y, int x) const { return phis[at(y, x)]; }
+};
+
+// flag and phi of window rows ybase .. ybase + rows - 1 (mod H) into
+// codes / phis, cells split over `nthreads` threads.
+template <class V, class B>
+__device__ __forceinline__ void fill_window_geo(const ApproachGeo<V, B>& g, int ybase, int rows,
+                                                int* codes, float* phis, int tid, int nthreads) {
+  for (int c = tid; c < rows * g.W; c += nthreads) {
+    const int j = c / g.W, x = c - j * g.W, y = (ybase + j) % g.H;
+    const float ph = g.phi(y, x);
+    codes[c] = g.flag_at(y, x, ph);
+    phis[c] = ph;
+  }
+}
+
+template <class V, class B>
+__device__ __forceinline__ WindowGeo<V, B> window_geo(const ApproachGeo<V, B>& g, int ybase,
+                                                      const int* codes, const float* phis) {
+  WindowGeo<V, B> w;
+  static_cast<ApproachGeo<V, B>&>(w) = g;
+  w.codes = codes;
+  w.phis = phis;
+  w.ybase = ybase;
+  return w;
 }
 
 // The new C of cell (y, x) of flag `fl` (g.flag(y, x)), its streamed
@@ -314,13 +381,16 @@ __device__ __forceinline__ void disk_terms(const float* Cn, int H, int W, int wi
   }
 }
 
-// Sum of v[k][0 .. n) for k < 4 over a block, in a fixed tree order (no
-// atomics, so runs repeat bit for bit); n is a power of two and the
-// block's thread count. The result is in red[k][0].
+// Sum of v[k][0 .. N) for k < 4 over the first N threads of a block (N a
+// power of two, at most the block's thread count; every thread calls it),
+// in a fixed tree order (no atomics, so runs repeat bit for bit). The
+// result is in red[k][0].
 template <int N>
 __device__ __forceinline__ void block_sum4(float (&red)[4][N], const float s[4]) {
+  if (threadIdx.x < N) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) red[k][threadIdx.x] = s[k];
+    for (int k = 0; k < 4; ++k) red[k][threadIdx.x] = s[k];
+  }
   __syncthreads();
   for (int half = N / 2; half > 0; half >>= 1) {
     if (threadIdx.x < half) {

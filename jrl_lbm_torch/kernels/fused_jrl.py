@@ -1,13 +1,13 @@
 """Multi-step kernels of the three JRL phases for grids of at most
 ``MAX_FUSED_CELLS`` cells (`csrc/fused_fluid.cu`, `csrc/fused_balance.cu`,
 `csrc/fused_approach.cu`, and the cluster kernels `csrc/fused_fluid_cl.cu`,
-`csrc/fused_balance_cl.cu`), each with its plain PyTorch twin, and the
-runners built on them.
+`csrc/fused_balance_cl.cu`, `csrc/fused_approach_cl.cu`), each with its
+plain PyTorch twin, and the runners built on them.
 
 Replace the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_jrl.py`:
 ``_make_jrl_fluid_kernel``, ``_make_balance_kernel`` and
-``_make_approach_kernel``. One launch advances n steps. The fluid and
-balance phases take one of two routes, picked by `fused_route` from the
+``_make_approach_kernel``. One launch advances n steps. Each phase
+takes one of two routes, picked by `fused_route` from the
 grid and the card's limits before any launch: where the state fits the
 shared memory of one thread-block cluster at one cell per thread (the
 default 128x64), the cluster kernel keeps it there for the whole launch;
@@ -60,7 +60,7 @@ MAX_LAUNCH_CELL_STEPS = {"fused_fluid": 2**29, "fused_balance": 2**31, "fused_ap
 # halo row a side in shared memory: window planes of each kernel
 CLUSTER_THREADS = 512
 CLUSTER_MIN_ROWS = 2
-CLUSTER_PLANES = {"fused_fluid": 23, "fused_balance": 19}
+CLUSTER_PLANES = {"fused_fluid": 23, "fused_balance": 19, "fused_approach": 22}
 ROUTES = ("cluster", "coop")
 
 
@@ -186,13 +186,13 @@ def cluster_shape(name: str, H: int, W: int, limits: ClusterLimits):
 
 
 def fused_route(name: str, H: int, W: int, limits: ClusterLimits) -> str:
-    """``"cluster"`` where the state of ``name`` (``"fused_fluid"`` or
-    ``"fused_balance"``) on an ``H x W`` grid fits one cluster of a card
-    with ``limits`` at one cell per thread, else ``"coop"`` (the
-    cooperative kernel). A cluster kernel's step is one thread's cell
-    latency: at 2 or 4 cells a thread it runs them one after the other on
-    16 SMs and loses to the cooperative grid, which spreads them over the
-    card (PERF.md §6: 256x128 at 4 cells a thread)."""
+    """``"cluster"`` where the state of ``name`` (``"fused_fluid"``,
+    ``"fused_balance"`` or ``"fused_approach"``) on an ``H x W`` grid fits
+    one cluster of a card with ``limits`` at one cell per thread, else
+    ``"coop"`` (the cooperative kernel). A cluster kernel's step is one
+    thread's cell latency: at 2 or 4 cells a thread it runs them one after
+    the other on 16 SMs and loses to the cooperative grid, which spreads
+    them over the card (PERF.md §6: 256x128 at 4 cells a thread)."""
     shape = cluster_shape(name, H, W, limits)
     return "cluster" if shape and shape[1] == 1 else "coop"
 
@@ -344,20 +344,17 @@ def fused_balance_cl(h, C, flags, n: int, cfg, fields):
     return out
 
 
-def fused_approach(h, C, vel_field, start: int, n: int, cfg, fields, acc):
-    """Approach steps ``start .. start + n - 1`` in one launch on the
-    stored velocity ``vel_field`` (float32 ``[N, 2, H, W]``); returns new
-    ``(h, C)`` and updates ``acc`` (float32 ``[4]`` on the state's device)
-    in place: ``acc[0] += inflow_sum``, ``acc[1] += current_sum``,
-    ``acc[2] = rec_u``, ``acc[3] = rec_v`` of the last step."""
-    if h.device.type == "cpu":
-        h, C, (inflow_sum, current_sum, rec_u, rec_v) = fused_approach_ref(
-            h, C, vel_field, start, n, cfg, fields)
-        acc[0] += inflow_sum
-        acc[1] += current_sum
-        acc[2] = rec_u
-        acc[3] = rec_v
-        return h, C
+def _approach_ref_acc(h, C, vel_field, start, n, cfg, fields, acc):
+    h, C, (inflow_sum, current_sum, rec_u, rec_v) = fused_approach_ref(
+        h, C, vel_field, start, n, cfg, fields)
+    acc[0] += inflow_sum
+    acc[1] += current_sum
+    acc[2] = rec_u
+    acc[3] = rec_v
+    return h, C
+
+
+def _check_approach(h, C, vel_field, start, n, cfg, fields, acc) -> torch.device:
     base = fields["base_flags"]
     n_frames = int(vel_field.shape[0])
     dev = check_state(cfg, start, n, h=(h, (9,)), C=(C, ()), base_flags=(base, ()),
@@ -372,6 +369,22 @@ def fused_approach(h, C, vel_field, start: int, n: int, cfg, fields, acc):
         raise ValueError("area must be a float32 [rint] tensor on the card")
     if tuple(acc.shape) != (4,) or acc.dtype != torch.float32 or acc.device != dev:
         raise ValueError("acc must be a float32 [4] tensor on the card")
+    return dev
+
+
+def fused_approach(h, C, vel_field, start: int, n: int, cfg, fields, acc, route=None):
+    """Approach steps ``start .. start + n - 1`` in one launch on the
+    stored velocity ``vel_field`` (float32 ``[N, 2, H, W]``); returns new
+    ``(h, C)`` and updates ``acc`` (float32 ``[4]`` on the state's device)
+    in place: ``acc[0] += inflow_sum``, ``acc[1] += current_sum``,
+    ``acc[2] = rec_u``, ``acc[3] = rec_v`` of the last step. ``route`` as
+    for `fused_fluid`."""
+    if h.device.type == "cpu":
+        return _approach_ref_acc(h, C, vel_field, start, n, cfg, fields, acc)
+    dev = _check_approach(h, C, vel_field, start, n, cfg, fields, acc)
+    if _route("fused_approach", cfg, dev, route) == "cluster":
+        return fused_approach_cl(h, C, vel_field, start, n, cfg, fields, acc)
+    base, area, n_frames = fields["base_flags"], fields["area"], int(vel_field.shape[0])
     out = (torch.empty_like(h), torch.empty_like(C))
     P, Q = _ping_pong(out, n)
     H, W = cfg.eff_res
@@ -384,11 +397,35 @@ def fused_approach(h, C, vel_field, start: int, n: int, cfg, fields, acc):
     return out
 
 
+def fused_approach_cl(h, C, vel_field, start: int, n: int, cfg, fields, acc):
+    """`fused_approach` through the cluster kernel (the state in the shared
+    memory of one cluster); raises before launch on a grid over the
+    cluster limit. Reads no C: the old C is never used by the step."""
+    if h.device.type == "cpu":
+        return _approach_ref_acc(h, C, vel_field, start, n, cfg, fields, acc)
+    dev = _check_approach(h, C, vel_field, start, n, cfg, fields, acc)
+    base = fields["base_flags"]
+    cluster, cpt, smem = _cluster_shape("fused_approach", cfg, dev)
+    out = (torch.empty_like(h), torch.empty_like(C))
+    fn = build.bind("fused_approach_cl", "jrl_fused_approach_cl",
+                    [_P, _P, ctypes.c_int] + [_P] * 5 + [ctypes.c_int] * 2 + [_P]
+                    + [ctypes.c_int] * 3 + [_P])
+    with torch.cuda.device(dev):
+        err = fn(base.data_ptr(), vel_field.data_ptr(), int(vel_field.shape[0]),
+                 fields["area"].data_ptr(), h.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                 acc.data_ptr(), int(start), int(n), ctypes.byref(_approach_params(cfg)),
+                 cluster, cpt, smem, stream_of(dev))
+    build.check(err, "fused_approach_cl")
+    fused_approach_cl.launches += 1
+    return out
+
+
 fused_fluid.launches = 0
 fused_balance.launches = 0
 fused_approach.launches = 0
 fused_fluid_cl.launches = 0
 fused_balance_cl.launches = 0
+fused_approach_cl.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -443,9 +480,10 @@ def make_fused_balance_runner(cfg, flags):
 
 def make_fused_approach_runner(cfg, vel_field):
     """``(state, fields, start_step, n) -> (state, acc)`` through
-    `fused_approach`, with the stored velocity history ``vel_field``
-    ``[N, 2, H, W]`` bound here; ``acc`` as `models.jrl.make_approach_runner`
-    returns it (sums over the n steps, record velocities of the last)."""
+    `fused_approach` (`fused_route`'s kernel), with the stored velocity
+    history ``vel_field`` ``[N, 2, H, W]`` bound here; ``acc`` as
+    `models.jrl.make_approach_runner` returns it (sums over the n steps,
+    record velocities of the last)."""
     _require_fit(cfg)
     frames = torch.as_tensor(vel_field, dtype=torch.float32).contiguous()
 

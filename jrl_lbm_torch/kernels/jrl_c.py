@@ -1,23 +1,28 @@
-"""Concentration-phase kernels: the balance step (`csrc/c_balance.cu`) and
-the approach step with its tip-disk integrals (`csrc/c_approach.cu`),
+"""Concentration-phase kernels: the balance step (`csrc/c_balance.cu`),
+the approach step with its tip-disk integrals as a kernel pair after
+PyTorch's frame lerp (`csrc/c_approach.cu`, the yardstick) and in one
+launch with the lerp inside (`csrc/c_approach_pass.cu`, the main path),
 each with its plain PyTorch twin.
 
 Replace the TPU kernels ``_make_c_balance_kernel`` and
-``_make_c_approach_kernel`` of `jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py`.
+``_make_c_approach_kernel`` (with the jnp lerp of
+``_c_one_approach_step``) of `jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py`.
 A wrapper given tensors on the CPU runs the twin; given tensors on the
-card it launches the kernel or raises. ``c_balance.launches`` /
-``c_approach.launches`` count the launches.
+card it launches the kernel or raises. ``c_balance.launches``,
+``c_approach.launches`` and ``c_approach_pass.launches`` count the
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from jrl_lbm_torch.kernels import build
-from jrl_lbm_torch.kernels.jrl_fluid import _P, check_state, stream_of
+from jrl_lbm_torch.kernels.jrl_fluid import _P, check_state, sm_count, stream_of
 from jrl_lbm_torch.models import jrl as _jrl
 from jrl_lbm_torch.ops import collide as _collide
 from jrl_lbm_torch.ops import macro as _macro
@@ -53,7 +58,6 @@ def c_approach_ref(h, C, vel, step: int, cfg, fields):
     H, W = cfg.eff_res
     dtype = cfg.dtype
     v = cfg.vel_obs_conv
-    rint = cfg.radius_obs_int
     mesh = fields["mesh"]
     walks, walks_int = _jrl.tip_walks(cfg.inflow_height, step, v)
     flags = _jrl._c_flags_at(cfg, fields["base_flags"], mesh, walks, walks_int, strict=True)
@@ -79,8 +83,18 @@ def c_approach_ref(h, C, vel, step: int, cfg, fields):
         is_convection=True, axisymmetric_type=_AX,
     )
 
-    # per-step integrals over the tip disk; rows clamp into [0, H-1] as
-    # jax.lax.dynamic_slice clamps its start
+    return h, C, disk_integrals(C, C_vel, walks_int, cfg, fields)
+
+
+def disk_integrals(C, C_vel, walks_int: int, cfg, fields):
+    """The step's ``(inflow, current, rec_u, rec_v)`` from the new C and the
+    convection velocity ``C_vel``: sums over the tip disk of rows
+    ``walks_int`` and ``walks_int + 1`` (the flat flux form also reads the
+    row below and column rint); rows clamp into [0, H-1] as
+    jax.lax.dynamic_slice clamps its start."""
+    H = cfg.eff_res[0]
+    rint = cfg.radius_obs_int
+    mesh = fields["mesh"]
     area = fields["area"]
 
     def disk_row(arr, row, n=rint):
@@ -100,7 +114,18 @@ def c_approach_ref(h, C, vel, step: int, cfg, fields):
         current = torch.sum(disk_row(C, walks_int + 1) * area)
     rec_u = torch.sum(disk_row(C_vel[0], walks_int + 1) * area)
     rec_v = torch.sum(disk_row(C_vel[1], walks_int + 1) * area)
-    return h, C, (inflow, current, rec_u, rec_v)
+    return inflow, current, rec_u, rec_v
+
+
+def c_approach_pass_ref(h, frames, step: int, cfg, fields, b0: int = 0,
+                        n_frames: int | None = None):
+    """`c_approach_pass`'s twin: the stored velocity of ``step`` from the
+    window ``frames`` (frames ``b0 ..`` of a history of ``n_frames``), then
+    `c_approach_ref`. The step never reads the old C (zeroed in the tip,
+    kept only at OBSTACLE cells), so none is taken; returns ``(h, C,
+    (inflow, current, rec_u, rec_v))``."""
+    vel = _jrl.stored_velocity(frames, step, cfg.vel_obs_conv, b0, n_frames)
+    return c_approach_ref(h, torch.zeros_like(h[0]), vel, step, cfg, fields)
 
 
 # ---------------------------------------------------------------------------
@@ -195,5 +220,168 @@ def c_approach(h, C, vel, step: int, cfg, fields, acc):
     return h_out, C_out
 
 
+# ---------------------------------------------------------------------------
+# c_approach_pass: one launch a step
+# ---------------------------------------------------------------------------
+
+# shared memory of a window cell: h (9 floats), phi, the flag code
+PASS_CELL_BYTES = 11 * 4
+APPROACH_ROUTES = ("pass", "pair")
+
+
+class CPassParams(ctypes.Structure):
+    _fields_ = [("a", CApproachParams), ("nruns", ctypes.c_int), ("wrows", ctypes.c_int),
+                ("n_frames", ctypes.c_int), ("b0", ctypes.c_int)]
+
+
+def approach_route(route: str | None) -> str:
+    """How the per-step approach runs: ``"pass"`` (`c_approach_pass`, the
+    default) or ``"pair"`` (`c_approach` after PyTorch's lerp)."""
+    if route is None:
+        return "pass"
+    if route not in APPROACH_ROUTES:
+        raise ValueError(f"route {route!r}: one of {APPROACH_ROUTES}")
+    return route
+
+
+def pass_smem_bytes(wrows: int, W: int) -> int:
+    """Dynamic shared memory of a block whose planes hold ``wrows`` rows:
+    an mbarrier a row (16-byte aligned), then the window cells."""
+    return -(-wrows * 8 // 16) * 16 + wrows * W * PASS_CELL_BYTES
+
+
+def approach_pass_plan(H: int, W: int, sms: int, smem: int, per_sm: int = 1):
+    """``(blocks, window rows, shared memory bytes)`` of `c_approach_pass`
+    on an ``H x W`` grid of a card with ``sms`` SMs, ``per_sm`` blocks an SM
+    and ``smem`` bytes of dynamic shared memory a block, or None where it
+    cannot run: block b computes rows ``[b H // blocks, (b + 1) H //
+    blocks)`` (runs of at least two rows, so that the OUTFLOW rows' reach
+    two rows inward stays in the first and last windows) with one row a
+    side; one wave (8 rows a run at 1024x512 on 132 SMs), shorter runs where
+    a window would not fit (more waves), none where a run of two rows does
+    not fit (W over ~1,300) or the rows are no multiple of 16 bytes (the
+    bulk copies)."""
+    if W % 4 or H < 2:
+        return None
+    most = 2
+    while pass_smem_bytes(most + 3, W) <= smem:
+        most += 1
+    if pass_smem_bytes(most + 2, W) > smem:
+        return None
+    rows = min(max(2, -(-H // (sms * per_sm))), most)
+    blocks = max(1, min(-(-H // rows), H // 2))
+    wrows = -(-H // blocks) + 2
+    if pass_smem_bytes(wrows, W) > smem:
+        return None
+    return blocks, wrows, pass_smem_bytes(wrows, W)
+
+
+@functools.lru_cache(maxsize=16)
+def pass_limits(device_index: int):
+    """``(dynamic shared memory a block, threads a block, blocks an SM)`` of
+    the `c_approach_pass` kernel on the card."""
+    fn = build.bind("c_approach_pass", "jrl_c_approach_pass_limits", [_P, _P, _P])
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device_index):
+        build.check(fn(*(ctypes.byref(x) for x in out)), "c_approach_pass")
+    return tuple(x.value for x in out)
+
+
+def pass_info(device_index: int = 0):
+    """``(registers per thread, local bytes)`` of the `c_approach_pass` kernel."""
+    fn = build.bind("c_approach_pass", "jrl_c_approach_pass_info", [_P, _P])
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(fn(ctypes.byref(regs), ctypes.byref(local)), "c_approach_pass")
+    return regs.value, local.value
+
+
+class PassCtx(NamedTuple):
+    """A run's launch context of `c_approach_pass`, its arguments checked:
+    the device, its stream, the launch constants and the kernel's ticket
+    (an int32 on the card that the last block of a launch resets)."""
+
+    dev: torch.device
+    stream: ctypes.c_void_p
+    params: CPassParams
+    ticket: torch.Tensor
+
+
+def approach_pass_ctx(h, outs, frames, start_step: int, n: int, cfg, fields, acc,
+                      b0: int = 0, n_frames: int | None = None) -> PassCtx:
+    """Check, once, the arguments of ``n`` `c_approach_pass` launches from
+    ``start_step`` reading ``h`` and writing the ``(h, C)`` pairs of
+    ``outs``, and return their launch context."""
+    base, area = fields["base_flags"], fields["area"]
+    N = int(frames.shape[0])
+    n_frames = b0 + N if n_frames is None else int(n_frames)
+    out_args = {f"{k}{j}": (t, lead) for j, (ho, Co) in enumerate(outs)
+                for k, t, lead in (("h_out", ho, (9,)), ("C_out", Co, ()))}
+    dev = check_state(cfg, start_step, n, h=(h, (9,)), base_flags=(base, ()),
+                      frames=(frames, (N, 2)), **out_args)
+    H, W = cfg.eff_res
+    rint = cfg.radius_obs_int
+    if rint + 1 > W or tuple(area.shape) != (rint,) or area.dtype != torch.float32 \
+            or area.device != dev:
+        raise ValueError("tip disk does not fit the grid, or area is not a float32 [rint] "
+                         "tensor on the card")
+    if tuple(acc.shape) != (4,) or acc.dtype != torch.float32 or acc.device != dev:
+        raise ValueError("acc must be a float32 [4] tensor on the card")
+    if any(t.data_ptr() % 16 for t in [h] + [ho for ho, _ in outs]):
+        raise ValueError("c_approach_pass copies rows of 16-byte aligned h")
+    if not 0 <= b0 <= n_frames - N:
+        raise ValueError(f"a window of {N} frames from frame {b0} in a history of {n_frames}")
+    for s in (int(start_step), int(start_step) + int(n) - 1):
+        b, _, lerp = _jrl.frame_pair(s, cfg.vel_obs_conv, n_frames)
+        if not (b0 <= b and b + int(lerp) < b0 + N):
+            raise ValueError(f"step {s} reads frames {b}..{b + int(lerp)}, outside the window "
+                             f"of frames {b0}..{b0 + N - 1}")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    smem, _, per_sm = pass_limits(index)
+    plan = approach_pass_plan(H, W, sm_count(index), smem, per_sm)
+    if plan is None:
+        raise ValueError(f"grid {H}x{W}: c_approach_pass needs W % 4 == 0 and a window of "
+                         f"4 rows of {W} cells within {smem} bytes")
+    blocks, wrows, _ = plan
+    params = CPassParams(a=_approach_params(cfg), nruns=blocks, wrows=wrows,
+                         n_frames=n_frames, b0=int(b0))
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    return PassCtx(dev, stream_of(dev), params, ticket)
+
+
+def c_approach_pass(h, frames, step: int, cfg, fields, acc, out=None, b0: int = 0,
+                    n_frames: int | None = None, ctx: PassCtx | None = None):
+    """One approach step in one launch on the stored velocity ``frames``
+    (float32 ``[N, 2, H, W]``: frames ``b0 .. b0 + N - 1`` of a history of
+    ``n_frames``, default ``b0 + N``), interpolated in the kernel; returns
+    the new ``(h, C)``, written into ``out = (h_out, C_out)`` when given,
+    and updates ``acc`` in place as `c_approach` does. ``ctx``: a run's
+    context from `approach_pass_ctx` (its ``b0`` and ``n_frames`` rule);
+    without one every argument is checked here."""
+    if h.device.type == "cpu":
+        h, C, (inflow, current, rec_u, rec_v) = c_approach_pass_ref(h, frames, step, cfg,
+                                                                    fields, b0, n_frames)
+        acc[0] += inflow
+        acc[1] += current
+        acc[2] = rec_u
+        acc[3] = rec_v
+        return h, C
+    if out is None:
+        out = (torch.empty_like(h), torch.empty_like(h[0]))
+    if ctx is None:
+        ctx = approach_pass_ctx(h, [out], frames, step, 1, cfg, fields, acc, b0, n_frames)
+        with torch.cuda.device(ctx.dev):
+            return c_approach_pass(h, frames, step, cfg, fields, acc, out, ctx=ctx)
+    fn = build.bind("c_approach_pass", "jrl_c_approach_pass",
+                    [_P] * 8 + [ctypes.c_int, _P, _P])
+    err = fn(fields["base_flags"].data_ptr(), h.data_ptr(), frames.data_ptr(),
+             fields["area"].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), acc.data_ptr(),
+             ctx.ticket.data_ptr(), int(step), ctypes.byref(ctx.params), ctx.stream)
+    build.check(err, "c_approach_pass")
+    c_approach_pass.launches += 1
+    return out
+
+
 c_balance.launches = 0
 c_approach.launches = 0
+c_approach_pass.launches = 0

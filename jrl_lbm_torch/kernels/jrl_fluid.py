@@ -136,6 +136,12 @@ def stream_of(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+@functools.lru_cache(maxsize=16)
+def sm_count(dev) -> int:
+    """The card's SMs (``dev``: a device or its index)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 _P = ctypes.c_void_p
 
 

@@ -50,7 +50,7 @@ import torch
 from jrl_lbm_torch import lattice
 from jrl_lbm_torch.kernels import build
 from jrl_lbm_torch.kernels.jrl_fluid import FluidBParams, FluidParams, _P, _a_params, \
-    _b_params, check_state, fluid_a, fluid_b, stream_of
+    _b_params, check_state, fluid_a, fluid_b, sm_count, stream_of
 from jrl_lbm_torch.models import jrl as _jrl
 from jrl_lbm_torch.ops.equilibrium import feq
 from jrl_lbm_torch.utils.types import CellType
@@ -833,7 +833,7 @@ def fluid_pass(f, rho, vel, out, full, lean, step: int, cfg, ctx=None):
             raise ValueError("fluid_pass copies rows of 16-byte aligned inputs")
         with torch.cuda.device(dev):
             return fluid_pass(f, rho, vel, out, full, lean, step, cfg, _launch_ctx(dev))
-    p = _pass_params(cfg, tuple(full), tuple(lean), _sms(ctx[0]))
+    p = _pass_params(cfg, tuple(full), tuple(lean), sm_count(ctx[0]))
     _launch("fluid_pass", "jrl_fluid_pass", [_P] * 6 + [_I, _P, _P], ctx, f.data_ptr(),
             rho.data_ptr(), vel.data_ptr(), out["f"].data_ptr(), out["rho"].data_ptr(),
             out["vel"].data_ptr(), int(step), ctypes.byref(p))
@@ -848,11 +848,6 @@ def pass_info(device_index: int = 0):
     with torch.cuda.device(device_index):
         build.check(fn(ctypes.byref(regs), ctypes.byref(local)), "fluid_pass")
     return regs.value, local.value
-
-
-@functools.lru_cache(maxsize=16)
-def _sms(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 fluid_k.launches = 0

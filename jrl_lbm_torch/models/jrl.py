@@ -24,6 +24,7 @@ kernels (`make_per_step_*_runner`, one launch per step).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Tuple
@@ -545,18 +546,30 @@ def pick_balance_runner(cfg: JRLCConfig, flags):
     return make_per_step_balance_runner(cfg, flags)
 
 
-def stored_velocity(vel_field, step: int, v: float):
-    """Stored fluid velocity at ``step``, linearly interpolated in tip
-    travel between frames (`C_ethaline:294-310`), with the float32
-    rounding of the JAX step."""
-    n = int(vel_field.shape[0])
+def frame_pair(step: int, v: float, n_frames: int):
+    """``(b, t, lerp)``: the stored frame at or before ``step``'s tip travel,
+    the weight of frame ``b + 1`` and whether it is read, with the float32
+    rounding of the JAX step (`C_ethaline:294-310`)."""
     x_comp = np.float32(np.float32(step) * np.float32(v))
     q = np.float32(x_comp / np.float32(X_INTERVAL))
-    b = min(max(int(np.floor(q)), 0), n - 1)
-    t = np.float32(q - np.float32(b))
-    if b + 1 < n:
-        return vel_field[b] * float(np.float32(1.0) - t) + vel_field[b + 1] * float(t)
-    return vel_field[b]
+    b = min(max(int(np.floor(q)), 0), int(n_frames) - 1)
+    return b, np.float32(q - np.float32(b)), b + 1 < int(n_frames)
+
+
+def stored_velocity(vel_field, step: int, v: float, b0: int = 0, n_frames: int | None = None):
+    """Stored fluid velocity at ``step``, linearly interpolated in tip
+    travel between frames (`C_ethaline:294-310`), with the float32
+    rounding of the JAX step. ``vel_field`` holds frames ``b0, b0 + 1, ...``
+    of a history of ``n_frames`` (default: all of it, ``b0 = 0``)."""
+    n = int(vel_field.shape[0]) if n_frames is None else int(n_frames)
+    b, t, lerp = frame_pair(step, v, n)
+    i = b - int(b0)
+    if not (0 <= i and i + int(lerp) < int(vel_field.shape[0])):
+        raise ValueError(f"step {step} reads frames {b}..{b + int(lerp)}, outside the "
+                         f"window of frames {b0}..{int(b0) + int(vel_field.shape[0]) - 1}")
+    if lerp:
+        return vel_field[i] * float(np.float32(1.0) - t) + vel_field[i + 1] * float(t)
+    return vel_field[i]
 
 
 def make_approach_step(cfg: JRLCConfig):
@@ -595,19 +608,37 @@ def make_approach_runner(cfg: JRLCConfig):
     return run
 
 
-def make_per_step_approach_runner(cfg: JRLCConfig, vel_field):
-    """Approach runner through the per-step `c_approach` kernel wrapper;
-    the integrals accumulate on the state's device, so a run of n steps
-    does not wait on the host. Same contract as `make_approach_runner`."""
+def make_per_step_approach_runner(cfg: JRLCConfig, vel_field, route: str | None = None,
+                                  b0: int = 0, n_frames: int | None = None):
+    """Approach runner with one launch a step: `c_approach_pass` (the frame
+    lerp, the step and its integrals in one kernel), or with ``route="pair"``
+    the `c_approach` kernel pair after PyTorch's lerp (the yardstick).
+    ``vel_field`` holds frames ``b0 ..`` of a history of ``n_frames``
+    (default: all of it). The integrals accumulate on the state's device, so
+    a run of n steps does not wait on the host. On the card the pass route
+    checks the state, the frames and its two ping-pong buffer sets once a
+    run and launches unchecked. Same contract as `make_approach_runner`."""
     from jrl_lbm_torch.kernels import jrl_c
+
+    rt = jrl_c.approach_route(route)
 
     def run(state, fields, start_step: int, n: int):
         h, C = state["h"], state["C"]
         acc = torch.zeros(4, dtype=cfg.dtype, device=h.device)
-        for i in range(int(n)):
-            s = int(start_step) + i
-            vel = stored_velocity(vel_field, s, cfg.vel_obs_conv)
-            h, C = jrl_c.c_approach(h, C, vel, s, cfg, fields, acc)
+        if rt == "pair":
+            for i in range(int(n)):
+                s = int(start_step) + i
+                vel = stored_velocity(vel_field, s, cfg.vel_obs_conv, b0, n_frames)
+                h, C = jrl_c.c_approach(h, C, vel, s, cfg, fields, acc)
+        elif int(n) > 0:
+            bufs = [(torch.empty_like(h), torch.empty_like(C)) for _ in range(2)]
+            ctx = jrl_c.approach_pass_ctx(h, bufs, vel_field, start_step, n, cfg, fields, acc,
+                                          b0, n_frames) if h.device.type == "cuda" else None
+            with torch.cuda.device(ctx.dev) if ctx else contextlib.nullcontext():
+                for i in range(int(n)):
+                    h, C = jrl_c.c_approach_pass(h, vel_field, int(start_step) + i, cfg, fields,
+                                                 acc, out=bufs[i & 1], b0=b0, n_frames=n_frames,
+                                                 ctx=ctx)
         acc_d = {
             "inflow_sum": acc[0],
             "current_sum": acc[1],
@@ -617,13 +648,16 @@ def make_per_step_approach_runner(cfg: JRLCConfig, vel_field):
         }
         return {"C": C, "h": h}, acc_d
 
+    run.route = rt
     return run
 
 
 def pick_approach_runner(cfg: JRLCConfig, vel_field):
     """The multi-step approach kernel's runner on a grid of at most
-    ``MAX_FUSED_CELLS`` cells, the per-step kernel's on a larger grid;
-    ``(state, fields, start_step, n) -> (state, acc)`` either way."""
+    ``MAX_FUSED_CELLS`` cells (`fused_approach_cl` or `fused_approach`, as
+    `fused_jrl.fused_route` picks), `c_approach_pass` once a step on a
+    larger grid; ``(state, fields, start_step, n) -> (state, acc)`` either
+    way."""
     from jrl_lbm_torch.kernels import fused_jrl
 
     if fused_jrl.fits(cfg):

@@ -175,7 +175,9 @@ TRAJ_TOL = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4, "h": 2e-5, "C": 2e-5}
 ROUTE_KERNEL = {("fused_fluid", "coop"): "fused_fluid",
                 ("fused_fluid", "cluster"): "fused_fluid_cl",
                 ("fused_balance", "coop"): "fused_balance",
-                ("fused_balance", "cluster"): "fused_balance_cl"}
+                ("fused_balance", "cluster"): "fused_balance_cl",
+                ("fused_approach", "coop"): "fused_approach",
+                ("fused_approach", "cluster"): "fused_approach_cl"}
 
 
 def _launched(name, route):
@@ -276,7 +278,9 @@ def test_cuda_fused_approach_matches_twin(cuda, shape, refine, rg, is_negative):
     vf = torch.as_tensor(vf, device=cuda)
     assert int(n * cfg.vel_obs_conv / 0.1) >= 10  # frame boundaries inside the run
     acc = torch.zeros(4, device=cuda)
-    n0 = F.fused_approach.launches
+    routed = ROUTE_KERNEL[("fused_approach", F.fused_route(
+        "fused_approach", H, W, F.card_limits("fused_approach", 0)))]
+    kernels.reset_launches()
     h, C = F.fused_approach(st["h"], st["C"], vf, 0, n, cfg, fields, acc)
     hr, Cr, ints = F.fused_approach_ref(st["h"], st["C"], vf, 0, n, cfg, fields)
     _close(h, hr, TRAJ_TOL["h"], "fused_approach h")
@@ -284,7 +288,7 @@ def test_cuda_fused_approach_matches_twin(cuda, shape, refine, rg, is_negative):
     np.testing.assert_allclose(acc.cpu().numpy(), [float(x) for x in ints], rtol=2e-4,
                                atol=1e-4, err_msg="fused_approach integrals")
     torch.cuda.synchronize()
-    assert F.fused_approach.launches - n0 == 1
+    assert {k: c for k, c in kernels.launches().items() if c} == {routed: 1}
 
 
 @pytest.mark.cuda
@@ -339,22 +343,35 @@ def test_cuda_fused_grid_over_coresident_limit_raises(cuda):
 @pytest.mark.cuda
 def test_cuda_fused_route_by_grid(cuda):
     """The runners take the cluster kernels at 128x64 and the cooperative
-    ones at 512x256 (refine 4), read from the launch counters."""
-    for refine, route in ((1, "cluster"), (4, "coop")):
+    ones at 256x128 and 512x256 (refine 2, 4), read from the launch
+    counters; above the multi-step kernels' limit (1024x512) the approach
+    takes c_approach_pass, once a step."""
+    for refine, route in ((1, "cluster"), (2, "coop"), (4, "coop")):
         fc = T.JRLFluidConfig(res=RES, shape="ethaline", refine=refine)
         cc = T.JRLCConfig(res=RES, shape="ethaline", refine=refine)
         H, W = fc.eff_res
-        assert F.fused_route("fused_fluid", H, W, F.card_limits("fused_fluid", 0)) == route
-        assert F.fused_route("fused_balance", H, W, F.card_limits("fused_balance", 0)) == route
+        for name in ("fused_fluid", "fused_balance", "fused_approach"):
+            assert F.fused_route(name, H, W, F.card_limits(name, 0)) == route, (name, refine)
         s, fl = T.fluid_init(fc, cuda)
         st, cf, flags = T.c_init(cc, cuda)
+        vf = torch.zeros((2, 2, H, W), device=cuda)
         kernels.reset_launches()
-        T.pick_fluid_runner(fc)(s, fl, 0, 3)
-        T.pick_balance_runner(cc, flags)(st, cf, 3)
+        if refine != 2:
+            T.pick_fluid_runner(fc)(s, fl, 0, 3)
+            T.pick_balance_runner(cc, flags)(st, cf, 3)
+        T.pick_approach_runner(cc, vf)(st, cf, 0, 3)
         torch.cuda.synchronize()
         counts = {k: c for k, c in kernels.launches().items() if c}
-        assert counts == {ROUTE_KERNEL[("fused_fluid", route)]: 1,
-                          ROUTE_KERNEL[("fused_balance", route)]: 1}, (refine, counts)
+        want = {ROUTE_KERNEL[(name, route)]: 1 for name in ("fused_fluid", "fused_balance")} \
+            if refine != 2 else {}
+        assert counts == dict(want, **{ROUTE_KERNEL[("fused_approach", route)]: 1}), \
+            (refine, counts)
+    cc = T.JRLCConfig(res=RES, shape="ethaline", refine=8)
+    st, cf, _ = T.c_init(cc, cuda)
+    kernels.reset_launches()
+    T.pick_approach_runner(cc, torch.zeros((2, 2) + cc.eff_res, device=cuda))(st, cf, 0, 3)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in kernels.launches().items() if c} == {"c_approach_pass": 3}
 
 
 @pytest.mark.cuda
@@ -388,6 +405,214 @@ def test_cuda_forced_cluster_route_over_limit_raises(cuda):
         with pytest.raises(RuntimeError, match="cudaError"):
             build.check(err, "fused_balance_cl")
     assert F.fused_balance_cl.launches == 0
+
+
+# --- the approach redesigned: c_approach_pass (1024x512), fused_approach_cl (128x64) ---
+
+# the default refine-8 case: 20,340,900 approach steps; its history holds
+# the frames its last step reads, so that step reads the last frame alone
+R8 = T.JRLCConfig(shape="ethaline", refine=8)
+R8_FRAMES = T.frame_pair(R8.total_steps - 1, R8.vel_obs_conv, 2**31)[0] + 1
+
+
+def _noisy_c(cfg, dev, seed):
+    st, fields, _ = T.c_init(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {k: v + 1e-3 * torch.randn(v.shape, generator=g, device=dev)
+            for k, v in st.items()}, fields
+
+
+def _frame_window(cfg, dev, steps, n_frames, seed):
+    """Random frames covering what ``steps`` read, as a window: ``(frames,
+    b0)``."""
+    b = [T.frame_pair(s, cfg.vel_obs_conv, n_frames) for s in (steps[0], steps[-1])]
+    b0, b1 = b[0][0], b[1][0] + int(b[1][2])
+    H, W = cfg.eff_res
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return 0.5 * torch.randn((b1 - b0 + 1, 2, H, W), generator=g, device=dev), b0
+
+
+def _pass_against_pair(cfg, st, fields, steps, frames, b0, n_frames, tag, twin=True):
+    """Each step from the pass's own trajectory: c_approach_pass equals the
+    c_approach pair after PyTorch's lerp bit for bit (h, C, the four
+    integrals) and its twin at 1e-5 (integrals rtol 2e-4 / atol 1e-4)."""
+    h, C = st["h"], st["C"]
+    n0 = jrl_c.c_approach_pass.launches
+    for s in steps:
+        acc_p, acc_q = torch.ones(4, device=h.device), torch.ones(4, device=h.device)
+        hp, Cp = jrl_c.c_approach_pass(h, frames, s, cfg, fields, acc_p, b0=b0,
+                                       n_frames=n_frames)
+        vel = T.stored_velocity(frames, s, cfg.vel_obs_conv, b0, n_frames)
+        hq, Cq = jrl_c.c_approach(h, C, vel, s, cfg, fields, acc_q)
+        for name, g, w in (("h", hp, hq), ("C", Cp, Cq), ("integrals", acc_p, acc_q)):
+            _equal(g, w, f"{tag} step {s} {name}")
+        if twin:
+            hr, Cr, ints = jrl_c.c_approach_pass_ref(h, frames, s, cfg, fields, b0, n_frames)
+            _close(hp, hr, 1e-5, f"{tag} step {s} h (twin)")
+            _close(Cp, Cr, 1e-5, f"{tag} step {s} C (twin)")
+            np.testing.assert_allclose(acc_p.cpu().numpy(), [1.0 + float(ints[0]),
+                                                             1.0 + float(ints[1])]
+                                       + [float(x) for x in ints[2:]], rtol=2e-4, atol=1e-4,
+                                       err_msg=f"{tag} step {s} integrals (twin)")
+        h, C = hp, Cp
+    torch.cuda.synchronize()
+    assert jrl_c.c_approach_pass.launches - n0 == len(steps)
+
+
+def _r8_plan(dev, start, n, seed):
+    steps = list(range(start, start + n))
+    frames, b0 = _frame_window(R8, dev, steps, R8_FRAMES, seed)
+    st, fields = _noisy_c(R8, dev, seed)
+    return R8, st, fields, steps, frames, b0, R8_FRAMES
+
+
+def _small_plan(dev, shape, res, is_negative, seed):
+    """A grid of its own with a frame change every ~3 steps: 20 steps."""
+    probe = T.JRLCConfig(res=res, shape=shape)
+    cfg = T.JRLCConfig(res=res, Re=4.0, Pe=0.03 * probe.radius_obs / (0.5 / 3.0), shape=shape,
+                       is_negative=is_negative)
+    steps = list(range(30, 50))
+    n_frames = T.frame_pair(steps[-1], cfg.vel_obs_conv, 2**31)[0] + 2
+    frames, b0 = _frame_window(cfg, dev, steps, n_frames, seed)
+    st, fields = _noisy_c(cfg, dev, seed)
+    return cfg, st, fields, steps, frames, b0, n_frames
+
+
+# the first step after which the refine-8 case reads a new frame
+R8_FRAME_CHANGE = next(s for s in range(1, 6000)
+                       if T.frame_pair(s, R8.vel_obs_conv, R8_FRAMES)[0]
+                       != T.frame_pair(s + 1, R8.vel_obs_conv, R8_FRAMES)[0])
+PASS_PLANS = {
+    "r8 step 0": lambda dev: _r8_plan(dev, 0, 3, 1),
+    "r8 step 10,170,450": lambda dev: _r8_plan(dev, 10_170_450, 3, 2),
+    "r8 last steps": lambda dev: _r8_plan(dev, R8.total_steps - 3, 3, 3),
+    "r8 2**24 - 5 .. 2**24 + 4": lambda dev: _r8_plan(dev, 2**24 - 5, 10, 4),
+    "r8 frame change": lambda dev: _r8_plan(dev, R8_FRAME_CHANGE - 2, 5, 5),
+    "flat negative 256x64": lambda dev: _small_plan(dev, "cylinder", (256, 64), True, 6),
+    "flat 256x64": lambda dev: _small_plan(dev, "cylinder", (256, 64), False, 7),
+    "wedge 256x64": lambda dev: _small_plan(dev, "ethaline", (256, 64), True, 8),
+    "wedge 96x516": lambda dev: _small_plan(dev, "45degree", (96, 516), False, 9),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", list(PASS_PLANS))
+def test_cuda_c_approach_pass_equals_pair(cuda, plan):
+    """c_approach_pass against the c_approach pair it replaces (bit for
+    bit) and its twin: the default refine-8 case at steps 0, 10,170,450 (a
+    two-frame window from frame 3,495) and its last steps (the last frame,
+    no lerp), across 2**24 and a frame change; flat tips either
+    ``is_negative``, a wedge at 256x64 and a width (516) that is no
+    multiple of the block, each over 20 steps with frame changes."""
+    cfg, st, fields, steps, frames, b0, n_frames = PASS_PLANS[plan](cuda)
+    _pass_against_pair(cfg, st, fields, steps, frames, b0, n_frames, plan,
+                       twin=len(steps) <= 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,res", [("ethaline", (1024, 512)), ("cylinder", (256, 64))])
+def test_cuda_approach_runner_pass_equals_pair(cuda, shape, res):
+    """The per-step runner through c_approach_pass (one launch a step and
+    nothing else) equals it through the pair, bit for bit, over steps with
+    frame changes, and runs of 0 and 1 steps."""
+    probe = T.JRLCConfig(res=res, shape=shape)
+    cfg = T.JRLCConfig(res=res, Re=4.0, Pe=0.03 * probe.radius_obs / (0.5 / 3.0), shape=shape)
+    st, fields = _noisy_c(cfg, cuda, 11)
+    H, W = cfg.eff_res
+    vf = 0.5 * torch.randn((4, 2, H, W), generator=torch.Generator(device=cuda).manual_seed(12),
+                           device=cuda)
+    for start, n in ((3, 12), (7, 1), (7, 0)):
+        kernels.reset_launches()
+        a, acc_a = T.make_per_step_approach_runner(cfg, vf)(st, fields, start, n)
+        torch.cuda.synchronize()
+        assert {k: c for k, c in kernels.launches().items() if c} == (
+            {"c_approach_pass": n} if n else {})
+        b, acc_b = T.make_per_step_approach_runner(cfg, vf, route="pair")(st, fields, start, n)
+        for k in ("h", "C"):
+            _equal(a[k], b[k], f"runner {start}+{n} {k}")
+        for k in ("inflow_sum", "current_sum", "rec_u", "rec_v", "count"):
+            _equal(acc_a[k], acc_b[k], f"runner {start}+{n} {k}")
+
+
+@pytest.mark.cuda
+def test_cuda_c_approach_pass_refuses_bad_args(cuda):
+    cfg, st, fields, steps, frames, b0, n_frames = PASS_PLANS["r8 step 10,170,450"](cuda)
+    acc = torch.zeros(4, device=cuda)
+    n0 = jrl_c.c_approach_pass.launches
+    with pytest.raises(ValueError, match="outside the window"):
+        jrl_c.c_approach_pass(st["h"], frames, 0, cfg, fields, acc, b0=b0, n_frames=n_frames)
+    with pytest.raises(ValueError, match="16-byte"):
+        jrl_c.c_approach_pass(st["h"], frames, steps[0], cfg, fields, acc, b0=b0,
+                              n_frames=n_frames, out=(torch.empty(9 * 1024 * 512 + 1,
+                                                                  device=cuda)[1:].view(
+                                                                      9, 1024, 512),
+                                                      torch.empty_like(st["C"])))
+    with pytest.raises(ValueError, match="W % 4"):
+        odd = T.JRLCConfig(res=(64, 66), shape="cylinder")
+        so, fo = _noisy_c(odd, cuda, 1)
+        jrl_c.c_approach_pass(so["h"], torch.zeros((1, 2, 64, 66), device=cuda), 0, odd, fo, acc)
+    assert jrl_c.c_approach_pass.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "45degree", "cylinder", "2**24"])
+def test_cuda_fused_approach_cl_equals_cooperative(cuda, case):
+    """fused_approach_cl equals fused_approach bit for bit in h and C over
+    one 1000-step launch (the default case's tip crosses two frames in it;
+    steps 2**24 - 500 .. 2**24 + 499 at a tip speed that keeps the tip in
+    the grid), and two chained launches (400 + 601 steps); the integrals
+    within rtol 2e-4 / atol 1e-4 of the cooperative kernel's."""
+    kw = {"default": {}, "45degree": dict(shape="45degree", is_negative=False),
+          "cylinder": dict(shape="cylinder"), "2**24": dict(Pe=1e-5)}[case]
+    cfg = T.JRLCConfig(**kw)
+    start = 2**24 - 500 if case == "2**24" else 0
+    H, W = cfg.eff_res
+    assert 1 < T.tip_walks(cfg.inflow_height, start + 1000, cfg.vel_obs_conv)[1] < H - 1
+    st, fields = _noisy_c(cfg, cuda, 13)
+    n_frames = T.frame_pair(start + 1001, cfg.vel_obs_conv, 2**31)[0] + 2
+    vf = 0.5 * torch.randn((n_frames, 2, H, W),
+                           generator=torch.Generator(device=cuda).manual_seed(14), device=cuda)
+    out = {}
+    for r in F.ROUTES:
+        acc, acc2 = torch.zeros(4, device=cuda), torch.zeros(4, device=cuda)
+        one = F.fused_approach(st["h"], st["C"], vf, start, 1000, cfg, fields, acc, route=r)
+        two = F.fused_approach(*F.fused_approach(st["h"], st["C"], vf, start, 400, cfg, fields,
+                                                 acc2, route=r),
+                               vf, start + 400, 601, cfg, fields, acc2, route=r)
+        out[r] = (one, two, acc, acc2)
+    for k, (a, b) in enumerate(zip(out["cluster"][:2], out["coop"][:2])):
+        for name, g, w in zip(("h", "C"), a, b):
+            _equal(g, w, f"{case} run {k} {name}")
+    for k in (2, 3):
+        np.testing.assert_allclose(out["cluster"][k].cpu().numpy(),
+                                   out["coop"][k].cpu().numpy(), rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_approach_cl_matches_twin_and_refuses_over_limit(cuda):
+    """The cluster route against the twin over 200 steps (a frame change
+    every ~3 steps, a tip-row crossing), and a forced cluster route over
+    the cluster limit (512x256) raises before any launch."""
+    probe = T.JRLCConfig(res=RES)
+    cfg = T.JRLCConfig(res=RES, Re=4.0, Pe=0.03 * probe.radius_obs / (0.5 / 3.0))
+    st, fields = _noisy_c(cfg, cuda, 15)
+    H, W = cfg.eff_res
+    vf = torch.as_tensor(np.random.default_rng(16).uniform(-0.5, 0.5, (80, 2, H, W))
+                         .astype(np.float32), device=cuda)
+    acc = torch.zeros(4, device=cuda)
+    h, C = F.fused_approach_cl(st["h"], st["C"], vf, 0, 200, cfg, fields, acc)
+    hr, Cr, ints = F.fused_approach_ref(st["h"], st["C"], vf, 0, 200, cfg, fields)
+    _close(h, hr, TRAJ_TOL["h"], "fused_approach_cl h")
+    _close(C, Cr, TRAJ_TOL["C"], "fused_approach_cl C")
+    np.testing.assert_allclose(acc.cpu().numpy(), [float(x) for x in ints], rtol=2e-4,
+                               atol=1e-4, err_msg="fused_approach_cl integrals")
+    c4 = T.JRLCConfig(res=RES, refine=4)
+    s4, f4 = _noisy_c(c4, cuda, 17)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="cluster limit"):
+        F.fused_approach(s4["h"], s4["C"], torch.zeros((2, 2) + c4.eff_res, device=cuda), 0, 2,
+                         c4, f4, acc, route="cluster")
+    assert not any(kernels.launches().values())
 
 
 # --- the cylinder channel (kernels/cylinder.py) ---

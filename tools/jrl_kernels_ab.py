@@ -6,16 +6,22 @@ two trees can be held to each other bit for bit:
     (cd <tree> && python3 <this repo>/tools/jrl_kernels_ab.py <label>)
 
 Kernels, through their wrappers: the per-step `fluid_a`, `fluid_b`,
-`c_balance`, `c_approach`; the multi-step `fused_fluid`, `fused_balance`,
-`fused_approach` over 300 steps at 128x64 (the route the tree takes
-there) and at 256x128 (the cooperative kernels), for a wedge and a flat
-tip and both signs of ``is_negative``; the tile classes `fluid_k`,
-`fluid_k_lean`, `fluid_k_bt` at 1024x512, k = 1, 2, 4, on the ethaline
-step-0 plan and a flat tip's plan with below-tip rows. The tree must hold
-`jrl_lbm_torch/`. Prints one JSON line, last.
+`c_balance`, `c_approach`; the multi-step `fused_fluid`, `fused_balance`
+over 300 steps at 128x64 (the route the tree takes there) and at 256x128
+(the cooperative kernels), `fused_approach` there through the
+cooperative kernel (forced where the tree routes 128x64 elsewhere), for
+a wedge and a flat tip and both signs of ``is_negative``; the tile
+classes `fluid_k`, `fluid_k_lean`, `fluid_k_bt` at 1024x512, k = 1, 2, 4,
+on the ethaline step-0 plan and a flat tip's plan with below-tip rows,
+and `fluid_pass` on the same plans at k = 1; the sharded kernels
+(`fluid_a_sh`, `fluid_b_sh`, `c_balance_sh`, `c_approach_sh`,
+`halo_pack`) through the sharded runners on a (2, 2) mesh on the one
+card at 1024x512, 12 steps a phase. The tree must hold `jrl_lbm_torch/`.
+Prints one JSON line, last.
 """
 
 import hashlib
+import inspect
 import json
 import os
 import sys
@@ -27,8 +33,10 @@ def main() -> int:
 
     from jrl_lbm_torch.kernels import fused_jrl as F
     from jrl_lbm_torch.kernels import jrl_c, jrl_fluid
+    from jrl_lbm_torch.kernels import jrl_sharded as S
     from jrl_lbm_torch.kernels import jrl_tiled as JT
     from jrl_lbm_torch.models import jrl as T
+    from jrl_lbm_torch.parallel.mesh import make_mesh
 
     if not torch.cuda.is_available():
         print("jrl_kernels_ab: no CUDA device", file=sys.stderr)
@@ -48,6 +56,7 @@ def main() -> int:
         out[tag] = h.hexdigest()[:16]
 
     n = 300
+    coop = {"route": "coop"} if "route" in inspect.signature(F.fused_approach).parameters else {}
     for shape, refine in (("45degree", 1), ("cylinder", 1), ("ethaline", 2)):
         fc = T.JRLFluidConfig(res=(128, 64), Re=4.0, vel_obs_real=0.2848, shape=shape,
                               refine=refine)
@@ -74,7 +83,8 @@ def main() -> int:
                    list(jrl_c.c_approach(st["h"], st["C"], vel, 11, cc, cf, acc)) + [acc])
             acc = torch.zeros(4, device=dev)
             digest(f"fused_approach {tag}",
-                   list(F.fused_approach(st["h"], st["C"], frames, 0, n, cc, cf, acc)) + [acc])
+                   list(F.fused_approach(st["h"], st["C"], frames, 0, n, cc, cf, acc, **coop))
+                   + [acc])
     for shape, kw, step in (("ethaline", dict(refine=8, res=(128, 64)), 0),
                             ("cylinder", dict(res=(1024, 512)), 1085)):
         fc = T.JRLFluidConfig(Re=4.0, vel_obs_real=0.2848, shape=shape, **kw)
@@ -90,6 +100,28 @@ def main() -> int:
             if bt:
                 JT.fluid_k_bt(s["f"], s["rho"], s["vel"], o, bt, k, fc)
             digest(f"tile classes {shape} k={k} full {full} bt {bt} lean {lean}", o.values())
+            if k == 1:
+                o = {key: torch.full_like(v, 7.0) for key, v in s.items()}
+                JT.fluid_pass(s["f"], s["rho"], s["vel"], o, full, lean, step, fc)
+                if bt:
+                    JT.fluid_k_bt(s["f"], s["rho"], s["vel"], o, bt, 1, fc)
+                digest(f"fluid_pass {shape} full {full} bt {bt} lean {lean}", o.values())
+    fc = T.JRLFluidConfig(res=(128, 64), Re=4.0, vel_obs_real=0.2848, shape="ethaline",
+                          refine=8)
+    cc = T.JRLCConfig(res=(128, 64), Re=4.0, Pe=5.0, vel_obs_real=0.2848, shape="ethaline",
+                      refine=8)
+    mesh = make_mesh((2, 2), [dev] * 4)
+    s, fl = T.fluid_init(fc, dev)
+    digest("sharded fluid (2, 2)",
+           S.make_sharded_tiled_fluid_runner(fc, mesh)(noisy(s), fl, 0, 12).values())
+    st, cf, flags = T.c_init(cc, dev)
+    st = noisy(st)
+    digest("sharded balance (2, 2)",
+           S.make_sharded_tiled_balance_runner(cc, flags, mesh)(st, cf, 12).values())
+    frames = 0.3 * torch.randn((4, 2) + cc.eff_res, generator=gen, device=dev)
+    a_out, a_acc = S.make_sharded_tiled_approach_runner(cc, frames, mesh)(st, cf, 0, 12)
+    digest("sharded approach (2, 2)", list(a_out.values()) + [torch.as_tensor(v) for v in
+                                                                 a_acc.values()])
     torch.cuda.synchronize()
     print(json.dumps(out), flush=True)
     return 0

@@ -156,7 +156,7 @@ def main() -> int:
     for step in PLAN_STEPS:
         full, _, lean = JT.class_rows(H, TH, 1, *JT.chunk_plan(cfg, step, 8)[0][3:])
         for w in (1.0, 0.7, 0.6, 0.5, 0.4, 0.3):
-            rec[f"step {step} lean cost {w}"] = pass_us(full, lean, step, JT._sms(dev), w)[0]
+            rec[f"step {step} lean cost {w}"] = pass_us(full, lean, step, JT.sm_count(dev), w)[0]
     report["fluid_pass"] = rec
     print(f"fluid_pass: {rec}", flush=True)
     print(json.dumps(report), flush=True)
