@@ -4,37 +4,46 @@ paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the twenty-eight CUDA libraries of ``jrl_lbm_torch/kernels/csrc``
+1. Builds the twenty-nine CUDA libraries of ``jrl_lbm_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
    (the cylinder kernels read only the previous step's buffers), and that
    ``fluid_pass`` spills nothing (``-Xptxas -v``); prints
-   ``c_approach_pass``'s registers and local bytes, the cluster kernels'
+   ``c_approach_pass``'s and ``cyl_pass``'s registers and local bytes, the cluster kernels'
    limits on this card and the route choice at 128x64: the cluster shape,
    cells per thread, shared memory and registers per block.
-0. The cylinder channel (``cylinder_phases``): each of its four kernels
+0. The cylinder channel (``cylinder_phases``): each of its five kernels
    against its plain twin after one step (1e-5) on a split geometry
-   (256x128) and a generic one (64x32), and the kernel runner against
-   the twin runner over 40, 41 and 43 steps (f, rho 2e-5; vel 2e-4);
-   then the main path, ``make_fused_cylinder_runner`` at ``bench.py``'s
-   ``CylinderConfig(res=(2048, 2048), D=64, Re=5000)``: 23 steps (k=4,
-   k=2 and k=1 all run) against the twin runner (all cells) and the
-   jnp-equivalent ``models/cylinder.py::make_runner`` (non-OBSTACLE
-   cells), 20 warm-up steps, three timed 600-step windows (the k=4
-   kernels must carry each), a profiled window (busy share, device µs
-   per launch), ``drag_lift`` of the final state, the k=2 and single-step
-   paths as yardsticks, and each kernel alone beside its bound and twin.
-   Counts are zeroed just before each main-path drive and read just after.
+   (256x128) and a generic one (64x32), ``cyl_pass`` (the k-step pass in
+   one launch) also bit for bit against the three launches it replaces
+   (``cyl_interior_k``, ``cyl_band_k`` "cyl" and "edge") at k = 2, 4, and
+   the kernel runner against the twin runner over 40, 41 and 43 steps (f,
+   rho 2e-5; vel 2e-4); then the main path, ``make_fused_cylinder_runner``
+   at ``bench.py``'s ``CylinderConfig(res=(2048, 2048), D=64, Re=5000)``:
+   23 steps (``cyl_pass`` at k=4 and k=2, and the k=1 pair, all run)
+   against the twin runner (all cells), the three-launch runner
+   (``route="launches"``, bit for bit) and the jnp-equivalent
+   ``models/cylinder.py::make_runner`` (non-OBSTACLE cells), 20 warm-up
+   steps, three timed 600-step windows (``cyl_pass`` must carry each), a
+   profiled window (busy share, device µs per launch), the same protocol
+   through the three launches a pass as the yardstick, the k=2 and
+   single-step paths, ``drag_lift`` of the final state, ``cyl_pass``
+   against ``cyl_pass_ref`` at 2048² (its blocks' class twins on their
+   windows), and each kernel alone beside its bound and twin. Counts are
+   zeroed just before each main-path drive and read just after.
 0b. The cylinder channel in bf16 deviation storage (``storage_phases``),
    round to nearest and stochastic rounding: (a) each kernel's instance
    against its twin after one launch (k = 1, 2, 4 on 256x128, cyl_full
-   on 64x32) and the bf16 runner against the twin runner of the same
+   on 64x32; ``cyl_pass`` at k = 2, 4 also against the three launches)
+   and the bf16 runner against the twin runner of the same
    seed over 40, 41 and 43 steps, bit for bit (stored patterns, rho,
    vel); (b) ``bench.py``'s 2048² scene in each mode: 23 steps against
-   the twin runner (bit for bit), best of three 600-step windows after
-   20 warm-up steps (the k=4 kernels must carry each), a profiled window
-   (busy share, device µs per launch), each instance alone beside its
+   the twin runner and the three-launch runner (bit for bit), best of
+   three 600-step windows after 20 warm-up steps (``cyl_pass`` must carry
+   each) and the same through the three launches, profiled windows
+   (busy share, device µs per launch), ``cyl_pass`` against
+   ``cyl_pass_ref``, each instance alone beside its
    bound (f planes 2 bytes a cell) and twin; (c) the shedding gate
    through ``shedding.run_case``: ``mini`` (22,000 steps) within
    ``tests/test_shedding.py``'s bands of its anchor, ``lowblock``
@@ -42,8 +51,10 @@ paths on one NVIDIA card and check them.
    Cl_rms +-10% of JAX's committed run, ``b025_bf16sr`` within the same
    bands of the port's float32 run, ``b025_bf16`` printed beside JAX's
    committed run (no gate); a missed gate fails the script after all
-   four ran. Each mode's launch counts are zeroed before each drive and
-   run and read after; no other mode or kernel may launch.
+   four ran; ``lowblock`` and ``b025_bf16sr`` again through the three
+   launches a pass, with the same St, Cd and Cl_rms. Each mode's launch
+   counts are zeroed before each drive and run and read after; no other
+   mode or kernel may launch.
 0a. The shear layer (``shear_phases``): each of the seven instances of
    ``periodic`` (BGK, MRT, KBC in five types) against its twin after one
    launch at 130² and 2048² (1e-6), the kernel runner against the twin
@@ -162,7 +173,7 @@ paths on one NVIDIA card and check them.
    through the multi-step kernels (its default: the three cluster
    kernels) and through the per-step runners (``c_approach_pass`` for the
    approach); the record rows agree to rtol 2e-4 / atol 1e-4.
-7. Prints ``{"kernels": [...]}`` (36 rows: each kernel once, the four
+7. Prints ``{"kernels": [...]}`` (39 rows: each kernel once, the five
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``; the
    cluster kernels and ``fused_approach`` timed on a 1000-step launch at
    128x64 (CUDA events), the cooperative fluid and balance on a 200-step
@@ -244,6 +255,9 @@ SOURCE = {
                        "jrl_lbm_tpu/ops/pallas/fused_step.py:606"),
     "cyl_band_k": ("jrl_lbm_torch/kernels/csrc/cyl_band_k.cu",
                    "jrl_lbm_tpu/ops/pallas/fused_step.py:838"),
+    # one launch for the three calls of _fused_step2_split_impl (:1196, :1275, :1292)
+    "cyl_pass": ("jrl_lbm_torch/kernels/csrc/cyl_pass.cu",
+                 "jrl_lbm_tpu/ops/pallas/fused_step.py:1196"),
     "fluid_k": ("jrl_lbm_torch/kernels/csrc/fluid_k.cu",
                 "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1349"),
     "fluid_k_lean": ("jrl_lbm_torch/kernels/csrc/fluid_k_lean.cu",
@@ -318,6 +332,11 @@ def sass_check(build) -> dict:
         fail(f"fluid_pass spills: {local} local bytes, -Xptxas -v {spills}")
     regs_p, local_p = jrl_c.pass_info()
     print(f"  c_approach_pass: {regs_p} registers, {local_p} local bytes", flush=True)
+    from jrl_lbm_torch.kernels import cylinder
+
+    print("  cyl_pass (k, storage): registers, local bytes " + ", ".join(
+        f"({k}, {st}) {cylinder.cyl_pass_info(k, st)}" for k in (2, 4) for st in (0, 1, 2)),
+        flush=True)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         print("  cuobjdump not found: SASS check not made", flush=True)
@@ -397,6 +416,7 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "cyl_interior": ("cyl_interior_kernel",),
     "cyl_interior_k": ("cyl_interior_k_kernel",),
     "cyl_band_k": ("cyl_band_k_kernel",),
+    "cyl_pass": ("cyl_pass_kernel",),
     "fluid_k": ("fluid_k_kernel",),
     "fluid_k_lean": ("fluid_k_lean_kernel",),
     "fluid_k_bt": ("fluid_k_bt_kernel",),
@@ -446,7 +466,11 @@ def device_profile(fn, steps: int):
 # The cylinder channel (kernels/cylinder.py)
 # ---------------------------------------------------------------------------
 
-CYL = ("cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k")
+CYL = ("cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k", "cyl_pass")
+# the kernels of the cylinder's main path: each k-step pass one cyl_pass
+# launch; cyl_interior_k and cyl_band_k are its yardstick
+CYL_PATH = ("cyl_full", "cyl_interior", "cyl_pass")
+CYL_YARD = ("cyl_interior_k", "cyl_band_k")
 # float32 operations per cell and step, counted by hand from
 # csrc/cyl_common.cuh: a plain-channel or uncoupled full cell (moments,
 # equilibrium, paired MRT) and the extra of a coupled cell next to the
@@ -464,11 +488,16 @@ CYL_SMALL = {
 
 
 def cyl_twin_runner(K, run):
-    """``run`` with every cylinder kernel call replaced by its plain twin."""
+    """``run`` with every cylinder kernel call replaced by its plain twin.
+    The callers give it a runner on the three-launch route: the three
+    twins compute whole-grid steps, the same bits as ``cyl_pass_ref``'s
+    block windows (`tests/test_torch_cyl_pass.py`) in one call a launch
+    instead of one a block."""
     from unittest import mock
 
     twins = {"cyl_full": K.cyl_full_ref, "cyl_interior": K.cyl_interior_ref,
-             "cyl_interior_k": K.cyl_interior_k_ref, "cyl_band_k": K.cyl_band_k_ref}
+             "cyl_interior_k": K.cyl_interior_k_ref, "cyl_band_k": K.cyl_band_k_ref,
+             "cyl_pass": K.cyl_pass_ref}
 
     def twin_run(state, fields, n):
         with mock.patch.multiple(K, **twins):
@@ -477,9 +506,10 @@ def cyl_twin_runner(K, run):
     return twin_run
 
 
-def cyl_windows(drive, state, cells: int, tag: str = ""):
+def cyl_windows(drive, state, cells: int, tag: str = "", yard: bool = False):
     """Three 600-step windows of the cylinder main path through ``drive``
-    (the k=4 kernels must carry each); ``(state, windows, best)``."""
+    (the k=4 passes must carry each: ``cyl_pass``, or with ``yard`` its
+    three launches); ``(state, windows, best)``."""
     windows = []
     for w in range(3):
         state, ms, counts = drive(600, state)
@@ -487,18 +517,19 @@ def cyl_windows(drive, state, cells: int, tag: str = ""):
         windows.append({"us_per_step": us, "mlups": cells * 600 / (ms * 1e3), "launches": counts})
         print(f"  window {w + 1}/3: 600 steps {us:.3f} us/step {cells / us:.1f} MLUPS "
               f"launches {counts}", flush=True)
-        if not (counts["cyl_interior_k"] == 150 and counts["cyl_band_k"] == 300
-                and counts["cyl_full"] == 0 and counts["cyl_interior"] == 0):
-            fail(f"{tag}the k=4 kernels did not carry the window: {counts}")
+        want = dict.fromkeys(CYL, 0)
+        want.update({"cyl_interior_k": 150, "cyl_band_k": 300} if yard else {"cyl_pass": 150})
+        if counts != want:
+            fail(f"{tag}the k=4 passes did not carry the window: {counts}")
     best = min(windows, key=lambda r: r["us_per_step"])
     print(f"  best of 3: {best['us_per_step']:.3f} us/step, {best['mlups']:.1f} MLUPS", flush=True)
     return state, windows, best
 
 
-def cyl_profile(run, fl, state, best):
+def cyl_profile(run, fl, state, best, names=("cyl_pass",)):
     """A profiled 600-step window of ``run``: ``(state, profile)`` with the
-    busy share and the k-step kernels' device µs per launch (an empty
-    profile when the trace holds no device time)."""
+    busy share and the k-step kernels' (``names``) device µs per launch
+    (an empty profile when the trace holds no device time)."""
     pstate = {"s": state}
 
     def prof_run(n):
@@ -509,7 +540,7 @@ def cyl_profile(run, fl, state, best):
         return pstate["s"], {}
     busy = sum(times.values())
     per_launch = {k: sum(t for nm, t in times.items() if any(f in nm for f in KERNEL_FUNCS[k]))
-                  / best["launches"][k] for k in ("cyl_interior_k", "cyl_band_k")}
+                  / best["launches"][k] for k in names}
     print(f"  profiled window: device busy {busy / 600:.3f} us/step of "
           f"{wall * 1e6 / 600:.3f} us wall (busy {busy / (wall * 1e6):.1%}); "
           f"device us per launch {per_launch}", flush=True)
@@ -568,6 +599,13 @@ def cyl_alone(K, cfg, run, st, fl, rate, bf16_dev, key=None):
                         K.cyl_band_k_ref, bound(band, 4, 4, 3, True)),
                        (lambda fn: fn(st["f"], st["vel"], flags, phi, out, edge, 4, True, c, *m),
                         K.cyl_band_k_ref, bound(edge, 4, 1, 3, False))],
+        # the three launches' work in one: their bytes and operations added
+        "cyl_pass": [(lambda fn: fn(st["f"], st["vel"], flags, phi, out, (interior, band, edge),
+                                    4, c, False, bf16_dev, pass_keys(key)),
+                      K.cyl_pass_ref,
+                      tuple(map(sum, zip(bound(interior, 4, 0, 0, False),
+                                         bound(band, 4, 4, 3, True),
+                                         bound(edge, 4, 1, 3, False)))))],
     }
     res = {}
     for k in CYL:
@@ -645,6 +683,9 @@ def cylinder_phases(dev, rate, errs):
                                 lambda o, fn, k=k, e=e, segs=segs: fn(s["f"], s["vel"], flags,
                                                                       phi, o, segs, k, e, c),
                                 K.cyl_band_k_ref))
+                one.append(("cyl_pass", lambda o, fn, k=k: fn(s["f"], s["vel"], flags, phi, o,
+                                                              run.step4.rows, k, c, True),
+                            K.cyl_pass_ref))
         else:
             one = [("cyl_full", lambda o, fn: fn(s["f"], s["rho"], s["vel"], flags, phi, o,
                                                   [(0, cfg.res[0])], c), K.cyl_full_ref)]
@@ -653,12 +694,17 @@ def cylinder_phases(dev, rate, errs):
             call(got, getattr(K, k))
             call(want, twin)
             close3(f"{k} 1 step", got, want, 1e-5, (k,))
+        if run.step.split:
+            for k in (2, 4):
+                errs["cyl_pass"].append(cyl_pass_equal(K, f"{label} k={k}", s, fl, run.step4.rows,
+                                                       k, c, True))
         for n in (40, 41, 43):
             kernels.reset_launches()
             got = run(s, fl, n)
             torch.cuda.synchronize()
             used = tuple(k for k, v in kernels.launches().items() if v)
-            want = cyl_twin_runner(K, run)(s, fl, n)
+            want = cyl_twin_runner(K, K.make_fused_cylinder_runner(cfg, route="launches",
+                                                                   **rkw))(s, fl, n)
             close3(f"runner {n} steps ({'+'.join(used)})", got, want, TOL, used)
 
     # ---- the main path at bench.py's 2048² ----
@@ -668,46 +714,65 @@ def cylinder_phases(dev, rate, errs):
     c = K.consts(cfg)
     s0, fl = CY.init(cfg, dev)
     run = K.make_fused_cylinder_runner(cfg)
+    yard_run = K.make_fused_cylinder_runner(cfg, route="launches")
     print(f"cylinder main path {H}x{W}, D {cfg.D:g}, Re {cfg.Re:g}, tau {cfg.tau:.6f}: "
-          f"k=4 rows (interior, band, edge) {run.step4.rows}", flush=True)
+          f"k=4 rows (interior, band, edge) {run.step4.rows}, one cyl_pass launch a pass "
+          f"({len(K.cyl_pass_items(H, W, 4, *run.step4.rows))} blocks)", flush=True)
     path_launches = {k: 0 for k in CYL}
 
-    def drive(n, state):
-        """The main path for n steps, counts zeroed just before and read
-        just after; no JRL kernel may launch."""
+    def drive(n, state, runner=run, main=True):
+        """``runner`` for n steps (the main path, else its three-launch
+        yardstick), counts zeroed just before and read just after; no JRL
+        kernel may launch."""
         torch.cuda.synchronize()
         kernels.reset_launches()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = run(state, fl, n)
+        out = runner(state, fl, n)
         end.record()
         torch.cuda.synchronize()
         counts = kernels.launches()
         off = {k: v for k, v in counts.items() if v and k not in CYL}
         if off:
             fail(f"cylinder path launched JRL kernels {off}")
-        for k in CYL:
-            path_launches[k] += counts[k]
+        if main:
+            for k in CYL:
+                path_launches[k] += counts[k]
         return out, start.elapsed_time(end), {k: counts[k] for k in CYL}
 
-    # 23 steps = 5 k=4 passes + 1 k=2 pass + 1 single step: every kernel runs
+    # 23 steps = 5 k=4 passes + 1 k=2 pass + 1 single step: every path kernel runs
     n_cmp = 23
     got, ms, counts = drive(n_cmp, s0)
     print(f"  {n_cmp} steps: launches {counts}", flush=True)
-    if not all(counts[k] for k in CYL):
-        fail(f"cylinder kernels not launched on the {n_cmp}-step drive: {counts}")
-    want = cyl_twin_runner(K, run)(s0, fl, n_cmp)
-    close3(f"2048² {n_cmp} steps vs twin runner", got, want, TOL, CYL)
+    if not all(counts[k] for k in CYL_PATH) or any(counts[k] for k in CYL_YARD):
+        fail(f"cylinder path kernels not launched (or the yardstick's) on the {n_cmp}-step "
+             f"drive: {counts}")
+    want = cyl_twin_runner(K, yard_run)(s0, fl, n_cmp)
+    close3(f"2048² {n_cmp} steps vs twin runner", got, want, TOL, CYL_PATH)
+    yard, _, _ = drive(n_cmp, s0, yard_run, main=False)
+    errs["cyl_pass"].append(cyl_equal(f"2048² {n_cmp} steps vs the three-launch runner", got,
+                                      yard))
     ref = CY.make_runner(cfg)(s0, fl, n_cmp)
     fluid = fl["flags"] != int(CY.CellType.OBSTACLE)
     close3(f"2048² {n_cmp} steps vs jnp-equivalent (non-OBSTACLE)", got, ref, TOL, (),
            mask=fluid)
-    del want, ref
+    del want, ref, yard
 
     state, windows, best = cyl_windows(drive, run(s0, fl, 20), cells)  # after 20 warm-up steps
+    if not all(torch.isfinite(v).all() for v in state.values()):
+        fail("2048² state not finite")
+    state, prof = cyl_profile(run, fl, state, best)
 
-    # yardsticks, not the main path: the same window through k=2 passes
-    # (LBM_FUSED_K=2) and through single split steps (cyl_interior + cyl_full)
+    # yardsticks, not the main path: the same protocol through the three
+    # launches a pass (route="launches"), then one window through k=2
+    # passes (LBM_FUSED_K=2) and through single split steps (cyl_interior +
+    # cyl_full)
+    yard = {}
+    ystate, ywin, ybest = cyl_windows(lambda n, st: drive(n, st, yard_run, False),
+                                      yard_run(state, fl, 20), cells, "three launches: ", True)
+    ystate, yprof = cyl_profile(yard_run, fl, ystate, ybest, CYL_YARD)
+    yard["three launches a pass"] = {"windows": ywin, "best": ybest, "profile": yprof}
+    del ystate
     old_k = os.environ.get("LBM_FUSED_K")
     os.environ["LBM_FUSED_K"] = "2"
     try:
@@ -725,7 +790,6 @@ def cylinder_phases(dev, rate, errs):
             st_ = run.step(st_, fl_, bufs[i % 2])
         return refresh(st_, fl_)
 
-    yard = {}
     for label, fn in (("k=2 passes", run_k2), ("single split steps", run_k1)):
         fn(state, fl, 20)
         torch.cuda.synchronize()
@@ -741,9 +805,6 @@ def cylinder_phases(dev, rate, errs):
         print(f"  yardstick, {label}: 600 steps {us:.3f} us/step {cells / us:.1f} MLUPS "
               f"launches {counts}", flush=True)
     report["yardsticks"] = yard
-    if not all(torch.isfinite(v).all() for v in state.values()):
-        fail("2048² state not finite")
-    state, prof = cyl_profile(run, fl, state, best)
     fx, fy = CY.drag_lift(state, fl, cfg)
     fx, fy = float(fx), float(fy)
     print(f"  drag_lift after {20 + 4 * 600} steps: Fx {fx:.6g} Fy {fy:.6g}", flush=True)
@@ -753,6 +814,8 @@ def cylinder_phases(dev, rate, errs):
                    "rows": run.step4.rows})
 
     # ---- each kernel alone at the main path's shapes, and its twin ----
+    errs["cyl_pass"].append(cyl_pass_equal(K, "2048² k=4", state, fl, run.step4.rows, 4, c,
+                                           False, twin=True))
     print(f"cylinder kernels alone at {H}x{W} (memory rate {rate / 1e12:.2f} TB/s):", flush=True)
     alone = cyl_alone(K, cfg, run, state, fl, rate, False)
     rows = []
@@ -803,12 +866,57 @@ def cyl_equal(tag, got, want):
     return err
 
 
+def pass_keys(key):
+    """Three Philox keys of a stochastic-rounding pass from one (the
+    launch numbers key[1] .. key[1] + 2), or None."""
+    return None if key is None else tuple((key[0], key[1] + i) for i in range(3))
+
+
+def cyl_pass_equal(K, tag, s, fl, rows, k, c, write_macro, bf16_dev=False, key=None,
+                   twin=False):
+    """One ``cyl_pass`` launch against the three launches it replaces
+    (``cyl_interior_k``, ``cyl_band_k`` "cyl" and "edge") from the same
+    state, keys and output buffers, bit for bit; with ``twin`` also against
+    ``cyl_pass_ref`` (the class twins item by item on their windows: 1e-5
+    in float32, bit for bit in bf16). Returns the largest deviation."""
+    import torch
+
+    args = (s["f"], s["vel"], fl["flags"], fl["phi_obs"])
+    keys = pass_keys(key)
+    base = {n: torch.full_like(v, 7.0) for n, v in s.items()}
+    got, want = ({n: v.clone() for n, v in base.items()} for _ in range(2))
+    K.cyl_pass(*args, got, rows, k, c, write_macro, bf16_dev, keys)
+    interior, cyl_rows, edge_rows = rows
+    kk = keys or (None, None, None)
+    K.cyl_interior_k(s["f"], want, interior, k, c, write_macro, bf16_dev, kk[0])
+    K.cyl_band_k(*args, want, cyl_rows, k, False, c, bf16_dev, kk[1])
+    K.cyl_band_k(*args, want, edge_rows, k, True, c, bf16_dev, kk[2])
+    torch.cuda.synchronize()
+    err = cyl_equal(f"cyl_pass {tag} vs the three launches", got, want)
+    if twin:
+        ref = {n: v.clone() for n, v in base.items()}
+        t0 = time.perf_counter()
+        K.cyl_pass_ref(*args, ref, rows, k, c, write_macro, bf16_dev, keys)
+        torch.cuda.synchronize()
+        print(f"  cyl_pass_ref {tag}: {time.perf_counter() - t0:.2f} s", flush=True)
+        if bf16_dev is False:
+            for nm in ("f", "rho", "vel"):
+                rep = []
+                check_close(f"cyl_pass {tag} vs twin {nm}", got[nm], ref[nm], 1e-5, rep)
+                err = max(err, rep[0])
+        else:
+            err = max(err, cyl_equal(f"cyl_pass {tag} vs twin", got, ref))
+    return err
+
+
 def storage_phases(dev, rate, f32_report):
     """The cylinder channel in bf16 deviation storage (round to nearest and
     stochastic rounding): (a) each kernel instance against its twin after
     one launch and the runners against the twin runners, bit for bit;
-    (b) the 2048² main path in each mode; (c) the shedding gate. Returns
-    the eight ``kernels`` rows (four kernels, two modes) and a report."""
+    (b) the 2048² main path in each mode beside its three-launch
+    yardstick; (c) the shedding gate, f32 and SR also through the
+    yardstick. Returns the ten ``kernels`` rows (five kernels, two modes)
+    and a report."""
     import json
 
     import torch
@@ -860,6 +968,10 @@ def storage_phases(dev, rate, f32_report):
                         one.append((f"cyl_band_k k={k} {'edge' if e else 'cyl'}",
                                     lambda o, fn, k=k, e=e, segs=segs: fn(
                                         sm["f"], sm["vel"], flags, phi, o, segs, k, e, c, *m)))
+                    if k > 1:
+                        one.append((f"cyl_pass k={k}", lambda o, fn, k=k: fn(
+                            sm["f"], sm["vel"], flags, phi, o, run.step4.rows, k, c, True, mode,
+                            pass_keys(m[1]))))
             else:
                 one = [("cyl_full", lambda o, fn: fn(sm["f"], sm["rho"], sm["vel"], flags, phi,
                                                       o, [(0, cfg.res[0])], c, *m))]
@@ -870,13 +982,17 @@ def storage_phases(dev, rate, f32_report):
                 call(want, getattr(K, k + "_ref"))
                 torch.cuda.synchronize()
                 errs[k, nm].append(cyl_equal(f"{nm} {tag} 1 launch", got, want))
+            if run.step.split:
+                for k in (2, 4):
+                    errs["cyl_pass", nm].append(cyl_pass_equal(
+                        K, f"{nm} {label} k={k}", sm, fl, run.step4.rows, k, c, False, mode, m[1]))
             for n in (40, 41, 43):
                 kernels.reset_launches()
                 got = K.make_fused_cylinder_runner(cfg, bf16_dev=mode, seed=17, **rkw)(sm, fl, n)
                 torch.cuda.synchronize()
                 used = tuple(k for k, v in mode_counts(nm).items() if v)
-                twin = cyl_twin_runner(K, K.make_fused_cylinder_runner(cfg, bf16_dev=mode,
-                                                                       seed=17, **rkw))
+                twin = cyl_twin_runner(K, K.make_fused_cylinder_runner(
+                    cfg, bf16_dev=mode, seed=17, route="launches", **rkw))
                 err = cyl_equal(f"{nm} runner {n} steps ({'+'.join(used)})", got,
                                 twin(sm, fl, n))
                 for k in used:
@@ -890,9 +1006,10 @@ def storage_phases(dev, rate, f32_report):
     rows = []
     for mode, nm in CYL_STORAGE:
         run = K.make_fused_cylinder_runner(cfg, bf16_dev=mode, seed=1)
+        yard_run = K.make_fused_cylinder_runner(cfg, bf16_dev=mode, seed=1, route="launches")
         st0 = dict(s0, f=K.f_to_storage(s0["f"], mode))
 
-        def drive(n, state, run=run, nm=nm):
+        def drive(n, state, run=run, nm=nm, main=True):
             torch.cuda.synchronize()
             kernels.reset_launches()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -901,24 +1018,36 @@ def storage_phases(dev, rate, f32_report):
             end.record()
             torch.cuda.synchronize()
             counts = mode_counts(nm)
-            for k in CYL:
-                path[nm][k] += counts[k]
+            if main:
+                for k in CYL:
+                    path[nm][k] += counts[k]
             return out, start.elapsed_time(end), counts
 
         print(f"cylinder main path {H}x{W} in {nm} storage:", flush=True)
         got, _, counts = drive(23, st0)
-        if not all(counts[k] for k in CYL):
-            fail(f"{nm}: cylinder kernels not launched on the 23-step drive: {counts}")
-        want = cyl_twin_runner(K, K.make_fused_cylinder_runner(cfg, bf16_dev=mode, seed=1))(
-            st0, fl, 23)
+        if not all(counts[k] for k in CYL_PATH) or any(counts[k] for k in CYL_YARD):
+            fail(f"{nm}: cylinder path kernels not launched (or the yardstick's) on the 23-step "
+                 f"drive: {counts}")
+        want = cyl_twin_runner(K, K.make_fused_cylinder_runner(cfg, bf16_dev=mode, seed=1,
+                                                               route="launches"))(st0, fl, 23)
         err = cyl_equal(f"{nm} 2048² 23 steps vs twin runner", got, want)
-        for k in CYL:
+        yard, _, _ = drive(23, st0, yard_run, nm, False)
+        err = max(err, cyl_equal(f"{nm} 2048² 23 steps vs the three-launch runner", got, yard))
+        for k in CYL_PATH:
             errs[k, nm].append(err)
-        del want
+        del want, yard
         state, windows, best = cyl_windows(drive, run(got, fl, 20), cells, f"{nm}: ")
         if not all(torch.isfinite(v.float()).all() for v in state.values()):
             fail(f"{nm}: 2048² state not finite")
         state, prof = cyl_profile(run, fl, state, best)
+        ystate, ywin, ybest = cyl_windows(lambda n, st: drive(n, st, yard_run, nm, False),
+                                          yard_run(state, fl, 20), cells,
+                                          f"{nm} three launches: ", True)
+        ystate, yprof = cyl_profile(yard_run, fl, ystate, ybest, CYL_YARD)
+        del ystate
+        errs["cyl_pass", nm].append(cyl_pass_equal(
+            K, f"{nm} 2048² k=4", state, fl, run.step4.rows, 4, K.consts(cfg), False, mode,
+            (1, 2 ** 31) if mode == "sr" else None, twin=True))
         fx, fy = CY.drag_lift(dict(state, f=K.f_from_storage(state["f"], mode)), fl, cfg)
         print(f"  drag_lift after {23 + 20 + 4 * 600} steps: Fx {float(fx):.6g} "
               f"Fy {float(fy):.6g}", flush=True)
@@ -928,7 +1057,8 @@ def storage_phases(dev, rate, f32_report):
         alone = cyl_alone(K, cfg, run, state, fl, rate, mode,
                           (1, 2 ** 31) if mode == "sr" else None)
         report[nm] = {"windows": windows, "best": best, "profile": prof,
-                      "drag_lift": [float(fx), float(fy)], "per_launch": alone}
+                      "drag_lift": [float(fx), float(fy)], "per_launch": alone,
+                      "yardstick": {"windows": ywin, "best": ybest, "profile": yprof}}
         for k in CYL:
             src, rep = SOURCE[k]
             e = errs[k, nm]
@@ -961,8 +1091,8 @@ def storage_phases(dev, rate, f32_report):
         res = shedding.run_case(case, dev, seed=7)
         torch.cuda.synchronize()
         counts = mode_counts(nm) if nm != "f32" else {k: kernels.launches()[k] for k in CYL}
-        if not (counts["cyl_interior_k"] and counts["cyl_band_k"]):
-            fail(f"shedding {case}: the k=4 kernels did not run: {counts}")
+        if not counts["cyl_pass"] or any(counts[k] for k in CYL_YARD):
+            fail(f"shedding {case}: the k-step passes did not run through cyl_pass: {counts}")
         if nm != "f32":
             for k in CYL:
                 path[nm][k] += counts[k]
@@ -978,6 +1108,26 @@ def storage_phases(dev, rate, f32_report):
 
         np.savez(os.path.join(HERE, "chiprun_out", f"cylinder_shedding_{case}_series.npz"),
                  **series)
+
+    # the yardstick: f32 and SR through the three launches a pass, the same
+    # run bit for bit, so the same St, Cd and Cl_rms
+    for case in ("lowblock", "b025_bf16sr"):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = shedding.run_case(case, dev, seed=7, route="launches")
+        torch.cuda.synchronize()
+        counts = {k: kernels.launches()[k] for k in CYL}
+        if counts["cyl_pass"] or not all(counts[k] for k in CYL_YARD):
+            fail(f"shedding {case} yardstick: not the three launches: {counts}")
+        res.pop("series")
+        res["launches"] = counts
+        gate[f"{case} three launches"] = res
+        same = all(res[key] == gate[case][key] for key in ("strouhal", "cd_mean", "cl_rms"))
+        print(f"shedding {case} through the three launches ({res['wall_s']:.1f} s, cyl_pass "
+              f"{gate[case]['wall_s']:.1f} s): St {res['strouhal']:.4f} Cd {res['cd_mean']:.4f} "
+              f"Cl_rms {res['cl_rms']:.4f}: {'the same' if same else 'DIFFERENT'}", flush=True)
+        if not same:
+            fail(f"shedding {case}: cyl_pass and the three launches give other St, Cd, Cl_rms")
 
     def held(case, ref, tag, st_tol):
         r = gate[case]
@@ -3102,8 +3252,8 @@ def main() -> int:
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows
-    if len(rows) != 36:
-        fail(f"{len(rows)} kernel rows, expected 36")
+    if len(rows) != 39:
+        fail(f"{len(rows)} kernel rows, expected 39")
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)

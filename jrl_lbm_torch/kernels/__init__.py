@@ -7,9 +7,10 @@ the three phases of grids that fit one thread-block cluster's
 shared memory, such as the default 128x64, on cluster kernels of their
 own),
 the k-step tile-class kernels of the JRL fluid phase on larger grids
-and its k = 1 split pass in one launch (`jrl_tiled.py`), the four kernels of the cylinder channel's fused step
-(`cylinder.py`; float32, bf16 or stochastically rounded bf16 storage of
-f, each a template instance, counted per name and per mode), the
+and its k = 1 split pass in one launch (`jrl_tiled.py`), the kernels of the cylinder channel's fused step
+(`cylinder.py`: the single steps, the k-step pass in one launch and the
+three kernels it replaces; float32, bf16 or stochastically rounded bf16
+storage of f, each a template instance, counted per name and per mode), the
 shear layer's periodic step (`periodic.py`), and the JRL case and the
 cylinder channel on a mesh of shards (`jrl_sharded.py`, `cyl_sharded.py`,
 their halo pieces packed by `halo.py`).
@@ -25,7 +26,7 @@ KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack",
            "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh",
            "fused_fluid_cl", "fused_balance_cl", "fluid_pass",
-           "c_approach_pass", "fused_approach_cl")
+           "c_approach_pass", "fused_approach_cl", "cyl_pass")
 
 
 def wrappers():
@@ -62,6 +63,7 @@ def wrappers():
         "fluid_pass": jrl_tiled.fluid_pass,
         "c_approach_pass": jrl_c.c_approach_pass,
         "fused_approach_cl": fused_jrl.fused_approach_cl,
+        "cyl_pass": cylinder.cyl_pass,
     }
 
 

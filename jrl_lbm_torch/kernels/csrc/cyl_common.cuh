@@ -1,5 +1,6 @@
-// Device code shared by the four cylinder-channel kernels (cyl_full,
-// cyl_interior, cyl_interior_k, cyl_band_k): one full-boundary step and
+// Device code shared by the cylinder-channel kernels (cyl_full,
+// cyl_interior, cyl_interior_k, cyl_band_k, cyl_pass and the sharded
+// ones): one full-boundary step and
 // one plain-channel step of a cell, written against an accessor that
 // reads the previous step either from global memory (one step per
 // launch) or from a tile in shared memory (k steps per launch).
@@ -77,11 +78,11 @@ __device__ __forceinline__ float f_load(const f_t<ST>* f, int i, int q) {
 // they are; bf16 of f - w_q rounded to nearest (even); or stochastically,
 // by adding 16 random bits to the float32 pattern of f - w_q and keeping
 // its top 16 bits (fused_step.py:189-201). The bits come from Philox
-// under the launch's key, counter (c, 0, 0, 0) for populations 0-7 and
+// under the key (key0, key1), counter (c, 0, 0, 0) for populations 0-7 and
 // (c, 1, 0, 0) for population 8 (kernels/philox.py).
 template <int ST>
-__device__ __forceinline__ void f_store(f_t<ST>* f, int HW, int c, const float fo[9],
-                                        const CylParams& p) {
+__device__ __forceinline__ void f_store_key(f_t<ST>* f, int HW, int c, const float fo[9],
+                                            unsigned key0, unsigned key1) {
   if constexpr (ST == F32) {
 #pragma unroll
     for (int q = 0; q < 9; ++q) f[q * HW + c] = fo[q];
@@ -91,8 +92,8 @@ __device__ __forceinline__ void f_store(f_t<ST>* f, int HW, int c, const float f
       f[q * HW + c] = __bfloat16_as_ushort(__float2bfloat16_rn(fo[q] - wq(q)));
     }
   } else {
-    const uint4 w = philox::philox4x32_10(make_uint4((unsigned)c, 0u, 0u, 0u), p.key[0], p.key[1]);
-    const uint4 w8 = philox::philox4x32_10(make_uint4((unsigned)c, 1u, 0u, 0u), p.key[0], p.key[1]);
+    const uint4 w = philox::philox4x32_10(make_uint4((unsigned)c, 0u, 0u, 0u), key0, key1);
+    const uint4 w8 = philox::philox4x32_10(make_uint4((unsigned)c, 1u, 0u, 0u), key0, key1);
     const unsigned r[9] = {w.x & 0xFFFFu, w.x >> 16, w.y & 0xFFFFu, w.y >> 16, w.z & 0xFFFFu,
                            w.z >> 16,     w.w & 0xFFFFu, w.w >> 16, w8.x & 0xFFFFu};
 #pragma unroll
@@ -101,6 +102,13 @@ __device__ __forceinline__ void f_store(f_t<ST>* f, int HW, int c, const float f
       f[q * HW + c] = (unsigned short)(b >> 16);
     }
   }
+}
+
+// f_store under the launch's key.
+template <int ST>
+__device__ __forceinline__ void f_store(f_t<ST>* f, int HW, int c, const float fo[9],
+                                        const CylParams& p) {
+  f_store_key<ST>(f, HW, c, fo, p.key[0], p.key[1]);
 }
 
 // Calls fn(std::integral_constant<int, ST>()) for the run-time storage mode.
@@ -124,6 +132,13 @@ __device__ __forceinline__ int pull_off(int g, int e, bool nf, int N) {
   if (e == 1 && g == 0 && nf) return REFLECT ? 1 : 0;
   if (e == -1 && g == N - 1 && nf) return REFLECT ? -1 : 0;
   return -e;
+}
+
+// pull_off along x, or -e where the caller knows that no cell it runs lies
+// on column 0 or W-1 (XW false: a body strip of cyl_pass.cu).
+template <bool XW, bool REFLECT>
+__device__ __forceinline__ int pull_x(int g, int e, bool nf, int N) {
+  return XW ? pull_off<REFLECT>(g, e, nf, N) : -e;
 }
 
 // Global row of the r-th row of the launch's segments.
@@ -271,8 +286,9 @@ __device__ __forceinline__ void moments_mrt(const CylParams& p, const float fb[9
 // Streaming of the cell at offset (oy, ox) from the accessor's cell, whose
 // global coordinates are (gy, gx): reflect-clamp pulls, sub-grid
 // interpolation bounce (HAS_PHI; plain half-way bounce otherwise),
-// reflected storage in OBSTACLE cells, then the INFLOW plug.
-template <bool HAS_PHI, class Acc>
+// reflected storage in OBSTACLE cells, then the INFLOW plug. XW false: no
+// cell on the wall columns x = 0, W-1 (pull_x).
+template <bool HAS_PHI, bool XW = true, class Acc>
 __device__ __forceinline__ void stream_full(const Acc& a, const CylParams& p, int gy, int gx,
                                             int oy, int ox, float out[9]) {
   const int fl = a.flag(oy, ox);
@@ -288,14 +304,14 @@ __device__ __forceinline__ void stream_full(const Acc& a, const CylParams& p, in
 #pragma unroll
   for (int q = 1; q < 9; ++q) {
     const int ex = ex_of(q), ey = ey_of(q);
-    const int dx = pull_off<true>(gx, ex, nf, p.W), dy = pull_off<true>(gy, ey, nf, p.H);
+    const int dx = pull_x<XW, true>(gx, ex, nf, p.W), dy = pull_off<true>(gy, ey, nf, p.H);
     const float val = a.F(q, oy + dy, ox + dx);
     raw[q] = val;
     const bool nbr_obs = a.flag(oy + dy, ox + dx) == OBSTACLE;
     const float f_this = a.F(refl(q), oy, ox);
     float v_obs = f_this;
     if (HAS_PHI && nbr_obs && t_ok) {
-      const int nx = pull_off<true>(gx, -ex, nf, p.W), ny = pull_off<true>(gy, -ey, nf, p.H);
+      const int nx = pull_x<XW, true>(gx, -ex, nf, p.W), ny = pull_off<true>(gy, -ey, nf, p.H);
       const float nxt = a.F(refl(q), oy + ny, ox + nx);
       const float v1 = (2.0f * t - 1.0f) * val + (2.0f - 2.0f * t) * f_this;
       const float v2 = (2.0f * t) * f_this + (1.0f - 2.0f * t) * nxt;
@@ -314,8 +330,9 @@ __device__ __forceinline__ void stream_full(const Acc& a, const CylParams& p, in
 }
 
 // Static-cylinder nonequilibrium reconstruction of a cell with flag `fl`
-// and fraction t (fused_step.py coupling section), in place on fn.
-template <class Acc>
+// and fraction t (fused_step.py coupling section), in place on fn. XW: as
+// for stream_full.
+template <bool XW = true, class Acc>
 __device__ __forceinline__ void couple(const Acc& a, const CylParams& p, int gy, int gx, int fl,
                                        float t, float fn[9]) {
   const bool nf = fl != FLUID;
@@ -330,12 +347,12 @@ __device__ __forceinline__ void couple(const Acc& a, const CylParams& p, int gy,
     const int ex = ex_of(q), ey = ey_of(q);
     // neighbour at (y + ey, x + ex), clamped
     const bool nb = a.flag(pull_off<false>(gy, -ey, nf, p.H),
-                           pull_off<false>(gx, -ex, nf, p.W)) == OBSTACLE;
+                           pull_x<XW, false>(gx, -ex, nf, p.W)) == OBSTACLE;
     if (nb) valid |= 1u << q;
     const float vm = nb ? 1.0f : 0.0f;
     count = count + vm;
     // velocity pulled from (y - ey, x - ex), clamped
-    const int dy = pull_off<false>(gy, ey, nf, p.H), dx = pull_off<false>(gx, ex, nf, p.W);
+    const int dy = pull_off<false>(gy, ey, nf, p.H), dx = pull_x<XW, false>(gx, ex, nf, p.W);
     vtx = vtx + (vm * tqr) * a.vx(dy, dx);
     vty = vty + (vm * tqr) * a.vy(dy, dx);
   }
@@ -343,7 +360,7 @@ __device__ __forceinline__ void couple(const Acc& a, const CylParams& p, int gy,
   const float u0 = vtx / sc, u1 = vty / sc;
 
   // 12-point gradient; at(sx, sy) = value at (y + sy, x + sx), clamped
-  const int xp = pull_off<false>(gx, -1, nf, p.W), xm = pull_off<false>(gx, 1, nf, p.W);
+  const int xp = pull_x<XW, false>(gx, -1, nf, p.W), xm = pull_x<XW, false>(gx, 1, nf, p.W);
   const int yp = pull_off<false>(gy, -1, nf, p.H), ym = pull_off<false>(gy, 1, nf, p.H);
   float g00, g01, g10, g11;
   {
@@ -380,8 +397,8 @@ __device__ __forceinline__ void couple(const Acc& a, const CylParams& p, int gy,
 // streaming, INFLOW, OUTFLOW (the streamed + INFLOW values of the inward
 // neighbour, recomputed here: no other thread's output is read), the
 // coupling (COUPLING), moments and MRT. OBSTACLE cells keep rho_obs and
-// (vx_obs, vy_obs).
-template <bool COUPLING, class Acc>
+// (vx_obs, vy_obs). XW false: the cell is not on x = 0 or W-1 (pull_x).
+template <bool COUPLING, bool XW = true, class Acc>
 __device__ __forceinline__ void full_cell(const Acc& a, const CylParams& p, int gy, int gx,
                                           float rho_obs, float vx_obs, float vy_obs, float fo[9],
                                           float& rho_o, float& ux_o, float& uy_o) {
@@ -389,15 +406,15 @@ __device__ __forceinline__ void full_cell(const Acc& a, const CylParams& p, int 
   int oy = 0, ox = 0;
   if (fl == OUTFLOW) {
     oy = gy == 0 ? 1 : (gy == p.H - 1 ? -1 : 0);
-    ox = gx == 0 ? 1 : (gx == p.W - 1 ? -1 : 0);
+    ox = XW ? (gx == 0 ? 1 : (gx == p.W - 1 ? -1 : 0)) : 0;
   }
   float fn[9];
-  stream_full<COUPLING>(a, p, gy + oy, gx + ox, oy, ox, fn);
+  stream_full<COUPLING, XW>(a, p, gy + oy, gx + ox, oy, ox, fn);
   if (COUPLING) {
     const float t = a.ph(0, 0);
     const bool t_ok = (t > -1e-10f) && (t <= (float)(1.0 + 1e-10));
-    const bool skip = fl == OBSTACLE || gx == p.W - 1 || gy == p.H - 1;
-    if (t_ok && !skip) couple(a, p, gy, gx, fl, t, fn);
+    const bool skip = fl == OBSTACLE || (XW && gx == p.W - 1) || gy == p.H - 1;
+    if (t_ok && !skip) couple<XW>(a, p, gy, gx, fl, t, fn);
   }
   moments_mrt(p, fn, fl == OBSTACLE, rho_obs, vx_obs, vy_obs, fo, rho_o, ux_o, uy_o);
 }
@@ -413,12 +430,13 @@ __device__ __forceinline__ void full_cell(const Acc& a, const CylParams& p, int 
 // full step does (the JAX lean pass wraps them; no other cell reads a
 // wall cell's populations, since the cells beside a wall take the
 // half-way bounce), so no cell reads across the global y border. Without
-// YB, gy is not read.
-template <bool YB = false, class Acc>
+// YB, gy is not read. XW false: the cell is none of the columns 0, 1, W-2,
+// W-1, whose wall rules are then left out (a body strip of cyl_pass.cu).
+template <bool YB = false, bool XW = true, class Acc>
 __device__ __forceinline__ void lean_cell(const Acc& a, const CylParams& p, int gy, int gx,
                                           float fo[9], float& rho_o, float& ux_o, float& uy_o) {
   const int W = p.W;
-  const bool obs = gx == 0 || gx == W - 1;
+  const bool obs = XW && (gx == 0 || gx == W - 1);
   int oy = 0;  // row offset of the cell streamed: -1 for the OUTFLOW copy
   bool refl_lo = false, refl_hi = false;
   if (YB) {
@@ -434,7 +452,8 @@ __device__ __forceinline__ void lean_cell(const Acc& a, const CylParams& p, int 
 #pragma unroll
   for (int q = 1; q < 9; ++q) {
     const int ex = ex_of(q), ey = ey_of(q);
-    const int dx = ex == 1 ? (gx == 0 ? 1 : -1) : (ex == -1 ? (gx == W - 1 ? -1 : 1) : 0);
+    const int dx = XW ? (ex == 1 ? (gx == 0 ? 1 : -1) : (ex == -1 ? (gx == W - 1 ? -1 : 1) : 0))
+                      : -ex;
     int dy = -ey;
     if (YB && ((ey == 1 && refl_lo) || (ey == -1 && refl_hi))) dy = ey;
     raw[q] = a.F(q, oy + dy, dx);
@@ -444,7 +463,7 @@ __device__ __forceinline__ void lean_cell(const Acc& a, const CylParams& p, int 
   for (int q = 1; q < 9; ++q) {
     const int ex = ex_of(q);
     float s = raw[q];
-    if ((ex == 1 && gx == 1) || (ex == -1 && gx == W - 2)) s = a.F(refl(q), oy, 0);
+    if (XW && ((ex == 1 && gx == 1) || (ex == -1 && gx == W - 2))) s = a.F(refl(q), oy, 0);
     fn[q] = obs ? raw[refl(q)] : s;
   }
   if (YB && !obs && gy + oy == 0) {

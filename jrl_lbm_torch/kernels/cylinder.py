@@ -1,4 +1,4 @@
-"""Cylinder-channel kernels: the four CUDA kernels of the fused step, their
+"""Cylinder-channel kernels: the CUDA kernels of the fused step, their
 plain PyTorch twins and the glue that runs them (counterpart of the JAX
 package's `ops/pallas/fused_step.py`).
 
@@ -13,7 +13,13 @@ Replace the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_step.py`:
   k plain-channel steps per launch (temporal blocking);
 * ``cyl_band_k`` (`csrc/cyl_band_k.cu`) <- ``_make_full_kernel2``: k
   full-boundary steps per launch on the band rows, "cyl" or "edge"
-  variant.
+  variant;
+* ``cyl_pass`` (`csrc/cyl_pass.cu`) <- the three calls of
+  ``_fused_step2_split_impl`` (``_make_interior_kernel2`` and
+  ``_make_full_kernel2`` "cyl" and "edge") in one launch: a k-step pass
+  streamed row by row, bit for bit the three launches above, which stay
+  as its yardstick (``route="launches"``). The runner's k-step passes go
+  through it.
 
 Each kernel reads only the previous state and writes its rows of separate
 output buffers, so the interior and band launches of one step need no
@@ -25,7 +31,9 @@ card it launches the kernel or raises. ``<wrapper>.launches`` counts the
 launches. The twins compute each step on the whole grid and write the
 wrapper's rows; a k-step twin runs k whole-grid steps. On those rows that
 is what the kernel computes: a k-step tile recomputes its k-cell halo,
-which is exact on a border that `check_border` accepts. Their arithmetic
+which is exact on a border that `check_border` accepts. ``cyl_pass``'s
+twin runs those twins block by block, each on the grid NaN beyond the
+block's window (`cyl_pass_ref`). Their arithmetic
 follows the Pallas bodies: the
 division-free equilibrium `_feq_terms` and the paired even/odd MRT
 `_mrt_apply`, so kernel and twin round alike (the sources build with
@@ -660,7 +668,319 @@ def cyl_band_k(f, vel, flags, phi, out, segs, k: int, edge: bool, c: Consts, bf1
     _count(cyl_band_k, st)
 
 
-WRAPPERS = (cyl_full, cyl_interior, cyl_interior_k, cyl_band_k)
+# ---------------------------------------------------------------------------
+# The k-step pass in one launch (cyl_pass, csrc/cyl_pass.cu)
+# ---------------------------------------------------------------------------
+
+CLS_INTERIOR, CLS_CYL, CLS_EDGE = 0, 1, 2  # csrc/cyl_pass_state.cuh::PassClass
+PASS_KS = (2, 3, 4)  # the depths cyl_pass is built for
+CP_THREADS, CP_BLOCKS_PER_SM = 512, 2  # csrc/cyl_pass_state.cuh, as built (cyl_pass_shape)
+CP_D, CP_R, CP_G = 6, 4, 16  # slots of the input, sub-step and geometry rings
+CP_SMS = 132  # SMs of an H100 SXM: the items a pass is cut into on the CPU
+CP_MIN_RUN = 8  # rows of the shortest run (a run's window adds 4 k phases)
+# a row's device time in the pass relative to an interior row's, by class
+# (interior, cyl, edge): band runs are shorter by it, so that the blocks of
+# the one wave end together (swept with tools/cyl_pass_probe.py: PERF.md)
+CYL_PASS_COST = (1.0, 2.0, 2.0)
+
+
+def cyl_pass_cols(k: int, threads: int = CP_THREADS) -> int:
+    """Window columns a block takes at depth k (a multiple of 32)."""
+    return (threads // k) & ~31
+
+
+def cyl_pass_smem(cls: int, k: int, rs: int, es: int) -> int:
+    """Bytes of shared memory of a block of class ``cls`` at depth k, ring
+    rows of ``rs`` elements, f stored in ``es`` bytes
+    (``csrc/cyl_pass_state.cuh::cp_smem_bytes``)."""
+    vel = 2 if cls == CLS_CYL else 0
+    geo = (0, 2, 1)[cls]
+    return CP_D * 9 * rs * es + 4 * rs * (CP_D * vel + CP_G * geo + (k - 1) * CP_R * (9 + vel))
+
+
+def cyl_pass_budget(blocks_per_sm: int) -> int:
+    """Dynamic shared memory a block may take with ``blocks_per_sm`` blocks
+    an SM (228 KB an SM, 1 KB of each block kept by the system, the static
+    mbarriers; at most 227 KB a block)."""
+    return min(233_472 // blocks_per_sm - 1024 - 64, 232_448)
+
+
+def _align(es: int) -> int:
+    """Elements of 16 bytes: a cp.async.bulk copy's alignment."""
+    return 16 // es
+
+
+def cyl_pass_strip(cls: int, k: int, es: int, threads: int = CP_THREADS,
+                   budget: int = cyl_pass_budget(CP_BLOCKS_PER_SM)) -> int:
+    """The widest strip (a multiple of 8 columns) of class ``cls`` at depth
+    k: its window (k columns a side) fits the block's columns and its rings
+    ``budget`` bytes."""
+    pad = -(-k // _align(es)) * _align(es)
+    s = (cyl_pass_cols(k, threads) - 2 * k) // 8 * 8
+    while s > 8 and cyl_pass_smem(cls, k, s + 2 * pad, es) > budget:
+        s -= 8
+    return s
+
+
+def cyl_pass_rs(cls: int, k: int, es: int, threads: int = CP_THREADS,
+                blocks_per_sm: int = CP_BLOCKS_PER_SM) -> int:
+    """Elements of a ring row of class ``cls`` at depth k: the widest
+    strip's window with its 16-byte pads, a compile-time constant of the
+    kernel (``csrc/cyl_pass_state.cuh::cp_rs``)."""
+    pad = -(-k // _align(es)) * _align(es)
+    return cyl_pass_strip(cls, k, es, threads, cyl_pass_budget(blocks_per_sm)) + 2 * pad
+
+
+def cyl_pass_strips(W: int, width: int):
+    """Column strips ``[(x0, x1), ...]`` of at most ``width`` columns, ends
+    on multiples of 8 (W % 8 == 0), widths within 8 of each other."""
+    w8, n = W // 8, -(-(W // 8) // (width // 8))
+    out, x = [], 0
+    for i in range(n):
+        w = 8 * (w8 // n + (1 if i < w8 % n else 0))
+        out.append((x, x + w))
+        x += w
+    return out
+
+
+def cyl_pass_runs(H: int, k: int, segs_by_class, strips_by_class, blocks: int,
+                  cost=CYL_PASS_COST, min_run: int = CP_MIN_RUN):
+    """Runs ``[(y0, y1, cls), ...]``: each class's segments cut into
+    near-equal runs of at most ``tau / cost[cls] - 4 k`` rows (a run of n
+    rows takes n + 4 k phases) and at least ``min_run`` where the segment
+    allows, for the least ``tau`` whose items (runs x strips) fit
+    ``blocks``, else one run a segment."""
+    def runs_at(tau):
+        out = []
+        for cls, segs in enumerate(segs_by_class):
+            n_max = max(int(tau / cost[cls]) - 4 * k, min_run)
+            for y0, y1 in segs:
+                m = max(1, min(-(-(y1 - y0) // n_max), (y1 - y0) // min_run))
+                out += [(y0 + (y1 - y0) * i // m, y0 + (y1 - y0) * (i + 1) // m, cls)
+                        for i in range(m)]
+        return out
+
+    def n_items(runs):
+        return sum(len(strips_by_class[cls]) for *_, cls in runs)
+
+    lo, hi = 0.0, max(cost) * (H + 4 * k)
+    for _ in range(40):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (lo, mid) if n_items(runs_at(mid)) <= blocks else (mid, hi)
+    return runs_at(hi)
+
+
+def cyl_pass_window(H: int, W: int, k: int, item):
+    """``((r0, r1), (c0, c1))``: the rows and columns an item's first
+    sub-step reads, its rows and strip k cells a side, cut (not wrapped) at
+    the grid's border."""
+    y0, y1, _, x0, x1 = item[:5]
+    return (max(y0 - k, 0), min(y1 + k, H)), (max(x0 - k, 0), min(x1 + k, W))
+
+
+def cyl_pass_fits(H: int, W: int, k: int) -> bool:
+    """Whether cyl_pass takes the grid and depth: 2 <= k <= 4, W % 8 == 0
+    (rows copied 16 bytes at a time), H and W below 2**15 (packed items)."""
+    return int(k) in PASS_KS and W % 8 == 0 and H < 2 ** 15 and W < 2 ** 15
+
+
+def cyl_pass_items(H: int, W: int, k: int, interior, cyl_rows, edge_rows, storage: int = 0,
+                   sms: int = CP_SMS, threads: int = CP_THREADS,
+                   blocks_per_sm: int = CP_BLOCKS_PER_SM, cost=CYL_PASS_COST,
+                   max_width: int | None = None):
+    """The blocks of a ``cyl_pass`` launch, ``(y0, y1, cls, x0, x1, a0, a1,
+    desc)`` each: block i writes rows [y0, y1) x columns [x0, x1) with the
+    class's steps (``CLS_INTERIOR``, ``CLS_CYL``, ``CLS_EDGE``); its ring
+    rows hold columns [a0, a1) (x0 - k and x1 + k rounded out to 16 bytes
+    of the storage ``storage``, cut to the grid); ``desc``: its window
+    walks up (it holds row 0). About one wave of ``blocks_per_sm`` blocks
+    an SM; the most costly items first. ``cost``, ``max_width``: the
+    rows' cost by class (`cyl_pass_runs`) and a cap on the strips' width
+    (`tools/cyl_pass_probe.py` sweeps them)."""
+    if not cyl_pass_fits(H, W, k):
+        raise ValueError(f"cyl_pass takes 2 <= k <= 4 and W % 8 == 0, H, W < 2**15 "
+                         f"(k = {k}, grid {H}x{W})")
+    es = 4 if storage == 0 else 2
+    segs = (list(interior), list(cyl_rows), list(edge_rows))
+    budget = cyl_pass_budget(blocks_per_sm)
+    strips = [cyl_pass_strips(W, min(cyl_pass_strip(cls, k, es, threads, budget),
+                                     max_width or W)) for cls in range(3)]
+    runs = cyl_pass_runs(H, k, segs, strips, sms * blocks_per_sm, cost)
+    a = _align(es)
+    items = []
+    for y0, y1, cls in runs:
+        if cls != CLS_EDGE and not (y0 - k >= 1 and y1 + k <= H - 1):
+            raise ValueError(f"rows {y0}..{y1 - 1} of class {cls}: the interior and cylinder "
+                             f"rows of a pass lie more than k = {k} rows from the border")
+        desc = y0 < k
+        if desc and y1 > H - k:
+            raise ValueError(f"rows {y0}..{y1 - 1}: a run reaches both border rows")
+        if (y0 == 0 or y1 == H) and y1 - y0 < 2:
+            raise ValueError(f"rows {y0}..{y1 - 1}: a run holding a border row needs two rows")
+        for x0, x1 in strips[cls]:
+            a0 = max(x0 - k, 0) // a * a
+            a1 = min(-(-(x1 + k) // a) * a, W)
+            items.append((y0, y1, cls, x0, x1, a0, a1, int(desc)))
+    items.sort(key=lambda it: -cost[it[2]] * (it[1] - it[0] + 4 * k))
+    return items
+
+
+def cyl_pass_ref(f, vel, flags, phi, out, rows, k: int, c: Consts, write_macro: bool,
+                 bf16_dev=False, keys=None, ctx=None, items=None):
+    """The pass item by item (``cyl_pass_items`` unless ``items`` is
+    given): each item's class twin (``cyl_interior_k_ref``, or
+    ``cyl_band_k_ref`` "cyl" / "edge") on the grid NaN beyond the item's
+    window (`cyl_pass_window`), under the class's key (``keys``: interior,
+    cyl, edge); only the item's own cells are written. ``ctx`` (the
+    wrapper's launch context) is not read."""
+    H, W = c.H, c.W
+    if items is None:
+        items = cyl_pass_items(H, W, k, *rows, _storage(bf16_dev))
+    keys = (None, None, None) if keys is None else keys
+    for item in items:
+        y0, y1, cls, x0, x1 = item[:5]
+        (r0, r1), (c0, c1) = cyl_pass_window(H, W, k, item)
+        keep = torch.zeros((H, W), dtype=torch.bool, device=f.device)
+        keep[r0:r1, c0:c1] = True
+
+        def window(t):
+            return torch.where(keep, t, torch.full_like(t, float("nan")))
+
+        tmp = {n: torch.empty_like(out[n]) for n in ("f", "rho", "vel")}
+        if cls == CLS_INTERIOR:
+            cyl_interior_k_ref(window(f), tmp, [(y0, y1)], k, c, write_macro, bf16_dev, keys[0])
+        else:
+            cyl_band_k_ref(window(f), window(vel), flags, window(phi), tmp, [(y0, y1)], k,
+                           cls == CLS_EDGE, c, bf16_dev, keys[cls])
+        out["f"][:, y0:y1, x0:x1] = tmp["f"][:, y0:y1, x0:x1]
+        if cls != CLS_INTERIOR or write_macro:
+            out["rho"][y0:y1, x0:x1] = tmp["rho"][y0:y1, x0:x1]
+            out["vel"][:, y0:y1, x0:x1] = tmp["vel"][:, y0:y1, x0:x1]
+
+
+class CylPassParams(ctypes.Structure):
+    _fields_ = [("c", CylParams), ("key", (ctypes.c_uint32 * 2) * 3), ("rs", ctypes.c_int * 3),
+                ("nitems", ctypes.c_int)]
+
+
+def cyl_pass_shape(k: int, device_index: int = 0):
+    """``(threads a block, window columns, blocks an SM)`` of the built
+    kernel at depth k (its -D values)."""
+    fn = build.bind("cyl_pass", "cyl_pass_shape", [_I, _P, _P, _P])
+    t, cols, mb = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(fn(int(k), ctypes.byref(t), ctypes.byref(cols), ctypes.byref(mb)), "cyl_pass")
+    return t.value, cols.value, mb.value
+
+
+def cyl_pass_info(k: int, storage: int = 0, device_index: int = 0):
+    """``(registers per thread, local bytes)`` of the instance (k, storage)."""
+    fn = build.bind("cyl_pass", "cyl_pass_info", [_I, _I, _P, _P])
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(fn(int(k), int(storage), ctypes.byref(regs), ctypes.byref(local)),
+                    "cyl_pass")
+    return regs.value, local.value
+
+
+def pass_plan(c: Consts, items, k: int, storage: int, dev, threads: int = CP_THREADS,
+              blocks_per_sm: int = CP_BLOCKS_PER_SM):
+    """``(items packed on ``dev``, CylPassParams, shared memory bytes)`` of
+    a launch over ``items`` (`cyl_pass_items`): each class's ring row
+    `cyl_pass_rs`; the bytes those of the items' class that takes most."""
+    es = 4 if storage == 0 else 2
+    rs = [cyl_pass_rs(cls, k, es, threads, blocks_per_sm) for cls in range(3)]
+    for _, _, cls, _, _, a0, a1, _ in items:
+        if a1 - a0 > rs[cls]:
+            raise ValueError(f"an item's ring row of {a1 - a0} elements exceeds {rs[cls]}")
+    smem = max(cyl_pass_smem(cls, k, rs[cls], es) for cls in {it[2] for it in items})
+    packed = torch.tensor([[y0 | y1 << 16, x0 | x1 << 16, a0 | a1 << 16, cls | d << 4]
+                           for y0, y1, cls, x0, x1, a0, a1, d in items],
+                          dtype=torch.int32, device=dev)
+    params = CylPassParams(c=_params(c, [(0, c.H)], False), nitems=len(items))
+    params.rs[:] = rs
+    return packed, params, smem
+
+
+class PassContext:
+    """What a ``cyl_pass`` launch needs besides its tensors and stream,
+    made once for a grid, its rows, k, a storage mode and a card: the
+    items on the card (planned for the built kernel's threads and blocks
+    an SM, and the card's SMs), the parameters, the shared memory."""
+
+    def __init__(self, c: Consts, rows, k: int, storage: int, dev: torch.device):
+        threads, _, per_sm = cyl_pass_shape(k, dev.index or 0)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.items_list = cyl_pass_items(c.H, c.W, k, *rows, storage, sms, threads, per_sm)
+        self.items, self.params, self.smem = pass_plan(c, self.items_list, k, storage, dev,
+                                                       threads, per_sm)
+        self.k, self.storage, self.dev, self.consts = int(k), storage, dev, c
+        self.fn = build.bind("cyl_pass", "cyl_pass_launch", [_P] * 8 + [_I, _I, _I, _P, _P])
+
+
+_CONTEXTS: dict = {}
+
+
+def cyl_pass_context(c: Consts, rows, k: int, storage: int, dev: torch.device) -> PassContext:
+    """The `PassContext` of a grid's pass, made on first use."""
+    key = (id(c), tuple(tuple(map(tuple, r)) for r in rows), int(k), storage, dev)
+    ctx = _CONTEXTS.get(key)
+    if ctx is None or ctx.consts is not c:
+        ctx = _CONTEXTS[key] = PassContext(c, rows, k, storage, dev)
+    return ctx
+
+
+def _check_pass(c: Consts, rows, k: int, fdt, f, vel, flags, phi, out) -> torch.device:
+    """The tensors of a pass (`_check` of the whole grid), its rows (1-3
+    sorted, disjoint segments a class, the interior possibly none), a grid
+    and depth the kernel takes, inputs 16-byte aligned (row copies)."""
+    H, W = c.H, c.W
+    if not cyl_pass_fits(H, W, k):
+        raise ValueError(f"cyl_pass takes 2 <= k <= 4 and W % 8 == 0, H, W < 2**15 "
+                         f"(k = {k}, grid {H}x{W})")
+    for i, segs in enumerate(rows):
+        if segs or i > 0:
+            _check(c, segs, fdt)
+    dev = _check(c, [(0, H)], fdt, f=(f, (9,)), vel=(vel, (2,)), flags=(flags, ()),
+                 phi=(phi, ()), f_out=(out["f"], (9,)), rho_out=(out["rho"], ()),
+                 vel_out=(out["vel"], (2,)))
+    if any(t.data_ptr() % 16 for t in (f, vel, flags, phi)):
+        raise ValueError("cyl_pass copies rows of 16-byte aligned inputs")
+    return dev
+
+
+def cyl_pass(f, vel, flags, phi, out, rows, k: int, c: Consts, write_macro: bool, bf16_dev=False,
+             keys=None, ctx: PassContext | None = None):
+    """One k-step pass in one launch: ``rows = (interior, cyl_rows,
+    edge_rows)`` as `make_fused_step2` splits the grid; k plain-channel
+    steps on the interior rows (rho and vel with ``write_macro`` only), k
+    "cyl" and k "edge" full steps on the band rows, all from ``f``, ``vel``
+    (and ``flags``, ``phi``) into ``out``: what ``cyl_interior_k`` and two
+    ``cyl_band_k`` launches write, bit for bit. ``keys``: the three Philox
+    keys (interior, cyl, edge) of a stochastic-rounding pass. ``ctx``: a
+    `PassContext` whose tensors the caller checked (`_check_pass`) once."""
+    st, fdt = _mode(bf16_dev, keys, f, out["f"])
+    if st == 2 and len(keys) != 3:
+        raise ValueError("bf16_dev=\"sr\": cyl_pass takes three keys (interior, cyl, edge)")
+    if f.device.type == "cpu":
+        return cyl_pass_ref(f, vel, flags, phi, out, rows, k, c, write_macro, bf16_dev, keys)
+    if ctx is None:
+        dev = _check_pass(c, rows, k, fdt, f, vel, flags, phi, out)
+        ctx = cyl_pass_context(c, rows, k, st, dev)
+    p = ctx.params
+    p.c.write_macro = int(write_macro)
+    if keys is not None:
+        for i, key in enumerate(keys):
+            p.key[i][:] = [int(x) & 0xFFFFFFFF for x in key]
+    with torch.cuda.device(ctx.dev):
+        err = ctx.fn(f.data_ptr(), vel.data_ptr(), flags.data_ptr(), phi.data_ptr(),
+                     out["f"].data_ptr(), out["rho"].data_ptr(), out["vel"].data_ptr(),
+                     ctx.items.data_ptr(), ctx.k, st, ctx.smem, ctypes.byref(p), _stream(ctx.dev))
+    build.check(err, "cyl_pass")
+    _count(cyl_pass, st)
+
+
+WRAPPERS = (cyl_full, cyl_interior, cyl_interior_k, cyl_band_k, cyl_pass)
 
 
 def reset_launches():
@@ -793,17 +1113,41 @@ def check_border(flags):
                          "OBSTACLE side columns and no FLUID cell on the first and last rows")
 
 
+ROUTES = ("pass", "launches")
+
+
+def pass_route(cfg, k: int, route: str | None = None) -> str:
+    """How a k-step pass runs: ``"pass"`` (``cyl_pass``, one launch; k =
+    2..4 on a grid with W % 8 == 0) or ``"launches"`` (``cyl_interior_k``
+    and two ``cyl_band_k`` launches, the yardstick); ``route`` forces one."""
+    H, W = cfg.res
+    if route is None:
+        return "pass" if cyl_pass_fits(H, W, k) else "launches"
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r}: one of {ROUTES}")
+    if route == "pass" and not cyl_pass_fits(H, W, k):
+        raise ValueError(f"route 'pass' runs 2 <= k <= 4 on grids with W % 8 == 0 (k = {k}, "
+                         f"grid {H}x{W})")
+    return route
+
+
 def make_fused_step2(cfg, tile_rows: int = 8, interior_rows: int = 32,
                      write_macro: bool = False, bf16_dev=False, k: int = 2, seed: int = 0,
-                     keys: LaunchKeys | None = None):
-    """``stepk(state, fields, out=None)``: k steps per call by temporal
-    blocking (``make_fused_step2`` of the JAX package): ``cyl_interior_k``
-    on the interior rows, ``cyl_band_k`` on the cylinder band and on the
-    INFLOW/OUTFLOW rows (two launches). None where the JAX function
-    returns None: k outside 2 <= k <= min(8, tile_rows), or no split that
-    keeps the band margin max(4, k+1). Raises on a flags field whose
-    border `check_border` refuses. ``bf16_dev``, ``seed``, ``keys``: as
-    for `make_fused_step`; each pass stores f once."""
+                     keys: LaunchKeys | None = None, route: str | None = None):
+    """``stepk(state, fields, out=None, ctx=None)``: k steps per call by
+    temporal blocking (``make_fused_step2`` of the JAX package): the
+    plain-channel steps on the interior rows, the full steps on the
+    cylinder band ("cyl") and on the INFLOW/OUTFLOW rows ("edge"), through
+    one ``cyl_pass`` launch or, with ``route="launches"``, through
+    ``cyl_interior_k`` and two ``cyl_band_k`` launches (`pass_route`); the
+    two write the same bits. None where the JAX function returns None: k
+    outside 2 <= k <= min(8, tile_rows), or no split that keeps the band
+    margin max(4, k+1). Raises on a flags field whose border
+    `check_border` refuses. ``bf16_dev``, ``seed``, ``keys``: as for
+    `make_fused_step`; a pass takes three keys (interior, cyl, edge) and
+    stores f once. ``stepk.context(state, fields, outs)`` checks the
+    tensors of a run once and returns the ``ctx`` its passes take (None
+    off the card or on the launches route)."""
     keys = _launch_keys(bf16_dev, seed, keys)
     H, W = cfg.res
     if not (2 <= k <= min(8, tile_rows)):
@@ -815,19 +1159,29 @@ def make_fused_step2(cfg, tile_rows: int = 8, interior_rows: int = 32,
     n = H // T
     if not (b0 >= 1 and b1 <= n - 2):
         raise ValueError(f"band tiles {b0}..{b1} of {n} touch the INFLOW/OUTFLOW tiles")
+    route = pass_route(cfg, k, route)
     c = consts(cfg)
     interior, cyl_rows, edge_rows = _split_rows(H, T, b0, b1)
+    rows = (interior, cyl_rows, edge_rows)
+    st = _storage(bf16_dev)
     checked = {}
 
-    def stepk(state, fields, out=None):
-        flags = fields["flags"]
+    def check_flags(flags):
         key = (flags.data_ptr(), flags._version, flags.device)
         if checked.get("key") != key:
             check_border(flags)
             checked["key"] = key
+
+    def stepk(state, fields, out=None, ctx=None):
+        flags = fields["flags"]
+        check_flags(flags)
         if out is None:
             out = _new_out(state, not write_macro)
         f, vel, phi = state["f"], state["vel"], fields["phi_obs"]
+        if route == "pass":
+            pk = None if keys is None else (keys.next(), keys.next(), keys.next())
+            cyl_pass(f, vel, flags, phi, out, rows, k, c, write_macro, bf16_dev, pk, ctx)
+            return out
         cyl_interior_k(f, out, interior, k, c, write_macro, bf16_dev, keys and keys.next())
         cyl_band_k(f, vel, flags, phi, out, cyl_rows, k, False, c, bf16_dev,
                    keys and keys.next())
@@ -835,10 +1189,27 @@ def make_fused_step2(cfg, tile_rows: int = 8, interior_rows: int = 32,
                    keys and keys.next())
         return out
 
+    def context(state, fields, outs):
+        """The ``ctx`` of a run's passes from ``state`` into the buffers
+        ``outs`` (and back): their tensors checked here, once."""
+        if route != "pass" or state["f"].device.type == "cpu":
+            return None
+        check_flags(fields["flags"])
+        fdt = torch.float32 if st == 0 else torch.bfloat16
+        dev = None
+        for src in [state] + list(outs):
+            for dst in outs:
+                if dst is not src:
+                    dev = _check_pass(c, rows, k, fdt, src["f"], src["vel"], fields["flags"],
+                                      fields["phi_obs"], dst)
+        return cyl_pass_context(c, rows, k, st, dev)
+
     stepk.keys = keys
     stepk.skip_macro = not write_macro
     stepk.k = k
-    stepk.rows = (interior, cyl_rows, edge_rows)
+    stepk.rows = rows
+    stepk.route = route
+    stepk.context = context
     return stepk
 
 
@@ -869,13 +1240,16 @@ def make_macro_refresh(cfg, bf16_dev=False):
 
 def make_fused_cylinder_runner(cfg, tile_rows: int = 16, split: bool = True,
                                interior_rows: int = 32, bf16_dev=False,
-                               write_macro: bool = False, seed: int = 0):
+                               write_macro: bool = False, seed: int = 0,
+                               route: str | None = None):
     """``run(state, fields, n)``: n steps through the kernels, k=4 passes
     while at least 4 steps remain (unless ``LBM_FUSED_K`` is set to
     another value than 4), then k=2, then single steps, then one macro
     refresh (``make_fused_cylinder_runner`` of the JAX package, same
     defaults). The state ping-pongs between two buffer sets allocated per
-    call; the caller's state is never written.
+    call; the caller's state is never written. Each k-step pass is one
+    ``cyl_pass`` launch, its tensors checked once a run, or with
+    ``route="launches"`` three (`pass_route`).
 
     ``bf16_dev``: the storage of the state's f (convert a float32 state
     with `f_to_storage` first). With "sr" the k=4, k=2 and single steps
@@ -888,11 +1262,12 @@ def make_fused_cylinder_runner(cfg, tile_rows: int = 16, split: bool = True,
     step2 = step4 = None
     if split:
         step2 = make_fused_step2(cfg, tile_rows, interior_rows=interior_rows,
-                                 write_macro=write_macro, bf16_dev=bf16_dev, keys=keys)
+                                 write_macro=write_macro, bf16_dev=bf16_dev, keys=keys,
+                                 route=route)
         if os.environ.get("LBM_FUSED_K", "4") == "4":
             step4 = make_fused_step2(cfg, tile_rows, interior_rows=interior_rows,
                                      write_macro=write_macro, bf16_dev=bf16_dev, k=4,
-                                     keys=keys)
+                                     keys=keys, route=route)
     skip = (step.skip_macro or (step2 is not None and step2.skip_macro)
             or (step4 is not None and step4.skip_macro))
     refresh = make_macro_refresh(cfg, bf16_dev=bf16_dev) if skip else None
@@ -905,10 +1280,11 @@ def make_fused_cylinder_runner(cfg, tile_rows: int = 16, split: bool = True,
         m = n
         plan = [(step4, 4), (step2, 2), (step, 1)]
         for fn, kk in plan:
-            if fn is None:
+            if fn is None or m < kk:
                 continue
+            ctx = fn.context(state, fields, bufs) if kk > 1 else None
             while m >= kk:
-                state = fn(state, fields, bufs[i])
+                state = fn(state, fields, bufs[i]) if kk == 1 else fn(state, fields, bufs[i], ctx)
                 i ^= 1
                 m -= kk
         if refresh is not None:
@@ -917,4 +1293,5 @@ def make_fused_cylinder_runner(cfg, tile_rows: int = 16, split: bool = True,
 
     run.step, run.step2, run.step4 = step, step2, step4
     run.keys = keys
+    run.route = step4.route if step4 is not None else (step2.route if step2 else None)
     return run

@@ -93,11 +93,13 @@ def dominant_freq(sig, every: int) -> float:
 
 
 def run_case(case: str, device="cuda", warmup=None, n_samples=None, seed: int = 0,
-             every=None) -> dict:
+             every=None, route=None) -> dict:
     """Run one case of `CASES` (``warmup``, ``n_samples`` and ``every``
     cut it down when given; ``seed`` keys the stochastic rounding) and
     return its result: the keys of the JAX script's JSON, unrounded, and
-    ``series`` (numpy arrays of every sample)."""
+    ``series`` (numpy arrays of every sample). ``route``: how the fused
+    runner's k-step passes run (`kernels.cylinder.pass_route`; the
+    three-launch yardstick with ``"launches"``)."""
     p = CASES[case]
     dev = resolve_device(device)
     warmup = p["warmup"] if warmup is None else int(warmup)
@@ -111,7 +113,7 @@ def run_case(case: str, device="cuda", warmup=None, n_samples=None, seed: int = 
     if dev.type == "cpu" and bf16_dev is False:
         run = CY.make_runner(cfg)
     else:
-        run = K.make_fused_cylinder_runner(cfg, bf16_dev=bf16_dev, seed=seed)
+        run = K.make_fused_cylinder_runner(cfg, bf16_dev=bf16_dev, seed=seed, route=route)
         state = dict(state, f=K.f_to_storage(state["f"], bf16_dev))
 
     t0 = time.perf_counter()

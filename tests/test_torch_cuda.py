@@ -630,7 +630,8 @@ CYL = {
                dict(tile_rows=8, interior_rows=16)),
 }
 TWINS = {"cyl_full": K.cyl_full_ref, "cyl_interior": K.cyl_interior_ref,
-         "cyl_interior_k": K.cyl_interior_k_ref, "cyl_band_k": K.cyl_band_k_ref}
+         "cyl_interior_k": K.cyl_interior_k_ref, "cyl_band_k": K.cyl_band_k_ref,
+         "cyl_pass": K.cyl_pass_ref}
 
 
 def _cyl_state(dev, geometry, steps=30):
@@ -750,11 +751,12 @@ def test_cuda_cyl_runner_matches_twin_runner(cuda, geometry, n):
     want = _twin_runner(cfg, **kw)(s, fields, n)
     for name in ("f", "rho", "vel"):
         _close(got[name], want[name], TRAJ_TOL[name], f"runner {geometry} {n} steps {name}")
-    if geometry != "generic":
-        assert counts["cyl_interior_k"] >= n // 4 and counts["cyl_band_k"] >= 2 * (n // 4)
+    if geometry != "generic":  # one cyl_pass launch a k=4 or k=2 pass
+        assert counts["cyl_pass"] == n // 4 + (n % 4) // 2
+        assert counts["cyl_interior_k"] == 0 and counts["cyl_band_k"] == 0
         assert (counts["cyl_full"] > 0) == (n % 2 == 1)
     else:
-        assert counts["cyl_full"] == n and counts["cyl_interior_k"] == 0
+        assert counts["cyl_full"] == n and counts["cyl_pass"] == 0
     assert kernels.launches()["cyl_full"] == counts["cyl_full"]  # the twins launch nothing
 
 
@@ -795,6 +797,115 @@ def test_cuda_cyl_launch_failure_raises(cuda):
         assert err != 0
         with pytest.raises(RuntimeError, match="cudaError"):
             build.check(err, "cyl_interior_k")
+
+
+# --- the k-step pass in one launch (cyl_pass) ---
+# cyl_pass against the three launches it replaces (cyl_interior_k and the
+# "cyl" and "edge" cyl_band_k), from the same state, bit for bit in every
+# storage mode, over chained passes; and against its plain twin (1e-5 in
+# float32, bit for bit in bf16).
+
+PASS_GEOMETRIES = {
+    "split 256x128": CYL["split"],
+    "mini 320x160": (dict(res=(320, 160), Re=1800.0, Vmax=0.1, D=16.0),
+                     dict(tile_rows=16, interior_rows=32)),
+    "gate 1600x800": (dict(res=(1600, 800), Re=10000.0, D=20.0, cylinder_center=(400.0, 200.0)),
+                      dict(tile_rows=16, interior_rows=32)),
+    "bench 2048x2048": (dict(res=(2048, 2048), D=64.0, Re=5000.0),
+                        dict(tile_rows=16, interior_rows=32)),
+}
+
+
+def _pass_scene(dev, geometry, mode, flipped=False):
+    """A noisy state of the geometry in storage ``mode`` and its fields;
+    ``flipped``: the OUTFLOW row first and the INFLOW row last, so that the
+    window holding row 0 walks up to an OUTFLOW row."""
+    cfg = CY.CylinderConfig(**PASS_GEOMETRIES[geometry][0])
+    s, fields = CY.init(cfg, dev)
+    rng = np.random.default_rng(11)
+    s = {k: v + torch.as_tensor((1e-3 * rng.standard_normal(tuple(v.shape))).astype(np.float32),
+                                device=dev) for k, v in s.items()}
+    if flipped:
+        flags = fields["flags"].clone()
+        flags[0, 1:-1], flags[-1, 1:-1] = K.OUTFLOW, K.INFLOW
+        fields = dict(fields, flags=flags)
+    return cfg, dict(s, f=K.f_to_storage(s["f"], mode)), fields
+
+
+def _pass_steps(cfg, k, mode, geometry):
+    kw = PASS_GEOMETRIES[geometry][1]
+    return (K.make_fused_step2(cfg, kw["tile_rows"], interior_rows=kw["interior_rows"],
+                               bf16_dev=mode, k=k, seed=5, route=route)
+            for route in ("pass", "launches"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [False, True, "sr"])
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("geometry", list(PASS_GEOMETRIES) + ["flipped 256x128"])
+def test_cuda_cyl_pass_equals_the_three_launches(cuda, geometry, k, mode):
+    """20 chained k-step passes: each pass through cyl_pass and through
+    cyl_interior_k + cyl_band_k ("cyl", "edge") from the same state, the
+    same keys (interior, cyl, edge) and the same output buffers, bit for
+    bit (stored f, rho, vel); one cyl_pass launch a pass."""
+    flipped = geometry.startswith("flipped")
+    geometry = "split 256x128" if flipped else geometry
+    cfg, s, fields = _pass_scene(cuda, geometry, mode, flipped)
+    step_pass, step_launches = _pass_steps(cfg, k, mode, geometry)
+    assert step_pass.route == "pass" and step_launches.route == "launches"
+    kernels.reset_launches()
+    for i in range(20):
+        base = {n: v.clone() for n, v in s.items()}
+        got = step_pass(s, fields, {n: v.clone() for n, v in base.items()})
+        want = step_launches(s, fields, {n: v.clone() for n, v in base.items()})
+        torch.cuda.synchronize()
+        _equal_all(got, want, f"{geometry} k={k} bf16_dev={mode!r} pass {i}")
+        s = got
+    counts = kernels.launches()
+    assert counts["cyl_pass"] == 20 and counts["cyl_interior_k"] == 20
+    assert counts["cyl_band_k"] == 40
+    if mode == "sr":
+        assert step_pass.keys.n == step_launches.keys.n == 60
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [False, True, "sr"])
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_cuda_cyl_pass_matches_twin(cuda, k, mode):
+    """One pass against cyl_pass_ref (the class twins item by item, each on
+    its window): 1e-5 in float32, bit for bit in the bf16 modes."""
+    cfg, s, fields = _pass_scene(cuda, "split 256x128", mode)
+    c = K.consts(cfg)
+    step = next(_pass_steps(cfg, 2, mode, "split 256x128"))
+    keys = ((3, 0), (3, 1), (3, 2)) if mode == "sr" else None
+    args = (s["f"], s["vel"], fields["flags"], fields["phi_obs"])
+    got, want = _outs(s), _outs(s)
+    K.cyl_pass(*args, got, step.rows, k, c, False, mode, keys)
+    K.cyl_pass_ref(*args, want, step.rows, k, c, False, mode, keys)
+    torch.cuda.synchronize()
+    if mode is False:
+        _close_all(got, want, 1e-5, f"cyl_pass k={k}")
+    else:
+        _equal_all(got, want, f"cyl_pass k={k} bf16_dev={mode!r}")
+
+
+@pytest.mark.cuda
+def test_cuda_cyl_pass_refuses_bad_tensors(cuda):
+    cfg, s, fields = _pass_scene(cuda, "split 256x128", False)
+    c = K.consts(cfg)
+    rows = next(_pass_steps(cfg, 4, False, "split 256x128")).rows
+    args = (s["vel"], fields["flags"], fields["phi_obs"])
+    with pytest.raises(ValueError, match="2 <= k <= 4"):
+        K.cyl_pass(s["f"], *args, _outs(s), rows, 5, c, False)
+    with pytest.raises(ValueError, match="apart"):
+        K.cyl_pass(s["f"], *args, dict(_outs(s), f=s["f"]), rows, 4, c, False)
+    with pytest.raises(ValueError, match="aligned"):
+        f = torch.empty(9 * 256 * 128 + 1, device=cuda)[1:].view(9, 256, 128)
+        K.cyl_pass(f, *args, _outs(s), rows, 4, c, False)
+    with pytest.raises(ValueError, match="three keys"):
+        K.cyl_pass(K.f_to_storage(s["f"], "sr"), *args,
+                   dict(_outs(s), f=K.f_to_storage(s["f"], "sr")), rows, 4, c, False, "sr",
+                   ((1, 2),))
 
 
 # --- the cylinder kernels in bf16 deviation storage ---
@@ -895,8 +1006,7 @@ def test_cuda_cyl_bf16_runner_matches_twin_runner(cuda, geometry, n, mode):
     if geometry == "generic":
         assert used == {"cyl_full"}
     else:  # single split steps at odd n
-        assert used == {"cyl_interior_k", "cyl_band_k"} | (
-            {"cyl_full", "cyl_interior"} if n % 2 else set())
+        assert used == {"cyl_pass"} | ({"cyl_full", "cyl_interior"} if n % 2 else set())
 
 
 # --- the tile-class kernels of the JRL fluid phase (kernels/jrl_tiled.py) ---

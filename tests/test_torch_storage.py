@@ -299,8 +299,9 @@ def _sr_run(tc, tf, ts, seed, n):
 
 def test_sr_seed_replays_and_launch_keys_are_unique(monkeypatch):
     """The same seed gives the same stored bits; another seed other bits;
-    a 15-step run (three k=4 passes, one k=2 pass, one split k=1 step:
-    14 launches) uses a new key at every launch."""
+    a 15-step run (three k=4 passes, one k=2 pass, one split k=1 step)
+    uses 14 keys, each new: three a k-step pass (`cyl_pass`: interior, cyl,
+    edge) and one each for the single step's two launches."""
     tc = T.CylinderConfig(**SPLIT)
     ts, tf = T.init(tc, "cpu")
     _, a = _sr_run(tc, tf, ts, 5, 15)
@@ -309,19 +310,19 @@ def test_sr_seed_replays_and_launch_keys_are_unique(monkeypatch):
     assert torch.equal(a["f"].view(torch.int16), b["f"].view(torch.int16))
     assert not torch.equal(a["f"].view(torch.int16), c["f"].view(torch.int16))
     keys = []
-    for name in ("cyl_full_ref", "cyl_interior_ref", "cyl_interior_k_ref", "cyl_band_k_ref"):
+    for name in ("cyl_full_ref", "cyl_interior_ref", "cyl_pass_ref"):
         twin = getattr(K, name)
 
         def spy(*args, _twin=twin, _name=name, **kw):
-            keys.append((_name, args[-1]))
+            pass_keys = args[10] if _name == "cyl_pass_ref" else (args[-1],)
+            keys.extend((_name, k) for k in pass_keys)
             return _twin(*args, **kw)
 
         monkeypatch.setattr(K, name, spy)
     run, _ = _sr_run(tc, tf, ts, 5, 15)
     assert [k for _, k in keys] == [(5, i) for i in range(14)]
     assert run.keys.n == 14
-    assert sorted({n for n, _ in keys}) == ["cyl_band_k_ref", "cyl_full_ref",
-                                            "cyl_interior_k_ref", "cyl_interior_ref"]
+    assert sorted({n for n, _ in keys}) == ["cyl_full_ref", "cyl_interior_ref", "cyl_pass_ref"]
     assert len({k for _, k in keys}) == len(keys)
 
 
