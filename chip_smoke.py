@@ -173,7 +173,15 @@ paths on one NVIDIA card and check them.
    through the multi-step kernels (its default: the three cluster
    kernels) and through the per-step runners (``c_approach_pass`` for the
    approach); the record rows agree to rtol 2e-4 / atol 1e-4.
-7. Prints ``{"kernels": [...]}`` (39 rows: each kernel once, the five
+6a. The Pe sweep (``sweep_phases``): the water Re 1e-2 row at 128x64
+   (seven Pe lanes) through ``batch_pe.run_re_row`` with the balance and
+   the lanes cut (counts zeroed just before and read just after: the
+   fluid and balance cluster kernels and one ``fused_approach_lanes``
+   launch); the same lanes through the serial route (``fused_approach_cl``
+   lane after lane, the records bit for bit equal), timed beside the
+   lanes and one lane alone; the lanes kernel against its twin (h, C
+   2e-5, the record sums rtol 2e-4 / atol 1e-4) beside its bound.
+7. Prints ``{"kernels": [...]}`` (40 rows: each kernel once, the five
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``; the
    cluster kernels and ``fused_approach`` timed on a 1000-step launch at
    128x64 (CUDA events), the cooperative fluid and balance on a 200-step
@@ -186,6 +194,7 @@ card is present or the package is missing.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -209,6 +218,7 @@ FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach"
                   # per cell and step: A + B; the balance; the approach + the lerp
                   "fused_fluid": 650, "fused_balance": 230, "fused_approach": 335,
                   "fused_fluid_cl": 650, "fused_balance_cl": 230, "fused_approach_cl": 335,
+                  "fused_approach_lanes": 335,
                   "c_approach_pass": 335,
                   # per cell and step of a tile class (halo recompute not
                   # counted): A + B; the lean A (pulls, moments) + B
@@ -282,6 +292,10 @@ SOURCE = {
                     "jrl_lbm_tpu/ops/pallas/fused_sharded.py:760"),
     "cyl_window_sh": ("jrl_lbm_torch/kernels/csrc/cyl_window_sh.cu",
                       "jrl_lbm_tpu/ops/pallas/fused_sharded.py:886"),
+    # the lanes instance: JAX's sweep vmaps the jnp step over the work of
+    # _make_approach_kernel (called at :1101)
+    "fused_approach_lanes": ("jrl_lbm_torch/kernels/csrc/fused_approach_cl.cu",
+                             "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
 }
 TILED = ("fluid_k", "fluid_k_lean", "fluid_k_bt", "fluid_pass")
 
@@ -411,6 +425,7 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fused_fluid_cl": ("fused_fluid_cl_kernel",),
     "fused_balance_cl": ("fused_balance_cl_kernel",),
     "fused_approach_cl": ("fused_approach_cl_kernel",),
+    "fused_approach_lanes": ("fused_approach_lanes_kernel",),
     "c_approach_pass": ("c_approach_pass_kernel",),
     "cyl_full": ("cyl_full_kernel",),
     "cyl_interior": ("cyl_interior_kernel",),
@@ -2291,6 +2306,177 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
     return rows, path_counts["halo_pack"], report
 
 
+# ---------------------------------------------------------------------------
+# The Pe sweep (parallel/sweep.py): a row's approach lanes in one launch
+# ---------------------------------------------------------------------------
+
+SWEEP_RE = 1e-2  # the water row of the committed sweep (validation/sweep_out)
+SWEEP_STEPS = 20_000  # each lane's approach, cut
+SWEEP_BALANCE = 200_000  # the shared balance, cut
+SWEEP_TWIN_STEPS = 500  # the longest lane of the twin check
+
+
+def sweep_phases(dev, rate, errs):
+    """The water Re 1e-2 row at 128x64 (seven Pe lanes, the row of the
+    committed records) through ``batch_pe.run_re_row``: the fluid phase
+    (335,400 steps), the shared balance (cut to ``SWEEP_BALANCE`` steps) and
+    the lanes, each cut to ``SWEEP_STEPS`` steps. Counts zeroed just before
+    and read just after: ``fused_fluid_cl``, ``fused_balance_cl`` and one
+    ``fused_approach_lanes`` launch, nothing else. The same lanes through
+    the serial route (``fused_approach_cl`` lane after lane) and one lane
+    alone through the lanes kernel, timed; the records of both routes bit
+    for bit equal. The lanes kernel against its twin on the row's state
+    (lanes of up to ``SWEEP_TWIN_STEPS`` steps, record rows every 97
+    steps), beside its bound. Returns ``(rows, report)``."""
+    import numpy as np
+    import torch
+
+    from jrl_lbm_torch import batch_pe, kernels
+    from jrl_lbm_torch.kernels import fused_jrl as F
+    from jrl_lbm_torch.models import jrl as T
+    from jrl_lbm_torch.parallel import sweep
+
+    Pes = batch_pe.PES
+    vel = SWEEP_RE * batch_pe.viscs["water"] / batch_pe.RADIUS_OBS
+    args = ("water", "45degree", (128, 64), SWEEP_RE, Pes, True, vel)
+    print(f"Pe sweep: water Re {SWEEP_RE:g} at 128x64, {len(Pes)} lanes (Pe {Pes}), "
+          f"balance {SWEEP_BALANCE} steps, lanes cut to {SWEEP_STEPS} steps", flush=True)
+    rep = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res, info = batch_pe.run_re_row(*args, balance_steps=SWEEP_BALANCE, device=dev,
+                                    max_steps=SWEEP_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: c for k, c in kernels.launches().items() if c}
+    print(f"  run_re_row: {wall:.3f} s (fluid {info['fluid_s']:.3f}, balance "
+          f"{info['balance_s']:.3f}, lanes {info['approach_s']:.3f}); route {info['route']}; "
+          f"launches {counts}; rows {res.n_dumps.tolist()}", flush=True)
+    if set(counts) != {"fused_fluid_cl", "fused_balance_cl", "fused_approach_lanes"} \
+            or counts["fused_approach_lanes"] != 1:
+        fail(f"sweep row launched {counts}")
+    n_dumps = res.n_dumps
+    for k in range(len(Pes)):
+        r = res.records[k, :n_dumps[k]]
+        if not np.isfinite(res.records).all() or (len(r) and not (r[:, 1:3] > 0).all()):
+            fail(f"sweep lane Pe {Pes[k]}: records not finite and positive")
+    if n_dumps[-1] < 40:
+        fail(f"the fastest lane wrote {n_dumps[-1]} records in {SWEEP_STEPS} steps")
+    rep["main"] = {"s": wall, "launches": counts, "n_dumps": n_dumps.tolist(),
+                   **{k: info[k] for k in ("fluid_s", "balance_s", "approach_s")}}
+
+    cfg, states, fields, _ = batch_pe.row_inputs(*args, balance_steps=SWEEP_BALANCE, device=dev)
+    timed = {}
+    for route in ("lanes", "serial", "lanes", "serial"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sweep.pe_sweep_approach(cfg, Pes, states, fields, max_steps=SWEEP_STEPS,
+                                      route=route)
+        torch.cuda.synchronize()
+        timed.setdefault(route, []).append(time.perf_counter() - t0)
+        if not (np.array_equal(out.records, res.records)
+                and np.array_equal(out.n_dumps, res.n_dumps)):
+            fail(f"sweep through the {route} route differs from run_re_row's records")
+    print("  records of the lanes and serial routes bit for bit equal run_re_row's: True",
+          flush=True)
+    # the kernels alone: the seven lanes in one launch, one lane alone, and
+    # the serial launches of the seven
+    cfgs = [dataclasses.replace(cfg, Pe=p) for p in Pes]
+    ns = [min(c.total_steps, SWEEP_STEPS) for c in cfgs]
+    dumps = [[s for s in T.c_dump_steps(c) if s < n] for c, n in zip(cfgs, ns)]
+    segs = [F.lane_segments(c, d, n) for c, d, n in zip(cfgs, dumps, ns)]
+    n_rows = max(len(d) for d in dumps)
+    vf = fields["vel_field"]
+
+    def lanes(idx):
+        return lambda: F.fused_approach_lanes(
+            states["h"][idx], states["C"][idx], vf, 0, [ns[i] for i in idx],
+            [segs[i] for i in idx], n_rows, [cfgs[i] for i in idx], fields)
+
+    def serial():
+        for i, c in enumerate(cfgs):
+            run = F.make_fused_approach_runner(c, vf)
+            st, cur = {"h": states["h"][i], "C": states["C"][i]}, 0
+            for s in dumps[i] + [ns[i] - 1]:
+                if s + 1 > cur:
+                    st, _ = run(st, fields, cur, s + 1 - cur)
+                cur = s + 1
+
+    every = list(range(len(Pes)))
+    ms = {"7 lanes": cuda_ms(lanes(every), 3, warmup=1),
+          "1 lane (Pe 1e-3)": cuda_ms(lanes([0]), 3, warmup=1),
+          "serial": cuda_ms(serial, 2, warmup=1)}
+    active, regs, local = F.lanes_info(cfg, 0)
+    print(f"  lanes kernel: {active} clusters of 16 at once on this card, {regs} registers, "
+          f"{local} local bytes", flush=True)
+    print(f"  cut row ({SWEEP_STEPS} steps a lane, {sum(ns)} lane-steps): sweep wall lanes "
+          f"{min(timed['lanes']):.4f} s, serial {min(timed['serial']):.4f} s; kernels alone: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f"; 7 lanes / 1 lane {ms['7 lanes'] / ms['1 lane (Pe 1e-3)']:.3f}, serial / lanes "
+          f"{ms['serial'] / ms['7 lanes']:.3f}; the launch {ms['7 lanes'] * 1e3 / max(ns):.3f} us "
+          f"a step of its longest lane, {ms['7 lanes'] * 1e3 / sum(ns):.3f} us a lane-step",
+          flush=True)
+    rep.update(sweep_wall_s=timed, kernel_ms=ms, active_clusters=active, registers=regs,
+               local_bytes=local, lane_steps=sum(ns))
+
+    # the kernel against its twin on the row's state: lanes of unequal
+    # length, a record row every 97 steps
+    tn = [SWEEP_TWIN_STEPS - 40 * i for i in every]
+    tdumps = [list(range(96, n - 3, 97)) for n in tn]
+    tsegs = [F.lane_segments(c, d, n) for c, d, n in zip(cfgs, tdumps, tn)]
+    t_rows = max(len(d) for d in tdumps)
+    got = F.fused_approach_lanes(states["h"], states["C"], vf, 0, tn, tsegs, t_rows, cfgs, fields)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    want = F.fused_approach_lanes_ref(states["h"], states["C"], vf, 0, tn, tsegs, t_rows, cfgs,
+                                      fields)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+    check_close("fused_approach_lanes h", got[0], want[0], 2e-5, errs["fused_approach_lanes"])
+    check_close("fused_approach_lanes C", got[1], want[1], 2e-5, errs["fused_approach_lanes"])
+    g_rows, w_rows = got[2].cpu().numpy(), want[2].cpu().numpy()
+    worst = float(np.max(np.abs(g_rows - w_rows) / (1e-4 + 2e-4 * np.abs(w_rows))))
+    print(f"  fused_approach_lanes record sums ({t_rows} rows a lane): worst |diff| / (1e-4 + "
+          f"2e-4 |twin|) = {worst:.3g}", flush=True)
+    if not worst <= 1.0 or not np.abs(w_rows[:, :, :2]).sum() > 0:
+        fail("fused_approach_lanes record sums differ from the twin's")
+
+    def twin_call():
+        return F.fused_approach_lanes(states["h"], states["C"], vf, 0, tn, tsegs, t_rows, cfgs,
+                                      fields)
+
+    k_ms = cuda_ms(twin_call, 5, warmup=1)
+    H, W = cfg.eff_res
+    b_last = max(T.frame_pair(n - 1, c.vel_obs_conv, int(vf.shape[0]))[0]
+                 for c, n in zip(cfgs, tn))
+    ins = [fields["base_flags"], vf[:b_last + 2], fields["area"], states["h"]]
+    outs = list(got)
+    nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
+    mem_ms = nbytes / rate * 1e3
+    ops_ms = FLOPS_PER_CELL["fused_approach_lanes"] * H * W * sum(tn) / F32_PEAK * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = F.card_limits("fused_approach", 0).cluster
+    lane_ms = FLOPS_PER_CELL["fused_approach_lanes"] * H * W * max(tn) / F32_PEAK * 1e3 \
+        * sms / blocks
+    bound_ms = max(mem_ms, ops_ms)
+    print(f"  fused_approach_lanes {k_ms * 1e3:10.2f} us ({len(tn)} lanes, {sum(tn)} lane-steps)"
+          f"  bound {bound_ms * 1e3:.2f} us ({'bytes' if mem_ms >= ops_ms else 'operations'}; "
+          f"{nbytes / 1e6:.2f} MB); the longest lane on {blocks} of {sms} SMs "
+          f"{lane_ms * 1e3:.2f} us  twin {plain_ms:.3f} ms", flush=True)
+    rep["per_launch"] = {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "mem_ms": mem_ms, "ops_ms": ops_ms, "cluster_bound_ms": lane_ms,
+                         "lane_steps": sum(tn), "bytes": nbytes}
+    src, replaces = SOURCE["fused_approach_lanes"]
+    row = {"name": "fused_approach_lanes", "route": "cuda", "source": src, "replaces": replaces,
+           "launches": counts["fused_approach_lanes"],
+           "max_abs_err": max(errs["fused_approach_lanes"]), "ms": k_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+           "library_ms": None}
+    return [row], rep
+
+
 def main() -> int:
     import torch
 
@@ -3182,6 +3368,9 @@ def main() -> int:
         fail("the whole case differs between the multi-step and per-step kernels")
     report["whole_case"]["worst_rel"] = worst
 
+    # ---- 6a. the Pe sweep: a row's approach lanes in one launch ----
+    sweep_rows, report["sweep"] = sweep_phases(dev, rate, errs)
+
     # ---- 7. each multi-step kernel alone, and its twin: the cluster kernels
     # and the cooperative approach at 128x64, the cooperative fluid and
     # balance kernels at 512x256 ----
@@ -3251,9 +3440,10 @@ def main() -> int:
             phases[f"{H4}x{W4} {k[6:]}"]["launches"][k], "events")
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows
-    if len(rows) != 39:
-        fail(f"{len(rows)} kernel rows, expected 39")
+    rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows \
+        + sweep_rows
+    if len(rows) != 40:
+        fail(f"{len(rows)} kernel rows, expected 40")
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)

@@ -1,6 +1,8 @@
 // Launch form, state accessor and halo exchange of the cluster kernels
-// (fused_fluid_cl.cu, fused_balance_cl.cu): one thread-block cluster holds
-// the whole grid in the shared memory of its blocks for the whole launch.
+// (fused_fluid_cl.cu, fused_balance_cl.cu, fused_approach_cl.cu): one
+// thread-block cluster holds the whole grid in the shared memory of its
+// blocks for the whole launch (one cluster a lane in the approach's lanes
+// instance).
 //
 // Row bands. Block r of a cluster of C blocks owns rows [y0(r), y0(r+1)),
 // y0(r) = r H / C (integer division; bands differ by at most one row, so
@@ -213,11 +215,13 @@ inline cudaError_t cluster_attrs(K kernel, int smem) {
   return e;
 }
 
+// `lanes` clusters of `cluster` blocks each (one cluster a lane; clusters
+// that do not fit on the card at once run as they free SMs)
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  ClusterLaunch(int cluster, int smem, void* stream) : cfg(), attr() {
-    cfg.gridDim = dim3(cluster);
+  ClusterLaunch(int cluster, int smem, void* stream, int lanes = 1) : cfg(), attr() {
+    cfg.gridDim = dim3(cluster * lanes);
     cfg.blockDim = dim3(CL_THREADS);
     cfg.dynamicSmemBytes = (size_t)smem;
     cfg.stream = (cudaStream_t)stream;
@@ -262,6 +266,17 @@ inline int cluster_limits(K kernel, int* smem_optin, int* cluster) {
   return (int)e;
 }
 
+// Clusters of `cluster` blocks of `kernel` at `smem` bytes a block that the
+// card holds at once (cudaOccupancyMaxActiveClusters).
+template <class K>
+inline int active_clusters(K kernel, int cluster, int smem, int* out) {
+  *out = 0;
+  cudaError_t e = cluster_attrs(kernel, smem);
+  ClusterLaunch l(cluster, smem, nullptr);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(out, (const void*)kernel, &l.cfg);
+  return (int)e;
+}
+
 // Registers per thread and local (spill) bytes of `kernel`.
 template <class K>
 inline int kernel_info(K kernel, int* regs, int* local_bytes) {
@@ -272,22 +287,22 @@ inline int kernel_info(K kernel, int* regs, int* local_bytes) {
   return (int)e;
 }
 
-// One cluster of `cluster` blocks of CL_THREADS threads over an H x W grid
-// of `planes` window planes at `cpt` cells per thread; refused
-// (cudaErrorInvalidValue, nothing launched) unless the bands have at least
-// CL_MIN_ROWS rows, a band's cells fit cpt cells per thread and `smem` is
-// the windows' size.
+// One cluster (`lanes` clusters) of `cluster` blocks of CL_THREADS threads
+// over an H x W grid of `planes` window planes at `cpt` cells per thread;
+// refused (cudaErrorInvalidValue, nothing launched) unless the bands have
+// at least CL_MIN_ROWS rows, a band's cells fit cpt cells per thread and
+// `smem` is the windows' size.
 template <class K>
 inline int launch_cluster(K kernel, int H, int W, int planes, int cluster, int cpt, int smem,
-                          void** args, void* stream) {
-  if (!kernel || (cluster != 8 && cluster != 16)) return (int)cudaErrorInvalidValue;
+                          void** args, void* stream, int lanes = 1) {
+  if (!kernel || (cluster != 8 && cluster != 16) || lanes < 1) return (int)cudaErrorInvalidValue;
   const int rows_max = (H + cluster - 1) / cluster;
   if (H / cluster < CL_MIN_ROWS || rows_max * W > cpt * CL_THREADS ||
       smem != planes * band_pl(H, W, cluster) * (int)sizeof(float))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cluster_attrs(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  ClusterLaunch l(cluster, smem, stream);
+  ClusterLaunch l(cluster, smem, stream, lanes);
   return (int)cudaLaunchKernelExC(&l.cfg, (const void*)kernel, args);
 }
 

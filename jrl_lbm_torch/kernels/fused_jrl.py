@@ -16,7 +16,9 @@ between steps. A wrapper given tensors on the CPU runs its twin (the loop
 of the per-step twins); given tensors on the card it launches the kernel
 or raises, never falling back to the other route.
 ``fused_fluid.launches``, ``fused_fluid_cl.launches`` etc. count the
-launches of each kernel.
+launches of each kernel. `fused_approach_lanes` runs many approach lanes
+(a Pe sweep's, `parallel/sweep.py`) in one launch of the cluster kernel's
+lanes instance, one cluster a lane.
 
 The runners keep the signatures of the JAX package's
 ``make_fused_{fluid,balance,approach}_runner`` and split a run into
@@ -30,11 +32,12 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from jrl_lbm_torch.kernels import build
-from jrl_lbm_torch.kernels.jrl_c import _approach_params, _balance_params, c_approach_ref, \
-    c_balance_ref
+from jrl_lbm_torch.kernels.jrl_c import CApproachParams, _approach_params, _balance_params, \
+    c_approach_ref, c_balance_ref
 from jrl_lbm_torch.kernels.jrl_fluid import _P, _a_params, _b_params, check_state, \
     fluid_a_ref, fluid_b_ref, stream_of
 from jrl_lbm_torch.models import jrl as _jrl
@@ -420,12 +423,157 @@ def fused_approach_cl(h, C, vel_field, start: int, n: int, cfg, fields, acc):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Lanes: the approach of many lanes in one launch, one cluster a lane
+# ---------------------------------------------------------------------------
+
+# the CApproachParams fields in which lanes may differ (a Pe sweep's lanes
+# differ in the tip speed and tau_D, `C_ethaline:96-103`)
+LANE_KEYS = ("v", "w_rate", "c_tau")
+
+
+def lane_segments(cfg, dumps, n: int, start: int = 0):
+    """``[(end, row), ...]``: where the serial approach of steps ``start ..
+    start + n - 1`` (`jrl_main.run_approach` through
+    `make_fused_approach_runner`) ends a launch: after each record step
+    ``s`` of ``dumps`` (end ``s + 1``, row its index) and, within an interval
+    longer than ``steps_per_launch(cfg, "fused_approach")``, every so many
+    steps (row -1). Record steps from ``start + n`` on are dropped."""
+    size = steps_per_launch(cfg, "fused_approach")
+    out, cur = [], int(start)
+    for row, s in enumerate(d for d in dumps if int(d) < int(start) + int(n)):
+        while int(s) + 1 - cur > size:
+            cur += size
+            out.append((cur, -1))
+        cur = int(s) + 1
+        out.append((cur, row))
+    return out
+
+
+def fused_approach_lanes_ref(h, C, vel_field, start: int, ns, segs, n_rows: int, cfgs, fields):
+    """`fused_approach_lanes`' twin: lane ``l`` (config ``cfgs[l]``) runs
+    `fused_approach_ref` from ``start`` one segment of ``segs[l]``
+    (`lane_segments`) after the other, adding each segment's sums into a
+    running sum as the serial runner adds a launch into its ``acc``, then on
+    to step ``start + ns[l]``. Returns ``(h [L, 9, H, W], C [L, H, W], rows
+    [L, n_rows, 4])``: each record row's inflow and current sums since the
+    previous record and the record velocities of its step."""
+    rows = torch.zeros((len(cfgs), int(n_rows), 4), dtype=torch.float32, device=h.device)
+    hs, Cs = [], []
+    for lane, cfg in enumerate(cfgs):
+        h_l, C_l, cur = h[lane], C[lane], int(start)
+        acc = torch.zeros(4, dtype=torch.float32, device=h.device)
+        for end, row in list(segs[lane]) + [(int(start) + int(ns[lane]), -1)]:
+            if end > cur:
+                h_l, C_l = _approach_ref_acc(h_l, C_l, vel_field, cur, end - cur, cfg, fields, acc)
+            cur = end
+            if row >= 0:
+                rows[lane, row] = acc
+                acc = torch.zeros(4, dtype=torch.float32, device=h.device)
+        hs.append(h_l)
+        Cs.append(C_l)
+    return torch.stack(hs), torch.stack(Cs), rows
+
+
+def _check_lanes(h, C, vel_field, start, ns, segs, n_rows, cfgs, fields) -> torch.device:
+    L = len(cfgs)
+    if L < 1 or len(ns) != L or len(segs) != L:
+        raise ValueError(f"{L} lane configs, {len(ns)} step counts, {len(segs)} segment tables")
+    p0 = _approach_params(cfgs[0])
+    for cfg in cfgs[1:]:
+        p = _approach_params(cfg)
+        diff = [k for k, _ in CApproachParams._fields_ if k not in LANE_KEYS
+                and getattr(p, k) != getattr(p0, k)]
+        if diff or cfg.eff_res != cfgs[0].eff_res:
+            raise ValueError(f"lanes differ in {diff or 'the grid'}: only {LANE_KEYS} may")
+    if min(int(n) for n in ns) < 1:
+        raise ValueError("every lane runs at least one step")
+    n_frames = int(vel_field.shape[0])
+    dev = check_state(cfgs[0], start, max(int(n) for n in ns), h=(h, (L, 9)), C=(C, (L,)),
+                      base_flags=(fields["base_flags"], ()),
+                      vel_field=(vel_field, (n_frames, 2)))
+    area = fields["area"]
+    if n_frames < 1:
+        raise ValueError("vel_field holds no frame")
+    if tuple(area.shape) != (p0.rint,) or area.dtype != torch.float32 or area.device != dev:
+        raise ValueError("area must be a float32 [rint] tensor on the card")
+    for lane, table in enumerate(segs):
+        ends = [int(start)] + [int(e) for e, _ in table]
+        rows = [int(r) for _, r in table if int(r) >= 0]
+        if any(b <= a for a, b in zip(ends, ends[1:])) or ends[-1] > int(start) + int(ns[lane]):
+            raise ValueError(f"lane {lane}: segment ends {ends[1:]} not increasing within "
+                             f"steps {start} .. {int(start) + int(ns[lane])}")
+        if any(b <= a for a, b in zip(rows, rows[1:])) or (rows and rows[-1] >= int(n_rows)):
+            raise ValueError(f"lane {lane}: record rows {rows} not increasing below {n_rows}")
+    H, W = cfgs[0].eff_res
+    if fused_route("fused_approach", H, W, card_limits("fused_approach", _index(dev))) != "cluster":
+        raise ValueError(f"fused_approach_lanes: grid {H}x{W} does not fit one cluster of the "
+                         "card at one cell a thread")
+    return dev
+
+
+def fused_approach_lanes(h, C, vel_field, start: int, ns, segs, n_rows: int, cfgs, fields):
+    """The approach of ``L = len(cfgs)`` lanes in one launch of the lanes
+    instance of `fused_approach_cl`, one cluster a lane: lane ``l`` runs
+    steps ``start .. start + ns[l] - 1`` of config ``cfgs[l]`` (the lanes
+    may differ only in the tip speed and tau_D: `LANE_KEYS`) from its own
+    ``h[l]``, on the shared ``vel_field``, base flags and area row; ``segs[l]``
+    is its `lane_segments` table. Returns ``(h [L, 9, H, W], C [L, H, W],
+    rows [L, n_rows, 4])`` as `fused_approach_lanes_ref` does; each lane
+    equals the serial `fused_approach_cl` launches bit for bit. ``C`` feeds
+    the twin (the kernel reads no C). Raises before launch where the grid
+    does not fit one cluster at one cell a thread."""
+    if h.device.type == "cpu":
+        return fused_approach_lanes_ref(h, C, vel_field, start, ns, segs, n_rows, cfgs, fields)
+    dev = _check_lanes(h, C, vel_field, start, ns, segs, n_rows, cfgs, fields)
+    L, S = len(cfgs), max(1, max(len(t) for t in segs))
+    H, W = cfgs[0].eff_res
+    seg_np = np.full((L, S, 2), -1, np.int32)
+    for lane, table in enumerate(segs):
+        if table:
+            seg_np[lane, :len(table)] = table
+    params = (CApproachParams * L)(*(_approach_params(c) for c in cfgs))
+    p_t = torch.frombuffer(bytearray(params), dtype=torch.uint8).to(dev)
+    n_t = torch.tensor([int(n) for n in ns], dtype=torch.int32).to(dev)
+    seg_t = torch.from_numpy(seg_np).to(dev)
+    rows = torch.zeros((L, int(n_rows), 4), dtype=torch.float32, device=dev)
+    h_out = torch.empty_like(h)
+    C_out = torch.empty((L, H, W), dtype=torch.float32, device=dev)
+    cluster, _, smem = _cluster_shape("fused_approach", cfgs[0], dev)
+    fn = build.bind("fused_approach_cl", "jrl_fused_approach_lanes",
+                    [_P, _P, ctypes.c_int] + [_P] * 4 + [ctypes.c_int] + [_P] * 3
+                    + [ctypes.c_int, _P] + [ctypes.c_int] * 2 + [_P] + [ctypes.c_int] * 2 + [_P])
+    with torch.cuda.device(dev):
+        err = fn(fields["base_flags"].data_ptr(), vel_field.data_ptr(), int(vel_field.shape[0]),
+                 fields["area"].data_ptr(), h.data_ptr(), h_out.data_ptr(), C_out.data_ptr(),
+                 int(start), p_t.data_ptr(), n_t.data_ptr(), seg_t.data_ptr(), S,
+                 rows.data_ptr(), max(1, int(n_rows)), L, ctypes.byref(params[0]), cluster, smem,
+                 stream_of(dev))
+    build.check(err, "fused_approach_cl")
+    fused_approach_lanes.launches += 1
+    return h_out, C_out, rows
+
+
+def lanes_info(cfg, device_index: int):
+    """``(clusters the card holds at once, registers a thread, local bytes)``
+    of the lanes instance on the config's grid."""
+    cluster, _, smem = _cluster_shape("fused_approach", cfg, torch.device("cuda", device_index))
+    fn = build.bind("fused_approach_cl", "jrl_fused_approach_lanes_limits",
+                    [ctypes.c_int, ctypes.c_int, _P, _P, _P])
+    active, regs, local = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(fn(smem, cluster, ctypes.byref(active), ctypes.byref(regs),
+                       ctypes.byref(local)), "fused_approach_cl")
+    return active.value, regs.value, local.value
+
+
 fused_fluid.launches = 0
 fused_balance.launches = 0
 fused_approach.launches = 0
 fused_fluid_cl.launches = 0
 fused_balance_cl.launches = 0
 fused_approach_cl.launches = 0
+fused_approach_lanes.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -51,13 +51,16 @@ def c_balance_ref(h, C, flags, cfg, fields):
     return h, C
 
 
-def c_approach_ref(h, C, vel, step: int, cfg, fields):
+def c_approach_ref(h, C, vel, step: int, cfg, fields, v=None, tau_D=None):
     """Approach step on the interpolated stored velocity ``vel`` (not yet
     scaled by the tip speed); returns ``(h, C, (inflow, current, rec_u,
-    rec_v))``."""
+    rec_v))``. ``v`` and ``tau_D`` (0-d float32 tensors) override the
+    config's tip speed and relaxation time, as the JAX package's
+    parametrized step does."""
     H, W = cfg.eff_res
     dtype = cfg.dtype
-    v = cfg.vel_obs_conv
+    v = cfg.vel_obs_conv if v is None else v
+    tau_D = cfg.tau_D if tau_D is None else tau_D
     mesh = fields["mesh"]
     walks, walks_int = _jrl.tip_walks(cfg.inflow_height, step, v)
     flags = _jrl._c_flags_at(cfg, fields["base_flags"], mesh, walks, walks_int, strict=True)
@@ -79,7 +82,7 @@ def c_approach_ref(h, C, vel, step: int, cfg, fields):
     if cfg.clamp_C:
         C = torch.clamp(C, 0.0, 1.0)
     h = _collide.bgk_collide(
-        h, C, C_vel, flags, tau=cfg.tau_D, mesh_grid=mesh,
+        h, C, C_vel, flags, tau=tau_D, mesh_grid=mesh,
         is_convection=True, axisymmetric_type=_AX,
     )
 

@@ -572,15 +572,27 @@ def stored_velocity(vel_field, step: int, v: float, b0: int = 0, n_frames: int |
     return vel_field[i]
 
 
-def make_approach_step(cfg: JRLCConfig):
+def make_approach_step(cfg: JRLCConfig, parametrized: bool = False):
     """Plain approach step ``(state, fields, step_idx) -> (state,
     (inflow, current, rec_u, rec_v))``; ``fields`` carries ``vel_field``
-    ``[N, 2, H, W]``, the normalized fluid history."""
+    ``[N, 2, H, W]``, the normalized fluid history.
+
+    With ``parametrized=True``, ``fields`` also carries ``vel_obs_conv``
+    and ``tau_D`` (float32 scalars), which override the config's, as in the
+    JAX package's parametrized step: a Pe sweep's lanes differ only in
+    these two and their step counts (`C_ethaline:96-103`)."""
     from jrl_lbm_torch.kernels import jrl_c
 
     def step(state, fields, step_idx: int):
-        vel = stored_velocity(fields["vel_field"], step_idx, cfg.vel_obs_conv)
-        h, C, ints = jrl_c.c_approach_ref(state["h"], state["C"], vel, step_idx, cfg, fields)
+        if parametrized:
+            v = torch.as_tensor(fields["vel_obs_conv"], dtype=cfg.dtype)
+            tau_D = torch.as_tensor(fields["tau_D"], dtype=cfg.dtype)
+        else:
+            v = tau_D = None
+        vel = stored_velocity(fields["vel_field"], step_idx,
+                              cfg.vel_obs_conv if v is None else float(v))
+        h, C, ints = jrl_c.c_approach_ref(state["h"], state["C"], vel, step_idx, cfg, fields,
+                                          v=v, tau_D=tau_D)
         return {"C": C, "h": h}, ints
 
     return step
@@ -667,11 +679,13 @@ def pick_approach_runner(cfg: JRLCConfig, vel_field):
 
 def c_dump_steps(cfg: JRLCConfig):
     """Steps after which the reference writes a record line
-    (`C_ethaline:390`)."""
+    (`C_ethaline:390`): floor(walks) == floor(walks + v) - 1 with walks =
+    inflow_height + s v, in doubles (numpy's float64 rounds as Python's
+    floats do), a million steps at a time."""
     v = cfg.vel_obs_conv
     out = []
-    for s in range(cfg.total_steps):
+    for s0 in range(0, cfg.total_steps, 1 << 20):
+        s = np.arange(s0, min(s0 + (1 << 20), cfg.total_steps), dtype=np.float64)
         walks = cfg.inflow_height + s * v
-        if math.floor(walks) == math.floor(walks + v) - 1:
-            out.append(s)
+        out += (s0 + np.flatnonzero(np.floor(walks) == np.floor(walks + v) - 1.0)).tolist()
     return out

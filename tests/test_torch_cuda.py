@@ -29,7 +29,9 @@ The sharded cylinder kernels are held to their twins after one launch at
 ``split=False`` runner bit for bit, the lean split to the unsharded
 default runner on non-OBSTACLE cells (f, rho 2e-5; vel 2e-4) and to its
 own twin runner; the four unsharded cylinder kernels equal their twins
-bit for bit in all three storage modes.
+bit for bit in all three storage modes. The lanes of a Pe sweep in one
+launch (``fused_approach_lanes``) equal each lane's serial
+``fused_approach_cl`` launches bit for bit (h, C, every record row).
 """
 
 import ctypes
@@ -613,6 +615,137 @@ def test_cuda_fused_approach_cl_matches_twin_and_refuses_over_limit(cuda):
         F.fused_approach(s4["h"], s4["C"], torch.zeros((2, 2) + c4.eff_res, device=cuda), 0, 2,
                          c4, f4, acc, route="cluster")
     assert not any(kernels.launches().values())
+
+
+# --- the Pe sweep's lanes: fused_approach_lanes, one cluster a lane ---
+
+def _lane_cfgs(shape, L):
+    """L lanes at 128x64 with tip speeds of 0.01 .. 0.03 rows a step (a
+    record row every 33-100 steps)."""
+    probe = T.JRLCConfig(res=RES, shape=shape)
+    return [T.JRLCConfig(res=RES, Re=4.0, shape=shape,
+                         Pe=(0.01 + 0.02 * k / max(1, L - 1)) * probe.radius_obs / (0.5 / 3.0))
+            for k in range(L)]
+
+
+def _lane_inputs(dev, cfgs, ns, seed):
+    st, fields = _noisy_c(cfgs[0], dev, seed)
+    H, W = cfgs[0].eff_res
+    n_frames = max(T.frame_pair(n, c.vel_obs_conv, 2**31)[0] for c, n in zip(cfgs, ns)) + 2
+    vf = 0.5 * torch.randn((n_frames, 2, H, W),
+                           generator=torch.Generator(device=dev).manual_seed(seed + 1), device=dev)
+    L = len(cfgs)
+    states = {k: v.unsqueeze(0).expand((L,) + tuple(v.shape)).contiguous() for k, v in st.items()}
+    dumps = [[s for s in T.c_dump_steps(c) if s < n - 7] for c, n in zip(cfgs, ns)]
+    segs = [F.lane_segments(c, d, n) for c, d, n in zip(cfgs, dumps, ns)]
+    return states, fields, vf, dumps, segs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,shape,cap", [(1, "ethaline", None), (7, "45degree", None),
+                                         (12, "cylinder", 37)])
+def test_cuda_fused_approach_lanes_equal_serial_bit_for_bit(cuda, monkeypatch, L, shape, cap):
+    """L lanes of unequal speed and length (L = 12 is above the clusters an
+    H100 holds at once, so later lanes run as a second wave) in one launch
+    equal each lane's serial fused_approach_cl launches bit for bit: h, C,
+    and each record row's inflow and current sums, rec_u and rec_v. With
+    ``cap``, a launch cap of that many steps splits the serial intervals
+    into launches, and the lanes' segments with them."""
+    if cap:
+        monkeypatch.setitem(F.MAX_LAUNCH_CELL_STEPS, "fused_approach", RES[0] * RES[1] * cap)
+    cfgs = _lane_cfgs(shape, L)
+    ns = [1500 - 61 * k for k in range(L)]
+    states, fields, vf, dumps, segs = _lane_inputs(cuda, cfgs, ns, 19)
+    n_rows = max(len(d) for d in dumps)
+    kernels.reset_launches()
+    h, C, rows = F.fused_approach_lanes(states["h"], states["C"], vf, 0, ns, segs, n_rows, cfgs,
+                                        fields)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in kernels.launches().items() if c} == {"fused_approach_lanes": 1}
+    assert min(len(d) for d in dumps) >= 10
+    for lane, (cfg, d, n) in enumerate(zip(cfgs, dumps, ns)):
+        run = F.make_fused_approach_runner(cfg, vf)
+        st, cur = {"h": states["h"][lane], "C": states["C"][lane]}, 0
+        for k, step in enumerate(d):
+            st, acc = run(st, fields, cur, step + 1 - cur)
+            cur = step + 1
+            _equal(rows[lane, k], torch.stack([acc[x] for x in ("inflow_sum", "current_sum",
+                                                                 "rec_u", "rec_v")]),
+                   f"lane {lane} row {k}")
+        st, _ = run(st, fields, cur, n - cur)
+        _equal(h[lane], st["h"], f"lane {lane} h")
+        _equal(C[lane], st["C"], f"lane {lane} C")
+        assert not rows[lane, len(d):].any()
+    assert kernels.launches()["fused_approach_cl"] >= sum(len(d) for d in dumps)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_approach_lanes_match_twin(cuda):
+    """Two lanes over 150 and 120 steps against the twin (trajectory
+    tolerances; the integrals rtol 2e-4 / atol 1e-4)."""
+    cfgs = _lane_cfgs("45degree", 2)
+    ns = [150, 120]
+    states, fields, vf, dumps, segs = _lane_inputs(cuda, cfgs, ns, 23)
+    got = F.fused_approach_lanes(states["h"], states["C"], vf, 0, ns, segs, 8, cfgs, fields)
+    want = F.fused_approach_lanes_ref(states["h"], states["C"], vf, 0, ns, segs, 8, cfgs, fields)
+    _close(got[0], want[0], TRAJ_TOL["h"], "lanes h")
+    _close(got[1], want[1], TRAJ_TOL["C"], "lanes C")
+    np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(), rtol=2e-4,
+                               atol=1e-4, err_msg="lanes rows")
+    assert got[2][:, :, 0].abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_fused_approach_lanes_refuse_before_launch(cuda):
+    """Lanes that differ in more than the tip speed and tau_D, a grid over
+    the cluster limit and segments past a lane's steps raise before any
+    launch."""
+    cfgs = _lane_cfgs("45degree", 2)
+    states, fields, vf, dumps, segs = _lane_inputs(cuda, cfgs, [100, 100], 29)
+    kernels.reset_launches()
+    other = [cfgs[0], T.JRLCConfig(res=RES, Re=4.0, Pe=cfgs[1].Pe, shape="45degree",
+                                   is_negative=False)]
+    with pytest.raises(ValueError, match="differ"):
+        F.fused_approach_lanes(states["h"], states["C"], vf, 0, [100, 100], segs, 4, other,
+                               fields)
+    with pytest.raises(ValueError, match="segment ends"):
+        F.fused_approach_lanes(states["h"], states["C"], vf, 0, [100, 100],
+                               [[(101, 0)], []], 4, cfgs, fields)
+    c4 = T.JRLCConfig(res=RES, refine=4)
+    s4, f4 = _noisy_c(c4, cuda, 17)
+    with pytest.raises(ValueError, match="one cluster"):
+        F.fused_approach_lanes(s4["h"][None], s4["C"][None],
+                               torch.zeros((2, 2) + c4.eff_res, device=cuda), 0, [2], [[]], 1,
+                               [c4], f4)
+    assert not any(kernels.launches().values())
+
+
+@pytest.mark.cuda
+def test_cuda_pe_sweep_lanes_equal_serial_route(cuda):
+    """`pe_sweep_approach` at 128x64 takes the lanes kernel (one launch)
+    and its records equal the serial route's (fused_approach_cl lane after
+    lane) bit for bit."""
+    from jrl_lbm_torch.parallel import sweep
+
+    cfg = T.JRLCConfig(res=RES, Re=4.0, shape="45degree")
+    Pes = [c.Pe for c in _lane_cfgs("45degree", 4)]
+    st, fields = _noisy_c(cfg, cuda, 31)
+    states = {k: torch.stack([v] * len(Pes)) for k, v in st.items()}
+    fields = dict(fields, vel_field=0.5 * torch.randn(
+        (500, 2) + RES, generator=torch.Generator(device=cuda).manual_seed(32), device=cuda))
+    assert sweep.lane_route(cfg, cuda) == "lanes"
+    out = {}
+    for route in ("lanes", "serial"):
+        kernels.reset_launches()
+        out[route] = sweep.pe_sweep_approach(cfg, Pes, states, fields, max_steps=1200,
+                                             route=route)
+        torch.cuda.synchronize()
+        counts = {k: c for k, c in kernels.launches().items() if c}
+        assert set(counts) == {"fused_approach_lanes" if route == "lanes"
+                               else "fused_approach_cl"}
+    np.testing.assert_array_equal(out["lanes"].n_dumps, out["serial"].n_dumps)
+    assert out["lanes"].n_dumps.min() >= 10
+    assert np.array_equal(out["lanes"].records, out["serial"].records)
 
 
 # --- the cylinder channel (kernels/cylinder.py) ---
