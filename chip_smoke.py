@@ -4,7 +4,7 @@ paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the twenty-nine CUDA libraries of ``jrl_lbm_torch/kernels/csrc``
+1. Builds the thirty-one CUDA libraries of ``jrl_lbm_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
@@ -12,7 +12,9 @@ paths on one NVIDIA card and check them.
    ``fluid_pass`` spills nothing (``-Xptxas -v``); prints
    ``c_approach_pass``'s and ``cyl_pass``'s registers and local bytes, the cluster kernels'
    limits on this card and the route choice at 128x64: the cluster shape,
-   cells per thread, shared memory and registers per block.
+   cells per thread, shared memory and registers per block; the
+   multi-cluster kernels' plan at 256x128 and 512x256 (clusters, their
+   size, cells a thread, shared memory, registers).
 0. The cylinder channel (``cylinder_phases``): each of its five kernels
    against its plain twin after one step (1e-5) on a split geometry
    (256x128) and a generic one (64x32), ``cyl_pass`` (the k-step pass in
@@ -109,15 +111,21 @@ paths on one NVIDIA card and check them.
    (ethaline wedge and cylinder, both ``is_negative``) through both routes
    of each phase (the cluster kernels ``fused_fluid_cl``,
    ``fused_balance_cl``, ``fused_approach_cl`` and the cooperative ones)
-   and at 512x256 (the largest grid they serve, the cooperative route);
-   the approach once across stored-velocity frame boundaries and once
-   across tip rows. The cluster kernels equal the cooperative ones bit for
-   bit over a 1000-step launch of the default configurations (and the
-   45degree tip; the approach's integrals within rtol 2e-4 / atol 1e-4,
-   whether also bit for bit printed), the approach also from step
-   2**24 - 500. Then fluid steps 2**24 - 5 .. 2**24 + 4 through both
-   routes (bit for bit each other) and through fluid_a / fluid_b against
-   the twin.
+   and at the route's kernels of 256x128 (both ``is_negative``: the
+   multi-cluster fluid and balance, the cooperative approach) and of
+   512x256 (the largest grid they serve: the cooperative fluid, the
+   multi-cluster balance, the cooperative approach); the approach once across
+   stored-velocity frame boundaries and once across tip rows. The cluster
+   kernels equal the cooperative ones bit for bit over a 1000-step launch
+   of the default configurations (and the 45degree tip; the approach's
+   integrals within rtol 2e-4 / atol 1e-4, whether also bit for bit
+   printed), the approach also from step 2**24 - 500; the multi-cluster
+   kernels equal them over a 1000-step launch at 256x128 and 512x256
+   (both balances; route="clusters" forced where the route is the
+   cooperative one) and over steps 2**24 - 100 .. 2**24 + 99 at 256x128
+   and 512x256 (flat tip and wedge), the fluid also against its twin over
+   steps 2**24 - 5 .. 2**24 + 4 there. Then fluid steps 2**24 - 5 .. 2**24 + 4 through both routes (bit for
+   bit each other) and through fluid_a / fluid_b against the twin.
 3a. Holds each tile-class kernel (``fluid_k``, ``fluid_k_lean``,
    ``fluid_k_bt``) to its twin after one launch at k = 1, 2, 4 (1e-5) at
    1024x512: the refine-8 ethaline grid at step 0 (full and lean tiles)
@@ -166,9 +174,13 @@ paths on one NVIDIA card and check them.
    cooperative or per-step kernel. Beside them, as yardsticks, the same
    chunks through the cooperative kernels (bit for bit the cluster
    phases' results; the approach's h and C) and each configuration
-   through the per-step kernels. Then the grid the cooperative kernels serve on the main path,
-   refine 4 (512x256): 200 fluid and 200 balance steps through
-   ``pick_*``.
+   through the per-step kernels. Then the grids the multi-cluster kernels
+   serve on the main path, refine 2 (256x128) and refine 4 (512x256): 200
+   fluid and 200 balance steps through ``pick_*``, which must launch
+   ``fused_balance_mc`` at both grids, ``fused_fluid_mc`` at 256x128 and
+   the cooperative ``fused_fluid`` at 512x256 (where the multi-cluster
+   fluid, two cells a thread, loses), and nothing else, each beside the
+   same steps through the other route (timed, bit for bit).
 6. Runs one whole case through ``jrl_main.run_case`` at 128x64 twice:
    through the multi-step kernels (its default: the three cluster
    kernels) and through the per-step runners (``c_approach_pass`` for the
@@ -181,12 +193,13 @@ paths on one NVIDIA card and check them.
    lane after lane, the records bit for bit equal), timed beside the
    lanes and one lane alone; the lanes kernel against its twin (h, C
    2e-5, the record sums rtol 2e-4 / atol 1e-4) beside its bound.
-7. Prints ``{"kernels": [...]}`` (40 rows: each kernel once, the five
+7. Prints ``{"kernels": [...]}`` (42 rows: each kernel once, the five
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``; the
    cluster kernels and ``fused_approach`` timed on a 1000-step launch at
    128x64 (CUDA events), the cooperative fluid and balance on a 200-step
-   launch at 512x256), the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+   launch at 512x256, the multi-cluster ones at 256x128; all four printed
+   at both grids with the plans and bounds), the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without printing a result when no
 card is present or the package is missing.
@@ -195,6 +208,7 @@ card is present or the package is missing.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -218,6 +232,7 @@ FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach"
                   # per cell and step: A + B; the balance; the approach + the lerp
                   "fused_fluid": 650, "fused_balance": 230, "fused_approach": 335,
                   "fused_fluid_cl": 650, "fused_balance_cl": 230, "fused_approach_cl": 335,
+                  "fused_fluid_mc": 650, "fused_balance_mc": 230,
                   "fused_approach_lanes": 335,
                   "c_approach_pass": 335,
                   # per cell and step of a tile class (halo recompute not
@@ -234,6 +249,8 @@ FUSED = ("fused_fluid", "fused_balance", "fused_approach")
 FUSED_CL = ("fused_fluid_cl", "fused_balance_cl", "fused_approach_cl")
 # the multi-step kernels of the default 128x64 case
 PATH128 = ("fused_fluid_cl", "fused_balance_cl", "fused_approach_cl")
+# the fluid and balance of 256x128 and 512x256 (refine 2 and 4)
+MC = ("fused_fluid_mc", "fused_balance_mc")
 SOURCE = {
     "fluid_a": ("jrl_lbm_torch/kernels/csrc/fluid_a.cu",
                 "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:506"),
@@ -257,6 +274,10 @@ SOURCE = {
                          "jrl_lbm_tpu/ops/pallas/fused_jrl.py:531"),
     "fused_approach_cl": ("jrl_lbm_torch/kernels/csrc/fused_approach_cl.cu",
                           "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
+    "fused_fluid_mc": ("jrl_lbm_torch/kernels/csrc/fused_fluid_mc.cu",
+                       "jrl_lbm_tpu/ops/pallas/fused_jrl.py:138"),
+    "fused_balance_mc": ("jrl_lbm_torch/kernels/csrc/fused_balance_mc.cu",
+                         "jrl_lbm_tpu/ops/pallas/fused_jrl.py:531"),
     "cyl_full": ("jrl_lbm_torch/kernels/csrc/cyl_full.cu",
                  "jrl_lbm_tpu/ops/pallas/fused_step.py:247"),
     "cyl_interior": ("jrl_lbm_torch/kernels/csrc/cyl_interior.cu",
@@ -356,7 +377,7 @@ def sass_check(build) -> dict:
         print("  cuobjdump not found: SASS check not made", flush=True)
         return {}
     counts = {}
-    for k in FUSED:
+    for k in FUSED + MC:
         sass = subprocess.run([tool, "-sass", str(build._lib_file(k))], capture_output=True,
                               text=True, check=True, timeout=120).stdout
         counts[k] = sum(1 for ln in sass.splitlines() if "LDG" in ln and "CONSTANT" in ln)
@@ -388,7 +409,41 @@ def cluster_choice(F, res) -> dict:
               + (f": cluster of {blocks} blocks x {F.CLUSTER_THREADS} threads, {cpt} cell(s) a "
                  f"thread, {smem} B shared memory a block, {regs} registers, {local} B local"
                  if shape else ""), flush=True)
+    for name in ("fused_fluid", "fused_balance"):
+        lim = F.card_limits(name, 0)
+        for H, W in ((256, 128), (512, 256)):
+            plan = F.mc_plan(name, H, W, lim)
+            regs, local = F.mc_info(name, plan.cpt, 0)
+            out[f"{name}_mc {H}x{W}"] = dict(plan._asdict(), registers=regs, local_bytes=local,
+                                             route=F.fused_route(name, H, W, lim))
+            print(f"  {name}_mc: card holds {lim.active} clusters of {F.MC_SIZES} blocks at "
+                  f"once; {H}x{W} route "
+                  f"{F.fused_route(name, H, W, lim)}: {plan.clusters} clusters of "
+                  f"{plan.cluster} blocks x {F.CLUSTER_THREADS} threads, {plan.cpt} cell(s) a "
+                  f"thread, {plan.smem} B shared memory a block, {regs} registers, {local} B "
+                  f"local", flush=True)
     return out
+
+
+def case_launches(F, T, refine: int) -> dict:
+    """Steps and launches of the fluid and balance phases of the default
+    ethaline case at ``refine``, counted as `models/jrl.py::
+    run_fluid_phase` (a runner call up to each record step, one for the
+    step itself) and `jrl_main.run_balance` (~100 intervals) call the
+    runners, which split a call into launches of `fused_jrl.steps_per_launch`."""
+    fc = T.JRLFluidConfig(shape="ethaline", refine=refine)
+    cc = T.JRLCConfig(shape="ethaline", refine=refine)
+    size_f, size_b = F.steps_per_launch(fc, "fused_fluid"), F.steps_per_launch(cc, "fused_balance")
+    cur, fluid = 0, 0
+    for s in T.fluid_record_steps(fc, T.X_INTERVAL):
+        fluid += -(-(s - cur) // size_f) + 1
+        cur = s + 1
+    fluid += -(-(fc.total_steps - cur) // size_f)
+    interval, balance = max(1, cc.balance_steps // 100), 0
+    for done in range(0, cc.balance_steps, interval):
+        balance += -(-min(interval, cc.balance_steps - done) // size_b)
+    return {"fluid_steps": fc.total_steps, "fluid_launches": fluid,
+            "balance_steps": cc.balance_steps, "balance_launches": balance}
 
 
 def smi_line() -> str:
@@ -425,6 +480,8 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fused_fluid_cl": ("fused_fluid_cl_kernel",),
     "fused_balance_cl": ("fused_balance_cl_kernel",),
     "fused_approach_cl": ("fused_approach_cl_kernel",),
+    "fused_fluid_mc": ("fused_fluid_mc_kernel",),
+    "fused_balance_mc": ("fused_balance_mc_kernel",),
     "fused_approach_lanes": ("fused_approach_lanes_kernel",),
     "c_approach_pass": ("c_approach_pass_kernel",),
     "cyl_full": ("cyl_full_kernel",),
@@ -2554,7 +2611,7 @@ def main() -> int:
         """The kernel `fused_jrl.fused_route` takes for phase ``name`` on the
         config's grid."""
         route = fused_jrl.fused_route(name, *cfg.eff_res, fused_jrl.card_limits(name, 0))
-        return name + "_cl" if route == "cluster" else name
+        return name + {"cluster": "_cl", "clusters": "_mc", "coop": ""}[route]
 
     cases = (("ethaline", 8), ("cylinder", 1))
     frames = {}
@@ -2636,15 +2693,21 @@ def main() -> int:
 
     n_fused = 200
     for shape, refine, negs in (("ethaline", 1, (True, False)), ("cylinder", 1, (True, False)),
-                                ("ethaline", 4, (True,))):
+                                ("ethaline", 2, (True, False)), ("ethaline", 4, (True,))):
         fc = fluid_cfg(shape, refine)
         H, W = fc.eff_res
         # both routes where the default grid takes the cluster kernels; the
-        # route fused_route takes at 512x256, which must be the cooperative one
-        want_route = "cluster" if refine == 1 else "coop"
-        for phase in ("fused_fluid", "fused_balance", "fused_approach"):
-            if route_kernel(phase, fc) != (phase + "_cl" if want_route == "cluster" else phase):
-                fail(f"{phase} at {H}x{W}: route {route_kernel(phase, fc)}, expected {want_route}")
+        # route fused_route takes at 256x128 and 512x256, which must be the
+        # multi-cluster one for the balance, the multi-cluster one for the
+        # fluid at 256x128 and the cooperative one at 512x256 (two cells a
+        # thread there), and the cooperative one for the approach
+        want_k = {p: p + "_cl" for p in FUSED} if refine == 1 else {
+            "fused_fluid": "fused_fluid_mc" if refine == 2 else "fused_fluid",
+            "fused_balance": "fused_balance_mc", "fused_approach": "fused_approach"}
+        for phase in FUSED:
+            if route_kernel(phase, fc) != want_k[phase]:
+                fail(f"{phase} at {H}x{W}: route {route_kernel(phase, fc)}, expected "
+                     f"{want_k[phase]}")
         routes = fused_jrl.ROUTES if refine == 1 else (None,)
         print(f"compare multi-step kernels with twins: {shape} {H}x{W}, {n_fused} steps, "
               f"routes {routes}", flush=True)
@@ -2652,7 +2715,8 @@ def main() -> int:
         s = T.make_fluid_runner(fc)(s, fl, 0, 20)
         want = fused_jrl.fused_fluid_ref(s["f"], s["rho"], s["vel"], 20, n_fused, fc, fl)
         for route in routes:
-            k = "fused_fluid_cl" if route == "cluster" else "fused_fluid"
+            k = want_k["fused_fluid"] if route is None else (
+                "fused_fluid_cl" if route == "cluster" else "fused_fluid")
             got = fused_jrl.fused_fluid(s["f"], s["rho"], s["vel"], 20, n_fused, fc, fl,
                                         route=route)
             for nm, g, w in zip(("f", "rho", "vel"), got, want):
@@ -2663,7 +2727,8 @@ def main() -> int:
             st = T.make_balance_runner(cc, flags)(st, cf, 20)
             want = fused_jrl.fused_balance_ref(st["h"], st["C"], flags, n_fused, cc, cf)
             for route in routes:
-                k = "fused_balance_cl" if route == "cluster" else "fused_balance"
+                k = want_k["fused_balance"] if route is None else (
+                    "fused_balance_cl" if route == "cluster" else "fused_balance")
                 got = fused_jrl.fused_balance(st["h"], st["C"], flags, n_fused, cc, cf,
                                               route=route)
                 for nm, g, w in zip(("h", "C"), got, want):
@@ -2687,7 +2752,8 @@ def main() -> int:
                 hr, Cr, ints = fused_jrl.fused_approach_ref(sa["h"], sa["C"], vf, 0, n_fused,
                                                             ca, cfa)
                 for route in routes:
-                    k = "fused_approach_cl" if route == "cluster" else "fused_approach"
+                    k = want_k["fused_approach"] if route is None else (
+                        "fused_approach_cl" if route == "cluster" else "fused_approach")
                     acc = torch.zeros(4, device=dev)
                     h, C = fused_jrl.fused_approach(sa["h"], sa["C"], vf, 0, n_fused, ca, cfa, acc,
                                                     route=route)
@@ -2733,6 +2799,38 @@ def main() -> int:
     cc = T.JRLCConfig(Pe=1e-5)
     st, cf, _ = T.c_init(cc, dev)
     approach_cl_equal(cc, noisy(st, dev, 24), cf, 2**24 - 500, "across 2**24")
+
+    print("multi-cluster kernels against the cooperative ones: one 1000-step launch at "
+          "256x128 and 512x256", flush=True)
+    for refine in (2, 4):
+        fc = fluid_cfg("ethaline", refine)
+        H, W = fc.eff_res
+        s, fl = T.fluid_init(fc, dev)
+        s = noisy(s, dev, 40 + refine)
+        equal_bits(f"fused_fluid_mc {H}x{W}", *(
+            fused_jrl.fused_fluid(s["f"], s["rho"], s["vel"], 20, 1000, fc, fl, route=r)
+            for r in ("clusters", "coop")))
+        for neg in (True, False):
+            cc = c_cfg("ethaline", refine, is_negative=neg)
+            st, cf, flags = T.c_init(cc, dev)
+            st = noisy(st, dev, 42 + refine)
+            equal_bits(f"fused_balance_mc {H}x{W} neg={neg}", *(
+                fused_jrl.fused_balance(st["h"], st["C"], flags, 1000, cc, cf, route=r)
+                for r in ("clusters", "coop")))
+    for shape, res in itertools.product(("45degree", "cylinder"), ((256, 128), (512, 256))):
+        fc = fluid_cfg(shape, 1, res=res, Re=1.2e-5, vel_obs_real=28e-6)
+        tag = f"{shape} fused_fluid_mc {res[0]}x{res[1]}"
+        s, fl = T.fluid_init(fc, dev)
+        s = noisy(s, dev, 44)
+        equal_bits(f"{tag} across 2**24", *(
+            fused_jrl.fused_fluid(s["f"], s["rho"], s["vel"], 2**24 - 100, 200, fc, fl, route=r)
+            for r in ("clusters", "coop")))
+        want_ = fused_jrl.fused_fluid_ref(s["f"], s["rho"], s["vel"], 2**24 - 5, 10, fc, fl)
+        got_ = fused_jrl.fused_fluid_mc(s["f"], s["rho"], s["vel"], 2**24 - 5, 10, fc, fl)
+        # the kernel row's error comes from the grid the main path runs it on
+        for nm, g_, w in zip(("f", "rho", "vel"), got_, want_):
+            check_close(f"{tag} {nm}", g_, w, TOL[nm],
+                        errs["fused_fluid_mc"] if res == (256, 128) else [])
 
     print("fluid steps 2**24 - 5 .. 2**24 + 4 at 128x64", flush=True)
     for shape in ("45degree", "cylinder"):
@@ -3260,25 +3358,58 @@ def main() -> int:
         print(f"  {pname:9s} cluster {new['ms_per_step'] * 1e3:.3f} us/step vs cooperative "
               f"{old['ms_per_step'] * 1e3:.3f} us/step: {gain:.3f}x", flush=True)
 
-    # the grid the cooperative kernels serve on the main path: refine 4
-    fc4, cc4 = fluid_cfg("ethaline", 4), c_cfg("ethaline", 4)
-    H4, W4 = fc4.eff_res
-    print(f"{H4}x{W4} (refine 4): fluid and balance through pick_*, the cooperative kernels",
-          flush=True)
-    s4, fl4 = T.fluid_init(fc4, dev)
-    out = run_phase(f"{H4}x{W4} fluid", ("fused_fluid",),
-                    stepper(fc4, T.pick_fluid_runner(fc4), s4, fl4, 0), 200, H4 * W4)
-    st4, cf4, flags4 = T.c_init(cc4, dev)
-    b4run = T.pick_balance_runner(cc4, flags4)
-    b4 = {"s": st4}
+    # the grids the multi-cluster kernels serve on the main path: refine 2
+    # (fluid and balance) and 4 (the balance; the fluid stays cooperative
+    # there), each beside the other route as the yardstick, bit for bit
+    for refine in (2, 4):
+        fcr, ccr = fluid_cfg("ethaline", refine), c_cfg("ethaline", refine)
+        Hr, Wr = fcr.eff_res
+        tag = f"{Hr}x{Wr}"
+        print(f"{tag} (refine {refine}): fluid and balance through pick_*, beside the other "
+              f"route", flush=True)
+        sr_, flr = T.fluid_init(fcr, dev)
+        str_, cfr, flagsr = T.c_init(ccr, dev)
 
-    def balance4(k):
-        b4["s"] = b4run(b4["s"], cf4, k)
-        return b4["s"]
+        def other_fluid_run(st_, fl_, start, k, cfg=fcr):
+            r = "coop" if route_kernel("fused_fluid", cfg) == "fused_fluid_mc" else "clusters"
+            return dict(zip(("f", "rho", "vel"), fused_jrl.fused_fluid(
+                st_["f"], st_["rho"], st_["vel"], start, k, cfg, fl_, route=r)))
 
-    out4 = run_phase(f"{H4}x{W4} balance", ("fused_balance",), balance4, 200, H4 * W4)
-    if not all(torch.isfinite(v).all() for v in list(out.values()) + list(out4.values())):
-        fail(f"{H4}x{W4}: state not finite")
+        def balance_stepper(run, cf_=cfr, st0_=str_):
+            box = {"s": st0_}
+
+            def steps(k):
+                box["s"] = run(box["s"], cf_, k)
+                return box["s"]
+            return steps
+
+        def other_balance_run(st_, cf_, k, cfg=ccr, fl_=flagsr):
+            r = "coop" if route_kernel("fused_balance", cfg) == "fused_balance_mc" else "clusters"
+            return dict(zip(("h", "C"), fused_jrl.fused_balance(st_["h"], st_["C"], fl_, k, cfg,
+                                                                 cf_, route=r)))
+
+        for pname, kname, main, other in (
+                ("fluid", "fused_fluid",
+                 stepper(fcr, T.pick_fluid_runner(fcr), sr_, flr, 0),
+                 stepper(fcr, other_fluid_run, sr_, flr, 0)),
+                ("balance", "fused_balance",
+                 balance_stepper(T.pick_balance_runner(ccr, flagsr)),
+                 balance_stepper(other_balance_run))):
+            k_main = route_kernel(kname, fcr)
+            if k_main != (kname if (refine, pname) == (4, "fluid") else kname + "_mc"):
+                fail(f"{tag} {pname}: route {k_main}")
+            k_other = kname if k_main == kname + "_mc" else kname + "_mc"
+            out = run_phase(f"{tag} {pname}", (k_main,), main, 200, Hr * Wr)
+            yard = run_phase(f"{tag} {pname} {k_other}", (k_other,), other, 200, Hr * Wr,
+                             yardstick=True)
+            if not all(torch.isfinite(v).all() for v in out.values()):
+                fail(f"{tag} {pname}: state not finite")
+            keys = ("f", "rho", "vel") if pname == "fluid" else ("h", "C")
+            equal_bits(f"{tag} {pname} phase, {k_main} vs {k_other}",
+                       [out[k] for k in keys], [yard[k] for k in keys])
+            new, old = phases[f"{tag} {pname}"], phases[f"{tag} {pname} {k_other}"]
+            print(f"  {pname:9s} {k_main} {new['ms_per_step'] * 1e3:.3f} us/step (the path) vs "
+                  f"{k_other} {old['ms_per_step'] * 1e3:.3f} us/step", flush=True)
 
     print("128x64 yardstick: the same configurations through the per-step kernels", flush=True)
     n_ps = 2000
@@ -3419,31 +3550,72 @@ def main() -> int:
             print(f"    one-cluster operation bound ({blocks} of {sms} SMs): "
                   f"{per['cluster_bound_ms'] * 1e3:.2f} us", flush=True)
     n4 = 200
-    print(f"cooperative kernels at {H4}x{W4}, one launch of {n4} steps, and the twin:",
-          flush=True)
-    s4, fl4 = T.fluid_init(fc4, dev)
-    c4 = {k: v for k, v in zip(("h", "C"), (st4["h"], st4["C"]))}
-    f4_out = fused_jrl.fused_fluid(s4["f"], s4["rho"], s4["vel"], 0, n4, fc4, fl4)
-    b4_out = fused_jrl.fused_balance(c4["h"], c4["C"], flags4, n4, cc4, cf4)
-    cruns = {
-        "fused_fluid": (
-            lambda: fused_jrl.fused_fluid(s4["f"], s4["rho"], s4["vel"], 0, n4, fc4, fl4),
-            lambda: fused_jrl.fused_fluid_ref(s4["f"], s4["rho"], s4["vel"], 0, n4, fc4, fl4),
-            [s4["f"], s4["rho"], s4["vel"]], list(f4_out)),
-        "fused_balance": (
-            lambda: fused_jrl.fused_balance(c4["h"], c4["C"], flags4, n4, cc4, cf4),
-            lambda: fused_jrl.fused_balance_ref(c4["h"], c4["C"], flags4, n4, cc4, cf4),
-            [flags4, c4["h"], c4["C"]], list(b4_out)),
-    }
-    for k, (kfn, tfn, ins, outs) in cruns.items():
-        row(k, cuda_ms(kfn, 5, warmup=1), cuda_ms(tfn, 1, warmup=0), ins, outs, n4, H4 * W4,
-            phases[f"{H4}x{W4} {k[6:]}"]["launches"][k], "events")
+    launches_path = {k: sum(p_["launches"].get(k, 0) for p_ in phases.values()
+                            if not p_.get("yardstick") and "launches" in p_)
+                     for k in FUSED + MC}
+    grids = {}
+    for refine in (2, 4):
+        fcr, ccr = fluid_cfg("ethaline", refine), c_cfg("ethaline", refine)
+        sr_, flr = T.fluid_init(fcr, dev)
+        str_, cfr, flagsr = T.c_init(ccr, dev)
+        grids[refine] = (fcr, ccr, sr_, flr, str_, cfr, flagsr)
 
+    def fused_runs(k, refine):
+        """(kernel, twin, inputs, outputs) of a 200-step launch of ``k`` at
+        refine 2 or 4 (its route forced)."""
+        fcr, ccr, sr_, flr, str_, cfr, flagsr = grids[refine]
+        r = "clusters" if k in MC else "coop"
+        if k.startswith("fused_fluid"):
+            x = (sr_["f"], sr_["rho"], sr_["vel"])
+            return (lambda: fused_jrl.fused_fluid(*x, 0, n4, fcr, flr, route=r),
+                    lambda: fused_jrl.fused_fluid_ref(*x, 0, n4, fcr, flr), list(x),
+                    list(fused_jrl.fused_fluid(*x, 0, n4, fcr, flr, route="coop")))
+        x = (str_["h"], str_["C"])
+        return (lambda: fused_jrl.fused_balance(*x, flagsr, n4, ccr, cfr, route=r),
+                lambda: fused_jrl.fused_balance_ref(*x, flagsr, n4, ccr, cfr),
+                [flagsr] + list(x), list(fused_jrl.fused_balance(*x, flagsr, n4, ccr, cfr,
+                                                                 route="coop")))
+
+    # the rows: the cooperative fluid and balance at 512x256 (where the fluid
+    # stays cooperative on the main path), the multi-cluster ones at 256x128
+    # (where the main path runs both)
+    print(f"the cooperative fluid and balance at 512x256 and the multi-cluster ones at "
+          f"256x128, one launch of {n4} steps, and the twin:", flush=True)
+    for k, refine in (("fused_fluid", 4), ("fused_balance", 4), ("fused_fluid_mc", 2),
+                      ("fused_balance_mc", 2)):
+        kfn, tfn, ins, outs = fused_runs(k, refine)
+        Hr, Wr = grids[refine][0].eff_res
+        row(k, cuda_ms(kfn, 5, warmup=1), cuda_ms(tfn, 1, warmup=0), ins, outs, n4, Hr * Wr,
+            launches_path[k], "events")
+    # every kernel of the four at both grids, and the plans: printed
+    times = {}
+    for refine in (2, 4):
+        fcr = grids[refine][0]
+        Hr, Wr = fcr.eff_res
+        for k in FUSED[:2] + MC:
+            kfn = fused_runs(k, refine)[0]
+            times[f"{k} {Hr}x{Wr}"] = cuda_ms(kfn, 5, warmup=1) * 1e3 / n4
+        for name_ in FUSED[:2]:
+            lim = fused_jrl.card_limits(name_, 0)
+            plan = fused_jrl.mc_plan(name_, Hr, Wr, lim)
+            blocks = plan.clusters * plan.cluster
+            ops_ms = FLOPS_PER_CELL[name_] * Hr * Wr / F32_PEAK * 1e3
+            report[f"{name_}_mc {Hr}x{Wr}"] = {
+                "plan": plan._asdict(), "route": fused_jrl.fused_route(name_, Hr, Wr, lim),
+                "us_per_step": times[f"{name_}_mc {Hr}x{Wr}"],
+                "coop_us_per_step": times[f"{name_} {Hr}x{Wr}"],
+                "ops_bound_us_per_step": ops_ms * 1e3,
+                "sm_ops_bound_us_per_step": ops_ms * 1e3 * sms / blocks}
+            print(f"  {name_}_mc {Hr}x{Wr}: {report[f'{name_}_mc {Hr}x{Wr}']}", flush=True)
+    for refine in (2, 4):
+        report[f"refine_{refine}_case"] = case_launches(fused_jrl, T, refine)
+        print(f"  the default ethaline case at refine {refine}: "
+              f"{report[f'refine_{refine}_case']}", flush=True)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows \
         + sweep_rows
-    if len(rows) != 40:
-        fail(f"{len(rows)} kernel rows, expected 40")
+    if len(rows) != 42:
+        fail(f"{len(rows)} kernel rows, expected 42")
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)

@@ -5,7 +5,9 @@ the approach in one launch a step with its frame lerp and integrals),
 the multi-step JRL kernels of grids up to 131,072 cells (`fused_jrl.py`;
 the three phases of grids that fit one thread-block cluster's
 shared memory, such as the default 128x64, on cluster kernels of their
-own; a Pe sweep's approach lanes in one launch, one cluster a lane),
+own; the fluid and balance of 256x128 and 512x256 on every cluster of the
+card at once; a Pe sweep's approach lanes in one launch, one cluster a
+lane),
 the k-step tile-class kernels of the JRL fluid phase on larger grids
 and its k = 1 split pass in one launch (`jrl_tiled.py`), the kernels of the cylinder channel's fused step
 (`cylinder.py`: the single steps, the k-step pass in one launch and the
@@ -26,7 +28,8 @@ KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack",
            "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh",
            "fused_fluid_cl", "fused_balance_cl", "fluid_pass",
-           "c_approach_pass", "fused_approach_cl", "cyl_pass", "fused_approach_lanes")
+           "c_approach_pass", "fused_approach_cl", "cyl_pass", "fused_approach_lanes",
+           "fused_fluid_mc", "fused_balance_mc")
 
 
 def wrappers():
@@ -65,6 +68,8 @@ def wrappers():
         "fused_approach_cl": fused_jrl.fused_approach_cl,
         "cyl_pass": cylinder.cyl_pass,
         "fused_approach_lanes": fused_jrl.fused_approach_lanes,
+        "fused_fluid_mc": fused_jrl.fused_fluid_mc,
+        "fused_balance_mc": fused_jrl.fused_balance_mc,
     }
 
 

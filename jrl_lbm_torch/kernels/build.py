@@ -30,7 +30,8 @@ NAMES = ("c_balance", "c_approach", "fluid_a", "fluid_b",
          "fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack",
          "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh",
          "fused_fluid_cl", "fused_balance_cl", "fluid_pass",
-         "c_approach_pass", "fused_approach_cl", "cyl_pass")
+         "c_approach_pass", "fused_approach_cl", "cyl_pass",
+         "fused_fluid_mc", "fused_balance_mc")
 
 # --fmad=false: no multiply-add contraction, so each kernel rounds where
 # its plain PyTorch twin does (see csrc/jrl_common.cuh)

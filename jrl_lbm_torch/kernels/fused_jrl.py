@@ -1,24 +1,30 @@
 """Multi-step kernels of the three JRL phases for grids of at most
 ``MAX_FUSED_CELLS`` cells (`csrc/fused_fluid.cu`, `csrc/fused_balance.cu`,
-`csrc/fused_approach.cu`, and the cluster kernels `csrc/fused_fluid_cl.cu`,
-`csrc/fused_balance_cl.cu`, `csrc/fused_approach_cl.cu`), each with its
-plain PyTorch twin, and the runners built on them.
+`csrc/fused_approach.cu`, the cluster kernels `csrc/fused_fluid_cl.cu`,
+`csrc/fused_balance_cl.cu`, `csrc/fused_approach_cl.cu`, and the
+multi-cluster kernels `csrc/fused_fluid_mc.cu`, `csrc/fused_balance_mc.cu`),
+each with its plain PyTorch twin, and the runners built on them.
 
 Replace the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_jrl.py`:
 ``_make_jrl_fluid_kernel``, ``_make_balance_kernel`` and
 ``_make_approach_kernel``. One launch advances n steps. Each phase
-takes one of two routes, picked by `fused_route` from the
+takes one of three routes, picked by `fused_route` from the
 grid and the card's limits before any launch: where the state fits the
 shared memory of one thread-block cluster at one cell per thread (the
 default 128x64), the cluster kernel keeps it there for the whole launch;
-otherwise one persistent cooperative grid keeps it in device memory (L2)
-between steps. A wrapper given tensors on the CPU runs its twin (the loop
-of the per-step twins); given tensors on the card it launches the kernel
-or raises, never falling back to the other route.
-``fused_fluid.launches``, ``fused_fluid_cl.launches`` etc. count the
-launches of each kernel. `fused_approach_lanes` runs many approach lanes
-(a Pe sweep's, `parallel/sweep.py`) in one launch of the cluster kernel's
-lanes instance, one cluster a lane.
+the fluid and the balance of larger grids (256x128 and 512x256, refine 2
+and 4) keep it in the shared memory of every cluster the card holds at once
+(`mc_plan`: bands of rows over N clusters, halo rows between clusters
+through mailbox rows in device memory); otherwise one persistent
+cooperative grid keeps it in device memory (L2) between steps. A wrapper
+given tensors on the CPU runs its twin (the loop of the per-step twins);
+given tensors on the card it launches the kernel or raises, never falling
+back to another route.
+``fused_fluid.launches``, ``fused_fluid_cl.launches``,
+``fused_fluid_mc.launches`` etc. count the launches of each kernel.
+`fused_approach_lanes` runs many approach lanes (a Pe sweep's,
+`parallel/sweep.py`) in one launch of the cluster kernel's lanes instance,
+one cluster a lane.
 
 The runners keep the signatures of the JAX package's
 ``make_fused_{fluid,balance,approach}_runner`` and split a run into
@@ -64,7 +70,22 @@ MAX_LAUNCH_CELL_STEPS = {"fused_fluid": 2**29, "fused_balance": 2**31, "fused_ap
 CLUSTER_THREADS = 512
 CLUSTER_MIN_ROWS = 2
 CLUSTER_PLANES = {"fused_fluid": 23, "fused_balance": 19, "fused_approach": 22}
+# the multi-cluster kernels (csrc/cluster_grid.cuh) of the fluid and the
+# balance: the same window planes over the bands of every cluster
+MC_PLANES = {"fused_fluid": 23, "fused_balance": 19}
+MC_SIZES = (16, 8, 4, 2, 1)  # cluster sizes a plan may take (csrc/cluster_grid.cuh)
+# the most cells a thread at which the route takes a multi-cluster plan:
+# a step is one thread's cells one after the other, and on an H100 the
+# fluid loses to the cooperative grid from two (512x256), the balance at
+# none (PERF.md §6)
+MC_MAX_CPT = {"fused_fluid": 1, "fused_balance": 4}
+# the routes of every phase: "cluster" (one cluster), "coop" (the
+# cooperative grid); the fluid and the balance also take "clusters" (the
+# multi-cluster kernels)
 ROUTES = ("cluster", "coop")
+PHASE_ROUTES = {"fused_fluid": ("cluster", "clusters", "coop"),
+                "fused_balance": ("cluster", "clusters", "coop"),
+                "fused_approach": ROUTES}
 
 
 def fits(cfg) -> bool:
@@ -156,11 +177,26 @@ def launch_shape(name: str, cells: int, device_index: int):
 class ClusterLimits(NamedTuple):
     """What the card offers a cluster kernel: the dynamic shared memory a
     block may opt in to (bytes, the card's opt-in less the kernel's static
-    shared memory) and the largest cluster (16, 8, or 0 for none) of which
-    it holds one at that shared memory."""
+    shared memory), the largest cluster (16, 8, or 0 for none) of which
+    it holds one at that shared memory, and, for the multi-cluster
+    kernels, ``active``: the clusters of each size of ``MC_SIZES`` it holds
+    at once there (cudaOccupancyMaxActiveClusters; empty where there is no
+    such kernel)."""
 
     smem_optin: int
     cluster: int
+    active: tuple = ()
+
+
+class McPlan(NamedTuple):
+    """A launch of a multi-cluster kernel: ``clusters`` clusters of
+    ``cluster`` blocks (one block an SM), ``cpt`` cells a thread, ``smem``
+    bytes of shared memory a block."""
+
+    clusters: int
+    cluster: int
+    cpt: int
+    smem: int
 
 
 def row_bands(H: int, C: int):
@@ -188,39 +224,98 @@ def cluster_shape(name: str, H: int, W: int, limits: ClusterLimits):
     return C, cpt, smem
 
 
+def mc_plan(name: str, H: int, W: int, limits: ClusterLimits, cluster: int | None = None):
+    """The `McPlan` of the multi-cluster kernel of ``name`` (``"fused_fluid"``
+    or ``"fused_balance"``) on an ``H x W`` grid, or None where the card
+    with ``limits`` cannot hold it. For each cluster size of ``MC_SIZES``
+    (``cluster`` forces one): as many clusters as the card holds at once
+    and the bands allow (every band at least ``CLUSTER_MIN_ROWS`` rows,
+    block b from ``b H // B`` over ``B`` blocks), the fewest cells a thread
+    (1, 2, 4) that cover the largest band, its window within the opt-in.
+    Of those, the fewest cells a thread, then the largest clusters: a step
+    is one thread's cells one after the other, and every cluster edge is a
+    mailbox row in device memory (PERF.md §6)."""
+    if name not in MC_PLANES:
+        return None
+    active = dict(zip(MC_SIZES, limits.active))
+    best = None
+    for C in (cluster,) if cluster else MC_SIZES:
+        N = min(active.get(C, 0), H // (C * CLUSTER_MIN_ROWS))
+        if N < 1:
+            continue
+        rows_max = -(-H // (N * C))
+        cpt = next((c for c in CELLS_PER_THREAD if rows_max * W <= c * CLUSTER_THREADS), None)
+        smem = MC_PLANES[name] * (rows_max + 2) * W * 4
+        if cpt is not None and smem <= limits.smem_optin and (best is None or cpt < best.cpt):
+            best = McPlan(N, C, cpt, smem)
+    return best
+
+
 def fused_route(name: str, H: int, W: int, limits: ClusterLimits) -> str:
     """``"cluster"`` where the state of ``name`` (``"fused_fluid"``,
     ``"fused_balance"`` or ``"fused_approach"``) on an ``H x W`` grid fits
-    one cluster of a card with ``limits`` at one cell per thread, else
-    ``"coop"`` (the cooperative kernel). A cluster kernel's step is one
-    thread's cell latency: at 2 or 4 cells a thread it runs them one after
-    the other on 16 SMs and loses to the cooperative grid, which spreads
-    them over the card (PERF.md §6: 256x128 at 4 cells a thread)."""
+    one cluster of a card with ``limits`` at one cell per thread;
+    ``"clusters"`` where the fluid or balance state fits the clusters the
+    card holds at once (`mc_plan`) at most ``MC_MAX_CPT[name]`` cells a
+    thread;
+    else ``"coop"`` (the cooperative kernel). A cluster kernel's step is
+    one thread's cell latency: one cluster at 2 or 4 cells a thread runs
+    them one after the other on 16 SMs and loses to the cooperative grid
+    (PERF.md §6: 256x128 at 4 cells a thread); every SM of the card at
+    once keeps 1-2 cells a thread up to 512x256, where the fluid's two
+    still lose."""
     shape = cluster_shape(name, H, W, limits)
-    return "cluster" if shape and shape[1] == 1 else "coop"
+    if shape and shape[1] == 1:
+        return "cluster"
+    plan = mc_plan(name, H, W, limits)
+    return "clusters" if plan and plan.cpt <= MC_MAX_CPT[name] else "coop"
 
 
 @functools.lru_cache(maxsize=16)
 def card_limits(name: str, device_index: int) -> ClusterLimits:
-    """The card's `ClusterLimits` for the cluster kernel of ``name``
+    """The card's `ClusterLimits` for the cluster kernels of ``name``
     (queried once: opt-in shared memory, cudaOccupancyMaxActiveClusters)."""
     lib = f"{name}_cl"
     fn = build.bind(lib, f"jrl_{lib}_limits", [_P, _P])
-    smem, cl = ctypes.c_int(0), ctypes.c_int(0)
+    smem, cl, smem_mc = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    active = (ctypes.c_int * len(MC_SIZES))()
     with torch.cuda.device(device_index):
         build.check(fn(ctypes.byref(smem), ctypes.byref(cl)), lib)
-    return ClusterLimits(smem.value, cl.value)
+        if name in MC_PLANES:
+            mc = f"{name}_mc"
+            fn = build.bind(mc, f"jrl_{mc}_limits", [_P, _P])
+            build.check(fn(ctypes.byref(smem_mc), active), mc)
+            smem.value = min(smem.value, smem_mc.value)
+    return ClusterLimits(smem.value, cl.value, tuple(active) if name in MC_PLANES else ())
 
 
-def cluster_info(name: str, cpt: int, device_index: int):
+def cluster_info(name: str, cpt: int, device_index: int, lib: str | None = None):
     """``(registers per thread, local bytes)`` of the cluster kernel of
-    ``name`` at ``cpt`` cells per thread."""
-    lib = f"{name}_cl"
+    ``name`` at ``cpt`` cells per thread (``lib`` ``"{name}_mc"``: the
+    multi-cluster kernel's)."""
+    lib = lib or f"{name}_cl"
     fn = build.bind(lib, f"jrl_{lib}_info", [ctypes.c_int, _P, _P])
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
         build.check(fn(int(cpt), ctypes.byref(regs), ctypes.byref(local)), lib)
     return regs.value, local.value
+
+
+def mc_info(name: str, cpt: int, device_index: int):
+    """``(registers per thread, local bytes)`` of the multi-cluster kernel
+    of ``name`` at ``cpt`` cells per thread."""
+    return cluster_info(name, cpt, device_index, lib=f"{name}_mc")
+
+
+def mc_active(name: str, plan: McPlan, device_index: int) -> int:
+    """Clusters of ``plan.cluster`` blocks of the multi-cluster kernel of
+    ``name`` that the card holds at once at ``plan.smem`` bytes a block."""
+    lib = f"{name}_mc"
+    fn = build.bind(lib, f"jrl_{lib}_active", [ctypes.c_int] * 3 + [_P])
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(fn(int(plan.cpt), int(plan.cluster), int(plan.smem), ctypes.byref(out)), lib)
+    return out.value
 
 
 def _index(dev: torch.device) -> int:
@@ -231,8 +326,9 @@ def _route(name: str, cfg, dev: torch.device, route) -> str:
     if route is None:
         H, W = cfg.eff_res
         return fused_route(name, H, W, card_limits(name, _index(dev)))
-    if route not in ROUTES:
-        raise ValueError(f"route {route!r}: one of {ROUTES}")
+    routes = PHASE_ROUTES[name]
+    if route not in routes:
+        raise ValueError(f"route {route!r}: one of {routes}")
     return route
 
 
@@ -247,6 +343,35 @@ def _cluster_shape(name: str, cfg, dev: torch.device):
                          f"({limits.cluster} blocks, {limits.smem_optin} bytes of shared "
                          f"memory a block, bands of >= {CLUSTER_MIN_ROWS} rows)")
     return shape
+
+
+def _mc_plan(name: str, cfg, dev: torch.device, plan) -> McPlan:
+    """The multi-cluster launch of ``name`` on the config's grid (``plan``
+    None: `mc_plan`'s); raises, before any launch, where the card holds no
+    plan or the plan's clusters are not all resident at once."""
+    H, W = cfg.eff_res
+    index = _index(dev)
+    if plan is None:
+        limits = card_limits(name, index)
+        plan = mc_plan(name, H, W, limits)
+        if plan is None:
+            raise ValueError(f"{name}_mc: grid {H}x{W} has no multi-cluster plan on the card "
+                             f"(clusters of {MC_SIZES} blocks at once: {limits.active}, "
+                             f"{limits.smem_optin} bytes of shared memory a block, bands of "
+                             f">= {CLUSTER_MIN_ROWS} rows)")
+    plan = McPlan(*plan)
+    active = mc_active(name, plan, index)
+    if not 1 <= plan.clusters <= active:
+        raise ValueError(f"{name}_mc: {plan.clusters} clusters of {plan.cluster} blocks are "
+                         f"over the co-resident limit of {active} at {plan.smem} bytes a block")
+    return plan
+
+
+def _mailbox(plan: McPlan, W: int, dev: torch.device):
+    """The mailbox words of a launch (`csrc/cluster_grid.cuh`: two sides of
+    two slots of nine rows a cluster), zeroed: a word's pass number starts
+    at 0, which no pass carries."""
+    return torch.zeros(plan.clusters * 4 * 9 * W, dtype=torch.int64, device=dev)
 
 
 def _launch(name: str, cells: int, dev: torch.device, argtypes, args) -> None:
@@ -278,8 +403,11 @@ def fused_fluid(f, rho, vel, start: int, n: int, cfg, fields, route=None):
     if f.device.type == "cpu":
         return fused_fluid_ref(f, rho, vel, start, n, cfg, fields)
     dev = check_state(cfg, start, n, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)))
-    if _route("fused_fluid", cfg, dev, route) == "cluster":
+    kind = _route("fused_fluid", cfg, dev, route)
+    if kind == "cluster":
         return fused_fluid_cl(f, rho, vel, start, n, cfg, fields)
+    if kind == "clusters":
+        return fused_fluid_mc(f, rho, vel, start, n, cfg, fields)
     out = (torch.empty_like(f), torch.empty_like(rho), torch.empty_like(vel))
     P, Q = _ping_pong(out, n)
     H, W = cfg.eff_res
@@ -297,8 +425,11 @@ def fused_balance(h, C, flags, n: int, cfg, fields, route=None):
     if h.device.type == "cpu":
         return fused_balance_ref(h, C, flags, n, cfg, fields)
     dev = check_state(cfg, 0, n, h=(h, (9,)), C=(C, ()), flags=(flags, ()))
-    if _route("fused_balance", cfg, dev, route) == "cluster":
+    kind = _route("fused_balance", cfg, dev, route)
+    if kind == "cluster":
         return fused_balance_cl(h, C, flags, n, cfg, fields)
+    if kind == "clusters":
+        return fused_balance_mc(h, C, flags, n, cfg, fields)
     out = (torch.empty_like(h), torch.empty_like(C))
     P, Q = _ping_pong(out, n)
     H, W = cfg.eff_res
@@ -344,6 +475,49 @@ def fused_balance_cl(h, C, flags, n: int, cfg, fields):
                  int(n), ctypes.byref(_balance_params(cfg)), cluster, cpt, smem, stream_of(dev))
     build.check(err, "fused_balance_cl")
     fused_balance_cl.launches += 1
+    return out
+
+
+def fused_fluid_mc(f, rho, vel, start: int, n: int, cfg, fields, plan=None):
+    """`fused_fluid` through the multi-cluster kernel (the state in the
+    shared memory of every cluster the card holds at once); ``plan`` (a
+    `McPlan`) forces a launch shape, None takes `mc_plan`'s. Raises before
+    launch where the card holds no plan or not the plan's clusters at
+    once."""
+    if f.device.type == "cpu":
+        return fused_fluid_ref(f, rho, vel, start, n, cfg, fields)
+    dev = check_state(cfg, start, n, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)))
+    plan = _mc_plan("fused_fluid", cfg, dev, plan)
+    out = (torch.empty_like(f), torch.empty_like(rho), torch.empty_like(vel))
+    box = _mailbox(plan, cfg.eff_res[1], dev)
+    fn = build.bind("fused_fluid_mc", "jrl_fused_fluid_mc",
+                    [_P] * 6 + [ctypes.c_int] * 2 + [_P] * 3 + [ctypes.c_int] * 4 + [_P])
+    with torch.cuda.device(dev):
+        err = fn(f.data_ptr(), rho.data_ptr(), vel.data_ptr(), *(t.data_ptr() for t in out),
+                 int(start), int(n), ctypes.byref(_a_params(cfg)), ctypes.byref(_b_params(cfg)),
+                 box.data_ptr(), *plan, stream_of(dev))
+    build.check(err, "fused_fluid_mc")
+    fused_fluid_mc.launches += 1
+    return out
+
+
+def fused_balance_mc(h, C, flags, n: int, cfg, fields, plan=None):
+    """`fused_balance` through the multi-cluster kernel; ``plan`` and the
+    checks as for `fused_fluid_mc`."""
+    if h.device.type == "cpu":
+        return fused_balance_ref(h, C, flags, n, cfg, fields)
+    dev = check_state(cfg, 0, n, h=(h, (9,)), C=(C, ()), flags=(flags, ()))
+    plan = _mc_plan("fused_balance", cfg, dev, plan)
+    out = (torch.empty_like(h), torch.empty_like(C))
+    box = _mailbox(plan, cfg.eff_res[1], dev)
+    fn = build.bind("fused_balance_mc", "jrl_fused_balance_mc",
+                    [_P] * 5 + [ctypes.c_int] + [_P] * 2 + [ctypes.c_int] * 4 + [_P])
+    with torch.cuda.device(dev):
+        err = fn(flags.data_ptr(), h.data_ptr(), C.data_ptr(), *(t.data_ptr() for t in out),
+                 int(n), ctypes.byref(_balance_params(cfg)), box.data_ptr(), *plan,
+                 stream_of(dev))
+    build.check(err, "fused_balance_mc")
+    fused_balance_mc.launches += 1
     return out
 
 
@@ -572,6 +746,8 @@ fused_balance.launches = 0
 fused_approach.launches = 0
 fused_fluid_cl.launches = 0
 fused_balance_cl.launches = 0
+fused_fluid_mc.launches = 0
+fused_balance_mc.launches = 0
 fused_approach_cl.launches = 0
 fused_approach_lanes.launches = 0
 

@@ -179,7 +179,9 @@ ROUTE_KERNEL = {("fused_fluid", "coop"): "fused_fluid",
                 ("fused_balance", "coop"): "fused_balance",
                 ("fused_balance", "cluster"): "fused_balance_cl",
                 ("fused_approach", "coop"): "fused_approach",
-                ("fused_approach", "cluster"): "fused_approach_cl"}
+                ("fused_approach", "cluster"): "fused_approach_cl",
+                ("fused_fluid", "clusters"): "fused_fluid_mc",
+                ("fused_balance", "clusters"): "fused_balance_mc"}
 
 
 def _launched(name, route):
@@ -344,16 +346,22 @@ def test_cuda_fused_grid_over_coresident_limit_raises(cuda):
 
 @pytest.mark.cuda
 def test_cuda_fused_route_by_grid(cuda):
-    """The runners take the cluster kernels at 128x64 and the cooperative
-    ones at 256x128 and 512x256 (refine 2, 4), read from the launch
-    counters; above the multi-step kernels' limit (1024x512) the approach
-    takes c_approach_pass, once a step."""
-    for refine, route in ((1, "cluster"), (2, "coop"), (4, "coop")):
+    """The runners take the cluster kernels at 128x64, the multi-cluster
+    balance at 256x128 and 512x256 (refine 2, 4), the multi-cluster fluid
+    at 256x128 and the cooperative one at 512x256 (two cells a thread
+    there), the cooperative approach at both, read from the launch
+    counters; above the multi-step
+    kernels' limit (1024x512) the approach takes c_approach_pass, once a
+    step."""
+    for refine, route, route_c in ((1, ("cluster", "cluster"), "cluster"),
+                                   (2, ("clusters", "clusters"), "coop"),
+                                   (4, ("coop", "clusters"), "coop")):
         fc = T.JRLFluidConfig(res=RES, shape="ethaline", refine=refine)
         cc = T.JRLCConfig(res=RES, shape="ethaline", refine=refine)
         H, W = fc.eff_res
-        for name in ("fused_fluid", "fused_balance", "fused_approach"):
-            assert F.fused_route(name, H, W, F.card_limits(name, 0)) == route, (name, refine)
+        for name, want in zip(("fused_fluid", "fused_balance", "fused_approach"),
+                              route + (route_c,)):
+            assert F.fused_route(name, H, W, F.card_limits(name, 0)) == want, (name, refine)
         s, fl = T.fluid_init(fc, cuda)
         st, cf, flags = T.c_init(cc, cuda)
         vf = torch.zeros((2, 2, H, W), device=cuda)
@@ -364,9 +372,9 @@ def test_cuda_fused_route_by_grid(cuda):
         T.pick_approach_runner(cc, vf)(st, cf, 0, 3)
         torch.cuda.synchronize()
         counts = {k: c for k, c in kernels.launches().items() if c}
-        want = {ROUTE_KERNEL[(name, route)]: 1 for name in ("fused_fluid", "fused_balance")} \
-            if refine != 2 else {}
-        assert counts == dict(want, **{ROUTE_KERNEL[("fused_approach", route)]: 1}), \
+        want = {ROUTE_KERNEL[(name, r)]: 1 for name, r in zip(("fused_fluid", "fused_balance"),
+                                                              route)} if refine != 2 else {}
+        assert counts == dict(want, **{ROUTE_KERNEL[("fused_approach", route_c)]: 1}), \
             (refine, counts)
     cc = T.JRLCConfig(res=RES, shape="ethaline", refine=8)
     st, cf, _ = T.c_init(cc, cuda)
@@ -407,6 +415,261 @@ def test_cuda_forced_cluster_route_over_limit_raises(cuda):
         with pytest.raises(RuntimeError, match="cudaError"):
             build.check(err, "fused_balance_cl")
     assert F.fused_balance_cl.launches == 0
+
+
+# --- the fluid and balance of 256x128 and 512x256 on every cluster: *_mc ---
+
+# (shape, res, refine) of the multi-cluster kernels' grids: refine 2 and 4
+# of the ethaline case, the flat tip and the wedge at the same sizes, and
+# heights that no plan divides evenly (bands of 3 and 4 rows)
+MC_GRIDS = [("ethaline", RES, 2), ("ethaline", RES, 4), ("cylinder", (256, 128), 1),
+            ("cylinder", (512, 256), 1), ("45degree", (256, 128), 1),
+            ("45degree", (512, 256), 1)]
+
+
+def _mc_state(dev, shape, res, refine, seed, cfg=None):
+    cfg = cfg or T.JRLFluidConfig(res=res, Re=4.0, vel_obs_real=0.2848,
+                                  gravity_strength_real=-9.8, shape=shape, refine=refine)
+    s, fields = T.fluid_init(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = {k: v + 1e-3 * torch.randn(v.shape, generator=g, device=dev) for k, v in s.items()}
+    return cfg, s, fields
+
+
+def _mc_c_state(dev, shape, res, refine, is_negative, seed):
+    cfg = T.JRLCConfig(res=res, Re=4.0, Pe=5.0, shape=shape, refine=refine,
+                       is_negative=is_negative)
+    st, fields, flags = T.c_init(cfg, dev)
+    st = F.fused_balance(st["h"], st["C"], flags, 50, cfg, fields, route="coop")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    st = tuple(v + 1e-3 * torch.randn(v.shape, generator=g, device=dev) for v in st)
+    return cfg, st, fields, flags
+
+
+def _mc_equal_coop(cuda, shape, res, refine, n, start=0, tag=""):
+    """fused_fluid_mc and fused_balance_mc (both signs of is_negative) over
+    one n-step launch against route="coop", bit for bit."""
+    cfg, s, fl = _mc_state(cuda, shape, res, refine, 31)
+    H, W = cfg.eff_res
+    x = (s["f"], s["rho"], s["vel"])
+    n0 = F.fused_fluid_mc.launches
+    for name, g, w in zip(("f", "rho", "vel"),
+                          F.fused_fluid(*x, start, n, cfg, fl, route="clusters"),
+                          F.fused_fluid(*x, start, n, cfg, fl, route="coop")):
+        _equal(g, w, f"{tag}fused_fluid_mc {shape} {H}x{W} {name}")
+    for neg in (True, False):
+        cc, st, cf, flags = _mc_c_state(cuda, shape, res, refine, neg, 32)
+        for name, g, w in zip(("h", "C"),
+                              F.fused_balance(*st, flags, n, cc, cf, route="clusters"),
+                              F.fused_balance(*st, flags, n, cc, cf, route="coop")):
+            _equal(g, w, f"{tag}fused_balance_mc {shape} {H}x{W} neg={neg} {name}")
+    torch.cuda.synchronize()
+    assert F.fused_fluid_mc.launches == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,res,refine", MC_GRIDS)
+def test_cuda_mc_kernels_equal_coop_bit_for_bit(cuda, shape, res, refine):
+    """The multi-cluster kernels on the plan the card gives equal the
+    cooperative ones bit for bit over a 1000-step launch."""
+    _mc_equal_coop(cuda, shape, res, refine, 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,res", [("cylinder", (500, 256)), ("45degree", (250, 128)),
+                                       ("cylinder", (256, 124))])
+def test_cuda_mc_kernels_equal_coop_on_uneven_bands(cuda, shape, res):
+    """Heights that no plan of the card divides evenly (bands that differ
+    by one row) and a width that is not a multiple of 8."""
+    lim = F.card_limits("fused_fluid", 0)
+    plan = F.mc_plan("fused_fluid", *res, lim)
+    assert res[0] % (plan.clusters * plan.cluster) != 0 or res[1] % 8
+    _mc_equal_coop(cuda, shape, res, 1, 600)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", F.MC_SIZES)
+def test_cuda_mc_kernels_equal_coop_on_every_cluster_size(cuda, cluster):
+    """Each cluster size a plan may take, forced, at 256x128 and 512x256
+    (refine 2 and 4): bit for bit the cooperative kernels."""
+    for refine in (2, 4):
+        cfg, s, fl = _mc_state(cuda, "ethaline", RES, refine, 33)
+        H, W = cfg.eff_res
+        x = (s["f"], s["rho"], s["vel"])
+        for name in ("fused_fluid", "fused_balance"):
+            plan = F.mc_plan(name, H, W, F.card_limits(name, 0), cluster=cluster)
+            if plan is None:
+                continue
+            if name == "fused_fluid":
+                got = F.fused_fluid_mc(*x, 0, 400, cfg, fl, plan=plan)
+                want = F.fused_fluid(*x, 0, 400, cfg, fl, route="coop")
+            else:
+                cc, st, cf, flags = _mc_c_state(cuda, "ethaline", RES, refine, True, 34)
+                got = F.fused_balance_mc(*st, flags, 400, cc, cf, plan=plan)
+                want = F.fused_balance(*st, flags, 400, cc, cf, route="coop")
+            for k, (g, w) in enumerate(zip(got, want)):
+                _equal(g, w, f"{name} {H}x{W} plan {plan} output {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [(256, 128), (512, 256)])
+def test_cuda_mc_fluid_across_2_24(cuda, res):
+    """Steps 2**24 - 100 .. 2**24 + 99 (float32 rounds the step from 2**24
+    on; Re small enough that the tip is inside the grid there): bit for
+    bit the cooperative kernel, and within 2e-5 / 2e-4 of the twin over
+    the ten steps around 2**24."""
+    for shape in ("45degree", "cylinder"):
+        cfg, s, fl = _mc_state(cuda, shape, res, 1, 35,
+                               cfg=T.JRLFluidConfig(res=res, Re=1.2e-5, shape=shape))
+        start = 2**24 - 100
+        assert 1 < T.tip_walks(cfg.inflow_height, start + 200, cfg.vel_obs)[1] < res[0] - 1
+        x = (s["f"], s["rho"], s["vel"])
+        for name, g, w in zip(("f", "rho", "vel"), F.fused_fluid_mc(*x, start, 200, cfg, fl),
+                              F.fused_fluid(*x, start, 200, cfg, fl, route="coop")):
+            _equal(g, w, f"{shape} {res} across 2**24 {name}")
+        want = F.fused_fluid_ref(*x, 2**24 - 5, 10, cfg, fl)
+        for name, g, w in zip(("f", "rho", "vel"), F.fused_fluid_mc(*x, 2**24 - 5, 10, cfg, fl),
+                              want):
+            _close(g, w, TRAJ_TOL[name], f"{shape} {res} twin across 2**24 {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refine", [2, 4])
+def test_cuda_mc_kernels_match_twin(cuda, refine):
+    """One launch across a tip-row crossing against the loop of the twins:
+    f, rho 2e-5, vel 2e-4; h, C 2e-5."""
+    cfg, s, fl = _mc_state(cuda, "ethaline", RES, refine, 36)
+    n = int(1.5 / cfg.vel_obs)
+    assert T.tip_walks(cfg.inflow_height, n, cfg.vel_obs)[1] > T.tip_walks(
+        cfg.inflow_height, 0, cfg.vel_obs)[1]
+    x = (s["f"], s["rho"], s["vel"])
+    for name, g, w in zip(("f", "rho", "vel"), F.fused_fluid_mc(*x, 0, n, cfg, fl),
+                          F.fused_fluid_ref(*x, 0, n, cfg, fl)):
+        _close(g, w, TRAJ_TOL[name], f"fused_fluid_mc refine {refine} {name}")
+    cc, st, cf, flags = _mc_c_state(cuda, "ethaline", RES, refine, False, 37)
+    for name, g, w in zip(("h", "C"), F.fused_balance_mc(*st, flags, 300, cc, cf),
+                          F.fused_balance_ref(*st, flags, 300, cc, cf)):
+        _close(g, w, TRAJ_TOL[name], f"fused_balance_mc refine {refine} {name}")
+
+
+def _mc_variant(flags, tag):
+    """The two multi-cluster libraries built with extra ``flags`` (a -D
+    probe of csrc/cluster_grid.cuh) into the build directory."""
+    import os
+    import subprocess
+
+    out = {}
+    procs = []
+    for k in ("fused_fluid_mc", "fused_balance_mc"):
+        path = build.BUILD_DIR / f"{k}-{tag}.so"
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs.append((k, path, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", str(path),
+             str(build.CSRC / f"{k}.cu")], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)))
+    for k, path, proc in procs:
+        assert proc.wait() == 0, proc.stderr.read().decode()
+        out[k] = ctypes.CDLL(os.fspath(path))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_mc_jitter_build_equals_coop(cuda, monkeypatch):
+    """Built with a random delay of up to 3 us before each block's pass and
+    before it takes its mailbox rows (-DJRL_MC_JITTER), which reorders the
+    exchange between clusters, the kernels still equal the cooperative
+    ones bit for bit (256x128 and 512x256, fluid and both balances)."""
+    libs = _mc_variant(["-DJRL_MC_JITTER=3000"], "jitter")
+    monkeypatch.setattr(build, "_libs", dict(build._libs, **libs))
+    monkeypatch.setattr(build, "_fns", {k: v for k, v in build._fns.items()
+                                        if not k.startswith(("jrl_fused_fluid_mc",
+                                                             "jrl_fused_balance_mc"))})
+    for refine in (2, 4):
+        _mc_equal_coop(cuda, "ethaline", RES, refine, 300, tag="jitter ")
+
+
+@pytest.mark.cuda
+def test_cuda_mc_stalled_wait_traps(cuda, tmp_path):
+    """A receiver that waits for a pass its neighbour never sends
+    (-DJRL_MC_STALL, a 0.2 s budget) ends the launch with a CUDA error
+    instead of hanging: run in a process of its own, whose context the
+    trap ends."""
+    import os
+    import subprocess
+    import sys
+
+    libs = _mc_variant(["-DJRL_MC_STALL", "-DJRL_MC_WAIT_NS=200000000ull"], "stall")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "stall.py"
+    script.write_text(f"""
+import ctypes, sys
+sys.path.insert(0, {root!r})
+import torch
+from jrl_lbm_torch.kernels import build, fused_jrl as F
+from jrl_lbm_torch.models import jrl as T
+build._libs["fused_balance_mc"] = ctypes.CDLL({os.fspath(libs["fused_balance_mc"]._name)!r})
+cfg = T.JRLCConfig(refine=2)
+st, cf, flags = T.c_init(cfg, torch.device("cuda"))
+try:
+    h, C = F.fused_balance_mc(st["h"], st["C"], flags, 50, cfg, cf)
+    torch.cuda.synchronize()
+except Exception as e:
+    print("launch failed:", e)
+    sys.exit(3)
+print("no error")
+""")
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 3, (proc.returncode, proc.stdout, proc.stderr)
+    assert "launch failed" in proc.stdout
+
+
+def _mc_over(name, H, W, plan):
+    """The plan of one cluster more than the card holds at once of the
+    plan's cluster size (its bands, cells a thread and windows to match)."""
+    lim = F.card_limits(name, 0)
+    active = F.mc_active(name, plan, 0)
+    big = lim._replace(smem_optin=2**30, active=tuple(
+        active + 1 if c == plan.cluster else a for c, a in zip(F.MC_SIZES, lim.active)))
+    over = F.mc_plan(name, H, W, big, cluster=plan.cluster)
+    assert over.clusters == active + 1
+    return over
+
+
+@pytest.mark.cuda
+def test_cuda_mc_refuses_plans_over_the_card(cuda):
+    """A plan of one cluster more than the card holds at once raises before
+    any launch, and the launcher itself refuses it
+    (cudaErrorCooperativeLaunchTooLarge) and a window of the wrong size,
+    launching nothing."""
+    cfg, s, fl = _mc_state(cuda, "ethaline", RES, 4, 38)
+    H, W = cfg.eff_res
+    plan = F.mc_plan("fused_fluid", H, W, F.card_limits("fused_fluid", 0))
+    assert plan.clusters <= F.mc_active("fused_fluid", plan, 0)
+    over = _mc_over("fused_fluid", H, W, plan)
+    kernels.reset_launches()
+    x = (s["f"], s["rho"], s["vel"])
+    with pytest.raises(ValueError, match="co-resident"):
+        F.fused_fluid_mc(*x, 0, 2, cfg, fl, plan=over)
+    cc, st, cf, flags = _mc_c_state(cuda, "ethaline", RES, 4, True, 39)
+    kernels.reset_launches()
+    bplan = F.mc_plan("fused_balance", H, W, F.card_limits("fused_balance", 0))
+    with pytest.raises(ValueError, match="co-resident"):
+        F.fused_balance_mc(*st, flags, 2, cc, cf, plan=_mc_over("fused_balance", H, W, bplan))
+    assert not any(kernels.launches().values())
+    fn = build.bind("fused_fluid_mc", "jrl_fused_fluid_mc",
+                    [jrl_fluid._P] * 6 + [ctypes.c_int] * 2 + [jrl_fluid._P] * 3
+                    + [ctypes.c_int] * 4 + [jrl_fluid._P])
+    out = [torch.empty_like(t) for t in x]
+    box = F._mailbox(over, W, cuda)
+    for bad, code in ((over, "cudaError 720"),  # cudaErrorCooperativeLaunchTooLarge
+                      (plan._replace(smem=plan.smem + 4), None), (plan._replace(cluster=3), None)):
+        err = fn(*(t.data_ptr() for t in list(x) + out), 0, 2, ctypes.byref(F._a_params(cfg)),
+                 ctypes.byref(F._b_params(cfg)), box.data_ptr(), *bad, jrl_fluid.stream_of(cuda))
+        assert err != 0, bad
+        with pytest.raises(RuntimeError, match=code or "cudaError"):
+            build.check(err, "fused_fluid_mc")
+    torch.cuda.synchronize()
+    assert F.fused_fluid_mc.launches == 0
 
 
 # --- the approach redesigned: c_approach_pass (1024x512), fused_approach_cl (128x64) ---

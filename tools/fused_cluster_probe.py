@@ -16,7 +16,15 @@ From a state 3000 steps into each phase (cooperative kernel), µs/step of
   divisions of the cell code cost, not a kernel of the port (its results
   differ; the largest difference from the shipped kernel is printed);
 - 256x128 (refine 2), where the cluster kernel runs 4 cells a thread,
-  beside the cooperative kernel.
+  beside the cooperative kernel;
+- 256x128 and 512x256 (refine 2 and 4 of the ethaline case): the
+  multi-cluster kernels (`fused_fluid_mc`, `fused_balance_mc`) on the
+  plan `mc_plan` takes, on clusters of 16, 8 and 4 as many as the card
+  holds, built with ``-prec-div=false`` (the division share) and built
+  ``-DJRL_MC_NO_FAR`` (no halo rows between clusters: wrong results, the
+  time without them), beside the cooperative kernel; and the flat tip
+  (cylinder) and the wedge (45degree) at 256x128 and 512x256, whose tips
+  stay small, through both routes.
 
 Builds into a temporary directory; prints one JSON line, last.
 """
@@ -45,15 +53,24 @@ def main() -> int:
         print("fused_cluster_probe: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    build.build_all(("fused_fluid", "fused_balance", "fused_fluid_cl", "fused_balance_cl"))
+    mc = ("fused_fluid_mc", "fused_balance_mc")
+    build.build_all(("fused_fluid", "fused_balance", "fused_fluid_cl", "fused_balance_cl") + mc)
     tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
-    approx = {}
-    for k in ("fused_fluid_cl", "fused_balance_cl"):
-        out = os.path.join(tmp, f"{k}-approx-div.so")
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-prec-div=false", "-o", out,
-                        str(build.CSRC / f"{k}.cu")], check=True, capture_output=True)
-        approx[k] = ctypes.CDLL(out)
-    libs = {"shipped": {k: build.load(k) for k in approx}, "approx_div": approx}
+    builds = [(k, "approx_div", ["-prec-div=false"]) for k in ("fused_fluid_cl",
+                                                                "fused_balance_cl") + mc]
+    builds += [(k, "no_far", ["-DJRL_MC_NO_FAR"]) for k in mc]
+    jobs = []
+    for k, kind, flags in builds:
+        out = os.path.join(tmp, f"{k}-{kind}.so")
+        jobs.append((k, kind, out, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", out,
+             str(build.CSRC / f"{k}.cu")], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)))
+    libs = {"shipped": {k: build.load(k) for k in ("fused_fluid_cl", "fused_balance_cl") + mc},
+            "approx_div": {}, "no_far": {}}
+    for k, kind, out, proc in jobs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc {k} ({kind}): {proc.stderr.read().decode()}")
+        libs[kind][k] = ctypes.CDLL(out)
 
     def cl(kind, name):
         fn = getattr(libs[kind][name], f"jrl_{name}")
@@ -127,6 +144,89 @@ def main() -> int:
             rec["approx_div max |diff| after 1000 steps"] = diffs
         report[f"{shape} {H}x{W}"] = rec
         print(f"{shape} {H}x{W}: {rec}", flush=True)
+
+    def mc(kind, name):
+        fn = getattr(libs[kind][name], f"jrl_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([_P] * 6 + [ctypes.c_int] * 2 + [_P] * 3 if name == "fused_fluid_mc"
+                       else [_P] * 5 + [ctypes.c_int] + [_P] * 2) + [ctypes.c_int] * 4 + [_P]
+        return fn
+
+    for name in ("fused_fluid", "fused_balance"):
+        report[f"{name} limits"] = F.card_limits(name, 0)._asdict()
+    n_mc = 2000
+    for refine in (2, 4):
+        fc, cc = T.JRLFluidConfig(shape="ethaline", refine=refine), T.JRLCConfig(refine=refine)
+        H, W = fc.eff_res
+        s, fl = T.fluid_init(fc, dev)
+        s = F.fused_fluid(s["f"], s["rho"], s["vel"], 0, start, fc, fl, route="coop")
+        st, cf, flags = T.c_init(cc, dev)
+        st = F.fused_balance(st["h"], st["C"], flags, start, cc, cf, route="coop")
+        fout = [torch.empty_like(t) for t in s]
+        bout = [torch.empty_like(t) for t in st]
+        rec = {"fluid coop": us_per_step(
+                   lambda m: F.fused_fluid(*s, start, m, fc, fl, route="coop"), n_mc),
+               "balance coop": us_per_step(
+                   lambda m: F.fused_balance(*st, flags, m, cc, cf, route="coop"), n_mc)}
+        for name, cfg in (("fused_fluid", fc), ("fused_balance", cc)):
+            phase = name[6:]
+            lim = F.card_limits(name, 0)
+            plans = {"plan": F.mc_plan(name, H, W, lim)}
+            plans.update({f"clusters of {c}": F.mc_plan(name, H, W, lim, cluster=c)
+                          for c in F.MC_SIZES})
+            rec[f"{phase} plan"] = plans["plan"]._asdict()
+            variants = [(label, "shipped", p) for label, p in plans.items() if p]
+            variants += [("plan, -prec-div=false", "approx_div", plans["plan"]),
+                         ("plan, no exchange between clusters", "no_far", plans["plan"])]
+            for label, kind, plan in variants:
+                fn = mc(kind, f"{name}_mc")
+                box = F._mailbox(plan, W, dev)
+                if name == "fused_fluid":
+                    ptrs = [t.data_ptr() for t in list(s) + fout]
+
+                    def run(m, fn=fn, plan=plan, box=box, ptrs=ptrs):
+                        box.zero_()
+                        build.check(fn(*ptrs, start, m, ctypes.byref(F._a_params(fc)),
+                                       ctypes.byref(F._b_params(fc)), box.data_ptr(), *plan,
+                                       stream_of(dev)), name)
+                    want = F.fused_fluid(*s, start, 500, fc, fl, route="coop")
+                    outs = fout
+                else:
+                    ptrs = [t.data_ptr() for t in [flags] + list(st) + bout]
+
+                    def run(m, fn=fn, plan=plan, box=box, ptrs=ptrs):
+                        box.zero_()
+                        build.check(fn(*ptrs, m, ctypes.byref(F._balance_params(cc)),
+                                       box.data_ptr(), *plan, stream_of(dev)), name)
+                    want = F.fused_balance(*st, flags, 500, cc, cf, route="coop")
+                    outs = bout
+                run(500)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(outs, want))
+                rec[f"{phase} mc, {label}"] = us_per_step(run, n_mc)
+                rec[f"{phase} mc, {label}: bit for bit coop over 500 steps"] = same
+        regs = {name: [F.mc_info(name, c, 0) for c in F.CELLS_PER_THREAD]
+                for name in ("fused_fluid", "fused_balance")}
+        rec["registers, local bytes at 1, 2, 4 cells a thread"] = regs
+        report[f"ethaline {H}x{W} multi-cluster"] = rec
+        print(f"ethaline {H}x{W} multi-cluster: {rec}", flush=True)
+    for res in ((256, 128), (512, 256)):
+        rec = {}
+        for shape in ("cylinder", "45degree"):
+            fc = T.JRLFluidConfig(res=res, shape=shape)
+            cc = T.JRLCConfig(res=res, shape=shape)
+            s, fl = T.fluid_init(fc, dev)
+            s = F.fused_fluid(s["f"], s["rho"], s["vel"], 0, start, fc, fl, route="coop")
+            st, cf, flags = T.c_init(cc, dev)
+            st = F.fused_balance(st["h"], st["C"], flags, start, cc, cf, route="coop")
+            for route in ("clusters", "coop"):
+                rec[f"{shape} fluid {route}"] = us_per_step(
+                    lambda m: F.fused_fluid(*s, start, m, fc, fl, route=route), n_mc)
+                rec[f"{shape} balance {route}"] = us_per_step(
+                    lambda m: F.fused_balance(*st, flags, m, cc, cf, route=route), n_mc)
+        label = f"{res[0]}x{res[1]} small tips"
+        report[label] = rec
+        print(f"{label}: {rec}", flush=True)
     print(json.dumps(report), flush=True)
     return 0
 
