@@ -4,7 +4,7 @@ paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the thirty-one CUDA libraries of ``jrl_lbm_torch/kernels/csrc``
+1. Builds the thirty-two CUDA libraries of ``jrl_lbm_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
@@ -14,7 +14,8 @@ paths on one NVIDIA card and check them.
    limits on this card and the route choice at 128x64: the cluster shape,
    cells per thread, shared memory and registers per block; the
    multi-cluster kernels' plan at 256x128 and 512x256 (clusters, their
-   size, cells a thread, shared memory, registers).
+   size, cells a thread, shared memory, registers); ``fused_approach_mc``
+   must spill nothing at the cells a thread of its plans.
 0. The cylinder channel (``cylinder_phases``): each of its five kernels
    against its plain twin after one step (1e-5) on a split geometry
    (256x128) and a generic one (64x32), ``cyl_pass`` (the k-step pass in
@@ -111,18 +112,23 @@ paths on one NVIDIA card and check them.
    (ethaline wedge and cylinder, both ``is_negative``) through both routes
    of each phase (the cluster kernels ``fused_fluid_cl``,
    ``fused_balance_cl``, ``fused_approach_cl`` and the cooperative ones)
-   and at the route's kernels of 256x128 (both ``is_negative``: the
-   multi-cluster fluid and balance, the cooperative approach) and of
-   512x256 (the largest grid they serve: the cooperative fluid, the
-   multi-cluster balance, the cooperative approach); the approach once across
+   and at the route's kernels of 256x128 and of 512x256 (both
+   ``is_negative``; ``MC_ROUTE``: the multi-cluster balance at both, the
+   multi-cluster fluid and approach at 256x128 and the cooperative ones at
+   512x256, the largest grid they serve; ``fused_approach_mc`` forced
+   there); the approach once across
    stored-velocity frame boundaries and once across tip rows. The cluster
    kernels equal the cooperative ones bit for bit over a 1000-step launch
    of the default configurations (and the 45degree tip; the approach's
    integrals within rtol 2e-4 / atol 1e-4, whether also bit for bit
    printed), the approach also from step 2**24 - 500; the multi-cluster
    kernels equal them over a 1000-step launch at 256x128 and 512x256
-   (both balances; route="clusters" forced where the route is the
-   cooperative one) and over steps 2**24 - 100 .. 2**24 + 99 at 256x128
+   (both balances; the approach of the ethaline case from step 3000, and
+   of the wedge and the flat tip across a handover of the disk row from
+   one cluster to the next, h and C bit for bit, the integrals bit for bit
+   where one block held the disk row, else within rtol 2e-4 / atol 1e-4;
+   route="clusters" forced where the route is the cooperative one) and
+   over steps 2**24 - 100 .. 2**24 + 99 at 256x128
    and 512x256 (flat tip and wedge), the fluid also against its twin over
    steps 2**24 - 5 .. 2**24 + 4 there. Then fluid steps 2**24 - 5 .. 2**24 + 4 through both routes (bit for
    bit each other) and through fluid_a / fluid_b against the twin.
@@ -176,11 +182,13 @@ paths on one NVIDIA card and check them.
    phases' results; the approach's h and C) and each configuration
    through the per-step kernels. Then the grids the multi-cluster kernels
    serve on the main path, refine 2 (256x128) and refine 4 (512x256): 200
-   fluid and 200 balance steps through ``pick_*``, which must launch
-   ``fused_balance_mc`` at both grids, ``fused_fluid_mc`` at 256x128 and
-   the cooperative ``fused_fluid`` at 512x256 (where the multi-cluster
-   fluid, two cells a thread, loses), and nothing else, each beside the
-   same steps through the other route (timed, bit for bit).
+   fluid, 200 balance and 200 approach steps through ``pick_*``, which
+   must launch the kernel of ``MC_ROUTE`` (``fused_balance_mc`` at both
+   grids, ``fused_fluid_mc`` and ``fused_approach_mc`` at 256x128, the
+   cooperative ``fused_fluid`` and ``fused_approach`` at 512x256, where the
+   multi-cluster ones, two cells a thread, lose) and nothing else, each beside the
+   same steps through the other route (timed, bit for bit: h and C for
+   the approach).
 6. Runs one whole case through ``jrl_main.run_case`` at 128x64 twice:
    through the multi-step kernels (its default: the three cluster
    kernels) and through the per-step runners (``c_approach_pass`` for the
@@ -193,12 +201,13 @@ paths on one NVIDIA card and check them.
    lane after lane, the records bit for bit equal), timed beside the
    lanes and one lane alone; the lanes kernel against its twin (h, C
    2e-5, the record sums rtol 2e-4 / atol 1e-4) beside its bound.
-7. Prints ``{"kernels": [...]}`` (42 rows: each kernel once, the five
+7. Prints ``{"kernels": [...]}`` (43 rows: each kernel once, the five
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``; the
    cluster kernels and ``fused_approach`` timed on a 1000-step launch at
    128x64 (CUDA events), the cooperative fluid and balance on a 200-step
-   launch at 512x256, the multi-cluster ones at 256x128; all four printed
-   at both grids with the plans and bounds), the card's name and power
+   launch at 512x256, the three multi-cluster ones at 256x128; all six
+   printed at both grids with the plans and bounds, and each phase's
+   steps and launches of the default case at refine 2 and 4), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without printing a result when no
@@ -232,7 +241,7 @@ FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach"
                   # per cell and step: A + B; the balance; the approach + the lerp
                   "fused_fluid": 650, "fused_balance": 230, "fused_approach": 335,
                   "fused_fluid_cl": 650, "fused_balance_cl": 230, "fused_approach_cl": 335,
-                  "fused_fluid_mc": 650, "fused_balance_mc": 230,
+                  "fused_fluid_mc": 650, "fused_balance_mc": 230, "fused_approach_mc": 335,
                   "fused_approach_lanes": 335,
                   "c_approach_pass": 335,
                   # per cell and step of a tile class (halo recompute not
@@ -249,8 +258,8 @@ FUSED = ("fused_fluid", "fused_balance", "fused_approach")
 FUSED_CL = ("fused_fluid_cl", "fused_balance_cl", "fused_approach_cl")
 # the multi-step kernels of the default 128x64 case
 PATH128 = ("fused_fluid_cl", "fused_balance_cl", "fused_approach_cl")
-# the fluid and balance of 256x128 and 512x256 (refine 2 and 4)
-MC = ("fused_fluid_mc", "fused_balance_mc")
+# the multi-cluster kernels of 256x128 and 512x256 (refine 2 and 4)
+MC = ("fused_fluid_mc", "fused_balance_mc", "fused_approach_mc")
 SOURCE = {
     "fluid_a": ("jrl_lbm_torch/kernels/csrc/fluid_a.cu",
                 "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:506"),
@@ -278,6 +287,8 @@ SOURCE = {
                        "jrl_lbm_tpu/ops/pallas/fused_jrl.py:138"),
     "fused_balance_mc": ("jrl_lbm_torch/kernels/csrc/fused_balance_mc.cu",
                          "jrl_lbm_tpu/ops/pallas/fused_jrl.py:531"),
+    "fused_approach_mc": ("jrl_lbm_torch/kernels/csrc/fused_approach_mc.cu",
+                          "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
     "cyl_full": ("jrl_lbm_torch/kernels/csrc/cyl_full.cu",
                  "jrl_lbm_tpu/ops/pallas/fused_step.py:247"),
     "cyl_interior": ("jrl_lbm_torch/kernels/csrc/cyl_interior.cu",
@@ -319,6 +330,14 @@ SOURCE = {
                              "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
 }
 TILED = ("fluid_k", "fluid_k_lean", "fluid_k_bt", "fluid_pass")
+ROUTE_KERNEL = {(name, route): name + suffix for name in FUSED
+                for route, suffix in (("cluster", "_cl"), ("clusters", "_mc"), ("coop", ""))}
+# the kernel each phase's route takes at refine 2 (256x128) and 4 (512x256)
+# of the default case on an H100 (PERF.md §6)
+MC_ROUTE = {2: {"fused_fluid": "fused_fluid_mc", "fused_balance": "fused_balance_mc",
+                "fused_approach": "fused_approach_mc"},
+            4: {"fused_fluid": "fused_fluid", "fused_balance": "fused_balance_mc",
+                "fused_approach": "fused_approach"}}
 
 
 def fail(msg: str):
@@ -409,11 +428,13 @@ def cluster_choice(F, res) -> dict:
               + (f": cluster of {blocks} blocks x {F.CLUSTER_THREADS} threads, {cpt} cell(s) a "
                  f"thread, {smem} B shared memory a block, {regs} registers, {local} B local"
                  if shape else ""), flush=True)
-    for name in ("fused_fluid", "fused_balance"):
+    for name in FUSED:
         lim = F.card_limits(name, 0)
         for H, W in ((256, 128), (512, 256)):
             plan = F.mc_plan(name, H, W, lim)
             regs, local = F.mc_info(name, plan.cpt, 0)
+            if name == "fused_approach" and local:
+                fail(f"fused_approach_mc spills at {plan.cpt} cells a thread: {local} local bytes")
             out[f"{name}_mc {H}x{W}"] = dict(plan._asdict(), registers=regs, local_bytes=local,
                                              route=F.fused_route(name, H, W, lim))
             print(f"  {name}_mc: card holds {lim.active} clusters of {F.MC_SIZES} blocks at "
@@ -426,11 +447,13 @@ def cluster_choice(F, res) -> dict:
 
 
 def case_launches(F, T, refine: int) -> dict:
-    """Steps and launches of the fluid and balance phases of the default
-    ethaline case at ``refine``, counted as `models/jrl.py::
-    run_fluid_phase` (a runner call up to each record step, one for the
-    step itself) and `jrl_main.run_balance` (~100 intervals) call the
-    runners, which split a call into launches of `fused_jrl.steps_per_launch`."""
+    """Steps and launches of the three phases of the default ethaline case
+    at ``refine``, counted as `models/jrl.py::run_fluid_phase` (a runner
+    call up to each record step, one for the step itself),
+    `jrl_main.run_balance` (~100 intervals) and `jrl_main.run_approach` (a
+    call up to each record step of `models/jrl.py::c_dump_steps`, then the
+    rest) call the runners, which split a call into launches of
+    `fused_jrl.steps_per_launch`."""
     fc = T.JRLFluidConfig(shape="ethaline", refine=refine)
     cc = T.JRLCConfig(shape="ethaline", refine=refine)
     size_f, size_b = F.steps_per_launch(fc, "fused_fluid"), F.steps_per_launch(cc, "fused_balance")
@@ -442,8 +465,41 @@ def case_launches(F, T, refine: int) -> dict:
     interval, balance = max(1, cc.balance_steps // 100), 0
     for done in range(0, cc.balance_steps, interval):
         balance += -(-min(interval, cc.balance_steps - done) // size_b)
+    size_a, cur, approach = F.steps_per_launch(cc, "fused_approach"), 0, 0
+    for s in T.c_dump_steps(cc):
+        approach += -(-(s + 1 - cur) // size_a)
+        cur = s + 1
+    approach += -(-(cc.total_steps - cur) // size_a)
     return {"fluid_steps": fc.total_steps, "fluid_launches": fluid,
-            "balance_steps": cc.balance_steps, "balance_launches": balance}
+            "balance_steps": cc.balance_steps, "balance_launches": balance,
+            "approach_steps": cc.total_steps, "approach_launches": approach}
+
+
+def disk_band(T, cfg, plan, step: int) -> int:
+    """The block of a multi-cluster plan whose band holds the step's disk
+    row (rows of block b from b H // B, B blocks)."""
+    H = cfg.eff_res[0]
+    B = plan.clusters * plan.cluster
+    rin = min(max(T.tip_walks(cfg.inflow_height, step, cfg.vel_obs_conv)[1], 0), H - 1)
+    return next(b for b in range(B) if b * H // B <= rin < (b + 1) * H // B)
+
+
+def handover_start(T, cfg, plan, n: int) -> int:
+    """A start from which an n-step launch's disk row enters rank 0 of a
+    cluster of the plan from the cluster below half way (the first such
+    edge above the tip's start)."""
+    H = cfg.eff_res[0]
+    B = plan.clusters * plan.cluster
+    row0 = T.tip_walks(cfg.inflow_height, 0, cfg.vel_obs_conv)[1]
+    edge = next(b * H // B for b in range(0, B, plan.cluster) if b * H // B > row0)
+    lo, hi = 0, 10**9
+    while lo < hi:
+        m = (lo + hi) // 2
+        if T.tip_walks(cfg.inflow_height, m, cfg.vel_obs_conv)[1] >= edge:
+            hi = m
+        else:
+            lo = m + 1
+    return max(0, lo - n // 2)
 
 
 def smi_line() -> str:
@@ -482,6 +538,7 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fused_approach_cl": ("fused_approach_cl_kernel",),
     "fused_fluid_mc": ("fused_fluid_mc_kernel",),
     "fused_balance_mc": ("fused_balance_mc_kernel",),
+    "fused_approach_mc": ("fused_approach_mc_kernel",),
     "fused_approach_lanes": ("fused_approach_lanes_kernel",),
     "c_approach_pass": ("c_approach_pass_kernel",),
     "cyl_full": ("cyl_full_kernel",),
@@ -2549,6 +2606,13 @@ def main() -> int:
     from jrl_lbm_torch.models import jrl as T
 
     dev = torch.device("cuda")
+    t_start, marks = time.perf_counter(), {}
+
+    def stamp(label):
+        """Print and keep the seconds from the start to the start of a phase."""
+        marks[label] = time.perf_counter() - t_start
+        print(f"[chip_smoke +{marks[label]:.1f} s] {label}", flush=True)
+
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
     print(smi, flush=True)
@@ -2568,18 +2632,23 @@ def main() -> int:
     TOL = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4, "h": 2e-5, "C": 2e-5}
 
     # ---- 0. the cylinder channel: kernels against twins, the 2048² path ----
+    stamp("0. cylinder")
     cyl_rows, report["cylinder"] = cylinder_phases(dev, rate, errs)
 
     # ---- 0b. the cylinder channel in bf16 storage, and the shedding gate ----
+    stamp("0b. storage and shedding gate")
     storage_rows, report["cylinder_storage"] = storage_phases(dev, rate, report["cylinder"])
 
     # ---- 0a. the shear layer: the periodic kernel, run_shear, 2048² windows ----
+    stamp("0a. shear layer")
     shear_rows, report["shear"] = shear_phases(dev, rate, errs)
 
     # ---- 0c. the JRL case on a mesh of shards: kernels, runners, NCCL ----
+    stamp("0c. sharded JRL")
     sharded_rows, report["sharded"] = sharded_phases(dev, rate, errs)
 
     # ---- 0d. the cylinder channel on a mesh of shards: kernels, routes ----
+    stamp("0d. sharded cylinder")
     cyl_sh_rows, cyl_sh_halo, report["cyl_sharded"] = cyl_sharded_phases(
         dev, rate, errs, report["cylinder"]["best"]["us_per_step"])
     for r in sharded_rows:  # halo_pack serves both sharded paths
@@ -2598,6 +2667,7 @@ def main() -> int:
         return same
 
     # ---- 1. each per-step kernel against its twin ----
+    stamp("1. per-step kernels")
     def fluid_cfg(shape, refine, **kw):
         return T.JRLFluidConfig(**dict(dict(res=(128, 64), Re=4.0, vel_obs_real=0.2848,
                                             gravity_strength_real=-9.8, shape=shape,
@@ -2687,6 +2757,7 @@ def main() -> int:
             check_ints(f"{k} 100 steps", [acc_k[x] for x in keys], [acc_r[x] for x in keys])
 
     # ---- 2. each multi-step kernel against its twin, one launch ----
+    stamp("2. multi-step kernels")
     def frame_field(H, W, n, seed):
         g = torch.Generator(device=dev).manual_seed(seed)
         return 0.5 * torch.randn((n, 2, H, W), generator=g, device=dev)
@@ -2701,14 +2772,15 @@ def main() -> int:
         # multi-cluster one for the balance, the multi-cluster one for the
         # fluid at 256x128 and the cooperative one at 512x256 (two cells a
         # thread there), and the cooperative one for the approach
-        want_k = {p: p + "_cl" for p in FUSED} if refine == 1 else {
-            "fused_fluid": "fused_fluid_mc" if refine == 2 else "fused_fluid",
-            "fused_balance": "fused_balance_mc", "fused_approach": "fused_approach"}
+        want_k = {p: p + "_cl" for p in FUSED} if refine == 1 else MC_ROUTE[refine]
         for phase in FUSED:
             if route_kernel(phase, fc) != want_k[phase]:
                 fail(f"{phase} at {H}x{W}: route {route_kernel(phase, fc)}, expected "
                      f"{want_k[phase]}")
         routes = fused_jrl.ROUTES if refine == 1 else (None,)
+        # the approach's multi-cluster kernel, forced where the route is another
+        a_routes = routes if want_k["fused_approach"].endswith(("_cl", "_mc")) else (None,
+                                                                                   "clusters")
         print(f"compare multi-step kernels with twins: {shape} {H}x{W}, {n_fused} steps, "
               f"routes {routes}", flush=True)
         s, fl = T.fluid_init(fc, dev)
@@ -2751,9 +2823,9 @@ def main() -> int:
                     fail(f"approach ({label}) check does not cross what it should")
                 hr, Cr, ints = fused_jrl.fused_approach_ref(sa["h"], sa["C"], vf, 0, n_fused,
                                                             ca, cfa)
-                for route in routes:
-                    k = want_k["fused_approach"] if route is None else (
-                        "fused_approach_cl" if route == "cluster" else "fused_approach")
+                for route in a_routes:
+                    k = want_k["fused_approach"] if route is None else ROUTE_KERNEL[
+                        ("fused_approach", route)]
                     acc = torch.zeros(4, device=dev)
                     h, C = fused_jrl.fused_approach(sa["h"], sa["C"], vf, 0, n_fused, ca, cfa, acc,
                                                     route=route)
@@ -2761,6 +2833,7 @@ def main() -> int:
                     check_close(f"{k} {label} neg={neg} C", C, Cr, TOL["C"], errs[k])
                     check_ints(f"{k} {label}", acc, ints)
 
+    stamp("2. cluster kernels against the cooperative ones")
     print("cluster kernels against the cooperative ones: one 1000-step launch at 128x64",
           flush=True)
     ints_bits = report.setdefault("fused_approach_cl_integrals_bit_for_bit", {})
@@ -2800,6 +2873,7 @@ def main() -> int:
     st, cf, _ = T.c_init(cc, dev)
     approach_cl_equal(cc, noisy(st, dev, 24), cf, 2**24 - 500, "across 2**24")
 
+    stamp("2. multi-cluster kernels against the cooperative ones")
     print("multi-cluster kernels against the cooperative ones: one 1000-step launch at "
           "256x128 and 512x256", flush=True)
     for refine in (2, 4):
@@ -2817,6 +2891,33 @@ def main() -> int:
             equal_bits(f"fused_balance_mc {H}x{W} neg={neg}", *(
                 fused_jrl.fused_balance(st["h"], st["C"], flags, 1000, cc, cf, route=r)
                 for r in ("clusters", "coop")))
+        # the approach: the ethaline case's own tip speed from step 3000, and
+        # the wedge and the flat tip at 0.005 rows a step across a handover
+        # of the disk row from one cluster to the next
+        for shape, res_, speed in (("ethaline", None, None), ("ethaline", None, 0.005),
+                                   ("cylinder", (H, W), 0.005)):
+            kw = dict(res=res_, refine=1) if res_ else dict(refine=refine)
+            ca = T.JRLCConfig(shape=shape, **kw)
+            if speed:
+                ca = T.JRLCConfig(shape=shape, Re=4.0, Pe=speed * ca.radius_obs / (0.5 / 3.0), **kw)
+            sa, cfa, _ = T.c_init(ca, dev)
+            sa = noisy(sa, dev, 46 + refine)
+            plan = fused_jrl.mc_plan("fused_approach", H, W,
+                                     fused_jrl.card_limits("fused_approach", 0))
+            start = handover_start(T, ca, plan, 1000) if speed else 3000
+            vfa = frame_field(H, W, T.frame_pair(start + 1001, ca.vel_obs_conv, 2**31)[0] + 2,
+                              seed=47)
+            out = {}
+            for r in ("clusters", "coop"):
+                acc_ = torch.zeros(4, device=dev)
+                out[r] = list(fused_jrl.fused_approach(sa["h"], sa["C"], vfa, start, 1000, ca,
+                                                       cfa, acc_, route=r)) + [acc_]
+            held = len({disk_band(T, ca, plan, x) for x in (start, start + 999)}) == 1
+            tag = (f"fused_approach_mc {shape} {H}x{W} from {start} "
+                   f"({'one block' if held else 'handover'})")
+            equal_bits(f"{tag} (h, C)", out["clusters"][:2], out["coop"][:2])
+            check_ints(f"{tag} vs coop", out["clusters"][2], out["coop"][2])
+            equal_bits(f"{tag} integrals", out["clusters"][2:], out["coop"][2:], must=held)
     for shape, res in itertools.product(("45degree", "cylinder"), ((256, 128), (512, 256))):
         fc = fluid_cfg(shape, 1, res=res, Re=1.2e-5, vel_obs_real=28e-6)
         tag = f"{shape} fused_fluid_mc {res[0]}x{res[1]}"
@@ -2850,9 +2951,11 @@ def main() -> int:
         equal_bits(f"{shape} fused_fluid_cl across 2**24", got["cluster"], got["coop"])
 
     # ---- 2a. the tile-class kernels and the tiled runner at 1024x512 ----
+    stamp("2a. tile classes")
     report["tiled"] = tiled_checks(dev, fluid_cfg, errs)
 
     # ---- 3. the main path at 1024x512 ----
+    stamp("3. 1024x512 path")
     phases = {}
 
     def run_phase(pname, kernel_names, fn, n, cells, yardstick=False):
@@ -3115,6 +3218,7 @@ def main() -> int:
           flush=True)
 
     # ---- 4. each per-step kernel alone, and its twin, at 1024x512 ----
+    stamp("4. per-step kernels alone")
     rows, tiled_rows = [], []
 
     def row(k, ms, plain_ms, ins, outs, steps, cells_, launches, timed_from):
@@ -3263,6 +3367,7 @@ def main() -> int:
           flush=True)
 
     # ---- 5. the 128x64 path of the default case, multi-step kernels ----
+    stamp("5. 128x64, 256x128, 512x256 paths")
     fc0, cc0 = T.JRLFluidConfig(), T.JRLCConfig()
     H, W = fc0.eff_res
     cells = H * W
@@ -3358,22 +3463,27 @@ def main() -> int:
         print(f"  {pname:9s} cluster {new['ms_per_step'] * 1e3:.3f} us/step vs cooperative "
               f"{old['ms_per_step'] * 1e3:.3f} us/step: {gain:.3f}x", flush=True)
 
-    # the grids the multi-cluster kernels serve on the main path: refine 2
-    # (fluid and balance) and 4 (the balance; the fluid stays cooperative
-    # there), each beside the other route as the yardstick, bit for bit
+    stamp("5. 256x128 and 512x256 paths")
+    # the grids the multi-cluster kernels serve on the main path, refine 2
+    # and 4: each phase through pick_* beside the other route as the
+    # yardstick, bit for bit (MC_ROUTE: the route each phase must take)
     for refine in (2, 4):
         fcr, ccr = fluid_cfg("ethaline", refine), c_cfg("ethaline", refine)
         Hr, Wr = fcr.eff_res
         tag = f"{Hr}x{Wr}"
-        print(f"{tag} (refine {refine}): fluid and balance through pick_*, beside the other "
-              f"route", flush=True)
+        print(f"{tag} (refine {refine}): fluid, balance and approach through pick_*, beside the "
+              f"other route", flush=True)
         sr_, flr = T.fluid_init(fcr, dev)
         str_, cfr, flagsr = T.c_init(ccr, dev)
+        vfr = frame_field(Hr, Wr, T.frame_pair(1000, ccr.vel_obs_conv, 2**31)[0] + 2, seed=48)
+
+        def other(name, cfg):
+            return "coop" if route_kernel(name, cfg) == name + "_mc" else "clusters"
 
         def other_fluid_run(st_, fl_, start, k, cfg=fcr):
-            r = "coop" if route_kernel("fused_fluid", cfg) == "fused_fluid_mc" else "clusters"
             return dict(zip(("f", "rho", "vel"), fused_jrl.fused_fluid(
-                st_["f"], st_["rho"], st_["vel"], start, k, cfg, fl_, route=r)))
+                st_["f"], st_["rho"], st_["vel"], start, k, cfg, fl_,
+                route=other("fused_fluid", cfg))))
 
         def balance_stepper(run, cf_=cfr, st0_=str_):
             box = {"s": st0_}
@@ -3384,23 +3494,31 @@ def main() -> int:
             return steps
 
         def other_balance_run(st_, cf_, k, cfg=ccr, fl_=flagsr):
-            r = "coop" if route_kernel("fused_balance", cfg) == "fused_balance_mc" else "clusters"
-            return dict(zip(("h", "C"), fused_jrl.fused_balance(st_["h"], st_["C"], fl_, k, cfg,
-                                                                 cf_, route=r)))
+            return dict(zip(("h", "C"), fused_jrl.fused_balance(
+                st_["h"], st_["C"], fl_, k, cfg, cf_, route=other("fused_balance", cfg))))
 
-        for pname, kname, main, other in (
+        def other_approach_run(st_, cf_, cur, k, cfg=ccr, vf_=vfr):
+            acc_ = torch.zeros(4, device=dev)
+            h_, C_ = fused_jrl.fused_approach(st_["h"], st_["C"], vf_, cur, k, cfg, cf_, acc_,
+                                              route=other("fused_approach", cfg))
+            return {"h": h_, "C": C_}, acc_
+
+        for pname, kname, main, other_ in (
                 ("fluid", "fused_fluid",
                  stepper(fcr, T.pick_fluid_runner(fcr), sr_, flr, 0),
                  stepper(fcr, other_fluid_run, sr_, flr, 0)),
                 ("balance", "fused_balance",
                  balance_stepper(T.pick_balance_runner(ccr, flagsr)),
-                 balance_stepper(other_balance_run))):
-            k_main = route_kernel(kname, fcr)
-            if k_main != (kname if (refine, pname) == (4, "fluid") else kname + "_mc"):
-                fail(f"{tag} {pname}: route {k_main}")
+                 balance_stepper(other_balance_run)),
+                ("approach", "fused_approach",
+                 approach_stepper(T.pick_approach_runner(ccr, vfr), str_, cfr, 0),
+                 approach_stepper(other_approach_run, str_, cfr, 0))):
+            k_main = route_kernel(kname, ccr)
+            if k_main != MC_ROUTE[refine][kname]:
+                fail(f"{tag} {pname}: route {k_main}, expected {MC_ROUTE[refine][kname]}")
             k_other = kname if k_main == kname + "_mc" else kname + "_mc"
             out = run_phase(f"{tag} {pname}", (k_main,), main, 200, Hr * Wr)
-            yard = run_phase(f"{tag} {pname} {k_other}", (k_other,), other, 200, Hr * Wr,
+            yard = run_phase(f"{tag} {pname} {k_other}", (k_other,), other_, 200, Hr * Wr,
                              yardstick=True)
             if not all(torch.isfinite(v).all() for v in out.values()):
                 fail(f"{tag} {pname}: state not finite")
@@ -3411,6 +3529,7 @@ def main() -> int:
             print(f"  {pname:9s} {k_main} {new['ms_per_step'] * 1e3:.3f} us/step (the path) vs "
                   f"{k_other} {old['ms_per_step'] * 1e3:.3f} us/step", flush=True)
 
+    stamp("5. 128x64 per-step yardsticks")
     print("128x64 yardstick: the same configurations through the per-step kernels", flush=True)
     n_ps = 2000
     s_ps = {"s": s0, "cur": 0}
@@ -3448,6 +3567,7 @@ def main() -> int:
               flush=True)
 
     # ---- 6. one whole case at 128x64, multi-step and per-step ----
+    stamp("6. whole case")
     fcase = T.JRLFluidConfig(res=(128, 64), Re=4.0, vel_obs_real=0.2848,
                              gravity_strength_real=0.0, shape="45degree")
     ccase = T.JRLCConfig(res=(128, 64), balance_time=0.01, Re=4.0, Pe=5.0,
@@ -3500,8 +3620,10 @@ def main() -> int:
     report["whole_case"]["worst_rel"] = worst
 
     # ---- 6a. the Pe sweep: a row's approach lanes in one launch ----
+    stamp("6a. Pe sweep")
     sweep_rows, report["sweep"] = sweep_phases(dev, rate, errs)
 
+    stamp("7. multi-step kernels alone")
     # ---- 7. each multi-step kernel alone, and its twin: the cluster kernels
     # and the cooperative approach at 128x64, the cooperative fluid and
     # balance kernels at 512x256 ----
@@ -3538,11 +3660,14 @@ def main() -> int:
             [cf0["base_flags"], frames_read, cf0["area"], st0["h"]], list(ap_out) + [acc1]),
     }
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # launches on the main path's phases (the yardsticks' not counted)
+    launches_path = {k: sum(p_["launches"].get(k, 0) for p_ in phases.values()
+                            if not p_.get("yardstick") and "launches" in p_)
+                     for k in FUSED + MC}
     for k in PATH128 + ("fused_approach",):
         kfn, tfn, ins, outs = fruns[k]
-        # launches on the main path (fused_approach: none since the cluster route)
         row(k, cuda_ms(kfn, 5, warmup=1), cuda_ms(tfn, 1, warmup=0), ins, outs, n_row, cells,
-            path128[k]["launches"][k] if k in path128 else 0, "events")
+            path128[k]["launches"][k] if k in path128 else launches_path[k], "events")
         if k in FUSED_CL:  # the operation bound of one cluster's SMs
             blocks = report["cluster"][k[:-3]]["blocks"]
             per = phases["per_launch"][k]
@@ -3550,21 +3675,29 @@ def main() -> int:
             print(f"    one-cluster operation bound ({blocks} of {sms} SMs): "
                   f"{per['cluster_bound_ms'] * 1e3:.2f} us", flush=True)
     n4 = 200
-    launches_path = {k: sum(p_["launches"].get(k, 0) for p_ in phases.values()
-                            if not p_.get("yardstick") and "launches" in p_)
-                     for k in FUSED + MC}
     grids = {}
     for refine in (2, 4):
         fcr, ccr = fluid_cfg("ethaline", refine), c_cfg("ethaline", refine)
         sr_, flr = T.fluid_init(fcr, dev)
         str_, cfr, flagsr = T.c_init(ccr, dev)
-        grids[refine] = (fcr, ccr, sr_, flr, str_, cfr, flagsr)
+        # frames that cover the 200 steps from step 0
+        vfr = frame_field(*fcr.eff_res, T.frame_pair(n4, ccr.vel_obs_conv, 2**31)[0] + 2, seed=49)
+        grids[refine] = (fcr, ccr, sr_, flr, str_, cfr, flagsr, vfr)
 
     def fused_runs(k, refine):
         """(kernel, twin, inputs, outputs) of a 200-step launch of ``k`` at
         refine 2 or 4 (its route forced)."""
-        fcr, ccr, sr_, flr, str_, cfr, flagsr = grids[refine]
+        fcr, ccr, sr_, flr, str_, cfr, flagsr, vfr = grids[refine]
         r = "clusters" if k in MC else "coop"
+        if k.startswith("fused_approach"):
+            x, acc_, acc_c = (str_["h"], str_["C"]), torch.zeros(4, device=dev), \
+                torch.zeros(4, device=dev)
+            b_last = T.frame_pair(n4 - 1, ccr.vel_obs_conv, vfr.shape[0])[0]
+            return (lambda: fused_jrl.fused_approach(*x, vfr, 0, n4, ccr, cfr, acc_, route=r),
+                    lambda: fused_jrl.fused_approach_ref(*x, vfr, 0, n4, ccr, cfr),
+                    [cfr["base_flags"], vfr[:b_last + 2], cfr["area"], x[0]],
+                    list(fused_jrl.fused_approach(*x, vfr, 0, n4, ccr, cfr, acc_c, route="coop"))
+                    + [acc_c])
         if k.startswith("fused_fluid"):
             x = (sr_["f"], sr_["rho"], sr_["vel"])
             return (lambda: fused_jrl.fused_fluid(*x, 0, n4, fcr, flr, route=r),
@@ -3578,24 +3711,24 @@ def main() -> int:
 
     # the rows: the cooperative fluid and balance at 512x256 (where the fluid
     # stays cooperative on the main path), the multi-cluster ones at 256x128
-    # (where the main path runs both)
-    print(f"the cooperative fluid and balance at 512x256 and the multi-cluster ones at "
+    # (where the main path runs all three)
+    print(f"the cooperative fluid and balance at 512x256 and the multi-cluster kernels at "
           f"256x128, one launch of {n4} steps, and the twin:", flush=True)
     for k, refine in (("fused_fluid", 4), ("fused_balance", 4), ("fused_fluid_mc", 2),
-                      ("fused_balance_mc", 2)):
+                      ("fused_balance_mc", 2), ("fused_approach_mc", 2)):
         kfn, tfn, ins, outs = fused_runs(k, refine)
         Hr, Wr = grids[refine][0].eff_res
         row(k, cuda_ms(kfn, 5, warmup=1), cuda_ms(tfn, 1, warmup=0), ins, outs, n4, Hr * Wr,
             launches_path[k], "events")
-    # every kernel of the four at both grids, and the plans: printed
+    # every kernel of the six at both grids, and the plans: printed
     times = {}
     for refine in (2, 4):
         fcr = grids[refine][0]
         Hr, Wr = fcr.eff_res
-        for k in FUSED[:2] + MC:
+        for k in FUSED + MC:
             kfn = fused_runs(k, refine)[0]
             times[f"{k} {Hr}x{Wr}"] = cuda_ms(kfn, 5, warmup=1) * 1e3 / n4
-        for name_ in FUSED[:2]:
+        for name_ in FUSED:
             lim = fused_jrl.card_limits(name_, 0)
             plan = fused_jrl.mc_plan(name_, Hr, Wr, lim)
             blocks = plan.clusters * plan.cluster
@@ -3614,9 +3747,11 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows \
         + sweep_rows
-    if len(rows) != 42:
-        fail(f"{len(rows)} kernel rows, expected 42")
-    report.update({"phases": phases, "kernels": rows, "build_log": build.build_log})
+    if len(rows) != 43:
+        fail(f"{len(rows)} kernel rows, expected 43")
+    stamp("end")
+    report.update({"phases": phases, "kernels": rows, "build_log": build.build_log,
+                   "phase_start_s": marks})
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fo:
         json.dump(report, fo, indent=1, default=str)
     print(json.dumps({"kernels": rows}), flush=True)

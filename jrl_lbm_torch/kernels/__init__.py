@@ -5,7 +5,7 @@ the approach in one launch a step with its frame lerp and integrals),
 the multi-step JRL kernels of grids up to 131,072 cells (`fused_jrl.py`;
 the three phases of grids that fit one thread-block cluster's
 shared memory, such as the default 128x64, on cluster kernels of their
-own; the fluid and balance of 256x128 and 512x256 on every cluster of the
+own; the three phases of 256x128 and 512x256 on every cluster of the
 card at once; a Pe sweep's approach lanes in one launch, one cluster a
 lane),
 the k-step tile-class kernels of the JRL fluid phase on larger grids
@@ -29,7 +29,7 @@ KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh",
            "fused_fluid_cl", "fused_balance_cl", "fluid_pass",
            "c_approach_pass", "fused_approach_cl", "cyl_pass", "fused_approach_lanes",
-           "fused_fluid_mc", "fused_balance_mc")
+           "fused_fluid_mc", "fused_balance_mc", "fused_approach_mc")
 
 
 def wrappers():
@@ -70,6 +70,7 @@ def wrappers():
         "fused_approach_lanes": fused_jrl.fused_approach_lanes,
         "fused_fluid_mc": fused_jrl.fused_fluid_mc,
         "fused_balance_mc": fused_jrl.fused_balance_mc,
+        "fused_approach_mc": fused_jrl.fused_approach_mc,
     }
 
 

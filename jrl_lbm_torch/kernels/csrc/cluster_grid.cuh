@@ -1,5 +1,6 @@
 // Launch form, band and halo exchange of the multi-cluster kernels
-// (fused_fluid_mc.cu, fused_balance_mc.cu): N thread-block clusters of C
+// (fused_fluid_mc.cu, fused_balance_mc.cu, fused_approach_mc.cu): N
+// thread-block clusters of C
 // blocks, one block an SM, hold the whole grid in the shared memory of
 // every block of the launch for the whole launch. Built on
 // cluster_state.cuh (its accessor ClusterState, its window layout, its
@@ -10,7 +11,7 @@
 // halo row a side in the window layout of cluster_state.cuh (band_y0,
 // band_pl taken over B bands), so every read of a step lands where
 // GlobalState would read and the kernels equal the cooperative ones
-// (fused_fluid.cu, fused_balance.cu) bit for bit. Bands of at least
+// (fused_fluid.cu, fused_balance.cu, fused_approach.cu) bit for bit. Bands of at least
 // CL_MIN_ROWS rows keep OUTFLOW's two-row reach inside a band and its halo.
 //
 // Halo rows inside a cluster travel as in cluster_state.cuh::Band: st.async
@@ -35,7 +36,7 @@
 // neighbours' data.
 //
 // Mailbox slots. Pass p (the fluid's A of step i is pass 2i, its B 2i + 1;
-// the balance's step i is pass i) goes to slot p & 1. A sender writes slot
+// the balance's and the approach's step i is pass i) goes to slot p & 1. A sender writes slot
 // p & 1 again at pass p + 2 only after it has received its receiver's pass
 // p + 1 (the two blocks of an edge are each other's neighbours, so each
 // waits for the other every pass), which the receiver sends only after the
@@ -75,8 +76,7 @@ namespace jrl {
 #define JRL_MC_WAIT_NS 4000000000ull
 #endif
 constexpr unsigned long long MC_WAIT_NS = JRL_MC_WAIT_NS;
-constexpr int MC_ROW_PLANES = 9;  // the most planes a pass sends (f, h)
-constexpr int MC_BATCH = 8;       // mailbox words a thread loads at once
+constexpr int MC_BATCH = 8;  // mailbox words a thread loads at once
 
 typedef unsigned long long u64;
 
@@ -148,14 +148,15 @@ struct PassPlanes {
 };
 
 // The mailbox (kernels/fused_jrl.py allocates it zeroed): word ((2 n + d)
-// 2 + (p & 1)) 9 W + j W + x holds column x of mailbox row j of pass p
+// 2 + (p & 1)) RP W + j W + x holds column x of mailbox row j of pass p
 // entering cluster n, side d (0: rank 0 from below, 1: rank C - 1 from
-// above).
+// above); RP, the kernel's mailbox rows a slot, is the most planes one of
+// its passes sends (9 for f or h, 10 for the approach's h and C).
 // A block's place in the launch: its band, the plane stride, its two
 // mbarriers, and where its edge rows go: into the neighbour's halo row
 // (inside the cluster) or into a mailbox row (to another cluster).
 struct GridBand {
-  int b, y0, rows, PL, W;
+  int b, y0, rows, PL, W, RP;
   bool dn_far, up_far;  // the neighbour below / above is in another cluster
   uint32_t dn, up;      // inside the cluster: element (halo row, x = 0) of plane 0
   uint32_t bar[2], dn_bar[2], up_bar[2];
@@ -167,8 +168,9 @@ struct GridBand {
   float* hi_row;
 
   template <class Cluster>
-  __device__ GridBand(const Cluster& cluster, float* sm, uint64_t* bars, int H, int W_, u64* box)
-      : W(W_) {
+  __device__ GridBand(const Cluster& cluster, float* sm, uint64_t* bars, int H, int W_, u64* box,
+                      int row_planes)
+      : W(W_), RP(row_planes) {
     const int C = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
     const int B = (int)gridDim.x, N = B / C, n = (int)blockIdx.x / C;
     b = (int)blockIdx.x;
@@ -188,7 +190,7 @@ struct GridBand {
       dn_bar[k] = peer_addr(bar[k], rb);
       up_bar[k] = peer_addr(bar[k], ra);
     }
-    const size_t side = 2u * MC_ROW_PLANES * (size_t)W;  // words of a side's two slots
+    const size_t side = 2u * RP * (size_t)W;  // words of a side's two slots
     const int nb = (n + N - 1) % N, na = (n + 1) % N;
     dn_box = box + (2 * nb + 1) * side;  // enters rank C - 1 of the cluster below from above
     up_box = box + (2 * na + 0) * side;  // enters rank 0 of the cluster above from below
@@ -220,7 +222,7 @@ struct GridBand {
   __device__ __forceinline__ void push(int ly, int x, int q, int j, float v, int k, int p) const {
     const bool down = ly == 1;
     if (down ? dn_far : up_far) {
-      const size_t i = ((size_t)(p & 1) * MC_ROW_PLANES + j) * W + x;
+      const size_t i = ((size_t)(p & 1) * RP + j) * W + x;
       st_word((down ? dn_box : up_box) + i, (u64)(unsigned)(p + 1) << 32 | __float_as_uint(v));
     } else {
       st_async((down ? dn : up) + 4u * (x + q * PL), v,
@@ -253,11 +255,21 @@ struct GridBand {
   // until both neighbours' bytes of mbarrier k's phase `parity` landed
   __device__ __forceinline__ void exchange(int k, uint32_t parity, int rearm, uint32_t rearm_bytes,
                                            int p, PassPlanes pl) const {
+    finish(rearm, rearm_bytes, p, pl);
+    wait(k, parity);
+  }
+  // exchange in two halves, for work between them that reads no halo row
+  // of the pass (the halo rows from other clusters are in the window after
+  // finish, those from inside the cluster only after wait)
+  __device__ __forceinline__ void finish(int rearm, uint32_t rearm_bytes, int p,
+                                         PassPlanes pl) const {
     if (dn_far || up_far) mc_jitter(b, p, 1);
     if (MC_FAR && dn_far) take(lo_box, lo_row, p, pl);
     if (MC_FAR && up_far) take(hi_box, hi_row, p, pl);
     __syncthreads();
     if (threadIdx.x == 0 && rearm >= 0) mbar_expect(Band::pick(bar, rearm), rearm_bytes);
+  }
+  __device__ __forceinline__ void wait(int k, uint32_t parity) const {
     mbar_wait_budget(Band::pick(bar, k), parity);
   }
   // this thread's words of the mailbox side `box`, pass p, each once it
@@ -266,7 +278,7 @@ struct GridBand {
   // makes visible to the block
   __device__ __forceinline__ void take(const u64* box, float* row, int p, PassPlanes pl) const {
     const int m = pl.rows() * W;
-    const u64* slot = box + (size_t)(p & 1) * MC_ROW_PLANES * W;
+    const u64* slot = box + (size_t)(p & 1) * RP * W;
     const unsigned want = (unsigned)(p + 1 + MC_STALL);
     for (int e0 = threadIdx.x; e0 < m; e0 += MC_BATCH * CL_THREADS) {
       unsigned pending = 0;

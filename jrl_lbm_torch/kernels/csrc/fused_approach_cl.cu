@@ -11,10 +11,11 @@
 // Replaces the TPU kernel jrl_lbm_tpu/ops/pallas/fused_jrl.py::
 // _make_approach_kernel (called by _fused_approach_seg), for grids whose
 // state fits one cluster at one cell per thread (kernels/fused_jrl.py::
-// fused_route); other grids keep fused_approach.cu. Its plain twin is
-// kernels/fused_jrl.py::fused_approach_ref; the cell code is jrl_c.cuh::
-// approach_cell_at, read through cluster_state.cuh::ClusterState and
-// jrl_c.cuh::WindowGeo, so h and C equal fused_approach.cu's bit for bit.
+// fused_route); larger grids take fused_approach_mc.cu or fused_approach.cu.
+// Its plain twin is kernels/fused_jrl.py::fused_approach_ref; the cell code
+// is jrl_c.cuh::approach_cell_at, read through cluster_state.cuh::
+// ClusterState and jrl_c.cuh::WindowGeo, so h and C equal
+// fused_approach.cu's bit for bit.
 //
 // Bound on the card: the state and the frames the run visits cross device
 // memory once a launch, so the bound is the ~335 float32 operations per

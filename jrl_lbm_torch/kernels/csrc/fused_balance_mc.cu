@@ -35,7 +35,8 @@ namespace {
 using namespace jrl;
 namespace cg = cooperative_groups;
 
-constexpr int PLANES = 19;  // two sets of h, and C
+constexpr int PLANES = 19;     // two sets of h, and C
+constexpr int ROW_PLANES = 9;  // mailbox rows a slot: a pass sends h
 
 template <int CPT>
 __global__ void __launch_bounds__(CL_THREADS, 1) fused_balance_mc_kernel(
@@ -45,7 +46,7 @@ __global__ void __launch_bounds__(CL_THREADS, 1) fused_balance_mc_kernel(
   extern __shared__ float sm[];
   __shared__ uint64_t bars[2];  // the halo bytes of even and of odd steps
   const int H = p.H, W = p.W, HW = H * W;
-  const GridBand b(cluster, sm, bars, H, W, box);
+  const GridBand b(cluster, sm, bars, H, W, box, ROW_PLANES);
   const int PL = b.PL, cells = b.rows * W;
   const uint32_t bytes = b.bytes(9);
   float* const Cs = sm + 18 * PL;

@@ -43,6 +43,7 @@ namespace cg = cooperative_groups;
 
 constexpr int SET = 11;     // planes of a set: f 0-8, u 9, v 10
 constexpr int PLANES = 23;  // two sets and rho
+constexpr int ROW_PLANES = 9;  // mailbox rows a slot: pass B sends f, A u, v and rho
 constexpr int RHO_Q = 2 * SET;
 
 template <int CPT>
@@ -53,7 +54,7 @@ __global__ void __launch_bounds__(CL_THREADS, 1) fused_fluid_mc_kernel(
   extern __shared__ float sm[];
   __shared__ uint64_t bars[2];  // the halo bytes of A (rho, vel) and of B (f)
   const int H = pa.H, W = pa.W, HW = H * W;
-  const GridBand b(cluster, sm, bars, H, W, box);
+  const GridBand b(cluster, sm, bars, H, W, box, ROW_PLANES);
   const int PL = b.PL, cells = b.rows * W, RHO = RHO_Q * PL;
   const uint32_t bytes_a = b.bytes(3), bytes_b = b.bytes(9);
   float* const rho = sm + RHO;

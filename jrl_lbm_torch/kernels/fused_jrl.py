@@ -2,8 +2,9 @@
 ``MAX_FUSED_CELLS`` cells (`csrc/fused_fluid.cu`, `csrc/fused_balance.cu`,
 `csrc/fused_approach.cu`, the cluster kernels `csrc/fused_fluid_cl.cu`,
 `csrc/fused_balance_cl.cu`, `csrc/fused_approach_cl.cu`, and the
-multi-cluster kernels `csrc/fused_fluid_mc.cu`, `csrc/fused_balance_mc.cu`),
-each with its plain PyTorch twin, and the runners built on them.
+multi-cluster kernels `csrc/fused_fluid_mc.cu`, `csrc/fused_balance_mc.cu`,
+`csrc/fused_approach_mc.cu`), each with its plain PyTorch twin, and the
+runners built on them.
 
 Replace the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_jrl.py`:
 ``_make_jrl_fluid_kernel``, ``_make_balance_kernel`` and
@@ -12,16 +13,18 @@ takes one of three routes, picked by `fused_route` from the
 grid and the card's limits before any launch: where the state fits the
 shared memory of one thread-block cluster at one cell per thread (the
 default 128x64), the cluster kernel keeps it there for the whole launch;
-the fluid and the balance of larger grids (256x128 and 512x256, refine 2
-and 4) keep it in the shared memory of every cluster the card holds at once
-(`mc_plan`: bands of rows over N clusters, halo rows between clusters
-through mailbox rows in device memory); otherwise one persistent
+larger grids (256x128 and 512x256, refine 2 and 4) keep it in the shared
+memory of every cluster the card holds at once (`mc_plan`: bands of rows
+over N clusters, halo rows between clusters through mailbox rows in device
+memory) where that beats the cooperative grid on the card (the three
+phases at 256x128, the balance at 512x256); otherwise one persistent
 cooperative grid keeps it in device memory (L2) between steps. A wrapper
 given tensors on the CPU runs its twin (the loop of the per-step twins);
 given tensors on the card it launches the kernel or raises, never falling
 back to another route.
 ``fused_fluid.launches``, ``fused_fluid_cl.launches``,
-``fused_fluid_mc.launches`` etc. count the launches of each kernel.
+``fused_fluid_mc.launches``, ``fused_approach_mc.launches`` etc. count the
+launches of each kernel.
 `fused_approach_lanes` runs many approach lanes (a Pe sweep's,
 `parallel/sweep.py`) in one launch of the cluster kernel's lanes instance,
 one cluster a lane.
@@ -70,22 +73,22 @@ MAX_LAUNCH_CELL_STEPS = {"fused_fluid": 2**29, "fused_balance": 2**31, "fused_ap
 CLUSTER_THREADS = 512
 CLUSTER_MIN_ROWS = 2
 CLUSTER_PLANES = {"fused_fluid": 23, "fused_balance": 19, "fused_approach": 22}
-# the multi-cluster kernels (csrc/cluster_grid.cuh) of the fluid and the
-# balance: the same window planes over the bands of every cluster
-MC_PLANES = {"fused_fluid": 23, "fused_balance": 19}
+# the multi-cluster kernels (csrc/cluster_grid.cuh): the same window planes
+# over the bands of every cluster, and the mailbox rows of a slot (the most
+# planes one pass sends: f or h; the approach's h and C)
+MC_PLANES = {"fused_fluid": 23, "fused_balance": 19, "fused_approach": 22}
+MC_ROW_PLANES = {"fused_fluid": 9, "fused_balance": 9, "fused_approach": 10}
 MC_SIZES = (16, 8, 4, 2, 1)  # cluster sizes a plan may take (csrc/cluster_grid.cuh)
 # the most cells a thread at which the route takes a multi-cluster plan:
 # a step is one thread's cells one after the other, and on an H100 the
-# fluid loses to the cooperative grid from two (512x256), the balance at
-# none (PERF.md §6)
-MC_MAX_CPT = {"fused_fluid": 1, "fused_balance": 4}
-# the routes of every phase: "cluster" (one cluster), "coop" (the
-# cooperative grid); the fluid and the balance also take "clusters" (the
-# multi-cluster kernels)
+# fluid and the approach lose to the cooperative grid from two (512x256),
+# the balance at none (PERF.md §6, tools/fused_cluster_probe.py)
+MC_MAX_CPT = {"fused_fluid": 1, "fused_balance": 4, "fused_approach": 1}
+# the routes of every phase: "cluster" (one cluster), "clusters" (the
+# multi-cluster kernels), "coop" (the cooperative grid)
 ROUTES = ("cluster", "coop")
-PHASE_ROUTES = {"fused_fluid": ("cluster", "clusters", "coop"),
-                "fused_balance": ("cluster", "clusters", "coop"),
-                "fused_approach": ROUTES}
+PHASE_ROUTES = {name: ("cluster", "clusters", "coop")
+                for name in ("fused_fluid", "fused_balance", "fused_approach")}
 
 
 def fits(cfg) -> bool:
@@ -225,8 +228,8 @@ def cluster_shape(name: str, H: int, W: int, limits: ClusterLimits):
 
 
 def mc_plan(name: str, H: int, W: int, limits: ClusterLimits, cluster: int | None = None):
-    """The `McPlan` of the multi-cluster kernel of ``name`` (``"fused_fluid"``
-    or ``"fused_balance"``) on an ``H x W`` grid, or None where the card
+    """The `McPlan` of the multi-cluster kernel of ``name`` (``"fused_fluid"``,
+    ``"fused_balance"`` or ``"fused_approach"``) on an ``H x W`` grid, or None where the card
     with ``limits`` cannot hold it. For each cluster size of ``MC_SIZES``
     (``cluster`` forces one): as many clusters as the card holds at once
     and the bands allow (every band at least ``CLUSTER_MIN_ROWS`` rows,
@@ -255,9 +258,8 @@ def fused_route(name: str, H: int, W: int, limits: ClusterLimits) -> str:
     """``"cluster"`` where the state of ``name`` (``"fused_fluid"``,
     ``"fused_balance"`` or ``"fused_approach"``) on an ``H x W`` grid fits
     one cluster of a card with ``limits`` at one cell per thread;
-    ``"clusters"`` where the fluid or balance state fits the clusters the
-    card holds at once (`mc_plan`) at most ``MC_MAX_CPT[name]`` cells a
-    thread;
+    ``"clusters"`` where the state fits the clusters the card holds at once
+    (`mc_plan`) at most ``MC_MAX_CPT[name]`` cells a thread;
     else ``"coop"`` (the cooperative kernel). A cluster kernel's step is
     one thread's cell latency: one cluster at 2 or 4 cells a thread runs
     them one after the other on 16 SMs and loses to the cooperative grid
@@ -367,11 +369,24 @@ def _mc_plan(name: str, cfg, dev: torch.device, plan) -> McPlan:
     return plan
 
 
-def _mailbox(plan: McPlan, W: int, dev: torch.device):
-    """The mailbox words of a launch (`csrc/cluster_grid.cuh`: two sides of
-    two slots of nine rows a cluster), zeroed: a word's pass number starts
-    at 0, which no pass carries."""
-    return torch.zeros(plan.clusters * 4 * 9 * W, dtype=torch.int64, device=dev)
+def _mailbox(name: str, plan: McPlan, W: int, dev: torch.device, extra: int = 0):
+    """The mailbox words of a launch of the multi-cluster kernel of ``name``
+    (`csrc/cluster_grid.cuh`: two sides of two slots of
+    ``MC_ROW_PLANES[name]`` rows a cluster) and ``extra`` words after them,
+    zeroed: a word's pass number starts at 0, which no pass carries."""
+    words = plan.clusters * 4 * MC_ROW_PLANES[name] * W
+    return torch.zeros(words + extra, dtype=torch.int64, device=dev)
+
+
+def _approach_box(plan: McPlan, W: int, dev: torch.device):
+    """``(box, table, ticket)`` of a `fused_approach_mc` launch: the zeroed
+    mailbox words, then the addresses after them of the table of each
+    cluster's per-column sums (``[clusters][2][FUSED_BLOCK]`` floats, two to
+    a word) and of the ticket."""
+    extra = plan.clusters * FUSED_BLOCK + 1
+    box = _mailbox("fused_approach", plan, W, dev, extra=extra)
+    table = box.data_ptr() + 8 * (box.numel() - extra)
+    return box, table, table + 8 * plan.clusters * FUSED_BLOCK
 
 
 def _launch(name: str, cells: int, dev: torch.device, argtypes, args) -> None:
@@ -489,7 +504,7 @@ def fused_fluid_mc(f, rho, vel, start: int, n: int, cfg, fields, plan=None):
     dev = check_state(cfg, start, n, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)))
     plan = _mc_plan("fused_fluid", cfg, dev, plan)
     out = (torch.empty_like(f), torch.empty_like(rho), torch.empty_like(vel))
-    box = _mailbox(plan, cfg.eff_res[1], dev)
+    box = _mailbox("fused_fluid", plan, cfg.eff_res[1], dev)
     fn = build.bind("fused_fluid_mc", "jrl_fused_fluid_mc",
                     [_P] * 6 + [ctypes.c_int] * 2 + [_P] * 3 + [ctypes.c_int] * 4 + [_P])
     with torch.cuda.device(dev):
@@ -509,7 +524,7 @@ def fused_balance_mc(h, C, flags, n: int, cfg, fields, plan=None):
     dev = check_state(cfg, 0, n, h=(h, (9,)), C=(C, ()), flags=(flags, ()))
     plan = _mc_plan("fused_balance", cfg, dev, plan)
     out = (torch.empty_like(h), torch.empty_like(C))
-    box = _mailbox(plan, cfg.eff_res[1], dev)
+    box = _mailbox("fused_balance", plan, cfg.eff_res[1], dev)
     fn = build.bind("fused_balance_mc", "jrl_fused_balance_mc",
                     [_P] * 5 + [ctypes.c_int] + [_P] * 2 + [ctypes.c_int] * 4 + [_P])
     with torch.cuda.device(dev):
@@ -559,8 +574,11 @@ def fused_approach(h, C, vel_field, start: int, n: int, cfg, fields, acc, route=
     if h.device.type == "cpu":
         return _approach_ref_acc(h, C, vel_field, start, n, cfg, fields, acc)
     dev = _check_approach(h, C, vel_field, start, n, cfg, fields, acc)
-    if _route("fused_approach", cfg, dev, route) == "cluster":
+    kind = _route("fused_approach", cfg, dev, route)
+    if kind == "cluster":
         return fused_approach_cl(h, C, vel_field, start, n, cfg, fields, acc)
+    if kind == "clusters":
+        return fused_approach_mc(h, C, vel_field, start, n, cfg, fields, acc)
     base, area, n_frames = fields["base_flags"], fields["area"], int(vel_field.shape[0])
     out = (torch.empty_like(h), torch.empty_like(C))
     P, Q = _ping_pong(out, n)
@@ -594,6 +612,32 @@ def fused_approach_cl(h, C, vel_field, start: int, n: int, cfg, fields, acc):
                  cluster, cpt, smem, stream_of(dev))
     build.check(err, "fused_approach_cl")
     fused_approach_cl.launches += 1
+    return out
+
+
+def fused_approach_mc(h, C, vel_field, start: int, n: int, cfg, fields, acc, plan=None):
+    """`fused_approach` through the multi-cluster kernel (the state in the
+    shared memory of every cluster the card holds at once); ``plan`` and
+    the checks as for `fused_fluid_mc`. Reads no C. The integrals go through
+    a table of each cluster's per-column sums and a ticket, both after the
+    mailbox words: the last cluster to finish sums them and resets the
+    ticket."""
+    if h.device.type == "cpu":
+        return _approach_ref_acc(h, C, vel_field, start, n, cfg, fields, acc)
+    dev = _check_approach(h, C, vel_field, start, n, cfg, fields, acc)
+    plan = _mc_plan("fused_approach", cfg, dev, plan)
+    out = (torch.empty_like(h), torch.empty_like(C))
+    box, table, ticket = _approach_box(plan, cfg.eff_res[1], dev)
+    fn = build.bind("fused_approach_mc", "jrl_fused_approach_mc",
+                    [_P, _P, ctypes.c_int] + [_P] * 5 + [ctypes.c_int] * 2 + [_P] * 4
+                    + [ctypes.c_int] * 4 + [_P])
+    with torch.cuda.device(dev):
+        err = fn(fields["base_flags"].data_ptr(), vel_field.data_ptr(), int(vel_field.shape[0]),
+                 fields["area"].data_ptr(), h.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                 acc.data_ptr(), int(start), int(n), ctypes.byref(_approach_params(cfg)),
+                 box.data_ptr(), table, ticket, *plan, stream_of(dev))
+    build.check(err, "fused_approach_mc")
+    fused_approach_mc.launches += 1
     return out
 
 
@@ -749,6 +793,7 @@ fused_balance_cl.launches = 0
 fused_fluid_mc.launches = 0
 fused_balance_mc.launches = 0
 fused_approach_cl.launches = 0
+fused_approach_mc.launches = 0
 fused_approach_lanes.launches = 0
 
 

@@ -89,34 +89,43 @@ def c_approach_ref(h, C, vel, step: int, cfg, fields, v=None, tau_D=None):
     return h, C, disk_integrals(C, C_vel, walks_int, cfg, fields)
 
 
-def disk_integrals(C, C_vel, walks_int: int, cfg, fields):
-    """The step's ``(inflow, current, rec_u, rec_v)`` from the new C and the
-    convection velocity ``C_vel``: sums over the tip disk of rows
-    ``walks_int`` and ``walks_int + 1`` (the flat flux form also reads the
-    row below and column rint); rows clamp into [0, H-1] as
-    jax.lax.dynamic_slice clamps its start."""
+def _disk_row(arr, row: int, H: int, n: int):
+    return arr[min(max(row, 0), H - 1), :n]
+
+
+def disk_columns(C, walks_int: int, cfg, fields):
+    """The step's inflow and current terms of each tip-disk column ``x <
+    rint`` from the new C (`csrc/jrl_c.cuh::disk_terms`, whose sums over the
+    columns are the integrals): rows ``walks_int`` and ``walks_int + 1``
+    (the flat flux form also reads the row below and column rint); rows
+    clamp into [0, H-1] as jax.lax.dynamic_slice clamps its start."""
     H = cfg.eff_res[0]
     rint = cfg.radius_obs_int
     mesh = fields["mesh"]
     area = fields["area"]
-
-    def disk_row(arr, row, n=rint):
-        return arr[min(max(row, 0), H - 1), :n]
-
     if cfg.shape in _jrl.FLAT_SHAPES:
         def flux(row):  # dC_z + dC_r (`C_cylinder:344-358`)
-            dC_z = disk_row(C, row) - disk_row(C, row - 1)
-            r_line = disk_row(mesh[0], row, rint + 1)
-            rC = r_line * disk_row(C, row, rint + 1)
+            dC_z = _disk_row(C, row, H, rint) - _disk_row(C, row - 1, H, rint)
+            r_line = _disk_row(mesh[0], row, H, rint + 1)
+            rC = r_line * _disk_row(C, row, H, rint + 1)
             dC_r = (rC[1:] - rC[:-1]) / r_line[:-1]
-            return torch.sum((dC_z + dC_r) * area)
+            return (dC_z + dC_r) * area
 
-        inflow, current = flux(walks_int), flux(walks_int + 1)
-    else:  # plain disk integral (`C_ethaline:364-381`)
-        inflow = torch.sum(disk_row(C, walks_int) * area)
-        current = torch.sum(disk_row(C, walks_int + 1) * area)
-    rec_u = torch.sum(disk_row(C_vel[0], walks_int + 1) * area)
-    rec_v = torch.sum(disk_row(C_vel[1], walks_int + 1) * area)
+        return flux(walks_int), flux(walks_int + 1)
+    # plain disk integral (`C_ethaline:364-381`)
+    return _disk_row(C, walks_int, H, rint) * area, _disk_row(C, walks_int + 1, H, rint) * area
+
+
+def disk_integrals(C, C_vel, walks_int: int, cfg, fields):
+    """The step's ``(inflow, current, rec_u, rec_v)`` from the new C and the
+    convection velocity ``C_vel``: sums of `disk_columns` and of the
+    convection velocity over the tip disk of row ``walks_int + 1``."""
+    H = cfg.eff_res[0]
+    rint = cfg.radius_obs_int
+    area = fields["area"]
+    inflow, current = (torch.sum(t) for t in disk_columns(C, walks_int, cfg, fields))
+    rec_u = torch.sum(_disk_row(C_vel[0], walks_int + 1, H, rint) * area)
+    rec_v = torch.sum(_disk_row(C_vel[1], walks_int + 1, H, rint) * area)
     return inflow, current, rec_u, rec_v
 
 

@@ -10,8 +10,10 @@ lane runs in one launch of `kernels/fused_jrl.py::fused_approach_lanes`,
 one thread-block cluster a lane, where the grid fits one cluster at one
 cell a thread (the default 128x64: one lane fills 16 of the card's 132
 SMs). On larger grids one lane already fills the card, and the lanes run
-one after another through `models/jrl.py::pick_approach_runner`
-(cooperative `fused_approach` up to 512x256, `c_approach_pass` above).
+one after another through `models/jrl.py::pick_approach_runner` on the
+kernel `fused_jrl.fused_route` takes for the grid (the multi-cluster
+`fused_approach_mc` at 256x128, the cooperative `fused_approach` at
+512x256, `c_approach_pass` above).
 ``route="serial"`` takes that way on any grid: the yardstick. On the CPU
 the lanes go through the kernel's plain twin.
 

@@ -31,7 +31,12 @@ default runner on non-OBSTACLE cells (f, rho 2e-5; vel 2e-4) and to its
 own twin runner; the four unsharded cylinder kernels equal their twins
 bit for bit in all three storage modes. The lanes of a Pe sweep in one
 launch (``fused_approach_lanes``) equal each lane's serial
-``fused_approach_cl`` launches bit for bit (h, C, every record row).
+``fused_approach_cl`` launches bit for bit (h, C, every record row). The
+multi-cluster approach (``fused_approach_mc``) equals the cooperative one
+bit for bit in h and C over launches whose disk row crosses from one
+cluster into the next (``chip_smoke.handover_start``), its integrals bit
+for bit where one block held the disk row and within rtol 2e-4 / atol
+1e-4 elsewhere.
 """
 
 import ctypes
@@ -41,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as smoke
 from jrl_lbm_torch import kernels, shear_main
 from jrl_lbm_torch.kernels import build, jrl_c, jrl_fluid
 from jrl_lbm_torch.kernels import cyl_sharded as CS
@@ -181,7 +187,8 @@ ROUTE_KERNEL = {("fused_fluid", "coop"): "fused_fluid",
                 ("fused_approach", "coop"): "fused_approach",
                 ("fused_approach", "cluster"): "fused_approach_cl",
                 ("fused_fluid", "clusters"): "fused_fluid_mc",
-                ("fused_balance", "clusters"): "fused_balance_mc"}
+                ("fused_balance", "clusters"): "fused_balance_mc",
+                ("fused_approach", "clusters"): "fused_approach_mc"}
 
 
 def _launched(name, route):
@@ -348,13 +355,12 @@ def test_cuda_fused_grid_over_coresident_limit_raises(cuda):
 def test_cuda_fused_route_by_grid(cuda):
     """The runners take the cluster kernels at 128x64, the multi-cluster
     balance at 256x128 and 512x256 (refine 2, 4), the multi-cluster fluid
-    at 256x128 and the cooperative one at 512x256 (two cells a thread
-    there), the cooperative approach at both, read from the launch
-    counters; above the multi-step
+    and approach at 256x128 and the cooperative ones at 512x256 (two cells
+    a thread there), read from the launch counters; above the multi-step
     kernels' limit (1024x512) the approach takes c_approach_pass, once a
     step."""
     for refine, route, route_c in ((1, ("cluster", "cluster"), "cluster"),
-                                   (2, ("clusters", "clusters"), "coop"),
+                                   (2, ("clusters", "clusters"), "clusters"),
                                    (4, ("coop", "clusters"), "coop")):
         fc = T.JRLFluidConfig(res=RES, shape="ethaline", refine=refine)
         cc = T.JRLCConfig(res=RES, shape="ethaline", refine=refine)
@@ -552,15 +558,18 @@ def test_cuda_mc_kernels_match_twin(cuda, refine):
         _close(g, w, TRAJ_TOL[name], f"fused_balance_mc refine {refine} {name}")
 
 
+MC_LIBS = ("fused_fluid_mc", "fused_balance_mc", "fused_approach_mc")
+
+
 def _mc_variant(flags, tag):
-    """The two multi-cluster libraries built with extra ``flags`` (a -D
+    """The three multi-cluster libraries built with extra ``flags`` (a -D
     probe of csrc/cluster_grid.cuh) into the build directory."""
     import os
     import subprocess
 
     out = {}
     procs = []
-    for k in ("fused_fluid_mc", "fused_balance_mc"):
+    for k in MC_LIBS:
         path = build.BUILD_DIR / f"{k}-{tag}.so"
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs.append((k, path, subprocess.Popen(
@@ -577,14 +586,15 @@ def test_cuda_mc_jitter_build_equals_coop(cuda, monkeypatch):
     """Built with a random delay of up to 3 us before each block's pass and
     before it takes its mailbox rows (-DJRL_MC_JITTER), which reorders the
     exchange between clusters, the kernels still equal the cooperative
-    ones bit for bit (256x128 and 512x256, fluid and both balances)."""
+    ones bit for bit (256x128 and 512x256, fluid and both balances; the
+    approach across a disk handover between clusters)."""
     libs = _mc_variant(["-DJRL_MC_JITTER=3000"], "jitter")
     monkeypatch.setattr(build, "_libs", dict(build._libs, **libs))
     monkeypatch.setattr(build, "_fns", {k: v for k, v in build._fns.items()
-                                        if not k.startswith(("jrl_fused_fluid_mc",
-                                                             "jrl_fused_balance_mc"))})
+                                        if not k.startswith(tuple(f"jrl_{x}" for x in MC_LIBS))})
     for refine in (2, 4):
         _mc_equal_coop(cuda, "ethaline", RES, refine, 300, tag="jitter ")
+        _mc_approach_equal_coop(cuda, "ethaline", RES, refine, 300, tag="jitter ")
 
 
 @pytest.mark.cuda
@@ -660,7 +670,7 @@ def test_cuda_mc_refuses_plans_over_the_card(cuda):
                     [jrl_fluid._P] * 6 + [ctypes.c_int] * 2 + [jrl_fluid._P] * 3
                     + [ctypes.c_int] * 4 + [jrl_fluid._P])
     out = [torch.empty_like(t) for t in x]
-    box = F._mailbox(over, W, cuda)
+    box = F._mailbox("fused_fluid", over, W, cuda)
     for bad, code in ((over, "cudaError 720"),  # cudaErrorCooperativeLaunchTooLarge
                       (plan._replace(smem=plan.smem + 4), None), (plan._replace(cluster=3), None)):
         err = fn(*(t.data_ptr() for t in list(x) + out), 0, 2, ctypes.byref(F._a_params(cfg)),
@@ -670,6 +680,128 @@ def test_cuda_mc_refuses_plans_over_the_card(cuda):
             build.check(err, "fused_fluid_mc")
     torch.cuda.synchronize()
     assert F.fused_fluid_mc.launches == 0
+    # the approach: over the card, or one cluster more than it holds at once
+    ca, sa, fa = _mc_approach_state(cuda, "ethaline", RES, 4, 41)
+    aplan = F.mc_plan("fused_approach", H, W, F.card_limits("fused_approach", 0))
+    vf = torch.zeros((2, 2, H, W), device=cuda)
+    acc = torch.zeros(4, device=cuda)
+    kernels.reset_launches()
+    for bad in (_mc_over("fused_approach", H, W, aplan),
+                aplan._replace(clusters=aplan.clusters * 4)):
+        with pytest.raises(ValueError, match="co-resident"):
+            F.fused_approach_mc(sa["h"], sa["C"], vf, 0, 2, ca, fa, acc, plan=bad)
+    assert not any(kernels.launches().values())
+    torch.cuda.synchronize()
+    assert not acc.any()
+
+
+# --- the approach of 256x128 and 512x256 on every cluster: fused_approach_mc ---
+
+# (shape, res, refine) of the approach's multi-cluster grids: refine 2 and 4
+# of the ethaline case, the flat tip and the wedge at the same sizes, and
+# heights that no plan divides evenly
+MC_APPROACH_GRIDS = MC_GRIDS + [("cylinder", (500, 256), 1), ("45degree", (250, 128), 1)]
+INT_TOL = dict(rtol=2e-4, atol=1e-4)
+
+
+def _mc_approach_state(dev, shape, res, refine, seed, tip_speed=0.005):
+    """A noisy approach state; the tip moves ``tip_speed`` rows a step
+    (five rows over a 1000-step launch at the default)."""
+    probe = T.JRLCConfig(res=res, shape=shape, refine=refine)
+    cfg = T.JRLCConfig(res=res, Re=4.0, shape=shape, refine=refine,
+                       Pe=tip_speed * probe.radius_obs / (0.5 / 3.0))
+    st, fields = _noisy_c(cfg, dev, seed)
+    return cfg, st, fields
+
+
+def _approach_vf(cfg, dev, end, seed):
+    H, W = cfg.eff_res
+    n_frames = T.frame_pair(end + 1, cfg.vel_obs_conv, 2**31)[0] + 2
+    return 0.5 * torch.randn((n_frames, 2, H, W),
+                             generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+
+def _mc_approach_equal_coop(cuda, shape, res, refine, n, plan=None, handover=True, tag=""):
+    """fused_approach_mc over one n-step launch against route="coop": h and
+    C bit for bit; the integrals bit for bit where one block held the disk
+    row for the whole launch, else within rtol 2e-4 / atol 1e-4. With
+    ``handover`` the launch hands the disk row across a cluster edge half
+    way, else it runs from step 3000 at the case's own tip speed. Returns
+    whether one block held the disk row."""
+    if handover:
+        cfg, st, fields = _mc_approach_state(cuda, shape, res, refine, 42)
+    else:
+        cfg = T.JRLCConfig(res=res, shape=shape, refine=refine)
+        st, fields = _noisy_c(cfg, cuda, 43)
+    H, W = cfg.eff_res
+    used = plan or F.mc_plan("fused_approach", H, W, F.card_limits("fused_approach", 0))
+    start = smoke.handover_start(T, cfg, used, n) if handover else 3000
+    vf = _approach_vf(cfg, cuda, start + n, 44)
+    accs = [torch.zeros(4, device=cuda) for _ in range(2)]
+    n0 = F.fused_approach_mc.launches
+    got = F.fused_approach_mc(st["h"], st["C"], vf, start, n, cfg, fields, accs[0], plan=plan)
+    want = F.fused_approach(st["h"], st["C"], vf, start, n, cfg, fields, accs[1], route="coop")
+    label = f"{tag}fused_approach_mc {shape} {H}x{W} plan {used}"
+    for name, g, w in zip(("h", "C"), got, want):
+        _equal(g, w, f"{label} {name}")
+    one = smoke.disk_band(T, cfg, used, start) == smoke.disk_band(T, cfg, used, start + n - 1)
+    if handover:
+        assert not one, f"{label}: no handover from step {start}"
+    if one:
+        _equal(accs[0], accs[1], f"{label} integrals")
+    else:
+        np.testing.assert_allclose(accs[0].cpu().numpy(), accs[1].cpu().numpy(), **INT_TOL)
+    torch.cuda.synchronize()
+    assert F.fused_approach_mc.launches == n0 + 1
+    return one
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,res,refine", MC_APPROACH_GRIDS)
+def test_cuda_mc_approach_equals_coop_bit_for_bit(cuda, shape, res, refine):
+    """The multi-cluster approach on the plan the card gives equals the
+    cooperative kernel bit for bit over a 1000-step launch whose disk row
+    crosses from one cluster into the next (and the band edges around it),
+    and over one from step 3000 at the case's tip speed; where one block
+    held the disk row the integrals too."""
+    _mc_approach_equal_coop(cuda, shape, res, refine, 1000)
+    _mc_approach_equal_coop(cuda, shape, res, refine, 1000, handover=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", F.MC_SIZES)
+def test_cuda_mc_approach_equals_coop_on_every_cluster_size(cuda, cluster):
+    """Each cluster size a plan may take, forced, at 256x128 and 512x256
+    (refine 2 and 4) for the wedge and the flat tip: bit for bit the
+    cooperative kernel across a disk handover between clusters."""
+    for refine in (2, 4):
+        H, W = T.JRLCConfig(res=RES, refine=refine).eff_res
+        plan = F.mc_plan("fused_approach", H, W, F.card_limits("fused_approach", 0),
+                         cluster=cluster)
+        if plan is None:
+            continue
+        for shape, res, ref in (("ethaline", RES, refine), ("cylinder", (H, W), 1)):
+            _mc_approach_equal_coop(cuda, shape, res, ref, 1000, plan=plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refine", [2, 4])
+def test_cuda_mc_approach_matches_twin(cuda, refine):
+    """One 300-step launch across tip-row crossings and frame boundaries
+    against the loop of the twins: h, C 2e-5, the integrals rtol 2e-4 /
+    atol 1e-4."""
+    cfg, st, fields = _mc_approach_state(cuda, "ethaline", RES, refine, 45, tip_speed=0.02)
+    H, W = cfg.eff_res
+    plan = F.mc_plan("fused_approach", H, W, F.card_limits("fused_approach", 0))
+    start = smoke.handover_start(T, cfg, plan, 300)
+    vf = _approach_vf(cfg, cuda, start + 300, 46)
+    acc = torch.zeros(4, device=cuda)
+    h, C = F.fused_approach_mc(st["h"], st["C"], vf, start, 300, cfg, fields, acc)
+    hr, Cr, ints = F.fused_approach_ref(st["h"], st["C"], vf, start, 300, cfg, fields)
+    _close(h, hr, TRAJ_TOL["h"], f"fused_approach_mc refine {refine} h")
+    _close(C, Cr, TRAJ_TOL["C"], f"fused_approach_mc refine {refine} C")
+    np.testing.assert_allclose(acc.cpu().numpy(), torch.stack(list(ints)).cpu().numpy(),
+                               **INT_TOL)
 
 
 # --- the approach redesigned: c_approach_pass (1024x512), fused_approach_cl (128x64) ---

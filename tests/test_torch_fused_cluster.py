@@ -37,23 +37,23 @@ H100_MC = H100._replace(active=(7, 15, 30, 66, 132))
 # --- the route and the bands: arithmetic on the card's limits ---
 
 @pytest.mark.parametrize("res,refine,shape,route", [
-    ((48, 32), 1, "cylinder", ("cluster", "cluster")),
-    ((128, 64), 1, "ethaline", ("cluster", "cluster")),     # the default grid
-    ((128, 64), 2, "ethaline", ("clusters", "clusters")),   # 256x128: 7 clusters of 16
-    ((128, 64), 4, "ethaline", ("coop", "clusters")),       # 512x256: 66 x 2, two cells
-    ((512, 256), 1, "45degree", ("coop", "clusters")),
-    ((512, 257), 1, "cylinder", ("coop", "clusters")),      # four cells a thread
-    ((128, 64), 8, "ethaline", ("coop", "coop")),
+    ((48, 32), 1, "cylinder", ("cluster", "cluster", "cluster")),
+    ((128, 64), 1, "ethaline", ("cluster", "cluster", "cluster")),     # the default grid
+    ((128, 64), 2, "ethaline", ("clusters", "clusters", "clusters")),  # 256x128: 7 x 16
+    ((128, 64), 4, "ethaline", ("coop", "clusters", "coop")),          # 512x256: 66 x 2, two cells
+    ((512, 256), 1, "45degree", ("coop", "clusters", "coop")),
+    ((512, 257), 1, "cylinder", ("coop", "clusters", "coop")),         # four cells a thread
+    ((128, 64), 8, "ethaline", ("coop", "coop", "coop")),
 ])
 def test_fused_route_by_grid_on_h100(res, refine, shape, route):
     """The grids of `test_torch_fused.py::test_fits_agrees_with_fits_vmem`
-    and 256x128, as ``(fluid, balance)``: the cluster route where the state
-    fits one cluster at one cell per thread; the multi-cluster kernels
-    where the clusters the card holds at once take the grid at most
-    ``MC_MAX_CPT`` cells a thread (the fluid one, the balance four); the
-    cooperative kernel elsewhere."""
+    and 256x128, as ``(fluid, balance, approach)``: the cluster route where
+    the state fits one cluster at one cell per thread; the multi-cluster
+    kernels where the clusters the card holds at once take the grid at
+    most ``MC_MAX_CPT`` cells a thread (the fluid and the approach one, the
+    balance four); the cooperative kernel elsewhere."""
     H, W = T.JRLFluidConfig(res=res, refine=refine, shape=shape).eff_res
-    for name, want in zip(("fused_fluid", "fused_balance"), route):
+    for name, want in zip(("fused_fluid", "fused_balance", "fused_approach"), route):
         assert F.fused_route(name, H, W, H100_MC) == want, (name, H, W)
 
 

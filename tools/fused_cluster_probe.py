@@ -26,6 +26,19 @@ From a state 3000 steps into each phase (cooperative kernel), µs/step of
   (cylinder) and the wedge (45degree) at 256x128 and 512x256, whose tips
   stay small, through both routes.
 
+The C approach at 256x128 and 512x256 (refine 2 and 4; the ethaline,
+``cylinder`` and ``45degree`` tips): from a state 3000 steps into the
+approach on a stored velocity of random frames, µs/step of 2000-step
+launches of the cooperative ``fused_approach`` (its cells a thread and
+blocks printed) and of ``fused_approach_mc`` on the plan `mc_plan` takes,
+on every cluster size, built with ``-prec-div=false`` and with
+``-DJRL_MC_NO_FAR``, each checked against the cooperative kernel over 500
+steps (h and C bit for bit), with its registers and local bytes; these
+numbers set ``MC_MAX_CPT["fused_approach"]``.
+
+    python3 tools/fused_cluster_probe.py [cl] [mc] [approach]
+
+runs the named parts (all three without arguments).
 Builds into a temporary directory; prints one JSON line, last.
 """
 
@@ -53,20 +66,24 @@ def main() -> int:
         print("fused_cluster_probe: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    mc = ("fused_fluid_mc", "fused_balance_mc")
-    build.build_all(("fused_fluid", "fused_balance", "fused_fluid_cl", "fused_balance_cl") + mc)
+    parts = set(sys.argv[1:]) or {"cl", "mc", "approach"}
+    mc_names = ("fused_fluid_mc", "fused_balance_mc", "fused_approach_mc")
+    cl_names = ("fused_fluid_cl", "fused_balance_cl")
+    build.build_all(("fused_fluid", "fused_balance", "fused_approach") + cl_names + mc_names)
     tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
-    builds = [(k, "approx_div", ["-prec-div=false"]) for k in ("fused_fluid_cl",
-                                                                "fused_balance_cl") + mc]
-    builds += [(k, "no_far", ["-DJRL_MC_NO_FAR"]) for k in mc]
+    builds = [(k, "approx_div", ["-prec-div=false"]) for k in cl_names + mc_names]
+    builds += [(k, "no_far", ["-DJRL_MC_NO_FAR"]) for k in mc_names]
+    builds = [b for b in builds if ("cl" in parts and b[0] in cl_names)
+              or ("mc" in parts and b[0] in mc_names[:2])
+              or ("approach" in parts and b[0] == "fused_approach_mc")]
     jobs = []
     for k, kind, flags in builds:
         out = os.path.join(tmp, f"{k}-{kind}.so")
         jobs.append((k, kind, out, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", out,
              str(build.CSRC / f"{k}.cu")], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)))
-    libs = {"shipped": {k: build.load(k) for k in ("fused_fluid_cl", "fused_balance_cl") + mc},
-            "approx_div": {}, "no_far": {}}
+    libs = {"shipped": {k: build.load(k) for k in cl_names + mc_names}, "approx_div": {},
+            "no_far": {}}
     for k, kind, out, proc in jobs:
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc {k} ({kind}): {proc.stderr.read().decode()}")
@@ -94,7 +111,8 @@ def main() -> int:
 
     report = {"device": C.smi_line()}
     n, start = 4000, 3000
-    for shape, refine in (("cylinder", 1), ("45degree", 1), ("ethaline", 2)):
+    cl_cases = (("cylinder", 1), ("45degree", 1), ("ethaline", 2)) if "cl" in parts else ()
+    for shape, refine in cl_cases:
         fc, cc = T.JRLFluidConfig(shape=shape, refine=refine), T.JRLCConfig(refine=refine)
         H, W = fc.eff_res
         s, fl = T.fluid_init(fc, dev)
@@ -155,7 +173,7 @@ def main() -> int:
     for name in ("fused_fluid", "fused_balance"):
         report[f"{name} limits"] = F.card_limits(name, 0)._asdict()
     n_mc = 2000
-    for refine in (2, 4):
+    for refine in (2, 4) if "mc" in parts else ():
         fc, cc = T.JRLFluidConfig(shape="ethaline", refine=refine), T.JRLCConfig(refine=refine)
         H, W = fc.eff_res
         s, fl = T.fluid_init(fc, dev)
@@ -180,7 +198,7 @@ def main() -> int:
                          ("plan, no exchange between clusters", "no_far", plans["plan"])]
             for label, kind, plan in variants:
                 fn = mc(kind, f"{name}_mc")
-                box = F._mailbox(plan, W, dev)
+                box = F._mailbox(name, plan, W, dev)
                 if name == "fused_fluid":
                     ptrs = [t.data_ptr() for t in list(s) + fout]
 
@@ -210,7 +228,7 @@ def main() -> int:
         rec["registers, local bytes at 1, 2, 4 cells a thread"] = regs
         report[f"ethaline {H}x{W} multi-cluster"] = rec
         print(f"ethaline {H}x{W} multi-cluster: {rec}", flush=True)
-    for res in ((256, 128), (512, 256)):
+    for res in ((256, 128), (512, 256)) if "mc" in parts else ():
         rec = {}
         for shape in ("cylinder", "45degree"):
             fc = T.JRLFluidConfig(res=res, shape=shape)
@@ -227,8 +245,99 @@ def main() -> int:
         label = f"{res[0]}x{res[1]} small tips"
         report[label] = rec
         print(f"{label}: {rec}", flush=True)
+    if "approach" in parts:
+        approach(report, us_per_step, dev, libs)
     print(json.dumps(report), flush=True)
     return 0
+
+
+def approach_cfg(T, shape: str, res):
+    """The approach config of a tip at 256x128 or 512x256: the default
+    ethaline case at refine 2 or 4, the other tips at that grid."""
+    if shape == "ethaline":
+        return T.JRLCConfig(shape=shape, refine=res[0] // 128)
+    return T.JRLCConfig(res=res, shape=shape)
+
+
+def approach_frames(T, cfg, end: int, dev, seed: int = 0):
+    """Random stored-velocity frames [N, 2, H, W] covering steps up to
+    ``end`` (at least two)."""
+    import torch
+
+    H, W = cfg.eff_res
+    n = max(2, int((end + 1) * cfg.vel_obs_conv / T.X_INTERVAL) + 2)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return 0.5 * torch.randn((n, 2, H, W), generator=g, device=dev)
+
+
+def approach(report, us_per_step, dev, libs):
+    """The approach part: the cooperative kernel and the multi-cluster one
+    (as shipped, on each plan, and its -D builds) at both grids and tips."""
+    import torch
+
+    from jrl_lbm_torch.kernels import build
+    from jrl_lbm_torch.kernels import fused_jrl as F
+    from jrl_lbm_torch.kernels.jrl_fluid import _P, stream_of
+    from jrl_lbm_torch.models import jrl as T
+
+    name = "fused_approach"
+    lim = F.card_limits(name, 0)
+    report["fused_approach limits"] = lim._asdict()
+
+    def mc_fn(kind):
+        fn = getattr(libs[kind]["fused_approach_mc"], "jrl_fused_approach_mc")
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([_P, _P, ctypes.c_int] + [_P] * 5 + [ctypes.c_int] * 2 + [_P] * 4
+                       + [ctypes.c_int] * 4 + [_P])
+        return fn
+
+    n, start = 2000, 3000
+    for res in ((256, 128), (512, 256)):
+        H, W = res
+        cpt, grid = F.launch_shape("fused_approach", H * W, 0)
+        rec = {"coop launch shape": {"cells a thread": cpt, "blocks": grid,
+                                     "threads a block": F.FUSED_BLOCK}}
+        for shape in ("ethaline", "cylinder", "45degree"):
+            cc = approach_cfg(T, shape, res)
+            st, cf, _ = T.c_init(cc, dev)
+            vf = approach_frames(T, cc, start + 3 * n, dev)
+            acc = torch.zeros(4, device=dev)
+            h, C = F.fused_approach(st["h"], st["C"], vf, 0, start, cc, cf, acc, route="coop")
+            rec[f"{shape} coop"] = us_per_step(
+                lambda m: F.fused_approach(h, C, vf, start, m, cc, cf, acc, route="coop"), n)
+            plans = {"plan": F.mc_plan(name, H, W, lim)}
+            plans.update({f"clusters of {c}": F.mc_plan(name, H, W, lim, cluster=c)
+                          for c in F.MC_SIZES})
+            variants = [(label, "shipped", p) for label, p in plans.items() if p]
+            if shape != "ethaline":
+                variants = variants[:1]
+            variants += [("plan, -prec-div=false", "approx_div", plans["plan"]),
+                         ("plan, no exchange between clusters", "no_far", plans["plan"])]
+            want = F.fused_approach(h, C, vf, start, 500, cc, cf, torch.zeros(4, device=dev),
+                                    route="coop")
+            out = [torch.empty_like(h), torch.empty_like(C)]
+            for label, kind, plan in variants:
+                fn = mc_fn(kind)
+
+                def run(m, fn=fn, plan=plan):
+                    box, table, ticket = F._approach_box(plan, W, dev)
+                    build.check(fn(cf["base_flags"].data_ptr(), vf.data_ptr(), vf.shape[0],
+                                   cf["area"].data_ptr(), h.data_ptr(), out[0].data_ptr(),
+                                   out[1].data_ptr(), acc.data_ptr(), start, m,
+                                   ctypes.byref(F._approach_params(cc)), box.data_ptr(), table,
+                                   ticket, *plan, stream_of(dev)), name)
+                run(500)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(out, want))
+                rec[f"{shape} mc, {label}"] = us_per_step(run, n)
+                rec[f"{shape} mc, {label}: bit for bit coop over 500 steps"] = same
+            if shape == "ethaline":
+                rec["plan"] = plans["plan"]._asdict()
+        rec["registers, local bytes at 1, 2, 4 cells a thread"] = [
+            F.mc_info(name, c, 0) for c in F.CELLS_PER_THREAD]
+        label = f"approach {H}x{W}"
+        report[label] = rec
+        print(f"{label}: {rec}", flush=True)
 
 
 if __name__ == "__main__":

@@ -7,10 +7,13 @@ two trees can be held to each other bit for bit:
 
 Kernels, through their wrappers: the per-step `fluid_a`, `fluid_b`,
 `c_balance`, `c_approach`; the multi-step `fused_fluid`, `fused_balance`
-over 300 steps at 128x64 (the route the tree takes there) and at 256x128
-(the cooperative kernels), `fused_approach` there through the
-cooperative kernel (forced where the tree routes 128x64 elsewhere), for
-a wedge and a flat tip and both signs of ``is_negative``; the tile
+over 300 steps at 128x64 and at 256x128 (the routes the tree takes
+there), `fused_approach` there through the cooperative kernel (forced
+where the tree routes elsewhere), for a wedge and a flat tip and both
+signs of ``is_negative``; the multi-cluster kernels `fused_fluid_mc`,
+`fused_balance_mc` and, where the tree has it, `fused_approach_mc` at
+256x128 and 512x256 over 300 steps (the approach's disk row crossing
+from one cluster into the next); the tile
 classes `fluid_k`, `fluid_k_lean`, `fluid_k_bt` at 1024x512, k = 1, 2, 4,
 on the ethaline step-0 plan and a flat tip's plan with below-tip rows,
 and `fluid_pass` on the same plans at k = 1; the sharded kernels
@@ -122,6 +125,31 @@ def main() -> int:
     a_out, a_acc = S.make_sharded_tiled_approach_runner(cc, frames, mesh)(st, cf, 0, 12)
     digest("sharded approach (2, 2)", list(a_out.values()) + [torch.as_tensor(v) for v in
                                                                  a_acc.values()])
+    for refine in (2, 4):
+        fc = T.JRLFluidConfig(res=(128, 64), Re=4.0, vel_obs_real=0.2848, shape="ethaline",
+                              refine=refine)
+        s, fl = T.fluid_init(fc, dev)
+        s = noisy(s)
+        digest(f"fused_fluid_mc x{refine}", F.fused_fluid_mc(s["f"], s["rho"], s["vel"], 7, n, fc,
+                                                             fl))
+        cc = T.JRLCConfig(res=(128, 64), Re=4.0, Pe=5.0, vel_obs_real=0.2848, shape="ethaline",
+                          refine=refine)
+        st, cf, flags = T.c_init(cc, dev)
+        st = noisy(st)
+        digest(f"fused_balance_mc x{refine}", F.fused_balance_mc(st["h"], st["C"], flags, n, cc,
+                                                                 cf))
+    # last, so that a tree without it gives every other digest alike
+    for refine in (2, 4) if hasattr(F, "fused_approach_mc") else ():
+        cc = T.JRLCConfig(res=(128, 64), Re=4.0, Pe=5.0, vel_obs_real=0.2848, shape="ethaline",
+                          refine=refine)
+        st, cf, _ = T.c_init(cc, dev)
+        st = noisy(st)
+        # Pe 5: the tip crosses 10-20 rows in the launch
+        frames = 0.3 * torch.randn((int(n * cc.vel_obs_conv / 0.1) + 2, 2) + cc.eff_res,
+                                   generator=gen, device=dev)
+        acc = torch.zeros(4, device=dev)
+        digest(f"fused_approach_mc x{refine}",
+               list(F.fused_approach_mc(st["h"], st["C"], frames, 0, n, cc, cf, acc)) + [acc])
     torch.cuda.synchronize()
     print(json.dumps(out), flush=True)
     return 0
