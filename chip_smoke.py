@@ -35,6 +35,25 @@ paths on one NVIDIA card and check them.
    against ``cyl_pass_ref`` at 2048² (its blocks' class twins on their
    windows), and each kernel alone beside its bound and twin. Counts are
    zeroed just before each main-path drive and read just after.
+0e. The cylinder demo (``cylinder_demo_phases``):
+   ``cylinder_main.run_cylinder`` at the goldens' configuration
+   (``validation/goldens/2d_LBM_cylinder/signatures.json``: 400x200, D 10,
+   2000 steps), frames 1001 and 2001 formed as ``save_img`` forms them
+   (``utils/io.py::frame_pixels``) within a mean |pixel difference| of 1.0
+   of the committed PNGs (read by ``utils/io.py::read_png_gray``), each
+   pixel SHA printed beside the golden's (JAX on the CPU; not gated); the
+   default configuration's first 1000-step dump interval (800x400, D 20)
+   against the plain ``models/cylinder.py::make_runner`` on the card
+   (non-OBSTACLE cells; f, rho 2e-5, vel 2e-4); the demo's default run
+   (50,000 steps) timed, its final state finite, ``drag_lift`` printed;
+   counts zeroed just before each drive and read just after: every pass
+   one float32 ``cyl_pass`` launch and nothing else; the final Tecplot
+   zone through the native writer (``g++`` at first use:
+   ``utils/native_io.py``), ``H*W + 4`` lines, finite values, RHO read
+   back exactly, the same bytes as the Python writer; ``cyl_pass`` at
+   800x400 (its own 260 blocks and row split) from the default run's
+   final state against the three launches (bit for bit) and
+   ``cyl_pass_ref`` (1e-5), and alone beside its bound and twin.
 0b. The cylinder channel in bf16 deviation storage (``storage_phases``),
    round to nearest and stochastic rounding: (a) each kernel's instance
    against its twin after one launch (k = 1, 2, 4 on 256x128, cyl_full
@@ -217,6 +236,7 @@ card is present or the package is missing.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
 import json
 import os
@@ -605,6 +625,8 @@ CYL_YARD = ("cyl_interior_k", "cyl_band_k")
 # equilibrium, paired MRT) and the extra of a coupled cell next to the
 # cylinder (target velocity, 12-point gradient, reconstruction)
 CYL_FLOPS, CYL_COUPLE_FLOPS = 170, 200
+# runner against runner (twin or plain) over many steps: f, rho and vel
+CYL_TOL = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4}
 # the scene of bench.py, and the small split and generic geometries the
 # kernels are held to their twins on
 CYL_MAIN = dict(res=(2048, 2048), D=64.0, Re=5000.0)
@@ -678,9 +700,9 @@ def cyl_profile(run, fl, state, best, names=("cyl_pass",)):
                          "device_us_by_function": times}
 
 
-def cyl_alone(K, cfg, run, st, fl, rate, bf16_dev, key=None):
-    """Each cylinder kernel alone at the main path's shapes (the k=4 pass's
-    rows for the k-step kernels, the k=1 split rows for the others) from
+def cyl_alone(K, cfg, run, st, fl, rate, bf16_dev, key=None, names=CYL):
+    """Each cylinder kernel of ``names`` alone at the main path's shapes (the
+    k=4 pass's rows for the k-step kernels, the k=1 split rows for the others) from
     the state ``st`` in the storage of ``bf16_dev``: device µs per launch
     (profiler, else events), the twin's ms per call, and the bound: the
     bytes (each input plane once with its halo rows, each output once; f
@@ -737,7 +759,7 @@ def cyl_alone(K, cfg, run, st, fl, rate, bf16_dev, key=None):
                                          bound(edge, 4, 1, 3, False)))))],
     }
     res = {}
-    for k in CYL:
+    for k in names:
         ms_l, plain_l, mem_l, ops_l = [], [], [], []
         for call, twin, (nbytes, ops) in cases[k]:
             kfn = getattr(K, k)
@@ -770,7 +792,7 @@ def cylinder_phases(dev, rate, errs):
     from jrl_lbm_torch.models import cylinder as CY
 
     report = {}
-    TOL = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4}
+    TOL = CYL_TOL
 
     def new_outs(s):
         return {k: torch.full_like(v, 7.0) for k, v in s.items()}
@@ -959,6 +981,181 @@ def cylinder_phases(dev, rate, errs):
             "library_ms": None,
         })
     return rows, report
+
+
+# ---------------------------------------------------------------------------
+# The cylinder demo (cylinder_main.py)
+# ---------------------------------------------------------------------------
+
+CYL_GOLD = os.path.join(HERE, "validation", "goldens", "2d_LBM_cylinder")
+
+
+def pixel_sha(px) -> str:
+    """``tests/test_goldens.py::_pixel_sha`` of a frame's pixels."""
+    return hashlib.sha256(px.tobytes() + str(px.shape).encode()
+                          + str(px.dtype).encode()).hexdigest()
+
+
+def demo_drive(cfg, steps: int, dev):
+    """``cylinder_main.run_cylinder`` on the card, counts zeroed just before
+    and read just after: every pass of these multiples of 4 must be one
+    ``cyl_pass`` launch in float32, and nothing else may launch;
+    ``(state, dumps, wall s, cyl_pass launches)``."""
+    import torch
+
+    from jrl_lbm_torch import cylinder_main, kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, dumps = cylinder_main.run_cylinder(cfg, steps, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.launches().items() if v}
+    modes = {k: v for k, v in kernels.launches_by_mode().items() if v}
+    if counts != {"cyl_pass": steps // 4} or modes != {"cyl_pass/f32": steps // 4}:
+        fail(f"run_cylinder {cfg.res[0]}x{cfg.res[1]}, {steps} steps: launches {counts} "
+             f"({modes}), expected {steps // 4} cyl_pass (float32) and nothing else")
+    return state, dumps, wall, steps // 4
+
+
+def cylinder_demo_phases(dev, rate, errs):
+    """The cylinder demo on the card: the goldens' run (frames
+    within a mean |pixel difference| of 1.0 of the committed PNGs), one
+    dump interval of the default configuration against the plain
+    ``make_runner``, the demo's default run timed, its final Tecplot zone
+    through the native writer, and ``cyl_pass`` at 800x400 against its
+    twin (deviation into ``errs``) and alone beside its bound; returns
+    ``(report, cyl_pass launches)``."""
+    import numpy as np
+    import torch
+
+    from jrl_lbm_torch import cylinder_main
+    from jrl_lbm_torch.kernels import cylinder as K
+    from jrl_lbm_torch.models import cylinder as CY
+    from jrl_lbm_torch.utils import io as uio
+    from jrl_lbm_torch.utils import native_io
+    from jrl_lbm_torch.utils.grid import get_staggered
+
+    report, total = {}, 0
+    with open(os.path.join(CYL_GOLD, "signatures.json")) as fo:
+        golden = json.load(fo)
+    cfg, opt = cylinder_main.parse(golden["args"])
+    print(f"cylinder demo, the goldens' run {golden['args']}: {cfg.res[0]}x{cfg.res[1]}, "
+          f"D {cfg.D:g}, tau {cfg.tau:.6f}", flush=True)
+    state, dumps, wall, n = demo_drive(cfg, opt.total_steps, dev)
+    total += n
+    if len(dumps) != golden["n_frames"]:
+        fail(f"{len(dumps)} frames, the goldens have {golden['n_frames']}")
+    frames = {}
+    for step, vort in dumps:
+        name = "{:03}.png".format(step + 1)
+        px = uio.frame_pixels(vort)
+        want = uio.read_png_gray(os.path.join(CYL_GOLD, name))
+        mean = float(np.abs(px.astype(np.float64) - want).mean()) if px.shape == want.shape \
+            else float("inf")
+        sha = pixel_sha(px)
+        frames[name] = {"mean_abs_pixel_diff": mean, "pixel_sha": sha,
+                        "golden_sha": golden["frames"][name]}
+        print(f"  frame {name}: mean |pixel diff| {mean:.6f} against the committed golden "
+              f"(gate < 1.0); pixel sha {sha[:16]}, golden's (JAX on the CPU) "
+              f"{golden['frames'][name][:16]}, equal {sha == golden['frames'][name]}",
+              flush=True)
+        if not mean < 1.0:
+            fail(f"cylinder demo frame {name} differs from the golden: mean {mean}")
+    report["golden"] = {"args": golden["args"], "wall_s": wall, "cyl_pass": n, "frames": frames}
+    print(f"  {opt.total_steps} steps in {wall:.3f} s wall, {n} cyl_pass launches", flush=True)
+
+    cfg, opt = cylinder_main.parse([])
+    H, W = cfg.res
+    n_chunk = cylinder_main.DUMP_EVERY
+    print(f"cylinder demo, the default configuration's first {n_chunk} steps against the "
+          f"plain make_runner (non-OBSTACLE cells):", flush=True)
+    chunk, _, _, n = demo_drive(cfg, n_chunk, dev)
+    total += n
+    s0, fl = CY.init(cfg, dev)
+    plain = CY.make_runner(cfg)(s0, fl, n_chunk)
+    fluid = fl["flags"] != int(CY.CellType.OBSTACLE)
+    dev_plain = []
+    for nm in ("f", "rho", "vel"):
+        m = fluid.expand_as(chunk[nm])
+        check_close(f"{H}x{W} {n_chunk} steps {nm}", chunk[nm][m], plain[nm][m], CYL_TOL[nm],
+                    dev_plain)
+    report["vs_make_runner"] = {"steps": n_chunk, "max_abs_dev": dev_plain, "tol": CYL_TOL}
+    del chunk, plain, s0
+
+    print(f"cylinder demo, the default run: {H}x{W}, D {cfg.D:g}, {opt.total_steps} steps, "
+          f"tau {cfg.tau:.6f}", flush=True)
+    state, dumps, wall, n = demo_drive(cfg, opt.total_steps, dev)
+    total += n
+    us = wall * 1e6 / opt.total_steps
+    if not all(torch.isfinite(v).all() for v in state.values()):
+        fail("the default cylinder demo run's final state is not finite")
+    if len(dumps) != opt.total_steps // cylinder_main.DUMP_EVERY:
+        fail(f"{len(dumps)} dumps of the default run")
+    fx, fy = (float(x) for x in CY.drag_lift(state, fl, cfg))
+    print(f"  {opt.total_steps} steps in {wall:.3f} s wall ({len(dumps)} vorticity dumps "
+          f"to the host included): {us:.3f} us/step, {H * W / us:.1f} MLUPS; {n} cyl_pass "
+          f"launches; drag_lift Fx {fx:.6g} Fy {fy:.6g}", flush=True)
+    if not (abs(fx) < float("inf") and abs(fy) < float("inf")):
+        fail("drag_lift of the default run not finite")
+    report["default"] = {"res": [H, W], "steps": opt.total_steps, "wall_s": wall,
+                         "us_per_step": us, "mlups": H * W / us, "cyl_pass": n,
+                         "drag_lift": [fx, fy]}
+
+    # the final Tecplot zone as main writes it, through the native writer,
+    # then the Python writer on the same arrays (the same bytes)
+    lib = native_io.get_lib()
+    if lib is None:
+        fail("the native Tecplot writer did not build (no g++)")
+    out_dir = os.path.join(HERE, "chiprun_out", "cylinder_demo")
+    os.makedirs(out_dir, exist_ok=True)
+    plt = os.path.join(out_dir, "{:03}.plt".format(opt.total_steps + 1))
+    rho = state["rho"].cpu().numpy()
+    u, v = (a.cpu().numpy() for a in get_staggered(state["vel"]))
+    t0 = time.perf_counter()
+    uio.dump_2d_plt_file_single(plt, rho, u, v)
+    t_native = time.perf_counter() - t0
+    with open(plt, "rb") as fo:
+        text = fo.read()
+    lines = text.splitlines()
+    vals = np.array([ln.split() for ln in lines[4:]], dtype=np.float64)
+    if len(lines) != H * W + 4 or vals.shape != (H * W, 5) or not np.isfinite(vals).all():
+        fail(f"{plt}: {len(lines)} lines (expected {H * W + 4}), values {vals.shape}, finite "
+             f"{np.isfinite(vals).all()}")
+    if not np.array_equal(vals[:, 2].astype(np.float32).reshape(H, W), rho):
+        fail(f"{plt}: the RHO column does not read back as the state's rho")
+    py = plt + ".py"
+    real = native_io.get_lib
+    native_io.get_lib = lambda: None
+    try:
+        t0 = time.perf_counter()
+        uio.dump_2d_plt_file_single(py, rho, u, v)
+        t_python = time.perf_counter() - t0
+    finally:
+        native_io.get_lib = real
+    with open(py, "rb") as fo:
+        same = fo.read() == text
+    os.remove(py)
+    os.remove(plt)
+    print(f"  {os.path.basename(plt)}: {len(lines)} lines, {len(text)} bytes, values finite, "
+          f"RHO reads back exactly; native writer {t_native * 1e3:.1f} ms, Python writer "
+          f"{t_python * 1e3:.1f} ms (host), the same bytes: {same}", flush=True)
+    if not same:
+        fail("the native and Python Tecplot writers differ")
+    report["plt"] = {"lines": len(lines), "bytes": len(text), "native_ms": t_native * 1e3,
+                     "python_ms": t_python * 1e3}
+
+    # the pass of the default run at its own grid and row split, from its
+    # final state: against the three launches (bit for bit) and the twin
+    run = K.make_fused_cylinder_runner(cfg)
+    print(f"cyl_pass at the demo's {H}x{W}: k=4 rows (interior, band, edge) {run.step4.rows}, "
+          f"{len(K.cyl_pass_items(H, W, 4, *run.step4.rows))} blocks (memory rate "
+          f"{rate / 1e12:.2f} TB/s)", flush=True)
+    errs["cyl_pass"].append(cyl_pass_equal(K, f"{H}x{W} k=4", state, fl, run.step4.rows, 4,
+                                           K.consts(cfg), False, twin=True))
+    report["per_launch"] = cyl_alone(K, cfg, run, state, fl, rate, False, names=("cyl_pass",))
+    return report, total
 
 
 # ---------------------------------------------------------------------------
@@ -2634,6 +2831,14 @@ def main() -> int:
     # ---- 0. the cylinder channel: kernels against twins, the 2048² path ----
     stamp("0. cylinder")
     cyl_rows, report["cylinder"] = cylinder_phases(dev, rate, errs)
+
+    # ---- 0e. the cylinder demo: goldens, the default run, .plt ----
+    stamp("0e. cylinder demo")
+    report["cylinder_demo"], demo_launches = cylinder_demo_phases(dev, rate, errs)
+    for r in cyl_rows:
+        if r["name"] == "cyl_pass":
+            r["launches"] += demo_launches
+            r["max_abs_err"] = max(errs["cyl_pass"])
 
     # ---- 0b. the cylinder channel in bf16 storage, and the shedding gate ----
     stamp("0b. storage and shedding gate")

@@ -2,10 +2,12 @@
 
 Plain PyTorch operators (`ops/`); the scenes: the JRL tip approach
 (`models/jrl.py`, CLI `jrl_main.py`), the cylinder channel
-(`models/cylinder.py`) and the doubly-periodic shear layer
+(`models/cylinder.py`, CLI `cylinder_main.py`) and the doubly-periodic shear layer
 (`models/shear_layer.py`, CLI `shear_main.py`); the reference-parity
 API (`simulation.py`: `SimulationParameters`, `SimulationRunner`);
-diagnostics (`utils/metrics.py`) and hand-written CUDA kernels for Hopper
+diagnostics (`utils/metrics.py`), the artifact writers and readers
+(`utils/io.py`, `utils/native_io.py`), checkpoints (`utils/checkpoint.py`)
+and hand-written CUDA kernels for Hopper
 (`kernels/`). Arrays keep the JAX package's batch-free layout: ``f``/``h``
 ``[9, H, W]``, ``rho``/``C`` ``[H, W]``, ``vel`` ``[2, H, W]``, ``flags``
 ``[H, W]`` int32; everything is float32.

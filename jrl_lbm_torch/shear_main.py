@@ -48,23 +48,6 @@ def run_shear(cfg: sl.ShearLayerConfig, total_steps: int, dump_every: int = 10, 
     return state, dumps
 
 
-def write_video(file_list, out_path, fps=25):
-    """An mp4 of the frames, as the reference writes it, or an animated GIF
-    beside it where imageio has no mp4 writer (`demo/_common.py`)."""
-    import imageio
-
-    if not file_list:
-        return
-    try:
-        writer = imageio.get_writer(out_path, fps=fps)
-    except Exception:
-        out_path = os.path.splitext(str(out_path))[0] + ".gif"
-        writer = imageio.get_writer(out_path, duration=1000.0 / fps)
-    for im in file_list:
-        writer.append_data(imageio.imread(im))
-    writer.close()
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="python -m jrl_lbm_torch.shear_main",
@@ -84,7 +67,7 @@ def main(argv=None):
     parser.add_argument("--no-video", dest="video", action="store_false")
     opt = parser.parse_args(argv)
     print(vars(opt))
-    from jrl_lbm_torch.utils.io import mkdir, save_img
+    from jrl_lbm_torch.utils.io import mkdir, save_img, write_video
 
     cfg = sl.ShearLayerConfig(res=tuple(opt.res), dt=opt.dt, dx=opt.dx,
                               collision=opt.collision, kbc_type=opt.kbc_type,

@@ -1,6 +1,7 @@
 """Throughput timer, conservation diagnostics and profiler hooks
 (counterpart of the JAX package's `utils/metrics.py`).
 
+`force_sync` waits for the device of a state and fetches a scalar.
 `StepTimer` times a run of steps with CUDA events when the state lies on
 the card (the host returns before the card finishes) and with
 ``time.perf_counter`` on the CPU. `trace` and `named_scope` wrap
@@ -19,10 +20,24 @@ import numpy as np
 import torch
 
 
-def _first_tensor(state):
-    if isinstance(state, torch.Tensor):
-        return state
-    return next(iter(state.values()))
+def _first_leaf(tree):
+    """The first tensor of a tensor, dict (keys in sorted order, as JAX
+    flattens a dict) or sequence, nested to any depth."""
+    if isinstance(tree, dict):
+        return _first_leaf(tree[sorted(tree)[0]])
+    if isinstance(tree, (list, tuple)):
+        return _first_leaf(tree[0])
+    return torch.as_tensor(tree)
+
+
+def force_sync(state) -> float:
+    """Wait until the device of the state's first tensor has finished
+    all its work, and return that tensor's sum on the host."""
+    leaf = _first_leaf(state)
+    total = torch.sum(leaf)
+    if leaf.device.type == "cuda":
+        torch.cuda.synchronize(leaf.device)
+    return float(total)
 
 
 @dataclasses.dataclass
@@ -38,7 +53,7 @@ class StepTimer:
     _ev0: Optional[object] = None
 
     def start(self, state=None):
-        dev = _first_tensor(state).device if state is not None else torch.device("cpu")
+        dev = _first_leaf(state).device if state is not None else torch.device("cpu")
         if dev.type == "cuda":
             self._ev0 = torch.cuda.Event(enable_timing=True)
             self._ev0.record(torch.cuda.current_stream(dev))
@@ -47,7 +62,7 @@ class StepTimer:
 
     def stop(self, steps: int, state=None):
         if self._ev0 is not None:
-            dev = _first_tensor(state).device if state is not None else None
+            dev = _first_leaf(state).device if state is not None else None
             end = torch.cuda.Event(enable_timing=True)
             end.record(torch.cuda.current_stream(dev))
             end.synchronize()

@@ -45,6 +45,11 @@ def is_KBC_CD(value) -> bool:
     return value is not None and (int(value) & 0b10001000) > 0
 
 
+class ObsType(IntEnum):
+    BOX = 0
+    SPHERE = 1
+
+
 class AxiSymmetricType(IntEnum):
     NOT = 0
     LINE_X_EQ_0 = 1
