@@ -106,18 +106,22 @@ paths on one NVIDIA card and check them.
    ``bench.py``'s 2048² scene, every shard on the one card, route by
    route: the lean split at k = 1 on (1, 1), (4, 1) and (2, 2) (its three
    x modes) and at k = 4 on (4, 1) and (2, 2) (x_ext 128, x_halo 8), PIECES
-   (tile_rows 64) on (4, 1) and (2, 2), PADDED on (2, 2). Each new kernel
-   (``cyl_block_sh``, ``cyl_lean_sh``, ``cyl_window_sh``) against its twin
-   after one launch on the cylinder's shard (1e-5), ``halo_pack``'s k-row
-   and one-lane phases bit for bit; the runner over 23 steps (counts
-   zeroed just before and read just after): the full-boundary routes bit
-   for bit the unsharded ``split=False`` runner, the lean split within f,
-   rho 2e-5 and vel 2e-4 of the unsharded default runner on non-OBSTACLE
-   cells (k = 1 also set beside the unsharded k = 1 split steps); the lean
-   routes timed (20 warm-up steps, best of three 600-step windows, busy
-   share) beside the unsharded runner; each kernel alone at the main
-   path's shapes (the L2 flushed between launches) beside its bound and
-   twin.
+   (tile_rows 64) on (4, 1) and (2, 2), PADDED on (2, 2). Each kernel
+   (``cyl_block_sh``, ``cyl_lean_sh``, ``cyl_window_sh``, ``cyl_pass_sh``)
+   against its twin after one launch on the
+   cylinder's shard (1e-5), ``cyl_pass_sh`` also against ``cyl_lean_sh`` +
+   ``cyl_window_sh`` bit for bit, ``halo_pack``'s k-row and one-lane phases
+   bit for bit; the runner over 23 steps (counts zeroed just before and
+   read just after; the lean split one ``cyl_pass_sh`` launch a shard and
+   pass): the full-boundary routes bit for bit the unsharded
+   ``split=False`` runner, the lean split within f, rho 2e-5 and vel 2e-4
+   of the unsharded default runner on non-OBSTACLE cells (k = 1 also set
+   beside the unsharded k = 1 split steps) and bit for bit its yardstick
+   ``route="launches"``; the lean routes timed (20 warm-up steps, best of
+   three 600-step windows, busy share) beside ``route="launches"`` and the
+   unsharded runner; each kernel alone at the main path's shapes (the L2
+   flushed between launches, CUDA events, the median of three) beside its
+   bound and twin.
 2. Holds each per-step kernel to its plain PyTorch twin from the same
    state, after 1 step (f, rho, C, h at 1e-5; vel at 1e-4) and after 100
    steps through the per-step runners (2e-5; vel 2e-4; integrals rtol
@@ -220,7 +224,7 @@ paths on one NVIDIA card and check them.
    lane after lane, the records bit for bit equal), timed beside the
    lanes and one lane alone; the lanes kernel against its twin (h, C
    2e-5, the record sums rtol 2e-4 / atol 1e-4) beside its bound.
-7. Prints ``{"kernels": [...]}`` (43 rows: each kernel once, the five
+7. Prints ``{"kernels": [...]}`` (44 rows: each kernel once, the five
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``; the
    cluster kernels and ``fused_approach`` timed on a 1000-step launch at
    128x64 (CUDA events), the cooperative fluid and balance on a 200-step
@@ -344,6 +348,10 @@ SOURCE = {
                     "jrl_lbm_tpu/ops/pallas/fused_sharded.py:760"),
     "cyl_window_sh": ("jrl_lbm_torch/kernels/csrc/cyl_window_sh.cu",
                       "jrl_lbm_tpu/ops/pallas/fused_sharded.py:886"),
+    # one launch for _lean_tiled_step (:760, called at :863) and
+    # _window_full_step (:886, called at :962)
+    "cyl_pass_sh": ("jrl_lbm_torch/kernels/csrc/cyl_pass_sh.cu",
+                    "jrl_lbm_tpu/ops/pallas/fused_sharded.py:760"),
     # the lanes instance: JAX's sweep vmaps the jnp step over the work of
     # _make_approach_kernel (called at :1101)
     "fused_approach_lanes": ("jrl_lbm_torch/kernels/csrc/fused_approach_cl.cu",
@@ -545,6 +553,31 @@ def cuda_ms(fn, n: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
+def queued_ms(fn, n: int, warmup: int = 2, head_s: float = 0.05) -> float:
+    """Mean milliseconds of ``fn()`` over ``n`` calls queued on the stream
+    behind a sleep kernel of ~``head_s`` (cycles at ~2 GHz), so that the
+    host's time per call (a wrapper's checks) opens no gap between them:
+    CUDA events around the calls, the first one after the sleep."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(head_s * 2e9))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    if host_s > head_s:
+        print(f"  (queued_ms: the host took {host_s * 1e3:.1f} ms to queue {n} calls, longer "
+              f"than the {head_s * 1e3:.0f} ms head start: gaps may be timed)", flush=True)
+    return start.elapsed_time(end) / n
+
+
 KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fluid_a": ("fluid_a_kernel",),
     "fluid_b": ("fluid_b_kernel",),
@@ -579,6 +612,7 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "cyl_block_sh": ("cyl_block_sh_kernel",),
     "cyl_lean_sh": ("cyl_lean_sh_kernel",),
     "cyl_window_sh": ("cyl_window_sh_kernel",),
+    "cyl_pass_sh": ("cyl_pass_sh_kernel", "cyl_pass_sh_cells_kernel"),
 }
 
 
@@ -2302,7 +2336,11 @@ def sharded_phases(dev, rate, errs):
 # The cylinder channel on a mesh of shards (kernels/cyl_sharded.py)
 # ---------------------------------------------------------------------------
 
-CYL_SH = ("cyl_block_sh", "cyl_lean_sh", "cyl_window_sh")
+CYL_SH = ("cyl_block_sh", "cyl_lean_sh", "cyl_window_sh", "cyl_pass_sh")
+# the kernels of the sharded cylinder's main path: the lean split one
+# cyl_pass_sh launch a shard and pass; cyl_lean_sh and cyl_window_sh on
+# each band window (route="launches") are its yardstick
+CYL_SH_PATH = ("cyl_block_sh", "cyl_pass_sh")
 # (label, mesh, runner arguments): the lean split at k = 1 in its three x
 # modes and at k = 4, and the two full-boundary routes
 CYL_SH_ROUTES = (
@@ -2320,20 +2358,22 @@ CYL_SH_ROUTES = (
 def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
     """The cylinder channel on a mesh of shards at bench.py's scene
     (2048², D 64, Re 5000; every shard on ``dev``), route by route
-    (`CYL_SH_ROUTES`): (a) each new kernel against its twin after one
-    launch on the shard that holds the cylinder (1e-5; halo_pack's k-row
-    and one-lane phases bit for bit); (b) the main path, the runner over
-    23 steps with the counts zeroed just before and read just after: the
-    full-boundary routes bit for bit the unsharded ``split=False`` runner,
-    the lean split within f, rho 2e-5 and vel 2e-4 of the unsharded
-    default runner on non-OBSTACLE cells (k = 1 also set beside the
-    unsharded k = 1 split steps); (c) the lean routes timed as bench.py
-    times (20 warm-up steps, best of three 600-step windows, a profiled
-    window for the busy share) beside the unsharded runner (on one card:
-    the halo exchange, the extra launches and the host, not multi-card
-    scaling); (d) each kernel alone at the main path's shapes. Returns
-    the three kernels' rows, the halo_pack launches of the path and a
-    report."""
+    (`CYL_SH_ROUTES`): (a) each kernel against its twin after one launch
+    on the shard that holds the cylinder (1e-5; halo_pack's k-row and
+    one-lane phases bit for bit; ``cyl_pass_sh`` also bit for bit
+    ``cyl_lean_sh`` + ``cyl_window_sh``); (b) the main path, the runner
+    over 23 steps with the counts zeroed just before and read just after
+    (the lean split through ``cyl_pass_sh``): the full-boundary routes bit
+    for bit the unsharded ``split=False`` runner, the lean split within f,
+    rho 2e-5 and vel 2e-4 of the unsharded default runner on non-OBSTACLE
+    cells (k = 1 also set beside the unsharded k = 1 split steps) and bit
+    for bit ``route="launches"`` (not counted); (c) the lean routes timed
+    as bench.py times (20 warm-up steps, best of three 600-step windows, a
+    profiled window for the busy share) beside ``route="launches"`` and the
+    unsharded runner (on one card: the halo exchange, the extra launches
+    and the host, not multi-card scaling); (d) each kernel alone at the
+    main path's shapes. Returns the four kernels' rows, the halo_pack
+    launches of the path and a report."""
     import torch
 
     from jrl_lbm_torch import kernels
@@ -2372,7 +2412,9 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
     report = {"res": [H, W], "routes": {}}
     path_counts = {k: 0 for k in CYL_SH + ("halo_pack",)}
 
-    def drive(run, n, state):
+    def drive(run, n, state, main=True):
+        """``run`` for n steps, counts zeroed just before and read just
+        after; a yardstick (``main`` False) adds nothing to the path's."""
         torch.cuda.synchronize()
         kernels.reset_launches()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2381,8 +2423,9 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
         b.record()
         torch.cuda.synchronize()
         counts = {k: v for k, v in kernels.launches().items() if v}
-        for k in path_counts:
-            path_counts[k] += counts.get(k, 0)
+        if main:
+            for k in path_counts:
+                path_counts[k] += counts.get(k, 0)
         return out, a.elapsed_time(b), counts
 
     for label, shape, kw in CYL_SH_ROUTES:
@@ -2429,7 +2472,22 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
             CS.cyl_window_sh_ref(f[i], rho[i], vel[i], flags[i], phi[i], halos[i], k, b0, nb,
                                  outs[1], c, sh)
             close3(f"{label} rows {b0}..{b0 + nb}", "cyl_window_sh", outs[0], outs[1])
-            want_k = {"cyl_lean_sh", "cyl_window_sh"}
+            # the pass: against its twin (blocks of the plan for one SM: the
+            # same bits as any plan's) and against the two launches, bit for bit
+            rows_i = CS.pass_sh_rows(sh, CS.band_windows(sh, stepk.regions))
+            twin = CS.cyl_pass_sh_ref(f[i], rho[i], vel[i], flags[i], phi[i], halos[i], k, rows_i,
+                                      c, sh, items=CS.cyl_pass_sh_items(sh, k, rows_i, sms=1))
+            got_p = CS.cyl_pass_sh(f[i], rho[i], vel[i], flags[i], phi[i], halos[i], k, rows_i,
+                                   c, sh)
+            close3(label, "cyl_pass_sh", got_p, twin)
+            same = all(torch.equal(x, y) for x, y in zip(got_p, outs[0]))
+            print(f"  cyl_pass_sh: bit for bit cyl_lean_sh + cyl_window_sh: {same}", flush=True)
+            if not same:
+                fail(f"sharded cylinder {label}: cyl_pass_sh differs from the two launches")
+            if k > 1:
+                rep["pass_items"] = len(CS.pass_sh_context(c, sh, rows_i, k, dev).items_list)
+            del twin, got_p
+            want_k = {"cyl_pass_sh"}
         elif stepk.route == "pieces":
             halos = HA.exchange([CS.full_group(f[j], vel[j], flags[j]) for j in L], mesh, 1)
             if nx > 1:
@@ -2477,6 +2535,16 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
                 if not d <= tol or not torch.isfinite(got[nm]).all():
                     fail(f"sharded cylinder {label} {nm}: {d:.3e} from the unsharded runner")
             rep["max_dev_vs_unsharded"] = dev_max
+            # the yardstick: the same bits
+            yrun = CS.make_sharded_fused_cylinder_runner(cfg, mesh, route="launches", **kw)
+            yout, _, ycounts = drive(yrun, n_cmp, s0, main=False)
+            same = all(torch.equal(got[nm], yout[nm]) for nm in ("f", "rho", "vel"))
+            print(f"  {n_cmp} steps through route=launches ({ycounts}): bit for bit {same}",
+                  flush=True)
+            if not same:
+                fail(f"sharded cylinder {label}: the pass differs from route=launches")
+            rep["bit_for_bit_launches"] = same
+            del yout
             if k == 1:
                 ref1 = refs["k1 split"]
                 same = {nm: bool(torch.equal(got[nm], ref1[nm])) for nm in ("f", "rho", "vel")}
@@ -2513,12 +2581,33 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
                         "device_us_per_step": sum(times.values()) / 600 if wall else None,
                         "device_us_by_function": times})
             print(f"  best of 3 600-step windows: {best:.3f} us/step ({cells / best:.1f} MLUPS)"
-                  f", busy {busy if busy is None else f'{busy:.1%}'}; unsharded runner "
+                  f", busy {busy if busy is None else f'{busy:.1%}'}, device "
+                  f"{rep['device_us_per_step']} us/step; unsharded runner "
                   f"{unsharded_us if unsharded_us is None else f'{unsharded_us:.3f}'} us/step; "
                   f"launches a window {windows[0]['launches']}", flush=True)
-            del state, pst
+            # beside it, not the main path: the two launches, by the same protocol
+            yrun = CS.make_sharded_fused_cylinder_runner(cfg, mesh, route="launches", **kw)
+            yst, _, _ = drive(yrun, 20, s0, main=False)
+            ywin = []
+            for _ in range(3):
+                yst, ms, ycounts = drive(yrun, 600, yst, main=False)
+                ywin.append(ms * 1e3 / 600)
+            yp = {"s": yst}
 
-    for k in CYL_SH:
+            def yprof(nn):
+                yp["s"] = yrun(yp["s"], fl, nn)
+
+            ytimes, ywall = device_profile(yprof, 600)
+            ydev = sum(ytimes.values()) / 600 if ywall else None
+            rep["yardstick_launches"] = {
+                "windows_us_per_step": ywin, "best_us_per_step": min(ywin),
+                "device_us_per_step": ydev, "launches_600": ycounts,
+                "device_us_by_function": ytimes}
+            print(f"  beside it, route=launches: best {min(ywin):.3f} us/step, device {ydev} "
+                  f"us/step, launches a window {ycounts}", flush=True)
+            del state, pst, yst, yp
+
+    for k in CYL_SH_PATH:
         if path_counts[k] < 1:
             fail(f"sharded cylinder main path: {k} was not launched")
     report["main_launches"] = path_counts
@@ -2530,7 +2619,8 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
     obs = (fl["flags"] == int(CY.CellType.OBSTACLE)).float()
     nbr_obs = torch.nn.functional.max_pool2d(obs[None, None], 3, 1, 1)[0, 0] > 0
     coupled = (fl["phi_obs"] > -1e-10) & (fl["phi_obs"] <= 1.0) & nbr_obs & (obs == 0)
-    meshes = {(4, 1): make_mesh((4, 1), [dev] * 4), (2, 2): make_mesh((2, 2), [dev] * 4)}
+    meshes = {(4, 1): make_mesh((4, 1), [dev] * 4), (2, 2): make_mesh((2, 2), [dev] * 4),
+              (1, 1): make_mesh((1, 1), [dev])}
 
     def case(label, shape, k):
         """``(kernel call, twin call, bytes, operations, shard)`` of one
@@ -2542,7 +2632,7 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
         i = mesh.local.index(co)
         f, rho, vel = (split(s0[x], mesh) for x in ("f", "rho", "vel"))
         flags, phi = split(fl["flags"], mesh), split(fl["phi_obs"], mesh)
-        L, hw = range(4), sh.h * sh.w
+        L, hw = range(len(mesh.local)), sh.h * sh.w
         halo_words = 2 * sh.w * sh.k * (shape[0] > 1) + 2 * (sh.h + 2 * sh.k) * sh.xh
         if label.startswith("cyl_block_sh") or label.startswith("halo_pack"):
             halos = HA.exchange([CS.full_group(f[j], vel[j], flags[j]) for j in L], mesh, 1)
@@ -2563,6 +2653,22 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
                     CYL_FLOPS * hw + CYL_COUPLE_FLOPS * nc, sh)
         halos = HA.exchange([CS.lean_group(f[j], rho[j], vel[j], flags[j], phi[j]) for j in L],
                             mesh, sh.xh, rows=k)
+        if label.startswith("cyl_pass_sh"):
+            # bytes: f with its k-row and k-lane halo in, 12 planes out; on the
+            # band rows vel, flags and phi in with their halo rows, rho on
+            # their OBSTACLE cells; operations: the lean and the full cells
+            rows_i = CS.pass_sh_rows(sh, CS.band_windows(sh, CS._fix_regions(cfg, 4.0 + k - 1)))
+            nbr = sum(y1 - y0 for y0, y1 in rows_i[1])
+            b_ = rows_i[1][0] if rows_i[1] else (0, 0)
+            n_obs = int((sh.body(fl["flags"])[b_[0]:b_[1]] == int(CY.CellType.OBSTACLE)).sum())
+            nc = int(sh.body(coupled)[b_[0]:b_[1]].sum())
+            halo_k = 2 * sh.w * k * (shape[0] > 1) + 2 * (sh.h + 2 * k) * k * (shape[1] > 1)
+            args = (f[i], rho[i], vel[i], flags[i], phi[i], halos[i], k, rows_i, c, sh)
+            return (lambda: CS.cyl_pass_sh(*args),
+                    lambda: CS.cyl_pass_sh_ref(*args, items=CS.cyl_pass_sh_items(sh, k, rows_i,
+                                                                                   sms=1)),
+                    4 * (9 * (hw + halo_k) + 12 * hw + 4 * (nbr + 2 * k) * sh.w + n_obs),
+                    (CYL_FLOPS * hw + CYL_COUPLE_FLOPS * nc) * k, sh)
         if label.startswith("cyl_lean_sh"):
             return (lambda: CS.cyl_lean_sh(f[i], halos[i], k, c, sh),
                     lambda: CS.cyl_lean_sh_ref(f[i], halos[i], k, c, sh),
@@ -2580,7 +2686,11 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
     rows = []
     alone = {}
     l2_flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
-    for row, label, shape, k in (("cyl_lean_sh", "cyl_lean_sh k=1", (4, 1), 1),
+    for row, label, shape, k in (("cyl_pass_sh", "cyl_pass_sh k=1", (4, 1), 1),
+                                 (None, "cyl_pass_sh k=1 (1, 1)", (1, 1), 1),
+                                 (None, "cyl_pass_sh k=4", (4, 1), 4),
+                                 (None, "cyl_pass_sh k=4 (2, 2)", (2, 2), 4),
+                                 ("cyl_lean_sh", "cyl_lean_sh k=1", (4, 1), 1),
                                  (None, "cyl_lean_sh k=4", (4, 1), 4),
                                  ("cyl_window_sh", "cyl_window_sh k=1", (4, 1), 1),
                                  (None, "cyl_window_sh k=4", (4, 1), 4),
@@ -2592,19 +2702,27 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
         funcs = ("halo_cols_kernel",) if name == "halo_pack" else KERNEL_FUNCS[name]
         # each timed launch finds the 50 MB L2 cold, as in the path (four
         # shards' state is ~4x the L2): a 128 MB write between launches,
-        # outside the kernel's device time
+        # its own time taken off; the launches queued behind a sleep kernel
+        # (CUDA events), the median of three such pairs. The profiler's
+        # device µs are printed beside it: in a whole run of this script
+        # they came out below the byte bound where this phase alone and the
+        # route's profiled windows agree with the events
+        pairs = sorted(queued_ms(lambda: (l2_flush.zero_(), kfn()), 20)
+                       - queued_ms(l2_flush.zero_, 20) for _ in range(3))
+        ms = pairs[1]
         dev_us = kernel_us(lambda: (l2_flush.zero_(), kfn()), funcs, reps=20)
-        ms = dev_us / 1e3 if dev_us else cuda_ms(kfn, 20)
         plain_ms = cuda_ms(tfn, 1, warmup=1)
         mem_ms, ops_ms = nbytes / rate * 1e3, ops / F32_PEAK * 1e3
         bound_ms = max(mem_ms, ops_ms)
         by = "bytes" if mem_ms >= ops_ms else "operations"
         print(f"  {label:36s} {ms * 1e3:10.2f} us/launch  bound {bound_ms * 1e3:8.2f} us ({by}; "
               f"{nbytes / 1e6:.2f} MB)  {bound_ms / ms * 100:6.2f}% of bound  twin "
-              f"{plain_ms:.3f} ms  (shard {sh.h}x{sh.w})", flush=True)
+              f"{plain_ms:.3f} ms  (shard {sh.h}x{sh.w}; profiler {dev_us} us)", flush=True)
         alone[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
                         "bytes": nbytes, "ops": ops, "shard": [sh.h, sh.w],
-                        "time_from": "profiler" if dev_us else "events"}
+                        "time_from": "events behind a sleep kernel, less the L2 flush, the "
+                                     "median of three", "pairs_ms": pairs,
+                        "profiler_us": dev_us}
         if row:
             src, rep_ = SOURCE[row]
             rows.append({
@@ -3952,8 +4070,8 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows \
         + sweep_rows
-    if len(rows) != 43:
-        fail(f"{len(rows)} kernel rows, expected 43")
+    if len(rows) != 44:
+        fail(f"{len(rows)} kernel rows, expected 44")
     stamp("end")
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log,
                    "phase_start_s": marks})

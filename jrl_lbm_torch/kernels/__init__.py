@@ -14,8 +14,9 @@ and its k = 1 split pass in one launch (`jrl_tiled.py`), the kernels of the cyli
 three kernels it replaces; float32, bf16 or stochastically rounded bf16
 storage of f, each a template instance, counted per name and per mode), the
 shear layer's periodic step (`periodic.py`), and the JRL case and the
-cylinder channel on a mesh of shards (`jrl_sharded.py`, `cyl_sharded.py`,
-their halo pieces packed by `halo.py`).
+cylinder channel on a mesh of shards (`jrl_sharded.py`, `cyl_sharded.py`:
+a lean-split pass of a shard in one launch; their halo pieces packed by
+`halo.py`).
 
 The wrappers import without ``nvcc`` or a card; a kernel is built
 (`build.py`) the first time it is launched.
@@ -29,7 +30,7 @@ KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh",
            "fused_fluid_cl", "fused_balance_cl", "fluid_pass",
            "c_approach_pass", "fused_approach_cl", "cyl_pass", "fused_approach_lanes",
-           "fused_fluid_mc", "fused_balance_mc", "fused_approach_mc")
+           "fused_fluid_mc", "fused_balance_mc", "fused_approach_mc", "cyl_pass_sh")
 
 
 def wrappers():
@@ -71,6 +72,7 @@ def wrappers():
         "fused_fluid_mc": fused_jrl.fused_fluid_mc,
         "fused_balance_mc": fused_jrl.fused_balance_mc,
         "fused_approach_mc": fused_jrl.fused_approach_mc,
+        "cyl_pass_sh": cyl_sharded.cyl_pass_sh,
     }
 
 

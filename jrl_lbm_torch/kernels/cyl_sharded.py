@@ -1,6 +1,7 @@
-"""The cylinder channel on a ``(ny, nx)`` mesh of shards: three
+"""The cylinder channel on a ``(ny, nx)`` mesh of shards: four
 hand-written CUDA kernels (`csrc/cyl_block_sh.cu`, `cyl_lean_sh.cu`,
-`cyl_window_sh.cu`), each with its plain PyTorch twin, and the runner.
+`cyl_window_sh.cu`, `cyl_pass_sh.cu`), each with its plain PyTorch twin,
+and the runner.
 
 Replaces the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_sharded.py`:
 
@@ -16,12 +17,18 @@ Replaces the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_sharded.py`:
 * ``cyl_window_sh`` <- ``_window_full_step`` (with ``_apply_window_fix``):
   k chained full-boundary steps on the shard's rows of the static band
   region (`_fix_regions`), written in place into the lean outputs;
+* ``cyl_pass_sh`` <- the two above in one launch a shard and pass (k =
+  1..4): the lean steps on the rows outside the band windows, the full
+  steps on the windows (k = 2..4 rows streamed, k = 1 one thread a
+  cell), bit for bit the two launches, which stay as ``route="launches"`` and for
+  k = 5..8;
 
 with ``halo_pack`` (`halo.py`) in place of ``_edge_cols`` and
 ``_edge_blocks``. `make_sharded_fused_cylinder_step` and ``_runner`` keep
 the JAX functions' arguments (``interpret`` dropped: the CPU runs the
 twins), checks and route choice: the lean split when eligible, else
-PIECES when ``tile_rows`` is set or chosen, else PADDED. The runner takes
+PIECES when ``tile_rows`` is set or chosen, else PADDED; ``route`` picks
+the pass or the two launches for the lean split. The runner takes
 and returns global ``state`` / ``fields`` tensors.
 
 Each kernel runs the unchanged cell code of the unsharded kernels
@@ -302,16 +309,14 @@ def _check(sh: CylShard, **tensors) -> torch.device:
     return dev
 
 
-def _planes(sh: CylShard, body, halo: Halo | None, off: int, dev) -> ShardPlanes:
-    """The kernel's view of planes ``off ..`` of a halo group, its pieces
-    checked (shape, dtype, device, contiguity) before any pointer is
-    taken; the body alone where ``halo`` is None or lacks the planes."""
-    sp = ShardPlanes(body.data_ptr())
-    if halo is None or off >= halo.P:
-        return sp
+def _pieces(sh: CylShard, halo: Halo, dev):
+    """``[(name, data pointer, elements a plane), ...]`` of a halo group's
+    pieces, each checked (shape, dtype, device, contiguity) before its
+    pointer is taken."""
     k = halo.k
     if k != sh.k:
         raise ValueError(f"halo of {k} rows for a shard of k = {sh.k}")
+    out = []
     for name, t, n_el, step in (("top", halo.top, halo.P * k * sh.w, k * sh.w),
                                 ("bot", halo.bot, halo.P * k * sh.w, k * sh.w),
                                 ("left", halo.left, halo.P * (sh.h + 2 * k) * sh.xh,
@@ -324,18 +329,32 @@ def _planes(sh: CylShard, body, halo: Halo | None, off: int, dev) -> ShardPlanes
                 or t.element_size() != 4 or t.device != dev or not t.is_contiguous():
             raise ValueError(f"halo {name}: {tuple(t.shape)} {t.dtype} on {t.device} does not "
                              f"fit the shard")
-        setattr(sp, name, t.data_ptr() + 4 * off * step)
+        out.append((name, t.data_ptr(), step))
     if (halo.top is None) == (sh.h < sh.H) or (halo.left is None) == bool(sh.xh):
         raise ValueError("halo pieces do not match the shard's mesh")
+    return out
+
+
+def _planes(sh: CylShard, body, halo: Halo | None, off: int, dev, pieces=None) -> ShardPlanes:
+    """The kernel's view of planes ``off ..`` of a halo group, its pieces
+    checked (`_pieces`, or ``pieces`` checked once for a group) before any
+    pointer is taken; the body alone where ``halo`` is None or lacks the
+    planes."""
+    sp = ShardPlanes(body.data_ptr())
+    if halo is None or off >= halo.P:
+        return sp
+    for name, ptr, step in (_pieces(sh, halo, dev) if pieces is None else pieces):
+        setattr(sp, name, ptr + 4 * off * step)
     return sp
 
 
 def _src(sh, dev, halo, f, vel, flags, phi, rho) -> CylShardSrc:
-    return CylShardSrc(_planes(sh, f, halo, PLANE["f"], dev),
-                       _planes(sh, vel, halo, PLANE["vel"], dev),
-                       _planes(sh, phi, halo, PLANE["phi"], dev),
-                       _planes(sh, rho, halo, PLANE["rho"], dev),
-                       _planes(sh, flags, halo, PLANE["flags"], dev))
+    pieces = None if halo is None else _pieces(sh, halo, dev)
+    return CylShardSrc(_planes(sh, f, halo, PLANE["f"], dev, pieces),
+                       _planes(sh, vel, halo, PLANE["vel"], dev, pieces),
+                       _planes(sh, phi, halo, PLANE["phi"], dev, pieces),
+                       _planes(sh, rho, halo, PLANE["rho"], dev, pieces),
+                       _planes(sh, flags, halo, PLANE["flags"], dev, pieces))
 
 
 def _params(c: K.Consts, sh: CylShard) -> K.CylParams:
@@ -427,7 +446,272 @@ def cyl_window_sh(f, rho, vel, flags, phi, halo, k: int, b0: int, nb: int, out,
     cyl_window_sh.launches += 1
 
 
-WRAPPERS = (cyl_block_sh, cyl_lean_sh, cyl_window_sh)
+# ---------------------------------------------------------------------------
+# The lean-split pass in one launch (cyl_pass_sh, csrc/cyl_pass_sh.cu)
+# ---------------------------------------------------------------------------
+
+PASS_SH_KS = (1, 2, 3, 4)  # the depths cyl_pass_sh is built for
+CLS_LEAN, CLS_CYL = K.CLS_INTERIOR, K.CLS_CYL  # csrc/cyl_pass_sh.cu's item classes
+# a row's device time in the pass relative to a lean row's, by class: band
+# runs are shorter by it (cylinder.py::CYL_PASS_COST's cyl rows)
+PASS_SH_COST = (1.0, 2.0)
+PS_AOFF = 16  # csrc/cyl_pass_sh.cu: a ring row's first column is packed + PS_AOFF
+
+
+def band_windows(sh: CylShard, regions):
+    """``[(b0, nb), ...]``: the shard-local rows [b0, b0 + nb) of each band
+    region the shard meets, as the lean split places its window: the
+    region's height, ``b0`` clamped into the shard."""
+    out = []
+    for gr0, gr1 in regions:
+        if sh.row0 < gr1 and sh.row0 + sh.h > gr0:
+            nb = gr1 - gr0
+            out.append((min(max(gr0 - sh.row0, 0), sh.h - nb), nb))
+    return out
+
+
+def pass_sh_rows(sh: CylShard, windows):
+    """``(lean, cyl)`` shard-local row segments of a pass: the band windows
+    (`band_windows`) and the rows outside them."""
+    cyl = sorted((b0, b0 + nb) for b0, nb in windows)
+    lean, y = [], 0
+    for y0, y1 in cyl:
+        if y0 > y:
+            lean.append((y, y0))
+        y = max(y, y1)
+    if y < sh.h:
+        lean.append((y, sh.h))
+    return tuple(lean), tuple(cyl)
+
+
+def pass_sh_fits(sh: CylShard, k: int) -> bool:
+    """Whether cyl_pass_sh takes the shard at depth k: 1 <= k <= 4, shards
+    of multiples of 8 rows and columns (rows copied 16 bytes at a time)
+    below 2**15, pieces of at least k rows and, on a mesh of more than one
+    column, k lanes."""
+    return (int(k) in PASS_SH_KS and sh.h % 8 == 0 and sh.w % 8 == 0 and sh.h < 2 ** 15
+            and sh.w < 2 ** 15 and sh.k >= k and (sh.w == sh.W or sh.xh >= k))
+
+
+def pass_sh_window(sh: CylShard, k: int, item):
+    """``((r0, r1), (c0, c1))``: the shard-local rows and columns an item's
+    first sub-step reads, k a side from the pieces (global rows mod H); at
+    k > 1 the rows stop at the grid's first and last rows, the columns
+    never (past the shard's edge they lie in its column blocks or, on a
+    mesh of one column, at its other end)."""
+    y0, y1, _, x0, x1 = item[:5]
+    lo = 0 if k > 1 and sh.row0 == 0 else -k
+    hi = sh.h if k > 1 and sh.row0 + sh.h == sh.H else sh.h + k
+    return (max(y0 - k, lo), min(y1 + k, hi)), (x0 - k, x1 + k)
+
+
+def cyl_pass_sh_items(sh: CylShard, k: int, rows, sms: int = K.CP_SMS,
+                      threads: int = K.CP_THREADS, blocks_per_sm: int = K.CP_BLOCKS_PER_SM,
+                      cost=PASS_SH_COST, max_width: int | None = None):
+    """The blocks of a ``cyl_pass_sh`` launch, ``(y0, y1, cls, x0, x1, a0,
+    a1, desc)`` each (shard-local): block i writes rows [y0, y1) x columns
+    [x0, x1) with the class's steps (``CLS_LEAN``, ``CLS_CYL``; ``rows`` =
+    (lean, cyl) segments, `pass_sh_rows`); its ring rows hold columns [a0,
+    a1) (x0 - k and x1 + k rounded out to 16 bytes, past the shard's edges
+    where it sits there); ``desc``: its window walks up (it computes the
+    global row 0). About one wave of ``blocks_per_sm`` blocks an SM (the
+    strips and runs of `cylinder.cyl_pass_items`); the most costly items
+    first."""
+    if not pass_sh_fits(sh, k):
+        raise ValueError(f"cyl_pass_sh takes 1 <= k <= 4 on shards of multiples of 8 rows and "
+                         f"columns below 2**15 with pieces of k rows and lanes (k = {k}, {sh})")
+    budget = K.cyl_pass_budget(blocks_per_sm)
+    strips = [K.cyl_pass_strips(sh.w, min(K.cyl_pass_strip(cls, k, 4, threads, budget),
+                                          max_width or sh.w)) for cls in (CLS_LEAN, CLS_CYL)]
+    runs = K.cyl_pass_runs(sh.h, k, [list(r) for r in rows], strips, sms * blocks_per_sm, cost)
+    items = []
+    for y0, y1, cls in runs:
+        desc = sh.row0 == 0 and y0 < k
+        if desc and sh.h == sh.H and y1 > sh.h - k:
+            raise ValueError(f"rows {y0}..{y1 - 1}: a run reaches both border rows")
+        for x0, x1 in strips[cls]:
+            items.append((y0, y1, cls, x0, x1, (x0 - k) // 4 * 4, -(-(x1 + k) // 4) * 4,
+                          int(desc)))
+    items.sort(key=lambda it: -cost[it[2]] * (it[1] - it[0] + 4 * k))
+    return items
+
+
+def cyl_pass_sh_ref(f, rho, vel, flags, phi, halo, k: int, rows, c: K.Consts, sh: CylShard,
+                    items=None):
+    """Twin of `cyl_pass_sh`: item by item (``cyl_pass_sh_items`` unless
+    ``items`` is given), the shard embedded with its 14-plane pieces
+    (`_embed`) and NaN beyond the item's window (`pass_sh_window`, mod H
+    and W), k `lean_yb_step_ref` steps (lean) or k ``full_step_ref`` steps
+    (cyl: OBSTACLE cells keep the state's rho and carry their velocity);
+    only the item's own cells are kept. Returns the shard's ``(f, rho,
+    vel)``: `cyl_lean_sh_ref` followed by `cyl_window_sh_ref` on each band
+    window, bit for bit. At k = 1 the card runs one thread a cell, whose
+    reads lie inside any item's window: the items are the twin's blocks."""
+    if items is None:
+        items = cyl_pass_sh_items(sh, k, rows)
+    dev = f.device
+    F = _embed(sh, f, halo, PLANE["f"])
+    V = _embed(sh, vel, halo, PLANE["vel"])
+    FL = _embed(sh, flags, halo, PLANE["flags"])[0]
+    PHI = _embed(sh, phi, halo, PLANE["phi"])[0]
+    RHO = _embed(sh, rho, halo, PLANE["rho"])[0]
+    hw = (sh.h, sh.w)
+    f1 = torch.empty((9,) + hw, dtype=_F32, device=dev)
+    rho1, vel1 = torch.empty(hw, dtype=_F32, device=dev), torch.empty((2,) + hw, dtype=_F32,
+                                                                       device=dev)
+    nan = float("nan")
+    for item in items:
+        y0, y1, cls, x0, x1 = item[:5]
+        (r0, r1), (c0, c1) = pass_sh_window(sh, k, item)
+        keep = torch.zeros((sh.H, sh.W), dtype=torch.bool, device=dev)
+        keep[(torch.arange(sh.row0 + r0, sh.row0 + r1, device=dev) % sh.H)[:, None],
+             (torch.arange(sh.col0 + c0, sh.col0 + c1, device=dev) % sh.W)[None, :]] = True
+
+        def window(t):
+            return torch.where(keep, t, torch.full_like(t, nan))
+
+        G = window(F)
+        if cls == CLS_LEAN:
+            for _ in range(int(k)):
+                G, r, vx, vy = lean_yb_step_ref(G, c)
+            U = torch.stack([vx, vy])
+        else:
+            U, P, R = window(V), window(PHI), window(RHO)
+            for _ in range(int(k)):
+                G, r, vx, vy = K.full_step_ref(G, U, FL, P, c, R, U)
+                U = torch.stack([vx, vy])
+        ys, xs = slice(y0, y1), slice(x0, x1)
+        f1[:, ys, xs] = sh.body(G)[:, ys, xs]
+        rho1[ys, xs] = sh.body(r)[ys, xs]
+        vel1[:, ys, xs] = sh.body(U)[:, ys, xs]
+    return f1, rho1, vel1
+
+
+class PassShParams(ctypes.Structure):
+    _fields_ = [("c", K.CylParams), ("s", CylShardGeom), ("rs", ctypes.c_int * 2),
+                ("nitems", ctypes.c_int)]
+
+
+def cyl_pass_sh_shape(k: int, device_index: int = 0):
+    """``(threads a block, window columns, blocks an SM)`` of the built
+    row-streaming instance at depth k = 2..4 (its -D values)."""
+    fn = build.bind("cyl_pass_sh", "cyl_pass_sh_shape", [ctypes.c_int, _P, _P, _P])
+    t, cols, mb = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(fn(int(k), ctypes.byref(t), ctypes.byref(cols), ctypes.byref(mb)),
+                    "cyl_pass_sh")
+    return t.value, cols.value, mb.value
+
+
+def cyl_pass_sh_info(k: int, device_index: int = 0):
+    """``(registers per thread, local bytes)`` of the instance at depth k:
+    row-streaming at k = 2..4, one thread a cell at k = 1."""
+    fn = build.bind("cyl_pass_sh", "cyl_pass_sh_info", [ctypes.c_int, _P, _P])
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(fn(int(k), ctypes.byref(regs), ctypes.byref(local)), "cyl_pass_sh")
+    return regs.value, local.value
+
+
+def pass_sh_plan(c: K.Consts, sh: CylShard, items, k: int, dev, threads: int = K.CP_THREADS,
+                 blocks_per_sm: int = K.CP_BLOCKS_PER_SM):
+    """``(items packed on ``dev``, PassShParams, shared memory bytes)`` of a
+    launch over ``items`` (`cyl_pass_sh_items`): each class's ring row
+    `cylinder.cyl_pass_rs`; the bytes those of the items' class that takes
+    most."""
+    rs = [K.cyl_pass_rs(cls, k, 4, threads, blocks_per_sm) for cls in (CLS_LEAN, CLS_CYL)]
+    for _, _, cls, _, _, a0, a1, _ in items:
+        if a1 - a0 > rs[cls]:
+            raise ValueError(f"an item's ring row of {a1 - a0} elements exceeds {rs[cls]}")
+    smem = max(K.cyl_pass_smem(cls, k, rs[cls], 4) for cls in {it[2] for it in items})
+    packed = torch.tensor([[y0 | y1 << 16, x0 | x1 << 16,
+                            (a0 + PS_AOFF) | (a1 + PS_AOFF) << 16, cls | d << 4]
+                           for y0, y1, cls, x0, x1, a0, a1, d in items],
+                          dtype=torch.int32, device=dev)
+    params = PassShParams(c=_params(c, sh), s=sh.geom, nitems=len(items))
+    params.rs[:] = rs
+    return packed, params, smem
+
+
+class PassShContext:
+    """What a ``cyl_pass_sh`` launch needs besides its tensors and stream,
+    made once for a shard, its rows, k and a card. At k = 2..4 the items
+    on the card (planned for the built kernel's threads and blocks an SM,
+    and the card's SMs), the parameters, the shared memory; at k = 1 (one
+    thread a cell) the band window and the step's constants."""
+
+    def __init__(self, c: K.Consts, sh: CylShard, rows, k: int, dev: torch.device):
+        self.consts = c
+        if k == 1:
+            wins = rows[1]
+            if len(wins) > 1:
+                raise ValueError("the k = 1 pass takes at most one band window")
+            self.band = (wins[0][0], wins[0][1] - wins[0][0]) if wins else (0, 0)
+            self.cparams = _params(c, sh)
+            self.fn = build.bind("cyl_pass_sh", "cyl_pass_sh_cells_launch",
+                                 [_P] * 4 + [ctypes.c_int] * 2 + [_P] * 3)
+            return
+        threads, _, per_sm = cyl_pass_sh_shape(k, dev.index or 0)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.items_list = cyl_pass_sh_items(sh, k, rows, sms, threads, per_sm)
+        self.items, self.params, self.smem = pass_sh_plan(c, sh, self.items_list, k, dev,
+                                                          threads, per_sm)
+        self.fn = build.bind("cyl_pass_sh", "cyl_pass_sh_launch",
+                             [_P] * 5 + [ctypes.c_int] * 2 + [_P] * 2)
+
+
+_PASS_SH_CONTEXTS: dict = {}
+
+
+def pass_sh_context(c: K.Consts, sh: CylShard, rows, k: int, dev) -> PassShContext:
+    """The `PassShContext` of a shard's pass, made on first use."""
+    key = (id(c), sh, tuple(tuple(map(tuple, r)) for r in rows), int(k), dev)
+    ctx = _PASS_SH_CONTEXTS.get(key)
+    if ctx is None or ctx.consts is not c:
+        ctx = _PASS_SH_CONTEXTS[key] = PassShContext(c, sh, rows, k, dev)
+    return ctx
+
+
+def cyl_pass_sh(f, rho, vel, flags, phi, halo, k: int, rows, c: K.Consts, sh: CylShard):
+    """One lean-split pass on a shard in one launch; returns its new ``(f,
+    rho, vel)``: k lean steps (`cyl_lean_sh`) on the rows of ``rows[0]``
+    and k full-boundary steps (`cyl_window_sh`) on the band windows
+    ``rows[1]`` (`pass_sh_rows`), all from the pre-step state: what
+    ``cyl_lean_sh`` and ``cyl_window_sh`` on each window write, bit for
+    bit. ``halo``: the `Halo` of `lean_group` (k rows; lanes as the shard's
+    ``xh``). k = 2..4 stream rows; k = 1 runs one thread a cell (at most
+    one band window)."""
+    if f.device.type == "cpu":
+        return cyl_pass_sh_ref(f, rho, vel, flags, phi, halo, k, rows, c, sh)
+    if not pass_sh_fits(sh, k):
+        raise ValueError(f"cyl_pass_sh takes 1 <= k <= 4 on shards of multiples of 8 rows and "
+                         f"columns below 2**15 with pieces of k rows and lanes (k = {k}, {sh})")
+    dev = _check(sh, f=(f, (9,)), vel=(vel, (2,)), flags=(flags, ()), rho=(rho, ()),
+                 phi=(phi, ()))
+    src = _src(sh, dev, halo, f, vel, flags, phi, rho)
+    if k > 1 and any((getattr(getattr(src, fld), part) or 0) % 16
+                     for fld in ("f", "vel", "phi", "flags") for part in ("body", "top", "bot")):
+        raise ValueError("cyl_pass_sh copies rows of 16-byte aligned planes and pieces")
+    ctx = pass_sh_context(c, sh, rows, k, dev)
+    hw = (sh.h, sh.w)
+    f_out = torch.empty((9,) + hw, dtype=_F32, device=dev)
+    rho_out, vel_out = torch.empty(hw, dtype=_F32, device=dev), torch.empty((2,) + hw,
+                                                                            dtype=_F32, device=dev)
+    with torch.cuda.device(dev):
+        if k == 1:
+            err = ctx.fn(ctypes.byref(src), f_out.data_ptr(), rho_out.data_ptr(),
+                         vel_out.data_ptr(), ctx.band[0], ctx.band[1],
+                         ctypes.byref(ctx.cparams), ctypes.byref(sh.geom), stream_of(dev))
+        else:
+            err = ctx.fn(ctypes.byref(src), f_out.data_ptr(), rho_out.data_ptr(),
+                         vel_out.data_ptr(), ctx.items.data_ptr(), int(k), ctx.smem,
+                         ctypes.byref(ctx.params), stream_of(dev))
+    build.check(err, "cyl_pass_sh")
+    cyl_pass_sh.launches += 1
+    return f_out, rho_out, vel_out
+
+
+WRAPPERS = (cyl_block_sh, cyl_lean_sh, cyl_window_sh, cyl_pass_sh)
 
 
 def reset_launches():
@@ -488,13 +772,19 @@ def _check_border_shard(flags, sh: CylShard):
 
 def make_sharded_fused_cylinder_step(cfg, mesh: Mesh, tile_rows=0, lean_split=None,
                                      lean_x_whole=None, lean_k=None, lean_x_ext=None,
-                                     lean_x_halo=None):
+                                     lean_x_halo=None, route=None):
     """Sharded fused step ``step(state, fields) -> state`` on sharded
     dicts (per key, the blocks of the shards this process holds, in
     ``mesh.local`` order: `parallel.sharded.shard_state`), advancing
     ``step.k`` lattice steps per call; the arguments as for the JAX
     function (module note). ``step.route`` is "lean", "pieces" or
-    "padded"."""
+    "padded". ``route`` picks how the lean split runs (``step.lean_route``):
+    None, one `cyl_pass_sh` launch a shard where the pass takes k and the
+    shards (`pass_sh_fits`), else the two launches; "pass" the pass
+    (ValueError where it cannot run); "launches" `cyl_lean_sh` and
+    `cyl_window_sh` on each band window, the yardstick."""
+    if route not in (None, "pass", "launches"):
+        raise ValueError(f"route={route!r}: one of None, 'pass', 'launches'")
     H, W = cfg.res
     ny, nx = mesh.shape
     if H % ny or W % nx:
@@ -540,15 +830,26 @@ def make_sharded_fused_cylinder_step(cfg, mesh: Mesh, tile_rows=0, lean_split=No
     if lean_split:
         k = lean_k
         xh = int(lean_x_halo) if lean_x_halo is not None else k
-        route = "lean"
+        body_route = "lean"
     else:
         k, xh = 1, 1
-        route = "pieces" if tile_rows is not None else "padded"
+        body_route = "pieces" if tile_rows is not None else "padded"
     if nx > 1 and 2 * xh > (nx - 1) * w:
         raise ValueError(f"column blocks of {xh} lanes overlap on shards {w} wide")
     shards = [CylShard.of(H, W, mesh.shape, co, k, xh) for co in mesh.local]
     L = range(len(shards))
     checked = {}
+    lean_route = None
+    if lean_split:
+        fits = all(pass_sh_fits(sh, k) for sh in shards)
+        if route == "pass" and not fits:
+            raise ValueError(f"route='pass': cyl_pass_sh takes 1 <= k <= 4 and pieces of k rows "
+                             f"and lanes (k = {k}, shards of {h}x{w}, {xh} lanes)")
+        lean_route = "pass" if fits and route != "launches" else "launches"
+    elif route == "pass":
+        raise ValueError("route='pass' runs the lean split, which these arguments do not take")
+    windows = [band_windows(sh, regions) for sh in shards]
+    pass_rows = [pass_sh_rows(sh, wi) for sh, wi in zip(shards, windows)]
 
     def lean_step(f, rho, vel, flags, phi):
         if k > 1:
@@ -559,14 +860,14 @@ def make_sharded_fused_cylinder_step(cfg, mesh: Mesh, tile_rows=0, lean_split=No
                 checked["key"] = key
         halos = exchange([lean_group(f[i], rho[i], vel[i], flags[i], phi[i]) for i in L], mesh,
                          xh if nx > 1 else 0, rows=k)
+        if lean_route == "pass":
+            return [cyl_pass_sh(f[i], rho[i], vel[i], flags[i], phi[i], halos[i], k, pass_rows[i],
+                                c, shards[i]) for i in L]
         out = [cyl_lean_sh(f[i], halos[i], k, c, shards[i]) for i in L]
         for i, sh in enumerate(shards):
-            for gr0, gr1 in regions:
-                if sh.row0 < gr1 and sh.row0 + h > gr0:
-                    nb = gr1 - gr0
-                    b0 = min(max(gr0 - sh.row0, 0), h - nb)
-                    cyl_window_sh(f[i], rho[i], vel[i], flags[i], phi[i], halos[i], k, b0, nb,
-                                  out[i], c, sh)
+            for b0, nb in windows[i]:
+                cyl_window_sh(f[i], rho[i], vel[i], flags[i], phi[i], halos[i], k, b0, nb,
+                              out[i], c, sh)
         return out
 
     def pieces_step(f, rho, vel, flags, phi):
@@ -580,7 +881,7 @@ def make_sharded_fused_cylinder_step(cfg, mesh: Mesh, tile_rows=0, lean_split=No
         return [cyl_block_sh(fp[i], rho[i], velp[i], flagsp[i], phi[i], None, c, shards[i])
                 for i in L]
 
-    body = {"lean": lean_step, "pieces": pieces_step, "padded": padded_step}[route]
+    body = {"lean": lean_step, "pieces": pieces_step, "padded": padded_step}[body_route]
 
     def step(state, fields):
         out = body(state["f"], state["rho"], state["vel"], fields["flags"], fields["phi_obs"])
@@ -588,7 +889,8 @@ def make_sharded_fused_cylinder_step(cfg, mesh: Mesh, tile_rows=0, lean_split=No
                 "vel": [o[2] for o in out]}
 
     step.k = lean_k if lean_split else 1
-    step.route = route
+    step.route = body_route
+    step.lean_route = lean_route
     step.shards = shards
     step.regions = regions if lean_split else []
     return step
@@ -596,13 +898,13 @@ def make_sharded_fused_cylinder_step(cfg, mesh: Mesh, tile_rows=0, lean_split=No
 
 def make_sharded_fused_cylinder_runner(cfg, mesh: Mesh, tile_rows=0, lean_split=None,
                                        lean_x_whole=None, lean_k=None, lean_x_ext=None,
-                                       lean_x_halo=None):
+                                       lean_x_halo=None, route=None):
     """``run(state, fields, n)``: n steps on the mesh, global ``state``
     (f, rho, vel) and ``fields`` (flags, phi_obs) in, global state out:
     k-step passes while at least k steps remain, then single steps (the
-    JAX runner's cascade)."""
+    JAX runner's cascade); ``route`` as for the step, for both."""
     kw = dict(tile_rows=tile_rows, lean_split=lean_split, lean_x_whole=lean_x_whole,
-              lean_x_ext=lean_x_ext, lean_x_halo=lean_x_halo)
+              lean_x_ext=lean_x_ext, lean_x_halo=lean_x_halo, route=route)
     stepk = make_sharded_fused_cylinder_step(cfg, mesh, lean_k=lean_k, **kw)
     step1 = stepk if stepk.k == 1 else make_sharded_fused_cylinder_step(cfg, mesh, lean_k=1,
                                                                          **kw)

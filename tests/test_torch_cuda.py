@@ -26,10 +26,13 @@ sharded runners to the unsharded per-step kernels bit for bit (the
 integrals at rtol 2e-4 / atol 1e-4: summed per shard, in another order).
 The sharded cylinder kernels are held to their twins after one launch at
 1e-5 (vel 1e-4), the full-boundary sharded routes to the unsharded
-``split=False`` runner bit for bit, the lean split to the unsharded
-default runner on non-OBSTACLE cells (f, rho 2e-5; vel 2e-4) and to its
-own twin runner; the four unsharded cylinder kernels equal their twins
-bit for bit in all three storage modes. The lanes of a Pe sweep in one
+``split=False`` runner bit for bit, the lean split (through the pass
+``cyl_pass_sh`` and through the two launches) to the unsharded default
+runner on non-OBSTACLE cells (f, rho 2e-5; vel 2e-4) and to its own twin
+runner; ``cyl_pass_sh`` equals its twin and the two launches bit for bit
+after one pass and the runner through the launches over 201 steps; the
+four unsharded cylinder kernels equal their twins bit for bit in all
+three storage modes. The lanes of a Pe sweep in one
 launch (``fused_approach_lanes``) equal each lane's serial
 ``fused_approach_cl`` launches bit for bit (h, C, every record row). The
 multi-cluster approach (``fused_approach_mc``) equals the cooperative one
@@ -2118,34 +2121,109 @@ def test_cuda_cyl_sharded_full_routes_equal_unsharded(cuda, mesh_shape, tile_row
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["pass", "launches"])
 @pytest.mark.parametrize("mesh_shape,kw", [((1, 1), {}), ((4, 1), {}), ((2, 2), {}),
                                            ((4, 1), dict(lean_k=4)),
                                            ((2, 2), dict(lean_k=4, lean_x_ext=8, lean_x_halo=8))])
-def test_cuda_cyl_sharded_lean_routes(cuda, mesh_shape, kw):
+def test_cuda_cyl_sharded_lean_routes(cuda, mesh_shape, kw, route):
     """The lean split over 23 steps (k = 4: five passes and three single
-    steps): the unsharded default runner on non-OBSTACLE cells (f, rho
-    2e-5; vel 2e-4), and the same runner on the twins at the same
-    tolerances; only the lean, window and halo kernels launch."""
+    steps), through the pass or the two launches: the unsharded default
+    runner on non-OBSTACLE cells (f, rho 2e-5; vel 2e-4), and the same
+    runner on the twins at the same tolerances; only the route's kernels
+    and halo_pack launch."""
     cfg, s, fl = _cyl_sh_setup(cuda)
     mesh = make_mesh(mesh_shape, [cuda] * (mesh_shape[0] * mesh_shape[1]))
-    run = CS.make_sharded_fused_cylinder_runner(cfg, mesh, **kw)
-    assert run.stepk.route == "lean"
+    run = CS.make_sharded_fused_cylinder_runner(cfg, mesh, route=route, **kw)
+    assert run.stepk.route == "lean" and run.stepk.lean_route == route
     kernels.reset_launches()
     got = run(s, fl, 23)
     torch.cuda.synchronize()
     used = {k for k, v in kernels.launches().items() if v}
-    assert {"cyl_lean_sh", "cyl_window_sh"} <= used <= {"cyl_lean_sh", "cyl_window_sh",
-                                                         "halo_pack"}
+    path = {"cyl_pass_sh"} if route == "pass" else {"cyl_lean_sh", "cyl_window_sh"}
+    assert path <= used <= path | {"halo_pack"}
     want = K.make_fused_cylinder_runner(cfg)(s, fl, 23)
     fluid = fl["flags"] != int(CY.CellType.OBSTACLE)
     for name, tol in (("f", 2e-5), ("rho", 2e-5), ("vel", 2e-4)):
         m = fluid.expand_as(got[name])
         _close(got[name][m], want[name][m], tol, f"vs unsharded {name}")
     with mock.patch.multiple(CS, cyl_lean_sh=CS.cyl_lean_sh_ref,
-                             cyl_window_sh=CS.cyl_window_sh_ref):
+                             cyl_window_sh=CS.cyl_window_sh_ref, cyl_pass_sh=CS.cyl_pass_sh_ref):
         twin = run(s, fl, 23)
     for name, tol in (("f", 2e-5), ("rho", 2e-5), ("vel", 2e-4)):
         _close(got[name], twin[name], tol, f"vs twin runner {name}")
+
+
+# the sharded lean split in one launch a pass (cyl_pass_sh) against its twin
+# and the two launches it replaces, bit for bit
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (4, 1), (2, 2)])
+def test_cuda_cyl_pass_sh_equals_twin_and_launches(cuda, mesh_shape, k):
+    """One pass of every shard (the 256x128 scene: the band across two
+    shards' edge), through cyl_pass_sh (k = 1 one thread a cell, k = 2..4
+    row-streamed) against cyl_pass_sh_ref and against cyl_lean_sh +
+    cyl_window_sh on each band window, bit for bit in f, rho and vel; one
+    launch a call."""
+    cfg, s, fl = _cyl_sh_setup(cuda)
+    c = K.consts(cfg)
+    H, W = cfg.res
+    n = mesh_shape[0] * mesh_shape[1]
+    mesh = make_mesh(mesh_shape, [cuda] * n)
+    f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
+    flags, phi = split(fl["flags"], mesh), split(fl["phi_obs"], mesh)
+    L = range(n)
+    xh = k if mesh_shape[1] > 1 else 0
+    halos = HA.exchange([CS.lean_group(f[i], rho[i], vel[i], flags[i], phi[i]) for i in L],
+                        mesh, xh, rows=k)
+    regions = CS._fix_regions(cfg, margin=4.0 + (k - 1))
+    n_band = 0
+    for i, co in enumerate(mesh.local):
+        sh = CS.CylShard.of(H, W, mesh_shape, co, k, k)
+        st = (f[i], rho[i], vel[i], flags[i], phi[i])
+        windows = CS.band_windows(sh, regions)
+        rows = CS.pass_sh_rows(sh, windows)
+        n_band += bool(windows)
+        want = list(CS.cyl_lean_sh(f[i], halos[i], k, c, sh))
+        for b0, nb in windows:
+            CS.cyl_window_sh(*st, halos[i], k, b0, nb, want, c, sh)
+        twin = CS.cyl_pass_sh_ref(*st, halos[i], k, rows, c, sh)
+        n0 = CS.cyl_pass_sh.launches
+        got = CS.cyl_pass_sh(*st, halos[i], k, rows, c, sh)
+        torch.cuda.synchronize()
+        assert CS.cyl_pass_sh.launches == n0 + 1
+        for name, g_, w_, t_ in zip(("f", "rho", "vel"), got, want, twin):
+            assert torch.equal(g_, w_), f"{co} k={k} {name} vs the two launches"
+            assert torch.equal(g_, t_), f"{co} k={k} {name} vs the twin"
+    assert n_band >= 1
+
+
+CYL_SH_LEAN_ROUTES = [r for r in smoke.CYL_SH_ROUTES if r[0].startswith("lean")] + [
+    ("lean k=2 (4, 1)", (4, 1), dict(lean_k=2)), ("lean k=3 (4, 1)", (4, 1), dict(lean_k=3))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,shape,kw", CYL_SH_LEAN_ROUTES)
+def test_cuda_cyl_sharded_pass_route_equals_launches_over_200_steps(cuda, label, shape, kw):
+    """Every lean route of chip_smoke.py at 2048² (and k = 2, 3 on (4, 1)):
+    the runner through the pass equals the runner through the two launches
+    bit for bit in f, rho and vel after 201 steps from a perturbed state
+    (k-step passes and single steps)."""
+    cfg = CY.CylinderConfig(**smoke.CYL_MAIN)
+    s, fl = CY.init(cfg, cuda)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    s = {k: v + 1e-5 * torch.randn(v.shape, generator=g, device=cuda) for k, v in s.items()}
+    mesh = make_mesh(shape, [cuda] * (shape[0] * shape[1]))
+    want = CS.make_sharded_fused_cylinder_runner(cfg, mesh, route="launches", **kw)(s, fl, 201)
+    run = CS.make_sharded_fused_cylinder_runner(cfg, mesh, **kw)
+    assert run.stepk.lean_route == "pass"
+    kernels.reset_launches()
+    got = run(s, fl, 201)
+    torch.cuda.synchronize()
+    assert CS.cyl_pass_sh.launches >= 201 // run.stepk.k
+    assert kernels.launches()["cyl_lean_sh"] == kernels.launches()["cyl_window_sh"] == 0
+    for name in ("f", "rho", "vel"):
+        assert torch.equal(got[name], want[name]), f"{label} {name}"
 
 
 @pytest.mark.cuda

@@ -90,6 +90,7 @@ def test_sharded_fused_cylinder_matches_unsharded(kw, route):
         _equal(out, K.make_fused_cylinder_runner(ct, split=False)(s, fl, 6), route)
 
 
+@pytest.mark.parametrize("route", ["pass", "launches"])
 @pytest.mark.parametrize("mesh_shape,cy,k,x_ext", [
     ((2, 4), 24.0, 1, 0),
     ((2, 1), 24.0, 1, 0),
@@ -101,10 +102,11 @@ def test_sharded_fused_cylinder_matches_unsharded(kw, route):
     ((2, 2), 24.0, 1, 8),
     ((2, 4), 48.0, 2, 16),
 ])
-def test_sharded_fused_lean_split_matches_unsharded(mesh_shape, cy, k, x_ext):
+def test_sharded_fused_lean_split_matches_unsharded(mesh_shape, cy, k, x_ext, route):
     """The lean split (`tests/test_parallel.py:318-356`, all nine cases):
     6 or 7 steps (k-passes and the trailing single steps) against JAX's
-    jnp step on non-OBSTACLE cells; every shard owns one y border."""
+    jnp step on non-OBSTACLE cells; every shard owns one y border. Through
+    each route: one `cyl_pass_sh` a shard and pass, or the two launches."""
     ny, nx = mesh_shape
     W = 32 * nx
     cj, ct, state, fields = _scene((96, W), cy, W / 2.0)
@@ -115,20 +117,23 @@ def test_sharded_fused_lean_split_matches_unsharded(mesh_shape, cy, k, x_ext):
     n = 6 if k == 1 else 7
     s, fl = _port(state, fields)
     run = CS.make_sharded_fused_cylinder_runner(ct, _mesh(mesh_shape), lean_split=True,
-                                                lean_k=k, lean_x_ext=x_ext or None)
-    assert run.stepk.route == "lean" and run.stepk.k == k
+                                                lean_k=k, lean_x_ext=x_ext or None, route=route)
+    assert run.stepk.route == "lean" and run.stepk.k == k and run.stepk.lean_route == route
     out = run(s, fl, n)
     _close_fluid(out, _jnp_ref((96, W), cy, W / 2.0, n), fields["flags"], f"{mesh_shape} k={k}")
 
 
-def test_lean_k1_f_equals_the_unsharded_split_step():
-    """k = 1: the lean pass with the window gives f of the unsharded split
-    step (``cyl_interior`` + ``cyl_full``) bit for bit on every cell, and
-    rho, vel on every non-OBSTACLE cell (the lean walls keep cfg.density
-    and velocity 0 where ``cyl_full`` passes the incoming values)."""
+@pytest.mark.parametrize("route", ["pass", "launches"])
+def test_lean_k1_f_equals_the_unsharded_split_step(route):
+    """k = 1: the lean pass with the window (one `cyl_pass_sh` a shard, or
+    the two launches) gives f of the unsharded split step
+    (``cyl_interior`` + ``cyl_full``) bit for bit on every cell, and rho,
+    vel on every non-OBSTACLE cell (the lean walls keep cfg.density and
+    velocity 0 where ``cyl_full`` passes the incoming values)."""
     _, ct, state, fields = _scene((96, 128), 24.0, 64.0)
     s, fl = _port(state, fields)
-    got = CS.make_sharded_fused_cylinder_runner(ct, _mesh((2, 4)), lean_split=True)(s, fl, 3)
+    got = CS.make_sharded_fused_cylinder_runner(ct, _mesh((2, 4)), lean_split=True,
+                                                route=route)(s, fl, 3)
     step = K.make_fused_step(ct, tile_rows=8, interior_rows=16)
     assert step.split
     want = s

@@ -14,8 +14,11 @@ route (the k-step passes through `cyl_pass` where the tree has it) and,
 where the tree has the option, through the three launches
 (``route="launches"``), so that the pass and the launches of two trees
 show as the same bits; the sharded
-cylinder runner (`cyl_lean_sh`, `cyl_window_sh`, `cyl_block_sh`) over 12
-steps on a (2, 2) mesh of the one card at 2048², lean k = 4 and PIECES.
+cylinder runner over 12 steps on a (2, 2) mesh of the one card at 2048²,
+lean k = 4 and PIECES (`cyl_block_sh`), then lean k = 1 on (4, 1) and
+(1, 1), each lean route by the tree's own route (one `cyl_pass_sh` launch
+a shard and pass where the tree has it) and, where the tree has the
+option, through `cyl_lean_sh` + `cyl_window_sh` (``route="launches"``).
 
 Times: the runner at 2048² (best of three 600-step windows after 20
 warm-up steps, CUDA events) and each kernel alone
@@ -50,10 +53,12 @@ def main() -> int:
     label = sys.argv[1] if len(sys.argv) > 1 else os.getcwd()
     dev = torch.device("cuda")
     names = [n for n in ("cyl_full", "cyl_interior", "cyl_interior_k", "cyl_band_k", "cyl_pass",
-                         "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh") if n in build.NAMES]
+                         "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh", "cyl_pass_sh")
+             if n in build.NAMES]
     build.build_all(names)
     out = {"label": label, "device": C.smi_line(), "bits": {}}
     has_route = "route" in inspect.signature(K.make_fused_cylinder_runner).parameters
+    has_sh_route = "route" in inspect.signature(CS.make_sharded_fused_cylinder_runner).parameters
 
     def digest(tag, tensors):
         h = hashlib.sha256()
@@ -103,11 +108,15 @@ def main() -> int:
     s, fl = CY.init(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(99)
     s = {k: v + 1e-3 * torch.randn(v.shape, generator=gen, device=dev) for k, v in s.items()}
-    mesh = make_mesh((2, 2), [dev] * 4)
-    for tag, kw in (("lean k=4", dict(lean_k=4, lean_x_ext=128, lean_x_halo=8)),
-                    ("PIECES", dict(lean_split=False, tile_rows=64))):
+    for shape, tag, kw in (((2, 2), "lean k=4", dict(lean_k=4, lean_x_ext=128, lean_x_halo=8)),
+                           ((2, 2), "PIECES", dict(lean_split=False, tile_rows=64)),
+                           ((4, 1), "lean k=1", {}), ((1, 1), "lean k=1", {})):
+        mesh = make_mesh(shape, [dev] * (shape[0] * shape[1]))
         r = CS.make_sharded_fused_cylinder_runner(cfg, mesh, **kw)
-        digest(f"sharded (2, 2) {tag} 12 steps", r(s, fl, 12).values())
+        digest(f"sharded {shape} {tag} 12 steps", r(s, fl, 12).values())
+        if has_sh_route and tag != "PIECES":
+            r = CS.make_sharded_fused_cylinder_runner(cfg, mesh, route="launches", **kw)
+            digest(f"sharded {shape} {tag} 12 steps, launches", r(s, fl, 12).values())
     print(f"{len(out['bits'])} digests", flush=True)
 
     s0, fl = CY.init(cfg, dev)

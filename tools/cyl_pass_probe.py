@@ -4,7 +4,7 @@
 (``CylinderConfig(res=(2048, 2048), D=64, Re=5000)``, the runner's k = 4
 pass rows):
 
-    python3 tools/cyl_pass_probe.py [sass] [time]
+    python3 tools/cyl_pass_probe.py [sass] [time] [sharded]
 
 ``sass`` (no timing): the machine instructions of one cell's code, by
 class and design, counted from ``cuobjdump -sass`` of probe kernels that
@@ -28,7 +28,17 @@ code (the rows streamed and stored: the rings' cost alone); (d) 1024
 threads, one block an SM; (e) 256 threads, four blocks an SM; then the
 shipped build with strips capped at 56 and 88 columns, and with the band
 rows' cost weights (`cylinder.CYL_PASS_COST`) swept; the three launches
-it replaces in the same run. With no argument both.
+it replaces in the same run.
+
+``sharded``: the sharded lean-split pass (`cyl_pass_sh`,
+`csrc/cyl_pass_sh.cu`, row-streamed at k = 2..4) on other plans of the
+same shard (`cyl_sharded.cyl_pass_sh_items`): 132 to 528 blocks, band
+rows costing 1.5 to 3 lean rows, on the band's shard of a (4, 1) mesh at
+k = 2 and 4 and on the whole grid at k = 4; each plan's result bit for bit
+the route's plan, its device µs a launch from the profiler with the L2
+flushed between launches (`chip_smoke.kernel_us`).
+
+With no argument ``sass`` and ``time``.
 
 Prints one JSON line, last.
 """
@@ -284,6 +294,61 @@ def time_report(build, C, K, cfg, rows, dev):
     return rec
 
 
+def sharded_report(build, C, K, cfg, dev):
+    import torch
+
+    from jrl_lbm_torch.kernels import cyl_sharded as CS
+    from jrl_lbm_torch.kernels import halo as HA
+    from jrl_lbm_torch.models import cylinder as CY
+    from jrl_lbm_torch.parallel.mesh import make_mesh, split
+
+    build.build_all(("cyl_pass_sh", "halo_pack"))
+    c = K.consts(cfg)
+    s0, fl = CY.init(cfg, dev)
+    cx, cy = (int(v) for v in cfg.center)
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    rec = {}
+    for label, shape, k in (("k=2 (4, 1) band shard", (4, 1), 2),
+                            ("k=4 (4, 1) band shard", (4, 1), 4), ("k=4 (1, 1)", (1, 1), 4)):
+        mesh = make_mesh(shape, [dev] * (shape[0] * shape[1]))
+        step = CS.make_sharded_fused_cylinder_step(cfg, mesh, lean_k=k)
+        f, rho, vel = (split(s0[x], mesh) for x in ("f", "rho", "vel"))
+        flags, phi = split(fl["flags"], mesh), split(fl["phi_obs"], mesh)
+        halos = HA.exchange([CS.lean_group(f[j], rho[j], vel[j], flags[j], phi[j])
+                             for j in range(len(step.shards))], mesh, 0, rows=k)
+        i = next(j for j, sh in enumerate(step.shards)
+                 if sh.row0 <= cy < sh.row0 + sh.h and sh.col0 <= cx < sh.col0 + sh.w)
+        sh = step.shards[i]
+        rows = CS.pass_sh_rows(sh, CS.band_windows(sh, step.regions))
+        want = CS.cyl_pass_sh(f[i], rho[i], vel[i], flags[i], phi[i], halos[i], k, rows, c, sh)
+        ctx = CS.pass_sh_context(c, sh, rows, k, dev)
+        src = CS._src(sh, f[i].device, halos[i], f[i], vel[i], flags[i], phi[i], rho[i])
+        res = {}
+        for blocks, cost in ((132, 2.0), (198, 2.0), (264, 2.0), (396, 2.0), (528, 2.0),
+                             (264, 1.5), (264, 3.0)):
+            items = CS.cyl_pass_sh_items(sh, k, rows, sms=blocks // 2, cost=(1.0, cost))
+            packed, params, smem = CS.pass_sh_plan(c, sh, items, k, dev)
+            got = [torch.empty_like(x) for x in want]
+
+            def go(packed=packed, params=params, smem=smem, got=got):
+                err = ctx.fn(ctypes.byref(src), got[0].data_ptr(), got[1].data_ptr(),
+                             got[2].data_ptr(), packed.data_ptr(), k, smem,
+                             ctypes.byref(params), torch.cuda.current_stream().cuda_stream)
+                build.check(err, "cyl_pass_sh")
+
+            go()
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(got, want))
+            us = C.kernel_us(lambda: (flush.zero_(), go()), ("cyl_pass_sh_kernel",), reps=20)
+            res[f"{blocks} blocks, band cost {cost}"] = {
+                "us": us, "items": len(items), "bit_for_bit": same,
+                "mean_run_rows": sum(it[1] - it[0] for it in items) / len(items)}
+            print(f"  {label}: {blocks} blocks, band cost {cost}: {us} us, {len(items)} items, "
+                  f"bit for bit {same}", flush=True)
+        rec[label] = res
+    return rec
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -309,6 +374,9 @@ def main() -> int:
         print(f"device us of a k = {K_PASS} pass at {cfg.res[0]}x{cfg.res[1]}, float32:",
               flush=True)
         report["time"] = time_report(build, C, K, cfg, rows, dev)
+    if "sharded" in what:
+        print("device us of a cyl_pass_sh launch by plan:", flush=True)
+        report["sharded"] = sharded_report(build, C, K, cfg, dev)
     print(json.dumps(report, default=str), flush=True)
     return 0
 
