@@ -93,15 +93,25 @@ paths on one NVIDIA card and check them.
    (``fluid_a_sh``, ``fluid_b_sh`` with their lean instances on the (4, 1)
    shards above the tip, ``c_balance_sh``, ``c_approach_sh`` and its disk
    terms, ``halo_pack`` bit for bit) against its twin after one launch on
-   every shard; the main path, the three sharded runners
-   (``kernels/jrl_sharded.py``) over 200 steps each across tip rows and
-   stored frames, counts zeroed just before each and read just after,
-   bit for bit the unsharded per-step kernels (integrals rtol 2e-4 / atol
-   1e-4), µs/step and busy share beside theirs (one card: the cost of the
-   halo exchange and the extra launches, not multi-card scaling); the
-   (1, 1) mesh once more through a one-rank NCCL process group (``psum``
-   by ``all_reduce``), bit for bit the local mesh; each kernel's device
-   µs per launch on a 512x256 shard beside its bound and twin.
+   every shard; ``fluid_pass_sh`` (its registers and launch shape first)
+   on every shard of (1, 1) and (4, 1) at k = 1 and the default k, the
+   lean class on the shard above the tip, against its twin (1e-5, vel
+   1e-4) and bit for bit k steps of the A/B pair; the main path, the three
+   sharded runners (``kernels/jrl_sharded.py``; the fluid one
+   ``fluid_pass_sh`` launch a shard and k-step pass on the row meshes, the
+   pair on (2, 2)) over 200 steps each across tip rows and stored frames,
+   counts zeroed just before each and read just after, bit for bit the
+   unsharded per-step kernels (integrals rtol 2e-4 / atol 1e-4), µs/step,
+   device µs/step, busy share, launches and exchanges a step beside the
+   per-step kernels' and, on the row meshes, beside the pair
+   (``route="launches"``) and the pass at k = 1 (one card: the cost of the
+   halo exchange and the launches, not multi-card scaling); the (1, 1)
+   mesh once more through a one-rank NCCL process group (``psum`` by
+   ``all_reduce``), bit for bit the local mesh; ``fluid_pass_sh`` alone
+   (CUDA events, the L2 flushed, the median of three) on the (4, 1)
+   shard with the tip and on the (1, 1) grid at k = 1 and the default k,
+   the other kernels' device µs per launch on a 512x256 shard, each beside
+   its bound and twin.
 0d. The cylinder channel on a mesh of shards (``cyl_sharded_phases``) at
    ``bench.py``'s 2048² scene, every shard on the one card, route by
    route: the lean split at k = 1 on (1, 1), (4, 1) and (2, 2) (its three
@@ -274,7 +284,9 @@ FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach"
                   # fluid_pass: the full class's on full rows, the lean one's on lean rows
                   # per shard cell: as the per-step kernels; a copy
                   "fluid_a_sh": 250, "fluid_b_sh": 400, "c_balance_sh": 230,
-                  "c_approach_sh": 330, "halo_pack": 0}
+                  "c_approach_sh": 330, "halo_pack": 0,
+                  # per shard cell and step: A + B (the 2k-row halo recompute not counted)
+                  "fluid_pass_sh": 650}
 PER_STEP = ("fluid_a", "fluid_b", "c_balance", "c_approach")
 # the kernels of a whole case through the per-step runners
 PER_STEP_CASE = ("fluid_a", "fluid_b", "c_balance", "c_approach_pass")
@@ -336,6 +348,9 @@ SOURCE = {
                    "jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py:136"),
     "fluid_b_sh": ("jrl_lbm_torch/kernels/csrc/fluid_b_sh.cu",
                    "jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py:166"),
+    # the shard=True mode of _make_fluid_k_kernel (its shard branch :1373-1383)
+    "fluid_pass_sh": ("jrl_lbm_torch/kernels/csrc/fluid_pass_sh.cu",
+                      "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1349"),
     "c_balance_sh": ("jrl_lbm_torch/kernels/csrc/c_balance_sh.cu",
                      "jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py:411"),
     "c_approach_sh": ("jrl_lbm_torch/kernels/csrc/c_approach_sh.cu",
@@ -606,6 +621,7 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "periodic": ("periodic_kernel",),
     "fluid_a_sh": ("fluid_a_sh_kernel",),
     "fluid_b_sh": ("fluid_b_sh_kernel",),
+    "fluid_pass_sh": ("fluid_pass_sh_kernel",),
     "c_balance_sh": ("c_balance_sh_kernel",),
     "c_approach_sh": ("c_approach_sh_kernel", "c_disk_sh_kernel"),
     "halo_pack": ("halo_rows_kernel", "halo_cols_kernel"),
@@ -1973,7 +1989,8 @@ def tiled_checks(dev, fluid_cfg, errs):
 # The JRL case on a mesh of shards (kernels/jrl_sharded.py)
 # ---------------------------------------------------------------------------
 
-SHARDED = ("fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack")
+SHARDED = ("fluid_a_sh", "fluid_b_sh", "fluid_pass_sh", "c_balance_sh", "c_approach_sh",
+           "halo_pack")
 SH_MESHES = ((1, 1), (4, 1), (2, 2))
 SH_STEPS = 200
 # planes each sharded launch reads and writes in its shard's body, and the
@@ -2013,16 +2030,21 @@ def sharded_phases(dev, rate, errs):
     shard on ``dev``): (a) each sharded kernel and halo_pack against its
     twin, one launch on every shard (1e-5, vel 1e-4; the disk terms rtol
     2e-4 / atol 1e-4; halo_pack bit for bit), the lean pair on the (4, 1)
-    shards above the tip; (b) the main path: the three sharded runners
-    over 200 steps each (the fluid across tip rows, the approach across
-    stored-velocity frames and tip rows), counts zeroed just before each
-    and read just after, against the unsharded per-step runners: f, rho,
-    vel, h, C bit for bit, the integrals at rtol 2e-4 / atol 1e-4;
-    µs/step and busy share beside the per-step runners' (on one card this
-    measures the halo exchange and the extra launches, not multi-card
-    scaling); (c) the (1, 1) mesh once more through a one-rank NCCL
-    process group (psum through all_reduce), bit for bit the local mesh.
-    Returns the five kernels' rows and a report."""
+    shards above the tip; on the row meshes fluid_pass_sh at k = 1 and
+    the default k against its twin and bit for bit k steps of the pair;
+    (b) the main path: the three sharded runners over 200 steps each (the
+    fluid across tip rows, through the pass on the row meshes, the pair
+    on (2, 2); the approach across stored-velocity frames and tip rows),
+    counts zeroed just before each and read just after, against the
+    unsharded per-step runners: f, rho, vel, h, C bit for bit, the
+    integrals at rtol 2e-4 / atol 1e-4; µs/step and busy share beside the
+    per-step runners' and, on the row meshes, the fluid's yardsticks (the
+    pair, the pass at k = 1) through the same checks (on one card this
+    measures the halo exchange and the launches, not multi-card scaling);
+    (c) the (1, 1) mesh once more through a one-rank NCCL process group
+    (psum through all_reduce), bit for bit the local mesh; (d)
+    fluid_pass_sh alone, L2 flushed. Returns the six kernels' rows and a
+    report."""
     import torch
     import torch.distributed as dist
 
@@ -2040,6 +2062,16 @@ def sharded_phases(dev, rate, errs):
     H, W = fc.eff_res
     cells = H * W
     n = SH_STEPS
+    for kp in range(1, 5):
+        regs, local = S.pass_sh_info(kp)
+        shape_ = S.pass_sh_shape(kp)
+        print(f"  fluid_pass_sh k={kp}: {regs} registers, {local} local bytes; threads, columns "
+              f"a group, widest ring row, bytes a ring column {shape_}", flush=True)
+        if local:
+            fail(f"fluid_pass_sh k={kp} spills: {local} local bytes")
+        if shape_ != (S.PASS_SH_THREADS, S.pass_sh_cols(kp), S.pass_sh_max_rs(kp),
+                      kp * S.PASS_SH_BYTES):
+            fail(f"fluid_pass_sh k={kp}: the kernel's shape {shape_} is not the host plan's")
     s0, fl = T.fluid_init(fc, dev)
     s0 = noisy(s0, dev, 71, scale=1e-4)
     st0, cf, flags = T.c_init(cc, dev)
@@ -2121,6 +2153,29 @@ def sharded_phases(dev, rate, errs):
                             S.fluid_b_sh(*a_ref[i], hb[i], k, fc, fl, sh, lean),
                             S.fluid_b_sh_ref(*a_ref[i], hb[i], k, fc, fl, sh, lean), 1e-5,
                             errs["fluid_b_sh"])
+        # the k-step pass (row meshes) at k = 1 and 4: bit for bit its twin,
+        # run on the CPU from the same inputs (on the card PyTorch's
+        # reductions sum in another order: within 4e-7 there), and bit for
+        # bit k steps of the A/B pair
+        for kp in sorted({1, S.PASS_SH_K}) if nx == 1 else ():
+            hx = HA.exchange([[f[i], vel[i], rho[i]] for i in L], mesh, S.XH, rows=2 * kp)
+            pair = S.make_sharded_tiled_fluid_runner(fc, mesh, route="launches")(s0, fl, k, kp)
+            for i, sh in enumerate(shards):
+                for lean in (False, True) if S.lean_pass(fc, sh, k, kp) else (False,):
+                    tag = f"{shape} {mesh.local[i]} k={kp}{' lean' if lean else ''}"
+                    got = S.fluid_pass_sh(f[i], rho[i], vel[i], hx[i], k, kp, fc, fl, sh, lean)
+                    halo_c = None if hx[i].top is None else HA.Halo(
+                        12, hx[i].top.cpu(), hx[i].bot.cpu(), k=2 * kp)
+                    want = S.fluid_pass_sh_ref(f[i].cpu(), rho[i].cpu(), vel[i].cpu(), halo_c,
+                                               k, kp, fc, None, sh, lean)
+                    for nm, x, y in zip(("f", "rho", "vel"), got, want):
+                        check_close(f"fluid_pass_sh {tag} {nm}", x.cpu(), y, 0.0,
+                                    errs["fluid_pass_sh"])
+                    if not all(torch.equal(x, sh.body(pair[nm]))
+                               for x, nm in zip(got, ("f", "rho", "vel"))):
+                        fail(f"fluid_pass_sh {tag}: not bit for bit {kp} steps of the A/B pair")
+                    print(f"  fluid_pass_sh {tag}: bit for bit its twin and {kp} steps of the A/B "
+                          f"pair", flush=True)
         h, C, fls = split(st0["h"], mesh), split(st0["C"], mesh), split(flags, mesh)
         base, frames = split(cf["base_flags"], mesh), split(vf, mesh)
         hh = HA.exchange([[x] for x in h], mesh, S.XH)
@@ -2144,29 +2199,43 @@ def sharded_phases(dev, rate, errs):
             check_ints(f"c_approach_sh {shape} {mesh.local[i]} disk terms", part, p_ref)
 
         # (b) the main path: the three sharded runners, counts zeroed just
-        # before each and read just after
-        fluid_run = S.make_sharded_tiled_fluid_runner(fc, mesh)
-        runs = {
-            "fluid": lambda kk: fluid_run(s0, fl, 0, kk),
+        # before each and read just after; the fluid through its route (the
+        # pass on row meshes at the default k, the pair on (2, 2)), and on row
+        # meshes the yardsticks: the pair (route="launches") and the pass at
+        # the other of k = 1 and 4
+        fluid_runs = {"fluid": S.make_sharded_tiled_fluid_runner(fc, mesh)}
+        if nx == 1:
+            fluid_runs["fluid launches"] = S.make_sharded_tiled_fluid_runner(fc, mesh,
+                                                                             route="launches")
+            alt = 1 if fluid_runs["fluid"].k != 1 else S.PASS_SH_K
+            fluid_runs[f"fluid k={alt}"] = S.make_sharded_tiled_fluid_runner(fc, mesh, k=alt)
+        runs = {p_: (lambda kk, r=r: r(s0, fl, 0, kk)) for p_, r in fluid_runs.items()}
+        runs.update({
             "balance": lambda kk: S.make_sharded_tiled_balance_runner(cc, flags, mesh)(st0, cf, kk),
             "approach": lambda kk: S.make_sharded_tiled_approach_runner(cc, vf, mesh)(st0, cf, 0,
                                                                                      kk),
-        }
-        want_k = {"fluid": {"fluid_a_sh", "fluid_b_sh"}, "balance": {"c_balance_sh"},
-                  "approach": {"c_approach_sh"}}
+        })
+        want_k = {p_: {"fluid_pass_sh"} if r.route == "pass" else {"fluid_a_sh", "fluid_b_sh"}
+                  for p_, r in fluid_runs.items()}
+        want_k.update({"balance": {"c_balance_sh"}, "approach": {"c_approach_sh"}})
         for pname, fn in runs.items():
+            fluid_run = fluid_runs.get(pname)
             torch.cuda.synchronize()
-            fluid_run.lean_steps.clear()
+            if fluid_run:
+                fluid_run.lean_steps.clear()
             kernels.reset_launches()
             out = fn(n)
             torch.cuda.synchronize()
             counts = {x: c for x, c in kernels.launches().items() if c}
-            lean_steps = dict(fluid_run.lean_steps)
+            lean_steps = dict(fluid_run.lean_steps) if fluid_run else {}
             expect = want_k[pname] | ({"halo_pack"} if ny * nx > 1 else set())
             if set(counts) != expect:
                 fail(f"sharded {pname} {shape}: launched {counts}, expected {sorted(expect)}")
             for x, c in counts.items():
-                main_counts[x] += c
+                # the main path's launches; fluid_a_sh and fluid_b_sh also
+                # from their yardstick on the row meshes
+                if not pname.startswith("fluid k="):
+                    main_counts[x] += c
             if pname == "approach":
                 out, acc = out
                 _, acc_r = ref[pname]
@@ -2175,18 +2244,28 @@ def sharded_phases(dev, rate, errs):
                            [acc_r[x] for x in keys])
                 want = ref[pname][0]
             else:
-                want = ref[pname]
+                want = ref["fluid" if fluid_run else pname]
             for nm in want:
                 if not torch.equal(out[nm], want[nm]):
                     d = float((out[nm] - want[nm]).abs().max())
                     fail(f"sharded {pname} {shape} {nm}: not bit for bit the per-step kernels "
                          f"(max |diff| {d:.3e})")
             rec, times = timed(fn, n)
-            rec.update({"launches": counts, "bit_for_bit": True})
-            if pname == "fluid":
+            rec.update({"launches": counts, "bit_for_bit": True,
+                        "launches_per_step": sum(c for x, c in counts.items()
+                                                 if x != "halo_pack") / n})
+            if fluid_run:
                 rec["lean_steps"] = {f"{c[0]},{c[1]}": s for c, s in lean_steps.items()}
-                print(f"  lean pair: {rec['lean_steps']} (shard: steps of {n})", flush=True)
-            base_rec = report["per_step"][pname]
+                rec["route"], rec["k"] = fluid_run.route, fluid_run.k
+                # calls of halo.exchange a step: one a pass, two a step of the pair
+                rec["exchanges_per_step"] = (-(-n // fluid_run.k) / n
+                                             if fluid_run.route == "pass" else 2.0)
+                print(f"  {pname} (route {fluid_run.route}, k={fluid_run.k}): lean steps "
+                      f"{rec['lean_steps']} (shard: steps of {n}); device "
+                      f"{rec.get('device_us_per_step', float('nan')):.3f} us/step; "
+                      f"{rec['launches_per_step']:.3f} launches and "
+                      f"{rec['exchanges_per_step']:.3f} exchanges a step", flush=True)
+            base_rec = report["per_step"]["fluid" if fluid_run else pname]
             print(f"  sharded {pname:9s} {rec['us_per_step']:9.3f} us/step (per-step kernels "
                   f"{base_rec['us_per_step']:.3f}), busy {rec.get('busy_share', float('nan')):.1%}"
                   f" (per-step {base_rec.get('busy_share', float('nan')):.1%}); launches {counts};"
@@ -2198,6 +2277,8 @@ def sharded_phases(dev, rate, errs):
                 insts = {"": KERNEL_FUNCS[kname]}
                 if kname in ("fluid_a_sh", "fluid_b_sh"):
                     insts = {"": (f"{kname}_kernel<false>",), "lean": (f"{kname}_kernel<true>",)}
+                elif kname == "fluid_pass_sh":
+                    insts = {f"k={fluid_run.k}": (f"{kname}_kernel<{fluid_run.k}>",)}
                 for inst, names in insts.items():
                     us = sum(t for nm_, t in times.items() if any(x in nm_ for x in names))
                     lean_n = sum(lean_steps.values())
@@ -2272,10 +2353,62 @@ def sharded_phases(dev, rate, errs):
         "halo_pack": (lambda: HA.halo_pack(grp, ha[3].top, ha[3].bot, S.XH),
                       lambda: HA.halo_pack_ref(grp, ha[3].top, ha[3].bot, S.XH)),
     }
+    # (d) fluid_pass_sh alone at the main path's shapes: a pass on the (4, 1)
+    # shard with the tip and on the (1, 1) grid, at k = 1 and the default k;
+    # CUDA events around 20 launches queued behind a sleep kernel, the L2
+    # flushed before each (a 128 MB write, its own time taken off), the
+    # median of three such pairs (the profiler reads low after the NCCL
+    # part of this phase, PERF.md §7)
+    print(f"fluid_pass_sh alone, L2 flushed (memory rate {rate / 1e12:.2f} TB/s):", flush=True)
+    l2_flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    alone = {}
+    for mshape, co in (((4, 1), (1, 0)), ((1, 1), (0, 0))):
+        mesh_ = make_mesh(mshape, [dev] * mshape[0])
+        psh = S.Shard.of(H, W, mshape, co)
+        pf, prho, pvel = (split(s0[x], mesh_) for x in ("f", "rho", "vel"))
+        pi = mesh_.local.index(co)
+        for kp in sorted({1, S.PASS_SH_K}):
+            hx = HA.exchange([[pf[j], pvel[j], prho[j]] for j in range(len(pf))], mesh_, S.XH,
+                             rows=2 * kp)
+            args = (pf[pi], prho[pi], pvel[pi], hx[pi], 0, kp, fc, fl, psh)
+            pairs = sorted(queued_ms(lambda: (l2_flush.zero_(), S.fluid_pass_sh(*args)), 20)
+                           - queued_ms(l2_flush.zero_, 20) for _ in range(3))
+            ms = pairs[1]
+            plain_ms = cuda_ms(lambda: S.fluid_pass_sh_ref(*args), 1, warmup=1)
+            # the shard's f, rho, vel in and out once, its 2k-row pieces of 12 planes in
+            nbytes = 4 * (24 * psh.h * psh.w + (2 * 12 * 2 * kp * psh.w if mshape[0] > 1 else 0))
+            mem_ms = nbytes / rate * 1e3
+            ops_ms = FLOPS_PER_CELL["fluid_pass_sh"] * psh.h * psh.w * kp / F32_PEAK * 1e3
+            bound_ms = max(mem_ms, ops_ms)
+            by = "bytes" if mem_ms >= ops_ms else "operations"
+            label = f"{mshape} k={kp}"
+            print(f"  {label:14s} {ms * 1e3:9.2f} us a pass ({ms * 1e3 / kp:8.2f} a step)  bound "
+                  f"{bound_ms * 1e3:7.2f} us ({by}; {nbytes / 1e6:.2f} MB)  "
+                  f"{bound_ms / ms * 100:6.2f}% of bound  twin {plain_ms:.3f} ms  (shard "
+                  f"{psh.h}x{psh.w}; {len(mesh_.local)} shards)", flush=True)
+            alone[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                            "bytes": nbytes, "shard": [psh.h, psh.w], "pairs_ms": pairs,
+                            "plan": S.pass_sh_plan(psh, kp, torch.cuda.get_device_properties(
+                                dev).multi_processor_count),
+                            "time_from": "events behind a sleep kernel, less the L2 flush, the "
+                                         "median of three"}
+    report["pass_alone"] = alone
+
     rows = []
     print(f"sharded kernels per launch on a 512x256 shard of the (2, 2) mesh (memory rate "
           f"{rate / 1e12:.2f} TB/s):", flush=True)
     for k in SHARDED:
+        if k == "fluid_pass_sh":  # its row: the (4, 1) mesh's k on its shard with the tip
+            a = alone[f"(4, 1) k={S.PASS_SH_K}"]
+            src, rep_ = SOURCE[k]
+            rows.append({
+                "name": k, "route": "cuda", "source": src, "replaces": rep_,
+                "launches": main_counts[k], "max_abs_err": max(errs[k]) if errs[k] else None,
+                "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+                "bound_by": a["bound_by"], "library_ms": None,
+            })
+            report.setdefault("rows", {})[k] = dict(rows[-1], time_from=a["time_from"])
+            continue
         kfn, tfn = calls[k]
         call_ms = cuda_ms(kfn, 200)
         plain_ms = cuda_ms(tfn, 3, warmup=1)
@@ -4070,8 +4203,8 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows \
         + sweep_rows
-    if len(rows) != 44:
-        fail(f"{len(rows)} kernel rows, expected 44")
+    if len(rows) != 45:
+        fail(f"{len(rows)} kernel rows, expected 45")
     stamp("end")
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log,
                    "phase_start_s": marks})

@@ -31,7 +31,8 @@ NAMES = ("c_balance", "c_approach", "fluid_a", "fluid_b",
          "cyl_block_sh", "cyl_lean_sh", "cyl_window_sh",
          "fused_fluid_cl", "fused_balance_cl", "fluid_pass",
          "c_approach_pass", "fused_approach_cl", "cyl_pass",
-         "fused_fluid_mc", "fused_balance_mc", "fused_approach_mc", "cyl_pass_sh")
+         "fused_fluid_mc", "fused_balance_mc", "fused_approach_mc", "cyl_pass_sh",
+         "fluid_pass_sh")
 
 # --fmad=false: no multiply-add contraction, so each kernel rounds where
 # its plain PyTorch twin does (see csrc/jrl_common.cuh)

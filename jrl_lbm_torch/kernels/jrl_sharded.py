@@ -1,12 +1,17 @@
 """The JRL case on a ``(ny, nx)`` mesh of shards: the fluid phase, the C
 balance and the C approach, each shard through hand-written CUDA kernels
-(`csrc/fluid_a_sh.cu`, `fluid_b_sh.cu`, `c_balance_sh.cu`,
-`c_approach_sh.cu`), each with its plain PyTorch twin, and the runners.
+(`csrc/fluid_pass_sh.cu`, `fluid_a_sh.cu`, `fluid_b_sh.cu`,
+`c_balance_sh.cu`, `c_approach_sh.cu`), each with its plain PyTorch twin,
+and the runners.
 
 Replaces the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py`:
 ``_step_a`` and ``_step_b`` (and their lean pair ``_step_a_lean``,
 ``_step_b_lean``, here a LEAN template instance of each kernel),
-``_step_balance`` and ``_step_approach``; the runners port
+``_step_balance`` and ``_step_approach``; and the ``shard=True`` mode of
+`fused_jrl_tiled.py::_make_fluid_k_kernel` (k fused fluid steps of a
+shard from its 2k-row pieces), which no JAX runner builds: here
+`fluid_pass_sh`, the row-mesh fluid runner's default route (one launch a
+shard and k-step pass, the full or the lean class). The runners port
 ``make_sharded_tiled_{fluid,balance,approach}_runner`` with their
 ``(state, fields, ...)`` contracts: global tensors in and out.
 
@@ -34,11 +39,18 @@ Where the JAX runner differs, and why:
   recomputes from the halo (JAX computes its extension lanes);
 * ``unroll`` is the chunk over which the approach accumulates its disk
   partials before the one ``psum``; the fluid and balance runners accept
-  it and run step by step.
+  it and ignore it;
+* on a row mesh the fluid runner runs passes of k steps, each one
+  exchange of 2k-row pieces and one `fluid_pass_sh` a shard, where JAX's
+  runs the A/B pair a step (its ``route="launches"`` here, and the route
+  of column meshes).
 
 A wrapper given tensors on the CPU runs its twin; given tensors on the
 card it launches the kernel or raises. ``fluid_a_sh.launches`` etc.
 count the launches, the lean instance's with the full one's.
+`fluid_pass_sh`'s twin runs the port's tile-class pyramid
+(`jrl_tiled.py::_pass_ref`) on the shard's rows; on the CPU it equals the
+kernel bit for bit (an H100 run, PERF.md).
 """
 
 from __future__ import annotations
@@ -163,6 +175,62 @@ def fluid_b_sh_ref(f, rho, vel, halo: Halo, step: int, cfg, fields, sh: Shard, l
     fo = _fl.fluid_b_ref(_embed(sh, f), _embed(sh, rho, halo, 0)[0], _embed(sh, vel, halo, 1),
                          step, cfg, fields)
     return sh.body(fo)
+
+
+def _check_depth(sh: Shard, k: int):
+    """A k-step pass serves a shard of a row mesh (1 <= k <= 4), its pieces
+    from one neighbour (2k <= h on a mesh of >1 row) and its window of
+    h + 4k rows holding each grid row once (4k < H)."""
+    if not 1 <= int(k) <= _tl.KMAX:
+        raise ValueError(f"k = {k}: the pass takes 1 <= k <= {_tl.KMAX}")
+    if sh.w != sh.W:
+        raise ValueError("the k-step pass serves shards of a row mesh (JAX's shard mode has no "
+                         "x window); a column mesh takes the A/B pair")
+    if (sh.h < sh.H and 2 * k > sh.h) or 4 * k >= sh.H:
+        raise ValueError(f"k = {k} too deep for shards of {sh.h} of {sh.H} rows (2k <= h, "
+                         f"4k < H)")
+
+
+def _check_pass_sh(sh: Shard, halo: Halo | None, k: int, lean: bool):
+    """`_check_depth`, and the shard's 2k-row pieces of [f, vel, rho] (none
+    on a mesh of one row); a lean pass on an inner shard."""
+    _check_depth(sh, k)
+    rows = halo is not None and halo.top is not None
+    if rows != (sh.h < sh.H) or (rows and (halo.k != 2 * k or halo.P != 12)):
+        raise ValueError(f"halo pieces do not match the shard's mesh: a mesh of >1 row needs the "
+                         f"{2 * k}-row pieces of [f, vel, rho] (12 planes)")
+    if lean and not (rows and 0 < sh.row0 and sh.row0 + sh.h < sh.H):
+        raise ValueError("the lean pass serves the inner shards of a row mesh of >= 3 rows")
+
+
+def fluid_pass_sh_ref(f, rho, vel, halo: Halo | None, step: int, k: int, cfg, fields, sh: Shard,
+                      lean=False):
+    """Twin of `fluid_pass_sh`: the shard and its pieces embedded at their
+    global rows in a grid of NaN, and the port's tile-class pyramid
+    (`jrl_tiled.py::_pass_ref`, full or lean) on the shard's rows, which
+    reads the 2k rows beyond them a side and nothing else."""
+    _check_pass_sh(sh, halo, k, lean)
+    H, W, r2 = sh.H, sh.W, 2 * int(k)
+    dev = f.device
+    nan = float("nan")
+
+    def grid(body, planes):
+        b = as_planes(body)
+        g = torch.full((b.shape[0], H, W), nan, dtype=_F32, device=dev)
+        if halo is not None and halo.top is not None:
+            g[:, torch.arange(sh.row0 - r2, sh.row0, device=dev) % H] = halo.top[planes]
+            g[:, torch.arange(sh.row0 + sh.h, sh.row0 + sh.h + r2, device=dev) % H] = \
+                halo.bot[planes]
+        g[:, sh.row0:sh.row0 + sh.h] = b
+        return g
+
+    gf = grid(f, slice(0, 9))
+    gr, gv = (None, None) if lean else (grid(rho, slice(11, 12))[0], grid(vel, slice(9, 11)))
+    out = {"f": torch.full_like(gf, nan), "rho": torch.full((H, W), nan, device=dev),
+           "vel": torch.full((2, H, W), nan, device=dev)}
+    _tl._pass_ref("lean" if lean else "full", cfg, gf, gr, gv, out, [(sh.row0, sh.row0 + sh.h)],
+                  int(step), int(k))
+    return sh.body(out["f"]), sh.body(out["rho"]), sh.body(out["vel"])
 
 
 def c_balance_sh_ref(h, C, flags, halo_h: Halo, halo_fl: Halo, cfg, fields, sh: Shard):
@@ -373,8 +441,130 @@ def c_approach_sh(h, C, vel, base, halo_h: Halo, halo_fl: Halo, step: int, cfg, 
     return h_out, C_out
 
 
+class PassShParams(ctypes.Structure):
+    """Mirrors ``csrc/fluid_pass_sh.cu::FluidPassShParams``."""
+    _fields_ = [("a", _fl.FluidParams), ("b", _fl.FluidBParams), ("s", ShardGeom),
+                ("nstrips", ctypes.c_int), ("nruns", ctypes.c_int), ("rs", ctypes.c_int),
+                ("lean", ctypes.c_int)]
+
+
+class PassShSrc(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in ("f", "rho", "vel", "top", "bot")]
+
+
+# csrc/fluid_pass_sh.cu: threads a block, dynamic shared memory a block may
+# take, and bytes a ring column takes per sub-step ((5 x 12 + 3 x 9 + 4 x 3 +
+# 8) floats and 8 geometry codes)
+PASS_SH_THREADS = 512
+PASS_SH_SMEM = 232448
+PASS_SH_BYTES = 436
+
+
+def pass_sh_cols(k: int) -> int:
+    """Columns of a sub-step's group of threads at depth k (a multiple of 32)."""
+    return (PASS_SH_THREADS // int(k)) & ~31
+
+
+def pass_sh_max_rs(k: int) -> int:
+    """The widest ring row (floats) at depth k."""
+    return min(pass_sh_cols(k) + 8, (PASS_SH_SMEM // (int(k) * PASS_SH_BYTES)) & ~3)
+
+
+def pass_sh_strip(s: int, ns: int, W: int, k: int):
+    """``(sx0, sx1, cx0, cx1)`` of strip ``s`` of ``ns``: the columns it
+    writes (ends on multiples of 4) and its window, 2k columns a side cut
+    to the grid and rounded out to 16 bytes."""
+    sx0 = (s * W // ns) & ~3
+    sx1 = W if s + 1 == ns else ((s + 1) * W // ns) & ~3
+    return sx0, sx1, max(sx0 - 2 * k, 0) & ~3, min((sx1 + 2 * k + 3) & ~3, W)
+
+
+def pass_sh_plan(sh: Shard, k: int, sms: int = _tl.PASS_SMS):
+    """``(nstrips, nruns, rs)`` of a `fluid_pass_sh` launch: the fewest
+    column strips whose windows fit a ring row and whose first A columns
+    (2k - 1 past the strip) fit a group of threads; runs of the shard's
+    rows for about one block an SM, each window (run + 4k rows) inside the
+    grid's rows."""
+    k, W = int(k), sh.W
+    cols, most = pass_sh_cols(k), pass_sh_max_rs(k)
+    for ns in range(1, W // 4 + 1):
+        strips = [pass_sh_strip(s, ns, W, k) for s in range(ns)]
+        if all(sx0 < sx1 and cx1 - cx0 <= most
+               and min(sx1 + 2 * k - 1, W) - max(sx0 - 2 * k + 1, 0) <= cols
+               for sx0, sx1, cx0, cx1 in strips):
+            break
+    else:
+        raise ValueError(f"W = {W} has no strip plan at k = {k}")
+    least = -(-sh.h // (sh.H - 4 * k))
+    nruns = min(sh.h, max(1, sms // ns, least))
+    return ns, nruns, max(cx1 - cx0 for *_, cx0, cx1 in strips)
+
+
+@functools.lru_cache(maxsize=256)
+def _pass_sh_params(cfg, sh: Shard, k: int, lean: bool, sms: int) -> PassShParams:
+    ns, nruns, rs = pass_sh_plan(sh, k, sms)
+    return PassShParams(a=_fl._a_params(cfg), b=_fl._b_params(cfg), s=sh.geom, nstrips=ns,
+                        nruns=nruns, rs=rs, lean=int(bool(lean)))
+
+
+def fluid_pass_sh(f, rho, vel, halo: Halo | None, step: int, k: int, cfg, fields, sh: Shard,
+                  lean=False):
+    """k fluid steps (A then B each) of a shard of a row mesh from ``step``
+    in one launch; returns the shard's new ``(f, rho, vel)``. ``halo``: the
+    2k-row pieces of ``[f, vel, rho]`` (`halo.exchange` with ``rows=2k``;
+    None or no pieces on a mesh of one row); ``lean``: the lean class, for
+    an inner shard above the tip front for every step of the pass
+    (`lean_pass`)."""
+    if f.device.type == "cpu":
+        return fluid_pass_sh_ref(f, rho, vel, halo, step, k, cfg, fields, sh, lean)
+    _check_pass_sh(sh, halo, k, lean)
+    _check(sh, step)  # steps step .. step + k - 1 in int32
+    dev = _check(sh, int(step) + int(k) - 1, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)))
+    src = PassShSrc(f.data_ptr(), rho.data_ptr(), vel.data_ptr())
+    if halo is not None and halo.top is not None:
+        for name, t in (("top", halo.top), ("bot", halo.bot)):
+            if tuple(t.shape) != (12, 2 * k, sh.w) or t.dtype != _F32 or t.device != dev \
+                    or not t.is_contiguous():
+                raise ValueError(f"halo {name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
+                                 f"expected contiguous (12, {2 * k}, {sh.w}) float32 on {dev}")
+            setattr(src, name, t.data_ptr())
+    if sh.W % 4 or any(t % 16 for t in (src.f, src.rho, src.vel, src.top or 0, src.bot or 0)):
+        raise ValueError("fluid_pass_sh copies rows of 16-byte aligned planes (W % 4 == 0)")
+    f_out, rho_out, vel_out = torch.empty_like(f), torch.empty_like(rho), torch.empty_like(vel)
+    p = _pass_sh_params(cfg, sh, int(k), bool(lean), _fl.sm_count(dev))
+    fn = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh", [_P] * 4 + [ctypes.c_int] * 2
+                    + [_P, _P])
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(src), f_out.data_ptr(), rho_out.data_ptr(), vel_out.data_ptr(),
+                 int(step), int(k), ctypes.byref(p), stream_of(dev))
+    build.check(err, "fluid_pass_sh")
+    fluid_pass_sh.launches += 1
+    return f_out, rho_out, vel_out
+
+
+def pass_sh_info(k: int, device_index: int = 0):
+    """``(registers per thread, local bytes)`` of `fluid_pass_sh`'s
+    instance at depth k."""
+    fn = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh_info", [ctypes.c_int, _P, _P])
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(fn(int(k), ctypes.byref(regs), ctypes.byref(local)), "fluid_pass_sh")
+    return regs.value, local.value
+
+
+def pass_sh_shape(k: int, device_index: int = 0):
+    """The kernel's own ``(threads, cols, max_rs, bytes_per_col)`` at depth
+    k, which `pass_sh_plan` mirrors."""
+    fn = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh_shape", [ctypes.c_int] + [_P] * 4)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device_index):
+        build.check(fn(int(k), *(ctypes.byref(x) for x in out)), "fluid_pass_sh")
+    return tuple(x.value for x in out)
+
+
 fluid_a_sh.launches = 0
 fluid_b_sh.launches = 0
+fluid_pass_sh.launches = 0
 c_balance_sh.launches = 0
 c_approach_sh.launches = 0
 
@@ -430,26 +620,105 @@ def lean_shard(cfg, sh: Shard, step: int) -> bool:
     return sh.row0 >= wi + 3 and sh.row0 > 0 and sh.row0 + sh.h < sh.H
 
 
+def lean_pass(cfg, sh: Shard, step: int, k: int) -> bool:
+    """Whether the shard runs a k-step pass from ``step`` lean:
+    `lean_shard` at every step of the pass, and the pass's reach, 2k rows
+    past the shard a side, clear of the tip (its lowest row at least one
+    above the tip row, the `lean_shard` guard at k = 1) and of the top wall
+    row. At k = 1 this is `lean_shard` on shards of h >= 3 rows."""
+    k = int(k)
+    if not all(lean_shard(cfg, sh, s) for s in range(int(step), int(step) + k)):
+        return False
+    wi = max(_jrl.tip_walks(cfg.inflow_height, s, cfg.vel_obs)[1]
+             for s in range(int(step), int(step) + k))
+    return sh.row0 - 2 * k >= wi + 1 and sh.row0 + sh.h + 2 * k < sh.H
+
+
+# the routes of the sharded fluid runner: one fluid_pass_sh launch a shard
+# and k-step pass (row meshes), or fluid_a_sh + fluid_b_sh a step
+FLUID_ROUTES = ("pass", "launches")
+# the default k of the pass on a row mesh of more than one shard: the lowest
+# wall of the (4, 1) mesh at 1024x512 on an H100 (PERF.md: 210.1 µs/step at
+# k = 4 against 642.0 at k = 1, each bit for bit route="launches"); a mesh of
+# one shard has no exchange to save and runs k = 1 (78.95 against 122.26)
+PASS_SH_K = 4
+
+
+def default_k(mesh: Mesh, sh: Shard) -> int:
+    """The k a row mesh's pass takes by default: 1 on a mesh of one shard,
+    else `PASS_SH_K` or the deepest k its shards take (`_check_depth`)."""
+    if mesh.shape[0] * mesh.shape[1] == 1:
+        return 1
+    return max(1, min(PASS_SH_K, sh.h // 2, (sh.H - 1) // 4))
+
+
+def fluid_route(mesh: Mesh, route: str | None = None) -> str:
+    """The sharded fluid runner's route: ``"pass"`` on a row mesh
+    (``nx == 1``), ``"launches"`` on a column mesh, whose x halo the pass
+    has no window for; ``route`` forces one."""
+    nx = mesh.shape[1]
+    if route is None:
+        return "pass" if nx == 1 else "launches"
+    if route not in FLUID_ROUTES:
+        raise ValueError(f"route {route!r}: one of {FLUID_ROUTES}")
+    if route == "pass" and nx > 1:
+        raise ValueError(f"route 'pass' serves row meshes (nx == 1), not {mesh.shape}: a column "
+                         f"mesh takes the A/B pair")
+    return route
+
+
 def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x_ext=None,
-                                    lean_split=True):
+                                    lean_split=True, k=None, route=None):
     """Sharded fluid runner ``(state, fields, start_step, n) -> state``
-    with global ``f``, ``rho``, ``vel``: per step, the f and vel pieces,
-    `fluid_a_sh` on every shard, the pieces of the post-moment rho and vel,
-    `fluid_b_sh`. ``lean_split`` (row meshes with ny >= 3): a shard above
-    the tip front runs the lean instances; the exchanges run for every
-    shard whichever class it is in. ``run.lean_steps`` counts the steps
-    each shard ``(iy, ix)`` ran lean."""
+    with global ``f``, ``rho``, ``vel``, through `fluid_route`'s route:
+
+    * ``"pass"`` (row meshes, ``nx == 1``, the default there): per k-step
+      pass, one exchange of the 2k-row pieces of ``[f, vel, rho]`` and one
+      `fluid_pass_sh` launch a shard (the k steps of A and B in one
+      launch); the steps left over run as one pass at a smaller k;
+    * ``"launches"`` (column meshes, where JAX's shard mode has no x
+      window, and the yardstick on row meshes): per step, the f and vel
+      pieces, `fluid_a_sh` on every shard, the pieces of the post-moment
+      rho and vel, `fluid_b_sh`.
+
+    ``k`` (1..4, default `default_k`): the steps a pass; the pair runs
+    step by step. ``lean_split`` (row meshes with ny >= 3): a shard above the
+    tip front runs the lean class (`lean_shard` a step, `lean_pass` a
+    pass); the exchanges run for every shard whichever class it is in.
+    ``run.lean_steps`` counts the steps each shard ``(iy, ix)`` ran lean.
+    The result is the per-step kernels' bit for bit on either route."""
     shards = shard_plan(cfg, mesh, tile_rows, unroll, x_ext)
     ny, nx = mesh.shape
+    rt = fluid_route(mesh, route)
+    kk = default_k(mesh, shards[0]) if k is None else int(k)
+    if not 1 <= kk <= _tl.KMAX:
+        raise ValueError(f"k = {kk}: the pass takes 1 <= k <= {_tl.KMAX}")
+    if rt == "pass":
+        _check_depth(shards[0], kk)
     lean_on = bool(lean_split) and nx == 1 and ny >= 3
 
+    def count_lean(lean, steps):
+        for c, ln in zip(mesh.local, lean):
+            run.lean_steps[c] = run.lean_steps.get(c, 0) + steps * int(ln)
+
     def run(state, fields, start_step: int, n: int):
-        f, rho, vel = (split(state[k], mesh) for k in ("f", "rho", "vel"))
+        f, rho, vel = (split(state[x], mesh) for x in ("f", "rho", "vel"))
         L = range(len(shards))
-        for s in range(int(start_step), int(start_step) + int(n)):
+        s, end = int(start_step), int(start_step) + int(n)
+        if rt == "pass":
+            while s < end:
+                kj = min(kk, end - s)
+                lean = [lean_on and lean_pass(cfg, sh, s, kj) for sh in shards]
+                count_lean(lean, kj)
+                hx = exchange([[f[i], vel[i], rho[i]] for i in L], mesh, XH, rows=2 * kj)
+                out = [fluid_pass_sh(f[i], rho[i], vel[i], hx[i], s, kj, cfg, fields, shards[i],
+                                     lean[i]) for i in L]
+                f, rho, vel = ([o[x] for o in out] for x in range(3))
+                s += kj
+            return {"f": gather(f, mesh), "rho": gather(rho, mesh), "vel": gather(vel, mesh)}
+        for s in range(s, end):
             lean = [lean_on and lean_shard(cfg, sh, s) for sh in shards]
-            for c, ln in zip(mesh.local, lean):
-                run.lean_steps[c] = run.lean_steps.get(c, 0) + int(ln)
+            count_lean(lean, 1)
             ha = exchange([[f[i], vel[i]] for i in L], mesh, XH)
             out = [fluid_a_sh(f[i], rho[i], vel[i], ha[i], s, cfg, fields, shards[i], lean[i])
                    for i in L]
@@ -462,6 +731,7 @@ def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x
 
     run.lean_steps = {}
     run.shards = shards
+    run.k, run.route = kk, rt
     return run
 
 

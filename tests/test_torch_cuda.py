@@ -23,7 +23,10 @@ twin after one launch at 1e-6 and over 100 steps at the trajectory
 tolerances. The sharded JRL kernels (four shards on the one card) are
 held to their twins after one launch at the per-step tolerances, and the
 sharded runners to the unsharded per-step kernels bit for bit (the
-integrals at rtol 2e-4 / atol 1e-4: summed per shard, in another order).
+integrals at rtol 2e-4 / atol 1e-4: summed per shard, in another order);
+the sharded fluid step's k-step pass (``fluid_pass_sh``) equals its twin,
+run on the CPU, and k steps of the A/B pair bit for bit on every shard,
+and its route equals ``route="launches"`` at every k over 50 steps.
 The sharded cylinder kernels are held to their twins after one launch at
 1e-5 (vel 1e-4), the full-boundary sharded routes to the unsharded
 ``split=False`` runner bit for bit, the lean split (through the pass
@@ -1944,9 +1947,11 @@ def test_cuda_sharded_runners_equal_per_step_kernels(cuda, mesh_shape):
     """The three sharded runners against the unsharded per-step kernels'
     runners: fluid over 60 steps (six tip rows), balance 40, approach 40
     across stored-velocity frames, f/rho/vel and h/C bit for bit; only the
-    sharded kernels and halo_pack launch."""
+    sharded kernels and halo_pack launch (the fluid through fluid_pass_sh
+    on the row mesh, the A/B pair on (2, 2))."""
     fc, s, fl, cc, st, cf, flags, mesh, _ = _sh_setup(cuda, mesh_shape)
-    sharded = {"fluid_a_sh", "fluid_b_sh", "halo_pack"}
+    sharded = ({"fluid_pass_sh"} if mesh_shape[1] == 1 else {"fluid_a_sh", "fluid_b_sh"}) \
+        | {"halo_pack"}
     kernels.reset_launches()
     got = S.make_sharded_tiled_fluid_runner(fc, mesh)(s, fl, 8, 60)
     torch.cuda.synchronize()
@@ -1988,6 +1993,98 @@ def test_cuda_sharded_fluid_from_step_2_24_minus_5(cuda):
     want = T.make_per_step_fluid_runner(cfg)(s, fl, start, n)
     for name in ("f", "rho", "vel"):
         assert torch.equal(got[name], want[name]), name
+
+
+# --- the sharded fluid step's k-step pass (fluid_pass_sh) ---
+
+PASS_MESHES = [(1, 1), (4, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", PASS_MESHES)
+def test_cuda_fluid_pass_sh_equals_twin_and_pair(cuda, mesh_shape):
+    """One launch on every shard at k = 1..4 from step 8 (the lean class too
+    on the shards where `lean_pass` holds): bit for bit its twin, run on
+    the CPU from the same inputs, and bit for bit k steps of the A/B pair
+    (``route="launches"``)."""
+    fc, s, fl, _, _, _, _, mesh, shards = _sh_setup(cuda, mesh_shape)
+    L = range(len(shards))
+    f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
+    n_lean = 0
+    for k in range(1, 5):
+        hx = HA.exchange([[f[i], vel[i], rho[i]] for i in L], mesh, S.XH, rows=2 * k)
+        pair = S.make_sharded_tiled_fluid_runner(fc, mesh, route="launches")(s, fl, 8, k)
+        for i, sh in enumerate(shards):
+            for lean in (False, True) if S.lean_pass(fc, sh, 8, k) else (False,):
+                tag = f"shard {mesh.local[i]} k={k} lean={lean}"
+                n0 = S.fluid_pass_sh.launches
+                got = S.fluid_pass_sh(f[i], rho[i], vel[i], hx[i], 8, k, fc, fl, sh, lean)
+                assert S.fluid_pass_sh.launches == n0 + 1
+                halo = None if hx[i].top is None else HA.Halo(12, hx[i].top.cpu(),
+                                                               hx[i].bot.cpu(), k=2 * k)
+                want = S.fluid_pass_sh_ref(f[i].cpu(), rho[i].cpu(), vel[i].cpu(), halo, 8, k,
+                                           fc, None, sh, lean)
+                for name, g_, w_, p_ in zip(("f", "rho", "vel"), got, want,
+                                            (pair["f"], pair["rho"], pair["vel"])):
+                    assert torch.equal(g_.cpu(), w_), f"{tag} {name}: twin"
+                    assert torch.equal(g_, sh.body(p_)), f"{tag} {name}: pair"
+                n_lean += lean
+    assert n_lean == (0 if mesh_shape == (1, 1) else 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("mesh_shape", PASS_MESHES)
+def test_cuda_fluid_pass_route_equals_launches(cuda, mesh_shape, k):
+    """The runner through the pass over 50 steps from step 8 (passes that
+    cross tip rows; the remainder at a smaller k): bit for bit
+    ``route="launches"`` and the unsharded per-step runner; one
+    fluid_pass_sh launch a shard and pass, one halo_pack a shard and pass
+    on (4, 1)."""
+    fc, s, fl, _, _, _, _, mesh, shards = _sh_setup(cuda, mesh_shape)
+    n = 50
+    rows = [T.tip_walks(fc.inflow_height, st, fc.vel_obs)[1] for st in (8, 8 + n - 1)]
+    assert rows[1] > rows[0]
+    kernels.reset_launches()
+    got = S.make_sharded_tiled_fluid_runner(fc, mesh, k=k)(s, fl, 8, n)
+    torch.cuda.synchronize()
+    passes = -(-n // k)
+    want_counts = {"fluid_pass_sh": passes * len(shards)}
+    if len(shards) > 1:
+        want_counts["halo_pack"] = passes * len(shards)
+    assert {x: c for x, c in kernels.launches().items() if c} == want_counts
+    pair = S.make_sharded_tiled_fluid_runner(fc, mesh, route="launches")(s, fl, 8, n)
+    per_step = T.make_per_step_fluid_runner(fc)(s, fl, 8, n)
+    for name in ("f", "rho", "vel"):
+        assert torch.equal(got[name], pair[name]), f"k={k} {name}: launches"
+        assert torch.equal(got[name], per_step[name]), f"k={k} {name}: per-step"
+
+
+@pytest.mark.cuda
+def test_cuda_fluid_pass_sh_refuses_bad_inputs(cuda):
+    """Pieces of another depth or plane count, a lean pass off the inner
+    shards, a misaligned plane and a column mesh's shard raise before a
+    launch."""
+    fc, s, fl, _, _, _, _, mesh, shards = _sh_setup(cuda, (4, 1))
+    f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
+    hx = HA.exchange([[f[i], vel[i], rho[i]] for i in range(4)], mesh, S.XH, rows=4)
+    sh = shards[0]
+    n0 = S.fluid_pass_sh.launches
+    with pytest.raises(ValueError, match="do not match"):
+        S.fluid_pass_sh(f[0], rho[0], vel[0], hx[0], 8, 1, fc, fl, sh)
+    with pytest.raises(ValueError, match="halo top"):
+        S.fluid_pass_sh(f[0], rho[0], vel[0], HA.Halo(12, hx[0].top[:, :3].contiguous(),
+                                                      hx[0].bot, k=4), 8, 2, fc, fl, sh)
+    with pytest.raises(ValueError, match="inner shards"):
+        S.fluid_pass_sh(f[0], rho[0], vel[0], hx[0], 8, 2, fc, fl, sh, lean=True)
+    buf = torch.empty(f[0].numel() + 1, device=cuda)
+    odd = buf[1:].view_as(f[0]).copy_(f[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        S.fluid_pass_sh(odd, rho[0], vel[0], hx[0], 8, 2, fc, fl, sh)
+    with pytest.raises(ValueError, match="column mesh"):
+        S.fluid_pass_sh(f[0], rho[0], vel[0], None, 8, 1, fc, fl,
+                        S.Shard.of(*SH_RES, (2, 2), (0, 0)))
+    assert S.fluid_pass_sh.launches == n0
 
 
 @pytest.mark.cuda

@@ -76,17 +76,19 @@ def test_sharded_fluid_matches_jnp_and_unsharded(mesh_shape):
 
 
 def test_sharded_fluid_lean_split_exact():
-    """(4, 1) over 96x32 with a flat tip: the two middle shards sit above
-    the tip and run the lean twins; the result is exact against
-    ``lean_split=False`` and against the unsharded runner."""
+    """(4, 1) over 96x32 with a flat tip, through the A/B pair
+    (``route="launches"``; the pass's lean shards are in
+    `test_torch_fluid_pass_sh.py`): the two middle shards sit above the tip
+    and run the lean twins; the result is exact against ``lean_split=False``
+    and against the unsharded runner."""
     _, ct = _fluid_cfgs((96, 32), "cylinder")
     s, fl = T.fluid_init(ct, "cpu")
     s = state_from_numpy(_noisy(s, 2), "cpu")
     mesh = _mesh((4, 1))
-    lean = S.make_sharded_tiled_fluid_runner(ct, mesh, tile_rows=8, unroll=3)
+    lean = S.make_sharded_tiled_fluid_runner(ct, mesh, tile_rows=8, unroll=3, route="launches")
     a = lean(s, fl, 0, 6)
-    b = S.make_sharded_tiled_fluid_runner(ct, mesh, tile_rows=8, unroll=3, lean_split=False)(
-        s, fl, 0, 6)
+    b = S.make_sharded_tiled_fluid_runner(ct, mesh, tile_rows=8, unroll=3, lean_split=False,
+                                          route="launches")(s, fl, 0, 6)
     assert lean.lean_steps == {(0, 0): 0, (1, 0): 6, (2, 0): 6, (3, 0): 0}
     _equal(a, b, "lean vs full")
     _equal(a, T.make_per_step_fluid_runner(ct)(s, fl, 0, 6), "lean vs unsharded")
