@@ -93,10 +93,12 @@ paths on one NVIDIA card and check them.
    (``fluid_a_sh``, ``fluid_b_sh`` with their lean instances on the (4, 1)
    shards above the tip, ``c_balance_sh``, ``c_approach_sh`` and its disk
    terms, ``halo_pack`` bit for bit) against its twin after one launch on
-   every shard; ``fluid_pass_sh`` (its registers and launch shape first)
-   on every shard of (1, 1) and (4, 1) at k = 1 and the default k, the
-   lean class on the shard above the tip, against its twin (1e-5, vel
-   1e-4) and bit for bit k steps of the A/B pair; the main path, the three
+   every shard; ``fluid_pass_sh`` (its registers, spills and launch shape
+   against the host plan first: sub-steps in turn over the whole shard,
+   one wave of tiles, one cooperative launch) on every shard of (1, 1),
+   (2, 1) and (4, 1) at k = 1..4, the lean class on the shard above the
+   tip, bit for bit its twin run on the CPU and k steps of the A/B pair;
+   the main path, the three
    sharded runners (``kernels/jrl_sharded.py``; the fluid one
    ``fluid_pass_sh`` launch a shard and k-step pass on the row meshes, the
    pair on (2, 2)) over 200 steps each across tip rows and stored frames,
@@ -109,7 +111,7 @@ paths on one NVIDIA card and check them.
    mesh once more through a one-rank NCCL process group (``psum`` by
    ``all_reduce``), bit for bit the local mesh; ``fluid_pass_sh`` alone
    (CUDA events, the L2 flushed, the median of three) on the (4, 1)
-   shard with the tip and on the (1, 1) grid at k = 1 and the default k,
+   shard with the tip and on the (1, 1) grid at k = 1..4,
    the other kernels' device µs per launch on a 512x256 shard, each beside
    its bound and twin.
 0d. The cylinder channel on a mesh of shards (``cyl_sharded_phases``) at
@@ -621,7 +623,7 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "periodic": ("periodic_kernel",),
     "fluid_a_sh": ("fluid_a_sh_kernel",),
     "fluid_b_sh": ("fluid_b_sh_kernel",),
-    "fluid_pass_sh": ("fluid_pass_sh_kernel",),
+    "fluid_pass_sh": ("fluid_pass_sh_tiles",),
     "c_balance_sh": ("c_balance_sh_kernel",),
     "c_approach_sh": ("c_approach_sh_kernel", "c_disk_sh_kernel"),
     "halo_pack": ("halo_rows_kernel", "halo_cols_kernel"),
@@ -2030,8 +2032,8 @@ def sharded_phases(dev, rate, errs):
     shard on ``dev``): (a) each sharded kernel and halo_pack against its
     twin, one launch on every shard (1e-5, vel 1e-4; the disk terms rtol
     2e-4 / atol 1e-4; halo_pack bit for bit), the lean pair on the (4, 1)
-    shards above the tip; on the row meshes fluid_pass_sh at k = 1 and
-    the default k against its twin and bit for bit k steps of the pair;
+    shards above the tip; on the row meshes and on (2, 1) fluid_pass_sh at
+    k = 1..4 against its twin and bit for bit k steps of the pair;
     (b) the main path: the three sharded runners over 200 steps each (the
     fluid across tip rows, through the pass on the row meshes, the pair
     on (2, 2); the approach across stored-velocity frames and tip rows),
@@ -2043,8 +2045,8 @@ def sharded_phases(dev, rate, errs):
     measures the halo exchange and the launches, not multi-card scaling);
     (c) the (1, 1) mesh once more through a one-rank NCCL process group
     (psum through all_reduce), bit for bit the local mesh; (d)
-    fluid_pass_sh alone, L2 flushed. Returns the six kernels' rows and a
-    report."""
+    fluid_pass_sh alone at k = 1..4, L2 flushed. Returns the six kernels'
+    rows and a report."""
     import torch
     import torch.distributed as dist
 
@@ -2062,16 +2064,21 @@ def sharded_phases(dev, rate, errs):
     H, W = fc.eff_res
     cells = H * W
     n = SH_STEPS
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for kp in range(1, 5):
         regs, local = S.pass_sh_info(kp)
-        shape_ = S.pass_sh_shape(kp)
-        print(f"  fluid_pass_sh k={kp}: {regs} registers, {local} local bytes; threads, columns "
-              f"a group, widest ring row, bytes a ring column {shape_}", flush=True)
+        print(f"  fluid_pass_sh k={kp}: {regs} registers, {local} local bytes", flush=True)
         if local:
             fail(f"fluid_pass_sh k={kp} spills: {local} local bytes")
-        if shape_ != (S.PASS_SH_THREADS, S.pass_sh_cols(kp), S.pass_sh_max_rs(kp),
-                      kp * S.PASS_SH_BYTES):
-            fail(f"fluid_pass_sh k={kp}: the kernel's shape {shape_} is not the host plan's")
+        for mshape, co in (((4, 1), (1, 0)), ((1, 1), (0, 0))):
+            plan = S.pass_sh_plan(S.Shard.of(H, W, mshape, co), kp, sms)
+            shape_ = S.pass_sh_tile_shape(kp, plan.rmax, plan.smax)
+            want = (S.TILE_THREADS, S.TILE_SMEM_CAP, S.tile_smem_bytes(plan.rmax, plan.smax))
+            print(f"    {mshape}: {plan}; threads, shared memory cap, a tile's bytes, "
+                  f"co-resident blocks {shape_}", flush=True)
+            if shape_[:3] != want or plan.grid > shape_[3]:
+                fail(f"fluid_pass_sh {mshape} k={kp}: the kernel's shape {shape_} is not the host "
+                     f"plan's {want} (grid {plan.grid})")
     s0, fl = T.fluid_init(fc, dev)
     s0 = noisy(s0, dev, 71, scale=1e-4)
     st0, cf, flags = T.c_init(cc, dev)
@@ -2119,6 +2126,41 @@ def sharded_phases(dev, rate, errs):
         print(f"  per-step {name:9s} {rec['us_per_step']:9.3f} us/step  busy "
               f"{rec.get('busy_share', float('nan')):.1%}", flush=True)
 
+    def check_pass(shape):
+        """The k-step pass (a row mesh) at k = 1..4 on every shard, both
+        classes where `lean_pass` holds: bit for bit its twin, run on the
+        CPU from the same inputs (on the card PyTorch's reductions sum in
+        another order: within 4e-7 there), and bit for bit k steps of the
+        A/B pair."""
+        k = 0
+        mesh = make_mesh(shape, [dev] * shape[0])
+        shards = [S.Shard.of(H, W, shape, c) for c in mesh.local]
+        L = range(len(shards))
+        f, rho, vel = (split(s0[x], mesh) for x in ("f", "rho", "vel"))
+        for kp in range(1, 5):
+            hx = HA.exchange([[f[i], vel[i], rho[i]] for i in L], mesh, S.XH, rows=2 * kp)
+            pair = S.make_sharded_tiled_fluid_runner(fc, mesh, route="launches")(s0, fl, k, kp)
+            for i, sh in enumerate(shards):
+                for lean in (False, True) if S.lean_pass(fc, sh, k, kp) else (False,):
+                    tag = f"{shape} {mesh.local[i]} k={kp}{' lean' if lean else ''}"
+                    got = S.fluid_pass_sh(f[i], rho[i], vel[i], hx[i], k, kp, fc, fl, sh, lean)
+                    halo_c = None if hx[i].top is None else HA.Halo(
+                        12, hx[i].top.cpu(), hx[i].bot.cpu(), k=2 * kp)
+                    want = S.fluid_pass_sh_ref(f[i].cpu(), rho[i].cpu(), vel[i].cpu(), halo_c,
+                                               k, kp, fc, None, sh, lean)
+                    for nm, x, y in zip(("f", "rho", "vel"), got, want):
+                        check_close(f"fluid_pass_sh {tag} {nm}", x.cpu(), y, 0.0,
+                                    errs["fluid_pass_sh"])
+                    if not all(torch.equal(x, sh.body(pair[nm]))
+                               for x, nm in zip(got, ("f", "rho", "vel"))):
+                        fail(f"fluid_pass_sh {tag}: not bit for bit {kp} steps of the A/B pair")
+                    print(f"  fluid_pass_sh {tag}: bit for bit its twin and {kp} steps of the A/B "
+                          f"pair", flush=True)
+
+    # the pass on the (2, 1) mesh, which the main path below does not take
+    print(" mesh (2, 1): fluid_pass_sh against its twin and the pair", flush=True)
+    check_pass((2, 1))
+
     for shape in SH_MESHES:
         ny, nx = shape
         mesh = make_mesh(shape, [dev] * (ny * nx))
@@ -2153,29 +2195,8 @@ def sharded_phases(dev, rate, errs):
                             S.fluid_b_sh(*a_ref[i], hb[i], k, fc, fl, sh, lean),
                             S.fluid_b_sh_ref(*a_ref[i], hb[i], k, fc, fl, sh, lean), 1e-5,
                             errs["fluid_b_sh"])
-        # the k-step pass (row meshes) at k = 1 and 4: bit for bit its twin,
-        # run on the CPU from the same inputs (on the card PyTorch's
-        # reductions sum in another order: within 4e-7 there), and bit for
-        # bit k steps of the A/B pair
-        for kp in sorted({1, S.PASS_SH_K}) if nx == 1 else ():
-            hx = HA.exchange([[f[i], vel[i], rho[i]] for i in L], mesh, S.XH, rows=2 * kp)
-            pair = S.make_sharded_tiled_fluid_runner(fc, mesh, route="launches")(s0, fl, k, kp)
-            for i, sh in enumerate(shards):
-                for lean in (False, True) if S.lean_pass(fc, sh, k, kp) else (False,):
-                    tag = f"{shape} {mesh.local[i]} k={kp}{' lean' if lean else ''}"
-                    got = S.fluid_pass_sh(f[i], rho[i], vel[i], hx[i], k, kp, fc, fl, sh, lean)
-                    halo_c = None if hx[i].top is None else HA.Halo(
-                        12, hx[i].top.cpu(), hx[i].bot.cpu(), k=2 * kp)
-                    want = S.fluid_pass_sh_ref(f[i].cpu(), rho[i].cpu(), vel[i].cpu(), halo_c,
-                                               k, kp, fc, None, sh, lean)
-                    for nm, x, y in zip(("f", "rho", "vel"), got, want):
-                        check_close(f"fluid_pass_sh {tag} {nm}", x.cpu(), y, 0.0,
-                                    errs["fluid_pass_sh"])
-                    if not all(torch.equal(x, sh.body(pair[nm]))
-                               for x, nm in zip(got, ("f", "rho", "vel"))):
-                        fail(f"fluid_pass_sh {tag}: not bit for bit {kp} steps of the A/B pair")
-                    print(f"  fluid_pass_sh {tag}: bit for bit its twin and {kp} steps of the A/B "
-                          f"pair", flush=True)
+        if nx == 1:
+            check_pass(shape)
         h, C, fls = split(st0["h"], mesh), split(st0["C"], mesh), split(flags, mesh)
         base, frames = split(cf["base_flags"], mesh), split(vf, mesh)
         hh = HA.exchange([[x] for x in h], mesh, S.XH)
@@ -2278,7 +2299,7 @@ def sharded_phases(dev, rate, errs):
                 if kname in ("fluid_a_sh", "fluid_b_sh"):
                     insts = {"": (f"{kname}_kernel<false>",), "lean": (f"{kname}_kernel<true>",)}
                 elif kname == "fluid_pass_sh":
-                    insts = {f"k={fluid_run.k}": (f"{kname}_kernel<{fluid_run.k}>",)}
+                    insts = {f"k={fluid_run.k}": (f"fluid_pass_sh_tiles<{fluid_run.k}>",)}
                 for inst, names in insts.items():
                     us = sum(t for nm_, t in times.items() if any(x in nm_ for x in names))
                     lean_n = sum(lean_steps.values())
@@ -2354,7 +2375,7 @@ def sharded_phases(dev, rate, errs):
                       lambda: HA.halo_pack_ref(grp, ha[3].top, ha[3].bot, S.XH)),
     }
     # (d) fluid_pass_sh alone at the main path's shapes: a pass on the (4, 1)
-    # shard with the tip and on the (1, 1) grid, at k = 1 and the default k;
+    # shard with the tip and on the (1, 1) grid, at k = 1..4;
     # CUDA events around 20 launches queued behind a sleep kernel, the L2
     # flushed before each (a 128 MB write, its own time taken off), the
     # median of three such pairs (the profiler reads low after the NCCL
@@ -2367,11 +2388,13 @@ def sharded_phases(dev, rate, errs):
         psh = S.Shard.of(H, W, mshape, co)
         pf, prho, pvel = (split(s0[x], mesh_) for x in ("f", "rho", "vel"))
         pi = mesh_.local.index(co)
-        for kp in sorted({1, S.PASS_SH_K}):
+        for kp in range(1, 5):
             hx = HA.exchange([[pf[j], pvel[j], prho[j]] for j in range(len(pf))], mesh_, S.XH,
                              rows=2 * kp)
             args = (pf[pi], prho[pi], pvel[pi], hx[pi], 0, kp, fc, fl, psh)
-            pairs = sorted(queued_ms(lambda: (l2_flush.zero_(), S.fluid_pass_sh(*args)), 20)
+            scr = S.pass_sh_scratch(psh, kp, dev)  # the runner's, held across passes
+            pairs = sorted(queued_ms(lambda: (l2_flush.zero_(),
+                                              S.fluid_pass_sh(*args, scratch=scr)), 20)
                            - queued_ms(l2_flush.zero_, 20) for _ in range(3))
             ms = pairs[1]
             plain_ms = cuda_ms(lambda: S.fluid_pass_sh_ref(*args), 1, warmup=1)
@@ -2388,8 +2411,7 @@ def sharded_phases(dev, rate, errs):
                   f"{psh.h}x{psh.w}; {len(mesh_.local)} shards)", flush=True)
             alone[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
                             "bytes": nbytes, "shard": [psh.h, psh.w], "pairs_ms": pairs,
-                            "plan": S.pass_sh_plan(psh, kp, torch.cuda.get_device_properties(
-                                dev).multi_processor_count),
+                            "plan": str(S.pass_sh_plan(psh, kp, sms)),
                             "time_from": "events behind a sleep kernel, less the L2 flush, the "
                                          "median of three"}
     report["pass_alone"] = alone

@@ -1,8 +1,10 @@
 // JRL fluid phase on one shard of a row mesh: a k-step pass (k = 1..4) in
-// one launch, k steps of fluid step A and B fused, the shard's rows
-// streamed through rings of rows in shared memory, the full class (the
+// one launch, k steps of fluid step A and B fused, the full class (the
 // moving tip, the walls) or the lean class (a shard above the tip front)
-// on every run of the launch.
+// on the whole shard. One persistent cooperative grid, no larger than the
+// co-resident limit: sub-step j runs over the whole shard (its rows
+// extended by 2 (k - 1 - j) a side) in 2D tiles on every SM, a grid
+// barrier between sub-steps, the sub-steps' planes in two scratch buffers.
 //
 // Replaces the TPU kernel jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py::
 // _make_fluid_k_kernel with shard=True (k steps of one TH-row tile with
@@ -20,52 +22,61 @@
 // once and written once, and the 2k-row pieces (12 planes) a side (~15 us
 // a pass on the 1024x512 grid at 3.35 TB/s, against ~28 us a step for the
 // pair); the cell code is ~650 float32 operations a full cell and step
-// (~420 lean). What the pair pays, and what this design does about it:
+// (~420 lean). What the pair pays, and what the pass does about it:
 // - two launches and two halo exchanges a step, each a host call per
 //   shard: one exchange of 2k rows and one launch a shard per k steps;
-// - A's f, rho and vel written to device memory and read back by B: A and
-//   B share a phase of one block, A's rows kept in shared memory;
 // - every read decoded by the shard accessor (jrl_shard.cuh::ShardState:
 //   body, row piece or column block per value): the source is chosen once
-//   a ring row (a body row, or a row of the top or bottom piece), and the
-//   row is copied by cp.async.bulk (pass_state.cuh);
+//   a window row (a body row, a row of the top or bottom piece, or a
+//   scratch row), and the row is copied by cp.async.bulk (pass_state.cuh);
 // - the tip SDF evaluated once per neighbour read: once per window cell
-//   and sub-step, into a geometry ring (pass_state.cuh::RingGeo).
+//   and sub-step, into a geometry table (TileGeo, pass_state.cuh::RingGeo).
+// What the cell code costs on the card: one A and B chain a thread takes
+// ~7 us with one 512-thread block an SM (latency, not issue rate), so the
+// pass's time is the chains a thread runs in turn. The first design, a
+// row wavefront of (strip, run) blocks with the k sub-steps five rows apart in
+// each block, ran R + 7k - 4 chains for a run of R rows, and one wave of
+// blocks made the runs short (~10 rows at k = 4 on a 256x512 shard: 23% of
+// the chains useful); the tiles run every chain on useful or halo cells,
+// at the cost of the level pyramid's extended rows (12 of 256 a side at k =
+// 4, j = 0) and of k - 1 round trips of the planes through the scratch
+// (PERF.md §6).
 //
-// Items. Block (strip, run) writes the shard rows [y0, y1) of run r
-// ([r h / nruns, (r + 1) h / nruns)) x the columns [sx0, sx1) of strip s
-// (multiples of 4). Its window is the rows y0 - 2k .. y1 + 2k - 1 (window
-// row i is shard row y0 - 2k + i: a body row, or a row of a piece; on a
-// mesh of one row the body's own rows mod h) and the columns [sx0 - 2k,
-// sx1 + 2k) cut to the grid (the x edges reflect: nothing reads past them)
-// and rounded out to 16 bytes. Sub-step j (0 .. k-1, lvl = k - 1 - j)
-// runs A on window rows [2j + 1, n_in - 2j - 1) and columns 2 lvl + 1 past
-// the strip, B on one row and column fewer a side: the level pyramid of
-// the JAX kernel, whose last B gives the run's cells.
-//
-// Wavefront. The block's threads are k groups of fps_cols(k) (a multiple
-// of 32); group j runs sub-step j, one column a thread, A and B on one
-// column each phase. Phase t runs A_j on window row t + 1 - 5j and B_j two
-// rows behind it: B_j reads A_j's rho and vel one row away and its f at the
-// cell, A_{j+1} reads B_j's f up to two rows away (an OUTFLOW cell of row
-// 0 recomputes row 1's streaming) and A_j's rho and vel one row away, all
-// written in earlier phases; one barrier a phase. Rings of each sub-step
-// (pass_state.cuh's, one row a slot, its window row modulo the slots):
-// - its input, PASS_D = 5 slots of 12 planes (f 0-8, rho 9, u 10, v 11):
-//   for j = 0 the rows copied by one thread four rows ahead, counted on the
-//   slot's mbarrier; for j > 0 written by B_{j-1}, which also copies A_{j-1}'s
-//   rho, u and v of its row there (a lean pass: f alone);
-// - A's f, PASS_FA = 3 slots, each cell read back by the thread that wrote
-//   it; A's rho, u, v, PASS_RV = 4 slots;
-// - the geometry (full class): flag, tip bit and phi of the window's cells
-//   at the sub-step's step, PASS_G = 8 slots, filled by the group four rows
-//   ahead of its A.
-// The only read past a ring's valid rows is that OUTFLOW source two rows
-// away at the window's last A row: it lands on a row 0 past a grid that
-// wraps there, whose A only the top wall row's B reads, and an OBSTACLE
-// cell's B reads nothing around it.
+// Sub-step j (lvl = k - 1 - j) computes B on the extended rows e = 0 ..
+// E_j - 1, E_j = h + 4 lvl (shard row e - 2 lvl; on a mesh of one row E_j =
+// H, the rows wrap and nothing is extended), cut into nty[j] row bands x
+// ntx column strips (ends on multiples of 4); block b takes tiles b, b +
+// grid, ... of each sub-step. A tile of R x S B cells:
+// - copies its window, rows -2 .. R + 1 and columns [sx0 - 2, sx1 + 2)
+//   cut to the grid and rounded out to 16 bytes, of 12 planes (f 0-8, rho
+//   9, u 10, v 11; the lean class: f alone) by cp.async.bulk counted on
+//   one mbarrier, one plane row a thread (one warp issuing them all cost
+//   up to 40 us a pass): sub-step 0 from the body and the pieces
+//   (fpt_row), sub-step j > 0 from the scratch that j - 1 wrote;
+// - the full class's geometry (flag with the tip bit, phi) of every window
+//   cell at step step0 + j, once, into a table (TileGeo);
+// - A on (R + 2) x (S + 2) cells (rows -1 .. R, columns one past the
+//   strip inside the grid): rho, u, v into a window-shaped table, f into a
+//   table of the R x S B cells (B reads f at its own cell only); then one
+//   __syncthreads and B on R x S, threads on consecutive columns;
+// - the last sub-step writes f_out, rho_out and vel_out; the others write
+//   B's f and A's rho, u, v (f alone for the lean class) to the scratch
+//   buffer j % 2, [12][SR][W] with shard row r at scratch row r + 2k (on a
+//   mesh of one row: [12][H][W], row r at r).
+// One grid.sync() ends each sub-step but the last: sub-step j + 1 reads
+// what every block wrote (a proxy fence before its bulk copies, which read
+// through the async proxy). Reach: A reads one cell away, except an
+// OUTFLOW cell of row 0, which recomputes row 1's streaming and reads two
+// rows up; on the window's last A row that lands one row past the copied
+// window (a padding row of the tables), where the window wraps past H:
+// only the top wall row's B reads that A, and an OBSTACLE cell's B reads
+// nothing around it. Every other read of a real cell stays in the window.
+// The x edges reflect (jrl_common.cuh::at_dx): nothing reads past them.
+#include "fused_launch.cuh"
 #include "jrl_shard.cuh"
 #include "pass_state.cuh"
+
+#include <atomic>
 
 // Mirrors kernels/jrl_sharded.py::PassShParams (outside the unnamed
 // namespace: the C entry point takes it, and must keep external linkage).
@@ -73,10 +84,11 @@ struct FluidPassShParams {
   FluidParams a;
   FluidBParams b;
   ShardGeom s;  // the shard's place: a row mesh (w == W, col0 == 0, xh == 0)
-  int nstrips;  // column strips (FpsStrip)
-  int nruns;    // row runs: run r is the shard rows [r h / nruns, (r + 1) h / nruns)
-  int rs;       // floats of a ring row: the widest strip window (a multiple of 4)
-  int lean;     // the lean class on every run
+  int lean;     // the lean class on the whole shard
+  int nty[jrl::TILE_KMAX];  // row bands of sub-step j
+  int ntx;                  // column strips
+  int rmax, smax;           // the largest tile's B rows and columns (smax a multiple of 4)
+  int grid;                 // blocks (at most the co-resident limit)
 };
 
 // The shard's planes and its 2k-row pieces: top holds the rows row0 - 2k ..
@@ -94,41 +106,20 @@ struct FluidPassShSrc {
 namespace {
 
 using namespace jrl;
+namespace cg = cooperative_groups;
 
-constexpr int FPS_THREADS = 512;
-constexpr int FPS_LAG = 5;  // rows A_{j+1} runs behind A_j
-// floats a ring column takes per sub-step (input, A's f, A's rho u v, phi)
-constexpr int FPS_FLOATS = PASS_D * PASS_NP + PASS_FA * 9 + PASS_RV * 3 + PASS_G;
-constexpr int FPS_BYTES = FPS_FLOATS * 4 + PASS_G;  // and the geometry codes
-constexpr int FPS_SMEM_MAX = 232448;                 // a block's dynamic shared memory
+// -DJRL_FPT_NO_CELLS (no cell code: A and B copy their cell) and
+// -DJRL_FPT_NO_GEO (no geometry table) build timing probes with wrong
+// results (tools/fluid_pass_sh_probe.py variants)
+constexpr int FPT_THREADS = 512;  // threads a block, one block an SM
+// dynamic shared memory a block may take: the SM's 228 KB less the
+// runtime's 1 KB a block and 1 KB for the static (the mbarrier)
+constexpr int FPT_SMEM_CAP = 233472 - 2048;
 
-// Columns of a group of threads at depth k (the A columns of sub-step 0).
-__host__ __device__ constexpr int fps_cols(int k) { return (FPS_THREADS / k) & ~31; }
-__host__ __device__ constexpr int fps_smem_bytes(int k, int rs) { return k * FPS_BYTES * rs; }
-// The widest ring row at depth k: a group's columns and a strip window's
-// 16-byte ends, within the shared memory.
-__host__ __device__ constexpr int fps_max_rs(int k) {
-  return fps_cols(k) + 8 < ((FPS_SMEM_MAX / (k * FPS_BYTES)) & ~3)
-             ? fps_cols(k) + 8
-             : (FPS_SMEM_MAX / (k * FPS_BYTES)) & ~3;
-}
-
-// Strip s of ns: the columns [sx0, sx1) it writes (ends on multiples of
-// 4, W % 4 == 0) and the window [cx0, cx1) its ring rows hold.
-struct FpsStrip {
-  int sx0, sx1, cx0, cx1;
-  __device__ FpsStrip(int s, int ns, int W, int halo) {
-    sx0 = (s * W / ns) & ~3;
-    sx1 = s + 1 == ns ? W : ((s + 1) * W / ns) & ~3;
-    cx0 = max(sx0 - halo, 0) & ~3;
-    cx1 = min((sx1 + halo + 3) & ~3, W);
-  }
-};
-
-// Shard row r (-2k <= r < h + 2k) of ring plane q (f 0-8, rho 9, u 10, v
-// 11): a body row, or a row of a piece; on a mesh of one row the body mod h.
+// Shard row r (-2k <= r < h + 2k) of plane q (f 0-8, rho 9, u 10, v 11): a
+// body row, or a row of a piece; on a mesh of one row the body mod h.
 template <int K>
-__device__ __forceinline__ const float* fps_row(const FluidPassShSrc& src, const ShardGeom& s,
+__device__ __forceinline__ const float* fpt_row(const FluidPassShSrc& src, const ShardGeom& s,
                                                 int q, int r) {
   constexpr int R2 = 2 * K;
   if (s.h == s.H || (r >= 0 && r < s.h)) {
@@ -142,161 +133,289 @@ __device__ __forceinline__ const float* fps_row(const FluidPassShSrc& src, const
   return src.bot + (pq * R2 + r - s.h) * s.w;
 }
 
-// The pass of one block (strip, run) of class CLS at depth K.
+// A tile's tables, in floats from the start of the dynamic shared memory
+// (every row of RS = smax + 8 floats, WP = rmax + 5 rows: the window's
+// rmax + 4 and the padding row): the input [12][WP][RS], A's rho, u, v
+// [3][WP][RS], phi [WP][RS], A's f of the B cells [9][rmax][smax], then
+// the geometry codes [WP][RS] bytes.
+struct FptLayout {
+  int rs, wp, rmax, smax;
+  __host__ __device__ FptLayout(int rmax_, int smax_)
+      : rs(smax_ + 8), wp(rmax_ + 5), rmax(rmax_), smax(smax_) {}
+  __host__ __device__ int rv() const { return PASS_NP * wp * rs; }
+  __host__ __device__ int phi() const { return rv() + 3 * wp * rs; }
+  __host__ __device__ int fa() const { return phi() + wp * rs; }
+  __host__ __device__ int codes_bytes() const { return 4 * (fa() + 9 * rmax * smax); }
+  __host__ __device__ int bytes() const { return codes_bytes() + wp * rs; }
+};
+
+// Tile t of sub-step j: B on the extended rows [e0, e1) and the columns
+// [sx0, sx1); its window columns [cx0, cx1) (16-byte ends).
+struct FptTile {
+  int e0, e1, sx0, sx1, cx0, cx1;
+  __device__ FptTile(int t, int nty, int ntx, int E, int W) {
+    const int ty = t / ntx, tx = t - ty * ntx;
+    e0 = ty * E / nty;
+    e1 = (ty + 1) * E / nty;
+    sx0 = (tx * W / ntx) & ~3;
+    sx1 = tx + 1 == ntx ? W : ((tx + 1) * W / ntx) & ~3;
+    cx0 = max(sx0 - 2, 0) & ~3;
+    cx1 = min((sx1 + 2 + 3) & ~3, W);
+  }
+};
+
+// Step A's view of a tile's input around a cell: window row i, column c
+// (planes f 0-8, rho 9, u 10, v 11 of WP rows each).
+struct TileIn {
+  const float* in;
+  int rs, wp, i, c;
+  __device__ __forceinline__ int idx(int q, int dy, int dx) const {
+    return (q * wp + i + dy) * rs + c + dx;
+  }
+  __device__ __forceinline__ float F(int q, int dy, int dx) const { return in[idx(q, dy, dx)]; }
+  __device__ __forceinline__ float R(int dy, int dx) const { return in[idx(9, dy, dx)]; }
+  __device__ __forceinline__ float U(int dy, int dx) const { return in[idx(10, dy, dx)]; }
+  __device__ __forceinline__ float V(int dy, int dx) const { return in[idx(11, dy, dx)]; }
+  __device__ __forceinline__ TileIn at(int dy, int dx) const {
+    return TileIn{in, rs, wp, i + dy, c + dx};
+  }
+};
+
+// Step B's view: A's f of the cell (`fa` positioned at it, planes `fstride`
+// apart), A's rho, u, v around it from their window-shaped table.
+struct TileB {
+  const float* rv;
+  const float* fa;
+  int rs, wp, fstride, i, c;
+  __device__ __forceinline__ int idx(int p, int dy, int dx) const {
+    return (p * wp + i + dy) * rs + c + dx;
+  }
+  __device__ __forceinline__ float F(int q, int, int) const { return fa[q * fstride]; }
+  __device__ __forceinline__ float R(int dy, int dx) const { return rv[idx(0, dy, dx)]; }
+  __device__ __forceinline__ float U(int dy, int dx) const { return rv[idx(1, dy, dx)]; }
+  __device__ __forceinline__ float V(int dy, int dx) const { return rv[idx(2, dy, dx)]; }
+};
+
+// The moving tip at one step, read from a tile's geometry table (RingGeo's
+// values, the window rows in order from global row ybase, mod H).
+struct TileGeo {
+  int H, W, ybase, rs, cx0;
+  bool flat;
+  float vel_obs;
+  const float* phis;
+  const unsigned char* codes;
+  __device__ __forceinline__ int at(int y, int x) const {
+    int j = y - ybase;
+    j += j < 0 ? H : 0;
+    return j * rs + x - cx0;
+  }
+  __device__ __forceinline__ int flag(int y, int x) const { return codes[at(y, x)] & 0x7f; }
+  __device__ __forceinline__ bool tip(int y, int x) const { return codes[at(y, x)] >> 7; }
+  __device__ __forceinline__ float phi(int y, int x) const { return phis[at(y, x)]; }
+  __device__ __forceinline__ float obs_v(int y, int x) const {
+    return (tip(y, x) && (flat || y != H - 1)) ? vel_obs : 0.0f;
+  }
+  __device__ __forceinline__ float u(int y, int x, float raw) const {
+    return tip(y, x) ? 0.0f : raw;
+  }
+  __device__ __forceinline__ float v(int y, int x, float raw) const {
+    return tip(y, x) ? obs_v(y, x) : raw;
+  }
+  __device__ void inflow(int, int, int, float*) const {}
+};
+
+// orders generic-proxy writes to global memory that this thread has seen
+// (the other blocks' scratch rows, after grid.sync) before its async-proxy
+// reads of them
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// The pass of class CLS at depth K over every tile of the launch.
 template <int CLS, int K>
-__device__ __forceinline__ void fps_run(const FluidPassShSrc& src, float* f_out, float* rho_out,
-                                        float* vel_out, int step0, const FluidPassShParams& p,
-                                        float* smem, uint64_t* bars) {
+__device__ __forceinline__ void fpt_run(const FluidPassShSrc& src, float* f_out, float* rho_out,
+                                        float* vel_out, float* scr0, float* scr1, int step0,
+                                        const FluidPassShParams& p, float* smem, uint64_t* bar) {
   constexpr bool LEAN = CLS == TILE_LEAN;
-  constexpr int CW = fps_cols(K);
-  constexpr int NPL = LEAN ? 9 : PASS_NP;  // planes an input row loads
+  constexpr int NPL = LEAN ? 9 : PASS_NP;  // planes of a window row and of the scratch
   const ShardGeom& s = p.s;
-  const int H = s.H, W = s.W, hw = s.h * s.w, RS = p.rs;
-  const FpsStrip st(blockIdx.x, p.nstrips, W, 2 * K);
-  const int y0 = blockIdx.y * s.h / p.nruns, y1 = (blockIdx.y + 1) * s.h / p.nruns;
-  const int n_in = y1 - y0 + 4 * K;                   // window rows
-  const int ybase = wrap1(s.row0 + y0 - 2 * K, H);    // global row of window row 0
-  const int ncols = st.cx1 - st.cx0;
-  const int tid = threadIdx.x;
-  const int j = tid / CW, lane = tid - j * CW;  // sub-step (j >= K: idle) and column
-  const bool active = j < K;
-  const int jj = active ? j : 0, lvl = K - 1 - jj;
-
-  // sub-step jj's rings: its input, A's f, A's rho u v, phi; the codes after
-  // every sub-step's floats
-  float* const in = smem + jj * FPS_FLOATS * RS;
-  float* const fa = in + PASS_D * PASS_NP * RS;
-  float* const rv = fa + PASS_FA * 9 * RS;
-  float* const phis = rv + PASS_RV * 3 * RS;
-  unsigned char* const codes =
-      reinterpret_cast<unsigned char*>(smem + K * FPS_FLOATS * RS) + jj * PASS_G * RS;
-  float* const next = smem + (jj + 1) * FPS_FLOATS * RS;  // sub-step jj + 1's input
-
+  const int H = s.H, W = s.W, hw = s.h * s.w, tid = threadIdx.x;
+  const bool whole = s.h == s.H;  // a mesh of one row
+  const int soff = whole ? 0 : 2 * K;  // scratch row of shard row 0
+  const size_t splane = (size_t)(whole ? H : s.h + 4 * K) * W;  // floats a scratch plane
+  const FptLayout lay(p.rmax, p.smax);
+  const int RS = lay.rs, WP = lay.wp;
+  float* const in = smem;
+  float* const rv = smem + lay.rv();
+  float* const phis = smem + lay.phi();
+  float* const fa = smem + lay.fa();
+  unsigned char* const codes = reinterpret_cast<unsigned char*>(smem) + lay.codes_bytes();
+  const uint32_t bar_a = smem_addr(bar);
   if (tid == 0) {
-    for (int i = 0; i < PASS_D; ++i) mbar_init(smem_addr(bars + i));
+    mbar_init(bar_a);
     mbar_init_fence();
-    // the initialised mbarriers visible to the async proxy, whose copies
-    // complete on them (pass_state.cuh)
-    fence_proxy_async();
+    fence_proxy_async();  // the initialised mbarrier visible to the async proxy
   }
   __syncthreads();
-  // thread 0: window row i into slot i % PASS_D of sub-step 0's input
-  auto issue = [&](int i) {
-    const int sl = i % PASS_D, r = y0 - 2 * K + i;
-    const uint32_t bar = smem_addr(bars + sl), bytes = 4u * (uint32_t)ncols;
-    mbar_expect(bar, bytes * NPL);
-    float* const dst = smem + sl * PASS_NP * RS;
-#pragma unroll
-    for (int q = 0; q < NPL; ++q)
-      bulk_g2s(smem_addr(dst + q * RS), fps_row<K>(src, s, q, r) + st.cx0, bytes, bar);
-  };
-  auto wait_row = [&](int i) { mbar_wait(smem_addr(bars + i % PASS_D), (i / PASS_D) & 1); };
-  if (tid == 0)
-    for (int i = 0; i < PASS_D && i < n_in; ++i) issue(i);
-
-  // sub-step jj's tip: FluidGeo's values once per window cell, into its ring
-  const FluidGeo fg = fluid_geo(step0 + jj, p.a);
-  auto geo_row = [&](int i) {
-    const int y = wrap1(ybase + i, H);
-    float* const ph = phis + (i & (PASS_G - 1)) * RS;
-    unsigned char* const cd = codes + (i & (PASS_G - 1)) * RS;
-    for (int c = lane; c < ncols; c += CW) cd[c] = geo_code(fg, y, st.cx0 + c, ph[c]);
-  };
-  const auto geo = [&] {
-    if constexpr (LEAN) {
-      return LeanGeo{H, W};
-    } else {
-      return RingGeo{H, W, ybase, RS, st.cx0, fg.flat, fg.vel_obs, phis, codes};
-    }
-  }();
-  if (!LEAN && active)
-    for (int i = 0; i < 4 && i < n_in; ++i) geo_row(i);
-  __syncthreads();  // the geometry rows the first A reads
-
-  // this thread's column, counted from sub-step 0's first A column
-  const int x = max(st.sx0 - (2 * K - 1), 0) + lane, c = x - st.cx0;
-  const bool a_on = active && x >= max(st.sx0 - (2 * lvl + 1), 0) &&
-                    x < min(st.sx1 + 2 * lvl + 1, W);
-  const bool b_on = active && x >= max(st.sx0 - 2 * lvl, 0) && x < min(st.sx1 + 2 * lvl, W);
-  const int a_lo = 2 * jj + 1, a_hi = n_in - 2 * jj - 1;  // A's window rows
-  const int t_end = n_in + 3 * K - 4;                      // the last B of sub-step k - 1, + 1
+  uint32_t parity = 0;
+  cg::grid_group grid = cg::this_grid();
 
 #pragma unroll 1
-  for (int t = 0; t < t_end; ++t) {
-    // slot (t + 4) % PASS_D: its row t - 1 was last read in phase t - 1
-    if (tid == 0 && t >= 1 && t + 4 < n_in) {
-      fence_proxy_async();
-      issue(t + 4);
-    }
-    const int ia = t + 1 - FPS_LAG * jj, ib = ia - 2;
-    const bool do_a = a_on && ia >= a_lo && ia < a_hi;
-    const bool do_b = b_on && ib > a_lo && ib < a_hi - 1;
-    if (j == 0 && do_a) {
-      if (t == 0)
-        for (int i = 0; i < 3; ++i) wait_row(i);
-      if (t + 3 < n_in) wait_row(t + 3);
-    }
-    if (!LEAN && active && ia + 3 >= 4 && ia + 3 < n_in) geo_row(ia + 3);
-    if (do_a) {
-      const int y = wrap1(ybase + ia, H), kf = ia % PASS_FA, kr = ia & (PASS_RV - 1);
-      float fo[9], r, u, v;
-      fluid_a_cell(PassIn{in, RS, ia % PASS_D, c}, geo, p.a.cs2tau, y, x, fo, r, u, v);
-#pragma unroll
-      for (int q = 0; q < 9; ++q) fa[(kf * 9 + q) * RS + c] = fo[q];
-      rv[(kr * 3 + 0) * RS + c] = r;
-      rv[(kr * 3 + 1) * RS + c] = u;
-      rv[(kr * 3 + 2) * RS + c] = v;
-    }
-    if (do_b) {
-      const int y = wrap1(ybase + ib, H), kr = ib & (PASS_RV - 1);
-      float fo[9];
-      fluid_b_cell(PassB{rv, fa + (ib % PASS_FA) * 9 * RS, RS, kr, c}, geo, p.b, y, x, fo);
-      const float r = rv[(kr * 3 + 0) * RS + c], u = rv[(kr * 3 + 1) * RS + c],
-                  v = rv[(kr * 3 + 2) * RS + c];
-      if (jj < K - 1) {
-        float* const dst = next + (ib % PASS_D) * PASS_NP * RS + c;
-#pragma unroll
-        for (int q = 0; q < 9; ++q) dst[q * RS] = fo[q];
-        if (!LEAN) {
-          dst[9 * RS] = r;
-          dst[10 * RS] = u;
-          dst[11 * RS] = v;
+  for (int j = 0; j < K; ++j) {
+    const int lvl = K - 1 - j;
+    const int E = whole ? H : s.h + 4 * lvl;  // B rows of the sub-step
+    const int r_lo = whole ? 0 : -2 * lvl;    // shard row of extended row 0
+    const float* const s_in = (j & 1) ? scr0 : scr1;  // what sub-step j - 1 wrote
+    float* const s_out = (j & 1) ? scr1 : scr0;
+    const FluidGeo fg = fluid_geo(step0 + j, p.a);
+    const int nty = p.nty[j], ntiles = nty * p.ntx;
+#pragma unroll 1
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const FptTile tl(t, nty, p.ntx, E, W);
+      const int R = tl.e1 - tl.e0, S = tl.sx1 - tl.sx0, ncols = tl.cx1 - tl.cx0;
+      const int rb0 = r_lo + tl.e0;                  // shard row of the first B row
+      const int ybase = wrap1(s.row0 + rb0 - 2, H);  // global row of window row 0
+      const int wr = R + 4;
+      if (R < 1 || R > p.rmax || S < 1 || S > p.smax || ncols > RS) __trap();
+      // the window's rows, a copy a plane row, one a thread; the barrier
+      // orders the expected bytes before every copy and the tile before's
+      // reads of the tables before this tile's writes
+      if (tid == 0) mbar_expect(bar_a, 4u * (uint32_t)(ncols * NPL * wr));
+      __syncthreads();
+      for (int n = tid; n < NPL * wr; n += FPT_THREADS) {
+        const int q = n / wr, i = n - q * wr, r = rb0 - 2 + i;
+        const float* const row =
+            j == 0 ? fpt_row<K>(src, s, q, r)
+                   : s_in + q * splane + (size_t)(whole ? wrap1(r, H) : r + soff) * W;
+        fence_proxy_async();         // the block's reads of the tables before the copy
+        fence_proxy_async_global();  // the scratch rows written before grid.sync
+        bulk_g2s(smem_addr(in + (q * WP + i) * RS), row + tl.cx0, 4u * (uint32_t)ncols, bar_a);
+      }
+      // the tip's values once per window cell and its padding row
+#ifndef JRL_FPT_NO_GEO
+      if (!LEAN)
+        for (int n = tid; n < (wr + 1) * ncols; n += FPT_THREADS) {
+          const int i = n / ncols, c = n - i * ncols;
+          codes[i * RS + c] = geo_code(fg, wrap1(ybase + i, H), tl.cx0 + c, phis[i * RS + c]);
         }
-      } else {
-        const int o = (y0 - 2 * K + ib) * s.w + x;
+#endif
+      __syncthreads();
+      mbar_wait(bar_a, parity);
+      parity ^= 1;
+      const auto geo = [&] {
+        if constexpr (LEAN) {
+          return LeanGeo{H, W};
+        } else {
+          return TileGeo{H, W, ybase, RS, tl.cx0, fg.flat, fg.vel_obs, phis, codes};
+        }
+      }();
+      // A on rows -1 .. R and one column past the strip
+      const int ax0 = max(tl.sx0 - 1, 0), acols = min(tl.sx1 + 1, W) - ax0;
+#pragma unroll 1
+      for (int n = tid; n < (R + 2) * acols; n += FPT_THREADS) {
+        const int ia = n / acols, x = ax0 + n - ia * acols, i = ia + 1, c = x - tl.cx0;
+        float fo[9], r, u, v;
+#ifdef JRL_FPT_NO_CELLS
+        const TileIn a{in, RS, WP, i, c};
+        for (int q = 0; q < 9; ++q) fo[q] = a.F(q, 0, 0);
+        r = a.R(0, 0), u = a.U(0, 0), v = a.V(0, 0);
+#else
+        fluid_a_cell(TileIn{in, RS, WP, i, c}, geo, p.a.cs2tau, wrap1(ybase + i, H), x, fo, r, u,
+                     v);
+#endif
+        rv[i * RS + c] = r;
+        rv[(WP + i) * RS + c] = u;
+        rv[(2 * WP + i) * RS + c] = v;
+        const int bi = i - 2, bc = x - tl.sx0;
+        if (bi >= 0 && bi < R && bc >= 0 && bc < S) {
 #pragma unroll
-        for (int q = 0; q < 9; ++q) f_out[q * hw + o] = fo[q];
-        rho_out[o] = r;
-        vel_out[o] = u;
-        vel_out[hw + o] = v;
+          for (int q = 0; q < 9; ++q) fa[(q * p.rmax + bi) * p.smax + bc] = fo[q];
+        }
+      }
+      __syncthreads();
+      // B on the tile's cells
+#pragma unroll 1
+      for (int n = tid; n < R * S; n += FPT_THREADS) {
+        const int bi = n / S, bc = n - bi * S, x = tl.sx0 + bc, i = bi + 2, c = x - tl.cx0;
+        float fo[9];
+#ifdef JRL_FPT_NO_CELLS
+        for (int q = 0; q < 9; ++q) fo[q] = fa[(q * p.rmax + bi) * p.smax + bc];
+#else
+        fluid_b_cell(TileB{rv, fa + bi * p.smax + bc, RS, WP, p.rmax * p.smax, i, c}, geo, p.b,
+                     wrap1(ybase + i, H), x, fo);
+#endif
+        const float r = rv[i * RS + c], u = rv[(WP + i) * RS + c], v = rv[(2 * WP + i) * RS + c];
+        const int rr = rb0 + bi;  // shard row
+        if (j < K - 1) {
+          float* const dst = s_out + (size_t)(rr + soff) * W + x;
+#pragma unroll
+          for (int q = 0; q < 9; ++q) dst[q * splane] = fo[q];
+          if (!LEAN) {
+            dst[9 * splane] = r;
+            dst[10 * splane] = u;
+            dst[11 * splane] = v;
+          }
+        } else {
+          const int o = rr * s.w + x;
+#pragma unroll
+          for (int q = 0; q < 9; ++q) f_out[q * hw + o] = fo[q];
+          rho_out[o] = r;
+          vel_out[o] = u;
+          vel_out[hw + o] = v;
+        }
       }
     }
-    __syncthreads();
+    if (j < K - 1) grid.sync();
   }
 }
 
 template <int K>
-__global__ void __launch_bounds__(FPS_THREADS, 1) fluid_pass_sh_kernel(
-    FluidPassShSrc src, float* __restrict__ f_out, float* __restrict__ rho_out,
-    float* __restrict__ vel_out, int step0, FluidPassShParams p) {
+__global__ void __launch_bounds__(FPT_THREADS, 1) fluid_pass_sh_tiles(
+    FluidPassShSrc src, float* f_out, float* rho_out, float* vel_out, float* scr0, float* scr1,
+    int step0, FluidPassShParams p) {
   extern __shared__ __align__(128) float smem[];
-  __shared__ __align__(8) uint64_t bars[PASS_D];
-  // a block whose plan the host got wrong stops the launch (an error, not
-  // wrong cells): its rings must fit the shared memory, its strip the
-  // threads and the ring rows, its window the grid's rows once
+  __shared__ __align__(8) uint64_t bar;
+  // a launch whose plan the host got wrong stops (an error, not wrong
+  // cells): its tables must fit the shared memory
   unsigned dyn;
   asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));
-  const FpsStrip st(blockIdx.x, p.nstrips, p.s.W, 2 * K);
-  const int y0 = blockIdx.y * p.s.h / p.nruns, y1 = (blockIdx.y + 1) * p.s.h / p.nruns;
-  if (p.rs > fps_max_rs(K) || (unsigned)fps_smem_bytes(K, p.rs) > dyn ||
-      st.cx1 - st.cx0 > p.rs || st.sx0 >= st.sx1 ||
-      min(st.sx1 + 2 * K - 1, p.s.W) - max(st.sx0 - (2 * K - 1), 0) > fps_cols(K) || y0 >= y1 ||
-      y1 - y0 + 4 * K > p.s.H)
-    __trap();
+  if ((unsigned)FptLayout(p.rmax, p.smax).bytes() > dyn) __trap();
   if (p.lean)
-    fps_run<TILE_LEAN, K>(src, f_out, rho_out, vel_out, step0, p, smem, bars);
+    fpt_run<TILE_LEAN, K>(src, f_out, rho_out, vel_out, scr0, scr1, step0, p, smem, &bar);
   else
-    fps_run<TILE_FULL, K>(src, f_out, rho_out, vel_out, step0, p, smem, bars);
+    fpt_run<TILE_FULL, K>(src, f_out, rho_out, vel_out, scr0, scr1, step0, p, smem, &bar);
+}
+
+// Blocks of the instance at depth K that fit on the current device at
+// once with `bytes` of dynamic shared memory: one occupancy query per
+// device and tile size (a runner keeps its plan, so one a run), not one a
+// launch.
+template <int K>
+int fpt_coresident(int bytes, int* out) {
+  // per device: the bytes asked last (high word) and the blocks (low word)
+  static std::atomic<long long> seen[JRL_MAX_DEVICES] = {};
+  *out = 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const bool cached = dev >= 0 && dev < JRL_MAX_DEVICES;
+  if (cached) {
+    const long long v = seen[dev].load(std::memory_order_relaxed);
+    if ((int)(v >> 32) == bytes) {
+      *out = (int)(v & 0xffffffff);
+      return (int)cudaSuccess;
+    }
+  }
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = (cudaError_t)smem_attr_once<fluid_pass_sh_tiles<K>>(FPT_SMEM_CAP);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fluid_pass_sh_tiles<K>,
+                                                      FPT_THREADS, bytes);
+  if (e != cudaSuccess) return (int)e;
+  *out = per_sm * sms;
+  if (cached) seen[dev].store(((long long)bytes << 32) | *out, std::memory_order_relaxed);
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -304,41 +423,60 @@ __global__ void __launch_bounds__(FPS_THREADS, 1) fluid_pass_sh_kernel(
 // Registers per thread and local (spill) bytes of the instance at depth k.
 extern "C" int jrl_fluid_pass_sh_info(int k, int* regs, int* local_bytes) {
   return with_tile_k(k, [&](auto kc) {
-    return kernel_info(fluid_pass_sh_kernel<decltype(kc)::value>, regs, local_bytes);
+    return kernel_info(fluid_pass_sh_tiles<decltype(kc)::value>, regs, local_bytes);
   });
 }
 
-// The launch's shape at depth k, which the host plan mirrors
-// (kernels/jrl_sharded.py::pass_sh_plan): threads a block, columns a
-// group, the widest ring row, shared-memory bytes per ring column.
-extern "C" int jrl_fluid_pass_sh_shape(int k, int* threads, int* cols, int* max_rs,
-                                       int* bytes_per_col) {
-  if (k < 1 || k > TILE_KMAX) return (int)cudaErrorInvalidValue;
-  *threads = FPS_THREADS;
-  *cols = fps_cols(k);
-  *max_rs = fps_max_rs(k);
-  *bytes_per_col = k * FPS_BYTES;
-  return (int)cudaSuccess;
+// The launch shape, which the host plan mirrors (kernels/jrl_sharded.py::
+// pass_sh_plan): threads a block, the shared memory a block may take, the
+// bytes a tile of rmax x smax B cells takes, and the blocks of that size
+// the card holds at once at depth k.
+extern "C" int jrl_fluid_pass_sh_tile_shape(int k, int rmax, int smax, int* threads,
+                                            int* smem_cap, int* bytes, int* coresident) {
+  if (rmax < 1 || smax < 4 || smax % 4) return (int)cudaErrorInvalidValue;
+  *threads = FPT_THREADS;
+  *smem_cap = FPT_SMEM_CAP;
+  *bytes = FptLayout(rmax, smax).bytes();
+  return with_tile_k(k, [&](auto kc) {
+    return fpt_coresident<decltype(kc)::value>(*bytes, coresident);
+  });
 }
 
-// One k-step pass of a shard from step step0: p->nstrips x p->nruns blocks.
-// src: the shard's planes and its 2k-row pieces, rows 16-byte aligned
-// (W % 4 == 0); the outputs apart from them.
+// One k-step pass of a shard from step step0. src: the shard's planes and
+// its 2k-row pieces, rows 16-byte aligned (W % 4 == 0); the outputs apart
+// from them. A cooperative grid of p->grid blocks (refused, nothing
+// launched, over the co-resident limit); scratch buffers scr0 (k >= 2) and
+// scr1 (k >= 3), each of at least 12 planes (the lean class: 9) of h + 4k
+// rows (a mesh of one row: H) x W.
 extern "C" int jrl_fluid_pass_sh(const FluidPassShSrc* src, float* f_out, float* rho_out,
-                                 float* vel_out, int step0, int k, const FluidPassShParams* p,
-                                 void* stream) {
+                                 float* vel_out, float* scr0, float* scr1, int step0, int k,
+                                 const FluidPassShParams* p, void* stream) {
   const ShardGeom& s = p->s;
-  if (k < 1 || k > TILE_KMAX || p->rs < 4 || p->rs % 4 || p->rs > fps_max_rs(k) || s.W % 4 ||
-      s.w != s.W || s.col0 != 0 || s.xh != 0 || p->nstrips < 1 || p->nruns < 1 ||
-      p->nruns > s.h || (s.h < s.H && (!src->top || !src->bot || 2 * k > s.h)) || 4 * k >= s.H)
+  if (k < 1 || k > TILE_KMAX || s.W % 4 || s.w != s.W || s.col0 != 0 || s.xh != 0 ||
+      (s.h < s.H && (!src->top || !src->bot || 2 * k > s.h)) || 4 * k >= s.H)
     return (int)cudaErrorInvalidValue;
+  if (p->ntx < 1 || p->ntx > s.W / 4 || p->rmax < 1 || p->rmax + 5 > s.H || p->smax < 4 ||
+      p->smax % 4 || (k >= 2 && !scr0) || (k >= 3 && !scr1))
+    return (int)cudaErrorInvalidValue;
+  for (int j = 0; j < k; ++j) {
+    const int E = s.h == s.H ? s.H : s.h + 4 * (k - 1 - j);
+    if (p->nty[j] < 1 || p->nty[j] > E || (E + p->nty[j] - 1) / p->nty[j] > p->rmax)
+      return (int)cudaErrorInvalidValue;
+  }
+  const int bytes = FptLayout(p->rmax, p->smax).bytes();
+  if (bytes > FPT_SMEM_CAP) return (int)cudaErrorInvalidValue;
   return with_tile_k(k, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
-    const int bytes = fps_smem_bytes(K, p->rs);
-    const int err = smem_attr_once<fluid_pass_sh_kernel<K>>(fps_smem_bytes(K, fps_max_rs(K)));
+    int most = 0;
+    const int err = fpt_coresident<K>(bytes, &most);
     if (err != (int)cudaSuccess) return err;
-    fluid_pass_sh_kernel<K><<<dim3(p->nstrips, p->nruns), FPS_THREADS, bytes,
-                              (cudaStream_t)stream>>>(*src, f_out, rho_out, vel_out, step0, *p);
-    return (int)cudaGetLastError();
+    if (p->grid < 1 || p->grid > most) return (int)cudaErrorCooperativeLaunchTooLarge;
+    FluidPassShSrc a0 = *src;
+    FluidPassShParams a7 = *p;
+    int a6 = step0;
+    void* args[] = {&a0, &f_out, &rho_out, &vel_out, &scr0, &scr1, &a6, &a7};
+    return (int)cudaLaunchCooperativeKernel((const void*)fluid_pass_sh_tiles<K>, dim3(p->grid),
+                                            dim3(FPT_THREADS), args, bytes,
+                                            (cudaStream_t)stream);
   });
 }

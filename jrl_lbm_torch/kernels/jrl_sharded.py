@@ -10,8 +10,10 @@ Replaces the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py`:
 ``_step_balance`` and ``_step_approach``; and the ``shard=True`` mode of
 `fused_jrl_tiled.py::_make_fluid_k_kernel` (k fused fluid steps of a
 shard from its 2k-row pieces), which no JAX runner builds: here
-`fluid_pass_sh`, the row-mesh fluid runner's default route (one launch a
-shard and k-step pass, the full or the lean class). The runners port
+`fluid_pass_sh`, the row-mesh fluid runner's default route (one
+cooperative launch a shard and k-step pass, the full or the lean class:
+the k sub-steps in turn over the whole shard, each in one wave of tiles
+on every SM, `pass_sh_plan`). The runners port
 ``make_sharded_tiled_{fluid,balance,approach}_runner`` with their
 ``(state, fields, ...)`` contracts: global tensors in and out.
 
@@ -444,77 +446,164 @@ def c_approach_sh(h, C, vel, base, halo_h: Halo, halo_fl: Halo, step: int, cfg, 
 class PassShParams(ctypes.Structure):
     """Mirrors ``csrc/fluid_pass_sh.cu::FluidPassShParams``."""
     _fields_ = [("a", _fl.FluidParams), ("b", _fl.FluidBParams), ("s", ShardGeom),
-                ("nstrips", ctypes.c_int), ("nruns", ctypes.c_int), ("rs", ctypes.c_int),
-                ("lean", ctypes.c_int)]
+                ("lean", ctypes.c_int), ("nty", ctypes.c_int * _tl.KMAX), ("ntx", ctypes.c_int),
+                ("rmax", ctypes.c_int), ("smax", ctypes.c_int), ("grid", ctypes.c_int)]
 
 
 class PassShSrc(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in ("f", "rho", "vel", "top", "bot")]
 
 
-# csrc/fluid_pass_sh.cu: threads a block, dynamic shared memory a block may
-# take, and bytes a ring column takes per sub-step ((5 x 12 + 3 x 9 + 4 x 3 +
-# 8) floats and 8 geometry codes)
-PASS_SH_THREADS = 512
-PASS_SH_SMEM = 232448
-PASS_SH_BYTES = 436
+# threads a block (one block an SM) and the dynamic shared memory a block
+# may take (csrc/fluid_pass_sh.cu: FPT_THREADS, FPT_SMEM_CAP)
+TILE_THREADS = 512
+TILE_SMEM_CAP = 231424
+# the plan's cost of a wave of tiles, per cell of its largest tile: an A
+# cell, a B cell (shares of one A-and-B chain of the first design) and a
+# window cell (its copies and geometry; PERF.md §6)
+TILE_COST_A, TILE_COST_B, TILE_COST_W = 0.45, 0.55, 0.25
 
 
-def pass_sh_cols(k: int) -> int:
-    """Columns of a sub-step's group of threads at depth k (a multiple of 32)."""
-    return (PASS_SH_THREADS // int(k)) & ~31
+def tile_smem_bytes(rmax: int, smax: int) -> int:
+    """Bytes of a block's tables for tiles of at most ``rmax`` x ``smax``
+    B cells (``FptLayout::bytes``): rows of ``smax + 8`` floats, ``rmax +
+    5`` window rows; the input (12 planes), A's rho, u, v, phi, A's f of
+    the B cells, the geometry codes."""
+    rs, wp = smax + 8, rmax + 5
+    return 4 * ((12 + 3 + 1) * wp * rs + 9 * rmax * smax) + wp * rs
 
 
-def pass_sh_max_rs(k: int) -> int:
-    """The widest ring row (floats) at depth k."""
-    return min(pass_sh_cols(k) + 8, (PASS_SH_SMEM // (int(k) * PASS_SH_BYTES)) & ~3)
+def pass_sh_rows(sh: Shard, k: int):
+    """B rows of each sub-step of a k-step pass: the shard's rows extended
+    by 2 (k - 1 - j) a side (``h + 4 (k - 1 - j)``); on a mesh of one row
+    the grid's ``H``, nothing extended."""
+    k = int(k)
+    return [sh.H if sh.h == sh.H else sh.h + 4 * (k - 1 - j) for j in range(k)]
 
 
-def pass_sh_strip(s: int, ns: int, W: int, k: int):
-    """``(sx0, sx1, cx0, cx1)`` of strip ``s`` of ``ns``: the columns it
-    writes (ends on multiples of 4) and its window, 2k columns a side cut
-    to the grid and rounded out to 16 bytes."""
-    sx0 = (s * W // ns) & ~3
-    sx1 = W if s + 1 == ns else ((s + 1) * W // ns) & ~3
-    return sx0, sx1, max(sx0 - 2 * k, 0) & ~3, min((sx1 + 2 * k + 3) & ~3, W)
+def tile_strip(tx: int, ntx: int, W: int):
+    """``(sx0, sx1, cx0, cx1)`` of column strip ``tx`` of ``ntx``: the B
+    columns (ends on multiples of 4) and the window columns, two a side cut
+    to the grid and rounded out to 16 bytes (``FptTile``)."""
+    sx0 = (tx * W // ntx) & ~3
+    sx1 = W if tx + 1 == ntx else ((tx + 1) * W // ntx) & ~3
+    return sx0, sx1, max(sx0 - 2, 0) & ~3, min((sx1 + 2 + 3) & ~3, W)
 
 
-def pass_sh_plan(sh: Shard, k: int, sms: int = _tl.PASS_SMS):
-    """``(nstrips, nruns, rs)`` of a `fluid_pass_sh` launch: the fewest
-    column strips whose windows fit a ring row and whose first A columns
-    (2k - 1 past the strip) fit a group of threads; runs of the shard's
-    rows for about one block an SM, each window (run + 4k rows) inside the
-    grid's rows."""
-    k, W = int(k), sh.W
-    cols, most = pass_sh_cols(k), pass_sh_max_rs(k)
-    for ns in range(1, W // 4 + 1):
-        strips = [pass_sh_strip(s, ns, W, k) for s in range(ns)]
-        if all(sx0 < sx1 and cx1 - cx0 <= most
-               and min(sx1 + 2 * k - 1, W) - max(sx0 - 2 * k + 1, 0) <= cols
-               for sx0, sx1, cx0, cx1 in strips):
-            break
-    else:
-        raise ValueError(f"W = {W} has no strip plan at k = {k}")
-    least = -(-sh.h // (sh.H - 4 * k))
-    nruns = min(sh.h, max(1, sms // ns, least))
-    return ns, nruns, max(cx1 - cx0 for *_, cx0, cx1 in strips)
+def pass_sh_tile(t: int, nty: int, ntx: int, E: int, W: int):
+    """``(e0, e1, sx0, sx1, cx0, cx1)`` of tile ``t`` of a sub-step of
+    ``E`` B rows: extended rows ``[e0, e1)`` x the strip's columns."""
+    ty, tx = divmod(int(t), int(ntx))
+    return (ty * E // nty, (ty + 1) * E // nty) + tile_strip(tx, ntx, W)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """A launch: ``nty[j]`` row bands of sub-step j x ``ntx`` column
+    strips, the largest tile ``rmax`` x ``smax``, ``grid`` blocks."""
+    nty: tuple
+    ntx: int
+    rmax: int
+    smax: int
+    grid: int
+
+    def tiles(self, j: int, E: int, W: int):
+        return [pass_sh_tile(t, self.nty[j], self.ntx, E, W)
+                for t in range(self.nty[j] * self.ntx)]
+
+
+def _smax_of(ntx: int, W: int) -> int:
+    return max(tile_strip(t, ntx, W)[1] - tile_strip(t, ntx, W)[0] for t in range(ntx))
 
 
 @functools.lru_cache(maxsize=256)
-def _pass_sh_params(cfg, sh: Shard, k: int, lean: bool, sms: int) -> PassShParams:
-    ns, nruns, rs = pass_sh_plan(sh, k, sms)
-    return PassShParams(a=_fl._a_params(cfg), b=_fl._b_params(cfg), s=sh.geom, nstrips=ns,
-                        nruns=nruns, rs=rs, lean=int(bool(lean)))
+def pass_sh_plan(sh: Shard, k: int, sms: int = _tl.PASS_SMS) -> TilePlan:
+    """The plan of a k-step pass of ``sh``. Each sub-step's bands and the
+    launch's strips minimise the waves of ``sms`` blocks times a wave's
+    cost (``TILE_COST_*`` x the largest tile's A cells (R + 2) x (S + 2),
+    B cells R x S and window cells (R + 4) x (S + 8), at least a cell of
+    each a thread), with strips of at least 32 columns (the window rows'
+    copies), each tile's tables within ``TILE_SMEM_CAP`` and its window (R
+    + 5 rows) within the grid's rows."""
+    H, W, k = sh.H, sh.W, int(k)
+    rows = pass_sh_rows(sh, k)
+    if W % 4 or W < 4:
+        raise ValueError(f"W = {W}: the tiles take W % 4 == 0")
+    best = None
+    floor = (TILE_COST_A + TILE_COST_B + TILE_COST_W) * TILE_THREADS
+    for ntx in range(1, max(1, W // 32) + 1):
+        S_ = _smax_of(ntx, W)
+        total, nty = 0.0, []
+        for E in rows:
+            pick = None
+            for R in range(1, min(E, H - 5, 256) + 1):
+                if tile_smem_bytes(R, S_) > TILE_SMEM_CAP:
+                    break
+                n = -(-E // R)
+                waves = -(-(n * ntx) // int(sms))
+                cost = waves * max(TILE_COST_A * (R + 2) * (S_ + 2) + TILE_COST_B * R * S_
+                                   + TILE_COST_W * (R + 4) * (S_ + 8), floor)
+                if pick is None or (cost, n) < pick[:2]:
+                    pick = (cost, n)
+            if pick is None:
+                break
+            total += pick[0]
+            nty.append(pick[1])
+        else:
+            key = (total, max(nty) * ntx)
+            if best is None or key < best[0]:
+                best = (key, ntx, tuple(nty), S_)
+    if best is None:
+        raise ValueError(f"{H}x{W}: no tile fits the shared memory")
+    _, ntx, nty, smax = best
+    rmax = max(-(-E // n) for E, n in zip(rows, nty))
+    return TilePlan(nty, ntx, rmax, smax, min(int(sms), max(nty) * ntx))
+
+
+def tile_plan(sh: Shard, k: int, R: int, S_: int, sms: int = _tl.PASS_SMS) -> TilePlan:
+    """A plan of bands of about ``R`` rows and strips of about ``S_``
+    columns in place of `pass_sh_plan`'s (the CPU tests' schedules, the
+    probe's tile shapes)."""
+    H, W = sh.H, sh.W
+    rows = pass_sh_rows(sh, k)
+    ntx = min(max(1, -(-W // int(S_))), W // 4)
+    nty = tuple(min(E, max(1, -(-E // int(R)))) for E in rows)
+    rmax, smax = max(-(-E // n) for E, n in zip(rows, nty)), _smax_of(ntx, W)
+    if rmax + 5 > H or tile_smem_bytes(rmax, smax) > TILE_SMEM_CAP:
+        raise ValueError(f"tiles of {R}x{S_}: rmax {rmax}, smax {smax} outgrow the grid or the "
+                         f"shared memory")
+    return TilePlan(nty, ntx, rmax, smax, min(int(sms), max(nty) * ntx))
+
+
+@functools.lru_cache(maxsize=256)
+def _pass_sh_params(cfg, sh: Shard, lean: bool, plan: TilePlan) -> PassShParams:
+    p = PassShParams(a=_fl._a_params(cfg), b=_fl._b_params(cfg), s=sh.geom, lean=int(lean))
+    for j, n in enumerate(plan.nty):
+        p.nty[j] = n
+    p.ntx, p.rmax, p.smax, p.grid = plan.ntx, plan.rmax, plan.smax, plan.grid
+    return p
+
+
+def pass_sh_scratch(sh: Shard, k: int, device) -> torch.Tensor | None:
+    """The scratch of a pass of ``sh`` at depth k or below: ``min(k - 1,
+    2)`` buffers of 12 planes of the shard's rows extended by 2k a side (a
+    mesh of one row: its ``H`` rows) x ``W``; None at k = 1."""
+    k = int(k)
+    if k < 2:
+        return None
+    rows = sh.H if sh.h == sh.H else sh.h + 4 * k
+    return torch.empty((min(k - 1, 2), 12, rows, sh.W), dtype=_F32, device=device)
 
 
 def fluid_pass_sh(f, rho, vel, halo: Halo | None, step: int, k: int, cfg, fields, sh: Shard,
-                  lean=False):
+                  lean=False, scratch=None):
     """k fluid steps (A then B each) of a shard of a row mesh from ``step``
     in one launch; returns the shard's new ``(f, rho, vel)``. ``halo``: the
     2k-row pieces of ``[f, vel, rho]`` (`halo.exchange` with ``rows=2k``;
     None or no pieces on a mesh of one row); ``lean``: the lean class, for
     an inner shard above the tip front for every step of the pass
-    (`lean_pass`)."""
+    (`lean_pass`); ``scratch``: the sub-steps' planes, `pass_sh_scratch`
+    of the shard at this k or a deeper one (allocated here when None)."""
     if f.device.type == "cpu":
         return fluid_pass_sh_ref(f, rho, vel, halo, step, k, cfg, fields, sh, lean)
     _check_pass_sh(sh, halo, k, lean)
@@ -530,13 +619,26 @@ def fluid_pass_sh(f, rho, vel, halo: Halo | None, step: int, k: int, cfg, fields
             setattr(src, name, t.data_ptr())
     if sh.W % 4 or any(t % 16 for t in (src.f, src.rho, src.vel, src.top or 0, src.bot or 0)):
         raise ValueError("fluid_pass_sh copies rows of 16-byte aligned planes (W % 4 == 0)")
+    p = _pass_sh_params(cfg, sh, bool(lean), pass_sh_plan(sh, int(k), _fl.sm_count(dev)))
+    scr = [None, None]
+    if k >= 2:
+        # buffer b holds sub-step j's planes (j % 2 == b) for j + 1: shard
+        # row r at buffer row r + 2k
+        if scratch is None:
+            scratch = pass_sh_scratch(sh, k, dev)
+        need = (9 if lean else 12) * (sh.H if sh.h == sh.H else sh.h + 4 * int(k)) * sh.W
+        if scratch.dtype != _F32 or scratch.device != dev or not scratch.is_contiguous() \
+                or scratch.dim() < 2 or scratch.shape[0] < min(int(k) - 1, 2) \
+                or scratch[0].numel() < need:
+            raise ValueError(f"scratch: {tuple(scratch.shape)} {scratch.dtype} on "
+                             f"{scratch.device}, expected pass_sh_scratch's for k = {k} on {dev}")
+        scr[:min(int(k) - 1, 2)] = [scratch[b].data_ptr() for b in range(min(int(k) - 1, 2))]
     f_out, rho_out, vel_out = torch.empty_like(f), torch.empty_like(rho), torch.empty_like(vel)
-    p = _pass_sh_params(cfg, sh, int(k), bool(lean), _fl.sm_count(dev))
-    fn = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh", [_P] * 4 + [ctypes.c_int] * 2
+    fn = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh", [_P] * 6 + [ctypes.c_int] * 2
                     + [_P, _P])
     with torch.cuda.device(dev):
         err = fn(ctypes.byref(src), f_out.data_ptr(), rho_out.data_ptr(), vel_out.data_ptr(),
-                 int(step), int(k), ctypes.byref(p), stream_of(dev))
+                 scr[0], scr[1], int(step), int(k), ctypes.byref(p), stream_of(dev))
     build.check(err, "fluid_pass_sh")
     fluid_pass_sh.launches += 1
     return f_out, rho_out, vel_out
@@ -552,13 +654,17 @@ def pass_sh_info(k: int, device_index: int = 0):
     return regs.value, local.value
 
 
-def pass_sh_shape(k: int, device_index: int = 0):
-    """The kernel's own ``(threads, cols, max_rs, bytes_per_col)`` at depth
-    k, which `pass_sh_plan` mirrors."""
-    fn = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh_shape", [ctypes.c_int] + [_P] * 4)
+def pass_sh_tile_shape(k: int, rmax: int, smax: int, device_index: int = 0):
+    """The kernel's own ``(threads, shared memory cap, bytes of an rmax x
+    smax tile, co-resident blocks at that size)`` at depth k, which
+    `pass_sh_plan` mirrors (`TILE_THREADS`, `TILE_SMEM_CAP`,
+    `tile_smem_bytes`)."""
+    fn = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh_tile_shape", [ctypes.c_int] * 3
+                    + [_P] * 4)
     out = [ctypes.c_int(0) for _ in range(4)]
     with torch.cuda.device(device_index):
-        build.check(fn(int(k), *(ctypes.byref(x) for x in out)), "fluid_pass_sh")
+        build.check(fn(int(k), int(rmax), int(smax), *(ctypes.byref(x) for x in out)),
+                    "fluid_pass_sh")
     return tuple(x.value for x in out)
 
 
@@ -637,19 +743,19 @@ def lean_pass(cfg, sh: Shard, step: int, k: int) -> bool:
 # the routes of the sharded fluid runner: one fluid_pass_sh launch a shard
 # and k-step pass (row meshes), or fluid_a_sh + fluid_b_sh a step
 FLUID_ROUTES = ("pass", "launches")
-# the default k of the pass on a row mesh of more than one shard: the lowest
-# wall of the (4, 1) mesh at 1024x512 on an H100 (PERF.md: 210.1 µs/step at
-# k = 4 against 642.0 at k = 1, each bit for bit route="launches"); a mesh of
-# one shard has no exchange to save and runs k = 1 (78.95 against 122.26)
+# the default k of the pass on a row mesh: the lowest wall of the (4, 1) and
+# (1, 1) meshes at 1024x512 on an H100 (PERF.md §6: 234.3-249.2 µs/step
+# at k = 4 against 287.6-598.6 at k = 1..3 on (4, 1), where the host sets
+# the wall; 70.65-70.72 against 71.3-76.7 on (1, 1); each bit for bit
+# route="launches"; the device time a step is within 10% at every k)
 PASS_SH_K = 4
 
 
-def default_k(mesh: Mesh, sh: Shard) -> int:
-    """The k a row mesh's pass takes by default: 1 on a mesh of one shard,
-    else `PASS_SH_K` or the deepest k its shards take (`_check_depth`)."""
-    if mesh.shape[0] * mesh.shape[1] == 1:
-        return 1
-    return max(1, min(PASS_SH_K, sh.h // 2, (sh.H - 1) // 4))
+def default_k(sh: Shard) -> int:
+    """The k a row mesh's pass takes by default: `PASS_SH_K` or the deepest
+    k its shards take (`_check_depth`)."""
+    deep = sh.h // 2 if sh.h < sh.H else PASS_SH_K
+    return max(1, min(PASS_SH_K, deep, (sh.H - 1) // 4))
 
 
 def fluid_route(mesh: Mesh, route: str | None = None) -> str:
@@ -690,7 +796,7 @@ def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x
     shards = shard_plan(cfg, mesh, tile_rows, unroll, x_ext)
     ny, nx = mesh.shape
     rt = fluid_route(mesh, route)
-    kk = default_k(mesh, shards[0]) if k is None else int(k)
+    kk = default_k(shards[0]) if k is None else int(k)
     if not 1 <= kk <= _tl.KMAX:
         raise ValueError(f"k = {kk}: the pass takes 1 <= k <= {_tl.KMAX}")
     if rt == "pass":
@@ -701,18 +807,28 @@ def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x
         for c, ln in zip(mesh.local, lean):
             run.lean_steps[c] = run.lean_steps.get(c, 0) + steps * int(ln)
 
+    def scratch_of(x):
+        # the pass's scratch, one a device for the run's life: the shards of
+        # a device launch in turn on its stream
+        if x.device.type == "cpu" or kk < 2:
+            return None
+        if x.device not in scratch:
+            scratch[x.device] = pass_sh_scratch(shards[0], kk, x.device)
+        return scratch[x.device]
+
     def run(state, fields, start_step: int, n: int):
         f, rho, vel = (split(state[x], mesh) for x in ("f", "rho", "vel"))
         L = range(len(shards))
         s, end = int(start_step), int(start_step) + int(n)
         if rt == "pass":
+            scr = [scratch_of(x) for x in f]
             while s < end:
                 kj = min(kk, end - s)
                 lean = [lean_on and lean_pass(cfg, sh, s, kj) for sh in shards]
                 count_lean(lean, kj)
                 hx = exchange([[f[i], vel[i], rho[i]] for i in L], mesh, XH, rows=2 * kj)
                 out = [fluid_pass_sh(f[i], rho[i], vel[i], hx[i], s, kj, cfg, fields, shards[i],
-                                     lean[i]) for i in L]
+                                     lean[i], scratch=scr[i]) for i in L]
                 f, rho, vel = ([o[x] for o in out] for x in range(3))
                 s += kj
             return {"f": gather(f, mesh), "rho": gather(rho, mesh), "vel": gather(vel, mesh)}
@@ -729,6 +845,7 @@ def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x
                  for i in L]
         return {"f": gather(f, mesh), "rho": gather(rho, mesh), "vel": gather(vel, mesh)}
 
+    scratch = {}
     run.lean_steps = {}
     run.shards = shards
     run.k, run.route = kk, rt

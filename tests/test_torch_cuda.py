@@ -1997,15 +1997,16 @@ def test_cuda_sharded_fluid_from_step_2_24_minus_5(cuda):
 
 # --- the sharded fluid step's k-step pass (fluid_pass_sh) ---
 
-PASS_MESHES = [(1, 1), (4, 1)]
+PASS_MESHES = [(1, 1), (2, 1), (4, 1)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mesh_shape", PASS_MESHES)
 def test_cuda_fluid_pass_sh_equals_twin_and_pair(cuda, mesh_shape):
     """One launch on every shard at k = 1..4 from step 8 (the lean class too
-    on the shards where `lean_pass` holds): bit for bit its twin, run on
-    the CPU from the same inputs, and bit for bit k steps of the A/B pair
+    on the shards where `lean_pass` holds; one cooperative launch of
+    sub-steps in turn): bit for bit its twin, run on the CPU from the same
+    inputs, and bit for bit k steps of the A/B pair
     (``route="launches"``)."""
     fc, s, fl, _, _, _, _, mesh, shards = _sh_setup(cuda, mesh_shape)
     L = range(len(shards))
@@ -2029,7 +2030,7 @@ def test_cuda_fluid_pass_sh_equals_twin_and_pair(cuda, mesh_shape):
                     assert torch.equal(g_.cpu(), w_), f"{tag} {name}: twin"
                     assert torch.equal(g_, sh.body(p_)), f"{tag} {name}: pair"
                 n_lean += lean
-    assert n_lean == (0 if mesh_shape == (1, 1) else 8)
+    assert n_lean == {(1, 1): 0, (2, 1): 0, (4, 1): 8}[mesh_shape]
 
 
 @pytest.mark.cuda
@@ -2063,8 +2064,8 @@ def test_cuda_fluid_pass_route_equals_launches(cuda, mesh_shape, k):
 @pytest.mark.cuda
 def test_cuda_fluid_pass_sh_refuses_bad_inputs(cuda):
     """Pieces of another depth or plane count, a lean pass off the inner
-    shards, a misaligned plane and a column mesh's shard raise before a
-    launch."""
+    shards, a misaligned plane, a column mesh's shard and a scratch too
+    small for the pass raise before a launch."""
     fc, s, fl, _, _, _, _, mesh, shards = _sh_setup(cuda, (4, 1))
     f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
     hx = HA.exchange([[f[i], vel[i], rho[i]] for i in range(4)], mesh, S.XH, rows=4)
@@ -2084,6 +2085,29 @@ def test_cuda_fluid_pass_sh_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="column mesh"):
         S.fluid_pass_sh(f[0], rho[0], vel[0], None, 8, 1, fc, fl,
                         S.Shard.of(*SH_RES, (2, 2), (0, 0)))
+    with pytest.raises(ValueError, match="scratch"):
+        S.fluid_pass_sh(f[0], rho[0], vel[0], hx[0], 8, 2, fc, fl, sh,
+                        scratch=torch.empty((1, 12, 4, sh.W), device=cuda))
+    assert S.fluid_pass_sh.launches == n0
+
+
+@pytest.mark.cuda
+def test_cuda_fluid_pass_sh_refuses_a_plan_over_the_card(cuda):
+    """A tiles plan whose grid outgrows the blocks the card holds at once is
+    refused by the cooperative launcher, and one whose tables outgrow the
+    shared memory by the entry point: both raise, nothing launched."""
+    fc, s, fl, _, _, _, _, mesh, shards = _sh_setup(cuda, (4, 1))
+    f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
+    hx = HA.exchange([[f[i], vel[i], rho[i]] for i in range(4)], mesh, S.XH, rows=4)
+    sh = shards[1]
+    plan = S.pass_sh_plan(sh, 2, jrl_fluid.sm_count(cuda))
+    n0 = S.fluid_pass_sh.launches
+    for bad, match in ((S.TilePlan(plan.nty, plan.ntx, plan.rmax, plan.smax, 100000),
+                        "cudaError 720"),
+                       (S.TilePlan(plan.nty, plan.ntx, 59, 512, plan.grid), "cudaError 1 ")):
+        with mock.patch.object(S, "pass_sh_plan", return_value=bad):
+            with pytest.raises(RuntimeError, match=match):
+                S.fluid_pass_sh(f[1], rho[1], vel[1], hx[1], 8, 2, fc, fl, sh)
     assert S.fluid_pass_sh.launches == n0
 
 

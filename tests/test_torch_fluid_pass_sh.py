@@ -5,17 +5,20 @@ the runner through the pass at k = 1..4 against the JAX package's jnp
 step and, bit for bit, against the port's per-step runner and the A/B
 pair (``route="launches"``); the lean shards inside the pass, and why a
 lean pass needs its 2k-row reach clear of the tip; the halo proof (each
-shard's pass from a grid that is NaN beyond its 2k-row pieces); JAX's own
-``_make_fluid_k_kernel(shard=True)`` in interpret mode against the twin;
-the host plan of a launch; the argument checks. The kernel against the
-pair, on a card, is in `test_torch_cuda.py`.
+shard's pass from a grid that is NaN beyond its 2k-row pieces); the
+kernel's schedule (sub-steps in turn over the shard's extended rows, tile
+by tile, each tile from its own window, NaN beyond it) played on the CPU
+against the twin; JAX's own ``_make_fluid_k_kernel(shard=True)`` in
+interpret mode against the twin; the host plan of a launch; the argument
+checks. The kernel against the pair, on a card, is in
+`test_torch_cuda.py`.
 
 Inputs come from the JAX init plus seeded numpy noise. Tolerances: the jnp
 step f and rho 2e-5, vel 2e-4 over 12 steps (as
 `tests/test_torch_jrl_sharded.py`); the interpreted Pallas kernel 1e-5,
 vel 2e-4 after one pass (its bodies fold divides into reciprocals); the
-port's runners and twins against each other bit for bit (they share the
-arithmetic of the port's whole-grid step).
+port's runners, twins and the played schedule against each other bit for
+bit (they share the arithmetic of the port's whole-grid step).
 """
 
 import functools
@@ -33,6 +36,7 @@ from jrl_lbm_tpu.models import jrl as J
 from jrl_lbm_tpu.ops.pallas import fused_jrl_tiled as JT
 from jrl_lbm_torch.kernels import halo as HA
 from jrl_lbm_torch.kernels import jrl_sharded as S
+from jrl_lbm_torch.kernels import jrl_tiled as TL
 from jrl_lbm_torch.models import jrl as T
 from jrl_lbm_torch.parallel.mesh import make_mesh, split
 from jrl_lbm_torch.utils.device import state_from_numpy
@@ -242,46 +246,197 @@ def test_pallas_shard_mode_matches_twin(k):
                                        err_msg=f"k={k} shard {iy} {name}")
 
 
+# --- the tiles' schedule, played tile by tile on the CPU ---
+
+def _emulate(sh, f, rho, vel, halo, step0, k, cfg, plan, lean=False):
+    """`fluid_pass_sh`'s tiles as the kernel schedules them: sub-step j
+    over the shard's rows extended by 2 (k - 1 - j) a side, tile after
+    tile of ``plan``, each tile's A on its rows and columns one past its
+    B cells and its B from a window of rows -2 .. R + 1 and columns two
+    past the tile (NaN beyond it, and beyond what the sub-step before
+    wrote: the scratch starts as NaN); the class bodies of the twin
+    (`jrl_tiled.py`) on that window."""
+    H, W, k = sh.H, sh.W, int(k)
+    nan = float("nan")
+    r2 = 2 * k
+
+    def grid(body, planes):
+        b = body.reshape(-1, sh.h, W)
+        g = torch.full((b.shape[0], H, W), nan)
+        if halo is not None and halo.top is not None:
+            g[:, torch.arange(sh.row0 - r2, sh.row0) % H] = halo.top[planes]
+            g[:, torch.arange(sh.row0 + sh.h, sh.row0 + sh.h + r2) % H] = halo.bot[planes]
+        g[:, sh.row0:sh.row0 + sh.h] = b
+        return g
+
+    cur = {"f": grid(f, slice(0, 9)), "rho": grid(rho, slice(11, 12))[0],
+           "vel": grid(vel, slice(9, 11))}
+    rows = S.pass_sh_rows(sh, k)
+    for j in range(k):
+        lvl = k - 1 - j
+        r_lo = 0 if sh.h == H else -2 * lvl
+        nxt = {"f": torch.full((9, H, W), nan), "rho": torch.full((H, W), nan),
+               "vel": torch.full((2, H, W), nan)}
+        for e0, e1, sx0, sx1, _, _ in plan.tiles(j, rows[j], W):
+            R, y0 = e1 - e0, sh.row0 + r_lo + e0
+            win = torch.arange(y0 - 2, y0 + R + 2) % H
+            cols = torch.zeros(W, dtype=torch.bool)
+            cols[max(sx0 - 2, 0):min(sx1 + 2, W)] = True
+
+            def cut(x):
+                return torch.where(cols, x.index_select(-2, win), torch.full((), nan))
+
+            if lean:
+                f1, rho1, vel1 = TL._a_lean(cfg, R + 2, cut(cur["f"]))
+                fo = TL._b_lean(cfg, R, f1[:, 1:-1], rho1, vel1)
+            else:
+                f1, rho1, vel1 = TL._a_full(cfg, step0 + j, y0 - 1, R + 2, cut(cur["f"]),
+                                            cut(cur["vel"]), cut(cur["rho"])[1:-1])
+                fo = TL._b_full(cfg, step0 + j, y0, R, f1[:, 1:-1], rho1, vel1)
+            out = torch.arange(y0, y0 + R) % H
+            nxt["f"][:, out, sx0:sx1] = fo[:, :, sx0:sx1]
+            nxt["rho"][out, sx0:sx1] = rho1[1:-1, sx0:sx1]
+            nxt["vel"][:, out, sx0:sx1] = vel1[:, 1:-1, sx0:sx1]
+        cur = nxt
+    return sh.body(cur["f"]), sh.body(cur["rho"]), sh.body(cur["vel"])
+
+
+# tiles of about R x S cells a k, so that bands and strips of unequal
+# size, and both grid edges, meet inside the 48x32 grid
+EMU_TILES = {1: (5, 12), 2: (7, 8), 3: (4, 16), 4: (6, 12)}
+
+
+def _pass_inputs(tc, s, mesh, k):
+    f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
+    hx = HA.exchange([[f[i], vel[i], rho[i]] for i in range(len(f))], mesh, S.XH, rows=2 * k)
+    return f, rho, vel, hx
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 1), (3, 1)])
+def test_tile_schedule_equals_the_twin(mesh_shape, k):
+    """Every shard's pass played tile by tile (`_emulate`, the plan of
+    ``EMU_TILES[k]``; a mesh of one row wraps its rows), each tile from its
+    own window only: bit for bit `fluid_pass_sh_ref` from step 5 (the
+    wedge's tip crosses rows), and finite."""
+    _, tc, _, s, fl = _case("45degree")
+    H, W = tc.eff_res
+    mesh = _mesh(mesh_shape)
+    f, rho, vel, hx = _pass_inputs(tc, s, mesh, k)
+    for i, (iy, _) in enumerate(mesh.local):
+        sh = S.Shard.of(H, W, mesh_shape, (iy, 0))
+        plan = S.tile_plan(sh, k, *EMU_TILES[k])
+        assert plan.ntx > 1 and min(plan.nty) > 1
+        halo = hx[i] if mesh_shape[0] > 1 else None
+        got = _emulate(sh, f[i], rho[i], vel[i], halo, 5, k, tc, plan)
+        want = S.fluid_pass_sh_ref(f[i], rho[i], vel[i], halo, 5, k, tc, fl, sh)
+        for name, g, w in zip(("f", "rho", "vel"), got, want):
+            assert torch.isfinite(g).all(), f"{mesh_shape} k={k} shard {i} {name}: NaN reached"
+            assert torch.equal(g, w), f"{mesh_shape} k={k} shard {i} {name}"
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_tile_schedule_of_the_lean_class(k):
+    """The lean class (9 input planes, no geometry) played tile by tile on
+    the (4, 1) flat-tip shard that `lean_pass` keeps lean at every k: bit
+    for bit the lean twin, and the full class's own schedule on it equals
+    the full twin."""
+    _, tc, _, s, fl = _case("cylinder", (96, 32))
+    H, W = tc.eff_res
+    mesh = _mesh((4, 1))
+    f, rho, vel, hx = _pass_inputs(tc, s, mesh, k)
+    sh = S.Shard.of(H, W, (4, 1), (2, 0))
+    assert S.lean_pass(tc, sh, 0, k)
+    plan = S.tile_plan(sh, k, *EMU_TILES[k])
+    for lean in (True, False):
+        got = _emulate(sh, f[2], rho[2], vel[2], hx[2], 0, k, tc, plan, lean)
+        want = S.fluid_pass_sh_ref(f[2], rho[2], vel[2], hx[2], 0, k, tc, fl, sh, lean)
+        for name, g, w in zip(("f", "rho", "vel"), got, want):
+            assert torch.equal(g, w), f"k={k} lean={lean} {name}"
+
+
 # --- the launch's host plan ---
 
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 @pytest.mark.parametrize("W", [32, 128, 512, 1024, 4 * 333])
 def test_pass_sh_plan_covers_the_shard(W, k):
-    """The strips cover the width once, each window fits a ring row and each
-    sub-step 0's A columns a group of threads; the runs cover the rows,
-    each window inside the grid's rows; at 1024x512 one strip at k = 1."""
+    """On an inner (4, 1) shard and a mesh of one row of a 1024-row grid,
+    for one SM, an H100's 132 and a tile asked for: every extended row of
+    every sub-step written exactly once, each tile's window (two rows and
+    columns a side, 16-byte ends) inside what the sub-step before wrote
+    (or the shard and its 2k-row pieces) and inside a table row; the tables
+    in the shared memory, the scratch rows in the buffers, the grid within
+    the blocks."""
     H = 1024
-    for sms in (1, 132):
-        sh = S.Shard.of(H, W, (4, 1), (1, 0))
-        ns, nruns, rs = S.pass_sh_plan(sh, k, sms)
-        cover = np.zeros(W, np.int32)
-        for st in range(ns):
-            sx0, sx1, cx0, cx1 = S.pass_sh_strip(st, ns, W, k)
-            assert sx0 % 4 == 0 and cx0 % 4 == 0 and cx1 % 4 == 0 and sx0 < sx1
-            assert cx0 <= max(sx0 - 2 * k, 0) and cx1 >= min(sx1 + 2 * k, W)
-            assert cx1 - cx0 <= rs <= S.pass_sh_max_rs(k)
-            assert min(sx1 + 2 * k - 1, W) - max(sx0 - 2 * k + 1, 0) <= S.pass_sh_cols(k)
-            cover[sx0:sx1] += 1
-        assert (cover == 1).all()
-        runs = [(r * sh.h // nruns, (r + 1) * sh.h // nruns) for r in range(nruns)]
-        assert all(y0 < y1 and y1 - y0 + 4 * k <= H for y0, y1 in runs)
-        assert k * S.PASS_SH_BYTES * rs <= S.PASS_SH_SMEM
-    assert S.pass_sh_plan(S.Shard.of(1024, 512, (4, 1), (0, 0)), 1)[:1] == (1,)
+    for ms, co in (((4, 1), (1, 0)), ((1, 1), (0, 0))):
+        sh = S.Shard.of(H, W, ms, co)
+        whole = sh.h == H
+        rows = S.pass_sh_rows(sh, k)
+        assert rows == ([H] * k if whole else [sh.h + 4 * (k - 1 - j) for j in range(k)])
+        for sms, tile in ((1, None), (132, None), (132, (10, 60))):
+            plan = S.pass_sh_plan(sh, k, sms) if tile is None else S.tile_plan(sh, k, *tile, sms)
+            assert len(plan.nty) == k and 1 <= plan.grid <= sms
+            assert plan.smax % 4 == 0 and plan.rmax + 5 <= H
+            assert S.tile_smem_bytes(plan.rmax, plan.smax) <= S.TILE_SMEM_CAP
+            # rows a sub-step may read: the shard and its pieces, then the
+            # rows the sub-step before wrote (shard rows; all rows mod H)
+            avail = (0, H) if whole else (-2 * k, sh.h + 2 * k)
+            for j, E in enumerate(rows):
+                r_lo = 0 if whole else -2 * (k - 1 - j)
+                cover = np.zeros((E, W), np.int32)
+                for e0, e1, sx0, sx1, cx0, cx1 in plan.tiles(j, E, W):
+                    assert e0 < e1 <= E and e1 - e0 <= plan.rmax
+                    assert sx0 % 4 == 0 and cx0 % 4 == 0 and cx1 % 4 == 0 and sx0 < sx1
+                    assert sx1 - sx0 <= plan.smax and cx1 - cx0 <= plan.smax + 8
+                    assert cx0 <= max(sx0 - 2, 0) and cx1 >= min(sx1 + 2, W)
+                    if not whole:
+                        assert avail[0] <= r_lo + e0 - 2 and r_lo + e1 + 2 <= avail[1]
+                    cover[e0:e1, sx0:sx1] += 1
+                assert (cover == 1).all(), f"{ms} sms={sms} k={k} sub-step {j}"
+                avail = (0, H) if whole else (r_lo, r_lo + E)
+                if j < k - 1 and not whole:  # scratch row r + 2k of h + 4k
+                    assert 0 <= r_lo + 2 * k and r_lo + E + 2 * k <= sh.h + 4 * k
+    with pytest.raises(ValueError, match="outgrow"):
+        S.tile_plan(S.Shard.of(H, 512, (4, 1), (1, 0)), 2, 200, 512)
+    # the (4, 1) shard of 256x512: one wave of at most 132 tiles at every k
+    for k_ in range(1, 5):
+        plan = S.pass_sh_plan(S.Shard.of(1024, 512, (4, 1), (1, 0)), k_)
+        assert plan.grid <= 132 and all(n * plan.ntx <= 132 for n in plan.nty)
+
+
+def test_pass_sh_scratch_serves_every_shallower_k():
+    """The scratch a runner holds for its k (`pass_sh_scratch`): none at k
+    = 1; else ``min(k - 1, 2)`` buffers of 12 planes of the shard's rows
+    extended by 2k a side (a mesh of one row: its H rows), each as large as
+    a pass at any k' <= k takes (the kernel's own layout at k': 12 planes
+    of h + 4k' rows), so one buffer serves the run's shorter last pass."""
+    H, W = 64, 32
+    for ms, co in (((4, 1), (1, 0)), ((1, 1), (0, 0))):
+        sh = S.Shard.of(H, W, ms, co)
+        assert S.pass_sh_scratch(sh, 1, "cpu") is None
+        for k in (2, 3, 4):
+            buf = S.pass_sh_scratch(sh, k, "cpu")
+            rows = H if sh.h == H else sh.h + 4 * k
+            assert tuple(buf.shape) == (min(k - 1, 2), 12, rows, W)
+            assert buf.dtype == torch.float32 and buf.is_contiguous()
+            for kj in range(2, k + 1):
+                need = 12 * (H if sh.h == H else sh.h + 4 * kj) * W
+                assert buf.shape[0] >= min(kj - 1, 2) and buf[0].numel() >= need
 
 
 # --- argument checks ---
 
 def test_route_and_depth_checks():
     """Column meshes take the pair, and refuse the pass; k outside 1..4, a
-    k whose 2k-row pieces outgrow the shard, pieces of another depth and a
-    lean pass off the inner shards are refused."""
+    k whose 2k-row pieces outgrow the shard, pieces of another depth, a
+    lean pass off the inner shards and a column mesh's shard are refused."""
     _, tc, _, s, fl = _case("45degree")
     H, W = tc.eff_res
     assert S.make_sharded_tiled_fluid_runner(tc, _mesh((2, 2)), tile_rows=8).route == "launches"
     assert S.make_sharded_tiled_fluid_runner(tc, _mesh((1, 1))).route == "pass"
-    # the default k: 1 on one shard, else PASS_SH_K where the shards take it
-    assert S.make_sharded_tiled_fluid_runner(tc, _mesh((1, 1))).k == 1
-    assert S.make_sharded_tiled_fluid_runner(tc, _mesh((2, 1))).k == S.PASS_SH_K == 4
+    # the default k: PASS_SH_K where the shards take it, one shard too
+    assert S.make_sharded_tiled_fluid_runner(tc, _mesh((1, 1))).k == S.PASS_SH_K == 4
+    assert S.make_sharded_tiled_fluid_runner(tc, _mesh((2, 1))).k == S.PASS_SH_K
     assert S.make_sharded_tiled_fluid_runner(tc, _mesh((12, 1)), tile_rows=4).k == 2
     assert S.make_sharded_tiled_fluid_runner(tc, _mesh((2, 1)), route="launches").route == \
         "launches"

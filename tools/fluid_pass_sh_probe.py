@@ -4,39 +4,68 @@
 (the ethaline wedge at refine 8, 1024x512, Re 4, every shard on the one
 card):
 
-    python3 tools/fluid_pass_sh_probe.py [check] [time]
+    python3 tools/fluid_pass_sh_probe.py [check] [time] [alone] [variants] [runner]
 
-``check``: the kernel's registers and local bytes at k = 1..4, its own
-launch shape against the host plan's mirror (`jrl_sharded.pass_sh_cols`,
-``pass_sh_max_rs``), then one launch on every shard of the (1, 1), (2, 1)
-and (4, 1) meshes at k = 1..4, from steps 0 and 5 (and the lean class
-where `lean_pass` holds), at 1024x512 and at 256x128 (45degree): bit for
-bit k steps of the A/B pair (the runner's ``route="launches"``), within
-1e-4 of its twin on the card (`fluid_pass_sh_ref`: PyTorch's reductions
-sum in another order), and, at k = 1 and 4 on the meshes of >1 row,
-whether it equals the twin run on the CPU bit for bit.
+``check``: the registers and local bytes at k = 1..4, the kernel's own
+launch shape against the host plan's mirrors (`jrl_sharded.TILE_THREADS`,
+``TILE_SMEM_CAP``, ``tile_smem_bytes`` and the co-resident limit), then
+one launch on every shard of the (1, 1), (2, 1) and (4, 1) meshes at k =
+1..4, from steps 0 and 5 (and the lean class where `lean_pass` holds), at
+1024x512 and at 256x128 (45degree), through the plan and, at 1024x512,
+through the tile shapes of ``TILES`` (`jrl_sharded.tile_plan` in place of
+`pass_sh_plan`): bit for bit k steps of the A/B pair (the runner's
+``route="launches"``), within 1e-4 of its twin on the card
+(`fluid_pass_sh_ref`: PyTorch's reductions sum in another order), and, at
+k = 1 and 4 on the meshes of >1 row, whether it equals the twin run on
+the CPU bit for bit.
 
-``time``: the sharded fluid runner over 200 steps from step 0 on the
+``alone``: one pass alone on the (4, 1) shard with the tip (256x512) and
+on the (1, 1) grid at k = 1..4, through the plan and each tile shape of
+``TILES``, the (4, 1) mesh's other shards at k = 1 and 4, and one step of
+the A/B pair on the (4, 1) shard with the tip: CUDA events around 20
+launches queued behind a sleep kernel, the L2 flushed before each (a 128
+MB write, its own time taken off), the median of three.
+
+``variants``: builds of `fluid_pass_sh.cu` with timing-only ``-D`` values
+(``VARIANTS``: without the cell code, and without the geometry as well,
+which time the copies, the geometry and the barriers), each timed as
+``alone``.
+
+``time``: ``alone``, ``variants`` and ``runner`` in turn.
+
+``runner``: the sharded fluid runner over 200 steps from step 0 on the
 (1, 1) and (4, 1) meshes through ``route="pass"`` at k = 1..4 and through
 ``route="launches"`` (the A/B pair), each bit for bit the unsharded
 per-step runner: wall µs/step (CUDA events around the 200 steps after 10
-warm-up steps, the best of three), device µs/step and busy share from a
-profiled run (`chip_smoke.device_profile`), launches and exchanges a
-step.
+warm-up steps, the best of three), host µs/step (the time the 200 steps
+take to queue, from a synchronised start, the best of three), device
+µs/step and busy share from a profiled run (`chip_smoke.device_profile`),
+launches and exchanges a step. It calls only the runner's public API, so
+the same file also runs in a checkout of an earlier tree.
 
-With no argument both. Prints one JSON line, last; the card's name and
-power limit first.
+With no argument ``check`` and ``time``. Prints one JSON line,
+last; the card's name and power limit first.
 """
 
+import ctypes
 import json
 import os
+import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 STEPS = 200
+# tile shapes (R, S) timed beside the plan's own: wide, middle, square
+# (one wave of at most 132 tiles on the (4, 1) shard at every k)
+TILES = ((9, 128), (17, 64), (34, 32))
+# timing-only -D builds (wrong results): they time the copies, the
+# geometry and the barriers without the cell code
+VARIANTS = {"no cells": ["-DJRL_FPT_NO_CELLS"],
+            "no cells, no geometry": ["-DJRL_FPT_NO_CELLS", "-DJRL_FPT_NO_GEO"]}
 
 
 def fail(msg):
@@ -54,6 +83,45 @@ def setup(dev, res, shape, refine):
     return fc, C.noisy(s0, dev, 71, scale=1e-4), fl
 
 
+def planned(sh, k, tile, sms):
+    """The plan of a pass: `pass_sh_plan`'s, or tiles of about ``tile``."""
+    from jrl_lbm_torch.kernels import jrl_sharded as S
+
+    return S.pass_sh_plan(sh, k, sms) if tile is None else S.tile_plan(sh, k, *tile, sms)
+
+
+def with_plan(sh, k, tile, sms):
+    """A context in which `fluid_pass_sh` launches ``planned``'s plan."""
+    from jrl_lbm_torch.kernels import jrl_sharded as S
+
+    return mock.patch.object(S, "pass_sh_plan", return_value=planned(sh, k, tile, sms))
+
+
+def shapes(dev):
+    """Registers, spills and the launch shape against the host's mirrors."""
+    import torch
+
+    from jrl_lbm_torch.kernels import jrl_sharded as S
+
+    rep = {"info": {}, "tile_shape": {}}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for k in range(1, 5):
+        info = S.pass_sh_info(k)
+        rep["info"][f"k={k}"] = info
+        print(f"  k={k}: registers, local bytes {info}", flush=True)
+        for mshape, co in (((4, 1), (1, 0)), ((1, 1), (0, 0))):
+            plan = S.pass_sh_plan(S.Shard.of(1024, 512, mshape, co), k, sms)
+            got = S.pass_sh_tile_shape(k, plan.rmax, plan.smax)
+            rep["tile_shape"][f"{mshape} k={k}"] = {"plan": str(plan), "kernel": got}
+            print(f"  {mshape} k={k}: {plan}; threads, cap, bytes, co-resident {got}",
+                  flush=True)
+            want = (S.TILE_THREADS, S.TILE_SMEM_CAP, S.tile_smem_bytes(plan.rmax, plan.smax))
+            if got[:3] != want or plan.grid > got[3]:
+                fail(f"{mshape} k={k}: the kernel's shape {got}, the host's {want}, "
+                     f"grid {plan.grid}")
+    return rep
+
+
 def check(dev):
     import torch
 
@@ -61,17 +129,8 @@ def check(dev):
     from jrl_lbm_torch.kernels import jrl_sharded as S
     from jrl_lbm_torch.parallel.mesh import make_mesh, split
 
-    rep = {"info": {}, "shape": {}, "cases": []}
-    for k in range(1, 5):
-        rep["info"][k] = S.pass_sh_info(k)
-        got = S.pass_sh_shape(k)
-        want = (S.PASS_SH_THREADS, S.pass_sh_cols(k), S.pass_sh_max_rs(k), k * S.PASS_SH_BYTES)
-        rep["shape"][k] = got
-        print(f"  k={k}: registers, local bytes {rep['info'][k]}; shape {got}", flush=True)
-        if got != want:
-            fail(f"k={k}: the kernel's shape {got}, the host's mirror {want}")
-        if rep["info"][k][1]:
-            print(f"  k={k}: {rep['info'][k][1]} local bytes (spills)", flush=True)
+    rep = {"cases": []}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for res, shape, refine in (((128, 64), "ethaline", 8), ((256, 128), "45degree", 1)):
         fc, s0, fl = setup(dev, res, shape, refine)
         H, W = fc.eff_res
@@ -83,6 +142,7 @@ def check(dev):
             for k in range(1, 5):
                 hx = HA.exchange([[f[i], vel[i], rho[i]] for i in range(len(shards))], mesh,
                                  S.XH, rows=2 * k)
+                tiles = [None] + (list(TILES) if W == 512 and mshape != (2, 1) else [])
                 for step in (0, 5):
                     pair = S.make_sharded_tiled_fluid_runner(fc, mesh, route="launches")(
                         s0, fl, step, k)
@@ -90,32 +150,132 @@ def check(dev):
                         leans = (False, True) if mshape[0] > 1 and S.lean_pass(
                             fc, sh, step, k) else (False,)
                         for lean in leans:
-                            got = S.fluid_pass_sh(f[i], rho[i], vel[i], hx[i], step, k, fc, fl,
-                                                  sh, lean)
                             want = [sh.body(pair[x]) for x in ("f", "rho", "vel")]
                             twin = S.fluid_pass_sh_ref(f[i], rho[i], vel[i], hx[i], step, k, fc,
                                                        fl, sh, lean)
-                            torch.cuda.synchronize()
-                            same = all(torch.equal(g, w) for g, w in zip(got, want))
-                            diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
-                            tdiff = max(float((g - w).abs().max()) for g, w in zip(got, twin))
-                            rec = {"bit_for_bit_pair": same, "max_pair": diff, "max_twin": tdiff}
+                            cpu = None
                             if k in (1, 4) and mshape != (1, 1):
                                 # the twin on the CPU, from the same inputs
                                 cpu = S.fluid_pass_sh_ref(
                                     *(S.Shard.body(sh, s_cpu[x]) for x in ("f", "rho", "vel")),
-                                    None if hx[i].top is None else HA.Halo(
-                                        12, hx[i].top.cpu(), hx[i].bot.cpu(), k=2 * k),
+                                    HA.Halo(12, hx[i].top.cpu(), hx[i].bot.cpu(), k=2 * k),
                                     step, k, fc, fl, sh, lean)
-                                rec["bit_for_bit_cpu_twin"] = all(
-                                    torch.equal(g.cpu(), w) for g, w in zip(got, cpu))
-                            tag = f"{H}x{W} {mshape} k={k} step {step} shard {i} lean={lean}"
-                            rep["cases"].append(dict(rec, case=tag))
-                            print(f"  {tag}: {rec}", flush=True)
-                            if not same:
-                                fail(f"{tag}: not bit for bit k steps of the A/B pair")
-                            if tdiff > 1e-4:
-                                fail(f"{tag}: {tdiff:.3e} from its twin")
+                            for tile in tiles:
+                                with with_plan(sh, k, tile, sms):
+                                    got = S.fluid_pass_sh(f[i], rho[i], vel[i], hx[i], step, k,
+                                                          fc, fl, sh, lean)
+                                torch.cuda.synchronize()
+                                same = all(torch.equal(g, w) for g, w in zip(got, want))
+                                diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                                tdiff = max(float((g - w).abs().max())
+                                            for g, w in zip(got, twin))
+                                rec = {"bit_for_bit_pair": same, "max_pair": diff,
+                                       "max_twin": tdiff}
+                                if cpu is not None:
+                                    rec["bit_for_bit_cpu_twin"] = all(
+                                        torch.equal(g.cpu(), w) for g, w in zip(got, cpu))
+                                tag = (f"{H}x{W} {mshape} k={k} step {step} shard {i} "
+                                       f"lean={lean}{'' if tile is None else f' tiles {tile}'}")
+                                rep["cases"].append(dict(rec, case=tag))
+                                print(f"  {tag}: {rec}", flush=True)
+                                if not same:
+                                    fail(f"{tag}: not bit for bit k steps of the A/B pair")
+                                if tdiff > 1e-4 or rec.get("bit_for_bit_cpu_twin") is False:
+                                    fail(f"{tag}: {tdiff:.3e} from its twin")
+    return rep
+
+
+def alone(dev, tiles=(None,) + TILES, label=""):
+    """µs of one pass alone, L2 flushed, per (mesh, k, tile shape)."""
+    import torch
+
+    import chip_smoke as C
+    from jrl_lbm_torch.kernels import halo as HA
+    from jrl_lbm_torch.kernels import jrl_sharded as S
+    from jrl_lbm_torch.parallel.mesh import make_mesh, split
+
+    fc, s0, fl = setup(dev, (128, 64), "ethaline", 8)
+    H, W = fc.eff_res
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    l2 = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    rep = {}
+    full = not label
+
+    def flushed_us(call):
+        pairs = sorted(C.queued_ms(lambda: (l2.zero_(), call()), 20)
+                       - C.queued_ms(l2.zero_, 20) for _ in range(3))
+        return pairs[1] * 1e3
+
+    for mshape, co in (((4, 1), (1, 0)), ((1, 1), (0, 0))):
+        mesh = make_mesh(mshape, [dev] * mshape[0])
+        sh = S.Shard.of(H, W, mshape, co)
+        f, rho, vel = (split(s0[x], mesh) for x in ("f", "rho", "vel"))
+        i = mesh.local.index(co)
+        if mshape == (4, 1) and full:
+            ha = HA.exchange([[f[j], vel[j]] for j in range(4)], mesh, S.XH)
+            a = S.fluid_a_sh(f[i], rho[i], vel[i], ha[i], 0, fc, fl, sh)
+            hb = HA.exchange([[rho[j], vel[j]] for j in range(4)], mesh, S.XH)
+            ua = flushed_us(lambda: S.fluid_a_sh(f[i], rho[i], vel[i], ha[i], 0, fc, fl, sh))
+            ub = flushed_us(lambda: S.fluid_b_sh(*a, hb[i], 0, fc, fl, sh))
+            rep[f"{mshape} pair"] = {"a_us": ua, "b_us": ub, "us_per_step": ua + ub}
+            print(f"  {mshape} A/B pair: {ua:.2f} + {ub:.2f} = {ua + ub:.2f} us a step",
+                  flush=True)
+        for k in range(1, 5):
+            hx = HA.exchange([[f[j], vel[j], rho[j]] for j in range(len(f))], mesh, S.XH,
+                             rows=2 * k)
+            scr = S.pass_sh_scratch(sh, k, dev)
+            for tile in tiles:
+                with with_plan(sh, k, tile, sms):
+                    us = flushed_us(lambda: S.fluid_pass_sh(f[i], rho[i], vel[i], hx[i], 0, k,
+                                                            fc, fl, sh, scratch=scr))
+                plan = planned(sh, k, tile, sms)
+                tag = f"{label}{mshape} k={k}{'' if tile is None else f' tiles {tile}'}"
+                rep[tag] = {"us_per_pass": us, "us_per_step": us / k, "plan": str(plan)}
+                print(f"  {tag:40s} {us:9.2f} us a pass {us / k:9.2f} a step  {plan}",
+                      flush=True)
+            if mshape == (4, 1) and full and k in (1, 4):
+                # the shards without the tip's lowest rows: how much the tip's tiles cost
+                for jj in (0, 2, 3):
+                    shj = S.Shard.of(H, W, mshape, (jj, 0))
+                    us = flushed_us(lambda: S.fluid_pass_sh(f[jj], rho[jj], vel[jj], hx[jj], 0, k,
+                                                            fc, fl, shj, scratch=scr))
+                    rep[f"{mshape} shard {jj} k={k}"] = {"us_per_pass": us}
+                    print(f"  {mshape} shard {jj} k={k} {us:9.2f} us a pass", flush=True)
+    return rep
+
+
+def variants(dev):
+    """Timing-only -D builds of the kernel, each timed as ``alone``."""
+    from jrl_lbm_torch.kernels import build
+
+    out_dir = os.path.join(ROOT, "jrl_lbm_torch", "kernels", "_build")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for label, flags in VARIANTS.items():
+        lib = os.path.join(out_dir, f"fluid_pass_sh-probe-{len(procs)}.so")
+        procs[label] = (lib, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", lib,
+             str(build.CSRC / "fluid_pass_sh.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    rep = {}
+    shipped = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh", [ctypes.c_void_p] * 6
+                         + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+    for label, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"nvcc {label}:\n{log}")
+        regs = sorted({ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                       if "registers" in ln})
+        fn = ctypes.CDLL(lib).jrl_fluid_pass_sh
+        fn.argtypes, fn.restype = shipped.argtypes, ctypes.c_int
+        build._fns["jrl_fluid_pass_sh"] = fn
+        try:
+            print(f" variant {label} ({' '.join(VARIANTS[label])}): {regs}; timing only",
+                  flush=True)
+            rep[label] = {"flags": VARIANTS[label], "registers": regs,
+                          "times": alone(dev, (None,), f"{label} ")}
+        finally:
+            build._fns["jrl_fluid_pass_sh"] = shipped
     return rep
 
 
@@ -141,13 +301,15 @@ def sweep(dev):
             counts = {x: c for x, c in kernels.launches().items() if c}
             same = all(torch.equal(out[x], want[x]) for x in want)
             run(s0, fl, 0, 10)
-            walls = []
+            walls, hosts = [], []
             for _ in range(3):
                 a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 a.record()
                 run(s0, fl, 0, STEPS)
                 b.record()
+                hosts.append((time.perf_counter() - t0) * 1e6 / STEPS)
                 torch.cuda.synchronize()
                 walls.append(a.elapsed_time(b) * 1e3 / STEPS)
             times, wall = C.device_profile(lambda n: run(s0, fl, 0, n), STEPS)
@@ -155,13 +317,15 @@ def sweep(dev):
             passes = -(-STEPS // k) if route == "pass" else STEPS
             tag = f"{mshape} {route} k={k}"
             rec = {"wall_us_per_step": min(walls), "walls": walls,
+                   "host_us_per_step": min(hosts), "hosts": hosts,
                    "device_us_per_step": busy / STEPS if busy else None,
                    "busy_share": busy / (wall * 1e6) if busy and wall else None,
                    "launches_per_step": {x: c / STEPS for x, c in counts.items()},
                    "exchanges_per_step": (passes if route == "pass" else 2 * STEPS) / STEPS
                    if mshape != (1, 1) else 0.0, "bit_for_bit": same}
             rep[tag] = rec
-            print(f"  {tag:24s} wall {rec['wall_us_per_step']:9.2f} us/step  device "
+            print(f"  {tag:24s} wall {rec['wall_us_per_step']:9.2f} us/step  host "
+                  f"{rec['host_us_per_step']:9.2f} us/step  device "
                   f"{rec['device_us_per_step'] or float('nan'):8.2f} us/step  busy "
                   f"{rec['busy_share'] or float('nan'):.1%}  launches {rec['launches_per_step']}"
                   f"  bit for bit {same}", flush=True)
@@ -188,16 +352,24 @@ def main():
     log = build.build_log.get("fluid_pass_sh", "")
     print("\n".join(ln for ln in log.splitlines() if "registers" in ln or "spill" in ln),
           flush=True)
-    modes = sys.argv[1:] or ["check", "time"]
+    modes = set(sys.argv[1:] or ["check", "time"])
+    if "time" in modes:
+        modes |= {"alone", "variants", "runner"}
     out = {"device": C.smi_line()}
     if "check" in modes:
+        out["shapes"] = shapes(dev)
         out["check"] = check(dev)
-    if "time" in modes:
-        out["time"] = sweep(dev)
+    if "alone" in modes:
+        out["alone"] = alone(dev)
+    if "variants" in modes:
+        out["variants"] = variants(dev)
+    if "runner" in modes:
+        out["runner"] = sweep(dev)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "fluid_pass_sh_probe.json"), "w") as fo:
         json.dump(out, fo, indent=1, default=str)
-    print(json.dumps({k: v for k, v in out.items() if k != "check"}, default=str), flush=True)
+    print(json.dumps({k: v for k, v in out.items() if k not in ("check", "shapes")},
+                     default=str), flush=True)
     return 0
 
 
