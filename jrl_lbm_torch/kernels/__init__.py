@@ -15,8 +15,9 @@ three kernels it replaces; float32, bf16 or stochastically rounded bf16
 storage of f, each a template instance, counted per name and per mode), the
 shear layer's periodic step (`periodic.py`), and the JRL case and the
 cylinder channel on a mesh of shards (`jrl_sharded.py`, `cyl_sharded.py`:
-a k-step fluid pass and a lean-split cylinder pass of a shard in one launch
-each; their halo pieces packed by `halo.py`).
+a k-step fluid pass, balance pass and approach pass and a lean-split
+cylinder pass of a shard in one launch each; their halo pieces packed by
+`halo.py`).
 
 The wrappers import without ``nvcc`` or a card; a kernel is built
 (`build.py`) the first time it is launched.
@@ -31,7 +32,7 @@ KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "fused_fluid_cl", "fused_balance_cl", "fluid_pass",
            "c_approach_pass", "fused_approach_cl", "cyl_pass", "fused_approach_lanes",
            "fused_fluid_mc", "fused_balance_mc", "fused_approach_mc", "cyl_pass_sh",
-           "fluid_pass_sh")
+           "fluid_pass_sh", "c_balance_pass_sh", "c_approach_pass_sh")
 
 
 def wrappers():
@@ -75,6 +76,8 @@ def wrappers():
         "fused_approach_mc": fused_jrl.fused_approach_mc,
         "cyl_pass_sh": cyl_sharded.cyl_pass_sh,
         "fluid_pass_sh": jrl_sharded.fluid_pass_sh,
+        "c_balance_pass_sh": jrl_sharded.c_balance_pass_sh,
+        "c_approach_pass_sh": jrl_sharded.c_approach_pass_sh,
     }
 
 

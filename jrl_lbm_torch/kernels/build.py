@@ -32,7 +32,7 @@ NAMES = ("c_balance", "c_approach", "fluid_a", "fluid_b",
          "fused_fluid_cl", "fused_balance_cl", "fluid_pass",
          "c_approach_pass", "fused_approach_cl", "cyl_pass",
          "fused_fluid_mc", "fused_balance_mc", "fused_approach_mc", "cyl_pass_sh",
-         "fluid_pass_sh")
+         "fluid_pass_sh", "c_balance_pass_sh", "c_approach_pass_sh")
 
 # --fmad=false: no multiply-add contraction, so each kernel rounds where
 # its plain PyTorch twin does (see csrc/jrl_common.cuh)

@@ -49,66 +49,23 @@ __global__ void __launch_bounds__(256) c_approach_sh_kernel(
                    C_out, i, hw);
 }
 
-constexpr int DISK_THREADS = 128;
-
 // The shard's terms of (inflow, current, rec_u, rec_v) at the step, added
-// into part[0], part[1] and written to part[2], part[3].
-__global__ void __launch_bounds__(DISK_THREADS) c_disk_sh_kernel(
+// into part[0], part[1] and written to part[2], part[3]
+// (jrl_c.cuh::disk_sh_step).
+__global__ void __launch_bounds__(DISK_SH_THREADS) c_disk_sh_kernel(
     ShardPlanes<int> base, ShardPlanes<float> h, const float* __restrict__ vel,
     const float* __restrict__ Cn, const float* __restrict__ area, float* __restrict__ part,
     int step, CApproachParams p, ShardGeom s) {
   const auto g = approach_geo_on(ShardFlags{base, s}, ShardVel{vel, s}, step, p);
-  const int wi = g.walks_int;
-  const bool flat = p.flat != 0;
   const ShardPlanes<float> none{};
-  auto owned = [&](int r) { return r >= s.row0 && r < s.row0 + s.h; };
-  const int x_end = min(s.col0 + s.w, p.rint);
-  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int x = s.col0 + (int)threadIdx.x; x < x_end; x += DISK_THREADS) {
+  const auto cn = [&](int r, int x) -> float {
     const int lx = x - s.col0;
-    const float ar = area[x];
-    float disk[3], dcr[3];  // rows wi - 1, wi, wi + 1
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const int r = wi - 1 + k;
-      disk[k] = dcr[k] = 0.0f;
-      if (!owned(r)) continue;
-      const float c = Cn[(r - s.row0) * s.w + lx];
-      disk[k] = c * ar;
-      if (flat && k > 0) {
-        float c1;
-        if (lx + 1 < s.w) {
-          c1 = Cn[(r - s.row0) * s.w + lx + 1];
-        } else {  // the right neighbour's cell
-          float hs[9];
-          c1 = approach_C(ShardState{h, none, none, s, r, x + 1}, g, p, r, x + 1,
-                          g.flag(r, x + 1), hs);
-        }
-        const float rx = (float)x + 0.5f;
-        const float rC = rx * c, rC1 = ((float)(x + 1) + 0.5f) * c1;
-        dcr[k] = ((rC1 - rC) / rx) * ar;
-      }
-    }
-    if (flat) {
-      t[0] = t[0] + ((disk[1] - disk[0]) + dcr[1]);
-      t[1] = t[1] + ((disk[2] - disk[1]) + dcr[2]);
-    } else {
-      t[0] = t[0] + disk[1];
-      t[1] = t[1] + disk[2];
-    }
-    if (owned(wi + 1)) {
-      t[2] = t[2] + g.cu(wi + 1, x) * ar;
-      t[3] = t[3] + g.cv(wi + 1, x) * ar;
-    }
-  }
-  __shared__ float red[4][DISK_THREADS];
-  block_sum4(red, t);
-  if (threadIdx.x == 0) {
-    part[0] = part[0] + red[0][0];
-    part[1] = part[1] + red[1][0];
-    part[2] = red[2][0];
-    part[3] = red[3][0];
-  }
+    if (lx < s.w) return Cn[(r - s.row0) * s.w + lx];
+    float hs[9];  // the right neighbour's cell
+    return approach_C(ShardState{h, none, none, s, r, x}, g, p, r, x, g.flag(r, x), hs);
+  };
+  __shared__ float red[4][DISK_SH_THREADS];
+  disk_sh_step(cn, g, p, area, part, s.row0, s.h, s.col0, s.w, red);
 }
 
 }  // namespace
@@ -123,6 +80,6 @@ extern "C" int jrl_c_approach_sh(const ShardPlanes<int>* base, const ShardPlanes
   c_approach_sh_kernel<<<grid, block, 0, st>>>(*base, *h, vel, h_out, C_out, step, *p, *s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  c_disk_sh_kernel<<<1, DISK_THREADS, 0, st>>>(*base, *h, vel, C_out, area, part, step, *p, *s);
+  c_disk_sh_kernel<<<1, DISK_SH_THREADS, 0, st>>>(*base, *h, vel, C_out, area, part, step, *p, *s);
   return (int)cudaGetLastError();
 }

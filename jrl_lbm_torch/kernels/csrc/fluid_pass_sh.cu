@@ -72,23 +72,18 @@
 // only the top wall row's B reads that A, and an OBSTACLE cell's B reads
 // nothing around it. Every other read of a real cell stays in the window.
 // The x edges reflect (jrl_common.cuh::at_dx): nothing reads past them.
-#include "fused_launch.cuh"
-#include "jrl_shard.cuh"
-#include "pass_state.cuh"
-
-#include <atomic>
+// The launch form (the tile of a sub-step, the co-resident limit, the proxy
+// fence) is pass_sh.cuh's, shared with the C phases' passes.
+#include "pass_sh.cuh"
 
 // Mirrors kernels/jrl_sharded.py::PassShParams (outside the unnamed
 // namespace: the C entry point takes it, and must keep external linkage).
 struct FluidPassShParams {
   FluidParams a;
   FluidBParams b;
-  ShardGeom s;  // the shard's place: a row mesh (w == W, col0 == 0, xh == 0)
-  int lean;     // the lean class on the whole shard
-  int nty[jrl::TILE_KMAX];  // row bands of sub-step j
-  int ntx;                  // column strips
-  int rmax, smax;           // the largest tile's B rows and columns (smax a multiple of 4)
-  int grid;                 // blocks (at most the co-resident limit)
+  ShardGeom s;   // the shard's place: a row mesh (w == W, col0 == 0, xh == 0)
+  int lean;      // the lean class on the whole shard
+  ShTilePlan t;  // the tiles (rmax, smax: the largest tile's B rows and columns)
 };
 
 // The shard's planes and its 2k-row pieces: top holds the rows row0 - 2k ..
@@ -111,10 +106,7 @@ namespace cg = cooperative_groups;
 // -DJRL_FPT_NO_CELLS (no cell code: A and B copy their cell) and
 // -DJRL_FPT_NO_GEO (no geometry table) build timing probes with wrong
 // results (tools/fluid_pass_sh_probe.py variants)
-constexpr int FPT_THREADS = 512;  // threads a block, one block an SM
-// dynamic shared memory a block may take: the SM's 228 KB less the
-// runtime's 1 KB a block and 1 KB for the static (the mbarrier)
-constexpr int FPT_SMEM_CAP = 233472 - 2048;
+constexpr int FPT_THREADS = SH_THREADS;  // threads a block, one block an SM
 
 // Shard row r (-2k <= r < h + 2k) of plane q (f 0-8, rho 9, u 10, v 11): a
 // body row, or a row of a piece; on a mesh of one row the body mod h.
@@ -147,21 +139,6 @@ struct FptLayout {
   __host__ __device__ int fa() const { return phi() + wp * rs; }
   __host__ __device__ int codes_bytes() const { return 4 * (fa() + 9 * rmax * smax); }
   __host__ __device__ int bytes() const { return codes_bytes() + wp * rs; }
-};
-
-// Tile t of sub-step j: B on the extended rows [e0, e1) and the columns
-// [sx0, sx1); its window columns [cx0, cx1) (16-byte ends).
-struct FptTile {
-  int e0, e1, sx0, sx1, cx0, cx1;
-  __device__ FptTile(int t, int nty, int ntx, int E, int W) {
-    const int ty = t / ntx, tx = t - ty * ntx;
-    e0 = ty * E / nty;
-    e1 = (ty + 1) * E / nty;
-    sx0 = (tx * W / ntx) & ~3;
-    sx1 = tx + 1 == ntx ? W : ((tx + 1) * W / ntx) & ~3;
-    cx0 = max(sx0 - 2, 0) & ~3;
-    cx1 = min((sx1 + 2 + 3) & ~3, W);
-  }
 };
 
 // Step A's view of a tile's input around a cell: window row i, column c
@@ -224,13 +201,6 @@ struct TileGeo {
   __device__ void inflow(int, int, int, float*) const {}
 };
 
-// orders generic-proxy writes to global memory that this thread has seen
-// (the other blocks' scratch rows, after grid.sync) before its async-proxy
-// reads of them
-__device__ __forceinline__ void fence_proxy_async_global() {
-  asm volatile("fence.proxy.async.global;" ::: "memory");
-}
-
 // The pass of class CLS at depth K over every tile of the launch.
 template <int CLS, int K>
 __device__ __forceinline__ void fpt_run(const FluidPassShSrc& src, float* f_out, float* rho_out,
@@ -243,7 +213,7 @@ __device__ __forceinline__ void fpt_run(const FluidPassShSrc& src, float* f_out,
   const bool whole = s.h == s.H;  // a mesh of one row
   const int soff = whole ? 0 : 2 * K;  // scratch row of shard row 0
   const size_t splane = (size_t)(whole ? H : s.h + 4 * K) * W;  // floats a scratch plane
-  const FptLayout lay(p.rmax, p.smax);
+  const FptLayout lay(p.t.rmax, p.t.smax);
   const int RS = lay.rs, WP = lay.wp;
   float* const in = smem;
   float* const rv = smem + lay.rv();
@@ -268,15 +238,15 @@ __device__ __forceinline__ void fpt_run(const FluidPassShSrc& src, float* f_out,
     const float* const s_in = (j & 1) ? scr0 : scr1;  // what sub-step j - 1 wrote
     float* const s_out = (j & 1) ? scr1 : scr0;
     const FluidGeo fg = fluid_geo(step0 + j, p.a);
-    const int nty = p.nty[j], ntiles = nty * p.ntx;
+    const int nty = sh_nty(p.t, j), ntiles = nty * p.t.ntx;
 #pragma unroll 1
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-      const FptTile tl(t, nty, p.ntx, E, W);
+      const ShTile tl(t, nty, p.t.ntx, E, W);
       const int R = tl.e1 - tl.e0, S = tl.sx1 - tl.sx0, ncols = tl.cx1 - tl.cx0;
       const int rb0 = r_lo + tl.e0;                  // shard row of the first B row
       const int ybase = wrap1(s.row0 + rb0 - 2, H);  // global row of window row 0
       const int wr = R + 4;
-      if (R < 1 || R > p.rmax || S < 1 || S > p.smax || ncols > RS) __trap();
+      if (R < 1 || R > p.t.rmax || S < 1 || S > p.t.smax || ncols > RS) __trap();
       // the window's rows, a copy a plane row, one a thread; the barrier
       // orders the expected bytes before every copy and the tile before's
       // reads of the tables before this tile's writes
@@ -329,7 +299,7 @@ __device__ __forceinline__ void fpt_run(const FluidPassShSrc& src, float* f_out,
         const int bi = i - 2, bc = x - tl.sx0;
         if (bi >= 0 && bi < R && bc >= 0 && bc < S) {
 #pragma unroll
-          for (int q = 0; q < 9; ++q) fa[(q * p.rmax + bi) * p.smax + bc] = fo[q];
+          for (int q = 0; q < 9; ++q) fa[(q * p.t.rmax + bi) * p.t.smax + bc] = fo[q];
         }
       }
       __syncthreads();
@@ -339,9 +309,10 @@ __device__ __forceinline__ void fpt_run(const FluidPassShSrc& src, float* f_out,
         const int bi = n / S, bc = n - bi * S, x = tl.sx0 + bc, i = bi + 2, c = x - tl.cx0;
         float fo[9];
 #ifdef JRL_FPT_NO_CELLS
-        for (int q = 0; q < 9; ++q) fo[q] = fa[(q * p.rmax + bi) * p.smax + bc];
+        for (int q = 0; q < 9; ++q) fo[q] = fa[(q * p.t.rmax + bi) * p.t.smax + bc];
 #else
-        fluid_b_cell(TileB{rv, fa + bi * p.smax + bc, RS, WP, p.rmax * p.smax, i, c}, geo, p.b,
+        fluid_b_cell(TileB{rv, fa + bi * p.t.smax + bc, RS, WP, p.t.rmax * p.t.smax, i, c}, geo,
+                     p.b,
                      wrap1(ybase + i, H), x, fo);
 #endif
         const float r = rv[i * RS + c], u = rv[(WP + i) * RS + c], v = rv[(2 * WP + i) * RS + c];
@@ -379,43 +350,11 @@ __global__ void __launch_bounds__(FPT_THREADS, 1) fluid_pass_sh_tiles(
   // cells): its tables must fit the shared memory
   unsigned dyn;
   asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));
-  if ((unsigned)FptLayout(p.rmax, p.smax).bytes() > dyn) __trap();
+  if ((unsigned)FptLayout(p.t.rmax, p.t.smax).bytes() > dyn) __trap();
   if (p.lean)
     fpt_run<TILE_LEAN, K>(src, f_out, rho_out, vel_out, scr0, scr1, step0, p, smem, &bar);
   else
     fpt_run<TILE_FULL, K>(src, f_out, rho_out, vel_out, scr0, scr1, step0, p, smem, &bar);
-}
-
-// Blocks of the instance at depth K that fit on the current device at
-// once with `bytes` of dynamic shared memory: one occupancy query per
-// device and tile size (a runner keeps its plan, so one a run), not one a
-// launch.
-template <int K>
-int fpt_coresident(int bytes, int* out) {
-  // per device: the bytes asked last (high word) and the blocks (low word)
-  static std::atomic<long long> seen[JRL_MAX_DEVICES] = {};
-  *out = 0;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const bool cached = dev >= 0 && dev < JRL_MAX_DEVICES;
-  if (cached) {
-    const long long v = seen[dev].load(std::memory_order_relaxed);
-    if ((int)(v >> 32) == bytes) {
-      *out = (int)(v & 0xffffffff);
-      return (int)cudaSuccess;
-    }
-  }
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = (cudaError_t)smem_attr_once<fluid_pass_sh_tiles<K>>(FPT_SMEM_CAP);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fluid_pass_sh_tiles<K>,
-                                                      FPT_THREADS, bytes);
-  if (e != cudaSuccess) return (int)e;
-  *out = per_sm * sms;
-  if (cached) seen[dev].store(((long long)bytes << 32) | *out, std::memory_order_relaxed);
-  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -435,16 +374,16 @@ extern "C" int jrl_fluid_pass_sh_tile_shape(int k, int rmax, int smax, int* thre
                                             int* smem_cap, int* bytes, int* coresident) {
   if (rmax < 1 || smax < 4 || smax % 4) return (int)cudaErrorInvalidValue;
   *threads = FPT_THREADS;
-  *smem_cap = FPT_SMEM_CAP;
+  *smem_cap = SH_SMEM_CAP;
   *bytes = FptLayout(rmax, smax).bytes();
   return with_tile_k(k, [&](auto kc) {
-    return fpt_coresident<decltype(kc)::value>(*bytes, coresident);
+    return sh_coresident<fluid_pass_sh_tiles<decltype(kc)::value>>(*bytes, coresident);
   });
 }
 
 // One k-step pass of a shard from step step0. src: the shard's planes and
 // its 2k-row pieces, rows 16-byte aligned (W % 4 == 0); the outputs apart
-// from them. A cooperative grid of p->grid blocks (refused, nothing
+// from them. A cooperative grid of p->t.grid blocks (refused, nothing
 // launched, over the co-resident limit); scratch buffers scr0 (k >= 2) and
 // scr1 (k >= 3), each of at least 12 planes (the lean class: 9) of h + 4k
 // rows (a mesh of one row: H) x W.
@@ -452,30 +391,22 @@ extern "C" int jrl_fluid_pass_sh(const FluidPassShSrc* src, float* f_out, float*
                                  float* vel_out, float* scr0, float* scr1, int step0, int k,
                                  const FluidPassShParams* p, void* stream) {
   const ShardGeom& s = p->s;
-  if (k < 1 || k > TILE_KMAX || s.W % 4 || s.w != s.W || s.col0 != 0 || s.xh != 0 ||
-      (s.h < s.H && (!src->top || !src->bot || 2 * k > s.h)) || 4 * k >= s.H)
-    return (int)cudaErrorInvalidValue;
-  if (p->ntx < 1 || p->ntx > s.W / 4 || p->rmax < 1 || p->rmax + 5 > s.H || p->smax < 4 ||
-      p->smax % 4 || (k >= 2 && !scr0) || (k >= 3 && !scr1))
-    return (int)cudaErrorInvalidValue;
-  for (int j = 0; j < k; ++j) {
-    const int E = s.h == s.H ? s.H : s.h + 4 * (k - 1 - j);
-    if (p->nty[j] < 1 || p->nty[j] > E || (E + p->nty[j] - 1) / p->nty[j] > p->rmax)
-      return (int)cudaErrorInvalidValue;
-  }
-  const int bytes = FptLayout(p->rmax, p->smax).bytes();
-  if (bytes > FPT_SMEM_CAP) return (int)cudaErrorInvalidValue;
+  const int bad = sh_plan_check(s, k, p->t, scr0, scr1);
+  if (bad) return bad;
+  if (s.h < s.H && (!src->top || !src->bot)) return (int)cudaErrorInvalidValue;
+  const int bytes = FptLayout(p->t.rmax, p->t.smax).bytes();
+  if (bytes > SH_SMEM_CAP) return (int)cudaErrorInvalidValue;
   return with_tile_k(k, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
     int most = 0;
-    const int err = fpt_coresident<K>(bytes, &most);
+    const int err = sh_coresident<fluid_pass_sh_tiles<K>>(bytes, &most);
     if (err != (int)cudaSuccess) return err;
-    if (p->grid < 1 || p->grid > most) return (int)cudaErrorCooperativeLaunchTooLarge;
+    if (p->t.grid < 1 || p->t.grid > most) return (int)cudaErrorCooperativeLaunchTooLarge;
     FluidPassShSrc a0 = *src;
     FluidPassShParams a7 = *p;
     int a6 = step0;
     void* args[] = {&a0, &f_out, &rho_out, &vel_out, &scr0, &scr1, &a6, &a7};
-    return (int)cudaLaunchCooperativeKernel((const void*)fluid_pass_sh_tiles<K>, dim3(p->grid),
+    return (int)cudaLaunchCooperativeKernel((const void*)fluid_pass_sh_tiles<K>, dim3(p->t.grid),
                                             dim3(FPT_THREADS), args, bytes,
                                             (cudaStream_t)stream);
   });

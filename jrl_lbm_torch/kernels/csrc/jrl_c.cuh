@@ -86,12 +86,13 @@ __device__ __forceinline__ BalanceRates balance_rates(int x, const CBalanceParam
 // One balance step at global cell (., x) whose streaming source (sy, sx)
 // the accessor `src` is positioned at: streaming with INFLOW (C = 0) and
 // INFLOW_2 (C = 1) reservoirs and the OUTFLOW copy, C = sum h with
-// OBSTACLE passthrough (the old C at C[i]), BGK at u = 0 with the
-// per-direction axisymmetric rate 1/tau_D + (1 - 0.5/tau_D) e_x / r
-// (`rates`: balance_rates(x, p)). The cell's outputs go to index i of
-// planes `stride` apart.
-template <class Acc, class Geo>
-__device__ __forceinline__ void balance_cell_at(const Acc& src, const float* C, const Geo& g,
+// OBSTACLE passthrough (the old C at C[i], read at OBSTACLE cells only; C
+// a pointer, or any type C[i] reads), BGK at u = 0 with the per-direction
+// axisymmetric rate 1/tau_D + (1 - 0.5/tau_D) e_x / r (`rates`:
+// balance_rates(x, p)). The cell's outputs go to index i of planes
+// `stride` apart.
+template <class Acc, class CIn, class Geo>
+__device__ __forceinline__ void balance_cell_at(const Acc& src, const CIn& C, const Geo& g,
                                                 const BalanceCell& c, const CBalanceParams& p,
                                                 const BalanceRates& rates, int sy, int sx,
                                                 float* h_out, float* C_out, int i, int stride) {
@@ -117,8 +118,8 @@ __device__ __forceinline__ void balance_cell_at(const Acc& src, const float* C, 
 }
 
 // balance_cell_at with the collision terms computed in place.
-template <class Acc, class Geo>
-__device__ __forceinline__ void balance_cell_at(const Acc& src, const float* C, const Geo& g,
+template <class Acc, class CIn, class Geo>
+__device__ __forceinline__ void balance_cell_at(const Acc& src, const CIn& C, const Geo& g,
                                                 const BalanceCell& c, const CBalanceParams& p,
                                                 int x, int sy, int sx, float* h_out,
                                                 float* C_out, int i, int stride) {
@@ -399,6 +400,70 @@ __device__ __forceinline__ void block_sum4(float (&red)[4][N], const float s[4])
         red[k][threadIdx.x] = red[k][threadIdx.x] + red[k][threadIdx.x + half];
     }
     __syncthreads();
+  }
+}
+
+constexpr int DISK_SH_THREADS = 128;  // the threads of a shard's disk sum
+
+// One step's terms of the tip-disk integrals (inflow, current, rec_u,
+// rec_v) over the disk rows walks_int - 1 .. walks_int + 1 that a shard
+// owns (rows [row0, row0 + h), columns [col0, col0 + w)), in the JAX
+// package's row-split form, exact however the disk rows land on shard
+// boundaries: every term a product of one cell's values, summed per row
+// (inflow = sum C[wi] - sum C[wi-1] + sum dC_r[wi] for flat tips, the plain
+// disk row otherwise). cn(r, x) is the new C at cell (r, x) of an owned
+// row, x at most one column past the shard (dC_r at x reads x + 1). The
+// first DISK_SH_THREADS threads sum the columns, then the fixed tree of
+// block_sum4 (every thread of the block calls this); thread 0 adds
+// inflow and current into part[0], part[1] and writes rec_u, rec_v to
+// part[2], part[3].
+template <class CNew, class Geo>
+__device__ __forceinline__ void disk_sh_step(const CNew& cn, const Geo& g,
+                                             const CApproachParams& p, const float* area,
+                                             float* part, int row0, int h, int col0, int w,
+                                             float (&red)[4][DISK_SH_THREADS]) {
+  const int wi = g.walks_int;
+  const bool flat = p.flat != 0;
+  const auto owned = [&](int r) { return r >= row0 && r < row0 + h; };
+  const int x_end = min(col0 + w, p.rint);
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (threadIdx.x < DISK_SH_THREADS) {
+    for (int x = col0 + (int)threadIdx.x; x < x_end; x += DISK_SH_THREADS) {
+      const float ar = area[x];
+      float disk[3], dcr[3];  // rows wi - 1, wi, wi + 1
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int r = wi - 1 + k;
+        disk[k] = dcr[k] = 0.0f;
+        if (!owned(r)) continue;
+        const float c = cn(r, x);
+        disk[k] = c * ar;
+        if (flat && k > 0) {
+          const float c1 = cn(r, x + 1);
+          const float rx = (float)x + 0.5f;
+          const float rC = rx * c, rC1 = ((float)(x + 1) + 0.5f) * c1;
+          dcr[k] = ((rC1 - rC) / rx) * ar;
+        }
+      }
+      if (flat) {
+        t[0] = t[0] + ((disk[1] - disk[0]) + dcr[1]);
+        t[1] = t[1] + ((disk[2] - disk[1]) + dcr[2]);
+      } else {
+        t[0] = t[0] + disk[1];
+        t[1] = t[1] + disk[2];
+      }
+      if (owned(wi + 1)) {
+        t[2] = t[2] + g.cu(wi + 1, x) * ar;
+        t[3] = t[3] + g.cv(wi + 1, x) * ar;
+      }
+    }
+  }
+  block_sum4(red, t);
+  if (threadIdx.x == 0) {
+    part[0] = part[0] + red[0][0];
+    part[1] = part[1] + red[1][0];
+    part[2] = red[2][0];
+    part[3] = red[3][0];
   }
 }
 

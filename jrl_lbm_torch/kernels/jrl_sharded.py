@@ -1,8 +1,8 @@
 """The JRL case on a ``(ny, nx)`` mesh of shards: the fluid phase, the C
 balance and the C approach, each shard through hand-written CUDA kernels
-(`csrc/fluid_pass_sh.cu`, `fluid_a_sh.cu`, `fluid_b_sh.cu`,
-`c_balance_sh.cu`, `c_approach_sh.cu`), each with its plain PyTorch twin,
-and the runners.
+(`csrc/fluid_pass_sh.cu`, `c_balance_pass_sh.cu`, `c_approach_pass_sh.cu`,
+`fluid_a_sh.cu`, `fluid_b_sh.cu`, `c_balance_sh.cu`, `c_approach_sh.cu`),
+each with its plain PyTorch twin, and the runners.
 
 Replaces the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py`:
 ``_step_a`` and ``_step_b`` (and their lean pair ``_step_a_lean``,
@@ -13,8 +13,11 @@ shard from its 2k-row pieces), which no JAX runner builds: here
 `fluid_pass_sh`, the row-mesh fluid runner's default route (one
 cooperative launch a shard and k-step pass, the full or the lean class:
 the k sub-steps in turn over the whole shard, each in one wave of tiles
-on every SM, `pass_sh_plan`). The runners port
-``make_sharded_tiled_{fluid,balance,approach}_runner`` with their
+on every SM, `pass_sh_plan`); and k launches of ``_step_balance`` or of
+``_step_approach`` (with the jnp frame lerp before each) as one launch of
+`c_balance_pass_sh` or `c_approach_pass_sh`, the C runners' default route
+on a row mesh, on the same launch form (`csrc/pass_sh.cuh`). The runners
+port ``make_sharded_tiled_{fluid,balance,approach}_runner`` with their
 ``(state, fields, ...)`` contracts: global tensors in and out.
 
 Each kernel runs the unchanged cell code of the unsharded kernels in
@@ -42,17 +45,18 @@ Where the JAX runner differs, and why:
 * ``unroll`` is the chunk over which the approach accumulates its disk
   partials before the one ``psum``; the fluid and balance runners accept
   it and ignore it;
-* on a row mesh the fluid runner runs passes of k steps, each one
-  exchange of 2k-row pieces and one `fluid_pass_sh` a shard, where JAX's
-  runs the A/B pair a step (its ``route="launches"`` here, and the route
-  of column meshes).
+* on a row mesh each runner runs passes of k steps, each one exchange
+  of 2k-row pieces and one pass launch a shard, where JAX's runs its
+  kernels a step (``route="launches"`` here, and the route of column
+  meshes).
 
 A wrapper given tensors on the CPU runs its twin; given tensors on the
 card it launches the kernel or raises. ``fluid_a_sh.launches`` etc.
 count the launches, the lean instance's with the full one's.
 `fluid_pass_sh`'s twin runs the port's tile-class pyramid
-(`jrl_tiled.py::_pass_ref`) on the shard's rows; on the CPU it equals the
-kernel bit for bit (an H100 run, PERF.md).
+(`jrl_tiled.py::_pass_ref`) on the shard's rows, the C passes' twins k
+whole-grid steps on the shard embedded with its pieces in a grid of NaN;
+on the CPU each equals its kernel bit for bit (h, C; H100 runs, PERF.md).
 """
 
 from __future__ import annotations
@@ -205,6 +209,22 @@ def _check_pass_sh(sh: Shard, halo: Halo | None, k: int, lean: bool):
         raise ValueError("the lean pass serves the inner shards of a row mesh of >= 3 rows")
 
 
+def _embed_rows(sh: Shard, body, halo: Halo | None, fill):
+    """The shard's ``[..., h, W]`` planes at their global rows of a
+    ``[..., H, W]`` grid of ``fill``, with its row pieces (``halo.k`` rows a
+    side, mod H) around them."""
+    dev = body.device
+    g = torch.full(tuple(body.shape[:-2]) + (sh.H, sh.W), fill, dtype=body.dtype, device=dev)
+    if halo is not None and halo.top is not None:
+        d = halo.k
+        g[..., torch.arange(sh.row0 - d, sh.row0, device=dev) % sh.H, :] = \
+            halo.top.reshape(g.shape[:-2] + (d, sh.W))
+        g[..., torch.arange(sh.row0 + sh.h, sh.row0 + sh.h + d, device=dev) % sh.H, :] = \
+            halo.bot.reshape(g.shape[:-2] + (d, sh.W))
+    g[..., sh.row0:sh.row0 + sh.h, :] = body
+    return g
+
+
 def fluid_pass_sh_ref(f, rho, vel, halo: Halo | None, step: int, k: int, cfg, fields, sh: Shard,
                       lean=False):
     """Twin of `fluid_pass_sh`: the shard and its pieces embedded at their
@@ -212,19 +232,15 @@ def fluid_pass_sh_ref(f, rho, vel, halo: Halo | None, step: int, k: int, cfg, fi
     (`jrl_tiled.py::_pass_ref`, full or lean) on the shard's rows, which
     reads the 2k rows beyond them a side and nothing else."""
     _check_pass_sh(sh, halo, k, lean)
-    H, W, r2 = sh.H, sh.W, 2 * int(k)
+    H, W = sh.H, sh.W
     dev = f.device
     nan = float("nan")
 
     def grid(body, planes):
         b = as_planes(body)
-        g = torch.full((b.shape[0], H, W), nan, dtype=_F32, device=dev)
-        if halo is not None and halo.top is not None:
-            g[:, torch.arange(sh.row0 - r2, sh.row0, device=dev) % H] = halo.top[planes]
-            g[:, torch.arange(sh.row0 + sh.h, sh.row0 + sh.h + r2, device=dev) % H] = \
-                halo.bot[planes]
-        g[:, sh.row0:sh.row0 + sh.h] = b
-        return g
+        pieces = None if halo is None or halo.top is None else \
+            Halo(b.shape[0], halo.top[planes], halo.bot[planes], k=halo.k)
+        return _embed_rows(sh, b, pieces, nan)
 
     gf = grid(f, slice(0, 9))
     gr, gv = (None, None) if lean else (grid(rho, slice(11, 12))[0], grid(vel, slice(9, 11)))
@@ -443,11 +459,23 @@ def c_approach_sh(h, C, vel, base, halo_h: Halo, halo_fl: Halo, step: int, cfg, 
     return h_out, C_out
 
 
+class ShTilePlan(ctypes.Structure):
+    """Mirrors ``csrc/pass_sh.cuh::ShTilePlan`` (a `TilePlan`)."""
+    _fields_ = [("nty", ctypes.c_int * _tl.KMAX), ("ntx", ctypes.c_int), ("rmax", ctypes.c_int),
+                ("smax", ctypes.c_int), ("grid", ctypes.c_int)]
+
+
+def _tile_plan_struct(plan: TilePlan) -> ShTilePlan:
+    t = ShTilePlan(ntx=plan.ntx, rmax=plan.rmax, smax=plan.smax, grid=plan.grid)
+    for j, n in enumerate(plan.nty):
+        t.nty[j] = n
+    return t
+
+
 class PassShParams(ctypes.Structure):
     """Mirrors ``csrc/fluid_pass_sh.cu::FluidPassShParams``."""
     _fields_ = [("a", _fl.FluidParams), ("b", _fl.FluidBParams), ("s", ShardGeom),
-                ("lean", ctypes.c_int), ("nty", ctypes.c_int * _tl.KMAX), ("ntx", ctypes.c_int),
-                ("rmax", ctypes.c_int), ("smax", ctypes.c_int), ("grid", ctypes.c_int)]
+                ("lean", ctypes.c_int), ("t", ShTilePlan)]
 
 
 class PassShSrc(ctypes.Structure):
@@ -455,7 +483,7 @@ class PassShSrc(ctypes.Structure):
 
 
 # threads a block (one block an SM) and the dynamic shared memory a block
-# may take (csrc/fluid_pass_sh.cu: FPT_THREADS, FPT_SMEM_CAP)
+# may take, in every pass (csrc/pass_sh.cuh: SH_THREADS, SH_SMEM_CAP)
 TILE_THREADS = 512
 TILE_SMEM_CAP = 231424
 # the plan's cost of a wave of tiles, per cell of its largest tile: an A
@@ -516,33 +544,72 @@ def _smax_of(ntx: int, W: int) -> int:
     return max(tile_strip(t, ntx, W)[1] - tile_strip(t, ntx, W)[0] for t in range(ntx))
 
 
+# the plan's cost of a C cell (the balance's or the approach's step), per
+# cell of its largest tile, beside TILE_COST_W a window cell (PERF.md §6)
+C_TILE_COST = {"balance": 0.5, "approach": 0.6}
+PASS_KINDS = ("fluid",) + tuple(C_TILE_COST)
+
+
+def c_tile_smem_bytes(kind: str, rmax: int, smax: int) -> int:
+    """Bytes of a block's tables for C tiles of at most ``rmax`` x ``smax``
+    cells (``CbLayout`` of `csrc/c_balance_pass_sh.cu`, ``CaLayout`` of
+    `csrc/c_approach_pass_sh.cu`): rows of ``smax + 8`` words, ``rmax + 4``
+    window rows; h (9 planes) and the flags, then the column rates (9 floats
+    a column) for the balance; h, phi and the flag codes, then the disk
+    sum's tree (4 x 128 floats) for the approach."""
+    rs, wp = smax + 8, rmax + 4
+    if kind == "balance":
+        return 4 * (10 * wp * rs + 9 * smax)
+    return 4 * (11 * wp * rs + 4 * 128)
+
+
+def pass_tile_bytes(kind: str, R: int, S_: int) -> int:
+    """Bytes of a block's tables for tiles of ``R`` x ``S_`` cells of the
+    pass of ``kind``."""
+    return tile_smem_bytes(R, S_) if kind == "fluid" else c_tile_smem_bytes(kind, R, S_)
+
+
+def _tile_cost(kind: str, R: int, S_: int) -> float:
+    """A wave's cost of tiles of ``R`` x ``S_`` cells, at least a cell of
+    each kind a thread."""
+    if kind == "fluid":
+        cost = TILE_COST_A * (R + 2) * (S_ + 2) + TILE_COST_B * R * S_
+        cell = TILE_COST_A + TILE_COST_B
+    else:
+        cost, cell = C_TILE_COST[kind] * R * S_, C_TILE_COST[kind]
+    cost += TILE_COST_W * (R + 4) * (S_ + 8)
+    return max(cost, (cell + TILE_COST_W) * TILE_THREADS)
+
+
 @functools.lru_cache(maxsize=256)
-def pass_sh_plan(sh: Shard, k: int, sms: int = _tl.PASS_SMS) -> TilePlan:
-    """The plan of a k-step pass of ``sh``. Each sub-step's bands and the
-    launch's strips minimise the waves of ``sms`` blocks times a wave's
-    cost (``TILE_COST_*`` x the largest tile's A cells (R + 2) x (S + 2),
-    B cells R x S and window cells (R + 4) x (S + 8), at least a cell of
-    each a thread), with strips of at least 32 columns (the window rows'
+def pass_sh_plan(sh: Shard, k: int, sms: int = _tl.PASS_SMS, kind: str = "fluid") -> TilePlan:
+    """The plan of a k-step pass of ``sh`` by the kernel of ``kind``
+    (`PASS_KINDS`: `fluid_pass_sh`, `c_balance_pass_sh`,
+    `c_approach_pass_sh`). Each sub-step's bands and the launch's strips
+    minimise the waves of ``sms`` blocks times a wave's cost (`_tile_cost`:
+    ``TILE_COST_*`` x the largest tile's A cells (R + 2) x (S + 2), B cells
+    R x S and window cells (R + 4) x (S + 8); a C tile's cells at
+    ``C_TILE_COST``), with strips of at least 32 columns (the window rows'
     copies), each tile's tables within ``TILE_SMEM_CAP`` and its window (R
     + 5 rows) within the grid's rows."""
     H, W, k = sh.H, sh.W, int(k)
+    if kind not in PASS_KINDS:
+        raise ValueError(f"kind {kind!r}: one of {PASS_KINDS}")
     rows = pass_sh_rows(sh, k)
     if W % 4 or W < 4:
         raise ValueError(f"W = {W}: the tiles take W % 4 == 0")
     best = None
-    floor = (TILE_COST_A + TILE_COST_B + TILE_COST_W) * TILE_THREADS
     for ntx in range(1, max(1, W // 32) + 1):
         S_ = _smax_of(ntx, W)
         total, nty = 0.0, []
         for E in rows:
             pick = None
             for R in range(1, min(E, H - 5, 256) + 1):
-                if tile_smem_bytes(R, S_) > TILE_SMEM_CAP:
+                if pass_tile_bytes(kind, R, S_) > TILE_SMEM_CAP:
                     break
                 n = -(-E // R)
                 waves = -(-(n * ntx) // int(sms))
-                cost = waves * max(TILE_COST_A * (R + 2) * (S_ + 2) + TILE_COST_B * R * S_
-                                   + TILE_COST_W * (R + 4) * (S_ + 8), floor)
+                cost = waves * _tile_cost(kind, R, S_)
                 if pick is None or (cost, n) < pick[:2]:
                     pick = (cost, n)
             if pick is None:
@@ -557,13 +624,21 @@ def pass_sh_plan(sh: Shard, k: int, sms: int = _tl.PASS_SMS) -> TilePlan:
         raise ValueError(f"{H}x{W}: no tile fits the shared memory")
     _, ntx, nty, smax = best
     rmax = max(-(-E // n) for E, n in zip(rows, nty))
-    return TilePlan(nty, ntx, rmax, smax, min(int(sms), max(nty) * ntx))
+    return TilePlan(nty, ntx, rmax, smax, _grid_of(kind, nty, ntx, sms))
+
+
+def _grid_of(kind: str, nty, ntx: int, sms: int) -> int:
+    """Blocks of a launch: one a tile of the largest sub-step, at most
+    ``sms``; the approach one more where the card holds it, a block with no
+    tile that sums each step's disk terms while the others run the next
+    sub-step."""
+    return min(int(sms), max(nty) * ntx + (kind == "approach"))
 
 
 def tile_plan(sh: Shard, k: int, R: int, S_: int, sms: int = _tl.PASS_SMS) -> TilePlan:
-    """A plan of bands of about ``R`` rows and strips of about ``S_``
-    columns in place of `pass_sh_plan`'s (the CPU tests' schedules, the
-    probe's tile shapes)."""
+    """A plan of `fluid_pass_sh` of bands of about ``R`` rows and strips of
+    about ``S_`` columns in place of `pass_sh_plan`'s (the CPU tests'
+    schedules, the probe's tile shapes)."""
     H, W = sh.H, sh.W
     rows = pass_sh_rows(sh, k)
     ntx = min(max(1, -(-W // int(S_))), W // 4)
@@ -577,22 +652,20 @@ def tile_plan(sh: Shard, k: int, R: int, S_: int, sms: int = _tl.PASS_SMS) -> Ti
 
 @functools.lru_cache(maxsize=256)
 def _pass_sh_params(cfg, sh: Shard, lean: bool, plan: TilePlan) -> PassShParams:
-    p = PassShParams(a=_fl._a_params(cfg), b=_fl._b_params(cfg), s=sh.geom, lean=int(lean))
-    for j, n in enumerate(plan.nty):
-        p.nty[j] = n
-    p.ntx, p.rmax, p.smax, p.grid = plan.ntx, plan.rmax, plan.smax, plan.grid
-    return p
+    return PassShParams(a=_fl._a_params(cfg), b=_fl._b_params(cfg), s=sh.geom, lean=int(lean),
+                        t=_tile_plan_struct(plan))
 
 
-def pass_sh_scratch(sh: Shard, k: int, device) -> torch.Tensor | None:
+def pass_sh_scratch(sh: Shard, k: int, device, planes: int = 12) -> torch.Tensor | None:
     """The scratch of a pass of ``sh`` at depth k or below: ``min(k - 1,
-    2)`` buffers of 12 planes of the shard's rows extended by 2k a side (a
-    mesh of one row: its ``H`` rows) x ``W``; None at k = 1."""
+    2)`` buffers of ``planes`` planes (12 for the fluid's [f, rho, u, v],
+    10 for the C passes' [h, C]) of the shard's rows extended by 2k a side
+    (a mesh of one row: its ``H`` rows) x ``W``; None at k = 1."""
     k = int(k)
     if k < 2:
         return None
     rows = sh.H if sh.h == sh.H else sh.h + 4 * k
-    return torch.empty((min(k - 1, 2), 12, rows, sh.W), dtype=_F32, device=device)
+    return torch.empty((min(k - 1, 2), int(planes), rows, sh.W), dtype=_F32, device=device)
 
 
 def fluid_pass_sh(f, rho, vel, halo: Halo | None, step: int, k: int, cfg, fields, sh: Shard,
@@ -620,19 +693,7 @@ def fluid_pass_sh(f, rho, vel, halo: Halo | None, step: int, k: int, cfg, fields
     if sh.W % 4 or any(t % 16 for t in (src.f, src.rho, src.vel, src.top or 0, src.bot or 0)):
         raise ValueError("fluid_pass_sh copies rows of 16-byte aligned planes (W % 4 == 0)")
     p = _pass_sh_params(cfg, sh, bool(lean), pass_sh_plan(sh, int(k), _fl.sm_count(dev)))
-    scr = [None, None]
-    if k >= 2:
-        # buffer b holds sub-step j's planes (j % 2 == b) for j + 1: shard
-        # row r at buffer row r + 2k
-        if scratch is None:
-            scratch = pass_sh_scratch(sh, k, dev)
-        need = (9 if lean else 12) * (sh.H if sh.h == sh.H else sh.h + 4 * int(k)) * sh.W
-        if scratch.dtype != _F32 or scratch.device != dev or not scratch.is_contiguous() \
-                or scratch.dim() < 2 or scratch.shape[0] < min(int(k) - 1, 2) \
-                or scratch[0].numel() < need:
-            raise ValueError(f"scratch: {tuple(scratch.shape)} {scratch.dtype} on "
-                             f"{scratch.device}, expected pass_sh_scratch's for k = {k} on {dev}")
-        scr[:min(int(k) - 1, 2)] = [scratch[b].data_ptr() for b in range(min(int(k) - 1, 2))]
+    scratch, scr = _scratch_ptrs(sh, k, 9 if lean else 12, scratch, dev)
     f_out, rho_out, vel_out = torch.empty_like(f), torch.empty_like(rho), torch.empty_like(vel)
     fn = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh", [_P] * 6 + [ctypes.c_int] * 2
                     + [_P, _P])
@@ -644,28 +705,293 @@ def fluid_pass_sh(f, rho, vel, halo: Halo | None, step: int, k: int, cfg, fields
     return f_out, rho_out, vel_out
 
 
-def pass_sh_info(k: int, device_index: int = 0):
-    """``(registers per thread, local bytes)`` of `fluid_pass_sh`'s
-    instance at depth k."""
-    fn = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh_info", [ctypes.c_int, _P, _P])
+def _scratch_ptrs(sh: Shard, k: int, planes: int, scratch, dev):
+    """``(scratch, pointers)``: the scratch of a pass at depth k
+    (`pass_sh_scratch` of the shard at this k or a deeper one, allocated
+    here when None; the caller holds it until the launch is queued) and its
+    two buffers' pointers (None where unused), each buffer holding
+    ``planes`` planes of the pass's rows. Buffer b holds sub-step j's planes
+    (j % 2 == b) for j + 1: shard row r at buffer row r + 2k (a mesh of one
+    row: row r)."""
+    k = int(k)
+    if k < 2:
+        return None, [None, None]
+    nb = min(k - 1, 2)
+    if scratch is None:
+        scratch = pass_sh_scratch(sh, k, dev, planes)
+    need = planes * (sh.H if sh.h == sh.H else sh.h + 4 * k) * sh.W
+    if scratch.dtype != _F32 or scratch.device != dev or not scratch.is_contiguous() \
+            or scratch.dim() < 2 or scratch.shape[0] < nb or scratch[0].numel() < need:
+        raise ValueError(f"scratch: {tuple(scratch.shape)} {scratch.dtype} on "
+                         f"{scratch.device}, expected pass_sh_scratch's for k = {k} on {dev}")
+    return scratch, [scratch[b].data_ptr() for b in range(nb)] + [None] * (2 - nb)
+
+
+# the library of each kind of pass
+PASS_LIBS = {"fluid": "fluid_pass_sh", "balance": "c_balance_pass_sh",
+             "approach": "c_approach_pass_sh"}
+
+
+def pass_sh_info(k: int, device_index: int = 0, kind: str = "fluid"):
+    """``(registers per thread, local bytes)`` of the instance at depth k of
+    the pass of ``kind`` (`PASS_LIBS`)."""
+    lib = PASS_LIBS[kind]
+    fn = build.bind(lib, f"jrl_{lib}_info", [ctypes.c_int, _P, _P])
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        build.check(fn(int(k), ctypes.byref(regs), ctypes.byref(local)), "fluid_pass_sh")
+        build.check(fn(int(k), ctypes.byref(regs), ctypes.byref(local)), lib)
     return regs.value, local.value
 
 
-def pass_sh_tile_shape(k: int, rmax: int, smax: int, device_index: int = 0):
+def pass_sh_tile_shape(k: int, rmax: int, smax: int, device_index: int = 0, kind: str = "fluid"):
     """The kernel's own ``(threads, shared memory cap, bytes of an rmax x
     smax tile, co-resident blocks at that size)`` at depth k, which
-    `pass_sh_plan` mirrors (`TILE_THREADS`, `TILE_SMEM_CAP`,
-    `tile_smem_bytes`)."""
-    fn = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh_tile_shape", [ctypes.c_int] * 3
-                    + [_P] * 4)
+    `pass_sh_plan` mirrors (`TILE_THREADS`, `TILE_SMEM_CAP`, `pass_tile_bytes`)."""
+    lib = PASS_LIBS[kind]
+    fn = build.bind(lib, f"jrl_{lib}_tile_shape", [ctypes.c_int] * 3 + [_P] * 4)
     out = [ctypes.c_int(0) for _ in range(4)]
     with torch.cuda.device(device_index):
-        build.check(fn(int(k), int(rmax), int(smax), *(ctypes.byref(x) for x in out)),
-                    "fluid_pass_sh")
+        build.check(fn(int(k), int(rmax), int(smax), *(ctypes.byref(x) for x in out)), lib)
     return tuple(x.value for x in out)
+
+
+# ---------------------------------------------------------------------------
+# The C phases' k-step passes: c_balance_pass_sh, c_approach_pass_sh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardFrames:
+    """A shard's window of the stored-velocity history: ``t`` holds frames
+    ``b0 .. b0 + N - 1`` of a history of ``n_frames`` (None: ``b0 + N``) as
+    ``[N, 2, rows, W]``, shard row r at row ``r + row0`` (its reach rows a
+    side; on a mesh of one row the grid's rows, ``row0`` 0)."""
+
+    t: torch.Tensor
+    row0: int
+    b0: int = 0
+    n_frames: int | None = None
+
+    @property
+    def total(self) -> int:
+        return self.b0 + int(self.t.shape[0]) if self.n_frames is None else int(self.n_frames)
+
+
+def shard_frames(vel_field, sh: Shard, reach: int, device=None, b0: int = 0,
+                 n_frames: int | None = None) -> ShardFrames:
+    """The shard's `ShardFrames` cut from the global ``[N, 2, H, W]``
+    history ``vel_field``: its rows and ``reach`` rows a side (mod H; all
+    rows on a mesh of one row), on ``device`` (default the history's)."""
+    v = torch.as_tensor(vel_field, dtype=_F32)
+    if sh.h == sh.H:
+        t, row0 = v, 0
+    else:
+        rows = torch.arange(sh.row0 - int(reach), sh.row0 + sh.h + int(reach),
+                            device=v.device) % sh.H
+        t, row0 = v[:, :, rows], int(reach)
+    t = t[..., sh.col0:sh.col0 + sh.w].to(v.device if device is None else device).contiguous()
+    return ShardFrames(t, row0, int(b0), n_frames)
+
+
+def _check_c_pass_sh(sh: Shard, halo: Halo | None, P: int, halo_fl: Halo | None, k: int):
+    """`_check_depth`; the shard's 2k-row pieces of the ``P`` planes of its
+    state group ([h, C] for the balance, [h] for the approach) and its flag
+    pieces, at least 2k rows deep (none on a mesh of one row)."""
+    _check_depth(sh, k)
+    rows = sh.h < sh.H
+    for name, hx, depth in (("state", halo, 2 * int(k)), ("flag", halo_fl, None)):
+        has = hx is not None and hx.top is not None
+        if has != rows or (has and (hx.P != (P if depth else 1)
+                                    or (hx.k != depth if depth else hx.k < 2 * int(k)))):
+            raise ValueError(f"{name} pieces do not match the shard's mesh: a mesh of >1 row "
+                             f"needs the {2 * int(k)}-row pieces of the state group ({P} "
+                             f"planes) and flag pieces at least as deep")
+
+
+def c_balance_pass_sh_ref(h, C, flags, halo: Halo | None, halo_fl: Halo | None, k: int, cfg,
+                          fields, sh: Shard):
+    """Twin of `c_balance_pass_sh`: the shard and its pieces of [h, C]
+    embedded at their global rows in a grid of NaN (the flags in a grid of
+    0, no cell type), and k steps of the whole-grid twin
+    (`jrl_c.c_balance_ref`); the shard's rows of the result."""
+    _check_c_pass_sh(sh, halo, 10, halo_fl, k)
+    nan = float("nan")
+    hc = _embed_rows(sh, torch.cat([h, C[None]]), halo, nan)
+    hg, Cg = hc[:9], hc[9]
+    fg = _embed_rows(sh, flags, halo_fl, 0)
+    for _ in range(int(k)):
+        hg, Cg = _c.c_balance_ref(hg, Cg, fg, cfg, fields)
+    return sh.body(hg), sh.body(Cg)
+
+
+def c_approach_pass_sh_ref(h, base, frames: ShardFrames, halo: Halo | None,
+                           halo_fl: Halo | None, step: int, k: int, cfg, fields, sh: Shard):
+    """Twin of `c_approach_pass_sh`: the shard and its h pieces embedded at
+    their global rows in a grid of NaN, its base flags and their pieces in a
+    grid of 0 and its frame window at its global rows in frames of NaN; k
+    steps of the stored velocity's lerp and the whole-grid twin
+    (`jrl_c.c_approach_ref`) from ``step``. Returns ``(h, C, parts)``, the
+    shard's rows and its ``[k, 4]`` disk terms a step
+    (`disk_partials_ref`)."""
+    _check_c_pass_sh(sh, halo, 9, halo_fl, k)
+    nan = float("nan")
+    hg = _embed_rows(sh, h, halo, nan)
+    bg = _embed_rows(sh, base, halo_fl, 0)
+    ft = frames.t
+    fg = torch.full(tuple(ft.shape[:2]) + (sh.H, sh.W), nan, dtype=_F32, device=ft.device)
+    fg[:, :, (torch.arange(ft.shape[2], device=ft.device) + sh.row0 - frames.row0) % sh.H] = ft
+    fl = dict(fields, base_flags=bg)
+    Cg, parts = torch.zeros_like(hg[0]), []
+    for j in range(int(k)):
+        s = int(step) + j
+        vel = _jrl.stored_velocity(fg, s, cfg.vel_obs_conv, frames.b0, frames.total)
+        hg, Cg, _ = _c.c_approach_ref(hg, Cg, vel, s, cfg, fl)
+        parts.append(disk_partials_ref(Cg, vel, s, cfg, fields, sh))
+    return sh.body(hg), sh.body(Cg), torch.stack(parts)
+
+
+class CPassShSrc(ctypes.Structure):
+    """Mirrors ``csrc/pass_sh.cuh::CPassShSrc``."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ("h", "C", "top", "bot", "fl", "fl_top", "fl_bot",
+                                                "frames")]
+
+
+class CBalancePassShParams(ctypes.Structure):
+    """Mirrors ``csrc/c_balance_pass_sh.cu::CBalancePassShParams``."""
+    _fields_ = [("p", _c.CBalanceParams), ("s", ShardGeom), ("t", ShTilePlan),
+                ("fl_rows", ctypes.c_int)]
+
+
+class CApproachPassShParams(ctypes.Structure):
+    """Mirrors ``csrc/c_approach_pass_sh.cu::CApproachPassShParams``."""
+    _fields_ = [("p", _c.CApproachParams), ("s", ShardGeom), ("t", ShTilePlan),
+                ("fl_rows", ctypes.c_int), ("n_frames", ctypes.c_int), ("b0", ctypes.c_int),
+                ("vrow0", ctypes.c_int), ("vrows", ctypes.c_int)]
+
+
+def _c_pass_src(sh: Shard, k: int, dev, h, C, flags, halo, halo_fl, P: int) -> CPassShSrc:
+    """The kernel's view of the shard's state, flags and pieces, each
+    checked (shape, dtype, device, contiguity, 16-byte rows) before any
+    pointer is taken."""
+    src = CPassShSrc(h=h.data_ptr(), C=None if C is None else C.data_ptr(), fl=flags.data_ptr())
+    if halo is not None and halo.top is not None:
+        for name, t, shape, dt in (("top", halo.top, (P, 2 * k, sh.w), _F32),
+                                   ("bot", halo.bot, (P, 2 * k, sh.w), _F32),
+                                   ("fl_top", halo_fl.top, (1, halo_fl.k, sh.w), torch.int32),
+                                   ("fl_bot", halo_fl.bot, (1, halo_fl.k, sh.w), torch.int32)):
+            if tuple(t.shape) != shape or t.dtype != dt or t.device != dev \
+                    or not t.is_contiguous():
+                raise ValueError(f"halo {name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
+                                 f"expected contiguous {shape} {dt} on {dev}")
+            setattr(src, name, t.data_ptr())
+    ptrs = [getattr(src, n) or 0 for n, _ in CPassShSrc._fields_]
+    if sh.W % 4 or any(p % 16 for p in ptrs):
+        raise ValueError("the C passes copy rows of 16-byte aligned planes (W % 4 == 0)")
+    return src
+
+
+def c_balance_pass_sh(h, C, flags, halo: Halo | None, halo_fl: Halo | None, k: int, cfg, fields,
+                      sh: Shard, scratch=None):
+    """k balance steps of a shard of a row mesh in one launch; returns the
+    shard's new ``(h, C)``. ``halo``: the 2k-row pieces of ``[h, C]``
+    (`halo.exchange` with ``rows=2k``; None or no pieces on a mesh of one
+    row); ``halo_fl``: the fixed flags' pieces, at least 2k rows deep (a
+    run exchanges them once, at its deepest pass); ``scratch``:
+    `pass_sh_scratch` of the shard (10 planes) at this k or a deeper one."""
+    if h.device.type == "cpu":
+        return c_balance_pass_sh_ref(h, C, flags, halo, halo_fl, k, cfg, fields, sh)
+    k = int(k)
+    _check_c_pass_sh(sh, halo, 10, halo_fl, k)
+    dev = _check(sh, 0, h=(h, (9,)), C=(C, ()), flags=(flags, ()))
+    src = _c_pass_src(sh, k, dev, h, C, flags, halo, halo_fl, 10)
+    plan = pass_sh_plan(sh, k, _fl.sm_count(dev), "balance")
+    p = CBalancePassShParams(p=_c._balance_params(cfg), s=sh.geom, t=_tile_plan_struct(plan),
+                             fl_rows=halo_fl.k if src.fl_top else 0)
+    scratch, scr = _scratch_ptrs(sh, k, 10, scratch, dev)
+    h_out, C_out = torch.empty_like(h), torch.empty_like(C)
+    fn = build.bind("c_balance_pass_sh", "jrl_c_balance_pass_sh",
+                    [_P] * 5 + [ctypes.c_int, _P, _P])
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(src), h_out.data_ptr(), C_out.data_ptr(), scr[0], scr[1], k,
+                 ctypes.byref(p), stream_of(dev))
+    build.check(err, "c_balance_pass_sh")
+    c_balance_pass_sh.launches += 1
+    return h_out, C_out
+
+
+def _check_frames(frames: ShardFrames, sh: Shard, k: int, step: int, v: float, dev=None):
+    """The window holds the reach of a k-step pass (2k rows a side) and the
+    frames steps ``step .. step + k - 1`` read."""
+    N, two, rows, w = frames.t.shape
+    if two != 2 or w != sh.w or (dev is not None and (frames.t.device != dev
+                                                     or frames.t.dtype != _F32
+                                                     or not frames.t.is_contiguous())):
+        raise ValueError(f"frames: {tuple(frames.t.shape)} {frames.t.dtype} on "
+                         f"{frames.t.device}, expected contiguous [N, 2, rows, {sh.w}] float32")
+    whole = sh.h == sh.H
+    if (whole and (frames.row0 != 0 or rows != sh.H)) or \
+            (not whole and (frames.row0 < 2 * k or rows - frames.row0 - sh.h < 2 * k)):
+        raise ValueError(f"frames: rows {rows} from row0 {frames.row0} do not hold the shard and "
+                         f"its {2 * k}-row reach a side")
+    n_frames = frames.total
+    if not 0 <= frames.b0 <= n_frames - N:
+        raise ValueError(f"a window of {N} frames from frame {frames.b0} in a history of "
+                         f"{n_frames}")
+    for s in (int(step), int(step) + k - 1):
+        b, _, lerp = _jrl.frame_pair(s, v, n_frames)
+        if not (frames.b0 <= b and b + int(lerp) < frames.b0 + N):
+            raise ValueError(f"step {s} reads frames {b}..{b + int(lerp)}, outside the window "
+                             f"of frames {frames.b0}..{frames.b0 + N - 1}")
+
+
+def c_approach_pass_sh(h, base, frames: ShardFrames, halo: Halo | None, halo_fl: Halo | None,
+                       step: int, k: int, cfg, fields, sh: Shard, part, scratch=None):
+    """k approach steps of a shard of a row mesh from ``step`` in one
+    launch, the stored velocity interpolated in the kernel from
+    ``frames`` (`shard_frames`, at least 2k reach rows a side); returns the
+    shard's new ``(h, C)`` and updates ``part`` (float32 ``[4]`` on the
+    shard's device) in place with each step's disk terms in step order, as
+    k `c_approach_sh` launches do. ``halo``: the 2k-row pieces of ``[h]``;
+    ``halo_fl``: the base flags' pieces, at least 2k rows deep;
+    ``scratch``: `pass_sh_scratch` of the shard (10 planes). The old C is
+    never read."""
+    k = int(k)
+    if h.device.type == "cpu":
+        _check_frames(frames, sh, k, step, cfg.vel_obs_conv)
+        h, C, parts = c_approach_pass_sh_ref(h, base, frames, halo, halo_fl, step, k, cfg,
+                                             fields, sh)
+        for p in parts:
+            part[0] += p[0]
+            part[1] += p[1]
+            part[2] = p[2]
+            part[3] = p[3]
+        return h, C
+    _check_c_pass_sh(sh, halo, 9, halo_fl, k)
+    _check(sh, step)
+    dev = _check(sh, int(step) + k - 1, h=(h, (9,)), base=(base, ()))
+    _check_frames(frames, sh, k, step, cfg.vel_obs_conv, dev)
+    area = fields["area"]
+    if tuple(area.shape) != (cfg.radius_obs_int,) or area.device != dev or area.dtype != _F32:
+        raise ValueError("area must be a float32 [rint] tensor on the shard's card")
+    if tuple(part.shape) != (4,) or part.dtype != _F32 or part.device != dev:
+        raise ValueError("part must be a float32 [4] tensor on the shard's card")
+    src = _c_pass_src(sh, k, dev, h, None, base, halo, halo_fl, 9)
+    src.frames = frames.t.data_ptr()
+    if src.frames % 16:
+        raise ValueError("the C passes copy rows of 16-byte aligned planes (W % 4 == 0)")
+    plan = pass_sh_plan(sh, k, _fl.sm_count(dev), "approach")
+    p = CApproachPassShParams(p=_c._approach_params(cfg), s=sh.geom, t=_tile_plan_struct(plan),
+                              fl_rows=halo_fl.k if src.fl_top else 0, n_frames=frames.total,
+                              b0=frames.b0, vrow0=frames.row0, vrows=int(frames.t.shape[2]))
+    scratch, scr = _scratch_ptrs(sh, k, 10, scratch, dev)
+    h_out, C_out = torch.empty_like(h), torch.empty_like(h[0])
+    fn = build.bind("c_approach_pass_sh", "jrl_c_approach_pass_sh",
+                    [_P] * 7 + [ctypes.c_int] * 2 + [_P, _P])
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(src), area.data_ptr(), h_out.data_ptr(), C_out.data_ptr(),
+                 part.data_ptr(), scr[0], scr[1], int(step), k, ctypes.byref(p), stream_of(dev))
+    build.check(err, "c_approach_pass_sh")
+    c_approach_pass_sh.launches += 1
+    return h_out, C_out
 
 
 fluid_a_sh.launches = 0
@@ -673,6 +999,8 @@ fluid_b_sh.launches = 0
 fluid_pass_sh.launches = 0
 c_balance_sh.launches = 0
 c_approach_sh.launches = 0
+c_balance_pass_sh.launches = 0
+c_approach_pass_sh.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -743,11 +1071,14 @@ def lean_pass(cfg, sh: Shard, step: int, k: int) -> bool:
 # the routes of the sharded fluid runner: one fluid_pass_sh launch a shard
 # and k-step pass (row meshes), or fluid_a_sh + fluid_b_sh a step
 FLUID_ROUTES = ("pass", "launches")
-# the default k of the pass on a row mesh: the lowest wall of the (4, 1) and
-# (1, 1) meshes at 1024x512 on an H100 (PERF.md §6: 234.3-249.2 µs/step
-# at k = 4 against 287.6-598.6 at k = 1..3 on (4, 1), where the host sets
-# the wall; 70.65-70.72 against 71.3-76.7 on (1, 1); each bit for bit
-# route="launches"; the device time a step is within 10% at every k)
+# the default k of every pass on a row mesh (fluid_pass_sh,
+# c_balance_pass_sh, c_approach_pass_sh): the lowest wall of the (4, 1) and
+# (1, 1) meshes at 1024x512 on an H100 (PERF.md §6; the fluid: 234.3-249.2
+# µs/step at k = 4 against 287.6-598.6 at k = 1..3 on (4, 1), where the host
+# sets the wall, 70.65-70.72 against 71.3-76.7 on (1, 1); the balance and
+# the approach on (4, 1): 132.9 and 264.3 at k = 4 against 191.2-602.9 and
+# 315.5-688.1 at k = 1..3; each bit for bit route="launches"; the device
+# time a step is within 10% at every k)
 PASS_SH_K = 4
 
 
@@ -758,10 +1089,11 @@ def default_k(sh: Shard) -> int:
     return max(1, min(PASS_SH_K, deep, (sh.H - 1) // 4))
 
 
-def fluid_route(mesh: Mesh, route: str | None = None) -> str:
-    """The sharded fluid runner's route: ``"pass"`` on a row mesh
-    (``nx == 1``), ``"launches"`` on a column mesh, whose x halo the pass
-    has no window for; ``route`` forces one."""
+def fluid_route(mesh: Mesh, route: str | None = None, pair: str = "the A/B pair") -> str:
+    """The sharded fluid runner's route (and the C runners', ``pair`` naming
+    their per-step kernels): ``"pass"`` on a row mesh (``nx == 1``),
+    ``"launches"`` on a column mesh, whose x halo the pass has no window
+    for; ``route`` forces one."""
     nx = mesh.shape[1]
     if route is None:
         return "pass" if nx == 1 else "launches"
@@ -769,8 +1101,28 @@ def fluid_route(mesh: Mesh, route: str | None = None) -> str:
         raise ValueError(f"route {route!r}: one of {FLUID_ROUTES}")
     if route == "pass" and nx > 1:
         raise ValueError(f"route 'pass' serves row meshes (nx == 1), not {mesh.shape}: a column "
-                         f"mesh takes the A/B pair")
+                         f"mesh takes {pair}")
     return route
+
+
+def _run_k(shards, k, rt):
+    """A runner's k: `default_k` or ``k``, checked for the pass."""
+    kk = default_k(shards[0]) if k is None else int(k)
+    if not 1 <= kk <= _tl.KMAX:
+        raise ValueError(f"k = {kk}: the pass takes 1 <= k <= {_tl.KMAX}")
+    if rt == "pass":
+        _check_depth(shards[0], kk)
+    return kk
+
+
+def _scratch_of(store: dict, sh: Shard, k: int, planes: int, x):
+    """The pass's scratch, one a device for the run's life (the shards of a
+    device launch in turn on its stream); None on the CPU or at k = 1."""
+    if x.device.type == "cpu" or k < 2:
+        return None
+    if x.device not in store:
+        store[x.device] = pass_sh_scratch(sh, k, x.device, planes)
+    return store[x.device]
 
 
 def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x_ext=None,
@@ -796,32 +1148,19 @@ def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x
     shards = shard_plan(cfg, mesh, tile_rows, unroll, x_ext)
     ny, nx = mesh.shape
     rt = fluid_route(mesh, route)
-    kk = default_k(shards[0]) if k is None else int(k)
-    if not 1 <= kk <= _tl.KMAX:
-        raise ValueError(f"k = {kk}: the pass takes 1 <= k <= {_tl.KMAX}")
-    if rt == "pass":
-        _check_depth(shards[0], kk)
+    kk = _run_k(shards, k, rt)
     lean_on = bool(lean_split) and nx == 1 and ny >= 3
 
     def count_lean(lean, steps):
         for c, ln in zip(mesh.local, lean):
             run.lean_steps[c] = run.lean_steps.get(c, 0) + steps * int(ln)
 
-    def scratch_of(x):
-        # the pass's scratch, one a device for the run's life: the shards of
-        # a device launch in turn on its stream
-        if x.device.type == "cpu" or kk < 2:
-            return None
-        if x.device not in scratch:
-            scratch[x.device] = pass_sh_scratch(shards[0], kk, x.device)
-        return scratch[x.device]
-
     def run(state, fields, start_step: int, n: int):
         f, rho, vel = (split(state[x], mesh) for x in ("f", "rho", "vel"))
         L = range(len(shards))
         s, end = int(start_step), int(start_step) + int(n)
         if rt == "pass":
-            scr = [scratch_of(x) for x in f]
+            scr = [_scratch_of(scratch, shards[0], kk, 12, x) for x in f]
             while s < end:
                 kj = min(kk, end - s)
                 lean = [lean_on and lean_pass(cfg, sh, s, kj) for sh in shards]
@@ -853,15 +1192,39 @@ def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x
 
 
 def make_sharded_tiled_balance_runner(cfg, flags, mesh: Mesh, tile_rows=None, unroll=8,
-                                      x_ext=None):
+                                      x_ext=None, route=None, k=None):
     """Sharded balance runner ``(state, fields, n) -> state`` with global
-    ``h``, ``C``: per step, the h pieces and `c_balance_sh` on every shard;
-    the fixed flags' pieces are exchanged once a run."""
+    ``h``, ``C``, through `fluid_route`'s route:
+
+    * ``"pass"`` (row meshes, the default there): per k-step pass, one
+      exchange of the 2k-row pieces of ``[h, C]`` and one
+      `c_balance_pass_sh` launch a shard; the steps left over run as one
+      pass at a smaller k;
+    * ``"launches"`` (column meshes, and the yardstick on row meshes): per
+      step, the h pieces and `c_balance_sh` on every shard.
+
+    The fixed flags' pieces are exchanged once a run (2k rows deep on the
+    pass). ``k`` (1..4, default `default_k`): the steps a pass. The result
+    is the per-step kernels' bit for bit on either route."""
     shards = shard_plan(cfg, mesh, tile_rows, unroll, x_ext)
+    rt = fluid_route(mesh, route, "c_balance_sh a step")
+    kk = _run_k(shards, k, rt)
 
     def run(state, fields, n: int):
         h, C, fl = split(state["h"], mesh), split(state["C"], mesh), split(flags, mesh)
         L = range(len(shards))
+        if rt == "pass":
+            hfl = exchange([[x] for x in fl], mesh, XH, rows=2 * kk)
+            scr = [_scratch_of(scratch, shards[0], kk, 10, x) for x in h]
+            left = int(n)
+            while left > 0:
+                kj = min(kk, left)
+                hx = exchange([[h[i], C[i]] for i in L], mesh, XH, rows=2 * kj)
+                out = [c_balance_pass_sh(h[i], C[i], fl[i], hx[i], hfl[i], kj, cfg, fields,
+                                         shards[i], scratch=scr[i]) for i in L]
+                h, C = [o[0] for o in out], [o[1] for o in out]
+                left -= kj
+            return {"C": gather(C, mesh), "h": gather(h, mesh)}
         hfl = exchange([[x] for x in fl], mesh, XH)
         for _ in range(int(n)):
             hh = exchange([[x] for x in h], mesh, XH)
@@ -870,46 +1233,78 @@ def make_sharded_tiled_balance_runner(cfg, flags, mesh: Mesh, tile_rows=None, un
             h, C = [o[0] for o in out], [o[1] for o in out]
         return {"C": gather(C, mesh), "h": gather(h, mesh)}
 
+    scratch = {}
     run.shards = shards
+    run.k, run.route = kk, rt
     return run
 
 
 def make_sharded_tiled_approach_runner(cfg, vel_field, mesh: Mesh, tile_rows=None, unroll=8,
-                                       x_ext=None):
+                                       x_ext=None, route=None, k=None):
     """Sharded approach runner ``(state, fields, start_step, n) -> (state,
     acc)`` with global ``h``, ``C`` and the integrals of
-    `models/jrl.py::make_approach_runner`. The stored-velocity frames are
-    split onto the shards and interpolated per shard each step; each
-    shard accumulates its disk terms over a chunk of ``unroll`` steps,
-    then one `psum` per chunk adds them into the integrals (inflow and
-    current sum over the steps, rec_u and rec_v are the last step's)."""
+    `models/jrl.py::make_approach_runner`, through `fluid_route`'s route:
+
+    * ``"pass"`` (row meshes, the default there): each shard's frames are
+      cut once, with 2k reach rows a side (`shard_frames`); per k-step
+      pass, one exchange of the 2k-row pieces of ``[h]`` and one
+      `c_approach_pass_sh` launch a shard (the lerp, k steps and their
+      disk terms); passes end at the ``unroll`` chunks' ends;
+    * ``"launches"`` (column meshes, and the yardstick on row meshes): the
+      frames split onto the shards and interpolated per shard each step,
+      the h pieces and `c_approach_sh` a step.
+
+    The base flags' pieces are exchanged once a run. Each shard accumulates
+    its disk terms over a chunk of ``unroll`` steps, then one `psum` per
+    chunk adds them into the integrals (inflow and current sum over the
+    steps, rec_u and rec_v are the last step's). The result is the
+    per-step kernels' bit for bit on either route (h, C)."""
     shards = shard_plan(cfg, mesh, tile_rows, unroll, x_ext)
     rint, W = cfg.radius_obs_int, cfg.eff_res[1]
     if not (rint < cfg.Rg_radius and rint < W - 1):
         # the disk's reads of the new C stay clear of the INFLOW_2 cells
         raise ValueError(f"tip disk rint={rint} must lie inside rg={cfg.Rg_radius} and W-1")
-    frames = split(torch.as_tensor(vel_field, dtype=_F32), mesh)
+    rt = fluid_route(mesh, route, "c_approach_sh a step")
+    kk = _run_k(shards, k, rt)
+    vf = torch.as_tensor(vel_field, dtype=_F32)
     v = cfg.vel_obs_conv
+    if rt == "pass":
+        sfr = [shard_frames(vf, sh, 2 * kk, mesh.devices[c]) for sh, c in zip(shards, mesh.local)]
+    else:
+        frames = split(vf, mesh)
 
     def run(state, fields, start_step: int, n: int):
         h, C = split(state["h"], mesh), split(state["C"], mesh)
         base = split(fields["base_flags"], mesh)
         L = range(len(shards))
-        hfl = exchange([[x] for x in base], mesh, XH)
+        if rt == "pass":
+            hfl = exchange([[x] for x in base], mesh, XH, rows=2 * kk)
+            scr = [_scratch_of(scratch, shards[0], kk, 10, x) for x in h]
+        else:
+            hfl = exchange([[x] for x in base], mesh, XH)
         acc = torch.zeros(4, dtype=_F32, device=h[0].device)
         s, end = int(start_step), int(start_step) + int(n)
         while s < end:
-            k = min(int(unroll), end - s)
+            chunk = min(int(unroll), end - s)
             parts = [torch.zeros(4, dtype=_F32, device=x.device) for x in h]
-            for step in range(s, s + k):
-                vel = [_jrl.stored_velocity(fr, step, v) for fr in frames]
-                hh = exchange([[x] for x in h], mesh, XH)
-                out = [c_approach_sh(h[i], C[i], vel[i], base[i], hh[i], hfl[i], step, cfg,
-                                     fields, shards[i], parts[i]) for i in L]
-                h, C = [o[0] for o in out], [o[1] for o in out]
+            if rt == "pass":
+                for s0 in range(s, s + chunk, kk):
+                    kj = min(kk, s + chunk - s0)
+                    hx = exchange([[x] for x in h], mesh, XH, rows=2 * kj)
+                    out = [c_approach_pass_sh(h[i], base[i], sfr[i], hx[i], hfl[i], s0, kj, cfg,
+                                              fields, shards[i], parts[i], scratch=scr[i])
+                           for i in L]
+                    h, C = [o[0] for o in out], [o[1] for o in out]
+            else:
+                for step in range(s, s + chunk):
+                    vel = [_jrl.stored_velocity(fr, step, v) for fr in frames]
+                    hh = exchange([[x] for x in h], mesh, XH)
+                    out = [c_approach_sh(h[i], C[i], vel[i], base[i], hh[i], hfl[i], step, cfg,
+                                         fields, shards[i], parts[i]) for i in L]
+                    h, C = [o[0] for o in out], [o[1] for o in out]
             tot = psum(parts, mesh).to(acc.device)
             acc = torch.stack([acc[0] + tot[0], acc[1] + tot[1], tot[2], tot[3]])
-            s += k
+            s += chunk
         acc_d = {
             "inflow_sum": acc[0],
             "current_sum": acc[1],
@@ -919,5 +1314,7 @@ def make_sharded_tiled_approach_runner(cfg, vel_field, mesh: Mesh, tile_rows=Non
         }
         return {"C": gather(C, mesh), "h": gather(h, mesh)}, acc_d
 
+    scratch = {}
     run.shards = shards
+    run.k, run.route = kk, rt
     return run

@@ -26,7 +26,11 @@ sharded runners to the unsharded per-step kernels bit for bit (the
 integrals at rtol 2e-4 / atol 1e-4: summed per shard, in another order);
 the sharded fluid step's k-step pass (``fluid_pass_sh``) equals its twin,
 run on the CPU, and k steps of the A/B pair bit for bit on every shard,
-and its route equals ``route="launches"`` at every k over 50 steps.
+and its route equals ``route="launches"`` at every k over 50 steps; so do
+the sharded C phases' passes (``c_balance_pass_sh``, ``c_approach_pass_sh``:
+bit for bit k per-step launches and, h and C, their twins; the approach's
+disk sums too, and from step 2**24 - 2), and each pass called without
+scratch holds its own until the launch is queued.
 The sharded cylinder kernels are held to their twins after one launch at
 1e-5 (vel 1e-4), the full-boundary sharded routes to the unsharded
 ``split=False`` runner bit for bit, the lean split (through the pass
@@ -1947,8 +1951,9 @@ def test_cuda_sharded_runners_equal_per_step_kernels(cuda, mesh_shape):
     """The three sharded runners against the unsharded per-step kernels'
     runners: fluid over 60 steps (six tip rows), balance 40, approach 40
     across stored-velocity frames, f/rho/vel and h/C bit for bit; only the
-    sharded kernels and halo_pack launch (the fluid through fluid_pass_sh
-    on the row mesh, the A/B pair on (2, 2))."""
+    sharded kernels and halo_pack launch (the fluid and the balance through
+    fluid_pass_sh and c_balance_pass_sh on the row mesh, the per-step
+    kernels on (2, 2))."""
     fc, s, fl, cc, st, cf, flags, mesh, _ = _sh_setup(cuda, mesh_shape)
     sharded = ({"fluid_pass_sh"} if mesh_shape[1] == 1 else {"fluid_a_sh", "fluid_b_sh"}) \
         | {"halo_pack"}
@@ -1962,7 +1967,8 @@ def test_cuda_sharded_runners_equal_per_step_kernels(cuda, mesh_shape):
     kernels.reset_launches()
     got = S.make_sharded_tiled_balance_runner(cc, flags, mesh)(st, cf, 40)
     torch.cuda.synchronize()
-    assert {k for k, c in kernels.launches().items() if c} == {"c_balance_sh", "halo_pack"}
+    assert {k for k, c in kernels.launches().items() if c} == \
+        {"c_balance_pass_sh" if mesh_shape[1] == 1 else "c_balance_sh", "halo_pack"}
     want = T.make_per_step_balance_runner(cc, flags)(st, cf, 40)
     for name in ("h", "C"):
         assert torch.equal(got[name], want[name]), f"balance {name}"
@@ -2109,6 +2115,252 @@ def test_cuda_fluid_pass_sh_refuses_a_plan_over_the_card(cuda):
             with pytest.raises(RuntimeError, match=match):
                 S.fluid_pass_sh(f[1], rho[1], vel[1], hx[1], 8, 2, fc, fl, sh)
     assert S.fluid_pass_sh.launches == n0
+
+
+# --- the sharded C phases' k-step passes (c_balance_pass_sh, c_approach_pass_sh) ---
+
+# (grid, mesh): the refine-8 ethaline case (1024x512) and the 256x128 flat tip
+C_PASS_GRIDS = ["1024x512", "256x128"]
+
+
+def _c_pass_case(dev, grid):
+    """The C config, a state 5 balance steps in (seeded noise), its fields
+    and flags, and the approach's start steps: one whose k = 4 steps cross a
+    tip row and stored-frame boundaries, and 2**24 - 2."""
+    if grid == "1024x512":
+        cc = T.JRLCConfig(res=(128, 64), Re=4.0, Pe=5.0, vel_obs_real=0.2848, shape="ethaline",
+                          refine=8)
+        start = 27
+    else:
+        cc = T.JRLCConfig(res=SH_RES, Re=4.0, Pe=5.0, shape="cylinder")
+        start = 8
+    st, cf, flags = T.c_init(cc, dev)
+    st = T.make_per_step_balance_runner(cc, flags)(st, cf, 5)
+    rng = np.random.default_rng(20)
+    st = {k: v + torch.as_tensor((1e-4 * rng.standard_normal(tuple(v.shape))).astype(np.float32),
+                                 device=dev) for k, v in st.items()}
+    v = cc.vel_obs_conv
+    walks = [T.tip_walks(cc.inflow_height, x, v)[1] for x in (start, start + 3)]
+    frames = [T.frame_pair(x, v, 10**9)[0] for x in (start, start + 3)]
+    assert walks[1] > walks[0] and frames[1] > frames[0]
+    return cc, st, cf, flags, (start, 2**24 - 2)
+
+
+def _pass_frames(dev, cc, start, k, seed):
+    """A window of seeded stored frames for steps start .. start + k - 1:
+    ``(frames [N, 2, H, W], b0, n_frames)``."""
+    v = cc.vel_obs_conv
+    b0 = T.frame_pair(start, v, 10**9)[0]
+    b1 = T.frame_pair(start + k - 1, v, 10**9)[0]
+    H, W = cc.eff_res
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return 0.5 * torch.randn((b1 - b0 + 2, 2, H, W), generator=g, device=dev), b0, b1 + 10
+
+
+def _approach_launches(cc, st, cf, mesh, shards, vf, b0, n_frames, start, k):
+    """k steps of the per-step route by hand (the lerp, the h pieces and
+    c_approach_sh a step) from a frame window: the shards' (h, C) and their
+    disk sums."""
+    h, C = split(st["h"], mesh), split(st["C"], mesh)
+    base, fr = split(cf["base_flags"], mesh), split(vf, mesh)
+    hb = HA.exchange([[x] for x in base], mesh, S.XH)
+    parts = [torch.zeros(4, device=x.device) for x in h]
+    for step in range(start, start + k):
+        vel = [T.stored_velocity(f, step, cc.vel_obs_conv, b0, n_frames) for f in fr]
+        hh = HA.exchange([[x] for x in h], mesh, S.XH)
+        out = [S.c_approach_sh(h[i], C[i], vel[i], base[i], hh[i], hb[i], step, cc, cf, sh,
+                               parts[i]) for i, sh in enumerate(shards)]
+        h, C = [o[0] for o in out], [o[1] for o in out]
+    return h, C, parts
+
+
+def _cpu_halo(hx):
+    return None if hx.top is None else HA.Halo(hx.P, hx.top.cpu(), hx.bot.cpu(), k=hx.k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", PASS_MESHES)
+@pytest.mark.parametrize("grid", C_PASS_GRIDS)
+def test_cuda_c_balance_pass_sh_equals_twin_and_launches(cuda, grid, mesh_shape):
+    """One `c_balance_pass_sh` launch on every shard at k = 1..4: bit for
+    bit its twin, run on the CPU from the same inputs, and k steps of
+    `c_balance_sh` (``route="launches"``), h and C."""
+    cc, st, cf, flags, _ = _c_pass_case(cuda, grid)
+    H, W = cc.eff_res
+    mesh = make_mesh(mesh_shape, [cuda] * mesh_shape[0])
+    shards = [S.Shard.of(H, W, mesh_shape, c) for c in mesh.local]
+    h, C, fl = (split(x, mesh) for x in (st["h"], st["C"], flags))
+    cf_cpu = {x: y.cpu() for x, y in cf.items()}
+    for k in range(1, 5):
+        hx = HA.exchange([[h[i], C[i]] for i in range(len(h))], mesh, S.XH, rows=2 * k)
+        hfl = HA.exchange([[x] for x in fl], mesh, S.XH, rows=2 * k)
+        per = S.make_sharded_tiled_balance_runner(cc, flags, mesh, route="launches")(st, cf, k)
+        for i, sh in enumerate(shards):
+            tag = f"{grid} shard {mesh.local[i]} k={k}"
+            n0 = S.c_balance_pass_sh.launches
+            got = S.c_balance_pass_sh(h[i], C[i], fl[i], hx[i], hfl[i], k, cc, cf, sh)
+            assert S.c_balance_pass_sh.launches == n0 + 1
+            want = S.c_balance_pass_sh_ref(h[i].cpu(), C[i].cpu(), fl[i].cpu(), _cpu_halo(hx[i]),
+                                           _cpu_halo(hfl[i]), k, cc, cf_cpu, sh)
+            for name, g_, w_ in zip(("h", "C"), got, want):
+                assert torch.equal(g_.cpu(), w_), f"{tag} {name}: twin"
+                assert torch.equal(g_, sh.body(per[name])), f"{tag} {name}: launches"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", PASS_MESHES)
+@pytest.mark.parametrize("grid", C_PASS_GRIDS)
+def test_cuda_c_approach_pass_sh_equals_twin_and_launches(cuda, grid, mesh_shape):
+    """One `c_approach_pass_sh` launch on every shard at k = 1..4, from a
+    step whose k steps cross a tip row and stored-frame boundaries and from
+    2**24 - 2 (a window of the frame history): bit for bit k steps of the
+    lerp and `c_approach_sh` (h, C and the shard's disk sums), h and C bit
+    for bit its twin run on the CPU, the sums within rtol 2e-4 / atol 1e-4
+    of the twin's (PyTorch sums the disk in another order)."""
+    cc, st, cf, _, starts = _c_pass_case(cuda, grid)
+    H, W = cc.eff_res
+    mesh = make_mesh(mesh_shape, [cuda] * mesh_shape[0])
+    shards = [S.Shard.of(H, W, mesh_shape, c) for c in mesh.local]
+    h, base = split(st["h"], mesh), split(cf["base_flags"], mesh)
+    cf_cpu = {x: y.cpu() for x, y in cf.items()}
+    for start in starts:
+        for k in range(1, 5):
+            vf, b0, n_frames = _pass_frames(cuda, cc, start, k, seed=start + k)
+            hx = HA.exchange([[x] for x in h], mesh, S.XH, rows=2 * k)
+            hb = HA.exchange([[x] for x in base], mesh, S.XH, rows=2 * k)
+            ph, pC, pparts = _approach_launches(cc, st, cf, mesh, shards, vf, b0, n_frames,
+                                                start, k)
+            for i, sh in enumerate(shards):
+                tag = f"{grid} shard {mesh.local[i]} step {start} k={k}"
+                fr = S.shard_frames(vf, sh, 2 * k, b0=b0, n_frames=n_frames)
+                part = torch.zeros(4, device=cuda)
+                got = S.c_approach_pass_sh(h[i], base[i], fr, hx[i], hb[i], start, k, cc, cf, sh,
+                                           part)
+                assert torch.equal(part, pparts[i]), f"{tag}: disk sums"
+                for name, g_, p_ in zip(("h", "C"), got, (ph[i], pC[i])):
+                    assert torch.equal(g_, p_), f"{tag} {name}: launches"
+                fr_c = S.ShardFrames(fr.t.cpu(), fr.row0, fr.b0, fr.n_frames)
+                wh, wC, wparts = S.c_approach_pass_sh_ref(
+                    h[i].cpu(), base[i].cpu(), fr_c, _cpu_halo(hx[i]), _cpu_halo(hb[i]), start, k,
+                    cc, cf_cpu, sh)
+                assert torch.equal(got[0].cpu(), wh) and torch.equal(got[1].cpu(), wC), \
+                    f"{tag}: twin"
+                want = torch.zeros(4)
+                for p_ in wparts:
+                    want = torch.stack([want[0] + p_[0], want[1] + p_[1], p_[2], p_[3]])
+                np.testing.assert_allclose(part.cpu().numpy(), want.numpy(), rtol=2e-4,
+                                           atol=1e-4, err_msg=f"{tag}: twin's disk sums")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 4])
+@pytest.mark.parametrize("mesh_shape", PASS_MESHES)
+def test_cuda_c_pass_routes_equal_launches(cuda, mesh_shape, k):
+    """The balance runner through the pass over 30 steps and the approach
+    runner over 30 steps from step 8 (unroll 8: passes end at the chunks'
+    ends; tip rows and stored frames crossed): bit for bit ``route=
+    "launches"`` (h, C, the integrals); one pass launch a shard and pass,
+    one halo_pack a shard and pass (and one for the flags) on (4, 1)."""
+    fc, s, fl, cc, st, cf, flags, _, _ = _sh_setup(cuda, mesh_shape)
+    mesh = make_mesh(mesh_shape, [cuda] * mesh_shape[0])
+    n, sh_n = 30, mesh_shape[0]
+    kernels.reset_launches()
+    got = S.make_sharded_tiled_balance_runner(cc, flags, mesh, k=k)(st, cf, n)
+    torch.cuda.synchronize()
+    passes = -(-n // k)
+    want_counts = {"c_balance_pass_sh": passes * sh_n}
+    if sh_n > 1:
+        want_counts["halo_pack"] = (passes + 1) * sh_n
+    assert {x: c for x, c in kernels.launches().items() if c} == want_counts
+    want = S.make_sharded_tiled_balance_runner(cc, flags, mesh, route="launches")(st, cf, n)
+    for name in ("h", "C"):
+        assert torch.equal(got[name], want[name]), f"balance k={k} {name}"
+    H, W = SH_RES
+    vf = torch.as_tensor(np.random.default_rng(9).uniform(-0.5, 0.5, (48, 2, H, W))
+                         .astype(np.float32), device=cuda)
+    kernels.reset_launches()
+    got, acc = S.make_sharded_tiled_approach_runner(cc, vf, mesh, k=k)(st, cf, 8, n)
+    torch.cuda.synchronize()
+    passes = sum(-(-min(8, 8 + n - c) // k) for c in range(8, 8 + n, 8))
+    want_counts = {"c_approach_pass_sh": passes * sh_n}
+    if sh_n > 1:
+        want_counts["halo_pack"] = (passes + 1) * sh_n
+    assert {x: c for x, c in kernels.launches().items() if c} == want_counts
+    want, acc_l = S.make_sharded_tiled_approach_runner(cc, vf, mesh, route="launches")(
+        st, cf, 8, n)
+    for name in ("h", "C"):
+        assert torch.equal(got[name], want[name]), f"approach k={k} {name}"
+    for key in acc:
+        assert torch.equal(acc[key], acc_l[key]), f"approach k={k} {key}"
+
+
+@pytest.mark.cuda
+def test_cuda_pass_wrappers_hold_their_scratch(cuda):
+    """A pass called without scratch allocates its own and holds it until
+    the launch is queued (else the caching allocator hands its memory to
+    the outputs allocated next): at 1024x512 on (2, 1), k = 2, each pass
+    without scratch equals the pass with the runner's, bit for bit."""
+    fc = T.JRLFluidConfig(res=(128, 64), Re=4.0, vel_obs_real=0.2848,
+                          gravity_strength_real=-9.8, shape="ethaline", refine=8)
+    s, fl = T.fluid_init(fc, cuda)
+    cc, st, cf, flags, _ = _c_pass_case(cuda, "1024x512")
+    H, W = cc.eff_res
+    mesh = make_mesh((2, 1), [cuda] * 2)
+    sh = S.Shard.of(H, W, (2, 1), (1, 0))
+    f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
+    h, C, fls = (split(x, mesh) for x in (st["h"], st["C"], flags))
+    base = split(cf["base_flags"], mesh)
+    hx = HA.exchange([[f[i], vel[i], rho[i]] for i in range(2)], mesh, S.XH, rows=4)
+    hc = HA.exchange([[h[i], C[i]] for i in range(2)], mesh, S.XH, rows=4)
+    hh = HA.exchange([[x] for x in h], mesh, S.XH, rows=4)
+    hfl = HA.exchange([[x] for x in fls], mesh, S.XH, rows=4)
+    hb = HA.exchange([[x] for x in base], mesh, S.XH, rows=4)
+    vf, b0, n_frames = _pass_frames(cuda, cc, 0, 2, seed=3)
+    fr = S.shard_frames(vf, sh, 4, b0=b0, n_frames=n_frames)
+    part = torch.zeros(4, device=cuda)
+    calls = {
+        "fluid_pass_sh": (lambda scr: S.fluid_pass_sh(f[1], rho[1], vel[1], hx[1], 8, 2, fc, fl,
+                                                      sh, scratch=scr), 12),
+        "c_balance_pass_sh": (lambda scr: S.c_balance_pass_sh(h[1], C[1], fls[1], hc[1], hfl[1],
+                                                              2, cc, cf, sh, scratch=scr), 10),
+        "c_approach_pass_sh": (lambda scr: S.c_approach_pass_sh(h[1], base[1], fr, hh[1], hb[1],
+                                                                0, 2, cc, cf, sh, part,
+                                                                scratch=scr), 10),
+    }
+    for name, (call, planes) in calls.items():
+        want = call(S.pass_sh_scratch(sh, 2, cuda, planes))
+        for _ in range(3):
+            got = call(None)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want)), name
+
+
+@pytest.mark.cuda
+def test_cuda_c_pass_sh_refuses_bad_inputs(cuda):
+    """Pieces of another depth, a scratch too small for the pass, a
+    misaligned plane and a plan over the card's co-resident limit raise
+    before a launch."""
+    _, _, _, cc, st, cf, flags, mesh, shards = _sh_setup(cuda, (4, 1))
+    h, C, fl = (split(x, mesh) for x in (st["h"], st["C"], flags))
+    hx = HA.exchange([[h[i], C[i]] for i in range(4)], mesh, S.XH, rows=4)
+    hfl = HA.exchange([[x] for x in fl], mesh, S.XH, rows=4)
+    sh = shards[1]
+    n0 = S.c_balance_pass_sh.launches
+    with pytest.raises(ValueError, match="do not match"):
+        S.c_balance_pass_sh(h[1], C[1], fl[1], hx[1], hfl[1], 1, cc, cf, sh)
+    with pytest.raises(ValueError, match="scratch"):
+        S.c_balance_pass_sh(h[1], C[1], fl[1], hx[1], hfl[1], 2, cc, cf, sh,
+                            scratch=torch.empty((1, 10, 4, sh.W), device=cuda))
+    buf = torch.empty(h[1].numel() + 1, device=cuda)
+    odd = buf[1:].view_as(h[1]).copy_(h[1])
+    with pytest.raises(ValueError, match="16-byte"):
+        S.c_balance_pass_sh(odd, C[1], fl[1], hx[1], hfl[1], 2, cc, cf, sh)
+    plan = S.pass_sh_plan(sh, 2, jrl_fluid.sm_count(cuda), "balance")
+    bad = S.TilePlan(plan.nty, plan.ntx, plan.rmax, plan.smax, 100000)
+    with mock.patch.object(S, "pass_sh_plan", return_value=bad):
+        with pytest.raises(RuntimeError, match="cudaError 720"):
+            S.c_balance_pass_sh(h[1], C[1], fl[1], hx[1], hfl[1], 2, cc, cf, sh)
+    assert S.c_balance_pass_sh.launches == n0
 
 
 @pytest.mark.cuda

@@ -94,8 +94,20 @@ def test_sharded_fluid_lean_split_exact():
     _equal(a, T.make_per_step_fluid_runner(ct)(s, fl, 0, 6), "lean vs unsharded")
 
 
-@pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2)])
-def test_sharded_balance_matches_jnp_and_unsharded(mesh_shape):
+@pytest.mark.parametrize(
+    "mesh_shape,route",
+    [
+        pytest.param((2, 1), "launches", id="mesh_shape0"),
+        pytest.param((2, 2), "launches", id="mesh_shape1"),
+        # the row meshes' default route: k-step passes (c_balance_pass_sh)
+        pytest.param((2, 1), None, id="mesh_shape0-pass"),
+        pytest.param((4, 1), None, id="mesh_shape2-pass"),
+    ],
+)
+def test_sharded_balance_matches_jnp_and_unsharded(mesh_shape, route):
+    """12 steps through ``route`` (None: the mesh's default, the pass on a
+    row mesh): the jnp runner at 2e-5, the port's per-step runner bit for
+    bit."""
     kw = dict(res=(48, 32), Re=4.0, Pe=5.0, shape="45degree")
     cj, ct = jrl.JRLCConfig(**kw), T.JRLCConfig(**kw)
     state, fields, flags = jrl.c_init(cj)
@@ -105,26 +117,37 @@ def test_sharded_balance_matches_jnp_and_unsharded(mesh_shape):
     st = state_from_numpy(state, "cpu")
     _, cf, fl_t = T.c_init(ct, "cpu")
     assert torch.equal(fl_t, torch.as_tensor(np.array(flags)))
-    out = S.make_sharded_tiled_balance_runner(ct, fl_t, _mesh(mesh_shape), tile_rows=8,
-                                              unroll=4)(st, cf, 12)
+    run = S.make_sharded_tiled_balance_runner(ct, fl_t, _mesh(mesh_shape),
+                                              tile_rows=8 if mesh_shape[0] < 4 else 4, unroll=4,
+                                              route=route)
+    assert run.route == (route or "pass")
+    out = run(st, cf, 12)
     _close(out, jax.tree.map(np.asarray, ref), f"balance {mesh_shape}")
     _equal(out, T.make_per_step_balance_runner(ct, fl_t)(st, cf, 12), f"balance {mesh_shape}")
 
 
 @pytest.mark.parametrize(
-    "shape,mesh_shape",
+    "shape,mesh_shape,route",
     [
-        ("45degree", (2, 1)),  # plain disk integrals, the whole disk in shard 0
-        ("cylinder", (3, 1)),  # flat flux form; shard rows 16/32 near the tip rows
-        ("cylinder", (2, 2)),  # the tip block (rg = 26) straddles the x boundary
-        ("cylinder", (1, 8)),  # w = 4: the tip disk (rint = 7) spans two x shards
-        ("45degree", (2, 2)),
+        # plain disk integrals, the whole disk in shard 0
+        pytest.param("45degree", (2, 1), "launches", id="45degree-mesh_shape0"),
+        # flat flux form; shard rows 16/32 near the tip rows
+        pytest.param("cylinder", (3, 1), "launches", id="cylinder-mesh_shape1"),
+        # the tip block (rg = 26) straddles the x boundary
+        pytest.param("cylinder", (2, 2), "launches", id="cylinder-mesh_shape2"),
+        # w = 4: the tip disk (rint = 7) spans two x shards
+        pytest.param("cylinder", (1, 8), "launches", id="cylinder-mesh_shape3"),
+        pytest.param("45degree", (2, 2), "launches", id="45degree-mesh_shape4"),
+        # the row meshes' default route: k-step passes (c_approach_pass_sh)
+        pytest.param("45degree", (2, 1), None, id="45degree-mesh_shape0-pass"),
+        pytest.param("cylinder", (3, 1), None, id="cylinder-mesh_shape1-pass"),
     ],
 )
-def test_sharded_approach_matches_jnp_and_unsharded(shape, mesh_shape):
-    """10 steps across stored-velocity frames: the jnp runner at 2e-5 and
-    its integrals at rtol 2e-4 / atol 1e-4; the port's per-step runner,
-    h and C bit for bit."""
+def test_sharded_approach_matches_jnp_and_unsharded(shape, mesh_shape, route):
+    """10 steps across stored-velocity frames through ``route`` (None: the
+    mesh's default, the pass on a row mesh): the jnp runner at 2e-5 and its
+    integrals at rtol 2e-4 / atol 1e-4; the port's per-step runner, h and C
+    bit for bit."""
     kw = dict(res=(48, 32), Re=4.0, Pe=5.0, shape=shape)
     cj, ct = jrl.JRLCConfig(**kw), T.JRLCConfig(**kw)
     state, fields, _ = jrl.c_init(cj)
@@ -136,8 +159,10 @@ def test_sharded_approach_matches_jnp_and_unsharded(shape, mesh_shape):
     st = state_from_numpy(state, "cpu")
     cf = T.c_init(ct, "cpu")[1]
     vft = torch.as_tensor(vf)
-    out, acc = S.make_sharded_tiled_approach_runner(ct, vft, _mesh(mesh_shape), tile_rows=8,
-                                                    unroll=4)(st, cf, 0, 10)
+    run = S.make_sharded_tiled_approach_runner(ct, vft, _mesh(mesh_shape), tile_rows=8,
+                                               unroll=4, route=route)
+    assert run.route == (route or "pass")
+    out, acc = run(st, cf, 0, 10)
     _close(out, jax.tree.map(np.asarray, ref_state), f"approach {shape} {mesh_shape}")
     un, un_acc = T.make_per_step_approach_runner(ct, vft)(st, cf, 0, 10)
     _equal(out, un, f"approach {shape} {mesh_shape}")
