@@ -4,12 +4,13 @@ paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the thirty-six CUDA libraries of ``jrl_lbm_torch/kernels/csrc``
+1. Builds the thirty-seven CUDA libraries of ``jrl_lbm_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
    (the cylinder kernels read only the previous step's buffers), and that
-   ``fluid_pass`` spills nothing (``-Xptxas -v``); prints
+   ``fluid_pass`` and ``fused_fluid_tl`` spill nothing (``-Xptxas -v``),
+   the latter's launch shape the host plan's at 256x128 and 512x256; prints
    ``c_approach_pass``'s and ``cyl_pass``'s registers and local bytes, the cluster kernels'
    limits on this card and the route choice at 128x64: the cluster shape,
    cells per thread, shared memory and registers per block; the
@@ -156,10 +157,10 @@ paths on one NVIDIA card and check them.
    of each phase (the cluster kernels ``fused_fluid_cl``,
    ``fused_balance_cl``, ``fused_approach_cl`` and the cooperative ones)
    and at the route's kernels of 256x128 and of 512x256 (both
-   ``is_negative``; ``MC_ROUTE``: the multi-cluster balance at both, the
-   multi-cluster fluid and approach at 256x128 and the cooperative ones at
-   512x256, the largest grid they serve; ``fused_approach_mc`` forced
-   there); the approach once across
+   ``is_negative``; ``MC_ROUTE``: the multi-cluster balance and the
+   fluid's tile kernel at both, the multi-cluster approach at 256x128 and
+   the cooperative one at 512x256, the largest grid it serves;
+   ``fused_approach_mc`` forced there); the approach once across
    stored-velocity frame boundaries and once across tip rows. The cluster
    kernels equal the cooperative ones bit for bit over a 1000-step launch
    of the default configurations (and the 45degree tip; the approach's
@@ -173,7 +174,12 @@ paths on one NVIDIA card and check them.
    route="clusters" forced where the route is the cooperative one) and
    over steps 2**24 - 100 .. 2**24 + 99 at 256x128
    and 512x256 (flat tip and wedge), the fluid also against its twin over
-   steps 2**24 - 5 .. 2**24 + 4 there. Then fluid steps 2**24 - 5 .. 2**24 + 4 through both routes (bit for
+   steps 2**24 - 5 .. 2**24 + 4 there. The fluid's tile kernel
+   ``fused_fluid_tl`` equals ``fused_fluid`` bit for bit over a 1000-step
+   launch at 256x128 and 512x256 with the ethaline, 45degree and cylinder
+   tips, across a tip row and from step 2**24 - 5, and its twin (the
+   launch played tile by tile on the card) in phase 7. Then
+   fluid steps 2**24 - 5 .. 2**24 + 4 through both routes (bit for
    bit each other) and through fluid_a / fluid_b against the twin.
 3a. Holds each tile-class kernel (``fluid_k``, ``fluid_k_lean``,
    ``fluid_k_bt``) to its twin after one launch at k = 1, 2, 4 (1e-5) at
@@ -227,11 +233,13 @@ paths on one NVIDIA card and check them.
    serve on the main path, refine 2 (256x128) and refine 4 (512x256): 200
    fluid, 200 balance and 200 approach steps through ``pick_*``, which
    must launch the kernel of ``MC_ROUTE`` (``fused_balance_mc`` at both
-   grids, ``fused_fluid_mc`` and ``fused_approach_mc`` at 256x128, the
-   cooperative ``fused_fluid`` and ``fused_approach`` at 512x256, where the
-   multi-cluster ones, two cells a thread, lose) and nothing else, each beside the
-   same steps through the other route (timed, bit for bit: h and C for
-   the approach).
+   grids, the fluid's tile kernel ``fused_fluid_tl`` at both (the
+   refine-2 and refine-4 fluid phases), ``fused_approach_mc`` at 256x128
+   and the cooperative ``fused_approach`` at 512x256, where the
+   multi-cluster one, two cells a thread, loses) and nothing else, each beside the same
+   steps through the other route (the cooperative kernel beside the
+   multi-cluster and tile ones; timed, bit for bit: h and C for the
+   approach).
 6. Runs one whole case through ``jrl_main.run_case`` at 128x64 twice:
    through the multi-step kernels (its default: the three cluster
    kernels) and through the per-step runners (``c_approach_pass`` for the
@@ -244,12 +252,14 @@ paths on one NVIDIA card and check them.
    lane after lane, the records bit for bit equal), timed beside the
    lanes and one lane alone; the lanes kernel against its twin (h, C
    2e-5, the record sums rtol 2e-4 / atol 1e-4) beside its bound.
-7. Prints ``{"kernels": [...]}`` (47 rows: each kernel once, the five
+7. Prints ``{"kernels": [...]}`` (48 rows: each kernel once, the five
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``; the
    cluster kernels and ``fused_approach`` timed on a 1000-step launch at
    128x64 (CUDA events), the cooperative fluid and balance on a 200-step
-   launch at 512x256, the three multi-cluster ones at 256x128; all six
-   printed at both grids with the plans and bounds, and each phase's
+   launch at 512x256, the three multi-cluster ones at 256x128,
+   ``fused_fluid_tl`` on a 2-step launch at 512x256 beside its twin (held
+   to it at 2e-5, vel 2e-4); all
+   seven printed at both grids with the plans and bounds, and each phase's
    steps and launches of the default case at refine 2 and 4), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -286,6 +296,7 @@ FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach"
                   "fused_fluid": 650, "fused_balance": 230, "fused_approach": 335,
                   "fused_fluid_cl": 650, "fused_balance_cl": 230, "fused_approach_cl": 335,
                   "fused_fluid_mc": 650, "fused_balance_mc": 230, "fused_approach_mc": 335,
+                  "fused_fluid_tl": 650,
                   "fused_approach_lanes": 335,
                   "c_approach_pass": 335,
                   # per cell and step of a tile class (halo recompute not
@@ -337,6 +348,8 @@ SOURCE = {
                          "jrl_lbm_tpu/ops/pallas/fused_jrl.py:531"),
     "fused_approach_mc": ("jrl_lbm_torch/kernels/csrc/fused_approach_mc.cu",
                           "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
+    "fused_fluid_tl": ("jrl_lbm_torch/kernels/csrc/fused_fluid_tl.cu",
+                       "jrl_lbm_tpu/ops/pallas/fused_jrl.py:138"),
     "cyl_full": ("jrl_lbm_torch/kernels/csrc/cyl_full.cu",
                  "jrl_lbm_tpu/ops/pallas/fused_step.py:247"),
     "cyl_interior": ("jrl_lbm_torch/kernels/csrc/cyl_interior.cu",
@@ -392,14 +405,21 @@ SOURCE = {
                              "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
 }
 TILED = ("fluid_k", "fluid_k_lean", "fluid_k_bt", "fluid_pass")
+ROUTE_SUFFIX = {"cluster": "_cl", "clusters": "_mc", "coop": "", "tiles": "_tl"}
 ROUTE_KERNEL = {(name, route): name + suffix for name in FUSED
-                for route, suffix in (("cluster", "_cl"), ("clusters", "_mc"), ("coop", ""))}
+                for route, suffix in ROUTE_SUFFIX.items()
+                if route != "tiles" or name == "fused_fluid"}  # the tiles: the fluid's only
 # the kernel each phase's route takes at refine 2 (256x128) and 4 (512x256)
 # of the default case on an H100 (PERF.md §6)
-MC_ROUTE = {2: {"fused_fluid": "fused_fluid_mc", "fused_balance": "fused_balance_mc",
+MC_ROUTE = {2: {"fused_fluid": "fused_fluid_tl", "fused_balance": "fused_balance_mc",
                 "fused_approach": "fused_approach_mc"},
-            4: {"fused_fluid": "fused_fluid", "fused_balance": "fused_balance_mc",
+            4: {"fused_fluid": "fused_fluid_tl", "fused_balance": "fused_balance_mc",
                 "fused_approach": "fused_approach"}}
+# the fluid's tile kernel: the tips held to the cooperative kernel, and the
+# steps of the launch its row times beside its twin (the twin plays the
+# launch tile by tile)
+TL_SHAPES = ("ethaline", "45degree", "cylinder")
+TL_ROW_STEPS = 2
 
 
 def fail(msg: str):
@@ -433,8 +453,8 @@ def sass_check(build) -> dict:
     """Read-only (non-coherent) global loads in each multi-step library's
     and each sharded C pass's machine code; there must be none (a
     persistent kernel reads state that other blocks wrote in the same
-    launch). And ``fluid_pass``'s
-    spills as ``-Xptxas -v`` reports them; there must be none."""
+    launch). And ``fluid_pass``'s and ``fused_fluid_tl``'s spills as
+    ``-Xptxas -v`` reports them; there must be none."""
     import re
     import shutil
 
@@ -447,6 +467,15 @@ def sass_check(build) -> dict:
           flush=True)
     if local or any(spills):
         fail(f"fluid_pass spills: {local} local bytes, -Xptxas -v {spills}")
+    from jrl_lbm_torch.kernels import fused_jrl
+
+    log = build.build_log.get("fused_fluid_tl", "")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
+    regs, local = fused_jrl.tl_info()
+    print(f"  fused_fluid_tl: {regs} registers, {local} local bytes; -Xptxas -v spills {spills}",
+          flush=True)
+    if local or any(spills):
+        fail(f"fused_fluid_tl spills: {local} local bytes, -Xptxas -v {spills}")
     regs_p, local_p = jrl_c.pass_info()
     print(f"  c_approach_pass: {regs_p} registers, {local_p} local bytes", flush=True)
     from jrl_lbm_torch.kernels import cylinder
@@ -459,7 +488,7 @@ def sass_check(build) -> dict:
         print("  cuobjdump not found: SASS check not made", flush=True)
         return {}
     counts = {}
-    for k in FUSED + MC + ("c_balance_pass_sh", "c_approach_pass_sh"):
+    for k in FUSED + MC + ("fused_fluid_tl", "c_balance_pass_sh", "c_approach_pass_sh"):
         sass = subprocess.run([tool, "-sass", str(build._lib_file(k))], capture_output=True,
                               text=True, check=True, timeout=120).stdout
         counts[k] = sum(1 for ln in sass.splitlines() if "LDG" in ln and "CONSTANT" in ln)
@@ -506,6 +535,20 @@ def cluster_choice(F, res) -> dict:
                   f"{plan.cluster} blocks x {F.CLUSTER_THREADS} threads, {plan.cpt} cell(s) a "
                   f"thread, {plan.smem} B shared memory a block, {regs} registers, {local} B "
                   f"local", flush=True)
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for H, W in ((256, 128), (512, 256)):
+        plan = F.tl_plan(H, W, sms)
+        shape = F.tl_tile_shape(plan.rmax, plan.smax)
+        want = (F._sh.TILE_THREADS, F._sh.TILE_SMEM_CAP,
+                F._sh.tile_smem_bytes(plan.rmax, plan.smax))
+        out[f"fused_fluid_tl {H}x{W}"] = dict(dataclasses.asdict(plan), kernel_shape=shape)
+        print(f"  fused_fluid_tl {H}x{W}: plan {plan}; the kernel's threads, shared memory cap, "
+              f"bytes a tile, co-resident blocks {shape}", flush=True)
+        if shape[:3] != want or plan.grid > shape[3]:
+            fail(f"fused_fluid_tl {H}x{W}: the kernel's launch shape {shape} is not the host "
+                 f"plan's {want}, grid {plan.grid}")
     return out
 
 
@@ -627,6 +670,7 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fused_fluid_mc": ("fused_fluid_mc_kernel",),
     "fused_balance_mc": ("fused_balance_mc_kernel",),
     "fused_approach_mc": ("fused_approach_mc_kernel",),
+    "fused_fluid_tl": ("fused_fluid_tl_kernel",),
     "fused_approach_lanes": ("fused_approach_lanes_kernel",),
     "c_approach_pass": ("c_approach_pass_kernel",),
     "cyl_full": ("cyl_full_kernel",),
@@ -3345,7 +3389,7 @@ def main() -> int:
         """The kernel `fused_jrl.fused_route` takes for phase ``name`` on the
         config's grid."""
         route = fused_jrl.fused_route(name, *cfg.eff_res, fused_jrl.card_limits(name, 0))
-        return name + {"cluster": "_cl", "clusters": "_mc", "coop": ""}[route]
+        return name + ROUTE_SUFFIX[route]
 
     cases = (("ethaline", 8), ("cylinder", 1))
     frames = {}
@@ -3432,10 +3476,7 @@ def main() -> int:
         fc = fluid_cfg(shape, refine)
         H, W = fc.eff_res
         # both routes where the default grid takes the cluster kernels; the
-        # route fused_route takes at 256x128 and 512x256, which must be the
-        # multi-cluster one for the balance, the multi-cluster one for the
-        # fluid at 256x128 and the cooperative one at 512x256 (two cells a
-        # thread there), and the cooperative one for the approach
+        # route fused_route takes at 256x128 and 512x256 (MC_ROUTE)
         want_k = {p: p + "_cl" for p in FUSED} if refine == 1 else MC_ROUTE[refine]
         for phase in FUSED:
             if route_kernel(phase, fc) != want_k[phase]:
@@ -3596,6 +3637,30 @@ def main() -> int:
         for nm, g_, w in zip(("f", "rho", "vel"), got_, want_):
             check_close(f"{tag} {nm}", g_, w, TOL[nm],
                         errs["fused_fluid_mc"] if res == (256, 128) else [])
+
+    stamp("2. the fluid's tiles against the cooperative kernel")
+    print("fused_fluid_tl against fused_fluid: one 1000-step launch at 256x128 and 512x256 "
+          "across a tip row and from step 2**24 - 5", flush=True)
+    for (shape, res), small in itertools.product(
+            itertools.product(TL_SHAPES, ((256, 128), (512, 256))), (False, True)):
+        kw = dict(Re=1.2e-5, vel_obs_real=28e-6) if small else {}
+        fc = fluid_cfg(shape, res[0] // 128, **kw) if shape == "ethaline" \
+            else fluid_cfg(shape, 1, res=res, **kw)
+        s, fl = T.fluid_init(fc, dev)
+        s = noisy(s, dev, 60 + small)
+        if small:
+            start = 2**24 - 5
+        else:  # a start from which the launch crosses a tip row
+            row0 = T.tip_walks(fc.inflow_height, 0, fc.vel_obs)[1]
+            start = max(0, int((row0 + 0.5 - fc.inflow_height) / fc.vel_obs) - 500)
+        rows = [T.tip_walks(fc.inflow_height, x, fc.vel_obs)[1] for x in (start, start + 999)]
+        if (not small and rows[1] == rows[0]) or not 1 < rows[1] < res[0] - 1:
+            fail(f"fused_fluid_tl {shape} {res}: the launch from {start} crosses no tip row "
+                 f"inside the grid ({rows})")
+        x = (s["f"], s["rho"], s["vel"])
+        equal_bits(f"fused_fluid_tl {shape} {res[0]}x{res[1]} from {start}",
+                   fused_jrl.fused_fluid_tl(*x, start, 1000, fc, fl),
+                   fused_jrl.fused_fluid(*x, start, 1000, fc, fl, route="coop"))
 
     print("fluid steps 2**24 - 5 .. 2**24 + 4 at 128x64", flush=True)
     for shape in ("45degree", "cylinder"):
@@ -4142,7 +4207,10 @@ def main() -> int:
         vfr = frame_field(Hr, Wr, T.frame_pair(1000, ccr.vel_obs_conv, 2**31)[0] + 2, seed=48)
 
         def other(name, cfg):
-            return "coop" if route_kernel(name, cfg) == name + "_mc" else "clusters"
+            """The yardstick's route: the cooperative kernel beside the
+            multi-cluster and tile kernels, the multi-cluster one beside the
+            cooperative one."""
+            return "coop" if route_kernel(name, cfg) != name else "clusters"
 
         def other_fluid_run(st_, fl_, start, k, cfg=fcr):
             return dict(zip(("f", "rho", "vel"), fused_jrl.fused_fluid(
@@ -4180,7 +4248,7 @@ def main() -> int:
             k_main = route_kernel(kname, ccr)
             if k_main != MC_ROUTE[refine][kname]:
                 fail(f"{tag} {pname}: route {k_main}, expected {MC_ROUTE[refine][kname]}")
-            k_other = kname if k_main == kname + "_mc" else kname + "_mc"
+            k_other = ROUTE_KERNEL[(kname, other(kname, ccr))]
             out = run_phase(f"{tag} {pname}", (k_main,), main, 200, Hr * Wr)
             yard = run_phase(f"{tag} {pname} {k_other}", (k_other,), other_, 200, Hr * Wr,
                              yardstick=True)
@@ -4327,7 +4395,7 @@ def main() -> int:
     # launches on the main path's phases (the yardsticks' not counted)
     launches_path = {k: sum(p_["launches"].get(k, 0) for p_ in phases.values()
                             if not p_.get("yardstick") and "launches" in p_)
-                     for k in FUSED + MC}
+                     for k in FUSED + MC + ("fused_fluid_tl",)}
     for k in PATH128 + ("fused_approach",):
         kfn, tfn, ins, outs = fruns[k]
         row(k, cuda_ms(kfn, 5, warmup=1), cuda_ms(tfn, 1, warmup=0), ins, outs, n_row, cells,
@@ -4352,7 +4420,7 @@ def main() -> int:
         """(kernel, twin, inputs, outputs) of a 200-step launch of ``k`` at
         refine 2 or 4 (its route forced)."""
         fcr, ccr, sr_, flr, str_, cfr, flagsr, vfr = grids[refine]
-        r = "clusters" if k in MC else "coop"
+        r = "clusters" if k in MC else ("tiles" if k == "fused_fluid_tl" else "coop")
         if k.startswith("fused_approach"):
             x, acc_, acc_c = (str_["h"], str_["C"]), torch.zeros(4, device=dev), \
                 torch.zeros(4, device=dev)
@@ -4373,9 +4441,9 @@ def main() -> int:
                 [flagsr] + list(x), list(fused_jrl.fused_balance(*x, flagsr, n4, ccr, cfr,
                                                                  route="coop")))
 
-    # the rows: the cooperative fluid and balance at 512x256 (where the fluid
-    # stays cooperative on the main path), the multi-cluster ones at 256x128
-    # (where the main path runs all three)
+    # the rows: the cooperative fluid and balance at 512x256 (the yardsticks
+    # of the tile and multi-cluster kernels there), the multi-cluster ones at
+    # 256x128 (where the main path runs all three)
     print(f"the cooperative fluid and balance at 512x256 and the multi-cluster kernels at "
           f"256x128, one launch of {n4} steps, and the twin:", flush=True)
     for k, refine in (("fused_fluid", 4), ("fused_balance", 4), ("fused_fluid_mc", 2),
@@ -4384,14 +4452,44 @@ def main() -> int:
         Hr, Wr = grids[refine][0].eff_res
         row(k, cuda_ms(kfn, 5, warmup=1), cuda_ms(tfn, 1, warmup=0), ins, outs, n4, Hr * Wr,
             launches_path[k], "events")
+    # the fluid's tile kernel at 512x256, where the main path runs it: a
+    # launch of TL_ROW_STEPS steps beside its twin, which plays the same
+    # launch tile by tile on the card (one call, timed by events; ~4 s a
+    # step there)
+    fcr, _, sr_, flr = grids[4][:4]
+    nz = noisy(sr_, dev, 62)
+    x = (nz["f"], nz["rho"], nz["vel"])
+    plan_tl = fused_jrl.tl_plan(*fcr.eff_res, sms)
+    print(f"fused_fluid_tl at 512x256 ({plan_tl}), one launch of {TL_ROW_STEPS} steps, and the "
+          f"twin:", flush=True)
+    tl_out = list(fused_jrl.fused_fluid_tl(*x, 0, TL_ROW_STEPS, fcr, flr))
+    twin_out = []
+    twin_ms = cuda_ms(lambda: twin_out.extend(fused_jrl.fused_fluid_tl_ref(
+        *x, 0, TL_ROW_STEPS, fcr, flr, plan_tl)), 1, warmup=0)
+    for nm, g_, w in zip(("f", "rho", "vel"), tl_out, twin_out):
+        check_close(f"fused_fluid_tl {TL_ROW_STEPS} steps {nm}", g_, w, TOL[nm],
+                    errs["fused_fluid_tl"])
+    row("fused_fluid_tl",
+        cuda_ms(lambda: fused_jrl.fused_fluid_tl(*x, 0, TL_ROW_STEPS, fcr, flr), 5, warmup=1),
+        twin_ms, list(x), tl_out, TL_ROW_STEPS, fcr.eff_res[0] * fcr.eff_res[1],
+        launches_path["fused_fluid_tl"], "events")
     # every kernel of the six at both grids, and the plans: printed
     times = {}
     for refine in (2, 4):
         fcr = grids[refine][0]
         Hr, Wr = fcr.eff_res
-        for k in FUSED + MC:
+        for k in FUSED + MC + ("fused_fluid_tl",):
             kfn = fused_runs(k, refine)[0]
             times[f"{k} {Hr}x{Wr}"] = cuda_ms(kfn, 5, warmup=1) * 1e3 / n4
+        report[f"fused_fluid_tl {Hr}x{Wr}"] = {
+            "plan": dataclasses.asdict(fused_jrl.tl_plan(Hr, Wr, sms)),
+            "us_per_step": times[f"fused_fluid_tl {Hr}x{Wr}"],
+            "coop_us_per_step": times[f"fused_fluid {Hr}x{Wr}"],
+            "mc_us_per_step": times[f"fused_fluid_mc {Hr}x{Wr}"],
+            "route": fused_jrl.fused_route("fused_fluid", Hr, Wr,
+                                           fused_jrl.card_limits("fused_fluid", 0))}
+        print(f"  fused_fluid_tl {Hr}x{Wr} ({n4}-step launches): "
+              f"{report[f'fused_fluid_tl {Hr}x{Wr}']}", flush=True)
         for name_ in FUSED:
             lim = fused_jrl.card_limits(name_, 0)
             plan = fused_jrl.mc_plan(name_, Hr, Wr, lim)
@@ -4411,8 +4509,8 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows \
         + sweep_rows
-    if len(rows) != 47:
-        fail(f"{len(rows)} kernel rows, expected 47")
+    if len(rows) != 48:
+        fail(f"{len(rows)} kernel rows, expected 48")
     stamp("end")
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log,
                    "phase_start_s": marks})

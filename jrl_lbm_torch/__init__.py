@@ -24,7 +24,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from jrl_lbm_torch import lattice  # noqa: E402
 from jrl_lbm_torch.simulation import SimulationParameters, SimulationRunner  # noqa: E402
 
 __version__ = "0.1.0"
-__all__ = ["SimulationParameters", "SimulationRunner"]
+__all__ = ["lattice", "SimulationParameters", "SimulationRunner", "__version__"]

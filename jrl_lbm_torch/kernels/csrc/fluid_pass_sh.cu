@@ -46,35 +46,18 @@
 // E_j - 1, E_j = h + 4 lvl (shard row e - 2 lvl; on a mesh of one row E_j =
 // H, the rows wrap and nothing is extended), cut into nty[j] row bands x
 // ntx column strips (ends on multiples of 4); block b takes tiles b, b +
-// grid, ... of each sub-step. A tile of R x S B cells:
-// - copies its window, rows -2 .. R + 1 and columns [sx0 - 2, sx1 + 2)
-//   cut to the grid and rounded out to 16 bytes, of 12 planes (f 0-8, rho
-//   9, u 10, v 11; the lean class: f alone) by cp.async.bulk counted on
-//   one mbarrier, one plane row a thread (one warp issuing them all cost
-//   up to 40 us a pass): sub-step 0 from the body and the pieces
-//   (fpt_row), sub-step j > 0 from the scratch that j - 1 wrote;
-// - the full class's geometry (flag with the tip bit, phi) of every window
-//   cell at step step0 + j, once, into a table (TileGeo);
-// - A on (R + 2) x (S + 2) cells (rows -1 .. R, columns one past the
-//   strip inside the grid): rho, u, v into a window-shaped table, f into a
-//   table of the R x S B cells (B reads f at its own cell only); then one
-//   __syncthreads and B on R x S, threads on consecutive columns;
-// - the last sub-step writes f_out, rho_out and vel_out; the others write
-//   B's f and A's rho, u, v (f alone for the lean class) to the scratch
-//   buffer j % 2, [12][SR][W] with shard row r at scratch row r + 2k (on a
-//   mesh of one row: [12][H][W], row r at r).
-// One grid.sync() ends each sub-step but the last: sub-step j + 1 reads
-// what every block wrote (a proxy fence before its bulk copies, which read
-// through the async proxy). Reach: A reads one cell away, except an
-// OUTFLOW cell of row 0, which recomputes row 1's streaming and reads two
-// rows up; on the window's last A row that lands one row past the copied
-// window (a padding row of the tables), where the window wraps past H:
-// only the top wall row's B reads that A, and an OBSTACLE cell's B reads
-// nothing around it. Every other read of a real cell stays in the window.
-// The x edges reflect (jrl_common.cuh::at_dx): nothing reads past them.
+// grid, ... of each sub-step. A tile runs A and B on its cells from its
+// window (fluid_tile.cuh, shared with fused_fluid_tl.cu): sub-step 0 from
+// the body and the pieces (fpt_row), sub-step j > 0 from the scratch that j
+// - 1 wrote. The last sub-step writes f_out, rho_out and vel_out; the
+// others write B's f and A's rho, u, v (f alone for the lean class) to the
+// scratch buffer j % 2, [12][SR][W] with shard row r at scratch row r + 2k
+// (on a mesh of one row: [12][H][W], row r at r). One grid.sync() ends each
+// sub-step but the last: sub-step j + 1 reads what every block wrote (a
+// proxy fence before its bulk copies, which read through the async proxy).
 // The launch form (the tile of a sub-step, the co-resident limit, the proxy
 // fence) is pass_sh.cuh's, shared with the C phases' passes.
-#include "pass_sh.cuh"
+#include "fluid_tile.cuh"
 
 // Mirrors kernels/jrl_sharded.py::PassShParams (outside the unnamed
 // namespace: the C entry point takes it, and must keep external linkage).
@@ -103,9 +86,8 @@ namespace {
 using namespace jrl;
 namespace cg = cooperative_groups;
 
-// -DJRL_FPT_NO_CELLS (no cell code: A and B copy their cell) and
-// -DJRL_FPT_NO_GEO (no geometry table) build timing probes with wrong
-// results (tools/fluid_pass_sh_probe.py variants)
+// The probes' -D builds (fluid_tile.cuh: JRL_FPT_NO_CELLS, JRL_FPT_NO_GEO,
+// JRL_FPT_SDF) time tools/fluid_pass_sh_probe.py's variants
 constexpr int FPT_THREADS = SH_THREADS;  // threads a block, one block an SM
 
 // Shard row r (-2k <= r < h + 2k) of plane q (f 0-8, rho 9, u 10, v 11): a
@@ -125,108 +107,18 @@ __device__ __forceinline__ const float* fpt_row(const FluidPassShSrc& src, const
   return src.bot + (pq * R2 + r - s.h) * s.w;
 }
 
-// A tile's tables, in floats from the start of the dynamic shared memory
-// (every row of RS = smax + 8 floats, WP = rmax + 5 rows: the window's
-// rmax + 4 and the padding row): the input [12][WP][RS], A's rho, u, v
-// [3][WP][RS], phi [WP][RS], A's f of the B cells [9][rmax][smax], then
-// the geometry codes [WP][RS] bytes.
-struct FptLayout {
-  int rs, wp, rmax, smax;
-  __host__ __device__ FptLayout(int rmax_, int smax_)
-      : rs(smax_ + 8), wp(rmax_ + 5), rmax(rmax_), smax(smax_) {}
-  __host__ __device__ int rv() const { return PASS_NP * wp * rs; }
-  __host__ __device__ int phi() const { return rv() + 3 * wp * rs; }
-  __host__ __device__ int fa() const { return phi() + wp * rs; }
-  __host__ __device__ int codes_bytes() const { return 4 * (fa() + 9 * rmax * smax); }
-  __host__ __device__ int bytes() const { return codes_bytes() + wp * rs; }
-};
-
-// Step A's view of a tile's input around a cell: window row i, column c
-// (planes f 0-8, rho 9, u 10, v 11 of WP rows each).
-struct TileIn {
-  const float* in;
-  int rs, wp, i, c;
-  __device__ __forceinline__ int idx(int q, int dy, int dx) const {
-    return (q * wp + i + dy) * rs + c + dx;
-  }
-  __device__ __forceinline__ float F(int q, int dy, int dx) const { return in[idx(q, dy, dx)]; }
-  __device__ __forceinline__ float R(int dy, int dx) const { return in[idx(9, dy, dx)]; }
-  __device__ __forceinline__ float U(int dy, int dx) const { return in[idx(10, dy, dx)]; }
-  __device__ __forceinline__ float V(int dy, int dx) const { return in[idx(11, dy, dx)]; }
-  __device__ __forceinline__ TileIn at(int dy, int dx) const {
-    return TileIn{in, rs, wp, i + dy, c + dx};
-  }
-};
-
-// Step B's view: A's f of the cell (`fa` positioned at it, planes `fstride`
-// apart), A's rho, u, v around it from their window-shaped table.
-struct TileB {
-  const float* rv;
-  const float* fa;
-  int rs, wp, fstride, i, c;
-  __device__ __forceinline__ int idx(int p, int dy, int dx) const {
-    return (p * wp + i + dy) * rs + c + dx;
-  }
-  __device__ __forceinline__ float F(int q, int, int) const { return fa[q * fstride]; }
-  __device__ __forceinline__ float R(int dy, int dx) const { return rv[idx(0, dy, dx)]; }
-  __device__ __forceinline__ float U(int dy, int dx) const { return rv[idx(1, dy, dx)]; }
-  __device__ __forceinline__ float V(int dy, int dx) const { return rv[idx(2, dy, dx)]; }
-};
-
-// The moving tip at one step, read from a tile's geometry table (RingGeo's
-// values, the window rows in order from global row ybase, mod H).
-struct TileGeo {
-  int H, W, ybase, rs, cx0;
-  bool flat;
-  float vel_obs;
-  const float* phis;
-  const unsigned char* codes;
-  __device__ __forceinline__ int at(int y, int x) const {
-    int j = y - ybase;
-    j += j < 0 ? H : 0;
-    return j * rs + x - cx0;
-  }
-  __device__ __forceinline__ int flag(int y, int x) const { return codes[at(y, x)] & 0x7f; }
-  __device__ __forceinline__ bool tip(int y, int x) const { return codes[at(y, x)] >> 7; }
-  __device__ __forceinline__ float phi(int y, int x) const { return phis[at(y, x)]; }
-  __device__ __forceinline__ float obs_v(int y, int x) const {
-    return (tip(y, x) && (flat || y != H - 1)) ? vel_obs : 0.0f;
-  }
-  __device__ __forceinline__ float u(int y, int x, float raw) const {
-    return tip(y, x) ? 0.0f : raw;
-  }
-  __device__ __forceinline__ float v(int y, int x, float raw) const {
-    return tip(y, x) ? obs_v(y, x) : raw;
-  }
-  __device__ void inflow(int, int, int, float*) const {}
-};
-
 // The pass of class CLS at depth K over every tile of the launch.
 template <int CLS, int K>
 __device__ __forceinline__ void fpt_run(const FluidPassShSrc& src, float* f_out, float* rho_out,
                                         float* vel_out, float* scr0, float* scr1, int step0,
                                         const FluidPassShParams& p, float* smem, uint64_t* bar) {
   constexpr bool LEAN = CLS == TILE_LEAN;
-  constexpr int NPL = LEAN ? 9 : PASS_NP;  // planes of a window row and of the scratch
   const ShardGeom& s = p.s;
-  const int H = s.H, W = s.W, hw = s.h * s.w, tid = threadIdx.x;
+  const int H = s.H, W = s.W, hw = s.h * s.w;
   const bool whole = s.h == s.H;  // a mesh of one row
   const int soff = whole ? 0 : 2 * K;  // scratch row of shard row 0
   const size_t splane = (size_t)(whole ? H : s.h + 4 * K) * W;  // floats a scratch plane
-  const FptLayout lay(p.t.rmax, p.t.smax);
-  const int RS = lay.rs, WP = lay.wp;
-  float* const in = smem;
-  float* const rv = smem + lay.rv();
-  float* const phis = smem + lay.phi();
-  float* const fa = smem + lay.fa();
-  unsigned char* const codes = reinterpret_cast<unsigned char*>(smem) + lay.codes_bytes();
-  const uint32_t bar_a = smem_addr(bar);
-  if (tid == 0) {
-    mbar_init(bar_a);
-    mbar_init_fence();
-    fence_proxy_async();  // the initialised mbarrier visible to the async proxy
-  }
-  __syncthreads();
+  const uint32_t bar_a = fluid_tile_bar(bar);
   uint32_t parity = 0;
   cg::grid_group grid = cg::this_grid();
 
@@ -242,80 +134,17 @@ __device__ __forceinline__ void fpt_run(const FluidPassShSrc& src, float* f_out,
 #pragma unroll 1
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
       const ShTile tl(t, nty, p.t.ntx, E, W);
-      const int R = tl.e1 - tl.e0, S = tl.sx1 - tl.sx0, ncols = tl.cx1 - tl.cx0;
-      const int rb0 = r_lo + tl.e0;                  // shard row of the first B row
-      const int ybase = wrap1(s.row0 + rb0 - 2, H);  // global row of window row 0
-      const int wr = R + 4;
-      if (R < 1 || R > p.t.rmax || S < 1 || S > p.t.smax || ncols > RS) __trap();
-      // the window's rows, a copy a plane row, one a thread; the barrier
-      // orders the expected bytes before every copy and the tile before's
-      // reads of the tables before this tile's writes
-      if (tid == 0) mbar_expect(bar_a, 4u * (uint32_t)(ncols * NPL * wr));
-      __syncthreads();
-      for (int n = tid; n < NPL * wr; n += FPT_THREADS) {
-        const int q = n / wr, i = n - q * wr, r = rb0 - 2 + i;
-        const float* const row =
-            j == 0 ? fpt_row<K>(src, s, q, r)
-                   : s_in + q * splane + (size_t)(whole ? wrap1(r, H) : r + soff) * W;
-        fence_proxy_async();         // the block's reads of the tables before the copy
-        fence_proxy_async_global();  // the scratch rows written before grid.sync
-        bulk_g2s(smem_addr(in + (q * WP + i) * RS), row + tl.cx0, 4u * (uint32_t)ncols, bar_a);
-      }
-      // the tip's values once per window cell and its padding row
-#ifndef JRL_FPT_NO_GEO
-      if (!LEAN)
-        for (int n = tid; n < (wr + 1) * ncols; n += FPT_THREADS) {
-          const int i = n / ncols, c = n - i * ncols;
-          codes[i * RS + c] = geo_code(fg, wrap1(ybase + i, H), tl.cx0 + c, phis[i * RS + c]);
-        }
-#endif
-      __syncthreads();
-      mbar_wait(bar_a, parity);
-      parity ^= 1;
-      const auto geo = [&] {
-        if constexpr (LEAN) {
-          return LeanGeo{H, W};
-        } else {
-          return TileGeo{H, W, ybase, RS, tl.cx0, fg.flat, fg.vel_obs, phis, codes};
-        }
-      }();
-      // A on rows -1 .. R and one column past the strip
-      const int ax0 = max(tl.sx0 - 1, 0), acols = min(tl.sx1 + 1, W) - ax0;
-#pragma unroll 1
-      for (int n = tid; n < (R + 2) * acols; n += FPT_THREADS) {
-        const int ia = n / acols, x = ax0 + n - ia * acols, i = ia + 1, c = x - tl.cx0;
-        float fo[9], r, u, v;
-#ifdef JRL_FPT_NO_CELLS
-        const TileIn a{in, RS, WP, i, c};
-        for (int q = 0; q < 9; ++q) fo[q] = a.F(q, 0, 0);
-        r = a.R(0, 0), u = a.U(0, 0), v = a.V(0, 0);
-#else
-        fluid_a_cell(TileIn{in, RS, WP, i, c}, geo, p.a.cs2tau, wrap1(ybase + i, H), x, fo, r, u,
-                     v);
-#endif
-        rv[i * RS + c] = r;
-        rv[(WP + i) * RS + c] = u;
-        rv[(2 * WP + i) * RS + c] = v;
-        const int bi = i - 2, bc = x - tl.sx0;
-        if (bi >= 0 && bi < R && bc >= 0 && bc < S) {
-#pragma unroll
-          for (int q = 0; q < 9; ++q) fa[(q * p.t.rmax + bi) * p.t.smax + bc] = fo[q];
-        }
-      }
-      __syncthreads();
-      // B on the tile's cells
-#pragma unroll 1
-      for (int n = tid; n < R * S; n += FPT_THREADS) {
-        const int bi = n / S, bc = n - bi * S, x = tl.sx0 + bc, i = bi + 2, c = x - tl.cx0;
-        float fo[9];
-#ifdef JRL_FPT_NO_CELLS
-        for (int q = 0; q < 9; ++q) fo[q] = fa[(q * p.t.rmax + bi) * p.t.smax + bc];
-#else
-        fluid_b_cell(TileB{rv, fa + bi * p.t.smax + bc, RS, WP, p.t.rmax * p.t.smax, i, c}, geo,
-                     p.b,
-                     wrap1(ybase + i, H), x, fo);
-#endif
-        const float r = rv[i * RS + c], u = rv[(WP + i) * RS + c], v = rv[(2 * WP + i) * RS + c];
+      const int rb0 = r_lo + tl.e0;  // shard row of the first B row
+      // sub-step 0 from the body and the pieces, sub-step j > 0 from the
+      // scratch that j - 1 wrote
+      const auto row_of = [&](int q, int i) {
+        const int r = rb0 - 2 + i;
+        return j == 0 ? fpt_row<K>(src, s, q, r)
+                      : s_in + q * splane + (size_t)(whole ? wrap1(r, H) : r + soff) * W;
+      };
+      // the last sub-step writes f_out, rho_out and vel_out; the others B's
+      // f and A's rho, u, v (f alone for the lean class) to the scratch
+      const auto store = [&](int bi, int x, const float* fo, float r, float u, float v) {
         const int rr = rb0 + bi;  // shard row
         if (j < K - 1) {
           float* const dst = s_out + (size_t)(rr + soff) * W + x;
@@ -334,7 +163,9 @@ __device__ __forceinline__ void fpt_run(const FluidPassShSrc& src, float* f_out,
           vel_out[o] = u;
           vel_out[hw + o] = v;
         }
-      }
+      };
+      fluid_tile<LEAN>(tl, wrap1(s.row0 + rb0 - 2, H), fg, p.a, p.b, p.t.rmax, p.t.smax, smem,
+                       bar_a, parity, row_of, store);
     }
     if (j < K - 1) grid.sync();
   }
@@ -346,11 +177,7 @@ __global__ void __launch_bounds__(FPT_THREADS, 1) fluid_pass_sh_tiles(
     int step0, FluidPassShParams p) {
   extern __shared__ __align__(128) float smem[];
   __shared__ __align__(8) uint64_t bar;
-  // a launch whose plan the host got wrong stops (an error, not wrong
-  // cells): its tables must fit the shared memory
-  unsigned dyn;
-  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));
-  if ((unsigned)FptLayout(p.t.rmax, p.t.smax).bytes() > dyn) __trap();
+  fluid_tile_smem_check(p.t.rmax, p.t.smax);
   if (p.lean)
     fpt_run<TILE_LEAN, K>(src, f_out, rho_out, vel_out, scr0, scr1, step0, p, smem, &bar);
   else

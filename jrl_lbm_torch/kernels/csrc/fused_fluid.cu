@@ -8,6 +8,15 @@
 // fluid_a_ref and fluid_b_ref; the per-cell code is jrl_fluid.cuh's, shared
 // with fluid_a.cu and fluid_b.cu.
 //
+// Which grids reach it (kernels/fused_jrl.py::fused_route on an H100): none
+// of the default case's refinements, whose fluid runs on the cluster kernel
+// (128x64, fused_fluid_cl.cu) and the tile kernel (256x128 and 512x256,
+// fused_fluid_tl.cu); grids of fewer than TILES_MIN_CELLS cells whose
+// multi-cluster plan needs two cells a thread, grids from TILES_MIN_CELLS
+// cells whose rows are not 16-byte multiples and need as many, and any
+// grid a caller sends with route="coop", which keeps it as every fluid
+// kernel's yardstick: the others equal it bit for bit.
+//
 // Bound on the card: at 128x64 the state (f, rho, vel: 12 planes, 393 KB)
 // crosses device memory once per launch, so the bound is the ~650 float32
 // operations per cell and step (~0.08 us a step at the float32 peak); the

@@ -8,9 +8,13 @@
 // Replaces the TPU kernel jrl_lbm_tpu/ops/pallas/fused_jrl.py::
 // _make_jrl_fluid_kernel (called by _fused_fluid_run) for grids over one
 // cluster and up to 131,072 cells where the card's plan runs one cell a
-// thread (256x128, refine 2 of the default case, on an H100; at 512x256
-// two cells a thread lose to fused_fluid.cu, which keeps that grid:
-// kernels/fused_jrl.py::fused_route, PERF.md §6). Its plain twin is kernels/fused_jrl.py::
+// thread (on an H100 from refine 2's 256x128 down, where the tile kernel
+// fused_fluid_tl.cu takes the grids of TILES_MIN_CELLS cells and more: at
+// 256x128 it beats this kernel by ~9% with the wedge tips and loses ~2% with
+// a flat one; at 512x256 two cells a thread lose to both it and
+// fused_fluid.cu: kernels/fused_jrl.py::fused_route, PERF.md §6). Smaller
+// grids than 256x128 that one cluster does not hold, and rows that are not
+// 16-byte multiples, still reach it. Its plain twin is kernels/fused_jrl.py::
 // fused_fluid_ref; the per-cell code is jrl_fluid.cuh's, unchanged, read
 // through cluster_state.cuh::ClusterState, so the kernel equals
 // fused_fluid.cu and fused_fluid_cl.cu bit for bit.
@@ -20,7 +24,8 @@
 // step at 512x256 card-wide). The cooperative kernel keeps the state in
 // L2, gives each thread cells strided over the whole grid (a cell's
 // neighbours in other blocks) and crosses two grid barriers a step; it runs
-// at ~3.6% of that bound at 512x256. Design: the Pallas kernel keeps the
+// at ~4% of that bound at 512x256 (the tile kernel, with the state in L2
+// too, at ~6%). Design: the Pallas kernel keeps the
 // domain in VMEM for the whole launch; 512x256 does not fit one cluster's
 // shared memory, but it fits the card's: every SM holds one block of a band
 // of rows with one halo row a side (cluster_grid.cuh), so every read of a
@@ -31,7 +36,8 @@
 // 128). The step is then one thread's cell chain, plus the exchange
 // latency between clusters; at two cells a thread the chain doubles, and
 // a wedge tip's costly cells gather in a few bands, which the cooperative
-// grid spreads over the card.
+// grid spreads over the card (and the tile kernel over 2D tiles whose
+// windows it copies and whose geometry it tables once a step).
 #include "cluster_grid.cuh"
 #include "fused_launch.cuh"
 #include "jrl_fluid.cuh"

@@ -1,30 +1,35 @@
 """Multi-step kernels of the three JRL phases for grids of at most
 ``MAX_FUSED_CELLS`` cells (`csrc/fused_fluid.cu`, `csrc/fused_balance.cu`,
 `csrc/fused_approach.cu`, the cluster kernels `csrc/fused_fluid_cl.cu`,
-`csrc/fused_balance_cl.cu`, `csrc/fused_approach_cl.cu`, and the
+`csrc/fused_balance_cl.cu`, `csrc/fused_approach_cl.cu`, the
 multi-cluster kernels `csrc/fused_fluid_mc.cu`, `csrc/fused_balance_mc.cu`,
-`csrc/fused_approach_mc.cu`), each with its plain PyTorch twin, and the
+`csrc/fused_approach_mc.cu`, and the fluid's tile kernel
+`csrc/fused_fluid_tl.cu`), each with its plain PyTorch twin, and the
 runners built on them.
 
 Replace the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_jrl.py`:
 ``_make_jrl_fluid_kernel``, ``_make_balance_kernel`` and
 ``_make_approach_kernel``. One launch advances n steps. Each phase
-takes one of three routes, picked by `fused_route` from the
-grid and the card's limits before any launch: where the state fits the
-shared memory of one thread-block cluster at one cell per thread (the
-default 128x64), the cluster kernel keeps it there for the whole launch;
-larger grids (256x128 and 512x256, refine 2 and 4) keep it in the shared
-memory of every cluster the card holds at once (`mc_plan`: bands of rows
-over N clusters, halo rows between clusters through mailbox rows in device
-memory) where that beats the cooperative grid on the card (the three
-phases at 256x128, the balance at 512x256); otherwise one persistent
-cooperative grid keeps it in device memory (L2) between steps. A wrapper
+takes one of three routes, the fluid one of four, picked by `fused_route`
+from the grid and the card's limits before any launch: where the state
+fits the shared memory of one thread-block cluster at one cell per thread
+(the default 128x64), the cluster kernel keeps it there for the whole
+launch; the fluid of the grids of ``TILES_MIN_CELLS`` cells and more
+(256x128 and 512x256, refine 2 and 4) runs each step as one wave of
+shared-memory tiles over the whole grid, the state in device memory (L2)
+between steps (`fused_fluid_tl`, one grid barrier a step); the other
+phases of those grids keep the state in the shared memory of every
+cluster the card holds at once (`mc_plan`: bands of rows over N clusters,
+halo rows between clusters through mailbox rows in device memory) where
+that beats the cooperative grid on the card (the balance and the approach
+at 256x128, the balance at 512x256); otherwise one persistent cooperative
+grid keeps it in device memory (L2) between steps. A wrapper
 given tensors on the CPU runs its twin (the loop of the per-step twins);
 given tensors on the card it launches the kernel or raises, never falling
 back to another route.
 ``fused_fluid.launches``, ``fused_fluid_cl.launches``,
-``fused_fluid_mc.launches``, ``fused_approach_mc.launches`` etc. count the
-launches of each kernel.
+``fused_fluid_mc.launches``, ``fused_fluid_tl.launches``,
+``fused_approach_mc.launches`` etc. count the launches of each kernel.
 `fused_approach_lanes` runs many approach lanes (a Pe sweep's,
 `parallel/sweep.py`) in one launch of the cluster kernel's lanes instance,
 one cluster a lane.
@@ -45,19 +50,21 @@ import numpy as np
 import torch
 
 from jrl_lbm_torch.kernels import build
+from jrl_lbm_torch.kernels import jrl_sharded as _sh
+from jrl_lbm_torch.kernels import jrl_tiled as _tl
 from jrl_lbm_torch.kernels.jrl_c import CApproachParams, _approach_params, _balance_params, \
     c_approach_ref, c_balance_ref
 from jrl_lbm_torch.kernels.jrl_fluid import _P, _a_params, _b_params, check_state, \
-    fluid_a_ref, fluid_b_ref, stream_of
+    fluid_a_ref, fluid_b_ref, sm_count, stream_of
 from jrl_lbm_torch.models import jrl as _jrl
 
 # Grids the multi-step kernels serve, as the JAX package's whole-domain
 # kernels (`fused_jrl.py::MAX_FUSED_CELLS`): 512x256, refine 4 of 128x64.
 MAX_FUSED_CELLS = 131072
 FUSED_BLOCK = 256  # threads per block (csrc/fused_launch.cuh)
-# the kernels' instances: at 131,072 cells an H100 SXM needs 2 cells per
-# thread for the fluid kernel (2 blocks of 256 threads per SM), a card with
-# fewer SMs 4
+# the cooperative kernels' instances: at 131,072 cells an H100 SXM needs 2
+# cells per thread for `fused_fluid` (2 blocks of 256 threads per SM; the
+# route's yardstick there since `fused_fluid_tl`), a card with fewer SMs 4
 CELLS_PER_THREAD = (1, 2, 4)
 # Cell updates per launch, about a second of card time at 128x64 (13.3,
 # 4.2 and 9.5 us a step on an NVIDIA H100 80GB HBM3 at 700 W,
@@ -82,12 +89,22 @@ MC_SIZES = (16, 8, 4, 2, 1)  # cluster sizes a plan may take (csrc/cluster_grid.
 # the most cells a thread at which the route takes a multi-cluster plan:
 # a step is one thread's cells one after the other, and on an H100 the
 # fluid and the approach lose to the cooperative grid from two (512x256),
-# the balance at none (PERF.md §6, tools/fused_cluster_probe.py)
+# the balance at none; the fluid takes the tiles from TILES_MIN_CELLS on,
+# ahead of this rule (PERF.md §6, tools/fused_cluster_probe.py)
 MC_MAX_CPT = {"fused_fluid": 1, "fused_balance": 4, "fused_approach": 1}
+# the fewest cells at which the route takes the fluid's tile kernel
+# (`fused_fluid_tl`, grids with W % 4 == 0 up to MAX_FUSED_CELLS): on an
+# H100 it beats the cooperative `fused_fluid` at 512x256 by 14-27% and
+# `fused_fluid_mc` at 256x128 by ~9% with the wedge tips (the ethaline
+# case's, 45degree), losing 2.5% there with a flat tip (PERF.md §6,
+# tools/fused_cluster_probe.py tiles)
+TILES_MIN_CELLS = {"fused_fluid": 256 * 128}
 # the routes of every phase: "cluster" (one cluster), "clusters" (the
-# multi-cluster kernels), "coop" (the cooperative grid)
+# multi-cluster kernels), "coop" (the cooperative grid), and the fluid's
+# "tiles" (`fused_fluid_tl`)
 ROUTES = ("cluster", "coop")
-PHASE_ROUTES = {name: ("cluster", "clusters", "coop")
+PHASE_ROUTES = {name: ("cluster", "clusters", "coop") + (("tiles",) if name in TILES_MIN_CELLS
+                                                         else ())
                 for name in ("fused_fluid", "fused_balance", "fused_approach")}
 
 
@@ -254,21 +271,34 @@ def mc_plan(name: str, H: int, W: int, limits: ClusterLimits, cluster: int | Non
     return best
 
 
+def tiles_take(name: str, H: int, W: int) -> bool:
+    """Whether the route takes the tile kernel for ``name`` on an ``H x W``
+    grid: the fluid from ``TILES_MIN_CELLS`` cells up to ``MAX_FUSED_CELLS``,
+    rows of 16 bytes' multiples (W % 4 == 0: its bulk copies)."""
+    least = TILES_MIN_CELLS.get(name)
+    return least is not None and W % 4 == 0 and least <= H * W <= MAX_FUSED_CELLS
+
+
 def fused_route(name: str, H: int, W: int, limits: ClusterLimits) -> str:
     """``"cluster"`` where the state of ``name`` (``"fused_fluid"``,
     ``"fused_balance"`` or ``"fused_approach"``) on an ``H x W`` grid fits
     one cluster of a card with ``limits`` at one cell per thread;
-    ``"clusters"`` where the state fits the clusters the card holds at once
-    (`mc_plan`) at most ``MC_MAX_CPT[name]`` cells a thread;
-    else ``"coop"`` (the cooperative kernel). A cluster kernel's step is
-    one thread's cell latency: one cluster at 2 or 4 cells a thread runs
-    them one after the other on 16 SMs and loses to the cooperative grid
-    (PERF.md §6: 256x128 at 4 cells a thread); every SM of the card at
-    once keeps 1-2 cells a thread up to 512x256, where the fluid's two
-    still lose."""
+    ``"tiles"`` for the fluid where `tiles_take` holds (``TILES_MIN_CELLS``:
+    256x128 and 512x256 on an H100); ``"clusters"`` where the state fits
+    the clusters the card holds at once (`mc_plan`) at most
+    ``MC_MAX_CPT[name]`` cells a thread; else ``"coop"`` (the cooperative
+    kernel). A cluster kernel's step is one thread's cell latency: one
+    cluster at 2 or 4 cells a thread runs them one after the other on 16
+    SMs and loses to the cooperative grid (PERF.md §6: 256x128 at 4 cells
+    a thread); every SM of the card at once keeps 1-2 cells a thread up to
+    512x256, where the approach's two still lose. The fluid's tiles win at
+    both grids: one wave of tiles a step, the cell code on shared memory
+    and tabled geometry, one grid barrier a step."""
     shape = cluster_shape(name, H, W, limits)
     if shape and shape[1] == 1:
         return "cluster"
+    if tiles_take(name, H, W):
+        return "tiles"
     plan = mc_plan(name, H, W, limits)
     return "clusters" if plan and plan.cpt <= MC_MAX_CPT[name] else "coop"
 
@@ -413,8 +443,9 @@ def _ping_pong(out, n: int):
 def fused_fluid(f, rho, vel, start: int, n: int, cfg, fields, route=None):
     """Fluid steps ``start .. start + n - 1`` in one launch; returns new
     ``(f, rho, vel)``. The kernel computes the tip geometry from ``cfg`` and
-    the step; ``fields`` feed the twin. ``route`` (``"cluster"`` or
-    ``"coop"``) forces a kernel; None takes `fused_route`'s."""
+    the step; ``fields`` feed the twin. ``route`` (one of
+    ``PHASE_ROUTES["fused_fluid"]``) forces a kernel; None takes
+    `fused_route`'s."""
     if f.device.type == "cpu":
         return fused_fluid_ref(f, rho, vel, start, n, cfg, fields)
     dev = check_state(cfg, start, n, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)))
@@ -423,6 +454,8 @@ def fused_fluid(f, rho, vel, start: int, n: int, cfg, fields, route=None):
         return fused_fluid_cl(f, rho, vel, start, n, cfg, fields)
     if kind == "clusters":
         return fused_fluid_mc(f, rho, vel, start, n, cfg, fields)
+    if kind == "tiles":
+        return fused_fluid_tl(f, rho, vel, start, n, cfg, fields)
     out = (torch.empty_like(f), torch.empty_like(rho), torch.empty_like(vel))
     P, Q = _ping_pong(out, n)
     H, W = cfg.eff_res
@@ -642,6 +675,121 @@ def fused_approach_mc(h, C, vel_field, start: int, n: int, cfg, fields, acc, pla
 
 
 # ---------------------------------------------------------------------------
+# The fluid's tile kernel: n steps of the whole grid, one wave of tiles a step
+# ---------------------------------------------------------------------------
+
+def tl_plan(H: int, W: int, sms: int = _tl.PASS_SMS) -> _sh.TilePlan:
+    """The tiles of a step of `fused_fluid_tl` on an ``H x W`` grid on a card
+    of ``sms`` SMs: `jrl_sharded.pass_sh_plan`'s for the grid as a mesh of
+    one row at k = 1 (``nty[0]`` row bands x ``ntx`` column strips, the
+    largest tile ``rmax`` x ``smax`` B cells, ``grid`` blocks)."""
+    return _sh.pass_sh_plan(_sh.Shard.of(int(H), int(W), (1, 1), (0, 0)), 1, int(sms))
+
+
+def fused_fluid_tl_ref(f, rho, vel, start: int, n: int, cfg, fields, plan=None):
+    """Twin of `fused_fluid_tl`: the launch played tile by tile (``plan``,
+    `tl_plan`'s for an H100 when None), each step over the whole grid, each
+    tile's A on its rows and columns one past its B cells and its B from a
+    window of rows -2 .. R + 1 (mod H) and columns two past the tile, NaN
+    beyond it; the class bodies of the tile kernels' twins
+    (`jrl_tiled.py::_a_full`, ``_b_full``) on that window. Equals
+    `fused_fluid_ref` bit for bit. Returns ``(f, rho, vel)``."""
+    H, W = cfg.eff_res
+    plan = plan or tl_plan(H, W)
+    nan = float("nan")
+    cur = (f, rho, vel)
+    for i in range(int(n)):
+        step = int(start) + i
+        nxt = (torch.full_like(f, nan), torch.full_like(rho, nan), torch.full_like(vel, nan))
+        for e0, e1, sx0, sx1, _, _ in plan.tiles(0, H, W):
+            R = e1 - e0
+            win = torch.arange(e0 - 2, e1 + 2, device=f.device) % H
+            cols = torch.zeros(W, dtype=torch.bool, device=f.device)
+            cols[max(sx0 - 2, 0):min(sx1 + 2, W)] = True
+
+            def cut(x):
+                return torch.where(cols, x.index_select(-2, win), nan)
+
+            f1, rho1, vel1 = _tl._a_full(cfg, step, e0 - 1, R + 2, cut(cur[0]), cut(cur[2]),
+                                         cut(cur[1])[1:-1])
+            fo = _tl._b_full(cfg, step, e0, R, f1[:, 1:-1], rho1, vel1)
+            nxt[0][:, e0:e1, sx0:sx1] = fo[:, :, sx0:sx1]
+            nxt[1][e0:e1, sx0:sx1] = rho1[1:-1, sx0:sx1]
+            nxt[2][:, e0:e1, sx0:sx1] = vel1[:, 1:-1, sx0:sx1]
+        cur = nxt
+    return cur
+
+
+@functools.lru_cache(maxsize=64)
+def _tl_args(cfg, plan: _sh.TilePlan):
+    """The launch constants of `fused_fluid_tl`: step A's, step B's and the
+    tiles' (`csrc/pass_sh.cuh::ShTilePlan`)."""
+    return _a_params(cfg), _b_params(cfg), _sh._tile_plan_struct(plan)
+
+
+def _check_tl(cfg, start: int, n: int, f, rho, vel) -> torch.device:
+    """`check_state` of steps ``start .. start + n - 1``, and the rows the
+    kernel copies: W % 4 == 0, each plane 16-byte aligned."""
+    dev = check_state(cfg, start, n, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)))
+    if cfg.eff_res[1] % 4 or any(t.data_ptr() % 16 for t in (f, rho, vel)):
+        raise ValueError("fused_fluid_tl copies rows of 16-byte aligned planes (W % 4 == 0)")
+    return dev
+
+
+def _tl_launch(f, rho, vel, start: int, n: int, cfg, dev: torch.device, plan: _sh.TilePlan):
+    """One launch of `fused_fluid_tl`, its arguments checked by the caller;
+    returns the new ``(f, rho, vel)``. The second buffer set (`_ping_pong`)
+    lives here until the launch is queued."""
+    out = (torch.empty_like(f), torch.empty_like(rho), torch.empty_like(vel))
+    P, Q = _ping_pong(out, n)
+    pa, pb, pt = _tl_args(cfg, plan)
+    fn = build.bind("fused_fluid_tl", "jrl_fused_fluid_tl",
+                    [_P] * 9 + [ctypes.c_int] * 2 + [_P] * 4)
+    with torch.cuda.device(dev):
+        err = fn(f.data_ptr(), rho.data_ptr(), vel.data_ptr(), *(t.data_ptr() for t in P),
+                 *(t.data_ptr() for t in Q), int(start), int(n), ctypes.byref(pa),
+                 ctypes.byref(pb), ctypes.byref(pt), stream_of(dev))
+    build.check(err, "fused_fluid_tl")
+    fused_fluid_tl.launches += 1
+    return out
+
+
+def fused_fluid_tl(f, rho, vel, start: int, n: int, cfg, fields, plan=None):
+    """`fused_fluid` through the tile kernel: n steps of the whole grid in
+    one cooperative launch, each step one wave of shared-memory tiles (A
+    then B in each tile), one grid barrier a step; ``plan`` (a
+    `jrl_sharded.TilePlan`) forces the tiles, None takes `tl_plan`'s for the
+    card. Raises before launch on rows that are not 16-byte multiples and,
+    from the launcher, on a plan over the card's co-resident limit."""
+    if f.device.type == "cpu":
+        return fused_fluid_tl_ref(f, rho, vel, start, n, cfg, fields, plan)
+    dev = _check_tl(cfg, start, n, f, rho, vel)
+    return _tl_launch(f, rho, vel, start, n, cfg, dev, plan or tl_plan(*cfg.eff_res,
+                                                                       sm_count(dev)))
+
+
+def tl_info(device_index: int = 0):
+    """``(registers per thread, local bytes)`` of `fused_fluid_tl`."""
+    fn = build.bind("fused_fluid_tl", "jrl_fused_fluid_tl_info", [_P, _P])
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(fn(ctypes.byref(regs), ctypes.byref(local)), "fused_fluid_tl")
+    return regs.value, local.value
+
+
+def tl_tile_shape(rmax: int, smax: int, device_index: int = 0):
+    """The kernel's own ``(threads, shared memory cap, bytes of an rmax x
+    smax tile, co-resident blocks at that size)``, which `tl_plan` mirrors
+    (`jrl_sharded.TILE_THREADS`, ``TILE_SMEM_CAP``, ``tile_smem_bytes``)."""
+    fn = build.bind("fused_fluid_tl", "jrl_fused_fluid_tl_tile_shape", [ctypes.c_int] * 2
+                    + [_P] * 4)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device_index):
+        build.check(fn(int(rmax), int(smax), *(ctypes.byref(x) for x in out)), "fused_fluid_tl")
+    return tuple(x.value for x in out)
+
+
+# ---------------------------------------------------------------------------
 # Lanes: the approach of many lanes in one launch, one cluster a lane
 # ---------------------------------------------------------------------------
 
@@ -791,6 +939,7 @@ fused_approach.launches = 0
 fused_fluid_cl.launches = 0
 fused_balance_cl.launches = 0
 fused_fluid_mc.launches = 0
+fused_fluid_tl.launches = 0
 fused_balance_mc.launches = 0
 fused_approach_cl.launches = 0
 fused_approach_mc.launches = 0
@@ -819,14 +968,24 @@ def _chunks(n: int, cfg, name: str):
 
 def make_fused_fluid_runner(cfg):
     """``(state, fields, start_step, n) -> state`` through `fused_fluid`,
-    one launch per ``steps_per_launch(cfg, "fused_fluid")`` steps."""
+    one launch per ``steps_per_launch(cfg, "fused_fluid")`` steps. On the
+    tile route (`fused_fluid_tl`) the state is checked once a run and the
+    launches go out unchecked."""
     _require_fit(cfg)
 
     def run(state, fields, start_step: int, n: int):
         f, rho, vel = state["f"], state["rho"], state["vel"]
         s = int(start_step)
+        tiles = None
+        if f.device.type == "cuda" and int(n) > 0 \
+                and _route("fused_fluid", cfg, f.device, None) == "tiles":
+            dev = _check_tl(cfg, s, n, f, rho, vel)
+            tiles = (dev, tl_plan(*cfg.eff_res, sm_count(dev)))
         for m in _chunks(n, cfg, "fused_fluid"):
-            f, rho, vel = fused_fluid(f, rho, vel, s, m, cfg, fields)
+            if tiles:
+                f, rho, vel = _tl_launch(f, rho, vel, s, m, cfg, *tiles)
+            else:
+                f, rho, vel = fused_fluid(f, rho, vel, s, m, cfg, fields)
             s += m
         return {"f": f, "rho": rho, "vel": vel}
 

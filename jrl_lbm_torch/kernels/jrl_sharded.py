@@ -490,6 +490,12 @@ TILE_SMEM_CAP = 231424
 # cell, a B cell (shares of one A-and-B chain of the first design) and a
 # window cell (its copies and geometry; PERF.md §6)
 TILE_COST_A, TILE_COST_B, TILE_COST_W = 0.45, 0.55, 0.25
+# the cells a thread a wave's tile costs at least: a cell of each kind for
+# every thread of a block, or for half of them for the fluid, whose step
+# still ran faster on tiles of 8 x 32 B cells (10 of 16 warps busy with A)
+# than on 13 x 32 (16 warps) over 256x128 (PERF.md §6)
+TILE_FLOOR_THREADS = {"fluid": TILE_THREADS // 2, "balance": TILE_THREADS,
+                      "approach": TILE_THREADS}
 
 
 def tile_smem_bytes(rmax: int, smax: int) -> int:
@@ -571,14 +577,14 @@ def pass_tile_bytes(kind: str, R: int, S_: int) -> int:
 
 def _tile_cost(kind: str, R: int, S_: int) -> float:
     """A wave's cost of tiles of ``R`` x ``S_`` cells, at least a cell of
-    each kind a thread."""
+    each kind for ``TILE_FLOOR_THREADS[kind]`` threads."""
     if kind == "fluid":
         cost = TILE_COST_A * (R + 2) * (S_ + 2) + TILE_COST_B * R * S_
         cell = TILE_COST_A + TILE_COST_B
     else:
         cost, cell = C_TILE_COST[kind] * R * S_, C_TILE_COST[kind]
     cost += TILE_COST_W * (R + 4) * (S_ + 8)
-    return max(cost, (cell + TILE_COST_W) * TILE_THREADS)
+    return max(cost, (cell + TILE_COST_W) * TILE_FLOOR_THREADS[kind])
 
 
 @functools.lru_cache(maxsize=256)

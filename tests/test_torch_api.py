@@ -288,3 +288,51 @@ def test_periodic_refuses_bad_tensors():
         P.periodic(s["f"][:, :1], out, P.consts(tsl.ShearLayerConfig(res=(1, 14))))
     with pytest.raises(ValueError, match="bgk/mrt/kbc"):
         P.consts(tsl.ShearLayerConfig(collision="lbm"))
+
+
+# --- the package's re-exports: the JAX package's names ---
+
+def _jax_all(rel: str):
+    """The ``__all__`` list of a module of the JAX package, read with ``ast``
+    from its source (nothing of it imported)."""
+    import ast
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "jrl_lbm_tpu" / rel
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__"
+                                                for t in node.targets):
+            return [ast.literal_eval(e) for e in node.value.elts]
+    raise AssertionError(f"{path} has no __all__")
+
+
+@pytest.mark.parametrize("rel,mod", [("__init__.py", "jrl_lbm_torch"),
+                                     ("ops/__init__.py", "jrl_lbm_torch.ops"),
+                                     ("models/__init__.py", "jrl_lbm_torch.models")])
+def test_package_exports_the_jax_packages_names(rel, mod):
+    """The port's package, ops and models export every name of the JAX
+    package's ``__all__`` at the same place, and list it in their own."""
+    import importlib
+
+    m = importlib.import_module(mod)
+    names = _jax_all(rel)
+    assert names and all(hasattr(m, n) for n in names), [n for n in names if not hasattr(m, n)]
+    assert set(names) <= set(m.__all__)
+
+
+def test_package_names_reach_the_operators():
+    """One call through the package name: ``jrl_lbm_torch.ops.feq`` is
+    ``ops.equilibrium.feq``, on the same inputs the same values; the scene
+    modules and the lattice after ``import jrl_lbm_torch.models``."""
+    import jrl_lbm_torch
+    import jrl_lbm_torch.models
+    import jrl_lbm_torch.ops
+    from jrl_lbm_torch.ops import equilibrium, feq
+
+    rng = np.random.default_rng(19)
+    rho = torch.as_tensor(1.0 + 0.1 * rng.standard_normal((6, 5)), dtype=torch.float32)
+    vel = torch.as_tensor(0.05 * rng.standard_normal((2, 6, 5)), dtype=torch.float32)
+    assert feq is equilibrium.feq
+    assert torch.equal(jrl_lbm_torch.ops.feq(rho, vel), equilibrium.feq(rho, vel))
+    assert callable(jrl_lbm_torch.models.jrl.pick_fluid_runner)
+    assert jrl_lbm_torch.lattice.Q == 9

@@ -50,6 +50,7 @@ for bit where one block held the disk row and within rtol 2e-4 / atol
 """
 
 import ctypes
+import dataclasses
 from unittest import mock
 
 import numpy as np
@@ -198,7 +199,8 @@ ROUTE_KERNEL = {("fused_fluid", "coop"): "fused_fluid",
                 ("fused_approach", "cluster"): "fused_approach_cl",
                 ("fused_fluid", "clusters"): "fused_fluid_mc",
                 ("fused_balance", "clusters"): "fused_balance_mc",
-                ("fused_approach", "clusters"): "fused_approach_mc"}
+                ("fused_approach", "clusters"): "fused_approach_mc",
+                ("fused_fluid", "tiles"): "fused_fluid_tl"}
 
 
 def _launched(name, route):
@@ -364,14 +366,13 @@ def test_cuda_fused_grid_over_coresident_limit_raises(cuda):
 @pytest.mark.cuda
 def test_cuda_fused_route_by_grid(cuda):
     """The runners take the cluster kernels at 128x64, the multi-cluster
-    balance at 256x128 and 512x256 (refine 2, 4), the multi-cluster fluid
-    and approach at 256x128 and the cooperative ones at 512x256 (two cells
-    a thread there), read from the launch counters; above the multi-step
-    kernels' limit (1024x512) the approach takes c_approach_pass, once a
-    step."""
+    balance at 256x128 and 512x256 (refine 2, 4), the fluid's tile kernel
+    at both, the multi-cluster approach at 256x128 and the cooperative one
+    at 512x256 (two cells a thread there), read from the launch counters; above the multi-step kernels' limit (1024x512) the approach
+    takes c_approach_pass, once a step."""
     for refine, route, route_c in ((1, ("cluster", "cluster"), "cluster"),
-                                   (2, ("clusters", "clusters"), "clusters"),
-                                   (4, ("coop", "clusters"), "coop")):
+                                   (2, ("tiles", "clusters"), "clusters"),
+                                   (4, ("tiles", "clusters"), "coop")):
         fc = T.JRLFluidConfig(res=RES, shape="ethaline", refine=refine)
         cc = T.JRLCConfig(res=RES, shape="ethaline", refine=refine)
         H, W = fc.eff_res
@@ -566,6 +567,138 @@ def test_cuda_mc_kernels_match_twin(cuda, refine):
     for name, g, w in zip(("h", "C"), F.fused_balance_mc(*st, flags, 300, cc, cf),
                           F.fused_balance_ref(*st, flags, 300, cc, cf)):
         _close(g, w, TRAJ_TOL[name], f"fused_balance_mc refine {refine} {name}")
+
+
+# the fluid's tile kernel: the three tips at 256x128 and 512x256 (refine 2
+# and 4 of the ethaline case)
+TL_GRIDS = [(shape, res) for shape in ("ethaline", "45degree", "cylinder")
+            for res in ((256, 128), (512, 256))]
+
+
+def _tl_state(dev, shape, res, seed, **kw):
+    """``(cfg, fields, state)`` of the fluid at ``res``: the ethaline case
+    at its refine, the other tips at that grid; seeded noise on the init."""
+    kw = dict(dict(Re=4.0, vel_obs_real=0.2848, gravity_strength_real=-9.8), **kw)
+    cfg = T.JRLFluidConfig(res=RES, shape=shape, refine=res[0] // RES[0], **kw) \
+        if shape == "ethaline" else T.JRLFluidConfig(res=res, shape=shape, **kw)
+    assert cfg.eff_res == res
+    cfg_, s, fl = _mc_state(dev, shape, res, 1, seed, cfg=cfg)
+    return cfg_, fl, s
+
+
+def _row_crossing(cfg, n: int) -> int:
+    """A first step from which ``n`` steps cross a tip row."""
+    walks, row = T.tip_walks(cfg.inflow_height, 0, cfg.vel_obs)
+    nxt = int(np.ceil((row + 0.5 - cfg.inflow_height) / cfg.vel_obs))
+    start = max(0, nxt - n // 2)
+    assert T.tip_walks(cfg.inflow_height, start + n - 1, cfg.vel_obs)[1] > T.tip_walks(
+        cfg.inflow_height, start, cfg.vel_obs)[1]
+    return start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,res", TL_GRIDS)
+def test_cuda_fused_fluid_tl_equals_coop_bit_for_bit(cuda, shape, res):
+    """`fused_fluid_tl` on the card's plan equals the cooperative
+    `fused_fluid` bit for bit over a 1000-step launch across a tip row, and
+    over one from step 2**24 - 5 (Re small enough that the tip is inside
+    the grid there); one launch each."""
+    cfg, fl, s = _tl_state(cuda, shape, res, 50)
+    x = (s["f"], s["rho"], s["vel"])
+    n0 = F.fused_fluid_tl.launches
+    start = _row_crossing(cfg, 1000)
+    for name, g, w in zip(("f", "rho", "vel"), F.fused_fluid_tl(*x, start, 1000, cfg, fl),
+                          F.fused_fluid(*x, start, 1000, cfg, fl, route="coop")):
+        _equal(g, w, f"fused_fluid_tl {shape} {res} from {start} {name}")
+    cfg, fl, s = _tl_state(cuda, shape, res, 51, Re=1.2e-5, vel_obs_real=28e-6,
+                           gravity_strength_real=0.0)
+    start = 2**24 - 5
+    assert 1 < T.tip_walks(cfg.inflow_height, start + 1000, cfg.vel_obs)[1] < res[0] - 1
+    x = (s["f"], s["rho"], s["vel"])
+    for name, g, w in zip(("f", "rho", "vel"), F.fused_fluid_tl(*x, start, 1000, cfg, fl),
+                          F.fused_fluid(*x, start, 1000, cfg, fl, route="coop")):
+        _equal(g, w, f"fused_fluid_tl {shape} {res} across 2**24 {name}")
+    torch.cuda.synchronize()
+    assert F.fused_fluid_tl.launches == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(8, 64), (16, 16), (24, 40), (64, 16)])
+def test_cuda_fused_fluid_tl_on_forced_tiles(cuda, tile):
+    """Tile shapes other than the plan's (several waves of tiles, strips of
+    unequal width, bands that do not divide the rows): bit for bit the
+    cooperative kernel over 300 steps at 512x256 (wedge) and 256x128
+    (flat tip); and the tile twin, run on the CPU, within the trajectory
+    tolerances over 4 steps."""
+    for shape, res in (("45degree", (512, 256)), ("cylinder", (256, 128))):
+        cfg, fl, s = _tl_state(cuda, shape, res, 52)
+        plan = S.tile_plan(S.Shard.of(*res, (1, 1), (0, 0)), 1, *tile,
+                           jrl_fluid.sm_count(cuda))
+        x = (s["f"], s["rho"], s["vel"])
+        for name, g, w in zip(("f", "rho", "vel"), F.fused_fluid_tl(*x, 7, 300, cfg, fl, plan),
+                              F.fused_fluid(*x, 7, 300, cfg, fl, route="coop")):
+            _equal(g, w, f"fused_fluid_tl {shape} {res} tiles {tile} {name}")
+    cfg, fl, s = _tl_state(cuda, "45degree", (256, 128), 53)
+    plan = S.tile_plan(S.Shard.of(256, 128, (1, 1), (0, 0)), 1, *tile, jrl_fluid.sm_count(cuda))
+    x = (s["f"], s["rho"], s["vel"])
+    cpu = [t.cpu() for t in x]
+    _, fl_cpu = T.fluid_init(cfg, "cpu")
+    for name, g, w in zip(("f", "rho", "vel"), F.fused_fluid_tl(*x, 3, 4, cfg, fl, plan),
+                          F.fused_fluid_tl_ref(*cpu, 3, 4, cfg, fl_cpu, plan)):
+        _close(g.cpu(), w, TRAJ_TOL[name], f"fused_fluid_tl vs twin tiles {tile} {name}")
+
+
+@pytest.mark.cuda
+def test_cuda_fused_fluid_tl_runner_and_shape(cuda, monkeypatch):
+    """The runner at 512x256 (refine 4) goes through `fused_fluid_tl`, one
+    launch a chunk, its state checked once a run, bit for bit the
+    cooperative kernel's runner; the kernel's launch shape is the host
+    plan's (512 threads, one block an SM, the tables' bytes), with no
+    spills."""
+    cfg, fl, s = _tl_state(cuda, "ethaline", (512, 256), 54)
+    H, W = cfg.eff_res
+    monkeypatch.setattr(F, "MAX_LAUNCH_CELL_STEPS", dict(F.MAX_LAUNCH_CELL_STEPS,
+                                                         fused_fluid=64 * H * W))
+    kernels.reset_launches()
+    got = F.make_fused_fluid_runner(cfg)(s, fl, 11, 150)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in kernels.launches().items() if c} == {"fused_fluid_tl": 3}
+    want = {"f": s["f"], "rho": s["rho"], "vel": s["vel"]}
+    for a, m in ((11, 64), (75, 64), (139, 22)):
+        want = dict(zip(("f", "rho", "vel"), F.fused_fluid(
+            want["f"], want["rho"], want["vel"], a, m, cfg, fl, route="coop")))
+    for k in want:
+        _equal(got[k], want[k], f"runner {k}")
+    plan = F.tl_plan(H, W, jrl_fluid.sm_count(cuda))
+    threads, cap, nbytes, most = F.tl_tile_shape(plan.rmax, plan.smax)
+    assert (threads, cap, nbytes) == (S.TILE_THREADS, S.TILE_SMEM_CAP,
+                                      S.tile_smem_bytes(plan.rmax, plan.smax))
+    assert most >= plan.grid and plan.grid <= jrl_fluid.sm_count(cuda)
+    regs, local = F.tl_info()
+    assert local == 0 and 0 < regs <= 128, (regs, local)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_fluid_tl_refuses_bad_inputs(cuda):
+    """Rows that are not 16-byte multiples raise before launch; a plan over
+    the co-resident limit, or whose tiles leave the rows, is refused by the
+    launcher (nothing launched)."""
+    cfg, fl, s = _tl_state(cuda, "45degree", (512, 256), 55)
+    x = (s["f"], s["rho"], s["vel"])
+    odd = T.JRLFluidConfig(res=(256, 126), shape="cylinder")
+    so, flo = T.fluid_init(odd, cuda)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        F.fused_fluid_tl(so["f"], so["rho"], so["vel"], 0, 2, odd, flo)
+    plan = F.tl_plan(512, 256, jrl_fluid.sm_count(cuda))
+    most = F.tl_tile_shape(plan.rmax, plan.smax)[3]
+    for bad, code in ((dataclasses.replace(plan, grid=most + 1), "cudaError 720"),
+                      (dataclasses.replace(plan, nty=(plan.nty[0] // 2,)), "cudaError"),
+                      (dataclasses.replace(plan, rmax=512), "cudaError")):
+        with pytest.raises(RuntimeError, match=code):
+            F.fused_fluid_tl(*x, 0, 2, cfg, fl, bad)
+    torch.cuda.synchronize()
+    assert not any(kernels.launches().values())
 
 
 MC_LIBS = ("fused_fluid_mc", "fused_balance_mc", "fused_approach_mc")

@@ -39,9 +39,9 @@ H100_MC = H100._replace(active=(7, 15, 30, 66, 132))
 @pytest.mark.parametrize("res,refine,shape,route", [
     ((48, 32), 1, "cylinder", ("cluster", "cluster", "cluster")),
     ((128, 64), 1, "ethaline", ("cluster", "cluster", "cluster")),     # the default grid
-    ((128, 64), 2, "ethaline", ("clusters", "clusters", "clusters")),  # 256x128: 7 x 16
-    ((128, 64), 4, "ethaline", ("coop", "clusters", "coop")),          # 512x256: 66 x 2, two cells
-    ((512, 256), 1, "45degree", ("coop", "clusters", "coop")),
+    ((128, 64), 2, "ethaline", ("tiles", "clusters", "clusters")),     # 256x128: 7 x 16
+    ((128, 64), 4, "ethaline", ("tiles", "clusters", "coop")),         # 512x256: 66 x 2, two cells
+    ((512, 256), 1, "45degree", ("tiles", "clusters", "coop")),
     ((512, 257), 1, "cylinder", ("coop", "clusters", "coop")),         # four cells a thread
     ((128, 64), 8, "ethaline", ("coop", "coop", "coop")),
 ])
@@ -51,7 +51,9 @@ def test_fused_route_by_grid_on_h100(res, refine, shape, route):
     the state fits one cluster at one cell per thread; the multi-cluster
     kernels where the clusters the card holds at once take the grid at
     most ``MC_MAX_CPT`` cells a thread (the fluid and the approach one, the
-    balance four); the cooperative kernel elsewhere."""
+    balance four), but the fluid's tile kernel from ``TILES_MIN_CELLS``
+    cells (512x256) up to the multi-step limit; the cooperative kernel
+    elsewhere."""
     H, W = T.JRLFluidConfig(res=res, refine=refine, shape=shape).eff_res
     for name, want in zip(("fused_fluid", "fused_balance", "fused_approach"), route):
         assert F.fused_route(name, H, W, H100_MC) == want, (name, H, W)

@@ -36,13 +36,32 @@ on every cluster size, built with ``-prec-div=false`` and with
 steps (h and C bit for bit), with its registers and local bytes; these
 numbers set ``MC_MAX_CPT["fused_approach"]``.
 
-    python3 tools/fused_cluster_probe.py [cl] [mc] [approach]
+The fluid's tile kernel at 256x128 and 512x256 (``tiles``; the
+ethaline, ``45degree`` and ``cylinder`` tips): from a state 3000 steps
+into the fluid phase (cooperative kernel), µs/step of launches of the
+case's own length (``steps_per_launch``: 16,384 steps at 256x128, 4,096
+at 512x256), CUDA events, best of three, of ``fused_fluid_tl`` on the
+card's plan (``tl_plan``) and on forced tile shapes (the plan's cost
+model shared with ``fluid_pass_sh``, `jrl_sharded.pass_sh_plan`), beside
+``fused_fluid`` and ``fused_fluid_mc`` on theirs, each timed launch bit
+for bit ``fused_fluid``'s; then ``fused_fluid_tl`` built without cell
+code (``-DJRL_FPT_NO_CELLS``), with the tip SDF at every geometry query
+instead of the table (``-DJRL_FPT_SDF``) and with ``-prec-div=false``:
+timings only, with each build's registers and local bytes; these numbers
+set ``TILES_MIN_CELLS``. Last, at 512x256, what ends a step's wave of
+tiles: a build that stamps each tile's start and end
+(``-DJRL_FTL_TILE_NS``, %globaltimer, the last step of a launch), each
+tile's duration beside the tip-boundary cells it holds (fluid cells with a
+tip cell among their eight neighbours).
 
-runs the named parts (all three without arguments).
+    python3 tools/fused_cluster_probe.py [cl] [mc] [approach] [tiles]
+
+runs the named parts (all four without arguments).
 Builds into a temporary directory; prints one JSON line, last.
 """
 
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -66,28 +85,32 @@ def main() -> int:
         print("fused_cluster_probe: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    parts = set(sys.argv[1:]) or {"cl", "mc", "approach"}
+    parts = set(sys.argv[1:]) or {"cl", "mc", "approach", "tiles"}
     mc_names = ("fused_fluid_mc", "fused_balance_mc", "fused_approach_mc")
     cl_names = ("fused_fluid_cl", "fused_balance_cl")
-    build.build_all(("fused_fluid", "fused_balance", "fused_approach") + cl_names + mc_names)
+    build.build_all(("fused_fluid", "fused_balance", "fused_approach", "fused_fluid_tl")
+                    + cl_names + mc_names)
     tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
     builds = [(k, "approx_div", ["-prec-div=false"]) for k in cl_names + mc_names]
     builds += [(k, "no_far", ["-DJRL_MC_NO_FAR"]) for k in mc_names]
     builds = [b for b in builds if ("cl" in parts and b[0] in cl_names)
               or ("mc" in parts and b[0] in mc_names[:2])
               or ("approach" in parts and b[0] == "fused_approach_mc")]
+    if "tiles" in parts:
+        builds += [("fused_fluid_tl", kind, flags) for kind, flags in (
+            ("no_cells", ["-DJRL_FPT_NO_CELLS"]), ("sdf", ["-DJRL_FPT_SDF"]),
+            ("approx_div", ["-prec-div=false"]), ("tile_ns", ["-DJRL_FTL_TILE_NS"]))]
     jobs = []
     for k, kind, flags in builds:
         out = os.path.join(tmp, f"{k}-{kind}.so")
         jobs.append((k, kind, out, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", out,
              str(build.CSRC / f"{k}.cu")], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)))
-    libs = {"shipped": {k: build.load(k) for k in cl_names + mc_names}, "approx_div": {},
-            "no_far": {}}
+    libs = {"shipped": {k: build.load(k) for k in cl_names + mc_names + ("fused_fluid_tl",)}}
     for k, kind, out, proc in jobs:
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc {k} ({kind}): {proc.stderr.read().decode()}")
-        libs[kind][k] = ctypes.CDLL(out)
+        libs.setdefault(kind, {})[k] = ctypes.CDLL(out)
 
     def cl(kind, name):
         fn = getattr(libs[kind][name], f"jrl_{name}")
@@ -247,6 +270,8 @@ def main() -> int:
         print(f"{label}: {rec}", flush=True)
     if "approach" in parts:
         approach(report, us_per_step, dev, libs)
+    if "tiles" in parts:
+        tiles(report, us_per_step, dev, libs)
     print(json.dumps(report), flush=True)
     return 0
 
@@ -338,6 +363,139 @@ def approach(report, us_per_step, dev, libs):
         label = f"approach {H}x{W}"
         report[label] = rec
         print(f"{label}: {rec}", flush=True)
+
+
+def tiles(report, us_per_step, dev, libs):
+    """The tiles part: `fused_fluid_tl` (as shipped on the card's plan and
+    on forced tiles, and its -D builds) beside `fused_fluid` and
+    `fused_fluid_mc` at both grids and tips."""
+    import torch
+
+    from jrl_lbm_torch.kernels import build
+    from jrl_lbm_torch.kernels import fused_jrl as F
+    from jrl_lbm_torch.kernels import jrl_sharded as S
+    from jrl_lbm_torch.kernels.jrl_fluid import _P, sm_count, stream_of
+    from jrl_lbm_torch.models import jrl as T
+
+    sms = sm_count(dev)
+    report["fused_fluid_tl registers, local bytes"] = {}
+    for kind, lib in libs.items():
+        if "fused_fluid_tl" in lib:
+            fn = getattr(lib["fused_fluid_tl"], "jrl_fused_fluid_tl_info")
+            fn.argtypes, fn.restype = [_P, _P], ctypes.c_int
+            regs, local = ctypes.c_int(0), ctypes.c_int(0)
+            build.check(fn(ctypes.byref(regs), ctypes.byref(local)), "fused_fluid_tl")
+            report["fused_fluid_tl registers, local bytes"][kind] = (regs.value, local.value)
+
+    def tl_fn(kind):
+        fn = getattr(libs[kind]["fused_fluid_tl"], "jrl_fused_fluid_tl")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_P] * 9 + [ctypes.c_int] * 2 + [_P] * 4
+        return fn
+
+    start = 3000
+    for res in ((256, 128), (512, 256)):
+        H, W = res
+        shapes = {}
+        for shape in ("ethaline", "45degree", "cylinder"):
+            fc = T.JRLFluidConfig(shape=shape, refine=H // 128) if shape == "ethaline" \
+                else T.JRLFluidConfig(res=res, shape=shape)
+            s, fl = T.fluid_init(fc, dev)
+            s = F.fused_fluid(s["f"], s["rho"], s["vel"], 0, start, fc, fl, route="coop")
+            n = F.steps_per_launch(fc, "fused_fluid")
+            rec = {"steps a launch": n}
+            want = F.fused_fluid(*s, start, n, fc, fl, route="coop")
+            rec["fused_fluid"] = us_per_step(
+                lambda m: F.fused_fluid(*s, start, m, fc, fl, route="coop"), n)
+            last = {}
+
+            def keep(out):
+                last["out"] = out
+
+            rec["fused_fluid_mc"] = us_per_step(
+                lambda m: keep(F.fused_fluid(*s, start, m, fc, fl, route="clusters")), n)
+            rec["fused_fluid_mc bit for bit"] = all(
+                torch.equal(a, b) for a, b in zip(last["out"], want))
+            plans = {"plan": F.tl_plan(H, W, sms)}
+            sh = S.Shard.of(H, W, (1, 1), (0, 0))
+            for tile in ((16, 32), (32, 16), (16, 64), (64, 16), (24, 24), (8, 32), (16, 16),
+                         (128, 8)):
+                try:
+                    plans[f"tiles {tile[0]}x{tile[1]}"] = S.tile_plan(sh, 1, *tile, sms)
+                except ValueError:
+                    pass
+            rec["plan"] = dataclasses.asdict(plans["plan"])
+            variants = [(label, "shipped", p) for label, p in plans.items()]
+            variants += [(f"plan, {kind}", kind, plans["plan"])
+                         for kind in ("no_cells", "sdf", "approx_div")]
+            for label, kind, plan in variants:
+                fn = tl_fn(kind)
+                pa, pb, pt = F._tl_args(fc, plan)
+                out = [torch.empty_like(t) for t in s]
+                tmp = [torch.empty_like(t) for t in s]
+
+                def run(m, fn=fn, pa=pa, pb=pb, pt=pt, out=out, tmp=tmp):
+                    P, Q = (out, tmp) if m % 2 else (tmp, out)
+                    build.check(fn(*(t.data_ptr() for t in list(s) + P + Q), start, m,
+                                   ctypes.byref(pa), ctypes.byref(pb), ctypes.byref(pt),
+                                   stream_of(dev)), "fused_fluid_tl")
+                rec[f"fused_fluid_tl, {label}"] = us_per_step(run, n)
+                torch.cuda.synchronize()
+                rec[f"fused_fluid_tl, {label}: bit for bit"] = all(
+                    torch.equal(a, b) for a, b in zip(out, want))
+            if H == 512:
+                rec["wave"] = tile_wave(libs, tl_fn, s, start, n, fc, plans["plan"], dev)
+            shapes[shape] = rec
+            print(f"tiles {H}x{W} {shape}: {rec}", flush=True)
+        report[f"tiles {H}x{W}"] = shapes
+
+
+def tile_wave(libs, tl_fn, s, start, n, fc, plan, dev):
+    """One launch of the tile-stamping build: the last step's tiles, each
+    one's µs beside the tip-boundary cells it holds, and the wave's end."""
+    import torch
+
+    from jrl_lbm_torch.kernels import build
+    from jrl_lbm_torch.kernels import fused_jrl as F
+    from jrl_lbm_torch.kernels import jrl_tiled as JT
+    from jrl_lbm_torch.kernels.jrl_fluid import stream_of
+
+    H, W = fc.eff_res
+    fn = tl_fn("tile_ns")
+    pa, pb, pt = F._tl_args(fc, plan)
+    out = [torch.empty_like(t) for t in s]
+    tmp = [torch.empty_like(t) for t in s]
+    P, Q = (out, tmp) if n % 2 else (tmp, out)
+    build.check(fn(*(t.data_ptr() for t in list(s) + P + Q), start, n, ctypes.byref(pa),
+                   ctypes.byref(pb), ctypes.byref(pt), stream_of(dev)), "fused_fluid_tl")
+    torch.cuda.synchronize()
+    tiles = plan.tiles(0, H, W)
+    get = libs["tile_ns"]["fused_fluid_tl"].jrl_fused_fluid_tl_tile_ns
+    get.restype, get.argtypes = ctypes.c_int, [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    ns = (ctypes.c_ulonglong * (2 * len(tiles)))()
+    build.check(get(ns, len(tiles)), "fused_fluid_tl")
+    t0 = min(ns[0::2])
+    tip = JT._geometry(fc, torch.arange(H), start + n - 1)[2]
+    pad = torch.nn.functional.pad(tip[None, None].float(), (1, 1, 1, 1))[0, 0]
+    near = sum(pad[1 + dy:1 + dy + H, 1 + dx:1 + dx + W] for dy in (-1, 0, 1)
+               for dx in (-1, 0, 1)) > 0
+    edge = near & ~tip  # fluid cells with a tip neighbour
+    rows = []
+    for b, (e0, e1, sx0, sx1, _, _) in enumerate(tiles):
+        rows.append({"tile": b, "rows": (e0, e1), "cols": (sx0, sx1),
+                     "us": (ns[2 * b + 1] - ns[2 * b]) / 1e3,
+                     "end_us": (ns[2 * b + 1] - t0) / 1e3,
+                     "tip_edge_cells": int(edge[e0:e1, sx0:sx1].sum())})
+    us = sorted(r["us"] for r in rows)
+    with_tip = [r["us"] for r in rows if r["tip_edge_cells"]]
+    without = [r["us"] for r in rows if not r["tip_edge_cells"]]
+    last = max(rows, key=lambda r: r["end_us"])
+    return {"tiles": len(rows), "us min/median/max": (us[0], us[len(us) // 2], us[-1]),
+            "wave us": last["end_us"], "last tile": last,
+            "tiles with tip edge": len(with_tip),
+            "mean us with / without tip edge": (sum(with_tip) / max(1, len(with_tip)),
+                                               sum(without) / max(1, len(without))),
+            "slowest five": sorted(rows, key=lambda r: -r["us"])[:5]}
 
 
 if __name__ == "__main__":
