@@ -4,13 +4,15 @@ paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-1. Builds the thirty-seven CUDA libraries of ``jrl_lbm_torch/kernels/csrc``
+1. Builds the thirty-eight CUDA libraries of ``jrl_lbm_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and checks that the
    multi-step JRL kernels' machine code has no read-only (non-coherent)
    global load, which could serve state written earlier in the launch
    (the cylinder kernels read only the previous step's buffers), and that
-   ``fluid_pass`` and ``fused_fluid_tl`` spill nothing (``-Xptxas -v``),
-   the latter's launch shape the host plan's at 256x128 and 512x256; prints
+   ``fluid_pass``, ``fused_fluid_tl`` and ``fused_approach_rw`` spill
+   nothing (``-Xptxas -v``), the tile kernel's launch shape the host plan's
+   at 256x128 and 512x256, the row kernel's shared memory the host plan's
+   at 512x256; prints
    ``c_approach_pass``'s and ``cyl_pass``'s registers and local bytes, the cluster kernels'
    limits on this card and the route choice at 128x64: the cluster shape,
    cells per thread, shared memory and registers per block; the
@@ -178,7 +180,16 @@ paths on one NVIDIA card and check them.
    ``fused_fluid_tl`` equals ``fused_fluid`` bit for bit over a 1000-step
    launch at 256x128 and 512x256 with the ethaline, 45degree and cylinder
    tips, across a tip row and from step 2**24 - 5, and its twin (the
-   launch played tile by tile on the card) in phase 7. Then
+   launch played tile by tile on the card) in phase 7. The approach's
+   division policy (``csrc/exact_div.cuh``: a correctly rounded
+   reciprocal and one FMA correction) against ``__fdiv_rn`` over all 2^32
+   float32 numerators for CS2F, CS4F, sqrt(2) and r = x + 0.5 at 512x256's
+   256 columns (no difference may show); the approach's row kernel
+   ``fused_approach_rw`` equals ``fused_approach`` bit for bit (h, C and
+   the four sums) over a 1000-step launch at 256x128 and 512x256 with the
+   ethaline, 45degree and cylinder tips, across a stored frame and from
+   step 2**24 - 5, and its twin (the launch played run by run on the card)
+   in phase 7. Then
    fluid steps 2**24 - 5 .. 2**24 + 4 through both routes (bit for
    bit each other) and through fluid_a / fluid_b against the twin.
 3a. Holds each tile-class kernel (``fluid_k``, ``fluid_k_lean``,
@@ -234,9 +245,11 @@ paths on one NVIDIA card and check them.
    fluid, 200 balance and 200 approach steps through ``pick_*``, which
    must launch the kernel of ``MC_ROUTE`` (``fused_balance_mc`` at both
    grids, the fluid's tile kernel ``fused_fluid_tl`` at both (the
-   refine-2 and refine-4 fluid phases), ``fused_approach_mc`` at 256x128
-   and the cooperative ``fused_approach`` at 512x256, where the
-   multi-cluster one, two cells a thread, loses) and nothing else, each beside the same
+   refine-2 and refine-4 fluid phases), the approach's row kernel
+   ``fused_approach_rw`` at both (the refine-2 and refine-4 approach
+   phases: at 512x256 the multi-cluster one, two cells a thread, loses to
+   the cooperative one, and the rows beat both) and nothing else, each
+   beside the same
    steps through the other route (the cooperative kernel beside the
    multi-cluster and tile ones; timed, bit for bit: h and C for the
    approach).
@@ -252,14 +265,15 @@ paths on one NVIDIA card and check them.
    lane after lane, the records bit for bit equal), timed beside the
    lanes and one lane alone; the lanes kernel against its twin (h, C
    2e-5, the record sums rtol 2e-4 / atol 1e-4) beside its bound.
-7. Prints ``{"kernels": [...]}`` (48 rows: each kernel once, the five
+7. Prints ``{"kernels": [...]}`` (49 rows: each kernel once, the five
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``; the
    cluster kernels and ``fused_approach`` timed on a 1000-step launch at
    128x64 (CUDA events), the cooperative fluid and balance on a 200-step
    launch at 512x256, the three multi-cluster ones at 256x128,
    ``fused_fluid_tl`` on a 2-step launch at 512x256 beside its twin (held
-   to it at 2e-5, vel 2e-4); all
-   seven printed at both grids with the plans and bounds, and each phase's
+   to it at 2e-5, vel 2e-4), ``fused_approach_rw`` likewise (h, C 2e-5;
+   the sums rtol 2e-4 / atol 1e-4); all
+   eight printed at both grids with the plans and bounds, and each phase's
    steps and launches of the default case at refine 2 and 4), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -296,7 +310,7 @@ FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach"
                   "fused_fluid": 650, "fused_balance": 230, "fused_approach": 335,
                   "fused_fluid_cl": 650, "fused_balance_cl": 230, "fused_approach_cl": 335,
                   "fused_fluid_mc": 650, "fused_balance_mc": 230, "fused_approach_mc": 335,
-                  "fused_fluid_tl": 650,
+                  "fused_fluid_tl": 650, "fused_approach_rw": 335,
                   "fused_approach_lanes": 335,
                   "c_approach_pass": 335,
                   # per cell and step of a tile class (halo recompute not
@@ -350,6 +364,8 @@ SOURCE = {
                           "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
     "fused_fluid_tl": ("jrl_lbm_torch/kernels/csrc/fused_fluid_tl.cu",
                        "jrl_lbm_tpu/ops/pallas/fused_jrl.py:138"),
+    "fused_approach_rw": ("jrl_lbm_torch/kernels/csrc/fused_approach_rw.cu",
+                          "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
     "cyl_full": ("jrl_lbm_torch/kernels/csrc/cyl_full.cu",
                  "jrl_lbm_tpu/ops/pallas/fused_step.py:247"),
     "cyl_interior": ("jrl_lbm_torch/kernels/csrc/cyl_interior.cu",
@@ -405,21 +421,28 @@ SOURCE = {
                              "jrl_lbm_tpu/ops/pallas/fused_jrl.py:766"),
 }
 TILED = ("fluid_k", "fluid_k_lean", "fluid_k_bt", "fluid_pass")
-ROUTE_SUFFIX = {"cluster": "_cl", "clusters": "_mc", "coop": "", "tiles": "_tl"}
+ROUTE_SUFFIX = {"cluster": "_cl", "clusters": "_mc", "coop": "", "tiles": "_tl", "rows": "_rw"}
+# the tiles: the fluid's only; the rows: the approach's only
+ROUTE_ONLY = {"tiles": "fused_fluid", "rows": "fused_approach"}
 ROUTE_KERNEL = {(name, route): name + suffix for name in FUSED
                 for route, suffix in ROUTE_SUFFIX.items()
-                if route != "tiles" or name == "fused_fluid"}  # the tiles: the fluid's only
+                if ROUTE_ONLY.get(route, name) == name}
 # the kernel each phase's route takes at refine 2 (256x128) and 4 (512x256)
 # of the default case on an H100 (PERF.md §6)
 MC_ROUTE = {2: {"fused_fluid": "fused_fluid_tl", "fused_balance": "fused_balance_mc",
-                "fused_approach": "fused_approach_mc"},
+                "fused_approach": "fused_approach_rw"},
             4: {"fused_fluid": "fused_fluid_tl", "fused_balance": "fused_balance_mc",
-                "fused_approach": "fused_approach"}}
+                "fused_approach": "fused_approach_rw"}}
 # the fluid's tile kernel: the tips held to the cooperative kernel, and the
 # steps of the launch its row times beside its twin (the twin plays the
 # launch tile by tile)
 TL_SHAPES = ("ethaline", "45degree", "cylinder")
 TL_ROW_STEPS = 2
+# the approach's row kernel: the columns of its division proof (512x256's),
+# and the steps of the launch its row times beside its twin (the twin plays
+# the launch run by run)
+RW_PROOF_COLS = 256
+RW_ROW_STEPS = 2
 
 
 def fail(msg: str):
@@ -453,8 +476,9 @@ def sass_check(build) -> dict:
     """Read-only (non-coherent) global loads in each multi-step library's
     and each sharded C pass's machine code; there must be none (a
     persistent kernel reads state that other blocks wrote in the same
-    launch). And ``fluid_pass``'s and ``fused_fluid_tl``'s spills as
-    ``-Xptxas -v`` reports them; there must be none."""
+    launch). And ``fluid_pass``'s, ``fused_fluid_tl``'s and
+    ``fused_approach_rw``'s spills as ``-Xptxas -v`` reports them; there
+    must be none."""
     import re
     import shutil
 
@@ -476,6 +500,13 @@ def sass_check(build) -> dict:
           flush=True)
     if local or any(spills):
         fail(f"fused_fluid_tl spills: {local} local bytes, -Xptxas -v {spills}")
+    log = build.build_log.get("fused_approach_rw", "")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
+    regs, local, threads, _ = fused_jrl.rw_info()
+    print(f"  fused_approach_rw ({threads} threads a block): {regs} registers, {local} local "
+          f"bytes; -Xptxas -v spills {spills}", flush=True)
+    if local or any(spills):
+        fail(f"fused_approach_rw spills: {local} local bytes, -Xptxas -v {spills}")
     regs_p, local_p = jrl_c.pass_info()
     print(f"  c_approach_pass: {regs_p} registers, {local_p} local bytes", flush=True)
     from jrl_lbm_torch.kernels import cylinder
@@ -488,7 +519,8 @@ def sass_check(build) -> dict:
         print("  cuobjdump not found: SASS check not made", flush=True)
         return {}
     counts = {}
-    for k in FUSED + MC + ("fused_fluid_tl", "c_balance_pass_sh", "c_approach_pass_sh"):
+    for k in FUSED + MC + ("fused_fluid_tl", "fused_approach_rw", "c_balance_pass_sh",
+                           "c_approach_pass_sh"):
         sass = subprocess.run([tool, "-sass", str(build._lib_file(k))], capture_output=True,
                               text=True, check=True, timeout=120).stdout
         counts[k] = sum(1 for ln in sass.splitlines() if "LDG" in ln and "CONSTANT" in ln)
@@ -549,6 +581,14 @@ def cluster_choice(F, res) -> dict:
         if shape[:3] != want or plan.grid > shape[3]:
             fail(f"fused_fluid_tl {H}x{W}: the kernel's launch shape {shape} is not the host "
                  f"plan's {want}, grid {plan.grid}")
+    plan = F.rw_plan(512, 256, sms)
+    shape = F.rw_shape(plan.wrows, 256) if plan else None
+    out["fused_approach_rw 512x256"] = dict(plan._asdict() if plan else {}, kernel_shape=shape)
+    print(f"  fused_approach_rw 512x256: plan {plan}; the kernel's bytes a block, co-resident "
+          f"blocks {shape}", flush=True)
+    if plan is None or shape[0] != plan.smem or plan.nruns > shape[1]:
+        fail(f"fused_approach_rw 512x256: the kernel's launch shape {shape} does not hold the "
+             f"host plan {plan}")
     return out
 
 
@@ -671,6 +711,7 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "fused_balance_mc": ("fused_balance_mc_kernel",),
     "fused_approach_mc": ("fused_approach_mc_kernel",),
     "fused_fluid_tl": ("fused_fluid_tl_kernel",),
+    "fused_approach_rw": ("fused_approach_rw_kernel",),
     "fused_approach_lanes": ("fused_approach_lanes_kernel",),
     "c_approach_pass": ("c_approach_pass_kernel",),
     "cyl_full": ("cyl_full_kernel",),
@@ -3388,7 +3429,8 @@ def main() -> int:
     def route_kernel(name, cfg):
         """The kernel `fused_jrl.fused_route` takes for phase ``name`` on the
         config's grid."""
-        route = fused_jrl.fused_route(name, *cfg.eff_res, fused_jrl.card_limits(name, 0))
+        route = fused_jrl.fused_route(name, *cfg.eff_res, fused_jrl.card_limits(name, 0),
+                                      jrl_fluid.sm_count(dev))
         return name + ROUTE_SUFFIX[route]
 
     cases = (("ethaline", 8), ("cylinder", 1))
@@ -3661,6 +3703,45 @@ def main() -> int:
         equal_bits(f"fused_fluid_tl {shape} {res[0]}x{res[1]} from {start}",
                    fused_jrl.fused_fluid_tl(*x, start, 1000, fc, fl),
                    fused_jrl.fused_fluid(*x, start, 1000, fc, fl, route="coop"))
+
+    stamp("2. the approach's rows against the cooperative kernel")
+    t0 = time.perf_counter()
+    proof = fused_jrl.exact_div_count(RW_PROOF_COLS)
+    proof_s = time.perf_counter() - t0
+    bad = [r for r in proof if r[1] or r[2]]
+    report["exact_div_proof"] = {"divisors": len(proof), "seconds": proof_s, "bad": bad}
+    print(f"RcpDiv against __fdiv_rn over all 2^32 float32 numerators: {len(proof)} divisors "
+          f"(CS2F, CS4F, sqrt(2), r = x + 0.5 for x < {RW_PROOF_COLS}) in {proof_s:.2f} s; "
+          f"{sum(r[1] for r in proof)} numerators differ", flush=True)
+    if bad:
+        fail(f"RcpDiv differs from __fdiv_rn: {bad[:4]}")
+    print("fused_approach_rw against fused_approach: one 1000-step launch at 256x128 and "
+          "512x256 across a stored frame and from step 2**24 - 5", flush=True)
+    for (shape, res), small in itertools.product(
+            itertools.product(TL_SHAPES, ((256, 128), (512, 256))), (False, True)):
+        # the default case's approach at refine 2 or 4, the other tips at that grid
+        kw = dict(Pe=1e-5) if small else {}
+        ca = T.JRLCConfig(shape=shape, refine=res[0] // 128, **kw) if shape == "ethaline" \
+            else T.JRLCConfig(res=res, shape=shape, **kw)
+        v = ca.vel_obs_conv
+        sa, cfa, _ = T.c_init(ca, dev)
+        sa = noisy(sa, dev, 70 + small)
+        # from 2**24 - 5, or from a start whose launch crosses a stored frame
+        start = 2**24 - 5 if small else max(0, int(T.X_INTERVAL / v) - 500)
+        b_end = T.frame_pair(start + 999, v, 2**31)[0]
+        vfa = frame_field(*res, b_end + 2, seed=71)
+        crossed = b_end - T.frame_pair(start, v, 2**31)[0]
+        row_end = T.tip_walks(ca.inflow_height, start + 999, v)[1]
+        if (not small and crossed < 1) or not 1 < row_end < res[0] - 1:
+            fail(f"fused_approach_rw {shape} {res}: the launch from {start} crosses "
+                 f"{crossed} frames, ends at tip row {row_end}")
+        out = {}
+        for r in ("rows", "coop"):
+            acc_ = torch.zeros(4, device=dev)
+            out[r] = list(fused_jrl.fused_approach(sa["h"], sa["C"], vfa, start, 1000, ca, cfa,
+                                                   acc_, route=r)) + [acc_]
+        equal_bits(f"fused_approach_rw {shape} {res[0]}x{res[1]} from {start} (h, C, sums)",
+                   out["rows"], out["coop"])
 
     print("fluid steps 2**24 - 5 .. 2**24 + 4 at 128x64", flush=True)
     for shape in ("45degree", "cylinder"):
@@ -4395,7 +4476,7 @@ def main() -> int:
     # launches on the main path's phases (the yardsticks' not counted)
     launches_path = {k: sum(p_["launches"].get(k, 0) for p_ in phases.values()
                             if not p_.get("yardstick") and "launches" in p_)
-                     for k in FUSED + MC + ("fused_fluid_tl",)}
+                     for k in FUSED + MC + ("fused_fluid_tl", "fused_approach_rw")}
     for k in PATH128 + ("fused_approach",):
         kfn, tfn, ins, outs = fruns[k]
         row(k, cuda_ms(kfn, 5, warmup=1), cuda_ms(tfn, 1, warmup=0), ins, outs, n_row, cells,
@@ -4420,7 +4501,8 @@ def main() -> int:
         """(kernel, twin, inputs, outputs) of a 200-step launch of ``k`` at
         refine 2 or 4 (its route forced)."""
         fcr, ccr, sr_, flr, str_, cfr, flagsr, vfr = grids[refine]
-        r = "clusters" if k in MC else ("tiles" if k == "fused_fluid_tl" else "coop")
+        r = "clusters" if k in MC else {"fused_fluid_tl": "tiles",
+                                        "fused_approach_rw": "rows"}.get(k, "coop")
         if k.startswith("fused_approach"):
             x, acc_, acc_c = (str_["h"], str_["C"]), torch.zeros(4, device=dev), \
                 torch.zeros(4, device=dev)
@@ -4473,14 +4555,48 @@ def main() -> int:
         cuda_ms(lambda: fused_jrl.fused_fluid_tl(*x, 0, TL_ROW_STEPS, fcr, flr), 5, warmup=1),
         twin_ms, list(x), tl_out, TL_ROW_STEPS, fcr.eff_res[0] * fcr.eff_res[1],
         launches_path["fused_fluid_tl"], "events")
-    # every kernel of the six at both grids, and the plans: printed
+    # the approach's row kernel at 512x256, where the main path runs it: a
+    # launch of RW_ROW_STEPS steps beside its twin, which plays the same
+    # launch run by run on the card
+    _, ccr, _, _, str_, cfr, _, vfr = grids[4]
+    nz = noisy(str_, dev, 72)
+    plan_rw = fused_jrl.rw_plan(*ccr.eff_res, sms)
+    print(f"fused_approach_rw at 512x256 ({plan_rw}), one launch of {RW_ROW_STEPS} steps, and "
+          f"the twin:", flush=True)
+    acc_rw = torch.zeros(4, device=dev)
+    rw_out = list(fused_jrl.fused_approach_rw(nz["h"], nz["C"], vfr, 0, RW_ROW_STEPS, ccr, cfr,
+                                              acc_rw))
+    twin_out = []
+    twin_ms = cuda_ms(lambda: twin_out.extend(fused_jrl.fused_approach_rw_ref(
+        nz["h"], nz["C"], vfr, 0, RW_ROW_STEPS, ccr, cfr, plan_rw.nruns)), 1, warmup=0)
+    for nm, g_, w in zip(("h", "C"), rw_out, twin_out[:2]):
+        check_close(f"fused_approach_rw {RW_ROW_STEPS} steps {nm}", g_, w, TOL[nm],
+                    errs["fused_approach_rw"])
+    check_ints(f"fused_approach_rw {RW_ROW_STEPS} steps", acc_rw, twin_out[2])
+    b_last = T.frame_pair(RW_ROW_STEPS - 1, ccr.vel_obs_conv, vfr.shape[0])[0]
+    row("fused_approach_rw",
+        cuda_ms(lambda: fused_jrl.fused_approach_rw(nz["h"], nz["C"], vfr, 0, RW_ROW_STEPS, ccr,
+                                                    cfr, acc_rw), 5, warmup=1),
+        twin_ms, [cfr["base_flags"], vfr[:b_last + 2], cfr["area"], nz["h"]],
+        rw_out + [acc_rw], RW_ROW_STEPS, ccr.eff_res[0] * ccr.eff_res[1],
+        launches_path["fused_approach_rw"], "events")
+    # every kernel of the eight at both grids, and the plans: printed
     times = {}
     for refine in (2, 4):
         fcr = grids[refine][0]
         Hr, Wr = fcr.eff_res
-        for k in FUSED + MC + ("fused_fluid_tl",):
+        for k in FUSED + MC + ("fused_fluid_tl", "fused_approach_rw"):
             kfn = fused_runs(k, refine)[0]
             times[f"{k} {Hr}x{Wr}"] = cuda_ms(kfn, 5, warmup=1) * 1e3 / n4
+        report[f"fused_approach_rw {Hr}x{Wr}"] = {
+            "plan": fused_jrl.rw_plan(Hr, Wr, sms)._asdict(),
+            "us_per_step": times[f"fused_approach_rw {Hr}x{Wr}"],
+            "coop_us_per_step": times[f"fused_approach {Hr}x{Wr}"],
+            "mc_us_per_step": times[f"fused_approach_mc {Hr}x{Wr}"],
+            "route": fused_jrl.fused_route("fused_approach", Hr, Wr,
+                                           fused_jrl.card_limits("fused_approach", 0), sms)}
+        print(f"  fused_approach_rw {Hr}x{Wr} ({n4}-step launches): "
+              f"{report[f'fused_approach_rw {Hr}x{Wr}']}", flush=True)
         report[f"fused_fluid_tl {Hr}x{Wr}"] = {
             "plan": dataclasses.asdict(fused_jrl.tl_plan(Hr, Wr, sms)),
             "us_per_step": times[f"fused_fluid_tl {Hr}x{Wr}"],
@@ -4509,8 +4625,8 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows \
         + sweep_rows
-    if len(rows) != 48:
-        fail(f"{len(rows)} kernel rows, expected 48")
+    if len(rows) != 49:
+        fail(f"{len(rows)} kernel rows, expected 49")
     stamp("end")
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log,
                    "phase_start_s": marks})

@@ -5,9 +5,10 @@ the approach in one launch a step with its frame lerp and integrals),
 the multi-step JRL kernels of grids up to 131,072 cells (`fused_jrl.py`;
 the three phases of grids that fit one thread-block cluster's
 shared memory, such as the default 128x64, on cluster kernels of their
-own; the balance and approach of 256x128 and 512x256 on every cluster of
-the card at once, their fluid as waves of shared-memory tiles over the
-whole grid, a wave a step; a Pe sweep's approach lanes in one launch, one
+own; the balance of 256x128 and 512x256 and the approach of 256x128 on
+every cluster of the card at once, their fluid as waves of shared-memory
+tiles over the whole grid, a wave a step, the approach of 512x256 as runs
+of whole rows, a run an SM; a Pe sweep's approach lanes in one launch, one
 cluster a lane),
 the k-step tile-class kernels of the JRL fluid phase on larger grids
 and its k = 1 split pass in one launch (`jrl_tiled.py`), the kernels of the cylinder channel's fused step
@@ -33,7 +34,8 @@ KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "fused_fluid_cl", "fused_balance_cl", "fluid_pass",
            "c_approach_pass", "fused_approach_cl", "cyl_pass", "fused_approach_lanes",
            "fused_fluid_mc", "fused_balance_mc", "fused_approach_mc", "cyl_pass_sh",
-           "fluid_pass_sh", "c_balance_pass_sh", "c_approach_pass_sh", "fused_fluid_tl")
+           "fluid_pass_sh", "c_balance_pass_sh", "c_approach_pass_sh", "fused_fluid_tl",
+           "fused_approach_rw")
 
 
 def wrappers():
@@ -80,6 +82,7 @@ def wrappers():
         "c_balance_pass_sh": jrl_sharded.c_balance_pass_sh,
         "c_approach_pass_sh": jrl_sharded.c_approach_pass_sh,
         "fused_fluid_tl": fused_jrl.fused_fluid_tl,
+        "fused_approach_rw": fused_jrl.fused_approach_rw,
     }
 
 

@@ -8,7 +8,13 @@
 // and one reduction of the integrals into acc.
 //
 // Replaces the TPU kernel jrl_lbm_tpu/ops/pallas/fused_jrl.py::
-// _make_approach_kernel (called by _fused_approach_seg). Its plain twin is
+// _make_approach_kernel (called by _fused_approach_seg). Since the row
+// kernel fused_approach_rw.cu took 512x256 (fused_jrl.py::ROWS_MIN_CELLS),
+// no grid of the default case reaches this kernel: it stays the approach
+// kernels' yardstick (route="coop") and the route of grids that one cluster
+// does not hold at one cell a thread, whose multi-cluster plan needs two
+// cells a thread or more and that the rows do not take (rows that are not
+// 16-byte multiples, runs over the card's SMs). Its plain twin is
 // jrl_lbm_torch/kernels/fused_jrl.py::fused_approach_ref, the loop of
 // c_approach_ref on models/jrl.py::stored_velocity; the per-cell code is
 // jrl_c.cuh's, shared with c_approach.cu.

@@ -216,12 +216,14 @@ struct ApproachGeo {
   __device__ float cu(int y, int x) const { return cu_of(y, x, vel.u(y * W + x)); }
   __device__ float cv(int y, int x) const { return cv_of(y, x, vel.v(y * W + x)); }
   // INFLOW: feq(0, C_vel); INFLOW_2: feq(1, C_vel) with the local C_vel
-  __device__ void inflow(int y, int x, int fl, float* out) const {
+  // (the equilibrium's divisions by the policy `dv`, exact_div.cuh)
+  template <class Div = IeeeDiv>
+  __device__ void inflow(int y, int x, int fl, float* out, const Div& dv = Div()) const {
     if (fl != INFLOW && fl != INFLOW_2) return;
     const float rho_in = fl == INFLOW ? 0.0f : 1.0f;
     const float a = cu(y, x), b = cv(y, x);
 #pragma unroll
-    for (int q = 0; q < 9; ++q) out[q] = feq_q(q, rho_in, a, b);
+    for (int q = 0; q < 9; ++q) out[q] = feq_q(q, rho_in, a, b, dv);
   }
 };
 
@@ -276,13 +278,15 @@ struct WindowGeo : ApproachGeo<V, B> {
 };
 
 // flag and phi of window rows ybase .. ybase + rows - 1 (mod H) into
-// codes / phis, cells split over `nthreads` threads.
-template <class V, class B>
+// codes / phis, cells split over `nthreads` threads; the SDF's division by
+// the policy `dv` (exact_div.cuh).
+template <class V, class B, class Div = IeeeDiv>
 __device__ __forceinline__ void fill_window_geo(const ApproachGeo<V, B>& g, int ybase, int rows,
-                                                int* codes, float* phis, int tid, int nthreads) {
+                                                int* codes, float* phis, int tid, int nthreads,
+                                                const Div& dv = Div()) {
   for (int c = tid; c < rows * g.W; c += nthreads) {
     const int j = c / g.W, x = c - j * g.W, y = (ybase + j) % g.H;
-    const float ph = g.phi(y, x);
+    const float ph = g.sdf.phi(y, x, dv);
     codes[c] = g.flag_at(y, x, ph);
     phis[c] = ph;
   }
@@ -297,6 +301,22 @@ __device__ __forceinline__ WindowGeo<V, B> window_geo(const ApproachGeo<V, B>& g
   w.phis = phis;
   w.ybase = ybase;
   return w;
+}
+
+// A geometry G whose inflow rule divides by the policy Div (exact_div.cuh),
+// every other answer G's.
+template <class G, class Div>
+struct DivGeo : G {
+  __device__ void inflow(int y, int x, int fl, float* out) const {
+    G::inflow(y, x, fl, out, Div::for_col(0.0f));
+  }
+};
+
+template <class Div, class G>
+__device__ __forceinline__ DivGeo<G, Div> div_geo(const G& g) {
+  DivGeo<G, Div> d;
+  static_cast<G&>(d) = g;
+  return d;
 }
 
 // The new C of cell (y, x) of flag `fl` (g.flag(y, x)), its streamed
@@ -344,6 +364,46 @@ __device__ __forceinline__ void approach_cell_at(const Acc& a, const Geo& g,
         fl == OBSTACLE ? hs[q] : collide_conv_q(q, hs[q], Cn, a_, b, r, p.w_rate, p.c_tau);
 }
 
+// The collision terms of an approach cell in column x that do not change in
+// a launch: the rate and source factor by e_x + 1 (balance_rates' terms, the
+// same operations as conv_rate's in approach_cell_at above), r = x + 0.5, and
+// the policy `dv` of the step's divisions (exact_div.cuh; RcpDiv holds the
+// reciprocal of this r).
+template <class Div>
+struct ApproachRates {
+  BalanceRates k;
+  float r;
+  Div dv;
+};
+
+// approach_cell_at above with the column's terms taken from `kr` (computed
+// once a launch) and the equilibrium's divisions shared by opposite
+// directions (feq_all): the same operations on the same values, so the same
+// bits, with one division by r and ten by the lattice constants a cell and
+// step in place of its forty-odd.
+template <class Acc, class Geo, class Div>
+__device__ __forceinline__ void approach_cell_at(const Acc& a, const Geo& g,
+                                                 const CApproachParams& p, int y, int x,
+                                                 float u_s, float v_s,
+                                                 const ApproachRates<Div>& kr, float* h_out,
+                                                 float* C_out, int i, int stride) {
+  const int fl = g.flag(y, x);
+  float hs[9];
+  const float Cn = approach_C(a, g, p, y, x, fl, hs);
+  C_out[i] = Cn;
+
+  const float a_ = g.cu_of(y, x, u_s), b = g.cv_of(y, x, v_s);
+  float fe[9];
+  feq_all(Cn, a_, b, kr.dv, fe);
+  const float ncu = -kr.dv.col(a_, kr.r);
+#pragma unroll
+  for (int q = 0; q < 9; ++q) {
+    const ConvRate& k = kr.k.k[ex_of(q) + 1];
+    h_out[q * stride + i] =
+        fl == OBSTACLE ? hs[q] : collide_conv_fe(hs[q], fe[q], ConvRate{k.w_rate, k.src, ncu});
+  }
+}
+
 // approach_cell_at on [H][W] device memory.
 template <class V>
 __device__ __forceinline__ void approach_cell(const float* h, const ApproachGeo<V>& g,
@@ -359,9 +419,13 @@ __device__ __forceinline__ int disk_row(int r, int H) { return r < 0 ? 0 : (r > 
 
 // Column x's terms of the inflow and current integrals over rows walks_int
 // and walks_int + 1 of the new C (models/jrl.py::make_approach_step): the
-// plain disk for the wedge, the dC_z + dC_r flux form for flat tips.
+// plain disk for the wedge, the dC_z + dC_r flux form for flat tips (its
+// division by r = x + 0.5 by the policy `dv`, exact_div.cuh: RcpDiv's of
+// column x).
+template <class Div = IeeeDiv>
 __device__ __forceinline__ void disk_terms(const float* Cn, int H, int W, int wi, bool flat,
-                                           int x, float ar, float& t_in, float& t_cur) {
+                                           int x, float ar, float& t_in, float& t_cur,
+                                           const Div& dv = Div()) {
   if (flat) {
     const float rx = (float)x + 0.5f, rx1 = (float)(x + 1) + 0.5f;
     float t[2];
@@ -371,7 +435,7 @@ __device__ __forceinline__ void disk_terms(const float* Cn, int H, int W, int wi
       const float dCz = Cn[rr * W + x] - Cn[rm * W + x];
       const float rC0 = rx * Cn[rr * W + x];
       const float rC1 = rx1 * Cn[rr * W + x + 1];
-      const float dCr = (rC1 - rC0) / rx;
+      const float dCr = dv.col(rC1 - rC0, rx);
       t[k] = (dCz + dCr) * ar;
     }
     t_in = t[0];

@@ -19,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "exact_div.cuh"
+
 namespace jrl {
 
 constexpr int FLUID = 1;
@@ -27,9 +29,7 @@ constexpr int INFLOW = 8;
 constexpr int OUTFLOW = 16;
 constexpr int INFLOW_2 = 32;
 
-// lattice constants as the JAX package rounds its Python doubles
-constexpr float CS2F = (float)(1.0 / 3.0);
-constexpr float CS4F = (float)((1.0 / 3.0) * (1.0 / 3.0));
+// CS2F, CS4F: exact_div.cuh
 constexpr float THREE = (float)(1.0 / (1.0 / 3.0));
 
 __device__ __forceinline__ int ex_of(int q) {
@@ -132,14 +132,39 @@ struct GlobalPlane {
   __device__ __forceinline__ int at(int y, int x) const { return p[y * W + x]; }
 };
 
-// Second-order equilibrium of one direction (ops/equilibrium.py::feq).
-__device__ __forceinline__ float feq_q(int q, float rho, float u, float v) {
+// Second-order equilibrium of one direction (ops/equilibrium.py::feq),
+// its divisions by the policy `dv` (exact_div.cuh).
+template <class Div = IeeeDiv>
+__device__ __forceinline__ float feq_q(int q, float rho, float u, float v,
+                                       const Div& dv = Div()) {
   const float eu = (float)ex_of(q) * u + (float)ey_of(q) * v;
   const float uv = u * u + v * v;
   const float rho_w = rho * wq(q);
-  const float a = rho_w * (1.0f + eu / CS2F);
-  const float b = rho_w * ((0.5f * eu) * eu / CS4F - (0.5f * uv) / CS2F);
+  const float a = rho_w * (1.0f + dv.cs2(eu));
+  const float b = rho_w * (dv.cs4((0.5f * eu) * eu) - dv.cs2(0.5f * uv));
   return a + b;
+}
+
+// feq_q of all nine directions with ten divisions in place of eighteen:
+// an opposite direction's e.u is -e.u (the same products, negated; round to
+// nearest is symmetric) up to the sign of a zero, so it takes the negated
+// first quotient (1 + +-0 is 1 whatever the zero's sign) and the same
+// second one ((0.5 e.u) e.u is the same product). Bit for bit feq_q.
+template <class Div>
+__device__ __forceinline__ void feq_all(float rho, float u, float v, const Div& dv,
+                                        float fe[9]) {
+  const float uv = u * u + v * v;
+  const float t = dv.cs2(0.5f * uv);
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {  // 0 and 1, 2, 5, 6; their opposites 3, 4, 7, 8
+    const int p = q < 3 ? q : q + 2;
+    const float eu = (float)ex_of(p) * u + (float)ey_of(p) * v;
+    const float rho_w = rho * wq(p);
+    const float d1 = dv.cs2(eu);
+    const float b = rho_w * (dv.cs4((0.5f * eu) * eu) - t);
+    fe[p] = rho_w * (1.0f + d1) + b;
+    if (p != 0) fe[refl(p)] = rho_w * (1.0f - d1) + b;
+  }
 }
 
 // walks = inflow_h + f32(step) * v, rounded as float32 at each operation
@@ -164,7 +189,8 @@ struct TipSdf {
     bcy = __fsub_rn(walks, box_r);
     y1 = __fadd_rn(bcy, box_r);
   }
-  __device__ __forceinline__ float phi(int y, int x) const {
+  template <class Div = IeeeDiv>
+  __device__ __forceinline__ float phi(int y, int x, const Div& dv = Div()) const {
     const float xs = (float)x + 0.5f;
     const float ys = (float)y + 0.5f;
     float p;
@@ -174,7 +200,7 @@ struct TipSdf {
       p = fmaxf(tx, ty);
     } else {
       const float ty = (ys - bcy) - box_r;
-      const float align = ((xs + ys) - (x1 + y1)) / (float)1.4142135623730951;
+      const float align = dv.sqrt2((xs + ys) - (x1 + y1));
       p = fmaxf(ty, align);
     }
     if (with_top) p = fminf(p, -(ys - Hf));
@@ -301,24 +327,31 @@ __device__ __forceinline__ int wrap_near(int v, int n) {
 struct ConvRate {
   float w_rate, src, ncu;
 };
+template <class Div = IeeeDiv>
 __device__ __forceinline__ ConvRate conv_rate(int ex, float cu, float r, float w_rate_base,
-                                              float c_tau) {
-  const float s = (c_tau * (float)ex) / r;
-  return ConvRate{w_rate_base + s, c_tau - 0.5f * s, -(cu / r)};
+                                              float c_tau, const Div& dv = Div()) {
+  const float s = dv.col(c_tau * (float)ex, r);
+  return ConvRate{w_rate_base + s, c_tau - 0.5f * s, -dv.col(cu, r)};
 }
-__device__ __forceinline__ float collide_conv(int q, float hq, float Cn, float cu, float cv,
-                                              const ConvRate& k) {
-  const float fe = feq_q(q, Cn, cu, cv);
+// collide_conv of direction population hq at equilibrium fe
+__device__ __forceinline__ float collide_conv_fe(float hq, float fe, const ConvRate& k) {
   const float gi = (k.ncu * fe) * k.src;
   return (hq + k.w_rate * (fe - hq)) + gi;
+}
+template <class Div = IeeeDiv>
+__device__ __forceinline__ float collide_conv(int q, float hq, float Cn, float cu, float cv,
+                                              const ConvRate& k, const Div& dv = Div()) {
+  return collide_conv_fe(hq, feq_q(q, Cn, cu, cv, dv), k);
 }
 
 // Advection-diffusion BGK of one direction about the x = 0 axis
 // (ops/collide.py::bgk_collide, is_convection): rate 1/tau + c e_x / r and
 // the Liu 2017 source -(u_r / r) feq (c - 0.5 s), with c = 1 - 0.5/tau.
+template <class Div = IeeeDiv>
 __device__ __forceinline__ float collide_conv_q(int q, float hq, float Cn, float cu, float cv,
-                                                float r, float w_rate_base, float c_tau) {
-  return collide_conv(q, hq, Cn, cu, cv, conv_rate(ex_of(q), cu, r, w_rate_base, c_tau));
+                                                float r, float w_rate_base, float c_tau,
+                                                const Div& dv = Div()) {
+  return collide_conv(q, hq, Cn, cu, cv, conv_rate(ex_of(q), cu, r, w_rate_base, c_tau, dv), dv);
 }
 
 }  // namespace jrl

@@ -3,33 +3,38 @@
 `csrc/fused_approach.cu`, the cluster kernels `csrc/fused_fluid_cl.cu`,
 `csrc/fused_balance_cl.cu`, `csrc/fused_approach_cl.cu`, the
 multi-cluster kernels `csrc/fused_fluid_mc.cu`, `csrc/fused_balance_mc.cu`,
-`csrc/fused_approach_mc.cu`, and the fluid's tile kernel
-`csrc/fused_fluid_tl.cu`), each with its plain PyTorch twin, and the
+`csrc/fused_approach_mc.cu`, the fluid's tile kernel
+`csrc/fused_fluid_tl.cu` and the approach's row kernel
+`csrc/fused_approach_rw.cu`), each with its plain PyTorch twin, and the
 runners built on them.
 
 Replace the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_jrl.py`:
 ``_make_jrl_fluid_kernel``, ``_make_balance_kernel`` and
-``_make_approach_kernel``. One launch advances n steps. Each phase
-takes one of three routes, the fluid one of four, picked by `fused_route`
-from the grid and the card's limits before any launch: where the state
-fits the shared memory of one thread-block cluster at one cell per thread
-(the default 128x64), the cluster kernel keeps it there for the whole
-launch; the fluid of the grids of ``TILES_MIN_CELLS`` cells and more
-(256x128 and 512x256, refine 2 and 4) runs each step as one wave of
-shared-memory tiles over the whole grid, the state in device memory (L2)
-between steps (`fused_fluid_tl`, one grid barrier a step); the other
-phases of those grids keep the state in the shared memory of every
-cluster the card holds at once (`mc_plan`: bands of rows over N clusters,
-halo rows between clusters through mailbox rows in device memory) where
-that beats the cooperative grid on the card (the balance and the approach
-at 256x128, the balance at 512x256); otherwise one persistent cooperative
-grid keeps it in device memory (L2) between steps. A wrapper
-given tensors on the CPU runs its twin (the loop of the per-step twins);
-given tensors on the card it launches the kernel or raises, never falling
-back to another route.
+``_make_approach_kernel``. One launch advances n steps. The balance
+takes one of three routes, the fluid and the approach one of four,
+picked by `fused_route` from the grid and the card's limits before any
+launch: where the state fits the shared memory of one thread-block
+cluster at one cell per thread (the default 128x64), the cluster kernel
+keeps it there for the whole launch; the fluid of the grids of
+``TILES_MIN_CELLS`` cells and more (256x128 and 512x256, refine 2 and 4)
+runs each step as one wave of shared-memory tiles over the whole grid,
+the state in device memory (L2) between steps (`fused_fluid_tl`, one grid
+barrier a step), and the approach of the grids of ``ROWS_MIN_CELLS``
+cells and more (256x128 and 512x256) each step as runs of whole rows, a run an SM,
+each from its window in shared memory (`fused_approach_rw`, one grid
+barrier a step, its divisions by reciprocals proved exact); the balance
+of those grids keeps the state in the shared
+memory of every cluster the card holds at once (`mc_plan`: bands of rows
+over N clusters, halo rows between clusters through mailbox rows in
+device memory) where that beats the cooperative grid on the card;
+otherwise one persistent cooperative grid keeps it in device memory (L2)
+between steps. A wrapper given tensors on the CPU runs its twin (the
+loop of the per-step twins); given tensors on the card it launches the
+kernel or raises, never falling back to another route.
 ``fused_fluid.launches``, ``fused_fluid_cl.launches``,
 ``fused_fluid_mc.launches``, ``fused_fluid_tl.launches``,
-``fused_approach_mc.launches`` etc. count the launches of each kernel.
+``fused_approach_mc.launches``, ``fused_approach_rw.launches`` etc.
+count the launches of each kernel.
 `fused_approach_lanes` runs many approach lanes (a Pe sweep's,
 `parallel/sweep.py`) in one launch of the cluster kernel's lanes instance,
 one cluster a lane.
@@ -53,7 +58,7 @@ from jrl_lbm_torch.kernels import build
 from jrl_lbm_torch.kernels import jrl_sharded as _sh
 from jrl_lbm_torch.kernels import jrl_tiled as _tl
 from jrl_lbm_torch.kernels.jrl_c import CApproachParams, _approach_params, _balance_params, \
-    c_approach_ref, c_balance_ref
+    c_approach_ref, c_balance_ref, convection_velocity, disk_integrals
 from jrl_lbm_torch.kernels.jrl_fluid import _P, _a_params, _b_params, check_state, \
     fluid_a_ref, fluid_b_ref, sm_count, stream_of
 from jrl_lbm_torch.models import jrl as _jrl
@@ -89,9 +94,17 @@ MC_SIZES = (16, 8, 4, 2, 1)  # cluster sizes a plan may take (csrc/cluster_grid.
 # the most cells a thread at which the route takes a multi-cluster plan:
 # a step is one thread's cells one after the other, and on an H100 the
 # fluid and the approach lose to the cooperative grid from two (512x256),
-# the balance at none; the fluid takes the tiles from TILES_MIN_CELLS on,
-# ahead of this rule (PERF.md §6, tools/fused_cluster_probe.py)
+# the balance at none; the fluid takes the tiles from TILES_MIN_CELLS on
+# and the approach the rows from ROWS_MIN_CELLS on, ahead of this rule
+# (PERF.md §6, tools/fused_cluster_probe.py)
 MC_MAX_CPT = {"fused_fluid": 1, "fused_balance": 4, "fused_approach": 1}
+# the fewest cells at which the route takes the approach's row kernel
+# (`fused_approach_rw`, grids with W % 4 == 0 up to MAX_FUSED_CELLS whose
+# runs fit the card, `rw_plan`): on an H100 it beats the cooperative
+# `fused_approach` at 512x256 by 33-41% (the multi-cluster kernel loses
+# there) and `fused_approach_mc` at 256x128 by 16-20%, with the ethaline,
+# 45degree and cylinder tips (PERF.md §6, tools/fused_cluster_probe.py rows)
+ROWS_MIN_CELLS = {"fused_approach": 256 * 128}
 # the fewest cells at which the route takes the fluid's tile kernel
 # (`fused_fluid_tl`, grids with W % 4 == 0 up to MAX_FUSED_CELLS): on an
 # H100 it beats the cooperative `fused_fluid` at 512x256 by 14-27% and
@@ -100,11 +113,12 @@ MC_MAX_CPT = {"fused_fluid": 1, "fused_balance": 4, "fused_approach": 1}
 # tools/fused_cluster_probe.py tiles)
 TILES_MIN_CELLS = {"fused_fluid": 256 * 128}
 # the routes of every phase: "cluster" (one cluster), "clusters" (the
-# multi-cluster kernels), "coop" (the cooperative grid), and the fluid's
-# "tiles" (`fused_fluid_tl`)
+# multi-cluster kernels), "coop" (the cooperative grid), the fluid's
+# "tiles" (`fused_fluid_tl`) and the approach's "rows" (`fused_approach_rw`)
 ROUTES = ("cluster", "coop")
 PHASE_ROUTES = {name: ("cluster", "clusters", "coop") + (("tiles",) if name in TILES_MIN_CELLS
                                                          else ())
+                + (("rows",) if name in ROWS_MIN_CELLS else ())
                 for name in ("fused_fluid", "fused_balance", "fused_approach")}
 
 
@@ -279,26 +293,44 @@ def tiles_take(name: str, H: int, W: int) -> bool:
     return least is not None and W % 4 == 0 and least <= H * W <= MAX_FUSED_CELLS
 
 
-def fused_route(name: str, H: int, W: int, limits: ClusterLimits) -> str:
+def rows_take(name: str, H: int, W: int, sms: int = _tl.PASS_SMS) -> bool:
+    """Whether the route takes the row kernel for ``name`` on an ``H x W``
+    grid of a card with ``sms`` SMs: the approach from ``ROWS_MIN_CELLS``
+    cells up to ``MAX_FUSED_CELLS``, where `rw_plan` finds runs that fit
+    (rows of 16 bytes' multiples, at most ``RW_CELLS`` cells a run, a run an
+    SM)."""
+    least = ROWS_MIN_CELLS.get(name)
+    return least is not None and least <= H * W <= MAX_FUSED_CELLS \
+        and rw_plan(H, W, sms) is not None
+
+
+def fused_route(name: str, H: int, W: int, limits: ClusterLimits,
+                sms: int = _tl.PASS_SMS) -> str:
     """``"cluster"`` where the state of ``name`` (``"fused_fluid"``,
     ``"fused_balance"`` or ``"fused_approach"``) on an ``H x W`` grid fits
     one cluster of a card with ``limits`` at one cell per thread;
     ``"tiles"`` for the fluid where `tiles_take` holds (``TILES_MIN_CELLS``:
-    256x128 and 512x256 on an H100); ``"clusters"`` where the state fits
-    the clusters the card holds at once (`mc_plan`) at most
-    ``MC_MAX_CPT[name]`` cells a thread; else ``"coop"`` (the cooperative
-    kernel). A cluster kernel's step is one thread's cell latency: one
-    cluster at 2 or 4 cells a thread runs them one after the other on 16
-    SMs and loses to the cooperative grid (PERF.md §6: 256x128 at 4 cells
-    a thread); every SM of the card at once keeps 1-2 cells a thread up to
-    512x256, where the approach's two still lose. The fluid's tiles win at
-    both grids: one wave of tiles a step, the cell code on shared memory
-    and tabled geometry, one grid barrier a step."""
+    256x128 and 512x256 on an H100); ``"rows"`` for the approach where
+    `rows_take` holds on a card of ``sms`` SMs (``ROWS_MIN_CELLS``: 256x128
+    and 512x256 on an H100); ``"clusters"`` where the state fits the clusters the card
+    holds at once (`mc_plan`) at most ``MC_MAX_CPT[name]`` cells a thread;
+    else ``"coop"`` (the cooperative kernel). A cluster kernel's step is
+    one thread's cell latency: one cluster at 2 or 4 cells a thread runs
+    them one after the other on 16 SMs and loses to the cooperative grid
+    (PERF.md §6: 256x128 at 4 cells a thread); every SM of the card at once
+    keeps 1-2 cells a thread up to 512x256, where the approach's two lose to
+    the cooperative grid; the row kernel beats both at both grids. The fluid's
+    tiles win at both grids: one wave of tiles a step, the cell code on
+    shared memory and tabled geometry, one grid barrier a step; the
+    approach's rows likewise, a run of whole rows a block, with its
+    divisions by reciprocals proved exact."""
     shape = cluster_shape(name, H, W, limits)
     if shape and shape[1] == 1:
         return "cluster"
     if tiles_take(name, H, W):
         return "tiles"
+    if rows_take(name, H, W, sms):
+        return "rows"
     plan = mc_plan(name, H, W, limits)
     return "clusters" if plan and plan.cpt <= MC_MAX_CPT[name] else "coop"
 
@@ -357,7 +389,7 @@ def _index(dev: torch.device) -> int:
 def _route(name: str, cfg, dev: torch.device, route) -> str:
     if route is None:
         H, W = cfg.eff_res
-        return fused_route(name, H, W, card_limits(name, _index(dev)))
+        return fused_route(name, H, W, card_limits(name, _index(dev)), sm_count(dev))
     routes = PHASE_ROUTES[name]
     if route not in routes:
         raise ValueError(f"route {route!r}: one of {routes}")
@@ -612,6 +644,8 @@ def fused_approach(h, C, vel_field, start: int, n: int, cfg, fields, acc, route=
         return fused_approach_cl(h, C, vel_field, start, n, cfg, fields, acc)
     if kind == "clusters":
         return fused_approach_mc(h, C, vel_field, start, n, cfg, fields, acc)
+    if kind == "rows":
+        return fused_approach_rw(h, C, vel_field, start, n, cfg, fields, acc)
     base, area, n_frames = fields["base_flags"], fields["area"], int(vel_field.shape[0])
     out = (torch.empty_like(h), torch.empty_like(C))
     P, Q = _ping_pong(out, n)
@@ -790,6 +824,215 @@ def tl_tile_shape(rmax: int, smax: int, device_index: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# The approach's row kernel: n steps of the whole grid, a run of rows a block
+# ---------------------------------------------------------------------------
+
+RW_CELLS = 1024  # the most cells of a run (csrc/fused_approach_rw.cu)
+RW_COLS = 8      # floats of a column's terms in a block's shared memory
+# the dynamic shared memory a block may take: the tiles' cap less the
+# kernel's static reduction tree
+RW_SMEM_CAP = _sh.TILE_SMEM_CAP - 16 * FUSED_BLOCK
+
+
+class RwPlan(NamedTuple):
+    """A launch of `fused_approach_rw`: ``nruns`` blocks, block b computing
+    rows ``[b H // nruns, (b + 1) H // nruns)`` (`row_bands`), planes of
+    ``wrows`` window rows (the longest run and one row a side), ``smem``
+    bytes of shared memory a block."""
+
+    nruns: int
+    wrows: int
+    smem: int
+
+
+class RwParams(ctypes.Structure):
+    _fields_ = [("a", CApproachParams), ("nruns", ctypes.c_int), ("wrows", ctypes.c_int),
+                ("n_frames", ctypes.c_int)]
+
+
+def rw_smem_bytes(wrows: int, W: int) -> int:
+    """Dynamic shared memory of a block whose planes hold ``wrows`` rows
+    (`csrc/fused_approach_rw.cu::rw_smem_bytes`): an mbarrier a row
+    (16-byte aligned), h (9 planes), phi and the flag codes, the column
+    terms and the run's cells' frame pair."""
+    return -(-wrows * 8 // 16) * 16 + ((wrows * 11 + RW_COLS) * W + 4 * RW_CELLS) * 4
+
+
+def rw_plan_of(H: int, W: int, nruns: int):
+    """The `RwPlan` of ``nruns`` runs on an ``H x W`` grid, or None where the
+    kernel cannot take it: runs of at least two rows (an OUTFLOW cell of row
+    0 or H - 1 reads two rows inward, inside the first and last runs'
+    windows), at most ``RW_CELLS`` cells, rows of 16 bytes' multiples (the
+    bulk copies), the window within ``RW_SMEM_CAP``."""
+    nruns = int(nruns)
+    if W % 4 or nruns < 1 or H // nruns < 2:
+        return None
+    longest = -(-H // nruns)
+    wrows = longest + 2
+    if longest * W > RW_CELLS or rw_smem_bytes(wrows, W) > RW_SMEM_CAP:
+        return None
+    return RwPlan(nruns, wrows, rw_smem_bytes(wrows, W))
+
+
+def rw_plan(H: int, W: int, sms: int = _tl.PASS_SMS):
+    """The runs of `fused_approach_rw` on an ``H x W`` grid of a card with
+    ``sms`` SMs, one block an SM at most, or None where they do not fit: runs
+    of ``max(2, ceil(H / sms))`` rows as far as the rows go (512x256 on 132
+    SMs: 128 runs of 4 rows, one cell a thread of 1024)."""
+    rows = max(2, -(-int(H) // int(sms)))
+    plan = rw_plan_of(H, W, max(1, min(-(-int(H) // rows), int(H) // 2)))
+    return plan if plan is not None and plan.nruns <= int(sms) else None
+
+
+def fused_approach_rw_ref(h, C, vel_field, start: int, n: int, cfg, fields, nruns=None):
+    """Twin of `fused_approach_rw`: the launch played run by run (``nruns``
+    runs, `rw_plan`'s for an H100 when None), each step of each run the
+    approach step `c_approach_ref` on the run's window only (its rows and
+    one a side, mod H, NaN elsewhere; no old C, which the step never reads),
+    its rows kept; then the step's integrals from the new C of every run, as
+    the kernel's block 0 adds them after the grid barrier. Equals
+    `fused_approach_ref` bit for bit; returns ``(h, C, (inflow_sum,
+    current_sum, rec_u, rec_v))``."""
+    H, W = cfg.eff_res
+    nruns = rw_plan(H, W).nruns if nruns is None else int(nruns)
+    if not 1 <= nruns <= H // 2:
+        raise ValueError(f"{nruns} runs of {H} rows: every run takes two rows or more")
+    nan = float("nan")
+    zero = torch.zeros((), dtype=torch.float32)
+    inflow_sum = current_sum = rec_u = rec_v = zero
+    v = cfg.vel_obs_conv
+    for i in range(int(n)):
+        s = int(start) + i
+        vel = _jrl.stored_velocity(vel_field, s, v)
+        h_new = torch.full_like(h, nan)
+        C_new = torch.full_like(h[0], nan)
+        for y0, y1 in row_bands(H, nruns):
+            win = torch.arange(y0 - 1, y1 + 1, device=h.device) % H
+            h_win = torch.full_like(h, nan)
+            h_win[:, win] = h[:, win]
+            ho, Co, _ = c_approach_ref(h_win, torch.zeros_like(C_new), vel, s, cfg, fields)
+            h_new[:, y0:y1] = ho[:, y0:y1]
+            C_new[y0:y1] = Co[y0:y1]
+        h = h_new
+        walks_int = _jrl.tip_walks(cfg.inflow_height, s, v)[1]
+        inflow, current, rec_u, rec_v = disk_integrals(
+            C_new, convection_velocity(vel, walks_int, cfg, v), walks_int, cfg, fields)
+        inflow_sum = inflow_sum + inflow
+        current_sum = current_sum + current
+        C = C_new
+    return h, C, (inflow_sum, current_sum, rec_u, rec_v)
+
+
+@functools.lru_cache(maxsize=64)
+def _rw_args(cfg, plan: RwPlan, n_frames: int) -> RwParams:
+    """The launch constants of `fused_approach_rw` (`csrc/fused_approach_rw.cu::RwParams`)."""
+    return RwParams(a=_approach_params(cfg), nruns=plan.nruns, wrows=plan.wrows,
+                    n_frames=int(n_frames))
+
+
+def _check_rw(h, C, vel_field, start: int, n: int, cfg, fields, acc) -> torch.device:
+    """`_check_approach` of steps ``start .. start + n - 1``, and the rows
+    the kernel copies: W % 4 == 0, h's planes 16-byte aligned."""
+    dev = _check_approach(h, C, vel_field, start, n, cfg, fields, acc)
+    if cfg.eff_res[1] % 4 or h.data_ptr() % 16:
+        raise ValueError("fused_approach_rw copies rows of 16-byte aligned planes (W % 4 == 0)")
+    return dev
+
+
+def _rw_launch(h, vel_field, start: int, n: int, cfg, fields, acc, dev: torch.device,
+               plan: RwPlan):
+    """One launch of `fused_approach_rw`, its arguments checked by the
+    caller; returns the new ``(h, C)`` and updates ``acc``. The second
+    buffer set (`_ping_pong`) lives here until the launch is queued."""
+    H, W = cfg.eff_res
+    out = (torch.empty_like(h), torch.empty((H, W), dtype=torch.float32, device=dev))
+    P, Q = _ping_pong(out, n)
+    params = _rw_args(cfg, RwPlan(*plan), int(vel_field.shape[0]))
+    fn = build.bind("fused_approach_rw", "jrl_fused_approach_rw",
+                    [_P] * 9 + [ctypes.c_int] * 2 + [_P, _P])
+    with torch.cuda.device(dev):
+        err = fn(fields["base_flags"].data_ptr(), vel_field.data_ptr(), fields["area"].data_ptr(),
+                 h.data_ptr(), *(t.data_ptr() for t in P), *(t.data_ptr() for t in Q),
+                 acc.data_ptr(), int(start), int(n), ctypes.byref(params), stream_of(dev))
+    build.check(err, "fused_approach_rw")
+    fused_approach_rw.launches += 1
+    return out
+
+
+def fused_approach_rw(h, C, vel_field, start: int, n: int, cfg, fields, acc, plan=None):
+    """`fused_approach` through the row kernel: n steps of the whole grid in
+    one cooperative launch, a run of whole rows a block (one an SM), its
+    window by bulk copies, the tip tabled once a window cell and step, one
+    grid barrier a step; ``plan`` (an `RwPlan`) forces the runs, None takes
+    `rw_plan`'s for the card. Reads no C. Raises before launch on rows that
+    are not 16-byte multiples or a grid with no plan, and from the launcher
+    on a plan over the card's co-resident limit."""
+    if h.device.type == "cpu":
+        nruns = None if plan is None else RwPlan(*plan).nruns
+        h, C, (inflow_sum, current_sum, rec_u, rec_v) = fused_approach_rw_ref(
+            h, C, vel_field, start, n, cfg, fields, nruns)
+        acc[0] += inflow_sum
+        acc[1] += current_sum
+        acc[2] = rec_u
+        acc[3] = rec_v
+        return h, C
+    dev = _check_rw(h, C, vel_field, start, n, cfg, fields, acc)
+    if plan is None:
+        plan = rw_plan(*cfg.eff_res, sm_count(dev))
+        if plan is None:
+            raise ValueError(f"fused_approach_rw: grid {cfg.eff_res} has no run plan on a card "
+                             f"of {sm_count(dev)} SMs (runs of <= {RW_CELLS} cells, one an SM)")
+    return _rw_launch(h, vel_field, start, n, cfg, fields, acc, dev, plan)
+
+
+def rw_info(device_index: int = 0):
+    """``(registers per thread, local bytes, threads a block, most cells a
+    run)`` of `fused_approach_rw`."""
+    fn = build.bind("fused_approach_rw", "jrl_fused_approach_rw_info", [_P] * 4)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device_index):
+        build.check(fn(*(ctypes.byref(x) for x in out)), "fused_approach_rw")
+    return tuple(x.value for x in out)
+
+
+def rw_shape(wrows: int, W: int, device_index: int = 0):
+    """The kernel's own ``(shared memory bytes of a block of wrows window
+    rows, co-resident blocks at that size)``, which `rw_plan` mirrors."""
+    fn = build.bind("fused_approach_rw", "jrl_fused_approach_rw_shape",
+                    [ctypes.c_int] * 2 + [_P] * 2)
+    out = [ctypes.c_int(0) for _ in range(2)]
+    with torch.cuda.device(device_index):
+        build.check(fn(int(wrows), int(W), *(ctypes.byref(x) for x in out)), "fused_approach_rw")
+    return tuple(x.value for x in out)
+
+
+def exact_div_count(ncols: int, device_index: int = 0, nfirst: int = 4):
+    """The card's proof of `csrc/exact_div.cuh`'s RcpDiv: for CS2F, CS4F,
+    sqrt(2) and r = x + 0.5 at each column x < ``ncols``, the float32
+    numerators (all 2^32 bit patterns) whose RcpDiv quotient differs from
+    ``__fdiv_rn``'s in any bit. Returns ``[(divisor, mismatches, reciprocal
+    not __frcp_rn's, [first mismatching patterns]), ...]``, the constants
+    first."""
+    nd = 3 + int(ncols)
+    dev = torch.device("cuda", device_index)
+    out = torch.zeros(2 * nd, dtype=torch.int64, device=dev)
+    first = torch.zeros(nd * nfirst, dtype=torch.int32, device=dev)
+    nrec = torch.zeros(nd, dtype=torch.int32, device=dev)
+    fn = build.bind("fused_approach_rw", "jrl_exact_div_count",
+                    [ctypes.c_int, _P, _P, _P, ctypes.c_int, _P])
+    with torch.cuda.device(dev):
+        build.check(fn(int(ncols), out.data_ptr(), first.data_ptr(), nrec.data_ptr(),
+                       int(nfirst), stream_of(dev)), "fused_approach_rw")
+    out, first, nrec = out.cpu().tolist(), first.cpu().view(-1, nfirst), nrec.cpu().tolist()
+    d32 = np.float32
+    divisors = [d32(1.0 / 3.0), d32((1.0 / 3.0) * (1.0 / 3.0)), d32(1.4142135623730951)]
+    divisors += [d32(x) + d32(0.5) for x in range(int(ncols))]
+    return [(float(divisors[k]), out[2 * k], bool(out[2 * k + 1]),
+             [f"{int(b) & 0xffffffff:#010x}" for b in first[k, :min(nrec[k], nfirst)]])
+            for k in range(nd)]
+
+
+# ---------------------------------------------------------------------------
 # Lanes: the approach of many lanes in one launch, one cluster a lane
 # ---------------------------------------------------------------------------
 
@@ -943,6 +1186,7 @@ fused_fluid_tl.launches = 0
 fused_balance_mc.launches = 0
 fused_approach_cl.launches = 0
 fused_approach_mc.launches = 0
+fused_approach_rw.launches = 0
 fused_approach_lanes.launches = 0
 
 
@@ -1011,7 +1255,9 @@ def make_fused_approach_runner(cfg, vel_field):
     `fused_approach` (`fused_route`'s kernel), with the stored velocity
     history ``vel_field`` ``[N, 2, H, W]`` bound here; ``acc`` as
     `models.jrl.make_approach_runner` returns it (sums over the n steps,
-    record velocities of the last)."""
+    record velocities of the last). On the row route (`fused_approach_rw`)
+    the state, frames, area and acc are checked once a run and the launches
+    go out unchecked."""
     _require_fit(cfg)
     frames = torch.as_tensor(vel_field, dtype=torch.float32).contiguous()
 
@@ -1019,8 +1265,16 @@ def make_fused_approach_runner(cfg, vel_field):
         h, C = state["h"], state["C"]
         acc = torch.zeros(4, dtype=torch.float32, device=h.device)
         s = int(start_step)
+        rows = None
+        if h.device.type == "cuda" and int(n) > 0 \
+                and _route("fused_approach", cfg, h.device, None) == "rows":
+            dev = _check_rw(h, C, frames, s, n, cfg, fields, acc)
+            rows = (dev, rw_plan(*cfg.eff_res, sm_count(dev)))
         for m in _chunks(n, cfg, "fused_approach"):
-            h, C = fused_approach(h, C, frames, s, m, cfg, fields, acc)
+            if rows:
+                h, C = _rw_launch(h, frames, s, m, cfg, fields, acc, *rows)
+            else:
+                h, C = fused_approach(h, C, frames, s, m, cfg, fields, acc)
             s += m
         acc_d = {
             "inflow_sum": acc[0],

@@ -57,8 +57,6 @@ def c_approach_ref(h, C, vel, step: int, cfg, fields, v=None, tau_D=None):
     rec_v))``. ``v`` and ``tau_D`` (0-d float32 tensors) override the
     config's tip speed and relaxation time, as the JAX package's
     parametrized step does."""
-    H, W = cfg.eff_res
-    dtype = cfg.dtype
     v = cfg.vel_obs_conv if v is None else v
     tau_D = cfg.tau_D if tau_D is None else tau_D
     mesh = fields["mesh"]
@@ -66,13 +64,7 @@ def c_approach_ref(h, C, vel, step: int, cfg, fields, v=None, tau_D=None):
     flags = _jrl._c_flags_at(cfg, fields["base_flags"], mesh, walks, walks_int, strict=True)
     phi = _jrl._c_tip_phi(cfg, mesh, walks)
     C = torch.where(flags == int(CellType.OBSTACLE), 0.0, C)
-
-    C_vel = vel * v
-    iy, ix = _jrl._iota(H, W, h.device)
-    tip_block = (iy < walks_int) & (ix < cfg.Rg_radius)
-    C_vel = torch.stack(
-        [torch.where(tip_block, 0.0, C_vel[0]), torch.where(tip_block, v, C_vel[1])]
-    ).to(dtype)
+    C_vel = convection_velocity(vel, walks_int, cfg, v)
 
     C, _, h = _stream.propagate(
         h, flags, phi_obs=phi, rho=C, vel=C_vel, inflow_density=0.0,
@@ -87,6 +79,20 @@ def c_approach_ref(h, C, vel, step: int, cfg, fields, v=None, tau_D=None):
     )
 
     return h, C, disk_integrals(C, C_vel, walks_int, cfg, fields)
+
+
+def convection_velocity(vel, walks_int: int, cfg, v):
+    """The approach step's convection velocity from the interpolated stored
+    velocity ``vel`` ``[2, H, W]`` at tip speed ``v``: ``vel * v``, with the
+    tip block (rows below ``walks_int``, columns below Rg) moving at
+    ``(0, v)``."""
+    H, W = cfg.eff_res
+    C_vel = vel * v
+    iy, ix = _jrl._iota(H, W, vel.device)
+    tip_block = (iy < walks_int) & (ix < cfg.Rg_radius)
+    return torch.stack(
+        [torch.where(tip_block, 0.0, C_vel[0]), torch.where(tip_block, v, C_vel[1])]
+    ).to(cfg.dtype)
 
 
 def _disk_row(arr, row: int, H: int, n: int):

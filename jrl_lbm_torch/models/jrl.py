@@ -666,8 +666,9 @@ def make_per_step_approach_runner(cfg: JRLCConfig, vel_field, route: str | None 
 
 def pick_approach_runner(cfg: JRLCConfig, vel_field):
     """The multi-step approach kernel's runner on a grid of at most
-    ``MAX_FUSED_CELLS`` cells (`fused_approach_cl`, `fused_approach_mc` or
-    `fused_approach`, as `fused_jrl.fused_route` picks), `c_approach_pass` once a step on a
+    ``MAX_FUSED_CELLS`` cells (`fused_approach_cl`, `fused_approach_mc`,
+    `fused_approach_rw` or `fused_approach`, as `fused_jrl.fused_route`
+    picks), `c_approach_pass` once a step on a
     larger grid; ``(state, fields, start_step, n) -> (state, acc)`` either
     way."""
     from jrl_lbm_torch.kernels import fused_jrl

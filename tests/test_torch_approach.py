@@ -317,25 +317,26 @@ def test_approach_band_needs_one_halo_row(shape, is_negative, H, C):
 
 # --- the route and the launch plan on an H100's limits ---
 
-@pytest.mark.parametrize("refine,route", [(1, "cluster"), (2, "clusters"), (4, "coop")])
+@pytest.mark.parametrize("refine,route", [(1, "cluster"), (2, "rows"), (4, "rows")])
 def test_approach_route_on_h100(refine, route):
     """The approach takes the cluster kernel where its 22 window planes fit
     one cluster at one cell a thread (the default 128x64: 16 bands of 8
-    rows, 56,320 bytes a block), the multi-cluster kernel at 256x128 (7
-    clusters of 16, one cell a thread: it beats the cooperative kernel with
-    every tip on an H100, PERF.md §6) and the cooperative kernel at 512x256
-    (66 clusters of 2 at two cells a thread lose to it), as the fluid phase
-    does; without the multi-cluster limits, the cooperative kernel at both."""
+    rows, 56,320 bytes a block) and the row kernel at 256x128 and 512x256
+    (``ROWS_MIN_CELLS``: it beats the multi-cluster kernel's 7 clusters of
+    16 at 256x128 and the cooperative kernel at 512x256, where 66 clusters
+    of 2 at two cells a thread lose, PERF.md §6), whatever the clusters
+    the card holds; a multi-cluster plan still exists at both grids."""
     H, W = T.JRLCConfig(shape="ethaline", refine=refine).eff_res
     assert F.fused_route("fused_approach", H, W, CLUSTER_MC) == route
-    assert F.fused_route("fused_approach", H, W, CLUSTER) == ("cluster" if refine == 1 else "coop")
+    assert F.fused_route("fused_approach", H, W, CLUSTER) == ("cluster" if refine == 1 else "rows")
     assert F.CLUSTER_PLANES["fused_approach"] == F.MC_PLANES["fused_approach"] == 22
     if refine == 1:
         assert F.cluster_shape("fused_approach", H, W, CLUSTER) == (16, 1, 22 * 10 * 64 * 4)
     else:
         want = {2: F.McPlan(7, 16, 1, 22 * 5 * 128 * 4), 4: F.McPlan(66, 2, 2, 22 * 6 * 256 * 4)}
         assert F.mc_plan("fused_approach", H, W, CLUSTER_MC) == want[refine]
-    assert F.fused_route("fused_approach", H, W, CLUSTER._replace(cluster=8)) == "coop"
+    assert F.fused_route("fused_approach", H, W, CLUSTER._replace(cluster=8)) == (
+        "coop" if refine == 1 else "rows")
 
 
 @pytest.mark.parametrize("H,W,sms,want", [

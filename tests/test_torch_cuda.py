@@ -200,7 +200,8 @@ ROUTE_KERNEL = {("fused_fluid", "coop"): "fused_fluid",
                 ("fused_fluid", "clusters"): "fused_fluid_mc",
                 ("fused_balance", "clusters"): "fused_balance_mc",
                 ("fused_approach", "clusters"): "fused_approach_mc",
-                ("fused_fluid", "tiles"): "fused_fluid_tl"}
+                ("fused_fluid", "tiles"): "fused_fluid_tl",
+                ("fused_approach", "rows"): "fused_approach_rw"}
 
 
 def _launched(name, route):
@@ -367,12 +368,13 @@ def test_cuda_fused_grid_over_coresident_limit_raises(cuda):
 def test_cuda_fused_route_by_grid(cuda):
     """The runners take the cluster kernels at 128x64, the multi-cluster
     balance at 256x128 and 512x256 (refine 2, 4), the fluid's tile kernel
-    at both, the multi-cluster approach at 256x128 and the cooperative one
-    at 512x256 (two cells a thread there), read from the launch counters; above the multi-step kernels' limit (1024x512) the approach
-    takes c_approach_pass, once a step."""
+    at both, the approach's row kernel at both, read from the launch
+    counters; above the multi-step
+    kernels' limit (1024x512) the approach takes c_approach_pass, once a
+    step."""
     for refine, route, route_c in ((1, ("cluster", "cluster"), "cluster"),
-                                   (2, ("tiles", "clusters"), "clusters"),
-                                   (4, ("tiles", "clusters"), "coop")):
+                                   (2, ("tiles", "clusters"), "rows"),
+                                   (4, ("tiles", "clusters"), "rows")):
         fc = T.JRLFluidConfig(res=RES, shape="ethaline", refine=refine)
         cc = T.JRLCConfig(res=RES, shape="ethaline", refine=refine)
         H, W = fc.eff_res
@@ -699,6 +701,161 @@ def test_cuda_fused_fluid_tl_refuses_bad_inputs(cuda):
             F.fused_fluid_tl(*x, 0, 2, cfg, fl, bad)
     torch.cuda.synchronize()
     assert not any(kernels.launches().values())
+
+
+# the approach's row kernel: the three tips at 256x128 and 512x256 (the
+# default case's approach at refine 2 and 4, the other tips at that grid)
+RW_GRIDS = TL_GRIDS
+
+
+def _rw_cfg(shape, res, **kw):
+    cfg = T.JRLCConfig(shape=shape, refine=res[0] // RES[0], **kw) if shape == "ethaline" \
+        else T.JRLCConfig(res=res, shape=shape, **kw)
+    assert cfg.eff_res == res
+    return cfg
+
+
+def _rw_equal_coop(dev, cfg, st, fields, start, n, vf, tag, plan=None):
+    """`fused_approach_rw` (``plan``, else the card's) over one n-step
+    launch against ``route="coop"``: h, C and acc bit for bit, one launch."""
+    accs = [torch.full((4,), 0.5, device=dev) for _ in range(2)]
+    n0 = F.fused_approach_rw.launches
+    got = F.fused_approach_rw(st["h"], st["C"], vf, start, n, cfg, fields, accs[0], plan=plan)
+    want = F.fused_approach(st["h"], st["C"], vf, start, n, cfg, fields, accs[1], route="coop")
+    for name, g, w in zip(("h", "C", "acc"), list(got) + accs[:1], list(want) + accs[1:]):
+        _equal(g, w, f"fused_approach_rw {tag} {name}")
+    torch.cuda.synchronize()
+    assert F.fused_approach_rw.launches == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,res", RW_GRIDS)
+def test_cuda_fused_approach_rw_equals_coop_bit_for_bit(cuda, shape, res):
+    """`fused_approach_rw` on the card's plan equals the cooperative
+    `fused_approach` bit for bit (h, C and the four sums) over a 1000-step
+    launch across a stored frame at the case's tip speed, one across tip
+    rows (0.005 rows a step), and one from step 2**24 - 5 on the history's
+    last frame (Pe small enough that the tip is inside the grid there)."""
+    cfg = _rw_cfg(shape, res)
+    st, fields = _noisy_c(cfg, cuda, 60)
+    v = cfg.vel_obs_conv
+    start = max(0, int(T.X_INTERVAL / v) - 500)
+    vf = _approach_vf(cfg, cuda, start + 1000, 61)
+    assert T.frame_pair(start + 999, v, 2**31)[0] > T.frame_pair(start, v, 2**31)[0]
+    _rw_equal_coop(cuda, cfg, st, fields, start, 1000, vf, f"{shape} {res} frames")
+    fast = _rw_cfg(shape, res, Re=4.0, Pe=0.005 * cfg.radius_obs / (0.5 / 3.0))
+    rows = [T.tip_walks(fast.inflow_height, x, fast.vel_obs_conv)[1] for x in (0, 999)]
+    assert rows[0] < rows[1] < res[0] - 1
+    st, fields = _noisy_c(fast, cuda, 62)
+    _rw_equal_coop(cuda, fast, st, fields, 0, 1000, _approach_vf(fast, cuda, 1000, 62),
+                   f"{shape} {res} tip rows")
+    small = _rw_cfg(shape, res, Pe=1e-5)
+    start = 2**24 - 5
+    assert 1 < T.tip_walks(small.inflow_height, start + 999, small.vel_obs_conv)[1] < res[0] - 1
+    vf = _approach_vf(small, cuda, 0, 63)[:2]
+    assert not T.frame_pair(start, small.vel_obs_conv, 2)[2]
+    st, fields = _noisy_c(small, cuda, 63)
+    _rw_equal_coop(cuda, small, st, fields, start, 1000, vf, f"{shape} {res} across 2**24")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,nruns", [((256, 128), 32), ((256, 128), 77), ((512, 256), 130)])
+def test_cuda_fused_approach_rw_on_forced_runs(cuda, res, nruns):
+    """Run plans other than the card's (runs of 8 rows, of 3-4 rows that do
+    not divide the grid, 130 runs of 3-4 rows at 512x256): bit for bit the
+    cooperative kernel over 300 steps with the wedge and the flat tip; and
+    the twin, run on the CPU, within the trajectory tolerances over 2
+    steps."""
+    H, W = res
+    plan = F.rw_plan_of(H, W, nruns)
+    assert plan is not None and plan != F.rw_plan(H, W, jrl_fluid.sm_count(cuda))
+    for shape in ("45degree", "cylinder"):
+        cfg = _rw_cfg(shape, res, Re=4.0, Pe=0.02 * _rw_cfg(shape, res).radius_obs / (0.5 / 3.0))
+        st, fields = _noisy_c(cfg, cuda, 64)
+        vf = _approach_vf(cfg, cuda, 310, 65)
+        _rw_equal_coop(cuda, cfg, st, fields, 7, 300, vf, f"{shape} {res} {nruns} runs", plan)
+    acc = torch.zeros(4, device=cuda)
+    h, C = F.fused_approach_rw(st["h"], st["C"], vf, 7, 2, cfg, fields, acc, plan=plan)
+    _, fl_cpu, _ = T.c_init(cfg, "cpu")
+    hr, Cr, ints = F.fused_approach_rw_ref(st["h"].cpu(), st["C"].cpu(), vf.cpu(), 7, 2, cfg,
+                                           fl_cpu, nruns)
+    _close(h.cpu(), hr, TRAJ_TOL["h"], f"fused_approach_rw vs twin {nruns} runs h")
+    _close(C.cpu(), Cr, TRAJ_TOL["C"], f"fused_approach_rw vs twin {nruns} runs C")
+    np.testing.assert_allclose(acc.cpu().numpy(), torch.stack(list(ints)).numpy(), **INT_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_approach_rw_runner_and_shape(cuda, monkeypatch):
+    """The runner at 512x256 (refine 4) goes through `fused_approach_rw`,
+    one launch a chunk, its arguments checked once a run, bit for bit the
+    cooperative kernel's chunks (h, C and the sums); the kernel's shared
+    memory is the host plan's (128 runs of 4 rows, one block an SM), with
+    no spills."""
+    cfg = _rw_cfg("ethaline", (512, 256))
+    st, fields = _noisy_c(cfg, cuda, 66)
+    H, W = cfg.eff_res
+    vf = _approach_vf(cfg, cuda, 3200, 67)
+    monkeypatch.setattr(F, "MAX_LAUNCH_CELL_STEPS", dict(F.MAX_LAUNCH_CELL_STEPS,
+                                                         fused_approach=64 * H * W))
+    kernels.reset_launches()
+    got, acc = F.make_fused_approach_runner(cfg, vf)(st, fields, 3011, 150)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in kernels.launches().items() if c} == {"fused_approach_rw": 3}
+    want, want_acc = dict(st), torch.zeros(4, device=cuda)
+    for a, m in ((3011, 64), (3075, 64), (3139, 22)):
+        want = dict(zip(("h", "C"), F.fused_approach(want["h"], want["C"], vf, a, m, cfg,
+                                                     fields, want_acc, route="coop")))
+    for k in ("h", "C"):
+        _equal(got[k], want[k], f"runner {k}")
+    _equal(torch.stack([acc[k] for k in ("inflow_sum", "current_sum", "rec_u", "rec_v")]),
+           want_acc, "runner sums")
+    sms = jrl_fluid.sm_count(cuda)
+    plan = F.rw_plan(H, W, sms)
+    assert plan == F.RwPlan(128, 6, F.rw_smem_bytes(6, 256))
+    nbytes, most = F.rw_shape(plan.wrows, W)
+    assert nbytes == plan.smem and most >= plan.nruns and plan.nruns <= sms
+    regs, local, threads, cells = F.rw_info()
+    assert local == 0 and 0 < regs and threads in (512, 1024) and cells == F.RW_CELLS, \
+        (regs, local, threads, cells)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_approach_rw_refuses_bad_inputs(cuda):
+    """Rows that are not 16-byte multiples raise before launch; a plan over
+    the co-resident limit, with runs over 1024 cells or a window that does
+    not hold its runs is refused by the launcher (nothing launched)."""
+    cfg = _rw_cfg("45degree", (512, 256))
+    st, fields = _noisy_c(cfg, cuda, 68)
+    vf = _approach_vf(cfg, cuda, 10, 69)
+    odd = T.JRLCConfig(res=(256, 126), shape="cylinder")
+    so, flo = _noisy_c(odd, cuda, 70)
+    acc = torch.zeros(4, device=cuda)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        F.fused_approach_rw(so["h"], so["C"], _approach_vf(odd, cuda, 10, 71), 0, 2, odd, flo,
+                            acc)
+    plan = F.rw_plan(512, 256, jrl_fluid.sm_count(cuda))
+    for bad, code in ((F.RwPlan(256, 4, F.rw_smem_bytes(4, 256)), "cudaError 720"),
+                      (F.RwPlan(64, 10, F.rw_smem_bytes(10, 256)), "cudaError"),
+                      (plan._replace(wrows=5), "cudaError")):
+        with pytest.raises(RuntimeError, match=code):
+            F.fused_approach_rw(st["h"], st["C"], vf, 0, 2, cfg, fields, acc, plan=bad)
+    torch.cuda.synchronize()
+    assert not any(kernels.launches().values())
+
+
+@pytest.mark.cuda
+def test_cuda_exact_division_equals_ieee_on_every_numerator(cuda):
+    """The proof of `csrc/exact_div.cuh`: the reciprocal policy's quotient
+    equals `__fdiv_rn`'s bit for bit for all 2^32 float32 bit patterns as
+    numerator, for CS2F, CS4F, sqrt(2) and r = x + 0.5 at every column x <
+    512 (1024x512's: a later kernel may use it there), each reciprocal the
+    divisor's `__frcp_rn`."""
+    proof = F.exact_div_count(512)
+    assert len(proof) == 3 + 512
+    assert [p[0] for p in proof[3:6]] == [0.5, 1.5, 2.5]
+    bad = [p for p in proof if p[1] or p[2]]
+    assert not bad, bad[:8]
 
 
 MC_LIBS = ("fused_fluid_mc", "fused_balance_mc", "fused_approach_mc")

@@ -39,9 +39,9 @@ H100_MC = H100._replace(active=(7, 15, 30, 66, 132))
 @pytest.mark.parametrize("res,refine,shape,route", [
     ((48, 32), 1, "cylinder", ("cluster", "cluster", "cluster")),
     ((128, 64), 1, "ethaline", ("cluster", "cluster", "cluster")),     # the default grid
-    ((128, 64), 2, "ethaline", ("tiles", "clusters", "clusters")),     # 256x128: 7 x 16
-    ((128, 64), 4, "ethaline", ("tiles", "clusters", "coop")),         # 512x256: 66 x 2, two cells
-    ((512, 256), 1, "45degree", ("tiles", "clusters", "coop")),
+    ((128, 64), 2, "ethaline", ("tiles", "clusters", "rows")),         # 256x128: 7 x 16
+    ((128, 64), 4, "ethaline", ("tiles", "clusters", "rows")),         # 512x256: 66 x 2, two cells
+    ((512, 256), 1, "45degree", ("tiles", "clusters", "rows")),
     ((512, 257), 1, "cylinder", ("coop", "clusters", "coop")),         # four cells a thread
     ((128, 64), 8, "ethaline", ("coop", "coop", "coop")),
 ])
@@ -52,8 +52,9 @@ def test_fused_route_by_grid_on_h100(res, refine, shape, route):
     kernels where the clusters the card holds at once take the grid at
     most ``MC_MAX_CPT`` cells a thread (the fluid and the approach one, the
     balance four), but the fluid's tile kernel from ``TILES_MIN_CELLS``
-    cells (512x256) up to the multi-step limit; the cooperative kernel
-    elsewhere."""
+    cells and the approach's row kernel from ``ROWS_MIN_CELLS`` (256x128
+    both) up to the multi-step limit, rows of 16 bytes' multiples; the
+    cooperative kernel elsewhere."""
     H, W = T.JRLFluidConfig(res=res, refine=refine, shape=shape).eff_res
     for name, want in zip(("fused_fluid", "fused_balance", "fused_approach"), route):
         assert F.fused_route(name, H, W, H100_MC) == want, (name, H, W)

@@ -6,8 +6,9 @@ tile from its own window, NaN beyond it) against `fused_fluid_ref` bit
 for bit over tile plans, tips, a tip-row crossing and step 2**24; against
 the JAX package's jnp step and its ``_make_jrl_fluid_kernel`` in TPU
 interpret mode; the route's choice by grid on an H100's limits; the
-host plan's coverage and shared memory. The kernel against the
-cooperative ``fused_fluid``, on a card, is in `test_torch_cuda.py`.
+host plan's coverage and shared memory. The 100-step case is
+`test_torch_fused_tiles_long.py`; the kernel against the cooperative
+``fused_fluid``, on a card, is in `test_torch_cuda.py`.
 
 Inputs come from the JAX init plus seeded numpy noise. Tolerances: the jnp
 step f and rho 1e-5, vel 2e-4 over 12 steps (ROADMAP); the interpreted
@@ -73,21 +74,6 @@ def _crossing(tc, n):
 
 
 # --- the twin, played tile by tile, against the whole-grid twin ---
-
-def test_tiles_over_100_steps_equal_the_whole_grid_twin():
-    """128x64, the wedge, 100 steps across tip rows, tiles of about 13 x 20
-    (10 bands x 4 strips: the first and last bands' windows wrap past the
-    grid's rows, the outer strips meet both walls): bit for bit
-    `fused_fluid_ref`, finite."""
-    _, tc, _, s, fl = _case("45degree", (128, 64))
-    plan = _plan((128, 64), 13, 20)
-    assert plan.nty[0] > 2 and plan.ntx > 2
-    rows = [T.tip_walks(tc.inflow_height, k, tc.vel_obs)[1] for k in (0, 99)]
-    assert rows[1] > rows[0]
-    x = (s["f"], s["rho"], s["vel"])
-    _equal(F.fused_fluid_tl_ref(*x, 0, 100, tc, fl, plan),
-           F.fused_fluid_ref(*x, 0, 100, tc, fl), "128x64 100 steps")
-
 
 @settings(max_examples=12, deadline=None)
 @given(R=st.integers(1, 43), S_=st.integers(4, 32), shape=st.sampled_from(

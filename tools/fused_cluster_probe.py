@@ -54,9 +54,25 @@ tiles: a build that stamps each tile's start and end
 tile's duration beside the tip-boundary cells it holds (fluid cells with a
 tip cell among their eight neighbours).
 
-    python3 tools/fused_cluster_probe.py [cl] [mc] [approach] [tiles]
+The approach's row kernel at 256x128 and 512x256 (``rows``; the
+ethaline, ``45degree`` and ``cylinder`` tips): from a state 3000 steps
+into the approach (cooperative kernel) on a stored velocity of random
+frames, µs/step of launches of the case's own length (``steps_per_launch``:
+32,768 steps at 256x128, 8,192 at 512x256, across stored frames), CUDA
+events, best of three, of ``fused_approach_rw`` on the card's plan
+(``rw_plan``) in both thread instances (1024 threads, one cell a thread;
+``-DJRL_RW_THREADS=512``, two) with the division policy on (the shipped
+reciprocals) and off (``-DJRL_RW_IEEE``), beside ``fused_approach`` and
+``fused_approach_mc`` on theirs, each timed launch bit for bit
+``fused_approach``'s (h, C and acc); then the split builds, timings only:
+no cell code (``-DJRL_RW_NO_CELLS``), the tip SDF at every geometry query
+instead of the table (``-DJRL_RW_SDF``) and IEEE division built with
+``-prec-div=false``; each build's registers and local bytes. These
+numbers set ``ROWS_MIN_CELLS`` and the instance the build keeps.
 
-runs the named parts (all four without arguments).
+    python3 tools/fused_cluster_probe.py [cl] [mc] [approach] [tiles] [rows]
+
+runs the named parts (all five without arguments).
 Builds into a temporary directory; prints one JSON line, last.
 """
 
@@ -64,11 +80,21 @@ import ctypes
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the row kernel's builds: the shipped one (1024 threads) first, then the
+# other thread instance and the policy off (bit for bit), then the split
+# builds (timings only)
+RW_BUILDS = (("shipped", []), ("512 threads", ["-DJRL_RW_THREADS=512"]),
+             ("IEEE division", ["-DJRL_RW_IEEE"]),
+             ("512 threads, IEEE division", ["-DJRL_RW_THREADS=512", "-DJRL_RW_IEEE"]),
+             ("no cell code", ["-DJRL_RW_NO_CELLS"]), ("SDF at every query", ["-DJRL_RW_SDF"]),
+             ("IEEE division, -prec-div=false", ["-DJRL_RW_IEEE", "-prec-div=false"]))
+RW_EXACT = 4  # the builds before this one compute the kernel's results
 
 
 def main() -> int:
@@ -85,11 +111,11 @@ def main() -> int:
         print("fused_cluster_probe: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    parts = set(sys.argv[1:]) or {"cl", "mc", "approach", "tiles"}
+    parts = set(sys.argv[1:]) or {"cl", "mc", "approach", "tiles", "rows"}
     mc_names = ("fused_fluid_mc", "fused_balance_mc", "fused_approach_mc")
     cl_names = ("fused_fluid_cl", "fused_balance_cl")
-    build.build_all(("fused_fluid", "fused_balance", "fused_approach", "fused_fluid_tl")
-                    + cl_names + mc_names)
+    build.build_all(("fused_fluid", "fused_balance", "fused_approach", "fused_fluid_tl",
+                     "fused_approach_rw") + cl_names + mc_names)
     tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
     builds = [(k, "approx_div", ["-prec-div=false"]) for k in cl_names + mc_names]
     builds += [(k, "no_far", ["-DJRL_MC_NO_FAR"]) for k in mc_names]
@@ -100,13 +126,16 @@ def main() -> int:
         builds += [("fused_fluid_tl", kind, flags) for kind, flags in (
             ("no_cells", ["-DJRL_FPT_NO_CELLS"]), ("sdf", ["-DJRL_FPT_SDF"]),
             ("approx_div", ["-prec-div=false"]), ("tile_ns", ["-DJRL_FTL_TILE_NS"]))]
+    if "rows" in parts:
+        builds += [("fused_approach_rw", kind, flags) for kind, flags in RW_BUILDS[1:]]
     jobs = []
     for k, kind, flags in builds:
-        out = os.path.join(tmp, f"{k}-{kind}.so")
+        out = os.path.join(tmp, f"{k}-{re.sub(r'[^A-Za-z0-9]+', '_', kind)}.so")
         jobs.append((k, kind, out, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", out,
              str(build.CSRC / f"{k}.cu")], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)))
-    libs = {"shipped": {k: build.load(k) for k in cl_names + mc_names + ("fused_fluid_tl",)}}
+    libs = {"shipped": {k: build.load(k) for k in cl_names + mc_names
+                        + ("fused_fluid_tl", "fused_approach_rw")}}
     for k, kind, out, proc in jobs:
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc {k} ({kind}): {proc.stderr.read().decode()}")
@@ -272,6 +301,8 @@ def main() -> int:
         approach(report, us_per_step, dev, libs)
     if "tiles" in parts:
         tiles(report, us_per_step, dev, libs)
+    if "rows" in parts:
+        rows(report, us_per_step, dev, libs)
     print(json.dumps(report), flush=True)
     return 0
 
@@ -496,6 +527,81 @@ def tile_wave(libs, tl_fn, s, start, n, fc, plan, dev):
             "mean us with / without tip edge": (sum(with_tip) / max(1, len(with_tip)),
                                                sum(without) / max(1, len(without))),
             "slowest five": sorted(rows, key=lambda r: -r["us"])[:5]}
+
+
+def rows(report, us_per_step, dev, libs):
+    """The rows part: `fused_approach_rw` (its builds, on the card's plan)
+    beside `fused_approach` and `fused_approach_mc` at both grids and tips."""
+    import torch
+
+    from jrl_lbm_torch.kernels import build
+    from jrl_lbm_torch.kernels import fused_jrl as F
+    from jrl_lbm_torch.kernels.jrl_fluid import _P, sm_count, stream_of
+    from jrl_lbm_torch.models import jrl as T
+
+    sms = sm_count(dev)
+    info = {}
+    for kind, _ in RW_BUILDS:
+        fn = getattr(libs[kind]["fused_approach_rw"], "jrl_fused_approach_rw_info")
+        fn.argtypes, fn.restype = [_P] * 4, ctypes.c_int
+        out = [ctypes.c_int(0) for _ in range(4)]
+        build.check(fn(*(ctypes.byref(x) for x in out)), "fused_approach_rw")
+        info[kind] = {"registers": out[0].value, "local bytes": out[1].value,
+                      "threads": out[2].value}
+    report["fused_approach_rw builds"] = info
+    print(f"fused_approach_rw builds: {info}", flush=True)
+
+    def rw_fn(kind):
+        fn = getattr(libs[kind]["fused_approach_rw"], "jrl_fused_approach_rw")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_P] * 9 + [ctypes.c_int] * 2 + [_P, _P]
+        return fn
+
+    start = 3000
+    for res in ((256, 128), (512, 256)):
+        H, W = res
+        plan = F.rw_plan(H, W, sms)
+        shapes = {}
+        for shape in ("ethaline", "45degree", "cylinder"):
+            cc = approach_cfg(T, shape, res)
+            n = F.steps_per_launch(cc, "fused_approach")
+            st, cf, _ = T.c_init(cc, dev)
+            vf = approach_frames(T, cc, start + n, dev)
+            acc = torch.zeros(4, device=dev)
+            h, C = F.fused_approach(st["h"], st["C"], vf, 0, start, cc, cf, acc, route="coop")
+            want_acc = torch.zeros(4, device=dev)
+            want = F.fused_approach(h, C, vf, start, n, cc, cf, want_acc, route="coop")
+            b0 = T.frame_pair(start, cc.vel_obs_conv, vf.shape[0])[0]
+            b1 = T.frame_pair(start + n - 1, cc.vel_obs_conv, vf.shape[0])[0]
+            rec = {"steps a launch": n, "frames crossed": b1 - b0, "plan": plan._asdict()}
+            for route, label in (("coop", "fused_approach"), ("clusters", "fused_approach_mc")):
+                rec[label] = us_per_step(
+                    lambda m, r=route: F.fused_approach(h, C, vf, start, m, cc, cf, acc, route=r),
+                    n)
+            params = F._rw_args(cc, plan, vf.shape[0])
+            out = [torch.empty_like(h), torch.empty_like(C)]
+            tmp = [torch.empty_like(h), torch.empty_like(C)]
+            got_acc = torch.zeros(4, device=dev)
+            for i, (kind, _) in enumerate(RW_BUILDS):
+                fn = rw_fn(kind)
+
+                def run(m, fn=fn):
+                    P, Q = (out, tmp) if m % 2 else (tmp, out)
+                    got_acc.zero_()
+                    build.check(fn(cf["base_flags"].data_ptr(), vf.data_ptr(),
+                                   cf["area"].data_ptr(), h.data_ptr(),
+                                   *(t.data_ptr() for t in P + Q), got_acc.data_ptr(), start,
+                                   m, ctypes.byref(params), stream_of(dev)),
+                                "fused_approach_rw")
+                rec[f"fused_approach_rw, {kind}"] = us_per_step(run, n)
+                if i < RW_EXACT:
+                    torch.cuda.synchronize()
+                    rec[f"fused_approach_rw, {kind}: bit for bit"] = all(
+                        torch.equal(a, b) for a, b in zip(out + [got_acc], list(want)
+                                                          + [want_acc]))
+            shapes[shape] = rec
+            print(f"rows {H}x{W} {shape}: {rec}", flush=True)
+        report[f"rows {H}x{W}"] = shapes
 
 
 if __name__ == "__main__":
