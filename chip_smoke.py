@@ -100,7 +100,9 @@ paths on one NVIDIA card and check them.
    against the host plan first: sub-steps in turn over the whole shard,
    one wave of tiles, one cooperative launch) on every shard of (1, 1),
    (2, 1) and (4, 1) at k = 1..4, the lean class on the shard above the
-   tip, bit for bit its twin run on the CPU and k steps of the A/B pair;
+   tip, and its column instance (2k lanes a side from the column blocks)
+   on every shard of (2, 2) and (1, 2), bit for bit its twin run on the
+   CPU and k steps of the A/B pair;
    the C passes ``c_balance_pass_sh`` and ``c_approach_pass_sh`` (their
    registers, spills and launch shape against the host plan first) on every
    shard of (1, 1) and (4, 1) at k = 1..4, bit for bit k steps of
@@ -109,18 +111,20 @@ paths on one NVIDIA card and check them.
    stored frame) and, at k = 1 and 4, their twins run on the CPU; the main
    path, the three
    sharded runners (``kernels/jrl_sharded.py``; each one pass launch a
-   shard and k-step pass on the row meshes, the per-step kernels on (2,
-   2)) over 200 steps each across tip rows and stored frames,
+   shard and k-step pass, the fluid on every mesh, the C phases on the row
+   meshes and their per-step kernels on (2, 2)) over 200 steps each across
+   tip rows and stored frames,
    counts zeroed just before each and read just after, bit for bit the
    unsharded per-step kernels (integrals rtol 2e-4 / atol 1e-4), µs/step,
    device µs/step, busy share, launches and exchanges a step beside the
-   per-step kernels' and, on the row meshes, beside the per-step route
-   (``route="launches"``) and the pass at k = 1 (one card: the cost of the
+   per-step kernels' and beside the fluid's per-step route
+   (``route="launches"``; on the row meshes the C phases' too and the
+   pass at k = 1) (one card: the cost of the
    halo exchange and the launches, not multi-card scaling); the (1, 1)
    mesh once more through a one-rank NCCL process group (``psum`` by
    ``all_reduce``), bit for bit the local mesh; ``fluid_pass_sh`` alone
-   (CUDA events, the L2 flushed, the median of three) on the (4, 1)
-   shard with the tip and on the (1, 1) grid at k = 1..4, the C passes
+   (CUDA events, the L2 flushed, the median of three) on the (4, 1) and
+   the (2, 2) shard with the tip and on the (1, 1) grid at k = 1..4, the C passes
    alone on that shard at k = 1..4,
    the other kernels' device µs per launch on a 512x256 shard (by events
    behind a sleep kernel where the profiler records no device time), each
@@ -265,7 +269,8 @@ paths on one NVIDIA card and check them.
    lane after lane, the records bit for bit equal), timed beside the
    lanes and one lane alone; the lanes kernel against its twin (h, C
    2e-5, the record sums rtol 2e-4 / atol 1e-4) beside its bound.
-7. Prints ``{"kernels": [...]}`` (49 rows: each kernel once, the five
+7. Prints ``{"kernels": [...]}`` (50 rows: each kernel once, the column
+   instance of ``fluid_pass_sh`` a row of its own, the five
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``; the
    cluster kernels and ``fused_approach`` timed on a 1000-step launch at
    128x64 (CUDA events), the cooperative fluid and balance on a 200-step
@@ -321,7 +326,7 @@ FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach"
                   "fluid_a_sh": 250, "fluid_b_sh": 400, "c_balance_sh": 230,
                   "c_approach_sh": 330, "halo_pack": 0,
                   # per shard cell and step: A + B (the 2k-row halo recompute not counted)
-                  "fluid_pass_sh": 650,
+                  "fluid_pass_sh": 650, "fluid_pass_sh_cols": 650,
                   # per shard cell and step: the balance; the approach + the lerp
                   "c_balance_pass_sh": 230, "c_approach_pass_sh": 335}
 PER_STEP = ("fluid_a", "fluid_b", "c_balance", "c_approach")
@@ -392,6 +397,11 @@ SOURCE = {
     # the shard=True mode of _make_fluid_k_kernel (its shard branch :1373-1383)
     "fluid_pass_sh": ("jrl_lbm_torch/kernels/csrc/fluid_pass_sh.cu",
                       "jrl_lbm_tpu/ops/pallas/fused_jrl_tiled.py:1349"),
+    # its column instance: k steps of the 2D-mesh route's _step_a (:136,
+    # its pallas_call :151) and _step_b (:166 -> :182) with their x windows
+    # (_xblocks :75) in one
+    "fluid_pass_sh_cols": ("jrl_lbm_torch/kernels/csrc/fluid_pass_sh.cu",
+                           "jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py:136"),
     "c_balance_sh": ("jrl_lbm_torch/kernels/csrc/c_balance_sh.cu",
                      "jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py:411"),
     "c_approach_sh": ("jrl_lbm_torch/kernels/csrc/c_approach_sh.cu",
@@ -726,7 +736,8 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "periodic": ("periodic_kernel",),
     "fluid_a_sh": ("fluid_a_sh_kernel",),
     "fluid_b_sh": ("fluid_b_sh_kernel",),
-    "fluid_pass_sh": ("fluid_pass_sh_tiles",),
+    "fluid_pass_sh": ("fluid_pass_sh_tiles", "fluid_pass_sh_cols"),
+    "fluid_pass_sh_cols": ("fluid_pass_sh_cols",),
     "c_balance_sh": ("c_balance_sh_kernel",),
     "c_approach_sh": ("c_approach_sh_kernel", "c_disk_sh_kernel"),
     "c_balance_pass_sh": ("c_balance_pass_sh_tiles",),
@@ -2096,10 +2107,15 @@ def tiled_checks(dev, fluid_cfg, errs):
 # The JRL case on a mesh of shards (kernels/jrl_sharded.py)
 # ---------------------------------------------------------------------------
 
-SHARDED = ("fluid_a_sh", "fluid_b_sh", "fluid_pass_sh", "c_balance_sh", "c_approach_sh",
-           "c_balance_pass_sh", "c_approach_pass_sh", "halo_pack")
+SHARDED = ("fluid_a_sh", "fluid_b_sh", "fluid_pass_sh", "fluid_pass_sh_cols", "c_balance_sh",
+           "c_approach_sh", "c_balance_pass_sh", "c_approach_pass_sh", "halo_pack")
+# the kernels the main path must launch: fluid_a_sh and fluid_b_sh are the
+# fluid's yardstick (route="launches") on every mesh since the column pass
+SH_PATH = tuple(k for k in SHARDED if k not in ("fluid_a_sh", "fluid_b_sh"))
 # the k-step passes of a shard: the kernel of each kind (jrl_sharded.PASS_LIBS)
-SH_PASSES = ("fluid_pass_sh", "c_balance_pass_sh", "c_approach_pass_sh")
+# and the fluid's column instance, counted by the fluid_pass_sh wrapper: its
+# launches on a column mesh (nx > 1) are the column instance's
+SH_PASSES = ("fluid_pass_sh", "fluid_pass_sh_cols", "c_balance_pass_sh", "c_approach_pass_sh")
 # the kernels each phase's route launches on every shard
 SH_ROUTE_KERNELS = {("fluid", "pass"): {"fluid_pass_sh"},
                     ("fluid", "launches"): {"fluid_a_sh", "fluid_b_sh"},
@@ -2108,6 +2124,9 @@ SH_ROUTE_KERNELS = {("fluid", "pass"): {"fluid_pass_sh"},
                     ("approach", "pass"): {"c_approach_pass_sh"},
                     ("approach", "launches"): {"c_approach_sh"}}
 SH_MESHES = ((1, 1), (4, 1), (2, 2))
+# the meshes whose every shard stage (a) holds to the pass's twin and the
+# pair beside the main path's: (2, 1) and (1, 2)
+SH_CHECK_MESHES = ((2, 1), (1, 2))
 SH_STEPS = 200
 # planes each sharded launch reads and writes in its shard's body, and the
 # planes of its halo group (kernels/halo.py)
@@ -2136,10 +2155,20 @@ def sh_bytes(k: str, sh) -> int:
 
 
 def cpu_halo(hx):
-    """A shard's halo row pieces copied to the CPU (a twin's inputs)."""
+    """A shard's halo row pieces and column blocks copied to the CPU (a
+    twin's inputs); None without either."""
     from jrl_lbm_torch.kernels import halo as HA
 
-    return None if hx.top is None else HA.Halo(hx.P, hx.top.cpu(), hx.bot.cpu(), k=hx.k)
+    if hx.top is None and hx.left is None:
+        return None
+    return HA.Halo(hx.P, *(None if t is None else t.cpu()
+                           for t in (hx.top, hx.bot, hx.left, hx.right)), k=hx.k)
+
+
+def inst_of(kname: str, nx: int) -> str:
+    """The row a sharded wrapper's launches count to: fluid_pass_sh's on a
+    column mesh (nx > 1) are its column instance's."""
+    return "fluid_pass_sh_cols" if kname == "fluid_pass_sh" and nx > 1 else kname
 
 
 def free_port() -> int:
@@ -2164,23 +2193,29 @@ def sharded_phases(dev, rate, errs):
     shard on ``dev``): (a) each sharded kernel and halo_pack against its
     twin, one launch on every shard (1e-5, vel 1e-4; the disk terms rtol
     2e-4 / atol 1e-4; halo_pack bit for bit), the lean pair on the (4, 1)
-    shards above the tip; on the row meshes and on (2, 1) fluid_pass_sh at
-    k = 1..4 against its twin and bit for bit k steps of the pair;
-    the C passes on the row meshes at k = 1..4 against k per-step launches
-    and their twins (check_c_pass);
+    shards above the tip; on these meshes and on (2, 1) and (1, 2)
+    fluid_pass_sh at k = 1..4 (on a column mesh its column instance)
+    against its twin and bit for bit k steps of the pair; the C passes on
+    the row meshes at k = 1..4 against k per-step launches and their twins
+    (check_c_pass);
     (b) the main path: the three sharded runners over 200 steps each (the
     fluid across tip rows, the approach across stored-velocity frames and
-    tip rows; each through its pass on the row meshes, the per-step kernels
-    on (2, 2)), counts zeroed just before each and read just after, against
-    the unsharded per-step runners: f, rho, vel, h, C bit for bit, the
+    tip rows; the fluid through its pass on every mesh, the C phases
+    through theirs on the row meshes and the per-step kernels on (2, 2)),
+    counts zeroed just before each and read just after, against the
+    unsharded per-step runners: f, rho, vel, h, C bit for bit, the
     integrals at rtol 2e-4 / atol 1e-4; µs/step, busy share, launches and
-    exchanges a step beside the per-step runners' and, on the row meshes,
-    each phase's yardsticks (``route="launches"``, the pass at k = 1)
+    exchanges a step beside the per-step runners' and each phase's
+    yardsticks (the fluid's ``route="launches"`` on every mesh; on the row
+    meshes the C phases' too and each pass at the other of k = 1 and 4)
     through the same checks (on one card this measures the halo exchange
     and the launches, not multi-card scaling); (c) the (1, 1) mesh once
     more through a one-rank NCCL process group (psum through all_reduce),
-    bit for bit the local mesh; (d) the three passes alone at k = 1..4, L2
-    flushed. Returns the eight kernels' rows and a report."""
+    bit for bit the local mesh; (d) the passes alone at k = 1..4, L2
+    flushed. Returns the nine kernels' rows (fluid_pass_sh's column
+    instance a row of its own, its launches those of fluid_pass_sh on the
+    (2, 2) main path) and a report."""
+    errs.setdefault("fluid_pass_sh_cols", [])
     from unittest import mock
 
     import torch
@@ -2217,6 +2252,21 @@ def sharded_phases(dev, rate, errs):
                 if shape_[:3] != want or plan.grid > shape_[3]:
                     fail(f"{pname_} {mshape} k={kp}: the kernel's shape {shape_} is not the host "
                          f"plan's {want} (grid {plan.grid})")
+    for kp in range(1, 5):  # the fluid's column instance on the (2, 2) shards
+        regs, local = S.pass_sh_info(kp, cols=True)
+        print(f"  fluid_pass_sh column instance k={kp}: {regs} registers, {local} local bytes",
+              flush=True)
+        if local:
+            fail(f"fluid_pass_sh column instance k={kp} spills: {local} local bytes")
+        for co in ((0, 0), (1, 1)):
+            plan = S.pass_sh_plan(S.Shard.of(H, W, (2, 2), co), kp, sms)
+            shape_ = S.pass_sh_tile_shape(kp, plan.rmax, plan.smax, cols=True)
+            print(f"    (2, 2) {co}: {plan}; threads, shared memory cap, a tile's bytes, "
+                  f"co-resident blocks {shape_}", flush=True)
+            if shape_[:3] != (S.TILE_THREADS, S.TILE_SMEM_CAP,
+                              S.tile_smem_bytes(plan.rmax, plan.smax)) or plan.grid > shape_[3]:
+                fail(f"fluid_pass_sh column instance (2, 2) {co} k={kp}: the kernel's shape "
+                     f"{shape_} is not the host plan's (grid {plan.grid})")
     s0, fl = T.fluid_init(fc, dev)
     s0 = noisy(s0, dev, 71, scale=1e-4)
     st0, cf, flags = T.c_init(cc, dev)
@@ -2265,34 +2315,36 @@ def sharded_phases(dev, rate, errs):
               f"{rec.get('busy_share', float('nan')):.1%}", flush=True)
 
     def check_pass(shape):
-        """The k-step pass (a row mesh) at k = 1..4 on every shard, both
-        classes where `lean_pass` holds: bit for bit its twin, run on the
-        CPU from the same inputs (on the card PyTorch's reductions sum in
-        another order: within 4e-7 there), and bit for bit k steps of the
-        A/B pair."""
+        """The k-step pass at k = 1..4 on every shard (a column mesh's
+        through the column instance, from 2k-row pieces and `pass_xh`-lane
+        blocks), both classes where `lean_pass` holds: bit for bit its twin,
+        run on the CPU from the same inputs (on the card PyTorch's
+        reductions sum in another order: within 4e-7 there), and bit for bit
+        k steps of the A/B pair."""
         k = 0
-        mesh = make_mesh(shape, [dev] * shape[0])
+        mesh = make_mesh(shape, [dev] * (shape[0] * shape[1]))
         shards = [S.Shard.of(H, W, shape, c) for c in mesh.local]
         L = range(len(shards))
         f, rho, vel = (split(s0[x], mesh) for x in ("f", "rho", "vel"))
+        cols = shape[1] > 1
+        kname = "fluid_pass_sh_cols" if cols else "fluid_pass_sh"
         for kp in range(1, 5):
-            hx = HA.exchange([[f[i], vel[i], rho[i]] for i in L], mesh, S.XH, rows=2 * kp)
+            hx = HA.exchange([[f[i], vel[i], rho[i]] for i in L], mesh,
+                             S.pass_xh(kp) if cols else 0, rows=2 * kp)
             pair = S.make_sharded_tiled_fluid_runner(fc, mesh, route="launches")(s0, fl, k, kp)
             for i, sh in enumerate(shards):
-                for lean in (False, True) if S.lean_pass(fc, sh, k, kp) else (False,):
+                for lean in (False, True) if not cols and S.lean_pass(fc, sh, k, kp) else (False,):
                     tag = f"{shape} {mesh.local[i]} k={kp}{' lean' if lean else ''}"
                     got = S.fluid_pass_sh(f[i], rho[i], vel[i], hx[i], k, kp, fc, fl, sh, lean)
-                    halo_c = None if hx[i].top is None else HA.Halo(
-                        12, hx[i].top.cpu(), hx[i].bot.cpu(), k=2 * kp)
-                    want = S.fluid_pass_sh_ref(f[i].cpu(), rho[i].cpu(), vel[i].cpu(), halo_c,
+                    want = S.fluid_pass_sh_ref(f[i].cpu(), rho[i].cpu(), vel[i].cpu(),
+                                               cpu_halo(hx[i]),
                                                k, kp, fc, None, sh, lean)
                     for nm, x, y in zip(("f", "rho", "vel"), got, want):
-                        check_close(f"fluid_pass_sh {tag} {nm}", x.cpu(), y, 0.0,
-                                    errs["fluid_pass_sh"])
+                        check_close(f"{kname} {tag} {nm}", x.cpu(), y, 0.0, errs[kname])
                     if not all(torch.equal(x, sh.body(pair[nm]))
                                for x, nm in zip(got, ("f", "rho", "vel"))):
-                        fail(f"fluid_pass_sh {tag}: not bit for bit {kp} steps of the A/B pair")
-                    print(f"  fluid_pass_sh {tag}: bit for bit its twin and {kp} steps of the A/B "
+                        fail(f"{kname} {tag}: not bit for bit {kp} steps of the A/B pair")
+                    print(f"  {kname} {tag}: bit for bit its twin and {kp} steps of the A/B "
                           f"pair", flush=True)
 
     ka = 27  # the approach pass's first step: k = 4 steps cross a tip row and a stored frame
@@ -2366,9 +2418,11 @@ def sharded_phases(dev, rate, errs):
                 print(f"  C passes {tag}: bit for bit {kp} steps of the per-step kernels"
                       f"{' and the twins' if twin else ''}", flush=True)
 
-    # the pass on the (2, 1) mesh, which the main path below does not take
-    print(" mesh (2, 1): fluid_pass_sh against its twin and the pair", flush=True)
-    check_pass((2, 1))
+    # the pass on the (2, 1) and (1, 2) meshes, which the main path below
+    # does not take
+    for shape in SH_CHECK_MESHES:
+        print(f" mesh {shape}: fluid_pass_sh against its twin and the pair", flush=True)
+        check_pass(shape)
 
     for shape in SH_MESHES:
         ny, nx = shape
@@ -2404,8 +2458,8 @@ def sharded_phases(dev, rate, errs):
                             S.fluid_b_sh(*a_ref[i], hb[i], k, fc, fl, sh, lean),
                             S.fluid_b_sh_ref(*a_ref[i], hb[i], k, fc, fl, sh, lean), 1e-5,
                             errs["fluid_b_sh"])
+        check_pass(shape)
         if nx == 1:
-            check_pass(shape)
             check_c_pass(shape)
         h, C, fls = split(st0["h"], mesh), split(st0["C"], mesh), split(flags, mesh)
         base, frames = split(cf["base_flags"], mesh), split(vf, mesh)
@@ -2431,9 +2485,10 @@ def sharded_phases(dev, rate, errs):
 
         # (b) the main path: the three sharded runners, counts zeroed just
         # before each and read just after; each through its route (the passes
-        # on row meshes at their default k, the per-step kernels on (2, 2)),
-        # and on row meshes the yardsticks: the per-step kernels
-        # (route="launches") and the pass at the other of k = 1 and 4
+        # at their default k; on (2, 2) the fluid's column pass and the C
+        # phases' per-step kernels), and the yardsticks: the fluid's per-step
+        # kernels (route="launches"), on row meshes the C phases' too and
+        # each pass at the other of k = 1 and 4
         sh_runs = {"fluid": S.make_sharded_tiled_fluid_runner(fc, mesh),
                    "balance": S.make_sharded_tiled_balance_runner(cc, flags, mesh),
                    "approach": S.make_sharded_tiled_approach_runner(cc, vf, mesh)}
@@ -2448,6 +2503,9 @@ def sharded_phases(dev, rate, errs):
                 alt = 1 if dk != 1 else S.PASS_SH_K
                 sh_runs[f"{phase} launches"] = mk[phase](route="launches")
                 sh_runs[f"{phase} k={alt}"] = mk[phase](k=alt)
+        else:
+            sh_runs["fluid launches"] = S.make_sharded_tiled_fluid_runner(fc, mesh,
+                                                                          route="launches")
         runs = {}
         for p_, r in sh_runs.items():
             phase = p_.split()[0]
@@ -2473,7 +2531,7 @@ def sharded_phases(dev, rate, errs):
                 fail(f"sharded {pname} {shape}: launched {counts}, expected {sorted(expect)}")
             if pname == phase:  # the main path's launches, not the yardsticks'
                 for x, c in counts.items():
-                    main_counts[x] += c
+                    main_counts[inst_of(x, nx)] += c
             if phase == "approach":
                 out, acc = out
                 _, acc_r = ref[phase]
@@ -2516,14 +2574,14 @@ def sharded_phases(dev, rate, errs):
                 if kname in ("fluid_a_sh", "fluid_b_sh"):
                     insts = {"": (f"{kname}_kernel<false>",), "lean": (f"{kname}_kernel<true>",)}
                 elif kname in SH_PASSES:
-                    insts = {f"k={run_.k}": (f"{KERNEL_FUNCS[kname][0]}<{run_.k}>",)}
+                    insts = {f"k={run_.k}": (f"{KERNEL_FUNCS[inst_of(kname, nx)][0]}<{run_.k}>",)}
                 for inst, names in insts.items():
                     us = sum(t for nm_, t in times.items() if any(x in nm_ for x in names))
                     lean_n = sum(lean_steps.values())
                     cnt = (lean_n if inst == "lean" else counts[kname] - lean_n) if kname in (
                         "fluid_a_sh", "fluid_b_sh") else counts[kname]
                     if cnt and us:
-                        per_launch[(kname, f"{ny}x{nx}", inst)] = us / cnt
+                        per_launch[(inst_of(kname, nx), f"{ny}x{nx}", inst)] = us / cnt
         # launches and bound of one step's launches on the last shard
         rep["bytes_per_launch"] = {x: sh_bytes(x, shards[-1]) for x in SH_PLANES}
 
@@ -2552,7 +2610,7 @@ def sharded_phases(dev, rate, errs):
     finally:
         dist.destroy_process_group()
 
-    for x in SHARDED:
+    for x in SH_PATH:
         if main_counts[x] < 1:
             fail(f"sharded main path: {x} was not launched")
     report["main_launches"] = main_counts
@@ -2592,7 +2650,8 @@ def sharded_phases(dev, rate, errs):
                       lambda: HA.halo_pack_ref(grp, ha[3].top, ha[3].bot, S.XH)),
     }
     # (d) fluid_pass_sh alone at the main path's shapes: a pass on the (4, 1)
-    # shard with the tip and on the (1, 1) grid, at k = 1..4;
+    # and the (2, 2) shard with the tip (the latter the column instance) and
+    # on the (1, 1) grid, at k = 1..4;
     # CUDA events around 20 launches queued behind a sleep kernel, the L2
     # flushed before each (a 128 MB write, its own time taken off), the
     # median of three such pairs (the profiler reads low after the NCCL
@@ -2600,14 +2659,16 @@ def sharded_phases(dev, rate, errs):
     print(f"fluid_pass_sh alone, L2 flushed (memory rate {rate / 1e12:.2f} TB/s):", flush=True)
     l2_flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
     alone = {}
-    for mshape, co in (((4, 1), (1, 0)), ((1, 1), (0, 0))):
-        mesh_ = make_mesh(mshape, [dev] * mshape[0])
+    co22 = (T.tip_walks(fc.inflow_height, 0, fc.vel_obs)[1] * 2 // H, 0)  # the tip's shard
+    for mshape, co in (((4, 1), (1, 0)), ((2, 2), co22), ((1, 1), (0, 0))):
+        mesh_ = make_mesh(mshape, [dev] * (mshape[0] * mshape[1]))
         psh = S.Shard.of(H, W, mshape, co)
         pf, prho, pvel = (split(s0[x], mesh_) for x in ("f", "rho", "vel"))
         pi = mesh_.local.index(co)
+        cols = mshape[1] > 1
         for kp in range(1, 5):
-            hx = HA.exchange([[pf[j], pvel[j], prho[j]] for j in range(len(pf))], mesh_, S.XH,
-                             rows=2 * kp)
+            hx = HA.exchange([[pf[j], pvel[j], prho[j]] for j in range(len(pf))], mesh_,
+                             S.pass_xh(kp) if cols else 0, rows=2 * kp)
             args = (pf[pi], prho[pi], pvel[pi], hx[pi], 0, kp, fc, fl, psh)
             scr = S.pass_sh_scratch(psh, kp, dev)  # the runner's, held across passes
             pairs = sorted(queued_ms(lambda: (l2_flush.zero_(),
@@ -2615,8 +2676,11 @@ def sharded_phases(dev, rate, errs):
                            - queued_ms(l2_flush.zero_, 20) for _ in range(3))
             ms = pairs[1]
             plain_ms = cuda_ms(lambda: S.fluid_pass_sh_ref(*args), 1, warmup=1)
-            # the shard's f, rho, vel in and out once, its 2k-row pieces of 12 planes in
-            nbytes = 4 * (24 * psh.h * psh.w + (2 * 12 * 2 * kp * psh.w if mshape[0] > 1 else 0))
+            # the shard's f, rho, vel in and out once, its 2k-row pieces of 12
+            # planes in, on a column mesh its 2k lanes a side of the rows
+            # extended by 2k (the blocks' lanes past 2k not counted)
+            nbytes = 4 * (24 * psh.h * psh.w + (2 * 12 * 2 * kp * psh.w if mshape[0] > 1 else 0)
+                          + (2 * 12 * (psh.h + 4 * kp) * 2 * kp if cols else 0))
             mem_ms = nbytes / rate * 1e3
             ops_ms = FLOPS_PER_CELL["fluid_pass_sh"] * psh.h * psh.w * kp / F32_PEAK * 1e3
             bound_ms = max(mem_ms, ops_ms)
@@ -2683,9 +2747,10 @@ def sharded_phases(dev, rate, errs):
     print(f"sharded kernels per launch on a 512x256 shard of the (2, 2) mesh (memory rate "
           f"{rate / 1e12:.2f} TB/s):", flush=True)
     for k in SHARDED:
-        if k in SH_PASSES:  # its row: the (4, 1) mesh's k on its shard with the tip
+        if k in SH_PASSES:  # its row: the (4, 1) or (2, 2) mesh's k on its shard with the tip
             a = alone[f"(4, 1) k={S.PASS_SH_K}" if k == "fluid_pass_sh" else
-                      f"{k} (4, 1) k={S.PASS_SH_K}"]
+                      f"(2, 2) k={S.default_k(S.Shard.of(H, W, (2, 2), co22))}"
+                      if k == "fluid_pass_sh_cols" else f"{k} (4, 1) k={S.PASS_SH_K}"]
             src, rep_ = SOURCE[k]
             rows.append({
                 "name": k, "route": "cuda", "source": src, "replaces": rep_,
@@ -4625,8 +4690,8 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows \
         + sweep_rows
-    if len(rows) != 49:
-        fail(f"{len(rows)} kernel rows, expected 49")
+    if len(rows) != 50:
+        fail(f"{len(rows)} kernel rows, expected 50")
     stamp("end")
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log,
                    "phase_start_s": marks})

@@ -6,7 +6,9 @@
 //   cut to the grid and rounded out to 16 bytes, pass_sh.cuh::ShTile), of
 //   12 planes (f 0-8, rho 9, u 10, v 11; the lean class: f alone) by
 //   cp.async.bulk counted on one mbarrier, one plane row a thread, from the
-//   rows the caller names (row_of(q, i): plane q of window row i);
+//   rows the caller names (row_of(q, i): plane q of window row i), or by
+//   the caller's copy of a window row (copy_row: the window of a column
+//   shard's first sub-step lies in three sources);
 // - the full class's geometry (flag with the tip bit, phi) of every window
 //   cell at the step, once, into a table (TileGeo);
 // - A on (R + 2) x (S + 2) cells (rows -1 .. R, columns one past the
@@ -31,6 +33,9 @@
 // at every query, the tip SDF evaluated each time, instead of the table:
 // the same values).
 #pragma once
+
+#include <cstddef>
+#include <type_traits>
 
 #include "pass_sh.cuh"
 
@@ -116,13 +121,17 @@ struct TileGeo {
 // at window row 2, window row 0 being global row ybase (mod H); `fg` the
 // step's geometry (unread by the lean class); tables of tiles of at most
 // rmax x smax B cells in `smem`; `bar_a` the block's mbarrier, whose phase
-// `parity` the tile flips.
-template <bool LEAN, class RowOf, class Store>
+// `parity` the tile flips. With a `copy_row`, copy_row(q, i, dst) copies
+// the window's columns [cx0, cx1) of plane q's window row i to the shared
+// words at `dst` in place of row_of's one copy (its bytes counted on
+// `bar_a`, after fence_proxy_async and, where it reads what other blocks
+// wrote, fence_proxy_async_global).
+template <bool LEAN, class RowOf, class Store, class CopyRow = std::nullptr_t>
 __device__ __forceinline__ void fluid_tile(const ShTile& tl, int ybase, const FluidGeo& fg,
                                            const FluidParams& pa, const FluidBParams& pb,
                                            int rmax, int smax, float* smem, uint32_t bar_a,
                                            uint32_t& parity, const RowOf& row_of,
-                                           const Store& store) {
+                                           const Store& store, const CopyRow& copy_row = {}) {
   constexpr int NPL = LEAN ? 9 : PASS_NP;  // planes of a window row
   const int H = pa.H, W = pa.W, tid = threadIdx.x;
   const FptLayout lay(rmax, smax);
@@ -142,10 +151,14 @@ __device__ __forceinline__ void fluid_tile(const ShTile& tl, int ybase, const Fl
   __syncthreads();
   for (int n = tid; n < NPL * wr; n += SH_THREADS) {
     const int q = n / wr, i = n - q * wr;
-    const float* const row = row_of(q, i);
-    fence_proxy_async();         // the block's reads of the tables before the copy
-    fence_proxy_async_global();  // the rows other blocks wrote before grid.sync
-    bulk_g2s(smem_addr(in + (q * WP + i) * RS), row + tl.cx0, 4u * (uint32_t)ncols, bar_a);
+    if constexpr (std::is_same_v<CopyRow, std::nullptr_t>) {
+      const float* const row = row_of(q, i);
+      fence_proxy_async();         // the block's reads of the tables before the copy
+      fence_proxy_async_global();  // the rows other blocks wrote before grid.sync
+      bulk_g2s(smem_addr(in + (q * WP + i) * RS), row + tl.cx0, 4u * (uint32_t)ncols, bar_a);
+    } else {
+      copy_row(q, i, in + (q * WP + i) * RS);
+    }
   }
   // the tip's values once per window cell and its padding row
 #if !defined(JRL_FPT_NO_GEO) && !defined(JRL_FPT_SDF)

@@ -13,7 +13,10 @@
 // second row stays inside a shard of h >= 2) and at most two columns (the
 // OUTFLOW column W-1 reads W-3; the approach's disk recomputes the new C
 // one column right of the shard), so xh = 2 lanes; a read farther out is
-// a bug of the caller.
+// a bug of the caller. A k-step pass of a column shard (fluid_pass_sh.cu)
+// reads 2k lanes and 2k rows beyond it instead, from blocks of
+// pass_sh.cuh::sh_pass_xh(k) lanes of the rows row0-2k .. row0+h+2k-1,
+// which its own window copy reads (not this accessor).
 #pragma once
 
 #include "jrl_common.cuh"
@@ -23,7 +26,8 @@ struct ShardGeom {
   int H, W;        // the global grid
   int h, w;        // the shard's body
   int row0, col0;  // its first global row and column
-  int xh;          // lanes of each column block; 0 when the mesh has one column
+  int xh;          // lanes of each column block (2; a pass: sh_pass_xh(k)); 0 when the
+                   // mesh has one column
 };
 
 namespace jrl {

@@ -1,6 +1,7 @@
-// A k-step pass (k = 1..4) of one shard of a row mesh in one cooperative
-// launch: the launch form of fluid_pass_sh.cu, shared with the C phases'
-// passes (c_balance_pass_sh.cu, c_approach_pass_sh.cu). One persistent grid
+// A k-step pass (k = 1..4) of one shard of a row mesh (the fluid's also of
+// a column mesh) in one cooperative launch: the launch form of
+// fluid_pass_sh.cu, shared with the C phases' passes (c_balance_pass_sh.cu,
+// c_approach_pass_sh.cu). One persistent grid
 // of SH_THREADS-thread blocks, one an SM, no larger than the co-resident
 // limit; sub-step j runs over the shard's rows extended by 2 (k - 1 - j) a
 // side (on a mesh of one row the whole grid, its rows wrapping) in tiles
@@ -77,7 +78,34 @@ struct ShTile {
     cx0 = max(sx0 - 2, 0) & ~3;
     cx1 = min((sx1 + 2 + 3) & ~3, W);
   }
+  // the same over a column shard's lanes [X0, X1) of the sub-step: the
+  // strips' inner ends on multiples of 4, the outer ones X0 and X1
+  // (kernels/jrl_sharded.py::tile_strip)
+  __device__ ShTile(int t, int nty, int ntx, int E, int X0, int X1, int W) {
+    const int ty = t / ntx, tx = t - ty * ntx, L = X1 - X0;
+    e0 = ty * E / nty;
+    e1 = (ty + 1) * E / nty;
+    sx0 = tx == 0 ? X0 : (X0 + tx * L / ntx) & ~3;
+    sx1 = tx + 1 == ntx ? X1 : (X0 + (tx + 1) * L / ntx) & ~3;
+    cx0 = max(sx0 - 2, 0) & ~3;
+    cx1 = min((sx1 + 2 + 3) & ~3, W);
+  }
 };
+
+// The B lanes [X0, X1) of sub-step j of a k-step pass of a column shard:
+// its columns extended by 2 (k - 1 - j) a side, cut to the grid (the x
+// edges reflect: nothing reads past them).
+__host__ __device__ __forceinline__ void sh_lanes(const ShardGeom& s, int k, int j, int& X0,
+                                                  int& X1) {
+  const int e = 2 * (k - 1 - j);
+  X0 = s.col0 - e > 0 ? s.col0 - e : 0;
+  X1 = s.col0 + s.w + e < s.W ? s.col0 + s.w + e : s.W;
+}
+
+// The column blocks' lanes of a k-step pass of a column shard: 2k rounded
+// up to a multiple of 4, so that every block row is whole 16-byte words
+// (and holds the first sub-step's window, 2k lanes rounded out to 16 bytes).
+__host__ __device__ __forceinline__ int sh_pass_xh(int k) { return 4 * ((2 * k + 3) / 4); }
 
 // orders generic-proxy writes to global memory that this thread has seen
 // (the other blocks' scratch rows, after grid.sync) before its async-proxy
@@ -118,19 +146,34 @@ int sh_coresident(int bytes, int* out) {
 // The checks of a pass's arguments on the host, cudaErrorInvalidValue or
 // 0: a shard of a row mesh, 2k rows within it where the mesh has more than
 // one row (the pieces' depth), the plan's tiles within the sub-steps' rows,
-// the scratch buffers the depth needs.
+// the scratch buffers the depth needs. With `cols`, a shard of a column
+// mesh too: 2k lanes within it, w % 4 == 0, 4k < W, blocks of
+// sh_pass_xh(k) lanes, the strips of every sub-step's lanes (sh_lanes)
+// within smax columns.
 inline int sh_plan_check(const ShardGeom& s, int k, const ShTilePlan& t, const float* scr0,
-                         const float* scr1) {
+                         const float* scr1, bool cols = false) {
   const int bad = (int)cudaErrorInvalidValue;
-  if (k < 1 || k > TILE_KMAX || s.W % 4 || s.w != s.W || s.col0 != 0 || s.xh != 0 ||
-      4 * k >= s.H || (s.h < s.H && 2 * k > s.h))
+  const bool col_shard = s.w != s.W;
+  if (k < 1 || k > TILE_KMAX || s.W % 4 || 4 * k >= s.H || (s.h < s.H && 2 * k > s.h))
     return bad;
-  if (t.ntx < 1 || t.ntx > s.W / 4 || t.rmax < 1 || t.rmax + 5 > s.H || t.smax < 4 ||
+  if (!col_shard && (s.col0 != 0 || s.xh != 0)) return bad;
+  if (col_shard && (!cols || s.w % 4 || s.col0 % 4 || s.col0 < 0 || s.col0 + s.w > s.W ||
+                    2 * k > s.w || 4 * k >= s.W || s.xh != sh_pass_xh(k)))
+    return bad;
+  int X0, X1;
+  sh_lanes(s, k, k - 1, X0, X1);
+  if (t.ntx < 1 || t.ntx > (X1 - X0) / 4 || t.rmax < 1 || t.rmax + 5 > s.H || t.smax < 4 ||
       t.smax % 4 || (k >= 2 && !scr0) || (k >= 3 && !scr1))
     return bad;
   for (int j = 0; j < k; ++j) {
     const int E = s.h == s.H ? s.H : s.h + 4 * (k - 1 - j);
     if (t.nty[j] < 1 || t.nty[j] > E || (E + t.nty[j] - 1) / t.nty[j] > t.rmax) return bad;
+    sh_lanes(s, k, j, X0, X1);
+    for (int tx = 0, L = X1 - X0; col_shard && tx < t.ntx; ++tx) {
+      const int a = tx == 0 ? X0 : (X0 + tx * L / t.ntx) & ~3;
+      const int b = tx + 1 == t.ntx ? X1 : (X0 + (tx + 1) * L / t.ntx) & ~3;
+      if (b - a > t.smax) return bad;
+    }
   }
   return 0;
 }

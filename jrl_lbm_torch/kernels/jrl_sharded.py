@@ -10,10 +10,13 @@ Replaces the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py`:
 ``_step_balance`` and ``_step_approach``; and the ``shard=True`` mode of
 `fused_jrl_tiled.py::_make_fluid_k_kernel` (k fused fluid steps of a
 shard from its 2k-row pieces), which no JAX runner builds: here
-`fluid_pass_sh`, the row-mesh fluid runner's default route (one
-cooperative launch a shard and k-step pass, the full or the lean class:
-the k sub-steps in turn over the whole shard, each in one wave of tiles
-on every SM, `pass_sh_plan`); and k launches of ``_step_balance`` or of
+`fluid_pass_sh`, the sharded fluid runner's default route (one
+cooperative launch a shard and k-step pass, the full or, on a row mesh,
+the lean class: the k sub-steps in turn over the whole shard, each in one
+wave of tiles on every SM, `pass_sh_plan`; on a column mesh the pass has
+the x window of JAX's 2D-mesh per-step route, ``_xblocks`` k steps deep:
+2k lanes a side from the 2k-row column blocks, corners included); and k
+launches of ``_step_balance`` or of
 ``_step_approach`` (with the jnp frame lerp before each) as one launch of
 `c_balance_pass_sh` or `c_approach_pass_sh`, the C runners' default route
 on a row mesh, on the same launch form (`csrc/pass_sh.cuh`). The runners
@@ -45,10 +48,10 @@ Where the JAX runner differs, and why:
 * ``unroll`` is the chunk over which the approach accumulates its disk
   partials before the one ``psum``; the fluid and balance runners accept
   it and ignore it;
-* on a row mesh each runner runs passes of k steps, each one exchange
-  of 2k-row pieces and one pass launch a shard, where JAX's runs its
-  kernels a step (``route="launches"`` here, and the route of column
-  meshes).
+* each runner runs passes of k steps, each one exchange of 2k-row
+  pieces (and on a column mesh 2k-lane blocks) and one pass launch a
+  shard, where JAX's runs its kernels a step (``route="launches"`` here;
+  the C runners' route of column meshes).
 
 A wrapper given tensors on the CPU runs its twin; given tensors on the
 card it launches the kernel or raises. ``fluid_a_sh.launches`` etc.
@@ -79,6 +82,13 @@ from jrl_lbm_torch.parallel.mesh import Mesh, gather, split
 
 XH = 2  # lanes of an x halo block: the cell code's reach (csrc/jrl_shard.cuh)
 _F32 = torch.float32
+
+
+def pass_xh(k: int) -> int:
+    """Lanes of a column shard's blocks for a k-step pass
+    (``pass_sh.cuh::sh_pass_xh``): its 2k-lane reach rounded up to a
+    multiple of 4, so that each block row is whole 16-byte words."""
+    return 4 * -(-2 * int(k) // 4)
 
 
 # ---------------------------------------------------------------------------
@@ -184,66 +194,92 @@ def fluid_b_sh_ref(f, rho, vel, halo: Halo, step: int, cfg, fields, sh: Shard, l
 
 
 def _check_depth(sh: Shard, k: int):
-    """A k-step pass serves a shard of a row mesh (1 <= k <= 4), its pieces
-    from one neighbour (2k <= h on a mesh of >1 row) and its window of
-    h + 4k rows holding each grid row once (4k < H)."""
+    """A k-step pass (1 <= k <= 4) serves a shard whose pieces come from
+    one neighbour (2k <= h on a mesh of >1 row, 2k <= w on a mesh of >1
+    column) and whose window of h + 4k rows holds each grid row once (4k <
+    H); a column shard's lanes as its rows (4k < W) and on 16-byte rows (w
+    % 4 == 0)."""
     if not 1 <= int(k) <= _tl.KMAX:
         raise ValueError(f"k = {k}: the pass takes 1 <= k <= {_tl.KMAX}")
-    if sh.w != sh.W:
-        raise ValueError("the k-step pass serves shards of a row mesh (JAX's shard mode has no "
-                         "x window); a column mesh takes the A/B pair")
     if (sh.h < sh.H and 2 * k > sh.h) or 4 * k >= sh.H:
         raise ValueError(f"k = {k} too deep for shards of {sh.h} of {sh.H} rows (2k <= h, "
                          f"4k < H)")
+    if sh.w < sh.W:
+        if sh.w % 4:
+            raise ValueError(f"shards of {sh.w} columns: the column pass copies 16-byte rows "
+                             f"(w % 4 == 0)")
+        if 2 * k > sh.w or 4 * k >= sh.W:
+            raise ValueError(f"k = {k} too deep for shards of {sh.w} of {sh.W} columns (2k <= w, "
+                             f"4k < W)")
 
 
 def _check_pass_sh(sh: Shard, halo: Halo | None, k: int, lean: bool):
     """`_check_depth`, and the shard's 2k-row pieces of [f, vel, rho] (none
-    on a mesh of one row); a lean pass on an inner shard."""
+    on a mesh of one row) and its blocks of `pass_xh` lanes of the rows
+    extended by 2k a side (none on a mesh of one column); a lean pass on an
+    inner shard of a row mesh."""
     _check_depth(sh, k)
     rows = halo is not None and halo.top is not None
-    if rows != (sh.h < sh.H) or (rows and (halo.k != 2 * k or halo.P != 12)):
+    cols = halo is not None and halo.left is not None
+    blocks = (12, sh.h + 4 * k, pass_xh(k))
+    if rows != (sh.h < sh.H) or cols != (sh.w < sh.W) or ((rows or cols) and (
+            halo.k != 2 * k or halo.P != 12)) or (cols and any(
+            tuple(t.shape) != blocks for t in (halo.left, halo.right))):
         raise ValueError(f"halo pieces do not match the shard's mesh: a mesh of >1 row needs the "
-                         f"{2 * k}-row pieces of [f, vel, rho] (12 planes)")
-    if lean and not (rows and 0 < sh.row0 and sh.row0 + sh.h < sh.H):
+                         f"{2 * k}-row pieces of [f, vel, rho] (12 planes), a mesh of >1 column "
+                         f"their {2 * k}-row blocks {blocks}")
+    if lean and not (rows and sh.w == sh.W and 0 < sh.row0 and sh.row0 + sh.h < sh.H):
         raise ValueError("the lean pass serves the inner shards of a row mesh of >= 3 rows")
 
 
-def _embed_rows(sh: Shard, body, halo: Halo | None, fill):
-    """The shard's ``[..., h, W]`` planes at their global rows of a
-    ``[..., H, W]`` grid of ``fill``, with its row pieces (``halo.k`` rows a
-    side, mod H) around them."""
-    dev = body.device
-    g = torch.full(tuple(body.shape[:-2]) + (sh.H, sh.W), fill, dtype=body.dtype, device=dev)
+def _embed_rows(sh: Shard, body, halo: Halo | None, fill, planes: slice = slice(None)):
+    """The shard's ``[..., h, w]`` planes ``body`` at their global places in
+    a ``[..., H, W]`` grid of ``fill``, with planes ``planes`` of its row
+    pieces (``halo.k`` rows a side, mod H) and of its column blocks' lanes
+    that lie inside the grid (their rows: the shard's extended by
+    ``halo.k`` a side, mod H; the shard's own on a mesh of one row). The
+    outer shards' ring lanes are left ``fill``: a pass never reads them."""
+    b = as_planes(body)
+    dev = b.device
+    g = torch.full((b.shape[0], sh.H, sh.W), fill, dtype=b.dtype, device=dev)
+    if halo is not None and halo.left is not None:
+        d, xh = halo.k, halo.left.shape[-1]
+        if sh.h == sh.H:
+            er, keep = torch.arange(sh.H, device=dev), slice(d, d + sh.h)
+        else:
+            er, keep = torch.arange(sh.row0 - d, sh.row0 + sh.h + d, device=dev) % sh.H, slice(None)
+        for blk, c0 in ((halo.left, sh.col0 - xh), (halo.right, sh.col0 + sh.w)):
+            lanes = torch.arange(c0, c0 + xh, device=dev)
+            inside = (lanes >= 0) & (lanes < sh.W)
+            g[:, er[:, None], lanes[inside][None, :]] = blk[planes, keep][..., inside]
+    cs = slice(sh.col0, sh.col0 + sh.w)
     if halo is not None and halo.top is not None:
         d = halo.k
-        g[..., torch.arange(sh.row0 - d, sh.row0, device=dev) % sh.H, :] = \
-            halo.top.reshape(g.shape[:-2] + (d, sh.W))
-        g[..., torch.arange(sh.row0 + sh.h, sh.row0 + sh.h + d, device=dev) % sh.H, :] = \
-            halo.bot.reshape(g.shape[:-2] + (d, sh.W))
-    g[..., sh.row0:sh.row0 + sh.h, :] = body
-    return g
+        g[:, torch.arange(sh.row0 - d, sh.row0, device=dev) % sh.H, cs] = \
+            halo.top[planes].reshape(-1, d, sh.w)
+        g[:, torch.arange(sh.row0 + sh.h, sh.row0 + sh.h + d, device=dev) % sh.H, cs] = \
+            halo.bot[planes].reshape(-1, d, sh.w)
+    g[:, sh.row0:sh.row0 + sh.h, cs] = b
+    return g.reshape(tuple(body.shape[:-2]) + (sh.H, sh.W))
 
 
 def fluid_pass_sh_ref(f, rho, vel, halo: Halo | None, step: int, k: int, cfg, fields, sh: Shard,
                       lean=False):
-    """Twin of `fluid_pass_sh`: the shard and its pieces embedded at their
-    global rows in a grid of NaN, and the port's tile-class pyramid
-    (`jrl_tiled.py::_pass_ref`, full or lean) on the shard's rows, which
-    reads the 2k rows beyond them a side and nothing else."""
+    """Twin of `fluid_pass_sh`: the shard, its pieces and its blocks'
+    lanes embedded at their global places in a grid of NaN, and the port's
+    tile-class pyramid (`jrl_tiled.py::_pass_ref`, full or lean) on the
+    shard's rows, which reads the 2k rows and lanes beyond them a side and
+    nothing else; the shard's columns of the result."""
     _check_pass_sh(sh, halo, k, lean)
     H, W = sh.H, sh.W
     dev = f.device
     nan = float("nan")
 
     def grid(body, planes):
-        b = as_planes(body)
-        pieces = None if halo is None or halo.top is None else \
-            Halo(b.shape[0], halo.top[planes], halo.bot[planes], k=halo.k)
-        return _embed_rows(sh, b, pieces, nan)
+        return _embed_rows(sh, body, halo, nan, planes)
 
     gf = grid(f, slice(0, 9))
-    gr, gv = (None, None) if lean else (grid(rho, slice(11, 12))[0], grid(vel, slice(9, 11)))
+    gr, gv = (None, None) if lean else (grid(rho, slice(11, 12)), grid(vel, slice(9, 11)))
     out = {"f": torch.full_like(gf, nan), "rho": torch.full((H, W), nan, device=dev),
            "vel": torch.full((2, H, W), nan, device=dev)}
     _tl._pass_ref("lean" if lean else "full", cfg, gf, gr, gv, out, [(sh.row0, sh.row0 + sh.h)],
@@ -482,6 +518,11 @@ class PassShSrc(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in ("f", "rho", "vel", "top", "bot")]
 
 
+class PassShCols(ctypes.Structure):
+    """Mirrors ``csrc/fluid_pass_sh.cu::FluidPassShCols``."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ("left", "right")]
+
+
 # threads a block (one block an SM) and the dynamic shared memory a block
 # may take, in every pass (csrc/pass_sh.cuh: SH_THREADS, SH_SMEM_CAP)
 TILE_THREADS = 512
@@ -515,20 +556,37 @@ def pass_sh_rows(sh: Shard, k: int):
     return [sh.H if sh.h == sh.H else sh.h + 4 * (k - 1 - j) for j in range(k)]
 
 
-def tile_strip(tx: int, ntx: int, W: int):
-    """``(sx0, sx1, cx0, cx1)`` of column strip ``tx`` of ``ntx``: the B
-    columns (ends on multiples of 4) and the window columns, two a side cut
-    to the grid and rounded out to 16 bytes (``FptTile``)."""
-    sx0 = (tx * W // ntx) & ~3
-    sx1 = W if tx + 1 == ntx else ((tx + 1) * W // ntx) & ~3
+def pass_sh_lanes(sh: Shard, k: int):
+    """B lanes ``(X0, X1)`` of each sub-step of a k-step pass
+    (``pass_sh.cuh::sh_lanes``): on a column mesh the shard's columns
+    extended by 2 (k - 1 - j) a side and cut to the grid; else the grid's
+    ``(0, W)``."""
+    k = int(k)
+    if sh.w == sh.W:
+        return [(0, sh.W)] * k
+    return [(max(sh.col0 - 2 * (k - 1 - j), 0), min(sh.col0 + sh.w + 2 * (k - 1 - j), sh.W))
+            for j in range(k)]
+
+
+def tile_strip(tx: int, ntx: int, W: int, X0: int = 0, X1: int | None = None):
+    """``(sx0, sx1, cx0, cx1)`` of column strip ``tx`` of ``ntx`` of the
+    lanes ``[X0, X1)`` (default the grid's): the B columns (inner ends on
+    multiples of 4, the outer ones X0 and X1) and the window columns, two a
+    side cut to the grid and rounded out to 16 bytes (``ShTile``)."""
+    X1 = W if X1 is None else X1
+    L = X1 - X0
+    sx0 = X0 if tx == 0 else (X0 + tx * L // ntx) & ~3
+    sx1 = X1 if tx + 1 == ntx else (X0 + (tx + 1) * L // ntx) & ~3
     return sx0, sx1, max(sx0 - 2, 0) & ~3, min((sx1 + 2 + 3) & ~3, W)
 
 
-def pass_sh_tile(t: int, nty: int, ntx: int, E: int, W: int):
+def pass_sh_tile(t: int, nty: int, ntx: int, E: int, W: int, X0: int = 0,
+                 X1: int | None = None):
     """``(e0, e1, sx0, sx1, cx0, cx1)`` of tile ``t`` of a sub-step of
-    ``E`` B rows: extended rows ``[e0, e1)`` x the strip's columns."""
+    ``E`` B rows and the lanes ``[X0, X1)``: extended rows ``[e0, e1)`` x
+    the strip's columns."""
     ty, tx = divmod(int(t), int(ntx))
-    return (ty * E // nty, (ty + 1) * E // nty) + tile_strip(tx, ntx, W)
+    return (ty * E // nty, (ty + 1) * E // nty) + tile_strip(tx, ntx, W, X0, X1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -541,13 +599,17 @@ class TilePlan:
     smax: int
     grid: int
 
-    def tiles(self, j: int, E: int, W: int):
-        return [pass_sh_tile(t, self.nty[j], self.ntx, E, W)
+    def tiles(self, j: int, E: int, W: int, X0: int = 0, X1: int | None = None):
+        return [pass_sh_tile(t, self.nty[j], self.ntx, E, W, X0, X1)
                 for t in range(self.nty[j] * self.ntx)]
 
 
-def _smax_of(ntx: int, W: int) -> int:
-    return max(tile_strip(t, ntx, W)[1] - tile_strip(t, ntx, W)[0] for t in range(ntx))
+def _smax_of(ntx: int, W: int, X0: int = 0, X1: int | None = None) -> int:
+    """The widest strip, rounded up to a multiple of 4 (the tables' rows
+    stay 16-byte aligned; a column shard's outer strips may end 2 past a
+    multiple of 4)."""
+    widest = max(b - a for a, b, _, _ in (tile_strip(t, ntx, W, X0, X1) for t in range(ntx)))
+    return -(-widest // 4) * 4
 
 
 # the plan's cost of a C cell (the balance's or the approach's step), per
@@ -597,25 +659,27 @@ def pass_sh_plan(sh: Shard, k: int, sms: int = _tl.PASS_SMS, kind: str = "fluid"
     R x S and window cells (R + 4) x (S + 8); a C tile's cells at
     ``C_TILE_COST``), with strips of at least 32 columns (the window rows'
     copies), each tile's tables within ``TILE_SMEM_CAP`` and its window (R
-    + 5 rows) within the grid's rows."""
+    + 5 rows) within the grid's rows. On a column mesh each sub-step's
+    strips cut its lanes (`pass_sh_lanes`), the widest sets the tables."""
     H, W, k = sh.H, sh.W, int(k)
     if kind not in PASS_KINDS:
         raise ValueError(f"kind {kind!r}: one of {PASS_KINDS}")
-    rows = pass_sh_rows(sh, k)
-    if W % 4 or W < 4:
-        raise ValueError(f"W = {W}: the tiles take W % 4 == 0")
+    rows, lanes = pass_sh_rows(sh, k), pass_sh_lanes(sh, k)
+    if W % 4 or W < 4 or sh.w % 4:
+        raise ValueError(f"W = {W}, w = {sh.w}: the tiles take W % 4 == 0 and w % 4 == 0")
     best = None
-    for ntx in range(1, max(1, W // 32) + 1):
-        S_ = _smax_of(ntx, W)
+    for ntx in range(1, max(1, min(X1 - X0 for X0, X1 in lanes) // 32) + 1):
+        widths = [_smax_of(ntx, W, X0, X1) for X0, X1 in lanes]
+        S_ = max(widths)
         total, nty = 0.0, []
-        for E in rows:
+        for E, Sj in zip(rows, widths):
             pick = None
             for R in range(1, min(E, H - 5, 256) + 1):
                 if pass_tile_bytes(kind, R, S_) > TILE_SMEM_CAP:
                     break
                 n = -(-E // R)
                 waves = -(-(n * ntx) // int(sms))
-                cost = waves * _tile_cost(kind, R, S_)
+                cost = waves * _tile_cost(kind, R, Sj)
                 if pick is None or (cost, n) < pick[:2]:
                     pick = (cost, n)
             if pick is None:
@@ -646,10 +710,12 @@ def tile_plan(sh: Shard, k: int, R: int, S_: int, sms: int = _tl.PASS_SMS) -> Ti
     about ``S_`` columns in place of `pass_sh_plan`'s (the CPU tests'
     schedules, the probe's tile shapes)."""
     H, W = sh.H, sh.W
-    rows = pass_sh_rows(sh, k)
-    ntx = min(max(1, -(-W // int(S_))), W // 4)
+    rows, lanes = pass_sh_rows(sh, k), pass_sh_lanes(sh, k)
+    L = min(X1 - X0 for X0, X1 in lanes)
+    ntx = min(max(1, -(-L // int(S_))), L // 4)
     nty = tuple(min(E, max(1, -(-E // int(R)))) for E in rows)
-    rmax, smax = max(-(-E // n) for E, n in zip(rows, nty)), _smax_of(ntx, W)
+    rmax = max(-(-E // n) for E, n in zip(rows, nty))
+    smax = max(_smax_of(ntx, W, X0, X1) for X0, X1 in lanes)
     if rmax + 5 > H or tile_smem_bytes(rmax, smax) > TILE_SMEM_CAP:
         raise ValueError(f"tiles of {R}x{S_}: rmax {rmax}, smax {smax} outgrow the grid or the "
                          f"shared memory")
@@ -662,25 +728,35 @@ def _pass_sh_params(cfg, sh: Shard, lean: bool, plan: TilePlan) -> PassShParams:
                         t=_tile_plan_struct(plan))
 
 
+def _scratch_rows_cols(sh: Shard, k: int):
+    """A scratch plane of a pass at depth k: the shard's rows extended by
+    2k a side (a mesh of one row: its ``H``) x ``W`` (a column shard: its
+    ``w`` columns and `pass_xh` lanes a side)."""
+    return (sh.H if sh.h == sh.H else sh.h + 4 * int(k),
+            sh.W if sh.w == sh.W else sh.w + 2 * pass_xh(k))
+
+
 def pass_sh_scratch(sh: Shard, k: int, device, planes: int = 12) -> torch.Tensor | None:
     """The scratch of a pass of ``sh`` at depth k or below: ``min(k - 1,
     2)`` buffers of ``planes`` planes (12 for the fluid's [f, rho, u, v],
     10 for the C passes' [h, C]) of the shard's rows extended by 2k a side
-    (a mesh of one row: its ``H`` rows) x ``W``; None at k = 1."""
+    (a mesh of one row: its ``H`` rows) x ``W`` (a column shard: ``w +
+    2 pass_xh(k)``); None at k = 1."""
     k = int(k)
     if k < 2:
         return None
-    rows = sh.H if sh.h == sh.H else sh.h + 4 * k
-    return torch.empty((min(k - 1, 2), int(planes), rows, sh.W), dtype=_F32, device=device)
+    return torch.empty((min(k - 1, 2), int(planes)) + _scratch_rows_cols(sh, k), dtype=_F32,
+                       device=device)
 
 
 def fluid_pass_sh(f, rho, vel, halo: Halo | None, step: int, k: int, cfg, fields, sh: Shard,
                   lean=False, scratch=None):
-    """k fluid steps (A then B each) of a shard of a row mesh from ``step``
-    in one launch; returns the shard's new ``(f, rho, vel)``. ``halo``: the
-    2k-row pieces of ``[f, vel, rho]`` (`halo.exchange` with ``rows=2k``;
-    None or no pieces on a mesh of one row); ``lean``: the lean class, for
-    an inner shard above the tip front for every step of the pass
+    """k fluid steps (A then B each) of a shard from ``step`` in one launch;
+    returns the shard's new ``(f, rho, vel)``. ``halo``: the 2k-row pieces
+    of ``[f, vel, rho]`` and, on a column mesh, their blocks of `pass_xh`
+    lanes (`halo.exchange` with ``rows=2k`` and ``xh=pass_xh(k)``; None or
+    neither on a mesh of one shard); ``lean``: the lean class, for an inner
+    shard of a row mesh above the tip front for every step of the pass
     (`lean_pass`); ``scratch``: the sub-steps' planes, `pass_sh_scratch`
     of the shard at this k or a deeper one (allocated here when None)."""
     if f.device.type == "cpu":
@@ -688,24 +764,34 @@ def fluid_pass_sh(f, rho, vel, halo: Halo | None, step: int, k: int, cfg, fields
     _check_pass_sh(sh, halo, k, lean)
     _check(sh, step)  # steps step .. step + k - 1 in int32
     dev = _check(sh, int(step) + int(k) - 1, f=(f, (9,)), rho=(rho, ()), vel=(vel, (2,)))
-    src = PassShSrc(f.data_ptr(), rho.data_ptr(), vel.data_ptr())
-    if halo is not None and halo.top is not None:
-        for name, t in (("top", halo.top), ("bot", halo.bot)):
-            if tuple(t.shape) != (12, 2 * k, sh.w) or t.dtype != _F32 or t.device != dev \
-                    or not t.is_contiguous():
-                raise ValueError(f"halo {name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
-                                 f"expected contiguous (12, {2 * k}, {sh.w}) float32 on {dev}")
-            setattr(src, name, t.data_ptr())
-    if sh.W % 4 or any(t % 16 for t in (src.f, src.rho, src.vel, src.top or 0, src.bot or 0)):
+    src, cols = PassShSrc(f.data_ptr(), rho.data_ptr(), vel.data_ptr()), None
+    pieces = [] if halo is None else [("top", halo.top, (12, 2 * k, sh.w)),
+                                      ("bot", halo.bot, (12, 2 * k, sh.w))]
+    if halo is not None and halo.left is not None:
+        cols = PassShCols()
+        pieces += [(x, getattr(halo, x), (12, sh.h + 4 * k, pass_xh(k))) for x in ("left", "right")]
+    for name, t, shape in pieces:
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.dtype != _F32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"halo {name}: {tuple(t.shape)} {t.dtype} on {t.device}, expected "
+                             f"contiguous {shape} float32 on {dev}")
+        setattr(src if name in ("top", "bot") else cols, name, t.data_ptr())
+    ptrs = [src.f, src.rho, src.vel, src.top or 0, src.bot or 0] + \
+        ([cols.left, cols.right] if cols else [])
+    if sh.W % 4 or any(t % 16 for t in ptrs):
         raise ValueError("fluid_pass_sh copies rows of 16-byte aligned planes (W % 4 == 0)")
-    p = _pass_sh_params(cfg, sh, bool(lean), pass_sh_plan(sh, int(k), _fl.sm_count(dev)))
+    # the kernel's ShardGeom carries a column shard's block lanes as xh
+    psh = sh if sh.w == sh.W else dataclasses.replace(sh, xh=pass_xh(k))
+    p = _pass_sh_params(cfg, psh, bool(lean), pass_sh_plan(sh, int(k), _fl.sm_count(dev)))
     scratch, scr = _scratch_ptrs(sh, k, 9 if lean else 12, scratch, dev)
     f_out, rho_out, vel_out = torch.empty_like(f), torch.empty_like(rho), torch.empty_like(vel)
-    fn = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh", [_P] * 6 + [ctypes.c_int] * 2
+    fn = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh", [_P] * 7 + [ctypes.c_int] * 2
                     + [_P, _P])
     with torch.cuda.device(dev):
-        err = fn(ctypes.byref(src), f_out.data_ptr(), rho_out.data_ptr(), vel_out.data_ptr(),
-                 scr[0], scr[1], int(step), int(k), ctypes.byref(p), stream_of(dev))
+        err = fn(ctypes.byref(src), None if cols is None else ctypes.byref(cols),
+                 f_out.data_ptr(), rho_out.data_ptr(), vel_out.data_ptr(), scr[0], scr[1],
+                 int(step), int(k), ctypes.byref(p), stream_of(dev))
     build.check(err, "fluid_pass_sh")
     fluid_pass_sh.launches += 1
     return f_out, rho_out, vel_out
@@ -725,7 +811,8 @@ def _scratch_ptrs(sh: Shard, k: int, planes: int, scratch, dev):
     nb = min(k - 1, 2)
     if scratch is None:
         scratch = pass_sh_scratch(sh, k, dev, planes)
-    need = planes * (sh.H if sh.h == sh.H else sh.h + 4 * k) * sh.W
+    rows, cols = _scratch_rows_cols(sh, k)
+    need = planes * rows * cols
     if scratch.dtype != _F32 or scratch.device != dev or not scratch.is_contiguous() \
             or scratch.dim() < 2 or scratch.shape[0] < nb or scratch[0].numel() < need:
         raise ValueError(f"scratch: {tuple(scratch.shape)} {scratch.dtype} on "
@@ -738,23 +825,33 @@ PASS_LIBS = {"fluid": "fluid_pass_sh", "balance": "c_balance_pass_sh",
              "approach": "c_approach_pass_sh"}
 
 
-def pass_sh_info(k: int, device_index: int = 0, kind: str = "fluid"):
+def _pass_entry(kind: str, cols: bool) -> str:
+    """The C entry prefix of the pass of ``kind``, its column instance
+    (the fluid's) with ``cols``."""
+    if cols and kind != "fluid":
+        raise ValueError(f"kind {kind!r} has no column instance")
+    return f"jrl_{PASS_LIBS[kind]}{'_cols' if cols else ''}"
+
+
+def pass_sh_info(k: int, device_index: int = 0, kind: str = "fluid", cols: bool = False):
     """``(registers per thread, local bytes)`` of the instance at depth k of
-    the pass of ``kind`` (`PASS_LIBS`)."""
+    the pass of ``kind`` (`PASS_LIBS`; ``cols``: the fluid's column
+    instance)."""
     lib = PASS_LIBS[kind]
-    fn = build.bind(lib, f"jrl_{lib}_info", [ctypes.c_int, _P, _P])
+    fn = build.bind(lib, f"{_pass_entry(kind, cols)}_info", [ctypes.c_int, _P, _P])
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
         build.check(fn(int(k), ctypes.byref(regs), ctypes.byref(local)), lib)
     return regs.value, local.value
 
 
-def pass_sh_tile_shape(k: int, rmax: int, smax: int, device_index: int = 0, kind: str = "fluid"):
+def pass_sh_tile_shape(k: int, rmax: int, smax: int, device_index: int = 0, kind: str = "fluid",
+                       cols: bool = False):
     """The kernel's own ``(threads, shared memory cap, bytes of an rmax x
     smax tile, co-resident blocks at that size)`` at depth k, which
     `pass_sh_plan` mirrors (`TILE_THREADS`, `TILE_SMEM_CAP`, `pass_tile_bytes`)."""
     lib = PASS_LIBS[kind]
-    fn = build.bind(lib, f"jrl_{lib}_tile_shape", [ctypes.c_int] * 3 + [_P] * 4)
+    fn = build.bind(lib, f"{_pass_entry(kind, cols)}_tile_shape", [ctypes.c_int] * 3 + [_P] * 4)
     out = [ctypes.c_int(0) for _ in range(4)]
     with torch.cuda.device(device_index):
         build.check(fn(int(k), int(rmax), int(smax), *(ctypes.byref(x) for x in out)), lib)
@@ -799,9 +896,13 @@ def shard_frames(vel_field, sh: Shard, reach: int, device=None, b0: int = 0,
 
 
 def _check_c_pass_sh(sh: Shard, halo: Halo | None, P: int, halo_fl: Halo | None, k: int):
-    """`_check_depth`; the shard's 2k-row pieces of the ``P`` planes of its
-    state group ([h, C] for the balance, [h] for the approach) and its flag
-    pieces, at least 2k rows deep (none on a mesh of one row)."""
+    """A shard of a row mesh (the C passes have no x window yet), `_check_depth`;
+    the shard's 2k-row pieces of the ``P`` planes of its state group ([h,
+    C] for the balance, [h] for the approach) and its flag pieces, at least
+    2k rows deep (none on a mesh of one row)."""
+    if sh.w != sh.W:
+        raise ValueError("the C passes serve shards of a row mesh; a column mesh takes the "
+                         "per-step kernels")
     _check_depth(sh, k)
     rows = sh.h < sh.H
     for name, hx, depth in (("state", halo, 2 * int(k)), ("flag", halo_fl, None)):
@@ -1074,40 +1175,60 @@ def lean_pass(cfg, sh: Shard, step: int, k: int) -> bool:
     return sh.row0 - 2 * k >= wi + 1 and sh.row0 + sh.h + 2 * k < sh.H
 
 
-# the routes of the sharded fluid runner: one fluid_pass_sh launch a shard
-# and k-step pass (row meshes), or fluid_a_sh + fluid_b_sh a step
+# the routes of the sharded runners: one pass launch a shard and k-step pass
+# (fluid_pass_sh on every mesh, the C passes on row meshes), or the per-step
+# kernels (fluid_a_sh + fluid_b_sh, c_balance_sh, c_approach_sh)
 FLUID_ROUTES = ("pass", "launches")
-# the default k of every pass on a row mesh (fluid_pass_sh,
-# c_balance_pass_sh, c_approach_pass_sh): the lowest wall of the (4, 1) and
+# the default k of every pass (fluid_pass_sh on every mesh, c_balance_pass_sh
+# and c_approach_pass_sh on row meshes): the lowest wall of the (4, 1) and
 # (1, 1) meshes at 1024x512 on an H100 (PERF.md §6; the fluid: 234.3-249.2
 # µs/step at k = 4 against 287.6-598.6 at k = 1..3 on (4, 1), where the host
 # sets the wall, 70.65-70.72 against 71.3-76.7 on (1, 1); the balance and
 # the approach on (4, 1): 132.9 and 264.3 at k = 4 against 191.2-602.9 and
 # 315.5-688.1 at k = 1..3; each bit for bit route="launches"; the device
-# time a step is within 10% at every k)
+# time a step is within 10% at every k); and of the fluid's column pass on
+# (2, 2) (tools/fluid_pass_sh_probe.py runner, two runs in one call, H100 at
+# 700 W: 247.6 and 380.8 µs/step at k = 4 against 301.2-527.3, 447.0-731.0
+# and 1030.7-1261.3 at k = 3, 2, 1; device 92.1-92.4 against 96.4-101.0;
+# route="launches" 1438.3-1890.8, device 150.6-150.8)
 PASS_SH_K = 4
 
 
 def default_k(sh: Shard) -> int:
-    """The k a row mesh's pass takes by default: `PASS_SH_K` or the deepest
-    k its shards take (`_check_depth`)."""
-    deep = sh.h // 2 if sh.h < sh.H else PASS_SH_K
-    return max(1, min(PASS_SH_K, deep, (sh.H - 1) // 4))
+    """The k a shard's pass takes by default: `PASS_SH_K` or the deepest k
+    its shards take (`_check_depth`: 2k <= h and 4k < H, on a column mesh
+    2k <= w and 4k < W)."""
+    deep = [PASS_SH_K, (sh.H - 1) // 4]
+    if sh.h < sh.H:
+        deep.append(sh.h // 2)
+    if sh.w < sh.W:
+        deep += [sh.w // 2, (sh.W - 1) // 4]
+    return max(1, min(deep))
 
 
-def fluid_route(mesh: Mesh, route: str | None = None, pair: str = "the A/B pair") -> str:
-    """The sharded fluid runner's route (and the C runners', ``pair`` naming
-    their per-step kernels): ``"pass"`` on a row mesh (``nx == 1``),
-    ``"launches"`` on a column mesh, whose x halo the pass has no window
-    for; ``route`` forces one."""
+def fluid_route(route: str | None = None) -> str:
+    """The sharded fluid runner's route: ``"pass"`` on every mesh (on a
+    column mesh with its x window); ``route`` forces one."""
+    if route is None:
+        return "pass"
+    if route not in FLUID_ROUTES:
+        raise ValueError(f"route {route!r}: one of {FLUID_ROUTES}")
+    return route
+
+
+def c_route(mesh: Mesh, route: str | None = None, pair: str = "the per-step kernels") -> str:
+    """The sharded C runners' route, ``pair`` naming their per-step
+    kernels: ``"pass"`` on a row mesh (``nx == 1``), ``"launches"`` on a
+    column mesh, whose x halo the C passes have no window for yet;
+    ``route`` forces one."""
     nx = mesh.shape[1]
     if route is None:
         return "pass" if nx == 1 else "launches"
     if route not in FLUID_ROUTES:
         raise ValueError(f"route {route!r}: one of {FLUID_ROUTES}")
     if route == "pass" and nx > 1:
-        raise ValueError(f"route 'pass' serves row meshes (nx == 1), not {mesh.shape}: a column "
-                         f"mesh takes {pair}")
+        raise ValueError(f"route 'pass' of the C phases serves row meshes (nx == 1), not "
+                         f"{mesh.shape}: a column mesh takes {pair}")
     return route
 
 
@@ -1136,14 +1257,14 @@ def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x
     """Sharded fluid runner ``(state, fields, start_step, n) -> state``
     with global ``f``, ``rho``, ``vel``, through `fluid_route`'s route:
 
-    * ``"pass"`` (row meshes, ``nx == 1``, the default there): per k-step
-      pass, one exchange of the 2k-row pieces of ``[f, vel, rho]`` and one
-      `fluid_pass_sh` launch a shard (the k steps of A and B in one
-      launch); the steps left over run as one pass at a smaller k;
-    * ``"launches"`` (column meshes, where JAX's shard mode has no x
-      window, and the yardstick on row meshes): per step, the f and vel
-      pieces, `fluid_a_sh` on every shard, the pieces of the post-moment
-      rho and vel, `fluid_b_sh`.
+    * ``"pass"`` (the default): per k-step pass, one exchange of the
+      2k-row pieces of ``[f, vel, rho]`` (on a column mesh with their
+      blocks of `pass_xh` lanes) and one `fluid_pass_sh` launch a shard
+      (the k steps of A and B in one launch); the steps left over run as
+      one pass at a smaller k;
+    * ``"launches"`` (the yardstick): per step, the f and vel pieces,
+      `fluid_a_sh` on every shard, the pieces of the post-moment rho and
+      vel, `fluid_b_sh`.
 
     ``k`` (1..4, default `default_k`): the steps a pass; the pair runs
     step by step. ``lean_split`` (row meshes with ny >= 3): a shard above the
@@ -1153,7 +1274,7 @@ def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x
     The result is the per-step kernels' bit for bit on either route."""
     shards = shard_plan(cfg, mesh, tile_rows, unroll, x_ext)
     ny, nx = mesh.shape
-    rt = fluid_route(mesh, route)
+    rt = fluid_route(route)
     kk = _run_k(shards, k, rt)
     lean_on = bool(lean_split) and nx == 1 and ny >= 3
 
@@ -1171,7 +1292,8 @@ def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x
                 kj = min(kk, end - s)
                 lean = [lean_on and lean_pass(cfg, sh, s, kj) for sh in shards]
                 count_lean(lean, kj)
-                hx = exchange([[f[i], vel[i], rho[i]] for i in L], mesh, XH, rows=2 * kj)
+                hx = exchange([[f[i], vel[i], rho[i]] for i in L], mesh,
+                              pass_xh(kj) if nx > 1 else 0, rows=2 * kj)
                 out = [fluid_pass_sh(f[i], rho[i], vel[i], hx[i], s, kj, cfg, fields, shards[i],
                                      lean[i], scratch=scr[i]) for i in L]
                 f, rho, vel = ([o[x] for o in out] for x in range(3))
@@ -1200,7 +1322,7 @@ def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x
 def make_sharded_tiled_balance_runner(cfg, flags, mesh: Mesh, tile_rows=None, unroll=8,
                                       x_ext=None, route=None, k=None):
     """Sharded balance runner ``(state, fields, n) -> state`` with global
-    ``h``, ``C``, through `fluid_route`'s route:
+    ``h``, ``C``, through `c_route`'s route:
 
     * ``"pass"`` (row meshes, the default there): per k-step pass, one
       exchange of the 2k-row pieces of ``[h, C]`` and one
@@ -1213,7 +1335,7 @@ def make_sharded_tiled_balance_runner(cfg, flags, mesh: Mesh, tile_rows=None, un
     pass). ``k`` (1..4, default `default_k`): the steps a pass. The result
     is the per-step kernels' bit for bit on either route."""
     shards = shard_plan(cfg, mesh, tile_rows, unroll, x_ext)
-    rt = fluid_route(mesh, route, "c_balance_sh a step")
+    rt = c_route(mesh, route, "c_balance_sh a step")
     kk = _run_k(shards, k, rt)
 
     def run(state, fields, n: int):
@@ -1249,7 +1371,7 @@ def make_sharded_tiled_approach_runner(cfg, vel_field, mesh: Mesh, tile_rows=Non
                                        x_ext=None, route=None, k=None):
     """Sharded approach runner ``(state, fields, start_step, n) -> (state,
     acc)`` with global ``h``, ``C`` and the integrals of
-    `models/jrl.py::make_approach_runner`, through `fluid_route`'s route:
+    `models/jrl.py::make_approach_runner`, through `c_route`'s route:
 
     * ``"pass"`` (row meshes, the default there): each shard's frames are
       cut once, with 2k reach rows a side (`shard_frames`); per k-step
@@ -1270,7 +1392,7 @@ def make_sharded_tiled_approach_runner(cfg, vel_field, mesh: Mesh, tile_rows=Non
     if not (rint < cfg.Rg_radius and rint < W - 1):
         # the disk's reads of the new C stay clear of the INFLOW_2 cells
         raise ValueError(f"tip disk rint={rint} must lie inside rg={cfg.Rg_radius} and W-1")
-    rt = fluid_route(mesh, route, "c_approach_sh a step")
+    rt = c_route(mesh, route, "c_approach_sh a step")
     kk = _run_k(shards, k, rt)
     vf = torch.as_tensor(vel_field, dtype=_F32)
     v = cfg.vel_obs_conv

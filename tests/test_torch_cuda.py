@@ -2241,12 +2241,11 @@ def test_cuda_sharded_runners_equal_per_step_kernels(cuda, mesh_shape):
     """The three sharded runners against the unsharded per-step kernels'
     runners: fluid over 60 steps (six tip rows), balance 40, approach 40
     across stored-velocity frames, f/rho/vel and h/C bit for bit; only the
-    sharded kernels and halo_pack launch (the fluid and the balance through
-    fluid_pass_sh and c_balance_pass_sh on the row mesh, the per-step
-    kernels on (2, 2))."""
+    sharded kernels and halo_pack launch (the fluid through fluid_pass_sh
+    on both meshes, the balance through c_balance_pass_sh on the row mesh
+    and its per-step kernel on (2, 2))."""
     fc, s, fl, cc, st, cf, flags, mesh, _ = _sh_setup(cuda, mesh_shape)
-    sharded = ({"fluid_pass_sh"} if mesh_shape[1] == 1 else {"fluid_a_sh", "fluid_b_sh"}) \
-        | {"halo_pack"}
+    sharded = {"fluid_pass_sh", "halo_pack"}
     kernels.reset_launches()
     got = S.make_sharded_tiled_fluid_runner(fc, mesh)(s, fl, 8, 60)
     torch.cuda.synchronize()
@@ -2360,8 +2359,8 @@ def test_cuda_fluid_pass_route_equals_launches(cuda, mesh_shape, k):
 @pytest.mark.cuda
 def test_cuda_fluid_pass_sh_refuses_bad_inputs(cuda):
     """Pieces of another depth or plane count, a lean pass off the inner
-    shards, a misaligned plane, a column mesh's shard and a scratch too
-    small for the pass raise before a launch."""
+    shards, a misaligned plane, a column mesh's shard without its blocks
+    and a scratch too small for the pass raise before a launch."""
     fc, s, fl, _, _, _, _, mesh, shards = _sh_setup(cuda, (4, 1))
     f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
     hx = HA.exchange([[f[i], vel[i], rho[i]] for i in range(4)], mesh, S.XH, rows=4)
@@ -2378,7 +2377,7 @@ def test_cuda_fluid_pass_sh_refuses_bad_inputs(cuda):
     odd = buf[1:].view_as(f[0]).copy_(f[0])
     with pytest.raises(ValueError, match="16-byte"):
         S.fluid_pass_sh(odd, rho[0], vel[0], hx[0], 8, 2, fc, fl, sh)
-    with pytest.raises(ValueError, match="column mesh"):
+    with pytest.raises(ValueError, match="do not match"):
         S.fluid_pass_sh(f[0], rho[0], vel[0], None, 8, 1, fc, fl,
                         S.Shard.of(*SH_RES, (2, 2), (0, 0)))
     with pytest.raises(ValueError, match="scratch"):
@@ -2404,6 +2403,129 @@ def test_cuda_fluid_pass_sh_refuses_a_plan_over_the_card(cuda):
         with mock.patch.object(S, "pass_sh_plan", return_value=bad):
             with pytest.raises(RuntimeError, match=match):
                 S.fluid_pass_sh(f[1], rho[1], vel[1], hx[1], 8, 2, fc, fl, sh)
+    assert S.fluid_pass_sh.launches == n0
+
+
+# --- the column meshes' pass (fluid_pass_sh_cols: fluid_pass_sh with its x window) ---
+
+COL_PASS_MESHES = [(2, 2), (1, 2)]
+
+
+def _col_exchange(mesh, f, rho, vel, k):
+    """The pass's halo on a column mesh: 2k-row pieces, `pass_xh` lanes."""
+    return HA.exchange([[f[i], vel[i], rho[i]] for i in range(len(f))], mesh, S.pass_xh(k),
+                       rows=2 * k)
+
+
+def _cpu_halo(hx):
+    """A halo's row pieces and column blocks on the CPU; None without either."""
+    if hx.top is None and hx.left is None:
+        return None
+    return HA.Halo(hx.P, *(None if t is None else t.cpu()
+                           for t in (hx.top, hx.bot, hx.left, hx.right)), k=hx.k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [8, 2**24 - 5])
+@pytest.mark.parametrize("mesh_shape", COL_PASS_MESHES)
+def test_cuda_fluid_pass_sh_cols_equals_twin_and_pair(cuda, mesh_shape, start):
+    """One launch of the column instance on every shard at k = 1..4 from
+    step 8 of the wedge and from 2**24 - 5 of a slow flat tip (the pass's
+    steps cross 2**24, as `test_cuda_sharded_fluid_from_step_2_24_minus_5`):
+    bit for bit its twin, run on the CPU from the same pieces and blocks,
+    and bit for bit k steps of the A/B pair (``route="launches"``)."""
+    fc, s, fl, _, _, _, _, mesh, shards = _sh_setup(cuda, mesh_shape)
+    if start > 8:
+        fc = T.JRLFluidConfig(res=SH_RES, Re=1.2e-5, shape="cylinder")
+        s, fl = T.fluid_init(fc, cuda)
+        rng = np.random.default_rng(25)
+        s = {k: v + torch.as_tensor((1e-3 * rng.standard_normal(tuple(v.shape)))
+                                    .astype(np.float32), device=cuda) for k, v in s.items()}
+    f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
+    for k in range(1, 5):
+        hx = _col_exchange(mesh, f, rho, vel, k)
+        pair = S.make_sharded_tiled_fluid_runner(fc, mesh, route="launches")(s, fl, start, k)
+        for i, sh in enumerate(shards):
+            tag = f"shard {mesh.local[i]} k={k} from {start}"
+            n0 = S.fluid_pass_sh.launches
+            got = S.fluid_pass_sh(f[i], rho[i], vel[i], hx[i], start, k, fc, fl, sh)
+            assert S.fluid_pass_sh.launches == n0 + 1
+            want = S.fluid_pass_sh_ref(f[i].cpu(), rho[i].cpu(), vel[i].cpu(), _cpu_halo(hx[i]),
+                                       start, k, fc, None, sh)
+            for name, g_, w_, p_ in zip(("f", "rho", "vel"), got, want,
+                                        (pair["f"], pair["rho"], pair["vel"])):
+                assert torch.equal(g_.cpu(), w_), f"{tag} {name}: twin"
+                assert torch.equal(g_, sh.body(p_)), f"{tag} {name}: pair"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_cuda_fluid_pass_route_on_2x2_equals_launches(cuda, k):
+    """The (2, 2) runner through the pass (its default route) over 50 steps
+    from step 8: bit for bit ``route="launches"`` and the unsharded
+    per-step runner; one fluid_pass_sh launch and one halo_pack (the rows'
+    and the columns' phase) a shard and pass."""
+    fc, s, fl, _, _, _, _, mesh, shards = _sh_setup(cuda, (2, 2))
+    n = 50
+    kernels.reset_launches()
+    run = S.make_sharded_tiled_fluid_runner(fc, mesh, k=k)
+    got = run(s, fl, 8, n)
+    torch.cuda.synchronize()
+    passes = -(-n // k)
+    assert run.route == "pass"
+    assert {x: c for x, c in kernels.launches().items() if c} == \
+        {"fluid_pass_sh": passes * 4, "halo_pack": 2 * passes * 4}
+    pair = S.make_sharded_tiled_fluid_runner(fc, mesh, route="launches")(s, fl, 8, n)
+    per_step = T.make_per_step_fluid_runner(fc)(s, fl, 8, n)
+    for name in ("f", "rho", "vel"):
+        assert torch.equal(got[name], pair[name]), f"k={k} {name}: launches"
+        assert torch.equal(got[name], per_step[name]), f"k={k} {name}: per-step"
+
+
+@pytest.mark.cuda
+def test_cuda_fluid_pass_sh_cols_registers_and_shape(cuda):
+    """The column instance at k = 1..4 spills nothing, and its launch shape
+    is the host plan's mirrors' on the (2, 2) shards."""
+    sms = jrl_fluid.sm_count(cuda)
+    for k in range(1, 5):
+        regs, local = S.pass_sh_info(k, cols=True)
+        assert local == 0 and 0 < regs <= 128, (k, regs, local)
+        for co in ((0, 0), (1, 1)):
+            plan = S.pass_sh_plan(S.Shard.of(*SH_RES, (2, 2), co), k, sms)
+            got = S.pass_sh_tile_shape(k, plan.rmax, plan.smax, cols=True)
+            assert got[:3] == (S.TILE_THREADS, S.TILE_SMEM_CAP,
+                               S.tile_smem_bytes(plan.rmax, plan.smax)) and plan.grid <= got[3]
+
+
+@pytest.mark.cuda
+def test_cuda_fluid_pass_sh_cols_refuses_bad_inputs(cuda):
+    """On a (2, 2) shard: blocks of 2 lanes or of another depth, no blocks,
+    the lean class, a misaligned block and a scratch of a row shard's
+    width raise before a launch; the C passes refuse the shard."""
+    fc, s, fl, cc, st, cf, flags, mesh, shards = _sh_setup(cuda, (2, 2))
+    f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
+    hx = _col_exchange(mesh, f, rho, vel, 2)
+    sh = shards[1]
+    n0 = S.fluid_pass_sh.launches
+    for bad in (HA.exchange([[f[i], vel[i], rho[i]] for i in range(4)], mesh, S.XH, rows=4)[1],
+                _col_exchange(mesh, f, rho, vel, 1)[1],
+                HA.Halo(12, hx[1].top, hx[1].bot, k=4)):
+        with pytest.raises(ValueError, match="do not match"):
+            S.fluid_pass_sh(f[1], rho[1], vel[1], bad, 8, 2, fc, fl, sh)
+    with pytest.raises(ValueError, match="row mesh"):
+        S.fluid_pass_sh(f[1], rho[1], vel[1], hx[1], 8, 2, fc, fl, sh, lean=True)
+    buf = torch.empty(hx[1].left.numel() + 1, device=cuda)
+    odd = buf[1:].view_as(hx[1].left).copy_(hx[1].left)
+    with pytest.raises(ValueError, match="16-byte"):
+        S.fluid_pass_sh(f[1], rho[1], vel[1], HA.Halo(12, hx[1].top, hx[1].bot, odd,
+                                                      hx[1].right, k=4), 8, 2, fc, fl, sh)
+    row_scr = S.pass_sh_scratch(S.Shard.of(*SH_RES, (2, 1), (0, 0)), 2, cuda)[:, :, :, :sh.w]
+    with pytest.raises(ValueError, match="scratch"):
+        S.fluid_pass_sh(f[1], rho[1], vel[1], hx[1], 8, 2, fc, fl, sh,
+                        scratch=row_scr.contiguous())
+    with pytest.raises(ValueError, match="row mesh"):
+        S.c_balance_pass_sh(split(st["h"], mesh)[1], split(st["C"], mesh)[1],
+                            split(flags, mesh)[1], None, None, 1, cc, cf, sh)
     assert S.fluid_pass_sh.launches == n0
 
 
@@ -2462,10 +2584,6 @@ def _approach_launches(cc, st, cf, mesh, shards, vf, b0, n_frames, start, k):
                                parts[i]) for i, sh in enumerate(shards)]
         h, C = [o[0] for o in out], [o[1] for o in out]
     return h, C, parts
-
-
-def _cpu_halo(hx):
-    return None if hx.top is None else HA.Halo(hx.P, hx.top.cpu(), hx.bot.cpu(), k=hx.k)
 
 
 @pytest.mark.cuda

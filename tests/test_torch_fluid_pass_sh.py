@@ -427,12 +427,15 @@ def test_pass_sh_scratch_serves_every_shallower_k():
 # --- argument checks ---
 
 def test_route_and_depth_checks():
-    """Column meshes take the pair, and refuse the pass; k outside 1..4, a
-    k whose 2k-row pieces outgrow the shard, pieces of another depth, a
-    lean pass off the inner shards and a column mesh's shard are refused."""
+    """Every mesh takes the pass (column meshes with its x window,
+    `test_torch_fluid_pass_sh_cols.py`), the C runners keep the per-step
+    kernels on a column mesh and refuse the pass there; k outside 1..4, a k
+    whose 2k-row pieces outgrow the shard, pieces of another depth, a lean
+    pass off the inner shards and a column mesh's shard without its blocks
+    are refused."""
     _, tc, _, s, fl = _case("45degree")
     H, W = tc.eff_res
-    assert S.make_sharded_tiled_fluid_runner(tc, _mesh((2, 2)), tile_rows=8).route == "launches"
+    assert S.make_sharded_tiled_fluid_runner(tc, _mesh((2, 2)), tile_rows=8).route == "pass"
     assert S.make_sharded_tiled_fluid_runner(tc, _mesh((1, 1))).route == "pass"
     # the default k: PASS_SH_K where the shards take it, one shard too
     assert S.make_sharded_tiled_fluid_runner(tc, _mesh((1, 1))).k == S.PASS_SH_K == 4
@@ -440,8 +443,10 @@ def test_route_and_depth_checks():
     assert S.make_sharded_tiled_fluid_runner(tc, _mesh((12, 1)), tile_rows=4).k == 2
     assert S.make_sharded_tiled_fluid_runner(tc, _mesh((2, 1)), route="launches").route == \
         "launches"
+    cc = T.JRLCConfig(res=RES, Re=4.0, Pe=5.0, shape="45degree")
     with pytest.raises(ValueError, match="row meshes"):
-        S.make_sharded_tiled_fluid_runner(tc, _mesh((2, 2)), tile_rows=8, route="pass")
+        S.make_sharded_tiled_balance_runner(cc, T.c_init(cc, "cpu")[2], _mesh((2, 2)),
+                                            tile_rows=8, route="pass")
     with pytest.raises(ValueError, match="one of"):
         S.make_sharded_tiled_fluid_runner(tc, _mesh((2, 1)), route="tiles")
     for k in (0, 5):
@@ -457,6 +462,6 @@ def test_route_and_depth_checks():
         S.fluid_pass_sh(f[0], rho[0], vel[0], hx[0], 0, 2, tc, fl, sh)
     with pytest.raises(ValueError, match="inner shards"):
         S.fluid_pass_sh(f[0], rho[0], vel[0], hx[0], 0, 1, tc, fl, sh, lean=True)
-    with pytest.raises(ValueError, match="column mesh"):
+    with pytest.raises(ValueError, match="do not match"):
         S.fluid_pass_sh(f[0], rho[0], vel[0], None, 0, 1, tc, fl,
                         S.Shard.of(H, W, (1, 2), (0, 0)))

@@ -6,25 +6,27 @@ card):
 
     python3 tools/fluid_pass_sh_probe.py [check] [time] [alone] [variants] [runner]
 
-``check``: the registers and local bytes at k = 1..4, the kernel's own
-launch shape against the host plan's mirrors (`jrl_sharded.TILE_THREADS`,
-``TILE_SMEM_CAP``, ``tile_smem_bytes`` and the co-resident limit), then
-one launch on every shard of the (1, 1), (2, 1) and (4, 1) meshes at k =
+``check``: the registers and local bytes at k = 1..4 of the row and the
+column instances, the kernel's own launch shape against the host plan's
+mirrors (`jrl_sharded.TILE_THREADS`, ``TILE_SMEM_CAP``,
+``tile_smem_bytes`` and the co-resident limit), then one launch on every
+shard of the (1, 1), (2, 1), (4, 1), (2, 2) and (1, 2) meshes at k =
 1..4, from steps 0 and 5 (and the lean class where `lean_pass` holds), at
 1024x512 and at 256x128 (45degree), through the plan and, at 1024x512,
 through the tile shapes of ``TILES`` (`jrl_sharded.tile_plan` in place of
 `pass_sh_plan`): bit for bit k steps of the A/B pair (the runner's
 ``route="launches"``), within 1e-4 of its twin on the card
 (`fluid_pass_sh_ref`: PyTorch's reductions sum in another order), and, at
-k = 1 and 4 on the meshes of >1 row, whether it equals the twin run on
+k = 1 and 4 on the meshes of >1 shard, whether it equals the twin run on
 the CPU bit for bit.
 
-``alone``: one pass alone on the (4, 1) shard with the tip (256x512) and
-on the (1, 1) grid at k = 1..4, through the plan and each tile shape of
-``TILES``, the (4, 1) mesh's other shards at k = 1 and 4, and one step of
-the A/B pair on the (4, 1) shard with the tip: CUDA events around 20
-launches queued behind a sleep kernel, the L2 flushed before each (a 128
-MB write, its own time taken off), the median of three.
+``alone``: one pass alone on the (4, 1) shard with the tip (256x512), on
+the (2, 2) shard with the tip (512x256) and on the (1, 1) grid at k =
+1..4, through the plan and each tile shape of ``TILES``, the (4, 1)
+mesh's other shards at k = 1 and 4, and one step of the A/B pair on the
+(4, 1) and the (2, 2) shard with the tip: CUDA events around 20 launches
+queued behind a sleep kernel, the L2 flushed before each (a 128 MB write,
+its own time taken off), the median of three.
 
 ``variants``: builds of `fluid_pass_sh.cu` with timing-only ``-D`` values
 (``VARIANTS``: without the cell code, and without the geometry as well,
@@ -34,7 +36,7 @@ which time the copies, the geometry and the barriers), each timed as
 ``time``: ``alone``, ``variants`` and ``runner`` in turn.
 
 ``runner``: the sharded fluid runner over 200 steps from step 0 on the
-(1, 1) and (4, 1) meshes through ``route="pass"`` at k = 1..4 and through
+(1, 1), (4, 1) and (2, 2) meshes through ``route="pass"`` at k = 1..4 and through
 ``route="launches"`` (the A/B pair), each bit for bit the unsharded
 per-step runner: wall µs/step (CUDA events around the 200 steps after 10
 warm-up steps, the best of three), host µs/step (the time the 200 steps
@@ -73,6 +75,10 @@ def fail(msg):
     sys.exit(1)
 
 
+# the meshes `check` holds every shard of
+CHECK_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2), (1, 2))
+
+
 def setup(dev, res, shape, refine):
     import chip_smoke as C
     from jrl_lbm_torch.models import jrl as T
@@ -97,6 +103,19 @@ def with_plan(sh, k, tile, sms):
     return mock.patch.object(S, "pass_sh_plan", return_value=planned(sh, k, tile, sms))
 
 
+def exchange_of(S, HA, mesh, f, rho, vel, k):
+    """The pass's halo of every shard: the 2k-row pieces of [f, vel, rho]
+    and, on a column mesh, their blocks of `pass_xh` lanes."""
+    xh = S.pass_xh(k) if mesh.shape[1] > 1 else 0
+    return HA.exchange([[f[i], vel[i], rho[i]] for i in range(len(f))], mesh, xh, rows=2 * k)
+
+
+def cpu_halo(HA, hx):
+    """A halo's pieces and blocks on the CPU."""
+    return HA.Halo(hx.P, *(None if t is None else t.cpu()
+                           for t in (hx.top, hx.bot, hx.left, hx.right)), k=hx.k)
+
+
 def shapes(dev):
     """Registers, spills and the launch shape against the host's mirrors."""
     import torch
@@ -106,14 +125,20 @@ def shapes(dev):
     rep = {"info": {}, "tile_shape": {}}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for k in range(1, 5):
-        info = S.pass_sh_info(k)
-        rep["info"][f"k={k}"] = info
-        print(f"  k={k}: registers, local bytes {info}", flush=True)
-        for mshape, co in (((4, 1), (1, 0)), ((1, 1), (0, 0))):
+        for cols in (False, True):
+            info = S.pass_sh_info(k, cols=cols)
+            rep["info"][f"{'cols ' if cols else ''}k={k}"] = info
+            print(f"  {'column instance ' if cols else ''}k={k}: registers, local bytes {info}",
+                  flush=True)
+            if info[1]:
+                fail(f"{'column instance ' if cols else ''}k={k} spills {info[1]} bytes")
+        for mshape, co in (((4, 1), (1, 0)), ((1, 1), (0, 0)), ((2, 2), (0, 0)),
+                           ((2, 2), (0, 1))):
+            cols = mshape[1] > 1
             plan = S.pass_sh_plan(S.Shard.of(1024, 512, mshape, co), k, sms)
-            got = S.pass_sh_tile_shape(k, plan.rmax, plan.smax)
-            rep["tile_shape"][f"{mshape} k={k}"] = {"plan": str(plan), "kernel": got}
-            print(f"  {mshape} k={k}: {plan}; threads, cap, bytes, co-resident {got}",
+            got = S.pass_sh_tile_shape(k, plan.rmax, plan.smax, cols=cols)
+            rep["tile_shape"][f"{mshape} {co} k={k}"] = {"plan": str(plan), "kernel": got}
+            print(f"  {mshape} {co} k={k}: {plan}; threads, cap, bytes, co-resident {got}",
                   flush=True)
             want = (S.TILE_THREADS, S.TILE_SMEM_CAP, S.tile_smem_bytes(plan.rmax, plan.smax))
             if got[:3] != want or plan.grid > got[3]:
@@ -135,14 +160,14 @@ def check(dev):
         fc, s0, fl = setup(dev, res, shape, refine)
         H, W = fc.eff_res
         s_cpu = {x: v.cpu() for x, v in s0.items()}
-        for mshape in ((1, 1), (2, 1), (4, 1)):
-            mesh = make_mesh(mshape, [dev] * mshape[0])
+        for mshape in CHECK_MESHES:
+            mesh = make_mesh(mshape, [dev] * (mshape[0] * mshape[1]))
             shards = [S.Shard.of(H, W, mshape, c) for c in mesh.local]
             f, rho, vel = (split(s0[x], mesh) for x in ("f", "rho", "vel"))
             for k in range(1, 5):
-                hx = HA.exchange([[f[i], vel[i], rho[i]] for i in range(len(shards))], mesh,
-                                 S.XH, rows=2 * k)
-                tiles = [None] + (list(TILES) if W == 512 and mshape != (2, 1) else [])
+                hx = exchange_of(S, HA, mesh, f, rho, vel, k)
+                tiles = [None] + (list(TILES) if W == 512 and mshape not in ((2, 1), (1, 2))
+                                  else [])
                 for step in (0, 5):
                     pair = S.make_sharded_tiled_fluid_runner(fc, mesh, route="launches")(
                         s0, fl, step, k)
@@ -158,8 +183,7 @@ def check(dev):
                                 # the twin on the CPU, from the same inputs
                                 cpu = S.fluid_pass_sh_ref(
                                     *(S.Shard.body(sh, s_cpu[x]) for x in ("f", "rho", "vel")),
-                                    HA.Halo(12, hx[i].top.cpu(), hx[i].bot.cpu(), k=2 * k),
-                                    step, k, fc, fl, sh, lean)
+                                    cpu_halo(HA, hx[i]), step, k, fc, fl, sh, lean)
                             for tile in tiles:
                                 with with_plan(sh, k, tile, sms):
                                     got = S.fluid_pass_sh(f[i], rho[i], vel[i], hx[i], step, k,
@@ -206,23 +230,22 @@ def alone(dev, tiles=(None,) + TILES, label=""):
                        - C.queued_ms(l2.zero_, 20) for _ in range(3))
         return pairs[1] * 1e3
 
-    for mshape, co in (((4, 1), (1, 0)), ((1, 1), (0, 0))):
-        mesh = make_mesh(mshape, [dev] * mshape[0])
+    for mshape, co in (((4, 1), (1, 0)), ((2, 2), tip_shard(fc, (2, 2))), ((1, 1), (0, 0))):
+        mesh = make_mesh(mshape, [dev] * (mshape[0] * mshape[1]))
         sh = S.Shard.of(H, W, mshape, co)
         f, rho, vel = (split(s0[x], mesh) for x in ("f", "rho", "vel"))
         i = mesh.local.index(co)
-        if mshape == (4, 1) and full:
-            ha = HA.exchange([[f[j], vel[j]] for j in range(4)], mesh, S.XH)
+        if mshape != (1, 1) and full:
+            ha = HA.exchange([[f[j], vel[j]] for j in range(len(f))], mesh, S.XH)
             a = S.fluid_a_sh(f[i], rho[i], vel[i], ha[i], 0, fc, fl, sh)
-            hb = HA.exchange([[rho[j], vel[j]] for j in range(4)], mesh, S.XH)
+            hb = HA.exchange([[rho[j], vel[j]] for j in range(len(f))], mesh, S.XH)
             ua = flushed_us(lambda: S.fluid_a_sh(f[i], rho[i], vel[i], ha[i], 0, fc, fl, sh))
             ub = flushed_us(lambda: S.fluid_b_sh(*a, hb[i], 0, fc, fl, sh))
             rep[f"{mshape} pair"] = {"a_us": ua, "b_us": ub, "us_per_step": ua + ub}
             print(f"  {mshape} A/B pair: {ua:.2f} + {ub:.2f} = {ua + ub:.2f} us a step",
                   flush=True)
         for k in range(1, 5):
-            hx = HA.exchange([[f[j], vel[j], rho[j]] for j in range(len(f))], mesh, S.XH,
-                             rows=2 * k)
+            hx = exchange_of(S, HA, mesh, f, rho, vel, k)
             scr = S.pass_sh_scratch(sh, k, dev)
             for tile in tiles:
                 with with_plan(sh, k, tile, sms):
@@ -244,6 +267,15 @@ def alone(dev, tiles=(None,) + TILES, label=""):
     return rep
 
 
+def tip_shard(fc, mshape):
+    """The shard of a mesh that holds the tip row's axis cell at step 0."""
+    from jrl_lbm_torch.models import jrl as T
+
+    H, W = fc.eff_res
+    wi = T.tip_walks(fc.inflow_height, 0, fc.vel_obs)[1]
+    return (wi * mshape[0] // H, 0)
+
+
 def variants(dev):
     """Timing-only -D builds of the kernel, each timed as ``alone``."""
     from jrl_lbm_torch.kernels import build
@@ -258,7 +290,7 @@ def variants(dev):
              str(build.CSRC / "fluid_pass_sh.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     rep = {}
-    shipped = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh", [ctypes.c_void_p] * 6
+    shipped = build.bind("fluid_pass_sh", "jrl_fluid_pass_sh", [ctypes.c_void_p] * 7
                          + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
     for label, (lib, proc) in procs.items():
         log, _ = proc.communicate()
@@ -279,6 +311,11 @@ def variants(dev):
     return rep
 
 
+# the meshes `runner` times (a tree before the column pass refuses
+# route="pass" on (2, 2): recorded as refused)
+RUNNER_MESHES = ((1, 1), (4, 1), (2, 2))
+
+
 def sweep(dev):
     import torch
 
@@ -291,10 +328,15 @@ def sweep(dev):
     fc, s0, fl = setup(dev, (128, 64), "ethaline", 8)
     want = T.make_per_step_fluid_runner(fc)(s0, fl, 0, STEPS)
     rep = {}
-    for mshape in ((1, 1), (4, 1)):
-        mesh = make_mesh(mshape, [dev] * mshape[0])
+    for mshape in RUNNER_MESHES:
+        mesh = make_mesh(mshape, [dev] * (mshape[0] * mshape[1]))
         for route, k in [("pass", k) for k in range(1, 5)] + [("launches", 1)]:
-            run = S.make_sharded_tiled_fluid_runner(fc, mesh, k=k, route=route)
+            try:
+                run = S.make_sharded_tiled_fluid_runner(fc, mesh, k=k, route=route)
+            except ValueError as e:
+                rep[f"{mshape} {route} k={k}"] = {"refused": str(e)}
+                print(f"  {mshape} {route} k={k}: refused ({e})", flush=True)
+                continue
             kernels.reset_launches()
             out = run(s0, fl, 0, STEPS)
             torch.cuda.synchronize()
