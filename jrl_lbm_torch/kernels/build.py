@@ -42,11 +42,17 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# Libraries built with --split-compile=0: nvcc optimises their kernels on
+# parallel threads, to the same machine code. The one here takes the
+# longest alone and would end every build_all well after the rest
+# (tools/build_times.py times both ways and compares the SASS).
+SPLIT = ("c_approach_pass_sh",)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 build_log: dict[str, str] = {}
+build_seconds: dict[str, float] = {}  # each library's nvcc in the last build_all
 
 
 def nvcc_path() -> str:
@@ -60,11 +66,16 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def nvcc_flags(name: str) -> list[str]:
+    """The ``nvcc`` flags of library ``name``."""
+    return NVCC_FLAGS + (["--split-compile=0"] if name in SPLIT else [])
+
+
 def _lib_file(name: str) -> Path:
     h = hashlib.sha256()
     for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -74,7 +85,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
@@ -91,17 +102,26 @@ def _finish(name: str, job) -> None:
 
 
 def build_all(names=NAMES) -> float:
-    """Build every library that is missing, all ``nvcc`` processes at once;
-    returns the seconds taken."""
+    """Build every library that is missing, all ``nvcc`` processes at once,
+    each library's seconds into `build_seconds`; returns the seconds
+    taken."""
     t0 = time.perf_counter()
     with _lock:
         jobs = {n: _start(n) for n in names}
         errors = []
-        for n, job in jobs.items():
+
+        def wait(n):
             try:
-                _finish(n, job)
+                _finish(n, jobs[n])
             except RuntimeError as e:
                 errors.append(str(e))
+            build_seconds[n] = time.perf_counter() - t0
+
+        waiters = [threading.Thread(target=wait, args=(n,)) for n in jobs]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
         if errors:
             raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0

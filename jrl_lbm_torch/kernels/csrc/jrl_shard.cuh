@@ -13,8 +13,9 @@
 // second row stays inside a shard of h >= 2) and at most two columns (the
 // OUTFLOW column W-1 reads W-3; the approach's disk recomputes the new C
 // one column right of the shard), so xh = 2 lanes; a read farther out is
-// a bug of the caller. A k-step pass of a column shard (fluid_pass_sh.cu)
-// reads 2k lanes and 2k rows beyond it instead, from blocks of
+// a bug of the caller. A k-step pass of a column shard (fluid_pass_sh.cu,
+// c_balance_pass_sh.cu, c_approach_pass_sh.cu) reads 2k lanes and 2k rows
+// beyond it instead, from blocks of
 // pass_sh.cuh::sh_pass_xh(k) lanes of the rows row0-2k .. row0+h+2k-1,
 // which its own window copy reads (not this accessor).
 #pragma once

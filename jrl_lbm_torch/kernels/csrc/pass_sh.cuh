@@ -1,5 +1,5 @@
-// A k-step pass (k = 1..4) of one shard of a row mesh (the fluid's also of
-// a column mesh) in one cooperative launch: the launch form of
+// A k-step pass (k = 1..4) of one shard of a row or a column mesh in one
+// cooperative launch: the launch form of
 // fluid_pass_sh.cu, shared with the C phases' passes (c_balance_pass_sh.cu,
 // c_approach_pass_sh.cu). One persistent grid
 // of SH_THREADS-thread blocks, one an SM, no larger than the co-resident
@@ -15,8 +15,8 @@
 //
 // Here: that launch form (the tile of a sub-step, the co-resident query
 // cached per device and tile size, the proxy fence), and for the C passes
-// their sources, the window copy (with the wrap column) and the window's
-// accessors.
+// their sources, the window copy (a row shard's with the wrap column, a
+// column shard's from its blocks) and the window's accessors.
 #pragma once
 
 #include <atomic>
@@ -47,7 +47,26 @@ struct CPassShSrc {
   const int* fl;        // [h][w]: the balance's flags, the approach's base flags
   const int* fl_top;    // [fl_rows][w] rows row0 - fl_rows .. row0 - 1
   const int* fl_bot;    // [fl_rows][w] rows row0 + h .. row0 + h + fl_rows - 1
-  const float* frames;  // the approach's frame window [N][2][vrows][w]
+  const float* frames;  // the approach's frame window [N][2][vrows][w] (a column
+                        // shard: [N][2][vrows][vcols], CPassShCols)
+};
+
+// Mirrors kernels/jrl_sharded.py::CPassShCols: what a C pass of a column
+// shard reads past its columns. The state group's blocks (halo.exchange's
+// left and right with rows = 2k): [P][h + 4k][xh], the columns col0 - xh ..
+// col0 - 1 and col0 + w .. col0 + w + xh - 1 (xh = sh_pass_xh(k)) of the rows
+// row0 - 2k .. row0 + h + 2k - 1; the flags' blocks, exchanged once a run at
+// its deepest pass: [h + 2 fl_rows][fl_xh], fl_xh >= xh; on a mesh of one
+// row the blocks' rows d .. d + h - 1 hold the shard's rows (d = 2k, fl_rows).
+// The approach's frame window holds lanes [col0 - vcol0, col0 - vcol0 +
+// vcols) of the grid: the shard's and 2k reach lanes a side, cut to the grid.
+struct CPassShCols {
+  const float* left;
+  const float* right;
+  const int* fl_left;
+  const int* fl_right;
+  int fl_xh;
+  int vcol0, vcols;
 };
 
 namespace jrl {
@@ -178,14 +197,30 @@ inline int sh_plan_check(const ShardGeom& s, int k, const ShTilePlan& t, const f
   return 0;
 }
 
-// sh_plan_check, and a C pass's pieces where the mesh has more than one
-// row: 2k rows of the state, at least 2k of the flags.
+// sh_plan_check on its column path, and a C pass's pieces where the mesh
+// has more than one row: 2k rows of the state, at least 2k of the flags; a
+// column shard's blocks (`cols`): the state's of sh_pass_xh(k) lanes
+// (s.xh), the flags' of at least as many (a multiple of 4) and at least 2k
+// rows, the frame window's lanes for the approach (`frames`).
 inline int c_pass_check(const ShardGeom& s, int k, const ShTilePlan& t, const CPassShSrc& src,
-                        int fl_rows, const float* scr0, const float* scr1) {
-  const int err = sh_plan_check(s, k, t, scr0, scr1);
+                        int fl_rows, const float* scr0, const float* scr1,
+                        const CPassShCols* cols = nullptr, bool frames = false) {
+  const int bad = (int)cudaErrorInvalidValue;
+  const int err = sh_plan_check(s, k, t, scr0, scr1, true);
   if (err) return err;
   if (s.h < s.H && (!src.top || !src.bot || !src.fl_top || !src.fl_bot || fl_rows < 2 * k))
-    return (int)cudaErrorInvalidValue;
+    return bad;
+  if (s.w == s.W) return 0;
+  if (!cols || !cols->left || !cols->right || !cols->fl_left || !cols->fl_right ||
+      cols->fl_xh < s.xh || cols->fl_xh % 4 || fl_rows < 2 * k)
+    return bad;
+  if (frames) {  // the shard's lanes and 2k a side, cut to the grid
+    const int x0 = s.col0 > 2 * k ? s.col0 - 2 * k : 0;
+    const int x1 = s.col0 + s.w + 2 * k < s.W ? s.col0 + s.w + 2 * k : s.W;
+    if (s.col0 - cols->vcol0 < 0 || s.col0 - cols->vcol0 > x0 ||
+        s.col0 - cols->vcol0 + cols->vcols < x1 || s.col0 - cols->vcol0 + cols->vcols > s.W)
+      return bad;
+  }
   return 0;
 }
 
@@ -226,6 +261,57 @@ __device__ __forceinline__ void c_copy_window(uint32_t in, int np, int wp, int r
     bulk_g2s(dst, row + 4 * cx0, 4u * (uint32_t)ncols, bar);
     if (wrap) bulk_g2s(dst + 4u * (uint32_t)ncols, row, 16u, bar);
   }
+}
+
+// A column shard's row r of a block of `lanes` lanes whose row 0 is shard
+// row -d (a mesh of one row: rows d .. d + h - 1 hold the shard's rows, row
+// r at d + r mod h).
+__device__ __forceinline__ int c_block_row(const ShardGeom& s, int d, int r) {
+  return (s.h == s.H ? wrap1(r, s.h) : r) + d;
+}
+
+// Columns [cx0, cx1) of one window row of a column shard (16-byte ends) into
+// the shared words at `dst`: the left block's lanes, the body or piece row
+// `row` (shard column 0 at row[0]), the right block's lanes; `boff` the row's
+// offset in blocks of `lanes` lanes. Each copy a multiple of 16 bytes,
+// counted on `bar` (the row's 4 (cx1 - cx0) bytes in all).
+template <class T>
+__device__ __forceinline__ void c_copy_cols(uint32_t dst, const T* row, const T* left,
+                                            const T* right, size_t boff, int lanes,
+                                            const ShardGeom& s, int cx0, int cx1,
+                                            uint32_t bar) {
+  const int c0 = s.col0, c1 = s.col0 + s.w;
+  if (cx0 < c0)
+    bulk_g2s(dst, left + boff + (cx0 - (c0 - lanes)), 4u * (uint32_t)(min(cx1, c0) - cx0), bar);
+  const int m0 = max(cx0, c0), m1 = min(cx1, c1);
+  if (m0 < m1)
+    bulk_g2s(dst + 4u * (uint32_t)(m0 - cx0), row + (m0 - c0), 4u * (uint32_t)(m1 - m0), bar);
+  if (cx1 > c1) {
+    const int x0 = max(cx0, c1);
+    bulk_g2s(dst + 4u * (uint32_t)(x0 - cx0), right + boff + (x0 - c1),
+             4u * (uint32_t)(cx1 - x0), bar);
+  }
+}
+
+// A column shard's base flag at shard row r (-fl_rows <= r < h + fl_rows)
+// and global column x (within the flag blocks' lanes).
+__device__ __forceinline__ int c_col_flag(const CPassShSrc& src, const CPassShCols& cols,
+                                          const ShardGeom& s, int fl_rows, int r, int x) {
+  const int lx = x - s.col0;
+  if (lx >= 0 && lx < s.w) return sh_row<int>(src.fl, src.fl_top, src.fl_bot, s, fl_rows, 0, r)[lx];
+  const size_t b = (size_t)c_block_row(s, fl_rows, r) * cols.fl_xh;
+  return lx < 0 ? cols.fl_left[b + lx + cols.fl_xh] : cols.fl_right[b + lx - s.w];
+}
+
+// The shard row of global row y for a read at most `reach` rows past the
+// shard (its window's copy of the row; on a mesh of one row y itself).
+__device__ __forceinline__ int c_shard_row(const ShardGeom& s, int reach, int y) {
+  int r = y - s.row0;
+  if (s.h != s.H) {
+    if (r >= s.h + reach) r -= s.H;
+    if (r < -reach) r += s.H;
+  }
+  return r;
 }
 
 // The state around a cell of a tile's window (h planes of wp rows of rs
@@ -292,6 +378,37 @@ struct PassVel {
   }
   __device__ float u(int i) const { return fv.u(idx(i)); }
   __device__ float v(int i) const { return fv.v(idx(i)); }
+};
+
+// PassVel of a column shard: the frame window's planes of vrows x vcols,
+// global column x at lane x + vx.
+struct PassVelCols {
+  FrameVel fv;
+  ShardGeom s;
+  int vrow0, vcols, vx;
+  __device__ __forceinline__ int idx_r(int r, int x) const {
+    return (s.h == s.H ? wrap1(r, s.H) : r + vrow0) * vcols + x + vx;
+  }
+  __device__ __forceinline__ int idx(int i) const {
+    const int gy = i / s.W, x = i - gy * s.W;
+    return idx_r(c_shard_row(s, vrow0, gy), x);
+  }
+  __device__ float u(int i) const { return fv.u(idx(i)); }
+  __device__ float v(int i) const { return fv.v(idx(i)); }
+};
+
+// The base flags of a column shard at global (y, x) (c_col_flag): the flag
+// source of ApproachGeo for the disk's recompute of a new C past the shard.
+// Copies, not pointers, of the launch's structures: the address of a kernel
+// parameter would make the compiler copy it to the stack.
+struct CColFlags {
+  CPassShSrc src;
+  CPassShCols cols;
+  ShardGeom s;
+  int fl_rows;
+  __device__ __forceinline__ int at(int y, int x) const {
+    return c_col_flag(src, cols, s, fl_rows, c_shard_row(s, fl_rows, y), x);
+  }
 };
 
 // The approach's moving tip at one step read from a tile's window tables

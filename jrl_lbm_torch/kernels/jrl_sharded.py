@@ -19,7 +19,8 @@ the x window of JAX's 2D-mesh per-step route, ``_xblocks`` k steps deep:
 launches of ``_step_balance`` or of
 ``_step_approach`` (with the jnp frame lerp before each) as one launch of
 `c_balance_pass_sh` or `c_approach_pass_sh`, the C runners' default route
-on a row mesh, on the same launch form (`csrc/pass_sh.cuh`). The runners
+on every mesh, on the same launch form (`csrc/pass_sh.cuh`; on a column
+mesh the column instance of each, with the fluid pass's x window). The runners
 port ``make_sharded_tiled_{fluid,balance,approach}_runner`` with their
 ``(state, fields, ...)`` contracts: global tensors in and out.
 
@@ -50,8 +51,12 @@ Where the JAX runner differs, and why:
   it and ignore it;
 * each runner runs passes of k steps, each one exchange of 2k-row
   pieces (and on a column mesh 2k-lane blocks) and one pass launch a
-  shard, where JAX's runs its kernels a step (``route="launches"`` here;
-  the C runners' route of column meshes).
+  shard, where JAX's runs its kernels a step (``route="launches"`` here,
+  the yardstick);
+* on a column mesh the C passes refuse flags with a FLUID cell in the
+  grid's last column (`check_edge_flags`): such a cell pulls from column 0,
+  which a column shard's sub-steps do not hold (the model puts INFLOW_2 or
+  OUTFLOW there; ``route="launches"`` takes any flags).
 
 A wrapper given tensors on the CPU runs its twin; given tensors on the
 card it launches the kernel or raises. ``fluid_a_sh.launches`` etc.
@@ -59,7 +64,8 @@ count the launches, the lean instance's with the full one's.
 `fluid_pass_sh`'s twin runs the port's tile-class pyramid
 (`jrl_tiled.py::_pass_ref`) on the shard's rows, the C passes' twins k
 whole-grid steps on the shard embedded with its pieces in a grid of NaN;
-on the CPU each equals its kernel bit for bit (h, C; H100 runs, PERF.md).
+the shard's frame window at its rows and lanes too; on the CPU each equals
+its kernel bit for bit (h, C; H100 runs, PERF.md).
 """
 
 from __future__ import annotations
@@ -79,6 +85,7 @@ from jrl_lbm_torch.kernels.jrl_fluid import _P, stream_of
 from jrl_lbm_torch.models import jrl as _jrl
 from jrl_lbm_torch.parallel.halo import psum
 from jrl_lbm_torch.parallel.mesh import Mesh, gather, split
+from jrl_lbm_torch.utils.types import CellType
 
 XH = 2  # lanes of an x halo block: the cell code's reach (csrc/jrl_shard.cuh)
 _F32 = torch.float32
@@ -827,16 +834,13 @@ PASS_LIBS = {"fluid": "fluid_pass_sh", "balance": "c_balance_pass_sh",
 
 def _pass_entry(kind: str, cols: bool) -> str:
     """The C entry prefix of the pass of ``kind``, its column instance
-    (the fluid's) with ``cols``."""
-    if cols and kind != "fluid":
-        raise ValueError(f"kind {kind!r} has no column instance")
+    with ``cols``."""
     return f"jrl_{PASS_LIBS[kind]}{'_cols' if cols else ''}"
 
 
 def pass_sh_info(k: int, device_index: int = 0, kind: str = "fluid", cols: bool = False):
     """``(registers per thread, local bytes)`` of the instance at depth k of
-    the pass of ``kind`` (`PASS_LIBS`; ``cols``: the fluid's column
-    instance)."""
+    the pass of ``kind`` (`PASS_LIBS`; ``cols``: its column instance)."""
     lib = PASS_LIBS[kind]
     fn = build.bind(lib, f"{_pass_entry(kind, cols)}_info", [ctypes.c_int, _P, _P])
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
@@ -866,24 +870,36 @@ def pass_sh_tile_shape(k: int, rmax: int, smax: int, device_index: int = 0, kind
 class ShardFrames:
     """A shard's window of the stored-velocity history: ``t`` holds frames
     ``b0 .. b0 + N - 1`` of a history of ``n_frames`` (None: ``b0 + N``) as
-    ``[N, 2, rows, W]``, shard row r at row ``r + row0`` (its reach rows a
-    side; on a mesh of one row the grid's rows, ``row0`` 0)."""
+    ``[N, 2, rows, lanes]``, shard row r at row ``r + row0`` (its reach rows
+    a side; on a mesh of one row the grid's rows, ``row0`` 0) and shard
+    column c at lane ``c + col0`` (a column shard: its reach lanes a side,
+    cut to the grid; else the grid's columns, ``col0`` 0)."""
 
     t: torch.Tensor
     row0: int
     b0: int = 0
     n_frames: int | None = None
+    col0: int = 0
 
     @property
     def total(self) -> int:
         return self.b0 + int(self.t.shape[0]) if self.n_frames is None else int(self.n_frames)
 
 
+def frame_lanes(sh: Shard, reach: int):
+    """``(x0, x1)``: the grid columns of a shard's frame window, its columns
+    and ``reach`` lanes a side cut to the grid (a row shard: the grid's)."""
+    if sh.w == sh.W:
+        return 0, sh.W
+    return max(sh.col0 - int(reach), 0), min(sh.col0 + sh.w + int(reach), sh.W)
+
+
 def shard_frames(vel_field, sh: Shard, reach: int, device=None, b0: int = 0,
                  n_frames: int | None = None) -> ShardFrames:
     """The shard's `ShardFrames` cut from the global ``[N, 2, H, W]``
     history ``vel_field``: its rows and ``reach`` rows a side (mod H; all
-    rows on a mesh of one row), on ``device`` (default the history's)."""
+    rows on a mesh of one row), its columns and ``reach`` lanes a side cut
+    to the grid (`frame_lanes`), on ``device`` (default the history's)."""
     v = torch.as_tensor(vel_field, dtype=_F32)
     if sh.h == sh.H:
         t, row0 = v, 0
@@ -891,36 +907,56 @@ def shard_frames(vel_field, sh: Shard, reach: int, device=None, b0: int = 0,
         rows = torch.arange(sh.row0 - int(reach), sh.row0 + sh.h + int(reach),
                             device=v.device) % sh.H
         t, row0 = v[:, :, rows], int(reach)
-    t = t[..., sh.col0:sh.col0 + sh.w].to(v.device if device is None else device).contiguous()
-    return ShardFrames(t, row0, int(b0), n_frames)
+    x0, x1 = frame_lanes(sh, reach)
+    t = t[..., x0:x1].to(v.device if device is None else device).contiguous()
+    return ShardFrames(t, row0, int(b0), n_frames, sh.col0 - x0)
+
+
+def check_edge_flags(flags, sh: Shard):
+    """A column shard at the grid's right edge (its last column W - 1) takes
+    no FLUID flag there: a FLUID cell of column W - 1 pulls from column 0,
+    which a column shard's later sub-steps do not hold (``flags``: the
+    shard's ``[h, w]`` or the grid's ``[H, W]`` flags; a device read)."""
+    if sh.w < sh.W and sh.col0 + sh.w == sh.W and \
+            bool((flags[..., -1] == int(CellType.FLUID)).any()):
+        raise ValueError("flags with a FLUID cell in the grid's last column: the C passes of a "
+                         "column mesh stop at that column; take route='launches'")
 
 
 def _check_c_pass_sh(sh: Shard, halo: Halo | None, P: int, halo_fl: Halo | None, k: int):
-    """A shard of a row mesh (the C passes have no x window yet), `_check_depth`;
-    the shard's 2k-row pieces of the ``P`` planes of its state group ([h,
-    C] for the balance, [h] for the approach) and its flag pieces, at least
-    2k rows deep (none on a mesh of one row)."""
-    if sh.w != sh.W:
-        raise ValueError("the C passes serve shards of a row mesh; a column mesh takes the "
-                         "per-step kernels")
+    """`_check_depth`; the shard's 2k-row pieces of the ``P`` planes of its
+    state group ([h, C] for the balance, [h] for the approach) and its flag
+    pieces, at least 2k rows deep (none on a mesh of one row); on a column
+    mesh the state's blocks of `pass_xh` lanes of the rows extended by 2k
+    and the flags' of at least as many lanes (a multiple of 4) and rows."""
     _check_depth(sh, k)
-    rows = sh.h < sh.H
-    for name, hx, depth in (("state", halo, 2 * int(k)), ("flag", halo_fl, None)):
+    k = int(k)
+    rows, cols = sh.h < sh.H, sh.w < sh.W
+    for name, hx, depth in (("state", halo, 2 * k), ("flag", halo_fl, None)):
         has = hx is not None and hx.top is not None
-        if has != rows or (has and (hx.P != (P if depth else 1)
-                                    or (hx.k != depth if depth else hx.k < 2 * int(k)))):
+        has_cols = hx is not None and hx.left is not None
+        bad = has != rows or has_cols != cols or ((has or has_cols) and (
+            hx.P != (P if depth else 1) or (hx.k != depth if depth else hx.k < 2 * k)))
+        if has_cols and not bad:
+            xh = hx.left.shape[-1]
+            bad = any(tuple(t.shape[:2]) != (hx.P, sh.h + 2 * hx.k) for t in (hx.left, hx.right)) \
+                or (xh != pass_xh(k) if depth else xh < pass_xh(k) or xh % 4)
+        if bad:
             raise ValueError(f"{name} pieces do not match the shard's mesh: a mesh of >1 row "
-                             f"needs the {2 * int(k)}-row pieces of the state group ({P} "
-                             f"planes) and flag pieces at least as deep")
+                             f"needs the {2 * k}-row pieces of the state group ({P} planes) and "
+                             f"flag pieces at least as deep; a mesh of >1 column their blocks "
+                             f"of {pass_xh(k)} lanes (the flags' at least as many)")
 
 
 def c_balance_pass_sh_ref(h, C, flags, halo: Halo | None, halo_fl: Halo | None, k: int, cfg,
                           fields, sh: Shard):
-    """Twin of `c_balance_pass_sh`: the shard and its pieces of [h, C]
-    embedded at their global rows in a grid of NaN (the flags in a grid of
-    0, no cell type), and k steps of the whole-grid twin
-    (`jrl_c.c_balance_ref`); the shard's rows of the result."""
+    """Twin of `c_balance_pass_sh`: the shard, its pieces of [h, C] and its
+    blocks' lanes inside the grid embedded at their global places in a grid
+    of NaN (the flags in a grid of 0, no cell type), and k steps of the
+    whole-grid twin (`jrl_c.c_balance_ref`); the shard's cells of the
+    result."""
     _check_c_pass_sh(sh, halo, 10, halo_fl, k)
+    check_edge_flags(flags, sh)
     nan = float("nan")
     hc = _embed_rows(sh, torch.cat([h, C[None]]), halo, nan)
     hg, Cg = hc[:9], hc[9]
@@ -932,20 +968,23 @@ def c_balance_pass_sh_ref(h, C, flags, halo: Halo | None, halo_fl: Halo | None, 
 
 def c_approach_pass_sh_ref(h, base, frames: ShardFrames, halo: Halo | None,
                            halo_fl: Halo | None, step: int, k: int, cfg, fields, sh: Shard):
-    """Twin of `c_approach_pass_sh`: the shard and its h pieces embedded at
-    their global rows in a grid of NaN, its base flags and their pieces in a
-    grid of 0 and its frame window at its global rows in frames of NaN; k
-    steps of the stored velocity's lerp and the whole-grid twin
-    (`jrl_c.c_approach_ref`) from ``step``. Returns ``(h, C, parts)``, the
-    shard's rows and its ``[k, 4]`` disk terms a step
-    (`disk_partials_ref`)."""
+    """Twin of `c_approach_pass_sh`: the shard, its h pieces and its
+    blocks' lanes inside the grid embedded at their global places in a grid
+    of NaN, its base flags and theirs in a grid of 0 and its frame window at
+    its global rows and lanes in frames of NaN; k steps of the stored
+    velocity's lerp and the whole-grid twin (`jrl_c.c_approach_ref`) from
+    ``step``. Returns ``(h, C, parts)``, the shard's cells and its ``[k,
+    4]`` disk terms a step (`disk_partials_ref`)."""
     _check_c_pass_sh(sh, halo, 9, halo_fl, k)
+    check_edge_flags(base, sh)
     nan = float("nan")
     hg = _embed_rows(sh, h, halo, nan)
     bg = _embed_rows(sh, base, halo_fl, 0)
     ft = frames.t
     fg = torch.full(tuple(ft.shape[:2]) + (sh.H, sh.W), nan, dtype=_F32, device=ft.device)
-    fg[:, :, (torch.arange(ft.shape[2], device=ft.device) + sh.row0 - frames.row0) % sh.H] = ft
+    x0 = sh.col0 - frames.col0
+    fg[:, :, (torch.arange(ft.shape[2], device=ft.device) + sh.row0 - frames.row0) % sh.H,
+       x0:x0 + ft.shape[3]] = ft
     fl = dict(fields, base_flags=bg)
     Cg, parts = torch.zeros_like(hg[0]), []
     for j in range(int(k)):
@@ -962,6 +1001,12 @@ class CPassShSrc(ctypes.Structure):
                                                 "frames")]
 
 
+class CPassShCols(ctypes.Structure):
+    """Mirrors ``csrc/pass_sh.cuh::CPassShCols``."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ("left", "right", "fl_left", "fl_right")] + \
+        [(n, ctypes.c_int) for n in ("fl_xh", "vcol0", "vcols")]
+
+
 class CBalancePassShParams(ctypes.Structure):
     """Mirrors ``csrc/c_balance_pass_sh.cu::CBalancePassShParams``."""
     _fields_ = [("p", _c.CBalanceParams), ("s", ShardGeom), ("t", ShTilePlan),
@@ -975,65 +1020,94 @@ class CApproachPassShParams(ctypes.Structure):
                 ("vrow0", ctypes.c_int), ("vrows", ctypes.c_int)]
 
 
-def _c_pass_src(sh: Shard, k: int, dev, h, C, flags, halo, halo_fl, P: int) -> CPassShSrc:
-    """The kernel's view of the shard's state, flags and pieces, each
-    checked (shape, dtype, device, contiguity, 16-byte rows) before any
-    pointer is taken."""
+def _c_pass_src(sh: Shard, k: int, dev, h, C, flags, halo, halo_fl, P: int):
+    """``(src, cols, fl_rows)``: the kernel's view of the shard's state, flags
+    and pieces (a column shard's blocks in ``cols``, else None) and the flag
+    pieces' or blocks' rows past the shard, each checked (shape, dtype,
+    device, contiguity, 16-byte rows) before any pointer is taken."""
     src = CPassShSrc(h=h.data_ptr(), C=None if C is None else C.data_ptr(), fl=flags.data_ptr())
+    cols = CPassShCols() if sh.w < sh.W else None
+    pieces = []
     if halo is not None and halo.top is not None:
-        for name, t, shape, dt in (("top", halo.top, (P, 2 * k, sh.w), _F32),
-                                   ("bot", halo.bot, (P, 2 * k, sh.w), _F32),
-                                   ("fl_top", halo_fl.top, (1, halo_fl.k, sh.w), torch.int32),
-                                   ("fl_bot", halo_fl.bot, (1, halo_fl.k, sh.w), torch.int32)):
-            if tuple(t.shape) != shape or t.dtype != dt or t.device != dev \
-                    or not t.is_contiguous():
-                raise ValueError(f"halo {name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
-                                 f"expected contiguous {shape} {dt} on {dev}")
-            setattr(src, name, t.data_ptr())
+        pieces += [("top", halo.top, (P, 2 * k, sh.w), _F32),
+                   ("bot", halo.bot, (P, 2 * k, sh.w), _F32),
+                   ("fl_top", halo_fl.top, (1, halo_fl.k, sh.w), torch.int32),
+                   ("fl_bot", halo_fl.bot, (1, halo_fl.k, sh.w), torch.int32)]
+    if cols is not None:
+        fl_blocks = (1, sh.h + 2 * halo_fl.k, halo_fl.left.shape[-1])
+        pieces += [("left", halo.left, (P, sh.h + 4 * k, pass_xh(k)), _F32),
+                   ("right", halo.right, (P, sh.h + 4 * k, pass_xh(k)), _F32),
+                   ("fl_left", halo_fl.left, fl_blocks, torch.int32),
+                   ("fl_right", halo_fl.right, fl_blocks, torch.int32)]
+        cols.fl_xh = fl_blocks[-1]
+    for name, t, shape, dt in pieces:
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"halo {name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
+                             f"expected contiguous {shape} {dt} on {dev}")
+        setattr(src if name in ("top", "bot", "fl_top", "fl_bot") else cols, name, t.data_ptr())
     ptrs = [getattr(src, n) or 0 for n, _ in CPassShSrc._fields_]
+    ptrs += [getattr(cols, n) or 0 for n in ("left", "right", "fl_left", "fl_right")] if cols \
+        else []
     if sh.W % 4 or any(p % 16 for p in ptrs):
         raise ValueError("the C passes copy rows of 16-byte aligned planes (W % 4 == 0)")
-    return src
+    fl_rows = halo_fl.k if (src.fl_top or cols is not None) else 0
+    return src, cols, fl_rows
+
+
+def _pass_geom(sh: Shard, k: int) -> ShardGeom:
+    """The kernel's `ShardGeom` of a pass: a column shard's carries its
+    blocks' `pass_xh` lanes as ``xh``."""
+    return sh.geom if sh.w == sh.W else dataclasses.replace(sh, xh=pass_xh(k)).geom
 
 
 def c_balance_pass_sh(h, C, flags, halo: Halo | None, halo_fl: Halo | None, k: int, cfg, fields,
                       sh: Shard, scratch=None):
-    """k balance steps of a shard of a row mesh in one launch; returns the
-    shard's new ``(h, C)``. ``halo``: the 2k-row pieces of ``[h, C]``
-    (`halo.exchange` with ``rows=2k``; None or no pieces on a mesh of one
-    row); ``halo_fl``: the fixed flags' pieces, at least 2k rows deep (a
-    run exchanges them once, at its deepest pass); ``scratch``:
-    `pass_sh_scratch` of the shard (10 planes) at this k or a deeper one."""
+    """k balance steps of a shard in one launch (a column shard's through
+    the column instance); returns the shard's new ``(h, C)``. ``halo``: the
+    2k-row pieces of ``[h, C]`` and, on a column mesh, their blocks of
+    `pass_xh` lanes (`halo.exchange` with ``rows=2k`` and ``xh=pass_xh(k)``;
+    None or neither on a mesh of one shard); ``halo_fl``: the fixed flags'
+    pieces and blocks, at least 2k rows and `pass_xh` lanes deep (a run
+    exchanges them once, at its deepest pass); ``scratch``:
+    `pass_sh_scratch` of the shard (10 planes) at this k or a deeper one. A
+    column shard at the grid's right edge takes no FLUID flag in the last
+    column (`check_edge_flags`: the runner checks once a run, the twin at
+    every call)."""
     if h.device.type == "cpu":
         return c_balance_pass_sh_ref(h, C, flags, halo, halo_fl, k, cfg, fields, sh)
     k = int(k)
     _check_c_pass_sh(sh, halo, 10, halo_fl, k)
     dev = _check(sh, 0, h=(h, (9,)), C=(C, ()), flags=(flags, ()))
-    src = _c_pass_src(sh, k, dev, h, C, flags, halo, halo_fl, 10)
+    src, cols, fl_rows = _c_pass_src(sh, k, dev, h, C, flags, halo, halo_fl, 10)
     plan = pass_sh_plan(sh, k, _fl.sm_count(dev), "balance")
-    p = CBalancePassShParams(p=_c._balance_params(cfg), s=sh.geom, t=_tile_plan_struct(plan),
-                             fl_rows=halo_fl.k if src.fl_top else 0)
+    p = CBalancePassShParams(p=_c._balance_params(cfg), s=_pass_geom(sh, k),
+                             t=_tile_plan_struct(plan), fl_rows=fl_rows)
     scratch, scr = _scratch_ptrs(sh, k, 10, scratch, dev)
     h_out, C_out = torch.empty_like(h), torch.empty_like(C)
     fn = build.bind("c_balance_pass_sh", "jrl_c_balance_pass_sh",
-                    [_P] * 5 + [ctypes.c_int, _P, _P])
+                    [_P] * 6 + [ctypes.c_int, _P, _P])
     with torch.cuda.device(dev):
-        err = fn(ctypes.byref(src), h_out.data_ptr(), C_out.data_ptr(), scr[0], scr[1], k,
-                 ctypes.byref(p), stream_of(dev))
+        err = fn(ctypes.byref(src), None if cols is None else ctypes.byref(cols),
+                 h_out.data_ptr(), C_out.data_ptr(), scr[0], scr[1], k, ctypes.byref(p),
+                 stream_of(dev))
     build.check(err, "c_balance_pass_sh")
     c_balance_pass_sh.launches += 1
     return h_out, C_out
 
 
 def _check_frames(frames: ShardFrames, sh: Shard, k: int, step: int, v: float, dev=None):
-    """The window holds the reach of a k-step pass (2k rows a side) and the
-    frames steps ``step .. step + k - 1`` read."""
-    N, two, rows, w = frames.t.shape
-    if two != 2 or w != sh.w or (dev is not None and (frames.t.device != dev
-                                                     or frames.t.dtype != _F32
-                                                     or not frames.t.is_contiguous())):
+    """The window holds the reach of a k-step pass (2k rows a side; on a
+    column mesh 2k lanes a side, cut to the grid) and the frames steps
+    ``step .. step + k - 1`` read."""
+    N, two, rows, lanes = frames.t.shape
+    x0 = sh.col0 - frames.col0
+    need = frame_lanes(sh, 2 * k)
+    if two != 2 or x0 < 0 or x0 > need[0] or x0 + lanes < need[1] or x0 + lanes > sh.W or (
+            dev is not None and (frames.t.device != dev or frames.t.dtype != _F32
+                                 or not frames.t.is_contiguous())):
         raise ValueError(f"frames: {tuple(frames.t.shape)} {frames.t.dtype} on "
-                         f"{frames.t.device}, expected contiguous [N, 2, rows, {sh.w}] float32")
+                         f"{frames.t.device} from lane {x0}, expected contiguous [N, 2, rows, "
+                         f"lanes] float32 holding the columns {need[0]}..{need[1] - 1}")
     whole = sh.h == sh.H
     if (whole and (frames.row0 != 0 or rows != sh.H)) or \
             (not whole and (frames.row0 < 2 * k or rows - frames.row0 - sh.h < 2 * k)):
@@ -1052,15 +1126,18 @@ def _check_frames(frames: ShardFrames, sh: Shard, k: int, step: int, v: float, d
 
 def c_approach_pass_sh(h, base, frames: ShardFrames, halo: Halo | None, halo_fl: Halo | None,
                        step: int, k: int, cfg, fields, sh: Shard, part, scratch=None):
-    """k approach steps of a shard of a row mesh from ``step`` in one
-    launch, the stored velocity interpolated in the kernel from
-    ``frames`` (`shard_frames`, at least 2k reach rows a side); returns the
-    shard's new ``(h, C)`` and updates ``part`` (float32 ``[4]`` on the
-    shard's device) in place with each step's disk terms in step order, as
-    k `c_approach_sh` launches do. ``halo``: the 2k-row pieces of ``[h]``;
-    ``halo_fl``: the base flags' pieces, at least 2k rows deep;
-    ``scratch``: `pass_sh_scratch` of the shard (10 planes). The old C is
-    never read."""
+    """k approach steps of a shard from ``step`` in one launch (a column
+    shard's through the column instance), the stored velocity interpolated
+    in the kernel from ``frames`` (`shard_frames`, at least 2k reach rows
+    and lanes a side); returns the shard's new ``(h, C)`` and updates
+    ``part`` (float32 ``[4]`` on the shard's device) in place with each
+    step's disk terms in step order, as k `c_approach_sh` launches do.
+    ``halo``: the 2k-row pieces of ``[h]`` and, on a column mesh, their
+    blocks of `pass_xh` lanes; ``halo_fl``: the base flags' pieces and
+    blocks, at least 2k rows and `pass_xh` lanes deep; ``scratch``:
+    `pass_sh_scratch` of the shard (10 planes). The old C is never read. A
+    column shard at the grid's right edge takes no FLUID base flag in the
+    last column (`check_edge_flags`)."""
     k = int(k)
     if h.device.type == "cpu":
         _check_frames(frames, sh, k, step, cfg.vel_obs_conv)
@@ -1081,21 +1158,24 @@ def c_approach_pass_sh(h, base, frames: ShardFrames, halo: Halo | None, halo_fl:
         raise ValueError("area must be a float32 [rint] tensor on the shard's card")
     if tuple(part.shape) != (4,) or part.dtype != _F32 or part.device != dev:
         raise ValueError("part must be a float32 [4] tensor on the shard's card")
-    src = _c_pass_src(sh, k, dev, h, None, base, halo, halo_fl, 9)
+    src, cols, fl_rows = _c_pass_src(sh, k, dev, h, None, base, halo, halo_fl, 9)
     src.frames = frames.t.data_ptr()
     if src.frames % 16:
         raise ValueError("the C passes copy rows of 16-byte aligned planes (W % 4 == 0)")
+    if cols is not None:
+        cols.vcol0, cols.vcols = frames.col0, int(frames.t.shape[3])
     plan = pass_sh_plan(sh, k, _fl.sm_count(dev), "approach")
-    p = CApproachPassShParams(p=_c._approach_params(cfg), s=sh.geom, t=_tile_plan_struct(plan),
-                              fl_rows=halo_fl.k if src.fl_top else 0, n_frames=frames.total,
+    p = CApproachPassShParams(p=_c._approach_params(cfg), s=_pass_geom(sh, k),
+                              t=_tile_plan_struct(plan), fl_rows=fl_rows, n_frames=frames.total,
                               b0=frames.b0, vrow0=frames.row0, vrows=int(frames.t.shape[2]))
     scratch, scr = _scratch_ptrs(sh, k, 10, scratch, dev)
     h_out, C_out = torch.empty_like(h), torch.empty_like(h[0])
     fn = build.bind("c_approach_pass_sh", "jrl_c_approach_pass_sh",
-                    [_P] * 7 + [ctypes.c_int] * 2 + [_P, _P])
+                    [_P] * 8 + [ctypes.c_int] * 2 + [_P, _P])
     with torch.cuda.device(dev):
-        err = fn(ctypes.byref(src), area.data_ptr(), h_out.data_ptr(), C_out.data_ptr(),
-                 part.data_ptr(), scr[0], scr[1], int(step), k, ctypes.byref(p), stream_of(dev))
+        err = fn(ctypes.byref(src), None if cols is None else ctypes.byref(cols),
+                 area.data_ptr(), h_out.data_ptr(), C_out.data_ptr(), part.data_ptr(), scr[0],
+                 scr[1], int(step), k, ctypes.byref(p), stream_of(dev))
     build.check(err, "c_approach_pass_sh")
     c_approach_pass_sh.launches += 1
     return h_out, C_out
@@ -1176,11 +1256,12 @@ def lean_pass(cfg, sh: Shard, step: int, k: int) -> bool:
 
 
 # the routes of the sharded runners: one pass launch a shard and k-step pass
-# (fluid_pass_sh on every mesh, the C passes on row meshes), or the per-step
-# kernels (fluid_a_sh + fluid_b_sh, c_balance_sh, c_approach_sh)
-FLUID_ROUTES = ("pass", "launches")
-# the default k of every pass (fluid_pass_sh on every mesh, c_balance_pass_sh
-# and c_approach_pass_sh on row meshes): the lowest wall of the (4, 1) and
+# (fluid_pass_sh, c_balance_pass_sh, c_approach_pass_sh; on a column mesh
+# the column instance of each), or the per-step kernels (fluid_a_sh +
+# fluid_b_sh, c_balance_sh, c_approach_sh)
+SH_ROUTES = ("pass", "launches")
+# the default k of every pass (fluid_pass_sh, c_balance_pass_sh and
+# c_approach_pass_sh, on every mesh): the lowest wall of the (4, 1) and
 # (1, 1) meshes at 1024x512 on an H100 (PERF.md §6; the fluid: 234.3-249.2
 # µs/step at k = 4 against 287.6-598.6 at k = 1..3 on (4, 1), where the host
 # sets the wall, 70.65-70.72 against 71.3-76.7 on (1, 1); the balance and
@@ -1190,7 +1271,13 @@ FLUID_ROUTES = ("pass", "launches")
 # (2, 2) (tools/fluid_pass_sh_probe.py runner, two runs in one call, H100 at
 # 700 W: 247.6 and 380.8 µs/step at k = 4 against 301.2-527.3, 447.0-731.0
 # and 1030.7-1261.3 at k = 3, 2, 1; device 92.1-92.4 against 96.4-101.0;
-# route="launches" 1438.3-1890.8, device 150.6-150.8)
+# route="launches" 1438.3-1890.8, device 150.6-150.8); and of the C passes'
+# column instances on (2, 2) (tools/c_pass_sh_probe.py runner22, two runs
+# in one call, H100 at 700 W: the balance 200.6-385.5 µs/step at k = 4
+# against 364.9-565.7, 649.1-660.2 and 1173.4-1229.1 at k = 3, 2, 1, the
+# approach 386.1-570.2 against 553.0-728.7, 815.4-1000.2 and
+# 1546.7-1643.6; device 38.6-38.8 and 76.6 against 40.9-48.2 and
+# 79.8-89.4; route="launches" 758.2-1039.6 and 1241.1-1269.1)
 PASS_SH_K = 4
 
 
@@ -1206,29 +1293,14 @@ def default_k(sh: Shard) -> int:
     return max(1, min(deep))
 
 
-def fluid_route(route: str | None = None) -> str:
-    """The sharded fluid runner's route: ``"pass"`` on every mesh (on a
-    column mesh with its x window); ``route`` forces one."""
+def sh_route(route: str | None = None) -> str:
+    """A sharded runner's route: ``"pass"`` on every mesh (on a column mesh
+    through the passes' column instances); ``route`` forces one
+    (``"launches"``: the per-step kernels, the yardstick)."""
     if route is None:
         return "pass"
-    if route not in FLUID_ROUTES:
-        raise ValueError(f"route {route!r}: one of {FLUID_ROUTES}")
-    return route
-
-
-def c_route(mesh: Mesh, route: str | None = None, pair: str = "the per-step kernels") -> str:
-    """The sharded C runners' route, ``pair`` naming their per-step
-    kernels: ``"pass"`` on a row mesh (``nx == 1``), ``"launches"`` on a
-    column mesh, whose x halo the C passes have no window for yet;
-    ``route`` forces one."""
-    nx = mesh.shape[1]
-    if route is None:
-        return "pass" if nx == 1 else "launches"
-    if route not in FLUID_ROUTES:
-        raise ValueError(f"route {route!r}: one of {FLUID_ROUTES}")
-    if route == "pass" and nx > 1:
-        raise ValueError(f"route 'pass' of the C phases serves row meshes (nx == 1), not "
-                         f"{mesh.shape}: a column mesh takes {pair}")
+    if route not in SH_ROUTES:
+        raise ValueError(f"route {route!r}: one of {SH_ROUTES}")
     return route
 
 
@@ -1255,7 +1327,7 @@ def _scratch_of(store: dict, sh: Shard, k: int, planes: int, x):
 def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x_ext=None,
                                     lean_split=True, k=None, route=None):
     """Sharded fluid runner ``(state, fields, start_step, n) -> state``
-    with global ``f``, ``rho``, ``vel``, through `fluid_route`'s route:
+    with global ``f``, ``rho``, ``vel``, through `sh_route`'s route:
 
     * ``"pass"`` (the default): per k-step pass, one exchange of the
       2k-row pieces of ``[f, vel, rho]`` (on a column mesh with their
@@ -1274,7 +1346,7 @@ def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x
     The result is the per-step kernels' bit for bit on either route."""
     shards = shard_plan(cfg, mesh, tile_rows, unroll, x_ext)
     ny, nx = mesh.shape
-    rt = fluid_route(route)
+    rt = sh_route(route)
     kk = _run_k(shards, k, rt)
     lean_on = bool(lean_split) and nx == 1 and ny >= 3
 
@@ -1322,32 +1394,39 @@ def make_sharded_tiled_fluid_runner(cfg, mesh: Mesh, tile_rows=None, unroll=8, x
 def make_sharded_tiled_balance_runner(cfg, flags, mesh: Mesh, tile_rows=None, unroll=8,
                                       x_ext=None, route=None, k=None):
     """Sharded balance runner ``(state, fields, n) -> state`` with global
-    ``h``, ``C``, through `c_route`'s route:
+    ``h``, ``C``, through `sh_route`'s route:
 
-    * ``"pass"`` (row meshes, the default there): per k-step pass, one
-      exchange of the 2k-row pieces of ``[h, C]`` and one
-      `c_balance_pass_sh` launch a shard; the steps left over run as one
-      pass at a smaller k;
-    * ``"launches"`` (column meshes, and the yardstick on row meshes): per
-      step, the h pieces and `c_balance_sh` on every shard.
+    * ``"pass"`` (the default): per k-step pass, one exchange of the
+      2k-row pieces of ``[h, C]`` (on a column mesh with their blocks of
+      `pass_xh` lanes) and one `c_balance_pass_sh` launch a shard; the
+      steps left over run as one pass at a smaller k;
+    * ``"launches"`` (the yardstick): per step, the h pieces and
+      `c_balance_sh` on every shard.
 
-    The fixed flags' pieces are exchanged once a run (2k rows deep on the
-    pass). ``k`` (1..4, default `default_k`): the steps a pass. The result
-    is the per-step kernels' bit for bit on either route."""
+    The fixed flags' pieces are exchanged once a run (on the pass 2k rows
+    and `pass_xh` lanes deep, and on a column mesh checked by
+    `check_edge_flags`). ``k`` (1..4, default `default_k`): the steps a
+    pass. The result is the per-step kernels' bit for bit on either
+    route."""
     shards = shard_plan(cfg, mesh, tile_rows, unroll, x_ext)
-    rt = c_route(mesh, route, "c_balance_sh a step")
+    nx = mesh.shape[1]
+    rt = sh_route(route)
     kk = _run_k(shards, k, rt)
+    if rt == "pass":
+        for sh in shards:
+            check_edge_flags(flags, sh)
 
     def run(state, fields, n: int):
         h, C, fl = split(state["h"], mesh), split(state["C"], mesh), split(flags, mesh)
         L = range(len(shards))
         if rt == "pass":
-            hfl = exchange([[x] for x in fl], mesh, XH, rows=2 * kk)
+            hfl = exchange([[x] for x in fl], mesh, pass_xh(kk) if nx > 1 else 0, rows=2 * kk)
             scr = [_scratch_of(scratch, shards[0], kk, 10, x) for x in h]
             left = int(n)
             while left > 0:
                 kj = min(kk, left)
-                hx = exchange([[h[i], C[i]] for i in L], mesh, XH, rows=2 * kj)
+                hx = exchange([[h[i], C[i]] for i in L], mesh, pass_xh(kj) if nx > 1 else 0,
+                              rows=2 * kj)
                 out = [c_balance_pass_sh(h[i], C[i], fl[i], hx[i], hfl[i], kj, cfg, fields,
                                          shards[i], scratch=scr[i]) for i in L]
                 h, C = [o[0] for o in out], [o[1] for o in out]
@@ -1371,18 +1450,20 @@ def make_sharded_tiled_approach_runner(cfg, vel_field, mesh: Mesh, tile_rows=Non
                                        x_ext=None, route=None, k=None):
     """Sharded approach runner ``(state, fields, start_step, n) -> (state,
     acc)`` with global ``h``, ``C`` and the integrals of
-    `models/jrl.py::make_approach_runner`, through `c_route`'s route:
+    `models/jrl.py::make_approach_runner`, through `sh_route`'s route:
 
-    * ``"pass"`` (row meshes, the default there): each shard's frames are
-      cut once, with 2k reach rows a side (`shard_frames`); per k-step
-      pass, one exchange of the 2k-row pieces of ``[h]`` and one
-      `c_approach_pass_sh` launch a shard (the lerp, k steps and their
-      disk terms); passes end at the ``unroll`` chunks' ends;
-    * ``"launches"`` (column meshes, and the yardstick on row meshes): the
-      frames split onto the shards and interpolated per shard each step,
-      the h pieces and `c_approach_sh` a step.
+    * ``"pass"`` (the default): each shard's frames are cut once, with 2k
+      reach rows (on a column mesh also lanes) a side (`shard_frames`);
+      per k-step pass, one exchange of the 2k-row pieces of ``[h]`` (on a
+      column mesh with their blocks of `pass_xh` lanes) and one
+      `c_approach_pass_sh` launch a shard (the lerp, k steps and their disk
+      terms); passes end at the ``unroll`` chunks' ends;
+    * ``"launches"`` (the yardstick): the frames split onto the shards and
+      interpolated per shard each step, the h pieces and `c_approach_sh` a
+      step.
 
-    The base flags' pieces are exchanged once a run. Each shard accumulates
+    The base flags' pieces are exchanged once a run (on a column mesh's
+    pass checked by `check_edge_flags`). Each shard accumulates
     its disk terms over a chunk of ``unroll`` steps, then one `psum` per
     chunk adds them into the integrals (inflow and current sum over the
     steps, rec_u and rec_v are the last step's). The result is the
@@ -1392,7 +1473,8 @@ def make_sharded_tiled_approach_runner(cfg, vel_field, mesh: Mesh, tile_rows=Non
     if not (rint < cfg.Rg_radius and rint < W - 1):
         # the disk's reads of the new C stay clear of the INFLOW_2 cells
         raise ValueError(f"tip disk rint={rint} must lie inside rg={cfg.Rg_radius} and W-1")
-    rt = c_route(mesh, route, "c_approach_sh a step")
+    nx = mesh.shape[1]
+    rt = sh_route(route)
     kk = _run_k(shards, k, rt)
     vf = torch.as_tensor(vel_field, dtype=_F32)
     v = cfg.vel_obs_conv
@@ -1406,7 +1488,9 @@ def make_sharded_tiled_approach_runner(cfg, vel_field, mesh: Mesh, tile_rows=Non
         base = split(fields["base_flags"], mesh)
         L = range(len(shards))
         if rt == "pass":
-            hfl = exchange([[x] for x in base], mesh, XH, rows=2 * kk)
+            for sh in shards:
+                check_edge_flags(fields["base_flags"], sh)
+            hfl = exchange([[x] for x in base], mesh, pass_xh(kk) if nx > 1 else 0, rows=2 * kk)
             scr = [_scratch_of(scratch, shards[0], kk, 10, x) for x in h]
         else:
             hfl = exchange([[x] for x in base], mesh, XH)
@@ -1418,7 +1502,8 @@ def make_sharded_tiled_approach_runner(cfg, vel_field, mesh: Mesh, tile_rows=Non
             if rt == "pass":
                 for s0 in range(s, s + chunk, kk):
                     kj = min(kk, s + chunk - s0)
-                    hx = exchange([[x] for x in h], mesh, XH, rows=2 * kj)
+                    hx = exchange([[x] for x in h], mesh, pass_xh(kj) if nx > 1 else 0,
+                                  rows=2 * kj)
                     out = [c_approach_pass_sh(h[i], base[i], sfr[i], hx[i], hfl[i], s0, kj, cfg,
                                               fields, shards[i], parts[i], scratch=scr[i])
                            for i in L]

@@ -278,15 +278,17 @@ def pick_fluid_runner(cfg: JRLFluidConfig):
 
 def fluid_record_steps(cfg: JRLFluidConfig, x_interval: float = X_INTERVAL):
     """Steps at which the reference snapshots the velocity field
-    (`fluid_cylinder:239-251`)."""
+    (`fluid_cylinder:239-251`): those where int(s * vel_obs / x_interval)
+    grows, in doubles (numpy's float64 rounds as Python's floats do, and
+    the count never falls), a million steps at a time."""
     v = cfg.vel_obs
     steps = []
-    prev = 0
-    for s in range(1, cfg.total_steps):
-        b = int(s * v / x_interval)
-        if b > prev:
-            steps.append(s)
-            prev = b
+    prev = 0.0
+    for s0 in range(1, cfg.total_steps, 1 << 20):
+        s = np.arange(s0, min(s0 + (1 << 20), cfg.total_steps), dtype=np.float64)
+        b = np.floor(s * v / x_interval)
+        steps += (s0 + np.flatnonzero(np.diff(b, prepend=prev))).tolist()
+        prev = b[-1]
     return steps
 
 

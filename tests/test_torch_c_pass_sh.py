@@ -305,7 +305,8 @@ def test_c_pass_plan_covers_the_shard(kind, W):
 # --- argument checks ---
 
 def test_c_route_and_depth_checks():
-    """Column meshes take the per-step kernels and refuse the pass; the
+    """Column meshes take the pass too (the passes' column instances) and
+    ``route="launches"`` when asked; the
     default k is `PASS_SH_K` where the shards take it; k outside 1..4, a k
     whose pieces outgrow the shard, pieces of another depth, flag pieces
     shallower than 2k, a frame window without the reach or the steps'
@@ -314,8 +315,8 @@ def test_c_route_and_depth_checks():
     H, W = ct.eff_res
     vft = torch.as_tensor(vf)
     mk_b, mk_a = S.make_sharded_tiled_balance_runner, S.make_sharded_tiled_approach_runner
-    assert mk_b(ct, flags, _mesh((2, 2)), tile_rows=8).route == "launches"
-    assert mk_a(ct, vft, _mesh((2, 2)), tile_rows=8).route == "launches"
+    assert mk_b(ct, flags, _mesh((2, 2)), tile_rows=8).route == "pass"
+    assert mk_a(ct, vft, _mesh((2, 2)), tile_rows=8).route == "pass"
     assert (mk_b(ct, flags, _mesh((1, 1))).route, mk_b(ct, flags, _mesh((1, 1))).k) == \
         ("pass", S.PASS_SH_K)
     assert S.PASS_SH_K == 4
@@ -323,8 +324,7 @@ def test_c_route_and_depth_checks():
     assert mk_b(ct, flags, _mesh((12, 1)), tile_rows=4).k == 2
     assert mk_a(ct, vft, _mesh((2, 1)), route="launches").route == "launches"
     for mk, arg in ((mk_b, flags), (mk_a, vft)):
-        with pytest.raises(ValueError, match="row meshes"):
-            mk(ct, arg, _mesh((2, 2)), tile_rows=8, route="pass")
+        assert mk(ct, arg, _mesh((2, 2)), tile_rows=8, route="launches").route == "launches"
         with pytest.raises(ValueError, match="one of"):
             mk(ct, arg, _mesh((2, 1)), route="tiles")
         for k in (0, 5):
@@ -344,7 +344,7 @@ def test_c_route_and_depth_checks():
     hx4 = HA.exchange([[h[i], C[i]] for i in range(3)], mesh, S.XH, rows=4)
     with pytest.raises(ValueError, match="do not match"):  # flag pieces of 2 rows at k = 2
         S.c_balance_pass_sh(h[1], C[1], fl[1], hx4[1], hfl2[1], 2, ct, cf, sh)
-    with pytest.raises(ValueError, match="column mesh"):
+    with pytest.raises(ValueError, match="do not match"):  # a column shard without blocks
         S.c_balance_pass_sh(h[1], C[1], fl[1], None, None, 1, ct, cf,
                             S.Shard.of(H, W, (1, 2), (0, 0)))
     hh = HA.exchange([[x] for x in h], mesh, S.XH, rows=4)

@@ -72,7 +72,7 @@ from jrl_lbm_torch.models import jrl as T
 from jrl_lbm_torch.models import shear_layer as SL
 from jrl_lbm_torch.parallel.halo import pad_halo
 from jrl_lbm_torch.parallel.mesh import make_mesh, split
-from jrl_lbm_torch.utils.types import KBCType
+from jrl_lbm_torch.utils.types import CellType, KBCType
 
 RES = (128, 64)
 # (shape, refine, Rg): the wedges, the flat tips (the infinite plane at the
@@ -2242,8 +2242,8 @@ def test_cuda_sharded_runners_equal_per_step_kernels(cuda, mesh_shape):
     runners: fluid over 60 steps (six tip rows), balance 40, approach 40
     across stored-velocity frames, f/rho/vel and h/C bit for bit; only the
     sharded kernels and halo_pack launch (the fluid through fluid_pass_sh
-    on both meshes, the balance through c_balance_pass_sh on the row mesh
-    and its per-step kernel on (2, 2))."""
+    on both meshes, the C phases through c_balance_pass_sh and
+    c_approach_pass_sh, on (2, 2) their column instances)."""
     fc, s, fl, cc, st, cf, flags, mesh, _ = _sh_setup(cuda, mesh_shape)
     sharded = {"fluid_pass_sh", "halo_pack"}
     kernels.reset_launches()
@@ -2256,8 +2256,7 @@ def test_cuda_sharded_runners_equal_per_step_kernels(cuda, mesh_shape):
     kernels.reset_launches()
     got = S.make_sharded_tiled_balance_runner(cc, flags, mesh)(st, cf, 40)
     torch.cuda.synchronize()
-    assert {k for k, c in kernels.launches().items() if c} == \
-        {"c_balance_pass_sh" if mesh_shape[1] == 1 else "c_balance_sh", "halo_pack"}
+    assert {k for k, c in kernels.launches().items() if c} == {"c_balance_pass_sh", "halo_pack"}
     want = T.make_per_step_balance_runner(cc, flags)(st, cf, 40)
     for name in ("h", "C"):
         assert torch.equal(got[name], want[name]), f"balance {name}"
@@ -2501,7 +2500,8 @@ def test_cuda_fluid_pass_sh_cols_registers_and_shape(cuda):
 def test_cuda_fluid_pass_sh_cols_refuses_bad_inputs(cuda):
     """On a (2, 2) shard: blocks of 2 lanes or of another depth, no blocks,
     the lean class, a misaligned block and a scratch of a row shard's
-    width raise before a launch; the C passes refuse the shard."""
+    width raise before a launch; the C passes refuse the shard without its
+    pieces and blocks."""
     fc, s, fl, cc, st, cf, flags, mesh, shards = _sh_setup(cuda, (2, 2))
     f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
     hx = _col_exchange(mesh, f, rho, vel, 2)
@@ -2523,7 +2523,7 @@ def test_cuda_fluid_pass_sh_cols_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="scratch"):
         S.fluid_pass_sh(f[1], rho[1], vel[1], hx[1], 8, 2, fc, fl, sh,
                         scratch=row_scr.contiguous())
-    with pytest.raises(ValueError, match="row mesh"):
+    with pytest.raises(ValueError, match="do not match"):
         S.c_balance_pass_sh(split(st["h"], mesh)[1], split(st["C"], mesh)[1],
                             split(flags, mesh)[1], None, None, 1, cc, cf, sh)
     assert S.fluid_pass_sh.launches == n0
@@ -2769,6 +2769,220 @@ def test_cuda_c_pass_sh_refuses_bad_inputs(cuda):
         with pytest.raises(RuntimeError, match="cudaError 720"):
             S.c_balance_pass_sh(h[1], C[1], fl[1], hx[1], hfl[1], 2, cc, cf, sh)
     assert S.c_balance_pass_sh.launches == n0
+
+
+# --- the column meshes' C passes (c_balance_pass_sh_cols, c_approach_pass_sh_cols) ---
+
+
+def _c_col_halos(mesh, h, C, fl, base, k):
+    """The C passes' halos on a column mesh at depth k: the 2k-row pieces
+    and `pass_xh` lanes of [h, C], [h], the flags and the base flags."""
+    L = range(len(h))
+    xh = S.pass_xh(k)
+    return (HA.exchange([[h[i], C[i]] for i in L], mesh, xh, rows=2 * k),
+            HA.exchange([[x] for x in h], mesh, xh, rows=2 * k),
+            HA.exchange([[x] for x in fl], mesh, xh, rows=2 * k),
+            HA.exchange([[x] for x in base], mesh, xh, rows=2 * k))
+
+
+class WideTip(T.JRLCConfig):
+    """The flat tip with a radius of 63.5 (rint = 64): at 256x128 its disk
+    crosses the column boundary x = 64 of the (1, 2) and (2, 2) meshes, so
+    the dC_r term of the first shard's last column reads the new C of the
+    next shard's first."""
+
+    @property
+    def radius_obs(self) -> float:
+        return 63.50000000000001
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [8, 2**24 - 5])
+@pytest.mark.parametrize("mesh_shape", COL_PASS_MESHES)
+def test_cuda_c_pass_sh_cols_equals_twin_and_launches(cuda, mesh_shape, start):
+    """One launch of each C column instance on every shard at k = 1..4 (the
+    flat tip of 256x128): bit for bit k steps of the per-step kernels
+    (``route="launches"``: the balance's, and the approach's lerp and
+    `c_approach_sh` from ``start``, h, C and the shard's disk sums) and, h
+    and C, the twins run on the CPU from the same pieces, blocks and frame
+    window (the disk sums within rtol 2e-4 / atol 1e-4: PyTorch sums in
+    another order); the balance from step 8's state only (it has no step)."""
+    cc, st, cf, flags, _ = _c_pass_case(cuda, "256x128")
+    H, W = cc.eff_res
+    mesh = make_mesh(mesh_shape, [cuda] * (mesh_shape[0] * mesh_shape[1]))
+    shards = [S.Shard.of(H, W, mesh_shape, c) for c in mesh.local]
+    h, C, fl, base = (split(x, mesh) for x in (st["h"], st["C"], flags, cf["base_flags"]))
+    cf_cpu = {x: y.cpu() for x, y in cf.items()}
+    for k in range(1, 5):
+        hx, hxa, hfl, hb = _c_col_halos(mesh, h, C, fl, base, k)
+        if start == 8:
+            per = S.make_sharded_tiled_balance_runner(cc, flags, mesh, route="launches")(st, cf, k)
+            for i, sh in enumerate(shards):
+                tag = f"balance shard {mesh.local[i]} k={k}"
+                n0 = S.c_balance_pass_sh.launches
+                got = S.c_balance_pass_sh(h[i], C[i], fl[i], hx[i], hfl[i], k, cc, cf, sh)
+                assert S.c_balance_pass_sh.launches == n0 + 1
+                want = S.c_balance_pass_sh_ref(h[i].cpu(), C[i].cpu(), fl[i].cpu(),
+                                               _cpu_halo(hx[i]), _cpu_halo(hfl[i]), k, cc, cf_cpu,
+                                               sh)
+                for name, g_, w_ in zip(("h", "C"), got, want):
+                    assert torch.equal(g_.cpu(), w_), f"{tag} {name}: twin"
+                    assert torch.equal(g_, sh.body(per[name])), f"{tag} {name}: launches"
+        vf, b0, n_frames = _pass_frames(cuda, cc, start, k, seed=start + k)
+        ph, pC, pparts = _approach_launches(cc, st, cf, mesh, shards, vf, b0, n_frames, start, k)
+        for i, sh in enumerate(shards):
+            tag = f"approach shard {mesh.local[i]} step {start} k={k}"
+            fr = S.shard_frames(vf, sh, 2 * k, b0=b0, n_frames=n_frames)
+            part = torch.zeros(4, device=cuda)
+            got = S.c_approach_pass_sh(h[i], base[i], fr, hxa[i], hb[i], start, k, cc, cf, sh,
+                                       part)
+            assert torch.equal(part, pparts[i]), f"{tag}: disk sums"
+            for name, g_, p_ in zip(("h", "C"), got, (ph[i], pC[i])):
+                assert torch.equal(g_, p_), f"{tag} {name}: launches"
+            fr_c = S.ShardFrames(fr.t.cpu(), fr.row0, fr.b0, fr.n_frames, fr.col0)
+            wh, wC, wparts = S.c_approach_pass_sh_ref(
+                h[i].cpu(), base[i].cpu(), fr_c, _cpu_halo(hxa[i]), _cpu_halo(hb[i]), start, k,
+                cc, cf_cpu, sh)
+            assert torch.equal(got[0].cpu(), wh) and torch.equal(got[1].cpu(), wC), f"{tag}: twin"
+            want = torch.zeros(4)
+            for p_ in wparts:
+                want = torch.stack([want[0] + p_[0], want[1] + p_[1], p_[2], p_[3]])
+            np.testing.assert_allclose(part.cpu().numpy(), want.numpy(), rtol=2e-4, atol=1e-4,
+                                       err_msg=f"{tag}: twin's disk sums")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", COL_PASS_MESHES)
+def test_cuda_c_approach_pass_sh_cols_disk_across_a_column_boundary(cuda, mesh_shape):
+    """The wide flat tip (`WideTip`: rint 64, its disk across x = 64) from
+    step 20 over 13 steps, ``unroll`` 4, at k = 1..4 (passes that end inside
+    a chunk): the last sub-step recomputes the new C of the column past the
+    shard; h, C and the integrals bit for bit ``route="launches"``, h and C
+    bit for bit the unsharded per-step runner."""
+    cc = WideTip(res=SH_RES, Re=4.0, Pe=5.0, shape="cylinder")
+    assert cc.radius_obs_int >= SH_RES[1] // 2 and cc.radius_obs_int < SH_RES[1] - 1
+    st, cf, _ = T.c_init(cc, cuda)
+    rng = np.random.default_rng(26)
+    st = {k: v + torch.as_tensor((1e-4 * rng.standard_normal(tuple(v.shape))).astype(np.float32),
+                                 device=cuda) for k, v in st.items()}
+    H, W = SH_RES
+    vf = torch.as_tensor(np.random.default_rng(27).uniform(-0.5, 0.5, (48, 2, H, W))
+                         .astype(np.float32), device=cuda)
+    mesh = make_mesh(mesh_shape, [cuda] * (mesh_shape[0] * mesh_shape[1]))
+    want, acc_w = S.make_sharded_tiled_approach_runner(cc, vf, mesh, unroll=4,
+                                                       route="launches")(st, cf, 20, 13)
+    per_step = T.make_per_step_approach_runner(cc, vf)(st, cf, 20, 13)[0]
+    for k in range(1, 5):
+        got, acc = S.make_sharded_tiled_approach_runner(cc, vf, mesh, unroll=4, k=k)(
+            st, cf, 20, 13)
+        for name in ("h", "C"):
+            assert torch.equal(got[name], want[name]), f"k={k} {name}: launches"
+            assert torch.equal(got[name], per_step[name]), f"k={k} {name}: per-step"
+        for key in acc:
+            assert torch.equal(acc[key], acc_w[key]), f"k={k} {key}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_cuda_c_pass_routes_on_2x2_equal_launches(cuda, k):
+    """The (2, 2) balance runner through the pass (its default route) over
+    50 steps and the approach runner over 50 steps from step 8 (unroll 8):
+    bit for bit ``route="launches"`` (h, C, the integrals) and, h and C, the
+    unsharded per-step runners; one pass launch a shard and pass, two
+    halo_pack (the rows' and the columns' phase) a shard and exchange, one
+    exchange a pass and one for the flags."""
+    _, _, _, cc, st, cf, flags, mesh, _ = _sh_setup(cuda, (2, 2))
+    n = 50
+    kernels.reset_launches()
+    run = S.make_sharded_tiled_balance_runner(cc, flags, mesh, k=k)
+    got = run(st, cf, n)
+    torch.cuda.synchronize()
+    passes = -(-n // k)
+    assert (run.route, run.k) == ("pass", k)
+    assert {x: c for x, c in kernels.launches().items() if c} == \
+        {"c_balance_pass_sh": passes * 4, "halo_pack": 2 * (passes + 1) * 4}
+    want = S.make_sharded_tiled_balance_runner(cc, flags, mesh, route="launches")(st, cf, n)
+    per_step = T.make_per_step_balance_runner(cc, flags)(st, cf, n)
+    for name in ("h", "C"):
+        assert torch.equal(got[name], want[name]), f"balance k={k} {name}: launches"
+        assert torch.equal(got[name], per_step[name]), f"balance k={k} {name}: per-step"
+    H, W = SH_RES
+    vf = torch.as_tensor(np.random.default_rng(9).uniform(-0.5, 0.5, (48, 2, H, W))
+                         .astype(np.float32), device=cuda)
+    kernels.reset_launches()
+    got, acc = S.make_sharded_tiled_approach_runner(cc, vf, mesh, k=k)(st, cf, 8, n)
+    torch.cuda.synchronize()
+    passes = sum(-(-min(8, 8 + n - c) // k) for c in range(8, 8 + n, 8))
+    assert {x: c for x, c in kernels.launches().items() if c} == \
+        {"c_approach_pass_sh": passes * 4, "halo_pack": 2 * (passes + 1) * 4}
+    want, acc_l = S.make_sharded_tiled_approach_runner(cc, vf, mesh, route="launches")(
+        st, cf, 8, n)
+    per_step = T.make_per_step_approach_runner(cc, vf)(st, cf, 8, n)[0]
+    for name in ("h", "C"):
+        assert torch.equal(got[name], want[name]), f"approach k={k} {name}: launches"
+        assert torch.equal(got[name], per_step[name]), f"approach k={k} {name}: per-step"
+    for key in acc:
+        assert torch.equal(acc[key], acc_l[key]), f"approach k={k} {key}"
+
+
+@pytest.mark.cuda
+def test_cuda_c_pass_sh_cols_registers_and_shape(cuda):
+    """Both C column instances at k = 1..4 spill nothing, and their launch
+    shape is the host plan's mirrors' on the (2, 2) shards of 1024x512."""
+    sms = jrl_fluid.sm_count(cuda)
+    for kind in ("balance", "approach"):
+        for k in range(1, 5):
+            regs, local = S.pass_sh_info(k, kind=kind, cols=True)
+            assert local == 0 and 0 < regs <= 128, (kind, k, regs, local)
+            for co in ((0, 0), (1, 1)):
+                plan = S.pass_sh_plan(S.Shard.of(1024, 512, (2, 2), co), k, sms, kind)
+                got = S.pass_sh_tile_shape(k, plan.rmax, plan.smax, kind=kind, cols=True)
+                assert got[:3] == (S.TILE_THREADS, S.TILE_SMEM_CAP,
+                                   S.pass_tile_bytes(kind, plan.rmax, plan.smax)), (kind, k)
+                assert plan.grid <= got[3], (kind, k, plan.grid, got)
+
+
+@pytest.mark.cuda
+def test_cuda_c_pass_sh_cols_refuses_bad_inputs(cuda):
+    """On a (2, 2) shard: blocks of 2 lanes, flag blocks narrower than the
+    pass's, no blocks, a misaligned block, a frame window without its
+    reach lanes and a scratch of a row shard's width raise before a launch;
+    a runner through the pass refuses flags with a FLUID cell in the grid's
+    last column, which ``route="launches"`` takes."""
+    _, _, _, cc, st, cf, flags, mesh, shards = _sh_setup(cuda, (2, 2))
+    h, C, fl, base = (split(x, mesh) for x in (st["h"], st["C"], flags, cf["base_flags"]))
+    hx, hxa, hfl, hb = _c_col_halos(mesh, h, C, fl, base, 3)
+    sh = shards[1]
+    n0 = S.c_balance_pass_sh.launches, S.c_approach_pass_sh.launches
+    narrow = HA.exchange([[h[i], C[i]] for i in range(4)], mesh, S.XH, rows=6)[1]
+    fl_narrow = HA.exchange([[x] for x in fl], mesh, 4, rows=6)[1]
+    for bad_hx, bad_fl in ((narrow, hfl[1]), (hx[1], fl_narrow),
+                           (HA.Halo(10, hx[1].top, hx[1].bot, k=6), hfl[1])):
+        with pytest.raises(ValueError, match="do not match"):
+            S.c_balance_pass_sh(h[1], C[1], fl[1], bad_hx, bad_fl, 3, cc, cf, sh)
+    buf = torch.empty(hx[1].left.numel() + 1, device=cuda)
+    odd = buf[1:].view_as(hx[1].left).copy_(hx[1].left)
+    with pytest.raises(ValueError, match="16-byte"):
+        S.c_balance_pass_sh(h[1], C[1], fl[1], HA.Halo(10, hx[1].top, hx[1].bot, odd,
+                                                       hx[1].right, k=6), hfl[1], 3, cc, cf, sh)
+    row_scr = S.pass_sh_scratch(S.Shard.of(*SH_RES, (2, 1), (0, 0)), 3, cuda, 10)[..., :sh.w]
+    with pytest.raises(ValueError, match="scratch"):
+        S.c_balance_pass_sh(h[1], C[1], fl[1], hx[1], hfl[1], 3, cc, cf, sh,
+                            scratch=row_scr.contiguous())
+    vf, b0, n_frames = _pass_frames(cuda, cc, 8, 3, seed=4)
+    part = torch.zeros(4, device=cuda)
+    fr = S.shard_frames(vf, sh, 6, b0=b0, n_frames=n_frames)
+    rows_only = S.ShardFrames(fr.t[..., fr.col0:fr.col0 + sh.w].contiguous(), fr.row0, fr.b0,
+                              fr.n_frames)
+    with pytest.raises(ValueError, match="columns"):
+        S.c_approach_pass_sh(h[1], base[1], rows_only, hxa[1], hb[1], 8, 3, cc, cf, sh, part)
+    assert (S.c_balance_pass_sh.launches, S.c_approach_pass_sh.launches) == n0
+    assert torch.equal(part, torch.zeros(4, device=cuda))
+    edge = flags.clone()
+    edge[SH_RES[0] // 2, -1] = int(CellType.FLUID)
+    with pytest.raises(ValueError, match="last column"):
+        S.make_sharded_tiled_balance_runner(cc, edge, mesh)
+    S.make_sharded_tiled_balance_runner(cc, edge, mesh, route="launches")(st, cf, 1)
 
 
 @pytest.mark.cuda

@@ -428,8 +428,8 @@ def test_pass_sh_scratch_serves_every_shallower_k():
 
 def test_route_and_depth_checks():
     """Every mesh takes the pass (column meshes with its x window,
-    `test_torch_fluid_pass_sh_cols.py`), the C runners keep the per-step
-    kernels on a column mesh and refuse the pass there; k outside 1..4, a k
+    `test_torch_fluid_pass_sh_cols.py`), the C runners too (their column
+    instances, `test_torch_c_pass_sh_cols.py`); k outside 1..4, a k
     whose 2k-row pieces outgrow the shard, pieces of another depth, a lean
     pass off the inner shards and a column mesh's shard without its blocks
     are refused."""
@@ -444,9 +444,8 @@ def test_route_and_depth_checks():
     assert S.make_sharded_tiled_fluid_runner(tc, _mesh((2, 1)), route="launches").route == \
         "launches"
     cc = T.JRLCConfig(res=RES, Re=4.0, Pe=5.0, shape="45degree")
-    with pytest.raises(ValueError, match="row meshes"):
-        S.make_sharded_tiled_balance_runner(cc, T.c_init(cc, "cpu")[2], _mesh((2, 2)),
-                                            tile_rows=8, route="pass")
+    assert S.make_sharded_tiled_balance_runner(cc, T.c_init(cc, "cpu")[2], _mesh((2, 2)),
+                                               tile_rows=8, route="pass").route == "pass"
     with pytest.raises(ValueError, match="one of"):
         S.make_sharded_tiled_fluid_runner(tc, _mesh((2, 1)), route="tiles")
     for k in (0, 5):

@@ -345,8 +345,9 @@ def test_column_checks_and_routes():
     """The pass takes a column shard with 2k <= w, 4k < W and w % 4 == 0
     (and refuses one outside them), blocks of `pass_xh` lanes and 2k rows
     only, and no lean class on a column mesh; the fluid runner takes the
-    pass on every mesh by default, its k the deepest the shards take; the C
-    runners keep ``"launches"`` on a column mesh and refuse ``"pass"``."""
+    pass on every mesh by default, its k the deepest the shards take; so do
+    the C runners (their passes' column instances), ``"launches"`` when
+    asked, and the C passes refuse a column shard without its blocks."""
     _, tc, _, s, fl = _case()
     H, W = RES
     assert [S.pass_xh(k) for k in range(1, 5)] == [4, 4, 8, 8]
@@ -376,11 +377,11 @@ def test_column_checks_and_routes():
     cc = T.JRLCConfig(res=RES, Re=4.0, Pe=5.0, shape="45degree")
     flags = T.c_init(cc, "cpu")[2]
     vf = torch.zeros(2, 2, H, W)
-    assert S.make_sharded_tiled_balance_runner(cc, flags, mesh, tile_rows=8).route == "launches"
-    assert S.make_sharded_tiled_approach_runner(cc, vf, mesh, tile_rows=8).route == "launches"
-    with pytest.raises(ValueError, match="row meshes"):
-        S.make_sharded_tiled_balance_runner(cc, flags, mesh, tile_rows=8, route="pass")
-    with pytest.raises(ValueError, match="row meshes"):
-        S.make_sharded_tiled_approach_runner(cc, vf, mesh, tile_rows=8, route="pass")
-    with pytest.raises(ValueError, match="row mesh"):
+    assert S.make_sharded_tiled_balance_runner(cc, flags, mesh, tile_rows=8).route == "pass"
+    assert S.make_sharded_tiled_approach_runner(cc, vf, mesh, tile_rows=8).route == "pass"
+    assert S.make_sharded_tiled_balance_runner(cc, flags, mesh, tile_rows=8,
+                                               route="launches").route == "launches"
+    assert S.make_sharded_tiled_approach_runner(cc, vf, mesh, tile_rows=8,
+                                                route="launches").route == "launches"
+    with pytest.raises(ValueError, match="do not match"):
         S._check_c_pass_sh(sh, None, 10, None, 1)

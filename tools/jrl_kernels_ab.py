@@ -16,10 +16,11 @@ signs of ``is_negative``; the multi-cluster kernels `fused_fluid_mc`,
 from one cluster into the next); the tile
 classes `fluid_k`, `fluid_k_lean`, `fluid_k_bt` at 1024x512, k = 1, 2, 4,
 on the ethaline step-0 plan and a flat tip's plan with below-tip rows,
-and `fluid_pass` on the same plans at k = 1; the sharded kernels
-(`fluid_a_sh`, `fluid_b_sh`, `c_balance_sh`, `c_approach_sh`,
-`halo_pack`) through the sharded runners on a (2, 2) mesh on the one
-card at 1024x512, 12 steps a phase. The tree must hold `jrl_lbm_torch/`.
+and `fluid_pass` on the same plans at k = 1; the sharded runners on a
+(2, 2) mesh on the one card at 1024x512, 12 steps a phase, through their
+default routes (the passes' column instances and `halo_pack` in this
+tree, the per-step kernels in a tree before them: both bit for bit the
+per-step kernels). The tree must hold `jrl_lbm_torch/`.
 Prints one JSON line, last.
 """
 
