@@ -99,7 +99,10 @@ paths on one NVIDIA card and check them.
    (``fluid_a_sh``, ``fluid_b_sh`` with their lean instances on the (4, 1)
    shards above the tip, ``c_balance_sh``, ``c_approach_sh`` and its disk
    terms, ``halo_pack`` bit for bit) against its twin after one launch on
-   every shard; ``fluid_pass_sh`` (its registers, spills and launch shape
+   every shard; ``halo_mesh`` (the whole exchange of the mesh in one
+   launch) bit for bit its twin and ``route="shards"`` (``halo_pack`` a
+   shard and phase) on the groups of every route at k = 1 and 4;
+   ``fluid_pass_sh`` (its registers, spills and launch shape
    against the host plan first: sub-steps in turn over the whole shard,
    one wave of tiles, one cooperative launch) on every shard of (1, 1),
    (2, 1) and (4, 1) at k = 1..4, the lean class on the shard above the
@@ -123,7 +126,9 @@ paths on one NVIDIA card and check them.
    device µs/step, busy share, launches and exchanges a step beside the
    per-step kernels' and beside each phase's per-step route
    (``route="launches"``, the yardstick; on the row meshes the pass at the
-   other of k = 1 and 4 too) (one card: the cost of the
+   other of k = 1 and 4 too) and, on (4, 1) and (2, 2), beside the same
+   runner with its exchanges on ``route="shards"`` (``halo_mesh`` once an
+   exchange on the main path, ``halo_pack`` never) (one card: the cost of the
    halo exchange and the launches, not multi-card scaling); the (1, 1)
    mesh once more through a one-rank NCCL process group (``psum`` by
    ``all_reduce``), bit for bit the local mesh; ``fluid_pass_sh`` alone
@@ -132,7 +137,9 @@ paths on one NVIDIA card and check them.
    alone on the (4, 1) and (2, 2) shards with the tip at k = 1..4,
    the other kernels' device µs per launch on a 512x256 shard (by events
    behind a sleep kernel where the profiler records no device time), each
-   beside its bound and twin.
+   beside its bound and twin; the (2, 2) fluid pass's exchange at k = 4
+   through ``halo_mesh``, ``route="shards"`` and one ``halo_pack``: device
+   µs by events behind a sleep kernel, host µs a call.
 0d. The cylinder channel on a mesh of shards (``cyl_sharded_phases``) at
    ``bench.py``'s 2048² scene, every shard on the one card, route by
    route: the lean split at k = 1 on (1, 1), (4, 1) and (2, 2) (its three
@@ -142,7 +149,8 @@ paths on one NVIDIA card and check them.
    against its twin after one launch on the
    cylinder's shard (1e-5), ``cyl_pass_sh`` also against ``cyl_lean_sh`` +
    ``cyl_window_sh`` bit for bit, ``halo_pack``'s k-row and one-lane phases
-   bit for bit; the runner over 23 steps (counts zeroed just before and
+   and ``halo_mesh`` (against its twin and ``route="shards"``) bit for
+   bit; the runner over 23 steps (counts zeroed just before and
    read just after; the lean split one ``cyl_pass_sh`` launch a shard and
    pass): the full-boundary routes bit for bit the unsharded
    ``split=False`` runner, the lean split within f, rho 2e-5 and vel 2e-4
@@ -150,7 +158,8 @@ paths on one NVIDIA card and check them.
    beside the unsharded k = 1 split steps) and bit for bit its yardstick
    ``route="launches"``; the lean routes timed (20 warm-up steps, best of
    three 600-step windows, busy share) beside ``route="launches"`` and the
-   unsharded runner; each kernel alone at the main path's shapes (the L2
+   unsharded runner, at k = 1 on (4, 1) and (2, 2) also beside the
+   exchanges on ``route="shards"``; each kernel alone at the main path's shapes (the L2
    flushed between launches, CUDA events, the median of three) beside its
    bound and twin.
 2. Holds each per-step kernel to its plain PyTorch twin from the same
@@ -274,7 +283,7 @@ paths on one NVIDIA card and check them.
    lane after lane, the records bit for bit equal), timed beside the
    lanes and one lane alone; the lanes kernel against its twin (h, C
    2e-5, the record sums rtol 2e-4 / atol 1e-4) beside its bound.
-7. Prints ``{"kernels": [...]}`` (52 rows: each kernel once, the column
+7. Prints ``{"kernels": [...]}`` (53 rows: each kernel once, the column
    instances of ``fluid_pass_sh``, ``c_balance_pass_sh`` and
    ``c_approach_pass_sh`` rows of their own, the five
    cylinder kernels also as ``<name>/bf16`` and ``<name>/bf16_sr``; the
@@ -331,7 +340,7 @@ FLOPS_PER_CELL = {"fluid_a": 250, "fluid_b": 400, "c_balance": 230, "c_approach"
                   # fluid_pass: the full class's on full rows, the lean one's on lean rows
                   # per shard cell: as the per-step kernels; a copy
                   "fluid_a_sh": 250, "fluid_b_sh": 400, "c_balance_sh": 230,
-                  "c_approach_sh": 330, "halo_pack": 0,
+                  "c_approach_sh": 330, "halo_pack": 0, "halo_mesh": 0,
                   # per shard cell and step: A + B (the 2k-row halo recompute not counted)
                   "fluid_pass_sh": 650, "fluid_pass_sh_cols": 650,
                   # per shard cell and step: the balance; the approach + the lerp
@@ -428,6 +437,11 @@ SOURCE = {
     "c_approach_pass_sh_cols": ("jrl_lbm_torch/kernels/csrc/c_approach_pass_sh.cu",
                                 "jrl_lbm_tpu/ops/pallas/fused_jrl_sharded.py:513"),
     "halo_pack": ("jrl_lbm_torch/kernels/csrc/halo_pack.cu",
+                  "jrl_lbm_tpu/ops/pallas/fused_sharded.py:409"),
+    # the whole exchange of a mesh on one card: _edge_blocks (:409 -> :436),
+    # _edge_cols (:359 -> :390), the row slices of _halo_pieces (:450) and
+    # fused_jrl_sharded.py::_pieces (:54), and the ppermute rings around them
+    "halo_mesh": ("jrl_lbm_torch/kernels/csrc/halo_pack.cu",
                   "jrl_lbm_tpu/ops/pallas/fused_sharded.py:409"),
     "cyl_block_sh": ("jrl_lbm_torch/kernels/csrc/cyl_block_sh.cu",
                      "jrl_lbm_tpu/ops/pallas/fused_sharded.py:330"),
@@ -762,6 +776,7 @@ KERNEL_FUNCS = {  # CUDA functions each wrapper launches
     "c_balance_pass_sh_cols": ("c_balance_pass_sh_cols",),
     "c_approach_pass_sh_cols": ("c_approach_pass_sh_cols",),
     "halo_pack": ("halo_rows_kernel", "halo_cols_kernel"),
+    "halo_mesh": ("halo_mesh_kernel",),
     "cyl_block_sh": ("cyl_block_sh_kernel",),
     "cyl_lean_sh": ("cyl_lean_sh_kernel",),
     "cyl_window_sh": ("cyl_window_sh_kernel",),
@@ -2143,10 +2158,12 @@ def tiled_checks(dev, fluid_cfg, errs):
 
 SHARDED = ("fluid_a_sh", "fluid_b_sh", "fluid_pass_sh", "fluid_pass_sh_cols", "c_balance_sh",
            "c_approach_sh", "c_balance_pass_sh", "c_approach_pass_sh", "c_balance_pass_sh_cols",
-           "c_approach_pass_sh_cols", "halo_pack")
+           "c_approach_pass_sh_cols", "halo_pack", "halo_mesh")
 # the per-step kernels: the yardstick (route="launches") of every phase on
-# every mesh since the C passes' column instances
-SH_YARDSTICKS = ("fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh")
+# every mesh since the C passes' column instances; halo_pack: the
+# exchange's per-shard route (route="shards"), the yardstick of halo_mesh
+# on a mesh held on one card
+SH_YARDSTICKS = ("fluid_a_sh", "fluid_b_sh", "c_balance_sh", "c_approach_sh", "halo_pack")
 # the kernels the main path must launch
 SH_PATH = tuple(k for k in SHARDED if k not in SH_YARDSTICKS)
 # the k-step passes of a shard: the kernel of each kind (jrl_sharded.PASS_LIBS)
@@ -2204,6 +2221,53 @@ def cpu_halo(hx):
         return None
     return HA.Halo(hx.P, *(None if t is None else t.cpu()
                            for t in (hx.top, hx.bot, hx.left, hx.right)), k=hx.k)
+
+
+def halo_words(halos) -> int:
+    """The words of every piece of an exchange (`Halo` list)."""
+    return sum(t.numel() for hl in halos for t in (hl.top, hl.bot, hl.left, hl.right)
+               if t is not None)
+
+
+def shards_route(fn):
+    """``fn`` with every halo exchange on the per-shard route (`exchange`'s
+    default pick patched to ``"shards"``): the runners take no route
+    argument for it."""
+    from unittest import mock
+
+    from jrl_lbm_torch.kernels import halo as HA
+
+    def run(*a):
+        # a plain function: a Mock would keep every call's tensors
+        with mock.patch.object(HA, "halo_route", lambda groups, mesh: "shards"):
+            return fn(*a)
+    return run
+
+
+def halo_mesh_equal(tag, groups, mesh, xh, rows, errs):
+    """``halo_mesh`` on the card against its twin and against the per-shard
+    route (``route="shards"``: halo_pack a shard and phase, then the ring
+    moves), bit for bit, every piece of every shard."""
+    import torch
+
+    from jrl_lbm_torch.kernels import halo as HA
+
+    got = HA.halo_mesh(groups, mesh, xh, rows)
+    err = 0.0
+    for other, label in ((HA.halo_mesh_ref(groups, mesh, xh, rows), "its twin"),
+                         (HA.exchange(groups, mesh, xh, rows, route="shards"), "route=shards")):
+        for a, b in zip(got, other):
+            for nm in ("top", "bot", "left", "right"):
+                x, y = getattr(a, nm), getattr(b, nm)
+                if (x is None) != (y is None) or x is not None and (
+                        x.shape != y.shape or not torch.equal(x.view(torch.int32),
+                                                              y.view(torch.int32))):
+                    fail(f"halo_mesh {tag}: the {nm} piece differs from {label}")
+                if x is not None:
+                    err = max(err, float((x.float() - y.float()).abs().max()))
+    errs["halo_mesh"].append(err)
+    print(f"  halo_mesh {tag}: bit for bit its twin and route=shards ({halo_words(got)} words)",
+          flush=True)
 
 
 def inst_of(kname: str, nx: int) -> str:
@@ -2501,6 +2565,17 @@ def sharded_phases(dev, rate, errs):
                 want = want + HA.halo_pack_ref(grp, ha[-1].top, ha[-1].bot, S.XH)
             for x, y in zip(got, want):
                 check_close(f"halo_pack {shape}", x, y, 0.0, errs["halo_pack"])
+            # halo_mesh on the groups of every route's exchanges
+            L_ = list(L)
+            halo_mesh_equal(f"{shape} [f, vel] xh={S.XH}", [[f[i], vel[i]] for i in L_], mesh,
+                            S.XH, 1, errs)
+            h_, C_, fl_ = (split(x, mesh) for x in (st0["h"], st0["C"], flags))
+            for kp in (1, S.PASS_SH_K):
+                xh_ = S.pass_xh(kp) if nx > 1 else 0
+                for gname, grp_ in (("[f, vel, rho]", [[f[i], vel[i], rho[i]] for i in L_]),
+                                    ("[h, C]", [[h_[i], C_[i]] for i in L_]),
+                                    ("[h]", [[x] for x in h_]), ("[flags]", [[x] for x in fl_])):
+                    halo_mesh_equal(f"{shape} {gname} k={kp}", grp_, mesh, xh_, 2 * kp, errs)
         a_ref = [S.fluid_a_sh_ref(f[i], rho[i], vel[i], ha[i], k, fc, fl, shards[i]) for i in L]
         hb = HA.exchange([[x[1], x[2]] for x in a_ref], mesh, S.XH)
         for i, sh in enumerate(shards):
@@ -2566,13 +2641,20 @@ def sharded_phases(dev, rate, errs):
                 cc, flags, mesh, route="launches")
             sh_runs["approach launches"] = S.make_sharded_tiled_approach_runner(
                 cc, vf, mesh, route="launches")
+        if ny * nx > 1:  # each phase with the exchange on its per-shard route
+            for phase in ("fluid", "balance", "approach"):
+                sh_runs[f"{phase} shards"] = sh_runs[phase]
         runs = {}
         for p_, r in sh_runs.items():
             phase = p_.split()[0]
             runs[p_] = ((lambda kk, r=r: r(s0, fl, 0, kk)) if phase == "fluid" else
                         (lambda kk, r=r: r(st0, cf, kk)) if phase == "balance" else
                         (lambda kk, r=r: r(st0, cf, 0, kk)))
+            if p_.endswith("shards"):
+                runs[p_] = shards_route(runs[p_])
         want_k = {p_: SH_ROUTE_KERNELS[(p_.split()[0], r.route)] for p_, r in sh_runs.items()}
+        halo_k = {p_: set() if ny * nx == 1 else {"halo_pack" if p_.endswith("shards")
+                                                  else "halo_mesh"} for p_ in sh_runs}
         for pname, fn in runs.items():
             run_ = sh_runs[pname]
             phase = pname.split()[0]
@@ -2586,7 +2668,7 @@ def sharded_phases(dev, rate, errs):
             torch.cuda.synchronize()
             counts = {x: c for x, c in kernels.launches().items() if c}
             lean_steps = dict(fluid_run.lean_steps) if fluid_run else {}
-            expect = want_k[pname] | ({"halo_pack"} if ny * nx > 1 else set())
+            expect = want_k[pname] | halo_k[pname]
             if set(counts) != expect:
                 fail(f"sharded {pname} {shape}: launched {counts}, expected {sorted(expect)}")
             if pname == phase:  # the main path's launches, not the yardsticks'
@@ -2610,7 +2692,7 @@ def sharded_phases(dev, rate, errs):
             rec.update({"launches": counts, "bit_for_bit": True, "route": run_.route,
                         "k": run_.k if run_.route == "pass" else 1,
                         "launches_per_step": sum(c for x, c in counts.items()
-                                                 if x != "halo_pack") / n,
+                                                 if not x.startswith("halo_")) / n,
                         # calls of halo.exchange a step (the fixed flags' once a run)
                         "exchanges_per_step": ex.call_count / n})
             if fluid_run:
@@ -2629,7 +2711,7 @@ def sharded_phases(dev, rate, errs):
             rep[pname] = rec
             # device µs per launch of each instance on this mesh
             sh = shards[-1]
-            for kname in want_k[pname] | ({"halo_pack"} if ny * nx > 1 else set()):
+            for kname in want_k[pname] | halo_k[pname]:
                 insts = {"": KERNEL_FUNCS[kname]}
                 if kname in ("fluid_a_sh", "fluid_b_sh"):
                     insts = {"": (f"{kname}_kernel<false>",), "lean": (f"{kname}_kernel<true>",)}
@@ -2642,6 +2724,13 @@ def sharded_phases(dev, rate, errs):
                         "fluid_a_sh", "fluid_b_sh") else counts[kname]
                     if cnt and us:
                         per_launch[(inst_of(kname, nx), f"{ny}x{nx}", inst)] = us / cnt
+        for phase in ("fluid", "balance", "approach"):
+            if f"{phase} shards" in rep:
+                a_, b_ = rep[phase], rep[f"{phase} shards"]
+                print(f"  {phase} on {shape}: route=mesh {a_['us_per_step']:.3f} us/step wall "
+                      f"(busy {a_.get('busy_share', float('nan')):.1%}), route=shards "
+                      f"{b_['us_per_step']:.3f} (busy {b_.get('busy_share', float('nan')):.1%})",
+                      flush=True)
         # launches and bound of one step's launches on the last shard
         rep["bytes_per_launch"] = {x: sh_bytes(x, shards[-1]) for x in SH_PLANES}
 
@@ -2673,6 +2762,8 @@ def sharded_phases(dev, rate, errs):
     for x in SH_PATH:
         if main_counts[x] < 1:
             fail(f"sharded main path: {x} was not launched")
+    if main_counts["halo_pack"]:
+        fail(f"sharded main path on one card: halo_pack launched {main_counts['halo_pack']} times")
     report["main_launches"] = main_counts
     report["per_launch_us"] = {f"{k}/{m}{'/' + i if i else ''}": us
                                for (k, m, i), us in per_launch.items()}
@@ -2709,6 +2800,34 @@ def sharded_phases(dev, rate, errs):
         "halo_pack": (lambda: HA.halo_pack(grp, ha[3].top, ha[3].bot, S.XH),
                       lambda: HA.halo_pack_ref(grp, ha[3].top, ha[3].bot, S.XH)),
     }
+    # halo_mesh at the (2, 2) fluid pass's exchange (k = 4: 8 rows, 8 lanes
+    # of [f, vel, rho]) beside the same exchange on route="shards" (eight
+    # halo_pack launches) and one halo_pack launch: device µs a call by CUDA
+    # events around 200 calls queued behind a sleep kernel, host µs a call
+    # by the host's clock around 200 calls (the card keeps up), the twin
+    g22 = [[f[i], vel[i], rho[i]] for i in range(4)]
+    xh22, rows22 = S.pass_xh(S.PASS_SH_K), 2 * S.PASS_SH_K
+    halo_mesh_equal("(2, 2) row", g22, mesh22, xh22, rows22, errs)
+    words22 = halo_words(HA.halo_mesh(g22, mesh22, xh22, rows22))
+    ex_calls = {"halo_mesh": lambda: HA.halo_mesh(g22, mesh22, xh22, rows22),
+                "shards": lambda: HA.exchange(g22, mesh22, xh22, rows22, route="shards"),
+                "halo_pack": lambda: HA.halo_pack(g22[3], rows=rows22)}
+    ex_rep = {}
+    for nm, fn_ in ex_calls.items():
+        dev_ms = queued_ms(fn_, 200, head_s=0.25)
+        fn_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn_()
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        ex_rep[nm] = {"device_us": dev_ms * 1e3, "host_us": host_us}
+        print(f"  exchange of the (2, 2) fluid pass at k={S.PASS_SH_K} through {nm:9s}: "
+              f"device {dev_ms * 1e3:8.2f} us a call (events behind a sleep kernel), host "
+              f"{host_us:8.2f} us a call", flush=True)
+    ex_rep["words"] = words22
+    report["halo_exchange_22"] = ex_rep
     # (d) fluid_pass_sh alone at the main path's shapes: a pass on the (4, 1)
     # and the (2, 2) shard with the tip (the latter the column instance) and
     # on the (1, 1) grid, at k = 1..4;
@@ -2829,6 +2948,26 @@ def sharded_phases(dev, rate, errs):
             })
             report.setdefault("rows", {})[k] = dict(rows[-1], time_from=a["time_from"])
             continue
+        if k == "halo_mesh":  # its row: the (2, 2) fluid pass's exchange above
+            plain_ms = cuda_ms(lambda: HA.halo_mesh_ref(g22, mesh22, xh22, rows22), 3, warmup=1)
+            nbytes = 2 * 4 * words22  # each piece's words read once and written once
+            ms, bound_ms = ex_rep["halo_mesh"]["device_us"] / 1e3, nbytes / rate * 1e3
+            print(f"  {k:14s} {ms * 1e3:10.2f} us  bound {bound_ms * 1e3:8.2f} us (bytes; "
+                  f"{nbytes / 1e6:.3f} MB)  {bound_ms / ms * 100:6.2f}% of bound  twin "
+                  f"{plain_ms:.3f} ms  host {ex_rep['halo_mesh']['host_us']:.2f} us a call "
+                  f"(one halo_pack {ex_rep['halo_pack']['host_us']:.2f}, route=shards "
+                  f"{ex_rep['shards']['host_us']:.2f})", flush=True)
+            src, rep_ = SOURCE[k]
+            rows.append({
+                "name": k, "route": "cuda", "source": src, "replaces": rep_,
+                "launches": main_counts[k], "max_abs_err": max(errs[k]) if errs[k] else None,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                "library_ms": None,
+            })
+            report.setdefault("rows", {})[k] = dict(
+                rows[-1], bytes=nbytes, host_us=ex_rep["halo_mesh"]["host_us"],
+                time_from="events around 200 calls behind a sleep kernel")
+            continue
         kfn, tfn = calls[k]
         call_ms = cuda_ms(kfn, 200)
         plain_ms = cuda_ms(tfn, 3, warmup=1)
@@ -2932,8 +3071,8 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
     profiled window for the busy share) beside ``route="launches"`` and the
     unsharded runner (on one card: the halo exchange, the extra launches
     and the host, not multi-card scaling); (d) each kernel alone at the
-    main path's shapes. Returns the four kernels' rows, the halo_pack
-    launches of the path and a report."""
+    main path's shapes. Returns the four kernels' rows, the path's launches
+    by kernel (``halo_mesh`` and ``halo_pack`` among them) and a report."""
     import torch
 
     from jrl_lbm_torch import kernels
@@ -2970,7 +3109,7 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
     print(f"sharded cylinder {H}x{W}, D {cfg.D:g}, Re {cfg.Re:g}: band region at k=1 "
           f"{CS._fix_regions(cfg)}, at k=4 {CS._fix_regions(cfg, 7.0)}", flush=True)
     report = {"res": [H, W], "routes": {}}
-    path_counts = {k: 0 for k in CYL_SH + ("halo_pack",)}
+    path_counts = {k: 0 for k in CYL_SH + ("halo_pack", "halo_mesh")}
 
     def drive(run, n, state, main=True):
         """``run`` for n steps, counts zeroed just before and read just
@@ -3012,6 +3151,9 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
         if stepk.route == "lean":
             grp = [CS.lean_group(f[j], rho[j], vel[j], flags[j], phi[j]) for j in L]
             halos = HA.exchange(grp, mesh, sh.xh, rows=k)
+            if ny * nx > 1:
+                halo_mesh_equal(f"{label} lean group", grp, mesh, sh.xh if nx > 1 else 0, k,
+                                errs)
             if ny > 1:
                 for x, y in zip(HA.halo_pack(grp[i], rows=k), HA.halo_pack_ref(grp[i], rows=k)):
                     check_close(f"halo_pack rows k={k} {label}", x, y, 0.0, errs["halo_pack"])
@@ -3050,6 +3192,8 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
             want_k = {"cyl_pass_sh"}
         elif stepk.route == "pieces":
             halos = HA.exchange([CS.full_group(f[j], vel[j], flags[j]) for j in L], mesh, 1)
+            halo_mesh_equal(f"{label} full group", [CS.full_group(f[j], vel[j], flags[j])
+                                                    for j in L], mesh, 1 if nx > 1 else 0, 1, errs)
             if nx > 1:
                 grp = CS.full_group(f[i], vel[i], flags[i])
                 for x, y in zip(HA.halo_pack(grp, halos[i].top, halos[i].bot, 1),
@@ -3067,7 +3211,7 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
                    CS.cyl_block_sh_ref(fp[i], rho[i], velp[i], flp[i], phi[i], None, c, sh))
             want_k = {"cyl_block_sh"}
         if stepk.route != "padded" and ny * nx > 1:
-            want_k = want_k | {"halo_pack"}
+            want_k = want_k | {"halo_mesh"}
         del f, rho, vel, flags, phi
 
         # (b) the main path: 23 steps, counts zeroed just before and read just after
@@ -3165,11 +3309,44 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
                 "device_us_by_function": ytimes}
             print(f"  beside it, route=launches: best {min(ywin):.3f} us/step, device {ydev} "
                   f"us/step, launches a window {ycounts}", flush=True)
+            if k == 1 and ny * nx > 1:
+                # and the same runner with its exchanges on route="shards"
+                srun = shards_route(run)
+                sst, _, _ = drive(srun, 20, s0, main=False)
+                swarm, _, _ = drive(run, 20, s0, main=False)
+                if not all(torch.equal(sst[nm], swarm[nm]) for nm in ("f", "rho", "vel")):
+                    fail(f"sharded cylinder {label}: route=shards differs from the mesh route")
+                swin = []
+                for _ in range(3):
+                    sst, ms, scounts = drive(srun, 600, sst, main=False)
+                    swin.append(ms * 1e3 / 600)
+                if "halo_pack" not in scounts or "halo_mesh" in scounts:
+                    fail(f"sharded cylinder {label} route=shards: launched {scounts}")
+                sp = {"s": sst}
+
+                def sprof(nn):
+                    sp["s"] = srun(sp["s"], fl, nn)
+
+                stimes, swall = device_profile(sprof, 600)
+                sbusy = sum(stimes.values()) / (swall * 1e6) if swall else None
+                rep["shards_route"] = {
+                    "windows_us_per_step": swin, "best_us_per_step": min(swin),
+                    "busy_share": sbusy, "launches_600": scounts, "bit_for_bit_20": True,
+                    "device_us_per_step": sum(stimes.values()) / 600 if swall else None}
+                print(f"  beside it, route=shards (halo_pack a shard and phase): best "
+                      f"{min(swin):.3f} us/step, busy {sbusy if sbusy is None else f'{sbusy:.1%}'}"
+                      f" against route=mesh {best:.3f} us/step, busy "
+                      f"{busy if busy is None else f'{busy:.1%}'}; 20 steps bit for bit",
+                      flush=True)
+                del sst, sp, swarm
             del state, pst, yst, yp
 
-    for k in CYL_SH_PATH:
+    for k in CYL_SH_PATH + ("halo_mesh",):
         if path_counts[k] < 1:
             fail(f"sharded cylinder main path: {k} was not launched")
+    if path_counts["halo_pack"]:
+        fail(f"sharded cylinder main path on one card: halo_pack launched "
+             f"{path_counts['halo_pack']} times")
     report["main_launches"] = path_counts
 
     # (d) each kernel alone at the main path's shapes: the lean pass and
@@ -3292,7 +3469,7 @@ def cyl_sharded_phases(dev, rate, errs, unsharded_us=None):
                 "library_ms": None,
             })
     report["per_launch"] = alone
-    return rows, path_counts["halo_pack"], report
+    return rows, path_counts, report
 
 
 # ---------------------------------------------------------------------------
@@ -3535,12 +3712,12 @@ def main() -> int:
 
     # ---- 0d. the cylinder channel on a mesh of shards: kernels, routes ----
     stamp("0d. sharded cylinder")
-    cyl_sh_rows, cyl_sh_halo, report["cyl_sharded"] = cyl_sharded_phases(
+    cyl_sh_rows, cyl_sh_counts, report["cyl_sharded"] = cyl_sharded_phases(
         dev, rate, errs, report["cylinder"]["best"]["us_per_step"])
-    for r in sharded_rows:  # halo_pack serves both sharded paths
-        if r["name"] == "halo_pack":
-            r["launches"] += cyl_sh_halo
-            r["max_abs_err"] = max(errs["halo_pack"])
+    for r in sharded_rows:  # halo_mesh (halo_pack on route="shards") serves both sharded paths
+        if r["name"] in ("halo_pack", "halo_mesh"):
+            r["launches"] += cyl_sh_counts[r["name"]]
+            r["max_abs_err"] = max(errs[r["name"]])
 
     def equal_bits(tag, got, want, must=True):
         """Whether ``got`` equals ``want`` bit for bit; fail if not and
@@ -4762,8 +4939,8 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     rows += cyl_rows + storage_rows + tiled_rows + shear_rows + sharded_rows + cyl_sh_rows \
         + sweep_rows
-    if len(rows) != 52:
-        fail(f"{len(rows)} kernel rows, expected 52")
+    if len(rows) != 53:
+        fail(f"{len(rows)} kernel rows, expected 53")
     stamp("end")
     report.update({"phases": phases, "kernels": rows, "build_log": build.build_log,
                    "phase_start_s": marks})

@@ -18,8 +18,9 @@ storage of f, each a template instance, counted per name and per mode), the
 shear layer's periodic step (`periodic.py`), and the JRL case and the
 cylinder channel on a mesh of shards (`jrl_sharded.py`, `cyl_sharded.py`:
 a k-step fluid pass, balance pass and approach pass and a lean-split
-cylinder pass of a shard in one launch each; their halo pieces packed by
-`halo.py`).
+cylinder pass of a shard in one launch each; their halo pieces from
+`halo.py`: on a mesh held on one card the whole exchange in one launch,
+else packed a shard and phase).
 
 The wrappers import without ``nvcc`` or a card; a kernel is built
 (`build.py`) the first time it is launched.
@@ -35,7 +36,7 @@ KERNELS = ("fluid_a", "fluid_b", "c_balance", "c_approach",
            "c_approach_pass", "fused_approach_cl", "cyl_pass", "fused_approach_lanes",
            "fused_fluid_mc", "fused_balance_mc", "fused_approach_mc", "cyl_pass_sh",
            "fluid_pass_sh", "c_balance_pass_sh", "c_approach_pass_sh", "fused_fluid_tl",
-           "fused_approach_rw")
+           "fused_approach_rw", "halo_mesh")
 
 
 def wrappers():
@@ -83,6 +84,7 @@ def wrappers():
         "c_approach_pass_sh": jrl_sharded.c_approach_pass_sh,
         "fused_fluid_tl": fused_jrl.fused_fluid_tl,
         "fused_approach_rw": fused_jrl.fused_approach_rw,
+        "halo_mesh": halo.halo_mesh,
     }
 
 

@@ -2,7 +2,9 @@
 // edge column blocks of the row-extended block, of all planes of a field
 // group (f and vel; rho and vel; flags; h; the cylinder's flags, f, vel
 // and phi, rho) into one contiguous send buffer per neighbour, in one
-// launch a phase.
+// launch a phase. On a mesh whose shards all sit on one card, a third
+// entry point (jrl_halo_mesh) writes every shard's received pieces at once,
+// straight from its neighbours' tensors (see halo_mesh_kernel).
 //
 // Replaces the TPU kernels jrl_lbm_tpu/ops/pallas/fused_sharded.py::
 // _edge_blocks (the first and last lane blocks of a shard, called by
@@ -106,6 +108,115 @@ extern "C" int jrl_halo_cols(const PackSrc* src, const unsigned* top, const unsi
   const int n = 2 * P * (h + 2 * k) * xh;
   halo_cols_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(*src, top, bot, P, h, w,
                                                                       k, xh, first, last);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The whole exchange of a mesh held on one card, in one launch
+// ---------------------------------------------------------------------------
+//
+// Every shard of a (ny, nx) mesh lies in the same memory, so the pieces a
+// shard receives are read straight from the neighbours that own them, with
+// the ring directions of kernels/halo.py::exchange (indices mod ny and nx):
+//   top   of (iy, ix): rows [h-k, h) of (iy-1, ix)           [P][k][w]
+//   bot   of (iy, ix): rows [0, k) of (iy+1, ix)             [P][k][w]
+//   left  of (iy, ix): the last xh lanes of (iy, ix-1)'s block extended by
+//                      its k received rows a side, i.e. rows [h-k, h) of
+//                      (iy-1, ix-1), then (iy, ix-1), then rows [0, k) of
+//                      (iy+1, ix-1)                          [P][h+2k][xh]
+//   right of (iy, ix): the first xh lanes of (iy, ix+1)'s, the same way
+// The extended rows are zeros on a mesh of one row (ny = 1), as the
+// two-phase exchange writes them. top and bot are absent (0 words) when
+// ny = 1, left and right when nx = 1 or xh = 0. The pieces of shard s
+// start at s * stride words of the output, at the offsets 0, bot_off,
+// left_off and right_off, each a multiple of 32 words (128 bytes) chosen
+// by the host; the words between the pieces are left unwritten.
+//
+// Bound on the card: memory (the words written, and as many read) and
+// launch latency: a (2, 2) fluid exchange at k = 4 (512x256 shards, 12
+// planes, 8 rows, 8 lanes) writes ~2.4 MB. Design: one thread per output
+// word, neighbouring threads on neighbouring words (coalesced writes; the
+// row reads coalesced too, the column reads xh words of a row); a block
+// works on one piece of one shard, so the shard and piece are
+// block-uniform and a thread's index math is two integer divisions.
+
+constexpr int MAX_MESH_SHARDS = 64;  // kernels/halo.py::MAX_MESH_SHARDS
+
+// The group's tensors on every shard, shards in row-major mesh order
+// (filled by the Python wrapper); every shard holds the same plane counts.
+struct MeshSrc {
+  const unsigned* p[MAX_MESH_SHARDS][MAX_SOURCES];
+  int planes[MAX_SOURCES];
+};
+
+namespace {
+
+// plane q of shard s's group (the sources walked at compile-time indices;
+// the table is a __grid_constant__ parameter, read in place for a run-time s)
+__device__ __forceinline__ const unsigned* mesh_plane(const MeshSrc& src, int s, int q, int hw) {
+  const unsigned* base = src.p[s][0];
+  bool found = false;
+#pragma unroll
+  for (int i = 0; i < MAX_SOURCES - 1; ++i) {
+    if (!found && q >= src.planes[i]) {
+      q -= src.planes[i];
+      base = src.p[s][i + 1];
+    } else {
+      found = true;
+    }
+  }
+  return base + (size_t)q * hw;
+}
+
+__global__ void __launch_bounds__(256) halo_mesh_kernel(const __grid_constant__ MeshSrc src,
+                                                        int ny, int nx, int P, int h, int w,
+                                                        int k, int xh, int bot_off, int left_off,
+                                                        int right_off, int stride,
+                                                        unsigned* out) {
+  // blockIdx.z: the shard (row-major); blockIdx.y: its piece (0 top, 1 bot,
+  // 2 left, 3 right); x: the piece's words. Block-uniform shard and piece
+  // leave two divisions a thread for the word's place in its piece.
+  const int s = blockIdx.z, piece = blockIdx.y;
+  const int iy = s / nx, ix = s - iy * nx;
+  const int up = (iy + ny - 1) % ny, down = (iy + 1) % ny;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int hw = h * w;
+  unsigned v;
+  if (piece < 2) {
+    if (ny == 1 || j >= P * k * w) return;
+    const int qr = j / w, x = j - qr * w;
+    const int q = qr / k, r = qr - q * k;
+    v = piece ? mesh_plane(src, down * nx + ix, q, hw)[r * w + x]
+              : mesh_plane(src, up * nx + ix, q, hw)[(h - k + r) * w + x];
+    out[(size_t)s * stride + (piece ? bot_off : 0) + j] = v;
+  } else {
+    const int bh = h + 2 * k;
+    if (nx == 1 || j >= P * bh * xh) return;
+    const int qy = j / xh, c = j - qy * xh;
+    const int q = qy / bh, ry = qy - q * bh;
+    const bool is_right = piece == 3;
+    const int sx = is_right ? (ix + 1) % nx : (ix + nx - 1) % nx;
+    const int x = is_right ? c : w - xh + c;
+    if (ry < k)
+      v = ny > 1 ? mesh_plane(src, up * nx + sx, q, hw)[(h - k + ry) * w + x] : 0u;
+    else if (ry >= h + k)
+      v = ny > 1 ? mesh_plane(src, down * nx + sx, q, hw)[(ry - h - k) * w + x] : 0u;
+    else
+      v = mesh_plane(src, iy * nx + sx, q, hw)[(ry - k) * w + x];
+    out[(size_t)s * stride + (is_right ? right_off : left_off) + j] = v;
+  }
+}
+
+}  // namespace
+
+extern "C" int jrl_halo_mesh(const MeshSrc* src, int ny, int nx, int P, int h, int w, int k,
+                             int xh, int bot_off, int left_off, int right_off, int stride,
+                             unsigned* out, void* stream) {
+  const int nr = ny > 1 ? P * k * w : 0, nc = nx > 1 ? P * (h + 2 * k) * xh : 0;
+  const int n = nr > nc ? nr : nc;
+  const dim3 grid((n + 255) / 256, 4, ny * nx);
+  halo_mesh_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      *src, ny, nx, P, h, w, k, xh, bot_off, left_off, right_off, stride, out);
   return (int)cudaGetLastError();
 }
 

@@ -23,8 +23,9 @@ Replaces the TPU kernels of `jrl_lbm_tpu/ops/pallas/fused_sharded.py`:
   cell), bit for bit the two launches, which stay as ``route="launches"`` and for
   k = 5..8;
 
-with ``halo_pack`` (`halo.py`) in place of ``_edge_cols`` and
-``_edge_blocks``. `make_sharded_fused_cylinder_step` and ``_runner`` keep
+with `halo.py`'s exchange in place of ``_edge_cols`` and ``_edge_blocks``
+(``halo_mesh``, one launch for the mesh, where every shard is on one card;
+else ``halo_pack`` a shard and phase). `make_sharded_fused_cylinder_step` and ``_runner`` keep
 the JAX functions' arguments (``interpret`` dropped: the CPU runs the
 twins), checks and route choice: the lean split when eligible, else
 PIECES when ``tile_rows`` is set or chosen, else PADDED; ``route`` picks

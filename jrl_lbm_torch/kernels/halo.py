@@ -23,10 +23,20 @@ orders them, so the corners ride the second hop:
 contiguous buffer per neighbour, which is what ``batch_isend_irecv``
 needs; its twin slices and concatenates. A group is up to
 ``MAX_SOURCES`` tensors of one 32-bit dtype (an int32 flags plane rides
-a float32 group as ``flags.view(torch.float32)``, its bits unchanged). A
-wrapper given tensors on the CPU runs the twin; given tensors on the card
-it launches the kernel or raises. ``halo_pack.launches`` counts the
-launches.
+a float32 group as ``flags.view(torch.float32)``, its bits unchanged).
+
+Where every shard of a local mesh sits on one device, the neighbours'
+tensors are all in one memory, and `halo_mesh` computes the whole
+exchange of a group in one launch (same file, ``jrl_halo_mesh``): every
+shard's received pieces, corners included, read straight from the shards
+that own them into one buffer, each piece a 128-byte aligned view of it.
+`exchange` takes that route there (``route="mesh"``) and the two phases
+of `halo_pack` + `ppermute` (``route="shards"``) on process groups and
+on meshes over several cards; ``"shards"`` stays the yardstick.
+
+A wrapper given tensors on the CPU runs the twin; given tensors on the
+card it launches the kernel or raises. ``halo_pack.launches`` and
+``halo_mesh.launches`` count the launches.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ from jrl_lbm_torch.parallel.halo import ppermute
 from jrl_lbm_torch.parallel.mesh import AXIS_X, AXIS_Y, Mesh
 
 MAX_SOURCES = 5  # tensors of a field group: up to the cylinder's flags, f, vel, phi, rho
+MAX_MESH_SHARDS = 64  # shards of a mesh that `halo_mesh` takes (csrc/halo_pack.cu)
+PIECE_ALIGN = 32  # words: each piece of `halo_mesh`'s buffer starts on 128 bytes
 
 
 def as_planes(t: torch.Tensor) -> torch.Tensor:
@@ -174,11 +186,210 @@ def edge_blocks(groups, pieces, mesh: Mesh, xh: int, rows: int = 1):
     return list(zip(lefts, rights))
 
 
-def exchange(groups, mesh: Mesh, xh: int, rows: int = 1):
+class MeshSrc(ctypes.Structure):
+    _fields_ = [("p", (ctypes.c_void_p * MAX_SOURCES) * MAX_MESH_SHARDS),
+                ("planes", ctypes.c_int * MAX_SOURCES)]
+
+
+@dataclasses.dataclass
+class MeshLayout:
+    """Where `halo_mesh` puts the pieces of every shard in its one buffer:
+    shard s's pieces start at ``s * stride`` words, ``top`` at 0, ``bot``,
+    ``left`` and ``right`` at their offsets (each a multiple of
+    `PIECE_ALIGN`); ``rows``/``cols`` the row pieces' and column blocks'
+    shapes and contiguous strides (None where absent). ``src`` is the
+    kernel's parameter table, its pointers refilled on every call."""
+
+    ny: int
+    nx: int
+    P: int
+    h: int
+    w: int
+    k: int
+    xh: int
+    bot: int
+    left: int
+    right: int
+    stride: int
+    rows: Optional[tuple]
+    cols: Optional[tuple]
+    src: MeshSrc
+
+    @property
+    def words(self) -> int:
+        return self.ny * self.nx * self.stride
+
+    def halos(self, buf: torch.Tensor):
+        """The `Halo` of every shard, its pieces views of ``buf``."""
+        out = []
+        for s in range(self.ny * self.nx):
+            base = s * self.stride
+            rows = [None, None] if self.rows is None else [
+                buf.as_strided(*self.rows, base + o) for o in (0, self.bot)]
+            cols = [None, None] if self.cols is None else [
+                buf.as_strided(*self.cols, base + o) for o in (self.left, self.right)]
+            out.append(Halo(self.P, *rows, *cols, self.k))
+        return out
+
+
+def _contiguous(shape):
+    """``(shape, strides)`` of a contiguous tensor of ``shape``."""
+    st, acc = [], 1
+    for n in reversed(shape):
+        st.append(acc)
+        acc *= n
+    return shape, tuple(reversed(st))
+
+
+def _up(n: int) -> int:
+    return -(-n // PIECE_ALIGN) * PIECE_ALIGN
+
+
+_layouts: dict = {}
+
+
+def _mesh_layout(shape, counts, h: int, w: int, k: int, xh: int) -> MeshLayout:
+    """The (cached) layout of a mesh of ``shape`` whose shards hold groups
+    of ``counts`` planes a tensor, ``[h, w]`` each, ``k`` rows and ``xh``
+    lanes deep."""
+    key = (tuple(shape), tuple(counts), h, w, k, xh)
+    lay = _layouts.get(key)
+    if lay is None:
+        ny, nx = shape
+        P = sum(counts)
+        rows = _contiguous((P, w) if k == 1 else (P, k, w)) if ny > 1 else None
+        cols = _contiguous((P, h + 2 * k, xh)) if nx > 1 and xh else None
+        nr = _up(P * k * w) if rows else 0
+        nc = _up(P * (h + 2 * k) * xh) if cols else 0
+        src = MeshSrc()
+        for i, c in enumerate(counts):
+            src.planes[i] = c
+        lay = _layouts[key] = MeshLayout(ny, nx, P, h, w, k, xh, nr, 2 * nr, 2 * nr + nc,
+                                         2 * nr + 2 * nc, rows, cols, src)
+    return lay
+
+
+def _mesh_check(groups, mesh: Mesh, xh: int, rows: int):
+    """The layout of `halo_mesh` for ``groups``, or ValueError where the
+    mesh route cannot run: a process group, shards on several devices, or
+    groups of differing shapes, dtypes or plane counts."""
+    ny, nx = mesh.shape
+    if mesh.group is not None:
+        raise ValueError("halo_mesh: a process-group mesh exchanges through route='shards'")
+    if len(groups) != ny * nx or len(mesh.local) != ny * nx:
+        raise ValueError(f"halo_mesh: {len(groups)} groups on a {ny}x{nx} mesh")
+    if ny * nx > MAX_MESH_SHARDS:
+        raise ValueError(f"halo_mesh: {ny * nx} shards (at most {MAX_MESH_SHARDS})")
+    g0 = groups[0]
+    n = len(g0)
+    if not 1 <= n <= MAX_SOURCES:
+        raise ValueError(f"{n} tensors in a group (1 .. {MAX_SOURCES})")
+    h, w = g0[0].shape[-2:]
+    dev, dt = g0[0].device, g0[0].dtype
+    sizes = [t.shape for t in g0]
+    if any(sz[-2:] != (h, w) for sz in sizes) or g0[0].element_size() != 4:
+        raise ValueError("halo_mesh: a group holds 32-bit [..., h, w] tensors of one h and w")
+    for g in groups:  # plain loops: this runs once an exchange, on the host's critical path
+        if len(g) != n:
+            raise ValueError("halo_mesh: every shard's group must hold as many tensors")
+        for t, sz in zip(g, sizes):
+            if t.shape != sz or t.dtype != dt or t.device != dev or not t.is_contiguous():
+                raise ValueError("halo_mesh: every shard's group must hold contiguous tensors "
+                                 "of the same shapes and dtype on one device")
+    k = int(rows)
+    if not 1 <= k <= h or not 0 <= xh <= w:
+        raise ValueError(f"rows={rows}, xh={xh} outside 1 .. {h}, 0 .. {w}")
+    return _mesh_layout((ny, nx), [t.numel() // (h * w) for t in g0], h, w, k, int(xh))
+
+
+def halo_mesh_ref(groups, mesh: Mesh, xh: int, rows: int = 1):
+    """Twin of `halo_mesh`: every piece sliced straight from the neighbour
+    shard that owns it (the kernel's index map), into one buffer of the
+    same layout."""
+    lay = _mesh_check(groups, mesh, xh, rows)
+    ny, nx, h, w, k = lay.ny, lay.nx, lay.h, lay.w, lay.k
+    g0 = groups[0][0]
+    buf = torch.zeros(lay.words, dtype=g0.dtype, device=g0.device)
+    halos = lay.halos(buf)
+
+    def cut(iy, ix, r0, r1, c0, c1):
+        return torch.cat([as_planes(t)[:, r0:r1, c0:c1]
+                          for t in groups[(iy % ny) * nx + ix % nx]], dim=0)
+
+    for s, hl in enumerate(halos):
+        iy, ix = divmod(s, nx)
+        if lay.rows is not None:
+            _rows3(hl.top, k).copy_(cut(iy - 1, ix, h - k, h, 0, w))
+            _rows3(hl.bot, k).copy_(cut(iy + 1, ix, 0, k, 0, w))
+        if lay.cols is not None:
+            for blk, sx, c0 in ((hl.left, ix - 1, w - xh), (hl.right, ix + 1, 0)):
+                blk[:, k:h + k].copy_(cut(iy, sx, 0, h, c0, c0 + xh))
+                if ny > 1:
+                    blk[:, :k].copy_(cut(iy - 1, sx, h - k, h, c0, c0 + xh))
+                    blk[:, h + k:].copy_(cut(iy + 1, sx, 0, k, c0, c0 + xh))
+    return halos
+
+
+def halo_mesh(groups, mesh: Mesh, xh: int, rows: int = 1):
+    """The whole `exchange` of one field group for every shard of a local
+    mesh whose shards all sit on one device (``groups[s]``: the group on
+    shard s, row-major), in one launch: the same `Halo` list, its pieces
+    128-byte aligned views of one buffer. Raises where the mesh route
+    cannot run (`_mesh_check`)."""
+    lay = _mesh_check(groups, mesh, xh, rows)
+    g0 = groups[0][0]
+    if g0.device.type == "cpu":
+        return halo_mesh_ref(groups, mesh, xh, rows)
+    if lay.stride == 0:  # a mesh of one shard: nothing to exchange
+        return lay.halos(None)
+    if lay.words >= 2**31:
+        raise ValueError(f"halo_mesh: {lay.words} words overflow the kernel's int32 index")
+    src = lay.src
+    for s, g in enumerate(groups):
+        row = src.p[s]
+        for i, t in enumerate(g):
+            row[i] = t.data_ptr()
+    dev = g0.device
+    buf = torch.empty(lay.words, dtype=g0.dtype, device=dev)
+    fn = build.bind("halo_pack", "jrl_halo_mesh", [_P] + [ctypes.c_int] * 11 + [_P, _P])
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(src), lay.ny, lay.nx, lay.P, lay.h, lay.w, lay.k, lay.xh, lay.bot,
+                 lay.left, lay.right, lay.stride, buf.data_ptr(), stream_of(dev))
+    build.check(err, "halo_pack")
+    halo_mesh.launches += 1
+    return lay.halos(buf)
+
+
+halo_mesh.launches = 0
+
+
+def halo_route(groups, mesh: Mesh) -> str:
+    """The route `exchange` takes by default: ``"mesh"`` (`halo_mesh`) on a
+    local mesh of at most `MAX_MESH_SHARDS` shards whose groups all sit on
+    one device, ``"shards"`` everywhere else. (A group is on one device
+    either way: both routes refuse one that is not.)"""
+    if mesh.group is not None or len(groups) > MAX_MESH_SHARDS \
+            or len(groups) != mesh.shape[0] * mesh.shape[1]:
+        return "shards"
+    dev = groups[0][0].device
+    return "mesh" if all(g[0].device == dev for g in groups) else "shards"
+
+
+def exchange(groups, mesh: Mesh, xh: int, rows: int = 1, route: Optional[str] = None):
     """The `Halo` of each shard this process holds for one field group per
     shard (``groups[i]``: the group's tensors on shard ``mesh.local[i]``),
     ``rows`` rows and ``xh`` lanes deep (``xh = 0``: no column blocks).
-    Every process posts the same exchanges whatever its shards compute."""
+    ``route``: ``"mesh"`` (`halo_mesh`, one launch for the mesh),
+    ``"shards"`` (`halo_pack` a shard and phase, moved by `ppermute`), or
+    None for `halo_route`'s pick; a forced ``"mesh"`` that cannot run
+    raises. Every process posts the same exchanges whatever its shards
+    compute."""
+    if route is None:
+        route = halo_route(groups, mesh)
+    if route == "mesh":
+        return halo_mesh(groups, mesh, xh, rows)
+    if route != "shards":
+        raise ValueError(f"unknown halo route {route!r}")
     ny, nx = mesh.shape
     P = sum(as_planes(t).shape[0] for t in groups[0])
     pieces = row_pieces(groups, mesh, rows) if ny > 1 else [(None, None)] * len(groups)

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from jrl_lbm_tpu import SimulationParameters as JParams
 from jrl_lbm_tpu import SimulationRunner as JRunner

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from jrl_lbm_tpu.models import jrl as J
 from jrl_lbm_torch.kernels import halo as HA
@@ -41,16 +42,6 @@ RES, HALO_RES, N, UNROLL = (48, 32), (96, 64), 12, 4
 TOL = 2e-5
 ACC_KEYS = ("inflow_sum", "current_sum", "count", "rec_u", "rec_v")
 COL_MESHES = [(2, 2), (1, 2), (1, 4)]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for this module's small grids (several pytest
-    workers' OpenMP pools, each as wide as the machine, contend)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class _Wide:

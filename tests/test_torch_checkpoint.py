@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from jrl_lbm_tpu.utils import checkpoint as jckpt
 from jrl_lbm_torch.models import cylinder as tcyl

@@ -2241,11 +2241,11 @@ def test_cuda_sharded_runners_equal_per_step_kernels(cuda, mesh_shape):
     """The three sharded runners against the unsharded per-step kernels'
     runners: fluid over 60 steps (six tip rows), balance 40, approach 40
     across stored-velocity frames, f/rho/vel and h/C bit for bit; only the
-    sharded kernels and halo_pack launch (the fluid through fluid_pass_sh
+    sharded kernels and halo_mesh launch (the fluid through fluid_pass_sh
     on both meshes, the C phases through c_balance_pass_sh and
     c_approach_pass_sh, on (2, 2) their column instances)."""
     fc, s, fl, cc, st, cf, flags, mesh, _ = _sh_setup(cuda, mesh_shape)
-    sharded = {"fluid_pass_sh", "halo_pack"}
+    sharded = {"fluid_pass_sh", "halo_mesh"}
     kernels.reset_launches()
     got = S.make_sharded_tiled_fluid_runner(fc, mesh)(s, fl, 8, 60)
     torch.cuda.synchronize()
@@ -2256,7 +2256,7 @@ def test_cuda_sharded_runners_equal_per_step_kernels(cuda, mesh_shape):
     kernels.reset_launches()
     got = S.make_sharded_tiled_balance_runner(cc, flags, mesh)(st, cf, 40)
     torch.cuda.synchronize()
-    assert {k for k, c in kernels.launches().items() if c} == {"c_balance_pass_sh", "halo_pack"}
+    assert {k for k, c in kernels.launches().items() if c} == {"c_balance_pass_sh", "halo_mesh"}
     want = T.make_per_step_balance_runner(cc, flags)(st, cf, 40)
     for name in ("h", "C"):
         assert torch.equal(got[name], want[name]), f"balance {name}"
@@ -2287,6 +2287,86 @@ def test_cuda_sharded_fluid_from_step_2_24_minus_5(cuda):
     want = T.make_per_step_fluid_runner(cfg)(s, fl, start, n)
     for name in ("f", "rho", "vel"):
         assert torch.equal(got[name], want[name]), name
+
+
+# --- the whole exchange of a mesh on one card (halo_mesh) ---
+
+HALO_MESHES = [(2, 1), (4, 1), (1, 2), (2, 2)]
+
+
+def _halos_equal(got, want, tag):
+    """Two `Halo` lists equal bit for bit, piece by piece."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert (a.P, a.k) == (b.P, b.k), tag
+        for name in ("top", "bot", "left", "right"):
+            x, y = getattr(a, name), getattr(b, name)
+            assert (x is None) == (y is None), f"{tag} shard {i} {name}"
+            if x is not None:
+                assert x.is_contiguous() and x.data_ptr() % 16 == 0, f"{tag} {name}"
+                assert x.shape == y.shape and x.dtype == y.dtype, f"{tag} shard {i} {name}"
+                assert torch.equal(x.view(torch.int32), y.view(torch.int32)), \
+                    f"{tag} shard {i} {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", HALO_MESHES)
+def test_cuda_halo_mesh_equals_twin_and_shards(cuda, mesh_shape):
+    """halo_mesh (one launch an exchange) bit for bit its twin and the
+    per-shard route (``route="shards"``: halo_pack a shard and phase) on
+    the JRL passes' groups (``[f, vel, rho]``, ``[h, C]``, ``[h]``, int32
+    flags at 2k rows and ``pass_xh(k)`` lanes, k = 1..4) and the
+    cylinder's lean (k = 1, 4) and full groups; the default route of a
+    one-card mesh is the mesh route, one launch an exchange."""
+    _, s, _, _, st, _, flags, mesh, _ = _sh_setup(cuda, mesh_shape)
+    nx = mesh_shape[1]
+    f, rho, vel = (split(s[x], mesh) for x in ("f", "rho", "vel"))
+    h, C, fl = (split(x, mesh) for x in (st["h"], st["C"], flags))
+    L = range(len(f))
+    cases = []
+    for k in (1, 2, 3, 4):
+        xh = S.pass_xh(k) if nx > 1 else 0
+        for tag, grp in (("[f, vel, rho]", [[f[i], vel[i], rho[i]] for i in L]),
+                         ("[h, C]", [[h[i], C[i]] for i in L]), ("[h]", [[x] for x in h]),
+                         ("[flags]", [[x] for x in fl])):
+            cases.append((f"{tag} k={k}", grp, xh, 2 * k))
+    cfg, cs, cfl = _cyl_sh_setup(cuda)
+    cf_, crho, cvel = (split(cs[x], mesh) for x in ("f", "rho", "vel"))
+    cflags, cphi = split(cfl["flags"], mesh), split(cfl["phi_obs"], mesh)
+    for k in (1, 4):
+        cases.append((f"cylinder lean k={k}", [CS.lean_group(cf_[i], crho[i], cvel[i], cflags[i],
+                                                              cphi[i]) for i in L],
+                      k if nx > 1 else 0, k))
+    cases.append(("cylinder full", [CS.full_group(cf_[i], cvel[i], cflags[i]) for i in L],
+                  1 if nx > 1 else 0, 1))
+    for tag, grp, xh, rows in cases:
+        assert HA.halo_route(grp, mesh) == "mesh"
+        n0 = HA.halo_mesh.launches
+        got = HA.exchange(grp, mesh, xh, rows)
+        assert HA.halo_mesh.launches == n0 + 1, tag
+        _halos_equal(got, HA.halo_mesh_ref(grp, mesh, xh, rows), f"{tag}: twin")
+        _halos_equal(got, HA.exchange(grp, mesh, xh, rows, route="shards"), f"{tag}: shards")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_fluid_pass_on_2x2_mesh_route_equals_shards_route(cuda):
+    """One k = 4 pass of the (2, 2) fluid runner with its exchange through
+    halo_mesh (the default: one launch) and through ``route="shards"``
+    (eight halo_pack launches): bit for bit."""
+    fc, s, fl, _, _, _, _, mesh, _ = _sh_setup(cuda, (2, 2))
+    run = S.make_sharded_tiled_fluid_runner(fc, mesh, k=4)
+    assert (run.route, run.k) == ("pass", 4)
+    out = {}
+    for route in ("mesh", "shards"):
+        kernels.reset_launches()
+        with mock.patch.object(HA, "halo_route", lambda groups, mesh, route=route: route):
+            out[route] = run(s, fl, 8, 4)
+        torch.cuda.synchronize()
+        halo = {"halo_mesh": 1} if route == "mesh" else {"halo_pack": 8}
+        assert {x: c for x, c in kernels.launches().items() if c} == \
+            dict({"fluid_pass_sh": 4}, **halo), route
+    for name in ("f", "rho", "vel"):
+        assert torch.equal(out["mesh"][name], out["shards"][name]), name
 
 
 # --- the sharded fluid step's k-step pass (fluid_pass_sh) ---
@@ -2334,8 +2414,8 @@ def test_cuda_fluid_pass_route_equals_launches(cuda, mesh_shape, k):
     """The runner through the pass over 50 steps from step 8 (passes that
     cross tip rows; the remainder at a smaller k): bit for bit
     ``route="launches"`` and the unsharded per-step runner; one
-    fluid_pass_sh launch a shard and pass, one halo_pack a shard and pass
-    on (4, 1)."""
+    fluid_pass_sh launch a shard and pass, one halo_mesh launch a pass
+    (the whole exchange) on (2, 1) and (4, 1)."""
     fc, s, fl, _, _, _, _, mesh, shards = _sh_setup(cuda, mesh_shape)
     n = 50
     rows = [T.tip_walks(fc.inflow_height, st, fc.vel_obs)[1] for st in (8, 8 + n - 1)]
@@ -2346,7 +2426,7 @@ def test_cuda_fluid_pass_route_equals_launches(cuda, mesh_shape, k):
     passes = -(-n // k)
     want_counts = {"fluid_pass_sh": passes * len(shards)}
     if len(shards) > 1:
-        want_counts["halo_pack"] = passes * len(shards)
+        want_counts["halo_mesh"] = passes
     assert {x: c for x, c in kernels.launches().items() if c} == want_counts
     pair = S.make_sharded_tiled_fluid_runner(fc, mesh, route="launches")(s, fl, 8, n)
     per_step = T.make_per_step_fluid_runner(fc)(s, fl, 8, n)
@@ -2462,8 +2542,9 @@ def test_cuda_fluid_pass_sh_cols_equals_twin_and_pair(cuda, mesh_shape, start):
 def test_cuda_fluid_pass_route_on_2x2_equals_launches(cuda, k):
     """The (2, 2) runner through the pass (its default route) over 50 steps
     from step 8: bit for bit ``route="launches"`` and the unsharded
-    per-step runner; one fluid_pass_sh launch and one halo_pack (the rows'
-    and the columns' phase) a shard and pass."""
+    per-step runner; one fluid_pass_sh launch a shard and pass and one
+    halo_mesh launch a pass (the rows and the column blocks of every
+    shard)."""
     fc, s, fl, _, _, _, _, mesh, shards = _sh_setup(cuda, (2, 2))
     n = 50
     kernels.reset_launches()
@@ -2473,7 +2554,7 @@ def test_cuda_fluid_pass_route_on_2x2_equals_launches(cuda, k):
     passes = -(-n // k)
     assert run.route == "pass"
     assert {x: c for x, c in kernels.launches().items() if c} == \
-        {"fluid_pass_sh": passes * 4, "halo_pack": 2 * passes * 4}
+        {"fluid_pass_sh": passes * 4, "halo_mesh": passes}
     pair = S.make_sharded_tiled_fluid_runner(fc, mesh, route="launches")(s, fl, 8, n)
     per_step = T.make_per_step_fluid_runner(fc)(s, fl, 8, n)
     for name in ("f", "rho", "vel"):
@@ -2668,7 +2749,8 @@ def test_cuda_c_pass_routes_equal_launches(cuda, mesh_shape, k):
     runner over 30 steps from step 8 (unroll 8: passes end at the chunks'
     ends; tip rows and stored frames crossed): bit for bit ``route=
     "launches"`` (h, C, the integrals); one pass launch a shard and pass,
-    one halo_pack a shard and pass (and one for the flags) on (4, 1)."""
+    one halo_mesh launch a pass (and one for the flags) on (2, 1) and
+    (4, 1)."""
     fc, s, fl, cc, st, cf, flags, _, _ = _sh_setup(cuda, mesh_shape)
     mesh = make_mesh(mesh_shape, [cuda] * mesh_shape[0])
     n, sh_n = 30, mesh_shape[0]
@@ -2678,7 +2760,7 @@ def test_cuda_c_pass_routes_equal_launches(cuda, mesh_shape, k):
     passes = -(-n // k)
     want_counts = {"c_balance_pass_sh": passes * sh_n}
     if sh_n > 1:
-        want_counts["halo_pack"] = (passes + 1) * sh_n
+        want_counts["halo_mesh"] = passes + 1
     assert {x: c for x, c in kernels.launches().items() if c} == want_counts
     want = S.make_sharded_tiled_balance_runner(cc, flags, mesh, route="launches")(st, cf, n)
     for name in ("h", "C"):
@@ -2692,7 +2774,7 @@ def test_cuda_c_pass_routes_equal_launches(cuda, mesh_shape, k):
     passes = sum(-(-min(8, 8 + n - c) // k) for c in range(8, 8 + n, 8))
     want_counts = {"c_approach_pass_sh": passes * sh_n}
     if sh_n > 1:
-        want_counts["halo_pack"] = (passes + 1) * sh_n
+        want_counts["halo_mesh"] = passes + 1
     assert {x: c for x, c in kernels.launches().items() if c} == want_counts
     want, acc_l = S.make_sharded_tiled_approach_runner(cc, vf, mesh, route="launches")(
         st, cf, 8, n)
@@ -2888,9 +2970,9 @@ def test_cuda_c_pass_routes_on_2x2_equal_launches(cuda, k):
     """The (2, 2) balance runner through the pass (its default route) over
     50 steps and the approach runner over 50 steps from step 8 (unroll 8):
     bit for bit ``route="launches"`` (h, C, the integrals) and, h and C, the
-    unsharded per-step runners; one pass launch a shard and pass, two
-    halo_pack (the rows' and the columns' phase) a shard and exchange, one
-    exchange a pass and one for the flags."""
+    unsharded per-step runners; one pass launch a shard and pass, one
+    halo_mesh launch an exchange, one exchange a pass and one for the
+    flags."""
     _, _, _, cc, st, cf, flags, mesh, _ = _sh_setup(cuda, (2, 2))
     n = 50
     kernels.reset_launches()
@@ -2900,7 +2982,7 @@ def test_cuda_c_pass_routes_on_2x2_equal_launches(cuda, k):
     passes = -(-n // k)
     assert (run.route, run.k) == ("pass", k)
     assert {x: c for x, c in kernels.launches().items() if c} == \
-        {"c_balance_pass_sh": passes * 4, "halo_pack": 2 * (passes + 1) * 4}
+        {"c_balance_pass_sh": passes * 4, "halo_mesh": passes + 1}
     want = S.make_sharded_tiled_balance_runner(cc, flags, mesh, route="launches")(st, cf, n)
     per_step = T.make_per_step_balance_runner(cc, flags)(st, cf, n)
     for name in ("h", "C"):
@@ -2914,7 +2996,7 @@ def test_cuda_c_pass_routes_on_2x2_equal_launches(cuda, k):
     torch.cuda.synchronize()
     passes = sum(-(-min(8, 8 + n - c) // k) for c in range(8, 8 + n, 8))
     assert {x: c for x, c in kernels.launches().items() if c} == \
-        {"c_approach_pass_sh": passes * 4, "halo_pack": 2 * (passes + 1) * 4}
+        {"c_approach_pass_sh": passes * 4, "halo_mesh": passes + 1}
     want, acc_l = S.make_sharded_tiled_approach_runner(cc, vf, mesh, route="launches")(
         st, cf, 8, n)
     per_step = T.make_per_step_approach_runner(cc, vf)(st, cf, 8, n)[0]
@@ -3101,7 +3183,7 @@ def test_cuda_cyl_sharded_kernels_match_twins(cuda, mesh_shape):
 def test_cuda_cyl_sharded_full_routes_equal_unsharded(cuda, mesh_shape, tile_rows):
     """PIECES (tile_rows=8) and PADDED over 23 steps: bit for bit the
     unsharded ``split=False`` runner (cyl_full on every row); only
-    cyl_block_sh and halo_pack launch."""
+    cyl_block_sh and halo_mesh launch."""
     cfg, s, fl = _cyl_sh_setup(cuda)
     mesh = make_mesh(mesh_shape, [cuda] * 4)
     run = CS.make_sharded_fused_cylinder_runner(cfg, mesh, lean_split=False, tile_rows=tile_rows)
@@ -3109,7 +3191,7 @@ def test_cuda_cyl_sharded_full_routes_equal_unsharded(cuda, mesh_shape, tile_row
     got = run(s, fl, 23)
     torch.cuda.synchronize()
     used = {k for k, v in kernels.launches().items() if v}
-    assert used == ({"cyl_block_sh", "halo_pack"} if tile_rows else {"cyl_block_sh"})
+    assert used == ({"cyl_block_sh", "halo_mesh"} if tile_rows else {"cyl_block_sh"})
     want = K.make_fused_cylinder_runner(cfg, split=False)(s, fl, 23)
     for name in ("f", "rho", "vel"):
         assert torch.equal(got[name], want[name]), name
@@ -3125,7 +3207,7 @@ def test_cuda_cyl_sharded_lean_routes(cuda, mesh_shape, kw, route):
     steps), through the pass or the two launches: the unsharded default
     runner on non-OBSTACLE cells (f, rho 2e-5; vel 2e-4), and the same
     runner on the twins at the same tolerances; only the route's kernels
-    and halo_pack launch."""
+    and halo_mesh launch."""
     cfg, s, fl = _cyl_sh_setup(cuda)
     mesh = make_mesh(mesh_shape, [cuda] * (mesh_shape[0] * mesh_shape[1]))
     run = CS.make_sharded_fused_cylinder_runner(cfg, mesh, route=route, **kw)
@@ -3135,7 +3217,7 @@ def test_cuda_cyl_sharded_lean_routes(cuda, mesh_shape, kw, route):
     torch.cuda.synchronize()
     used = {k for k, v in kernels.launches().items() if v}
     path = {"cyl_pass_sh"} if route == "pass" else {"cyl_lean_sh", "cyl_window_sh"}
-    assert path <= used <= path | {"halo_pack"}
+    assert path <= used <= path | {"halo_mesh"}
     want = K.make_fused_cylinder_runner(cfg)(s, fl, 23)
     fluid = fl["flags"] != int(CY.CellType.OBSTACLE)
     for name, tol in (("f", 2e-5), ("rho", 2e-5), ("vel", 2e-4)):

@@ -23,6 +23,7 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from jrl_lbm_torch.kernels import cyl_sharded as CS
 from jrl_lbm_torch.kernels import cylinder as K

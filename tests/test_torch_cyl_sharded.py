@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 from jax.sharding import PartitionSpec as PS
 
 from jrl_lbm_tpu.models import cylinder as cyl

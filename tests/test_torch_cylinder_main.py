@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from jrl_lbm_tpu.utils import grid as jgrid
 from jrl_lbm_tpu.utils import io as jio
@@ -29,16 +30,6 @@ from jrl_lbm_torch import cylinder_main
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(ROOT, "validation", "goldens", "2d_LBM_cylinder")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: with several pytest workers on the CPU at once,
-    their OpenMP pools, each as wide as the machine, contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_golden_configuration_frame_1001(tmp_path):

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 

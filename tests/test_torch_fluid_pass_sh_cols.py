@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from jrl_lbm_tpu.models import jrl as J
 from jrl_lbm_tpu.ops.pallas import fused_jrl_sharded as JS
@@ -46,17 +47,6 @@ RES, N = (48, 32), 12  # 48 rows by 32 columns, 12 steps
 HALO_RES = (96, 64)
 TOL = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4}
 COL_MESHES = [(2, 2), (1, 2), (1, 4)]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for this module's small grids: with several
-    pytest workers on the CPU at once, their OpenMP pools, each as wide as
-    the machine, contend (10-20x slower than alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mesh(shape):

@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 from test_torch_fused_clusters import H100, INT_TOL, NAN, _equal, _exchange, _groups, \
     _interpret, _noisy, _rows, mc_links, mc_passes
 

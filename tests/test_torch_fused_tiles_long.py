@@ -7,6 +7,7 @@ whose outer strips meet both walls, bit for bit `fused_fluid_ref`. Inputs
 and helpers are `test_torch_fused_tiles.py`'s.
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 from test_torch_fused_tiles import _case, _equal, _plan
 
 from jrl_lbm_torch.kernels import fused_jrl as F

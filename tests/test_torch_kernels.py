@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from jrl_lbm_tpu.models import jrl as J
 from jrl_lbm_torch import kernels

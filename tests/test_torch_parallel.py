@@ -17,6 +17,7 @@ import sys
 
 import numpy as np
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 
 def _worker(rank: int, world: int, port: int) -> int:

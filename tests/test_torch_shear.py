@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from jrl_lbm_tpu.models import shear_layer as sl
 from jrl_lbm_tpu.ops import collide as jcollide
@@ -43,18 +44,6 @@ TRAJ = {"f": 2e-5, "rho": 2e-5, "vel": 2e-4}
 KBC_TYPES = [int(k) for k in KBCType]
 # (collision, kbc_type) of the seven kernel instances
 RELAXES = [("bgk", None), ("mrt", None)] + [("kbc", k) for k in KBC_TYPES]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's small grids: with several
-    pytest workers on the CPU at once, their OpenMP pools, each as wide
-    as the machine, contend on the 1000-step runs (50x slower there than
-    alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

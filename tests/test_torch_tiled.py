@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from jrl_lbm_tpu.models import jrl as J
 from jrl_lbm_tpu.ops.pallas import fused_jrl_tiled as JT

@@ -18,9 +18,9 @@ classes `fluid_k`, `fluid_k_lean`, `fluid_k_bt` at 1024x512, k = 1, 2, 4,
 on the ethaline step-0 plan and a flat tip's plan with below-tip rows,
 and `fluid_pass` on the same plans at k = 1; the sharded runners on a
 (2, 2) mesh on the one card at 1024x512, 12 steps a phase, through their
-default routes (the passes' column instances and `halo_pack` in this
-tree, the per-step kernels in a tree before them: both bit for bit the
-per-step kernels). The tree must hold `jrl_lbm_torch/`.
+default routes (the passes' column instances and `halo_mesh` in this
+tree, the per-step kernels and `halo_pack` in a tree before them: all bit
+for bit the per-step kernels). The tree must hold `jrl_lbm_torch/`.
 Prints one JSON line, last.
 """
 
